@@ -1,0 +1,28 @@
+"""PyTorch/CUDA port of the ``repro`` package for one NVIDIA H100.
+
+Mirrors ``repro``'s subpackages (``configs``, ``kernels``, ``models``,
+``serve``, ``planner``, ``obs``, ``launch``) so every module has an
+obvious twin there.  It imports ``torch`` and numpy, never ``jax`` and
+nothing of ``repro``.  Entry points run on ``cuda`` unless the caller
+asks for ``device="cpu"``; asking for ``cuda`` where no card is present
+raises.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: ``cuda`` (the default) or
+    ``cpu``.  Raises if ``cuda`` is asked for and no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"the port runs on cuda or cpu, not {dev}")
+    return dev

@@ -1,0 +1,7 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig, MeshPlan, MLAConfig, MoEConfig, SSMConfig, get_config,
+    register, smoke_config,
+)
+
+# import the ported arch modules so the registry is always populated
+from repro_torch.configs import granite_8b  # noqa: F401

@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels of the port, their wrappers and their plain
+PyTorch versions.
+
+  ``csrc/``             CUDA C++ sources with a plain C interface.
+  ``build``             nvcc into ``build/kernels/`` and ctypes loading.
+  ``flash_attention``   the flash forward wrapper (launch counter).
+  ``ops``               model-side entry points and the timing hook.
+  ``ref``               plain PyTorch versions (CPU path and oracles).
+"""

@@ -1,0 +1,202 @@
+"""Layer primitives + ParamSpec machinery (twin of ``repro/models/layers.py``).
+
+Params are nested dicts (and, for pipeline stages, tuples) of tensors.
+Every module declares its parameters as ``ParamSpec``s so that
+``init_params`` can draw them from a ``torch.Generator`` with the same
+distributions as the JAX package.  The two frameworks draw different
+numbers from one seed; tests that compare them carry the JAX weights
+over (``models.model.from_jax_params``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# ParamSpec
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"            # normal | zeros | ones | uniform
+    scale: float = 1.0              # stddev multiplier (normal) / bound
+    dtype: Optional[str] = None     # None -> cfg.param_dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def tree_map(fn: Callable, tree, *, path: Tuple[str, ...] = ()):
+    """Map ``fn(path, leaf)`` over nested dicts / tuples / lists, visiting
+    dict keys in sorted order (the order ``jax.tree`` flattens them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], path=path + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, path=path + (str(i),))
+                          for i, t in enumerate(tree))
+    return fn(path, tree)
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    return shape[-2] if len(shape) >= 2 else max(1, shape[-1])
+
+
+def init_one(spec: ParamSpec, generator: torch.Generator,
+             default_dtype: str, device) -> torch.Tensor:
+    dtype = dtype_of(spec.dtype or default_dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "uniform":
+        u = torch.rand(spec.shape, generator=generator, device=device)
+        return (u * (2 * spec.scale) - spec.scale).to(dtype)
+    std = spec.scale / math.sqrt(_fan_in(spec.shape))
+    x = torch.randn(spec.shape, generator=generator, device=device)
+    return (x * std).to(dtype)
+
+
+def init_params(specs, generator: torch.Generator,
+                default_dtype: str = "float32", device="cpu",
+                leaf_fn: Optional[Callable] = None):
+    """Materialise a spec tree, one leaf at a time in flattening order.
+    ``leaf_fn(path, tensor)``, if given, is applied to each leaf as soon
+    as it is drawn (the serving cast, so that a full-size model never
+    holds all its fp32 draws at once)."""
+    def one(path, spec):
+        x = init_one(spec, generator, default_dtype, device)
+        return leaf_fn(path, x) if leaf_fn is not None else x
+    return tree_map(one, specs)
+
+
+def stack_spec(spec: ParamSpec, n: int, axis_name: Optional[str]) -> ParamSpec:
+    return ParamSpec((n,) + spec.shape, (axis_name,) + spec.axes,
+                     spec.init, spec.scale, spec.dtype)
+
+
+def stack_specs(specs, n: int, axis_name: Optional[str]):
+    return tree_map(lambda _, s: stack_spec(s, n, axis_name), specs)
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def norm_specs(cfg, kind: Optional[str] = None, dim: Optional[int] = None):
+    kind = kind or cfg.norm
+    d = dim or cfg.d_model
+    specs = {"scale": ParamSpec((d,), ("embed",), "ones")}
+    if kind == "layernorm":
+        specs["bias"] = ParamSpec((d,), ("embed",), "zeros")
+    return specs
+
+
+def norm_apply(cfg, p, x, kind: Optional[str] = None, eps: float = 1e-5):
+    kind = kind or cfg.norm
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def mlp_specs(cfg):
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gated:
+        return {
+            "wg": ParamSpec((d, ff), ("embed", "mlp")),
+            "w1": ParamSpec((d, ff), ("embed", "mlp")),
+            "w2": ParamSpec((ff, d), ("mlp", "embed")),
+        }
+    return {
+        "w1": ParamSpec((d, ff), ("embed", "mlp")),
+        "w2": ParamSpec((ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(cfg, p, x):
+    dt = x.dtype
+    if cfg.mlp_gated:
+        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["w1"].to(dt))
+    else:
+        # jax.nn.gelu defaults to the tanh form
+        h = F.gelu(x @ p["w1"].to(dt), approximate="tanh")
+    return h @ p["w2"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+
+
+def embed_specs(cfg):
+    V, d = cfg.vocab_padded, cfg.d_model
+    specs = {"tok": ParamSpec((V, d), ("vocab", "embed"), "normal", 1.0)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((d, V), ("embed", "vocab"))
+    return specs
+
+
+def embed_apply(cfg, p, tokens):
+    # cast to the compute dtype first, then scale (as the JAX twin does)
+    emb = p["tok"][tokens].to(dtype_of(cfg.compute_dtype))
+    return emb * math.sqrt(cfg.d_model)
+
+
+def unembed_apply(cfg, p, x):
+    w = (p["tok"].T if cfg.tie_embeddings else p["unembed"]).to(x.dtype)
+    logits = x @ w
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(cfg, hd: Optional[int] = None, device=None):
+    hd = hd or cfg.hd
+    return 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x, positions, inv_freq):
+    """x: [..., seq, heads, hd]; positions: [..., seq] (int).  Each head
+    splits into halves (not interleaved pairs); the rotation is fp32."""
+    ang = positions.float()[..., None] * inv_freq    # [..., s, hd/2]
+    sin = torch.sin(ang)[..., None, :]               # broadcast over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def leaf_is_weight(path: Tuple[str, ...]) -> bool:
+    """Whether a parameter leaf is a matrix the forward casts to the
+    compute dtype (norm scales and biases are read in fp32)."""
+    return path[-1] not in ("scale", "bias")
+

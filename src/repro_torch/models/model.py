@@ -1,0 +1,196 @@
+"""Model assembly, the serving half (twin of ``repro/models/model.py``).
+
+Parameters use the JAX package's ragged per-stage canonical layout:
+``params["stages"]`` is a tuple of stage trees whose ``layers`` leaves
+are ``[L_k, ...]``.  Serving walks the layers in flat order through
+views of those stacks, so no stage split is ever copied.  The KV cache
+is ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}`` as in JAX; the
+decode step fills it in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (dtype_of, embed_apply, embed_specs,
+                                       init_params, leaf_is_weight,
+                                       norm_apply, norm_specs, stack_specs,
+                                       tree_map, unembed_apply)
+from repro_torch.models.transformer import (block_apply, block_specs,
+                                            check_dense)
+
+
+def uniform_stage_sizes(n_layers: int, n_stages: int) -> Tuple[int, ...]:
+    """Equal-count contiguous split, remainder spread over early stages."""
+    if n_stages < 1 or n_layers < n_stages:
+        raise ValueError(f"cannot split {n_layers} layers into "
+                         f"{n_stages} stages (a stage would be empty)")
+    base, rem = divmod(n_layers, n_stages)
+    return tuple(base + (1 if s < rem else 0) for s in range(n_stages))
+
+
+def split_flat_stages(flat_stages, sizes) -> Tuple[Any, ...]:
+    """Flat ``{"layers": [L, ...]}`` -> ragged per-stage trees for
+    ``sizes`` (views, not copies)."""
+    out, lo = [], 0
+    for n in sizes:
+        out.append({"layers": tree_map(lambda _, a, lo=lo, n=n: a[lo:lo + n],
+                                       flat_stages["layers"])})
+        lo += n
+    return tuple(out)
+
+
+def flat_stage_layers(stages):
+    """Merge ragged stage trees to one flat ``[L, ...]`` tree (a single
+    stage is returned as is; more are concatenated, which copies)."""
+    if len(stages) == 1:
+        return stages[0]["layers"]
+    trees = [t["layers"] for t in stages]
+    return tree_map(
+        lambda path, _: torch.cat([_at(t, path) for t in trees], 0),
+        trees[0])
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _n_layers(stage) -> int:
+    return int(stage["layers"]["ln1"]["scale"].shape[0])
+
+
+def cast_for_compute(params, dtype: torch.dtype):
+    """Cast every weight matrix to the compute dtype once, leaving norm
+    scales as they are: the forward then reads the same values the JAX
+    twin's per-call ``.astype(dt)`` gives, without casting per token."""
+    return tree_map(lambda path, a: a.to(dtype) if leaf_is_weight(path)
+                    else a, params)
+
+
+class Model:
+    """Functional model wrapper for one dense ``ArchConfig`` on one
+    device (``cuda`` by default; raises there if no card is present)."""
+
+    def __init__(self, cfg, device="cuda"):
+        check_dense(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        plan = cfg.mesh_plan
+        self.n_stages = (plan.pipe if plan.pipe_role == "stage"
+                         and plan.pipe > 1 else 1)
+        self.stage_sizes = uniform_stage_sizes(cfg.n_layers, self.n_stages)
+
+    # ------------------------------------------------------------------ specs
+    def _outer_specs(self) -> Dict[str, Any]:
+        return {"embed": embed_specs(self.cfg), "ln_f": norm_specs(self.cfg)}
+
+    def _flat_param_specs(self) -> Dict[str, Any]:
+        return {"outer": self._outer_specs(),
+                "stages": {"layers": stack_specs(block_specs(self.cfg),
+                                                 self.cfg.n_layers,
+                                                 "layer")}}
+
+    def init(self, generator: torch.Generator, *,
+             dtype: Optional[str] = None):
+        """Random parameters drawn from ``generator`` (which must live on
+        the model's device) with the JAX package's distributions.  With
+        ``dtype``, weight matrices are stored in it as they are drawn
+        (see :func:`cast_for_compute`); norm scales keep the param
+        dtype."""
+        leaf_fn = None
+        if dtype is not None:
+            dt = dtype_of(dtype)
+            leaf_fn = (lambda path, a: a.to(dt) if leaf_is_weight(path)
+                       else a)
+        params = init_params(self._flat_param_specs(), generator,
+                             self.cfg.param_dtype, self.device, leaf_fn)
+        return {"outer": params["outer"],
+                "stages": split_flat_stages(params["stages"],
+                                            self.stage_sizes)}
+
+    # ------------------------------------------------------------ layers
+    def flat_layers(self, stages):
+        return flat_stage_layers(stages)
+
+    def iter_layers(self, stages) -> Iterator[Dict[str, Any]]:
+        """Each layer's parameter tree, in flat order, as views."""
+        for stage in stages:
+            for i in range(_n_layers(stage)):
+                yield tree_map(lambda _, a, i=i: a[i], stage["layers"])
+
+    # ------------------------------------------------------- embed/head
+    def embed(self, outer, batch):
+        return embed_apply(self.cfg, outer["embed"], batch["tokens"])
+
+    def logits(self, outer, x):
+        x = norm_apply(self.cfg, outer["ln_f"], x)
+        return unembed_apply(self.cfg, outer["embed"], x)
+
+    # ------------------------------------------------------------------ decode
+    def init_cache(self, batch: int, max_seq: int):
+        cfg = self.cfg
+        one = attn_mod.gqa_init_cache(cfg, batch, max_seq,
+                                      dtype_of(cfg.compute_dtype),
+                                      self.device)
+        return {"layers": {
+            k: torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
+                           device=self.device)
+            for k, a in one.items()}}
+
+    def decode_step(self, params, cache, token, pos: int):
+        """token [b, 1] int64, pos a Python int -> (logits [b, 1, V'],
+        cache).  The cache is updated in place and returned."""
+        cfg = self.cfg
+        outer = params["outer"]
+        x = embed_apply(cfg, outer["embed"], token)
+        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        for i, lp in enumerate(self.iter_layers(params["stages"])):
+            x, _ = block_apply(cfg, lp, x, cache={"k": ck[i], "v": cv[i]},
+                               pos=pos)
+        return self.logits(outer, x), cache
+
+    def prefill(self, params, batch, max_seq: int):
+        """Whole-prompt causal forward building a decode cache:
+        batch {"tokens": [b, s]} -> (logits [b, s, V'], cache whose
+        first s positions hold the prompt's keys and values)."""
+        outer = params["outer"]
+        x = self.embed(outer, batch)
+        s = x.shape[1]
+        cache = self.init_cache(x.shape[0], max_seq)
+        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        for i, lp in enumerate(self.iter_layers(params["stages"])):
+            x, new_c = block_apply(self.cfg, lp, x, cache={})
+            ck[i, :, :s] = new_c["k"].to(ck.dtype)
+            cv[i, :, :s] = new_c["v"].to(cv.dtype)
+        return self.logits(outer, x), cache
+
+
+def from_jax_params(tree, cfg, *, device="cuda"):
+    """The JAX package's parameter tree, as nested dicts of numpy arrays
+    (``{"outer": ..., "stages": (per-stage {"layers": ...}, ...)}``, a
+    leading layer axis on every stage leaf), as the port's parameters on
+    ``device``, leaf for leaf in the same dtypes."""
+    dev = resolve_device(device)
+    check_dense(cfg)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":   # ml_dtypes has no torch twin
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))     # a writable copy
+        return t.to(dev)
+
+    stages = tree["stages"]
+    if not isinstance(stages, (tuple, list)):
+        raise ValueError("expected the ragged per-stage tuple layout")
+    return {"outer": tree_map(leaf, tree["outer"]),
+            "stages": tuple(tree_map(leaf, {"layers": s["layers"]})
+                            for s in stages)}
+
