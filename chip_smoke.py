@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port builds and serves on the card.
+"""Quickest proof that the PyTorch port builds, serves and trains on the
+card.
 
     python3 chip_smoke.py
 
@@ -12,21 +13,39 @@ the JAX package, and in phases:
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
      csrc`` (one nvcc per source, all at once), with ptxas's registers
      and shared memory;
-  3. holds the flash forward kernel against its plain PyTorch version on
-     the card: the serving path's decode and prefill shapes, the
+  3. holds each kernel against its plain PyTorch version on the card
+     (TF32 off for the plain versions): the flash forward at the serving
+     path's decode and prefill shapes, the training shape, the
      repository's kernel test cases and a long causal case (2e-5 in
-     fp32, 2e-2 in bf16, TF32 off for the plain version);
+     fp32, 2e-2 in bf16); the flash backward (dq, dk/dv) at the training
+     shape, the repository's backward test case and a non-causal GQA
+     case with masked keys (atol 2e-5 / rtol 1e-3 in fp32, 2e-2 in
+     bf16); the fused update on a ragged group of tensors, with and
+     without the prediction and with bf16 gradients (1e-6 in fp32, 2e-2
+     in bf16), and (in phase 8) on the training path's two groups, a
+     full-width stage and the outer tree;
   4. holds the port's model on the card against the same model on the
-     CPU (plain attention) at the smoke size in fp32;
-  5. drives the main path, ``repro_torch.launch.serve.main``, on the
+     CPU at the smoke size in fp32: serving (prefill, decode, engine
+     tokens) and 2(S-1)+3 streaming SpecTrain ticks on 4 stages (losses
+     and every parameter, momentum and prediction leaf);
+  5. drives the serving path, ``repro_torch.launch.serve.main``, on the
      full-width, full-depth granite-8b in bf16 with random weights, and
      checks every admissible request got its tokens, the logits were
-     finite and the kernel ran 36 times per prefill and decode call;
+     finite and the forward kernel ran 36 times per prefill and decode
+     call;
   6. profiles a few full-width decode steps (wall per step, device
      busy share, device time per kernel);
-  7. times the kernel on the card beside its bound, its plain version
-     and ``torch.nn.functional.scaled_dot_product_attention`` (the
-     library yardstick; the port never calls it).
+  7. drives the training path, ``repro_torch.launch.train.main``, on
+     full-width granite-8b cut to 8 layers in 4 stages, bf16 compute,
+     SpecTrain, 10 ticks; checks the losses are finite, the loss turns
+     valid at tick S-1, stage 0's weights hold until tick 2(S-1) and
+     move after it, and each tick launches exactly 2L flash forwards, L
+     of each backward kernel and S+1 fused updates; profiles one tick
+     and checks the profile shows the same kernels;
+  8. times every kernel at its main path's shapes beside its bound, its
+     plain version and a library yardstick the port never calls
+     (``scaled_dot_product_attention`` forward and backward,
+     ``torch.optim.SGD(fused=True)``).
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -53,6 +72,19 @@ TIMEOUT_S = 60
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the backward's (atol, rtol): tests/test_kernels.py::test_flash_bwd's in
+# fp32, the kernel tolerance in bf16
+BWD_TOL = {"float32": (2e-5, 1e-3), "bfloat16": (2e-2, 2e-2)}
+FU_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+
+# the training path: full-width granite-8b, 8 layers in 4 stages
+TRAIN_LAYERS, TRAIN_STAGES, TRAIN_STEPS = 8, 4, 10
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_ARGV = ["--arch", ARCH, "--layers", str(TRAIN_LAYERS),
+              "--pipe", str(TRAIN_STAGES), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--dtype", "bfloat16",
+              "--mode", "spectrain", "--data-kind", "uniform",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
 
 # tests/test_kernels.py's FLASH_CASES: b, H, KV, sq, sk, d, causal, dtype
 FLASH_CASES = [
@@ -75,6 +107,14 @@ def check(ok: bool, what: str) -> None:
 
 def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device) for v in tree)
+    return tree.to(device, copy=True)
 
 
 # ---------------------------------------------------------------------------
@@ -207,17 +247,27 @@ def card_info(torch) -> dict:
     return {"smi": smi_line, "kind": name, "count": count}
 
 
-def build_kernels(build, fa) -> None:
+def build_kernels(build, fa, fu) -> None:
     phase("build")
     t0 = time.perf_counter()
     built = build.build_all()
     fa.load()
+    fu.load()
     print(f"built {sorted(built) or 'nothing (libraries present)'} in "
           f"{time.perf_counter() - t0:.2f}s")
     for name, info in sorted(built.items()):
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    # the kernels' shared memory is dynamic, so ptxas does not print it
+    import ctypes
+    fwd = build.library("flash_fwd").repro_flash_fwd_smem_bytes
+    bwd = build.library("flash_bwd").repro_flash_bwd_smem_bytes
+    fwd.restype = bwd.restype = ctypes.c_longlong
+    for d in (64, 128):
+        print(f"  dynamic shared memory per block at head_dim {d}: "
+              f"flash_fwd {fwd(d)} B, flash_bwd_dq {bwd(0, d)} B, "
+              f"flash_bwd_dkv {bwd(1, d)} B; fused_update none")
 
 
 def kernel_checks(torch, fa, ref) -> dict:
@@ -236,6 +286,9 @@ def kernel_checks(torch, fa, ref) -> dict:
                           b, sq, sk, H, KV, d, dt, causal))
     cases.append(Case("causal 2048", 1, 2048, 2048, *cfg, "bfloat16",
                       True))
+    for dt in ("float32", "bfloat16"):       # the training path's call
+        cases.append(Case(f"train b8 512 causal {dt}", TRAIN_BATCH,
+                          TRAIN_SEQ, TRAIN_SEQ, *cfg, dt, True))
     errs = {}
     for i, case in enumerate(cases):
         e_o, e_l = compare(torch, fa, ref, case, seed=i)
@@ -257,10 +310,7 @@ def model_check(torch) -> None:
         n_layers=4, n_kv_heads=2, compute_dtype="float32")
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
-    move = lambda t: {k: move(v) if isinstance(v, dict) else v.cuda()
-                      for k, v in t.items()}
-    p_gpu = {"outer": move(p_cpu["outer"]),
-             "stages": tuple(move(s) for s in p_cpu["stages"])}
+    p_gpu = _tree_to(p_cpu, "cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, 9),
                          generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
@@ -393,10 +443,8 @@ def decode_profile(torch) -> dict:
             and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     print(f"  wall per decode step (no profiler): {wall_ms:.3f} ms")
-    if not kern:
-        print("  device time per kernel: not measured (the profiler saw "
-              "no device activity)")
-        return {"wall_ms": wall_ms, "busy_ms": None}
+    check(bool(kern), "the profiler saw no device activity in the decode "
+          "steps")
     print(f"  device busy per step: {busy_ms:.3f} ms, "
           f"{100 * busy_ms / wall_ms:.1f}% of the wall "
           f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%)")
@@ -404,8 +452,12 @@ def decode_profile(torch) -> dict:
     for e in kern[:8]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms "
               f"{e.count / steps:6.1f}x  {e.key[:72]}")
-    flash = sum(e.self_device_time_total for e in kern
-                if "flash_fwd" in e.key) / 1e3 / steps
+    hits = [e for e in kern if "flash_fwd_kernel" in e.key]
+    n_flash = sum(e.count for e in hits)
+    check(n_flash == cfg.n_layers * steps, f"the profiled decode steps "
+          f"show {n_flash} flash_fwd kernels, expected "
+          f"{cfg.n_layers * steps}")
+    flash = sum(e.self_device_time_total for e in hits) / 1e3 / steps
     print(f"  flash_fwd: {flash:.4f} ms per step "
           f"({100 * flash / busy_ms:.1f}% of device busy)")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "flash_ms": flash}
@@ -420,7 +472,9 @@ def timings(torch, fa, ref, errs) -> list:
                    63, 64), 500),
              (Case("prefill n=12", 1, 12, 12, *cfg, "bfloat16", True), 500),
              (Case("causal 2048", 1, 2048, 2048, *cfg, "bfloat16", True),
-              20)]
+              20),
+             (Case("train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
+                   TRAIN_SEQ, *cfg, "bfloat16", True), 20)]
     rows = []
     for case, iters in cases:
         q, k, v = case.tensors(torch, seed=7)
@@ -436,9 +490,413 @@ def timings(torch, fa, ref, errs) -> list:
                "library_ms": lib_ms, "max_abs_err": errs[case.name],
                "wall_ms_per_call": wall}
         rows.append(row)
-        print(f"  {case.name:<18} kernel {ms:.4f} ms (wall {wall:.4f} ms "
+        print(f"  {case.name:<28} kernel {ms:.4f} ms (wall {wall:.4f} ms "
               f"per call)  bound {bound_ms:.5f} ms ({bound_by})  plain "
               f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the flash backward and the fused update
+
+
+class BwdCase(Case):
+    """One flash backward call (dq and dk/dv) on a Case's shapes."""
+
+    def bound(self, which: str):
+        """(least ms, what bounds it) for one of the two kernels: inputs
+        (q, k, v, do, lse, dl) read once and outputs (dq, or dk and dv)
+        written once over HBM; 6d (dq) or 8d (dk/dv) FLOPs per unmasked
+        (query, key) pair and head over the peak for the type."""
+        el = 2 if self.dtype == "bfloat16" else 4
+        q_el = self.b * self.sq * self.H * self.d
+        kv_el = self.b * self.kv_len * self.KV * self.d
+        nbytes = el * (2 * q_el + 2 * kv_el) + 8 * self.b * self.H * self.sq
+        if which == "dq":
+            nbytes += el * q_el
+            flops = 6 * self.b * self.H * self.d * self.pairs()
+        else:
+            nbytes += el * 2 * kv_el
+            flops = 8 * self.b * self.H * self.d * self.pairs()
+        t_b = nbytes / HBM_BPS * 1e3
+        t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    def all_tensors(self, torch, fa, seed=0):
+        q, k, v = self.tensors(torch, seed)
+        o, lse = fa.flash_fwd(q, k, v, **self.kw())
+        g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+        return q, k, v, o, lse, do
+
+
+def compare_bwd(torch, fa, ref, case: BwdCase, seed=0):
+    """Both backward kernels against the plain version on the same card
+    inputs; returns {"dq": max |d dq|, "dkv": max over dk and dv}."""
+    q, k, v, o, lse, do = case.all_tensors(torch, fa, seed)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **case.kw())
+    torch.cuda.synchronize()
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **case.kw())
+    atol, rtol = BWD_TOL[case.dtype]
+    errs = {}
+    for got, w, nm in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        got, w = got.float(), w.float()
+        check(bool(torch.isfinite(got).all()), f"{case.name}: {nm} not "
+              f"finite")
+        check(torch.allclose(got, w, atol=atol, rtol=rtol),
+              f"{case.name}: {nm} max |d| "
+              f"{float((got - w).abs().max()):.3e} beyond atol {atol} / "
+              f"rtol {rtol}")
+        errs[nm] = float((got - w).abs().max())
+    return {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+
+
+def bwd_checks(torch, fa, ref) -> dict:
+    phase("flash_bwd (dq, dk/dv) against its plain version on the card")
+    cfg = (32, 8, 128)
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases.append(BwdCase(f"train b8 512 causal {dt}", TRAIN_BATCH,
+                             TRAIN_SEQ, TRAIN_SEQ, *cfg, dt, True))
+        cases.append(BwdCase(f"test_flash_bwd b1 H4/2 128 d64 {dt}", 1,
+                             128, 128, 4, 2, 64, dt, True))
+        cases.append(BwdCase(f"full GQA H8/2 65x130 kv_len 97 {dt}", 3,
+                             65, 130, 8, 2, 64, dt, False, 0, 97))
+    errs = {}
+    for i, case in enumerate(cases):
+        e = compare_bwd(torch, fa, ref, case, seed=100 + i)
+        errs[case.name] = e
+        print(f"  {case.name:<40} max|d dq| {e['dq']:.3e}  max|d dk,dv| "
+              f"{e['dkv']:.3e}  (tol {BWD_TOL[case.dtype]})")
+    return errs
+
+
+def group_specs(kind: str, n_layers: int = 0) -> list:
+    """[(path, ParamSpec)] of one update group of full-width granite-8b,
+    in the order the update sees its leaves: ``"stage"``, a stage tree of
+    ``n_layers`` layers; ``"outer"``, the embedding and final norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import (embed_specs, norm_specs,
+                                           stack_specs, tree_map)
+    from repro_torch.models.transformer import block_specs
+    cfg = get_config(ARCH)
+    tree = ({"layers": stack_specs(block_specs(cfg), n_layers, "layer")}
+            if kind == "stage" else
+            {"embed": embed_specs(cfg), "ln_f": norm_specs(cfg)})
+    out = []
+    tree_map(lambda path, sp: out.append((path, sp)), tree)
+    return out
+
+
+def make_group(torch, specs, predicted, seed=0):
+    """fp32 w, v and g of random values for ``specs``, and an fp32 ŵ for
+    each path ``predicted(path)`` accepts (None for the others; None
+    for the list if it accepts none), as the main path's update gets
+    them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda shape, scale=1.0: torch.randn(
+        shape, generator=g, device="cuda") * scale
+    ws = [mk(sp.shape) for _, sp in specs]
+    vs = [mk(sp.shape, 1e-2) for _, sp in specs]
+    gs = [mk(sp.shape) for _, sp in specs]
+    whats = [torch.empty(sp.shape, device="cuda") if predicted(path)
+             else None for path, sp in specs]
+    return ws, vs, gs, (whats if any(w is not None for w in whats)
+                        else None)
+
+
+FU_KW = dict(lr=1e-2, gamma=0.9, s=6.0)
+
+
+def fu_compare(torch, ops, ref, ws, vs, gs, whats, what: str) -> float:
+    """One kernel launch over a group against its plain version on the
+    same inputs (computed first: the kernel writes in place); returns the
+    largest |d| over w', v' and ŵ."""
+    whats_l = [None] * len(ws) if whats is None else whats
+    want = [ref.fused_update_ref(
+        w, v, g, what_dtype=None if wh is None else wh.dtype, **FU_KW)
+        for w, v, g, wh in zip(ws, vs, gs, whats_l)]
+    ops.fused_update(ws, vs, gs, whats=whats, **FU_KW)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (w2, v2, wh2) in enumerate(want):
+        pairs = [(ws[i], w2, FU_TOL["float32"]),
+                 (vs[i], v2, FU_TOL["float32"])]
+        if whats_l[i] is not None:
+            pairs.append((whats_l[i], wh2, FU_TOL[
+                "bfloat16" if whats_l[i].dtype == torch.bfloat16
+                else "float32"]))
+        for got, w, tol in pairs:
+            d = float((got.float() - w.float()).abs().max())
+            check(torch.allclose(got.float(), w.float(), atol=tol,
+                                 rtol=tol),
+                  f"fused_update {what}: tensor {i} max |d| {d:.3e} "
+                  f"beyond {tol}")
+            worst = max(worst, d)
+    return worst
+
+
+def fused_checks(torch, ops, ref) -> None:
+    """One launch over a ragged group (one count not a multiple of the
+    kernel's chunk), with and without ŵ, fp32 or bf16 g and ŵ.  (The
+    main path's own groups are checked where they are timed.)"""
+    phase("fused_update against its plain version on the card")
+    shapes = [(4096, 1024), (8192 * 3 + 17,), (7,), (3, 1000, 5)]
+    for g_dt, w_dt in ((torch.float32, None), (torch.float32, torch.float32),
+                       (torch.bfloat16, torch.float32),
+                       (torch.float32, torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        mk = lambda s, dt=torch.float32: torch.randn(
+            s, generator=g, device="cuda").to(dt)
+        ws = [mk(s) for s in shapes]
+        vs = [mk(s) for s in shapes]
+        gs = [mk(s, g_dt) for s in shapes]
+        whats = (None if w_dt is None else
+                 [torch.empty(s, device="cuda", dtype=w_dt) for s in shapes])
+        err = fu_compare(torch, ops, ref, ws, vs, gs, whats,
+                         f"g {g_dt} ŵ {w_dt}")
+        print(f"  g {str(g_dt):<15} ŵ {str(w_dt):<15} ragged "
+              f"{len(shapes)} tensors, one launch: max |d| {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def train_check(torch) -> None:
+    """The streaming SpecTrain tick on the card (kernels) against the same
+    tick on the CPU (plain versions), smoke size, fp32, 4 stages."""
+    S = TRAIN_STAGES
+    n = 2 * (S - 1) + 3
+    phase(f"training on the card against the CPU: {n} spectrain ticks, "
+          f"{S} stages, smoke size, fp32")
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    cfg = smoke_config(get_config(ARCH)).replace(
+        n_layers=4, n_kv_heads=2, compute_dtype="float32",
+        mesh_plan=get_config(ARCH).mesh_plan)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    check(cpu.n_stages == S, "smoke model is not 4 stages")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _tree_to(p_cpu, "cuda")
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(n):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    runs = {}
+    for name, model, params in (("cpu", cpu, p_cpu), ("gpu", gpu, p_gpu)):
+        state = ps.make_state(model, params, batches[0], mode="spectrain")
+        step = ps.make_train_step(model, mode="spectrain", lr=0.05)
+        losses = []
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+        runs[name] = (state, losses)
+    (s_c, l_c), (s_g, l_g) = runs["cpu"], runs["gpu"]
+    l_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(l_g, l_c))
+    check(l_err <= 1e-5, f"losses differ by rel {l_err:.3e} (tol 1e-5)")
+    worst = 0.0
+    for key in ("params", "momentum", "pred"):
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            g = g.cpu()
+            check(torch.allclose(g, c, rtol=1e-4, atol=1e-5),
+                  f"{key} leaf differs by {float((g - c).abs().max())}")
+            worst = max(worst, float((g - c).abs().max()))
+    print(f"  losses max rel |d| {l_err:.3e} (tol 1e-5); params, momentum, "
+          f"pred max |d| {worst:.3e} (rtol 1e-4 / atol 1e-5)")
+
+
+def train_main_path(torch, ops) -> dict:
+    S, L = TRAIN_STAGES, TRAIN_LAYERS
+    phase(f"main path: repro_torch.launch.train.main, {ARCH} full width, "
+          f"{L} layers in {S} stages, bf16, spectrain, {TRAIN_STEPS} ticks")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_leaves
+    want_tick = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                 "fused_update": S + 1}
+    prof_tick = 7
+    rec = {"counts": [], "valid": [], "loss": [], "t": [], "t_end": [],
+           "stage0": []}
+    snap = {}
+
+    def on_step(s, state, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["counts"].append(dict(ops.launch_counts()))
+        rec["valid"].append(metrics["loss_valid"])
+        rec["loss"].append(float(metrics["loss"]))
+        stage0 = tree_leaves(state["params"]["stages"][0])
+        if s == 0:
+            snap["stage0"] = [t.clone() for t in stage0]
+        rec["stage0"].append(all(torch.equal(a, b) for a, b in
+                                 zip(stage0, snap["stage0"])))
+        if s == prof_tick - 1:
+            snap["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+            snap["prof"].__enter__()
+        elif s == prof_tick:
+            snap["prof"].__exit__(None, None, None)
+        rec["t_end"].append(time.perf_counter())
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train.main(TRAIN_ARGV, on_step=on_step)
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"train.main returned {rc}")
+    check(len(rec["loss"]) == TRAIN_STEPS, "not every tick ran")
+    prev = {k: 0 for k in want_tick}
+    for s, counts in enumerate(rec["counts"]):
+        got = {k: counts[k] - prev[k] for k in want_tick}
+        check(got == want_tick, f"tick {s} launched {got}, expected "
+              f"{want_tick}")
+        prev = counts
+    check(total == {k: v * TRAIN_STEPS for k, v in want_tick.items()},
+          f"the run launched {total}")
+    check(all(math.isfinite(x) for x in rec["loss"]), "non-finite loss")
+    check(rec["valid"] == [float(s >= S - 1) for s in range(TRAIN_STEPS)],
+          f"loss_valid per tick {rec['valid']}")
+    check(rec["stage0"] == [s < 2 * (S - 1) for s in range(TRAIN_STEPS)],
+          f"stage 0 unchanged per tick {rec['stage0']} (expected until "
+          f"tick {2 * (S - 1)})")
+    # tick i: from the end of the hook after tick i-1 to the start of the
+    # hook after tick i (which synchronises first)
+    steady = sorted(rec["t"][i] - rec["t_end"][i - 1]
+                    for i in range(1, TRAIN_STEPS) if i != prof_tick)
+    wall_ms = steady[len(steady) // 2] * 1e3
+    tok_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
+    print(f"  {TRAIN_STEPS} ticks in {time.perf_counter() - t0:.2f}s "
+          f"(init and first-tick set-up included); losses "
+          f"{[round(x, 4) for x in rec['loss']]}")
+    print(f"  per tick: {want_tick} launches (exact on every tick)")
+    print(f"  loss valid from tick {S - 1}; stage 0 unchanged through tick "
+          f"{2 * (S - 1) - 1}, moved from tick {2 * (S - 1)}")
+    print(f"  tick wall (median of ticks 1..{TRAIN_STEPS - 1} but the "
+          f"profiled one): {wall_ms:.3f} ms  ({tok_per_s:.1f} tokens/s)")
+    print(f"  peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
+    kern = [e for e in snap["prof"].key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    check(bool(kern), f"the profiler saw no device activity in tick "
+          f"{prof_tick}")
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"  tick {prof_tick} under torch.profiler: device busy "
+          f"{busy_ms:.3f} ms, {100 * busy_ms / wall_ms:.1f}% of the "
+          f"unprofiled tick wall (idle {100 * (1 - busy_ms / wall_ms):.1f}%)")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms "
+              f"{e.count:5d}x  {e.key[:72]}")
+    by = {}
+    for name, want in want_tick.items():
+        hits = [e for e in kern if f"{name}_kernel" in e.key]
+        n_hit = sum(e.count for e in hits)
+        check(n_hit == want, f"the profiled tick shows {n_hit} {name} "
+              f"kernels, expected {want}")
+        by[name] = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"  {name}: {n_hit} kernels, {by[name]:.4f} ms per tick "
+              f"({100 * by[name] / busy_ms:.1f}% of device busy)")
+    return {"launches": total, "per_tick": want_tick, "wall_ms": wall_ms,
+            "tok_per_s": tok_per_s, "peak_bytes": peak,
+            "losses": rec["loss"], "busy_ms": busy_ms, "kernel_ms": by}
+
+
+def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
+    phase("timings of the training kernels (CUDA events, after warm-up)")
+    import torch.nn.functional as F
+    rows = []
+    case = BwdCase("train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
+                   TRAIN_SEQ, 32, 8, 128, "bfloat16", True)
+    q, k, v, o, lse, do = case.all_tensors(torch, fa, seed=9)
+    kw = case.kw()
+    # each kernel alone, through the launchers flash_bwd itself uses
+    launch_dq, launch_dkv, _ = fa._bwd_launchers(q, k, v, o, lse, do,
+                                                 **kw)
+    ms_dq, _ = time_ms(torch, launch_dq, 20)
+    ms_dkv, _ = time_ms(torch, launch_dkv, 20)
+    ms_wrap, wall_wrap = time_ms(
+        torch, lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), 20)
+    plain_ms, _ = time_ms(
+        torch, lambda: ref.flash_bwd_ref(q, k, v, o, lse, do, **kw), 5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms, _ = time_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 20)
+    for name, which, ms in (("flash_bwd_dq", "dq", ms_dq),
+                            ("flash_bwd_dkv", "dkv", ms_dkv)):
+        b_ms, b_by = case.bound(which)
+        rows.append({"name": name, "shape": case.name, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "max_abs_err": bwd_errs[case.name][which]})
+        print(f"  {name:<14} {case.name}: kernel {ms:.4f} ms  bound "
+              f"{b_ms:.5f} ms ({b_by})  plain (dq, dk, dv together) "
+              f"{plain_ms:.4f} ms  SDPA backward (dq, dk, dv together) "
+              f"{lib_ms:.4f} ms")
+    print(f"  flash_bwd wrapper (dl + both kernels): {ms_wrap:.4f} ms "
+          f"device, {wall_wrap:.4f} ms wall per call")
+    del qt, kt, vt, ot, q, k, v, o, lse, do, launch_dq, launch_dkv
+
+    # the main path's two kinds of group, fp32 w/v/g: one stage (2
+    # full-width layers, fp32 ŵ for every leaf) and the outer tree (fp32
+    # ŵ for embed.tok only); each checked once against its plain version,
+    # then timed
+    fu_rows = []
+    for label, specs, predicted in (
+            (f"one stage ({TRAIN_LAYERS // TRAIN_STAGES} layers), ŵ on "
+             f"every leaf", group_specs("stage", TRAIN_LAYERS // TRAIN_STAGES),
+             lambda path: True),
+            ("outer tree, ŵ on embed.tok", group_specs("outer"),
+             lambda path: path == ("embed", "tok"))):
+        ws, vs, gs, whats = make_group(torch, specs, predicted)
+        n = sum(w.numel() for w in ws)
+        n_pred = sum(w.numel() for w in (whats or []) if w is not None)
+        err = fu_compare(torch, ops, ref, ws, vs, gs, whats, label)
+        ms, _ = time_ms(torch, lambda: ops.fused_update(
+            ws, vs, gs, whats=whats, **FU_KW), 10)
+        plain_ms, _ = time_ms(torch, lambda: [
+            ref.fused_update_ref(w, v, g, **FU_KW) for w, v, g in
+            zip(ws, vs, gs)], 3)
+        params = [torch.nn.Parameter(w) for w in ws]
+        for p_, g in zip(params, gs):
+            p_.grad = g
+        # dampening = gamma gives v' = gamma v + (1 - gamma) g (the
+        # paper's form); it writes w' and v' but no prediction
+        opt = torch.optim.SGD(params, lr=FU_KW["lr"],
+                              momentum=FU_KW["gamma"],
+                              dampening=FU_KW["gamma"], fused=True)
+        lib_ms, _ = time_ms(torch, opt.step, 10)
+        # w, v, g read; w', v' written; ŵ written where predicted
+        nbytes = 4 * (5 * n + n_pred)
+        b_ms = nbytes / HBM_BPS * 1e3
+        shape = (f"{label}: {len(ws)} tensors, {n} elements, fp32 "
+                 f"w/v/g/ŵ")
+        fu_rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": "bytes",
+                        "library_ms": lib_ms, "max_abs_err": err})
+        print(f"  fused_update   {shape} ({nbytes / 1e9:.2f} GB): one "
+              f"launch against its plain version max |d| {err:.3e} (tol "
+              f"{FU_TOL['float32']:g}); kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s)  bound {b_ms:.4f} ms "
+              f"(bytes)  plain {plain_ms:.4f} ms  "
+              f"torch.optim.SGD(fused, no ŵ) {lib_ms:.4f} ms")
+        del ws, vs, gs, whats, params, opt
+    rows.append({"name": "fused_update", **fu_rows[0], "shapes": fu_rows})
     return rows
 
 
@@ -461,36 +919,65 @@ def run() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
 
     t_start = time.perf_counter()
     try:
         info = card_info(torch)
-        build_kernels(build, fa)
+        build_kernels(build, fa, fu)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         errs = kernel_checks(torch, fa, ref)
+        bwd_errs = bwd_checks(torch, fa, ref)
+        fused_checks(torch, ops, ref)
         model_check(torch)
+        train_check(torch)
         n_layers = get_config(ARCH).n_layers
         main = main_path(torch, ops, n_layers)
         decode_profile(torch)
+        train = train_main_path(torch, ops)
         rows = timings(torch, fa, ref, errs)
+        train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
     except Exception:   # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    top = rows[0]        # the decode step: the main path's common call
+    top = rows[0]        # the decode step: the serving path's common call
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": main["launches"], "max_abs_err": top["max_abs_err"],
+        "launches": main["launches"],
+        "launches_by_path": {"serve": main["launches"],
+                             "train": train["launches"]["flash_fwd"]},
+        "max_abs_err": top["max_abs_err"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"], "shape": top["shape"],
         "shapes": rows,
     }]
+    sources = {"flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:136"),
+               "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:177"),
+               "fused_update": ("fused_update.cu", "fused_update.py:22")}
+    for row in train_rows:
+        src_file, tpu = sources[row["name"]]
+        kernels.append({
+            "name": row["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src_file}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": train["launches"][row["name"]],
+            "launches_per_tick": train["per_tick"][row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], **({"shapes": row["shapes"]}
+                                      if "shapes" in row else {})})
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
+    print(f"training tick: {train['wall_ms']:.3f} ms wall, "
+          f"{train['tok_per_s']:.1f} tokens/s, device busy "
+          f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "
+          f"GiB")
     print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """PyTorch/CUDA port of the ``repro`` package for one NVIDIA H100.
 
-Mirrors ``repro``'s subpackages (``configs``, ``kernels``, ``models``,
-``serve``, ``planner``, ``obs``, ``launch``) so every module has an
-obvious twin there.  It imports ``torch`` and numpy, never ``jax`` and
-nothing of ``repro``.  Entry points run on ``cuda`` unless the caller
-asks for ``device="cpu"``; asking for ``cuda`` where no card is present
-raises.
+Mirrors ``repro``'s subpackages (``configs``, ``core``, ``data``,
+``kernels``, ``models``, ``optim``, ``serve``, ``planner``, ``obs``,
+``launch``) so every module has an obvious twin there.  It imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.  Entry
+points run on ``cuda`` unless the caller asks for ``device="cpu"``;
+asking for ``cuda`` where no card is present raises.
 """
 from __future__ import annotations
 

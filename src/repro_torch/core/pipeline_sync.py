@@ -1,0 +1,88 @@
+"""Synchronous circular pipeline (GPipe semantics) — the staleness-free
+baseline, twin of ``repro/core/pipeline_sync.py``.
+
+Stage weights are the ragged per-stage trees; microbatches rotate
+through the stages tick by tick in a Python loop (the JAX twin's
+``lax.scan``), and autograd through that loop produces the reverse
+pipeline.  The weight update is one synchronous momentum-SGD step per
+global batch, in place through the fused update kernel — the semantics
+of data parallelism, which is why it is the staleness-free reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core.pipeline_stream import (_grads, _leaves_like,
+                                              device_batch)
+from repro_torch.optim import sgd
+
+
+def pipeline_loss(model, params, batch, num_microbatches: int):
+    """Forward loss through the circular pipeline."""
+    S = model.n_stages
+    if S == 1:
+        return model.loss(params, batch)
+    M = num_microbatches
+    outer, stages = params["outer"], params["stages"]
+    if not isinstance(stages, (tuple, list)):
+        raise NotImplementedError(
+            "stacked stage params are not ported to PyTorch; pass the "
+            "ragged per-stage tuple")
+
+    x = model.embed(outer, batch)                    # [B, s, d]
+    B = x.shape[0]
+    if B % M:
+        raise ValueError(f"global batch {B} not divisible by "
+                         f"num_microbatches={M}")
+    mb = B // M
+    xs = x.reshape((M, mb) + tuple(x.shape[1:]))
+    T = M + S - 1
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    prev = [torch.zeros_like(xs[0]) for _ in range(S)]
+    aux_sum = zero
+    ys = []
+    for t in range(T):
+        ins = [xs[min(t, M - 1)]] + prev[:-1]
+        outs = [model.stage_apply(stages[k], (ins[k], zero))
+                for k in range(S)]
+        for k, (_, aux) in enumerate(outs):
+            if 0 <= t - k < M:
+                aux_sum = aux_sum + aux
+        prev = [o for o, _ in outs]
+        ys.append(prev[-1])
+    # drained outputs: ticks S-1 .. T-1 hold microbatches 0..M-1
+    outs = torch.stack(ys[S - 1:]).reshape((B,) + tuple(x.shape[1:]))
+    loss = model.head_loss(outer, outs, batch["targets"])
+    return loss + aux_sum / M
+
+
+def make_train_step(model, *, lr: float, gamma: float = 0.9,
+                    num_microbatches: Optional[int] = None,
+                    clip: Optional[float] = None) -> Callable:
+    """Synchronous pipelined train step (params+momentum in state),
+    updating the state in place."""
+    M = num_microbatches or model.cfg.mesh_plan.num_microbatches
+
+    def train_step(state: Dict[str, Any], batch):
+        batch = device_batch(batch, model.device)
+        with torch.enable_grad():
+            leaves = _leaves_like(state["params"])
+            loss = pipeline_loss(model, leaves, batch, M)
+            grads, _ = _grads(loss, leaves, None)
+        metrics = {"loss": loss.detach()}
+        if clip:
+            grads, metrics["grad_norm"] = sgd.clip_by_global_norm(grads,
+                                                                   clip)
+        sgd.update(state["params"], sgd.MomentumState(state["momentum"]),
+                   grads, lr=lr, gamma=gamma)
+        state["step"] += 1
+        return state, metrics
+
+    return train_step
+
+
+def init_state(model, generator: torch.Generator) -> Dict[str, Any]:
+    params = model.init(generator)
+    return {"params": params, "momentum": sgd.init(params).v, "step": 0}

@@ -3,7 +3,10 @@ PyTorch versions.
 
   ``csrc/``             CUDA C++ sources with a plain C interface.
   ``build``             nvcc into ``build/kernels/`` and ctypes loading.
-  ``flash_attention``   the flash forward wrapper (launch counter).
-  ``ops``               model-side entry points and the timing hook.
+  ``flash_attention``   the flash forward and backward wrappers (launch
+                        counters).
+  ``fused_update``      the fused momentum update + prediction wrapper.
+  ``ops``               model-side entry points (the differentiable
+                        flash attention) and the timing hook.
   ``ref``               plain PyTorch versions (CPU path and oracles).
 """

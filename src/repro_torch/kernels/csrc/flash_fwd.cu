@@ -236,6 +236,18 @@ int launch_dim(const Params& p, int head_dim, cudaStream_t stream) {
 
 }  // namespace
 
+// Dynamic shared memory of one block, or -1 for a head_dim it does not
+// take.
+extern "C" long long repro_flash_fwd_smem_bytes(int head_dim) {
+    switch (head_dim) {
+        case 16: return smem_bytes<16>();
+        case 32: return smem_bytes<32>();
+        case 64: return smem_bytes<64>();
+        case 128: return smem_bytes<128>();
+        default: return -1;
+    }
+}
+
 // dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t (0 on success); the
 // launch is asynchronous on ``stream`` and does not synchronise.
 extern "C" int repro_flash_fwd(

@@ -1,15 +1,19 @@
-"""Flash attention forward: the wrapper around the Hopper CUDA kernel.
+"""Flash attention forward and backward: the wrappers around the Hopper
+CUDA kernels.
 
-Twin of ``repro/kernels/flash_attention.py::flash_fwd`` (the Pallas TPU
-kernel).  The kernel itself is ``csrc/flash_fwd.cu``; its source note
-says what it computes, what bounds it on an H100 and what its simple
-design leaves for later.  Unlike the Pallas kernel it takes the
-model-side layout and indexes the KV head as ``h // G``, so it serves
-GQA without folding, and it takes a query position offset and a key
-count, so one kernel serves causal prefill and each decode step.
+Twin of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernels
+``flash_fwd`` and ``flash_bwd``).  The kernels themselves are
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (dq, and dk/dv); their
+source notes say what they compute, what bounds them on an H100 and what
+their simple design leaves for later.  Unlike the Pallas kernels they
+take the model-side layout and index the KV head as ``h // G``, so they
+serve GQA without folding, and they take a query position offset and a
+key count, so one kernel serves causal prefill and each decode step.
 
-On CUDA tensors :func:`flash_fwd` launches the kernel or raises; on CPU
-tensors it computes :func:`repro_torch.kernels.ref.flash_fwd_ref`.
+On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their
+kernels or raise; on CPU tensors they compute
+:func:`repro_torch.kernels.ref.flash_fwd_ref` and
+:func:`repro_torch.kernels.ref.flash_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -20,20 +24,26 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_fwd_ref
+from repro_torch.kernels.ref import flash_bwd_ref, flash_dl, flash_fwd_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
 
 # kernel launches since the last reset (the CPU path never counts)
-launches = 0
+launches = 0            # flash_fwd
+launches_dq = 0         # flash_bwd_dq
+launches_dkv = 0        # flash_bwd_dkv
 
 _c = ctypes.c_int
 _ll = ctypes.c_longlong
 _p = ctypes.c_void_p
 _ARGTYPES = ([_p] * 5 + [_c] * 6 + [_ll] * 9
              + [_c, _c, _c, ctypes.c_float, _p])
+
+
+_BWD_ARGTYPES = ([_p] * 7 + [_c] * 7 + [_ll] * 12
+                 + [_c, _c, _c, ctypes.c_float, _p])
 
 
 def _lib():
@@ -45,9 +55,21 @@ def _lib():
     return fn
 
 
+def _bwd_lib():
+    lib = build.library("flash_bwd")
+    dq, dkv = lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv
+    if dq.argtypes is None:
+        dq.argtypes = _BWD_ARGTYPES
+        dq.restype = ctypes.c_int
+        dkv.argtypes = [_p] * 8 + _BWD_ARGTYPES[7:]
+        dkv.restype = ctypes.c_int
+    return dq, dkv
+
+
 def load() -> None:
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load the kernels' libraries."""
     _lib()
+    _bwd_lib()
 
 
 def _check(q, k, v, q_offset: int, kv_len: int) -> None:
@@ -116,3 +138,79 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
     global launches
     launches += 1
     return o, lse
+
+
+def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
+              kv_len: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`flash_fwd`: q, o, do [b, sq, H, d]; k, v
+    [b, sk, KV, d]; lse [b, H, sq] fp32 from the forward -> (dq in q's
+    dtype, dk and dv in k's dtype).  Two kernels: dq, then dk/dv.  See
+    ``flash_bwd_ref`` for the formulas."""
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset, kv_len)
+    b, sq, H, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must match q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and do must be {q.dtype}, got {o.dtype}, "
+                        f"{do.dtype}")
+    if lse.shape != (b, H, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 {(b, H, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not (q.device == o.device == do.device == lse.device):
+        raise ValueError("q, o, do and lse on different devices")
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                             q_offset=q_offset, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.stride(-1) != 1 or min(t.stride()) < 0:
+            raise ValueError(f"{name} needs a contiguous last dim and "
+                             f"non-negative strides, got {t.stride()}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    if b > _GRID_YZ_MAX or H > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} or heads {H} exceed the launch grid")
+    launch_dq, launch_dkv, (dq, dk, dv) = _bwd_launchers(
+        q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
+        kv_len=kv_len)
+    global launches_dq, launches_dkv
+    launch_dq()
+    launches_dq += 1
+    launch_dkv()
+    launches_dkv += 1
+    return dq, dk, dv
+
+
+def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
+                   kv_len: int):
+    """Computes dl and allocates dq, dk, dv; returns (launch_dq,
+    launch_dkv, (dq, dk, dv)), each launcher starting its kernel once on
+    the current stream (or raising on a CUDA error) without counting.
+    :func:`flash_bwd` counts; ``chip_smoke.py`` times each alone."""
+    b, sq, H, d = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    dl = flash_dl(o, do)
+    dq = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
+    fn_dq, fn_dkv = _bwd_lib()
+    tail = (_DTYPES[q.dtype], d, b, sq, sk, H, KV, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(d))
+    ins = (q, k, v, do, lse, dl)     # the closures keep them alive
+
+    def run(name, fn, outs):
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(*(t.data_ptr() for t in ins + outs), *tail, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+    return (lambda: run("flash_bwd_dq", fn_dq, (dq,)),
+            lambda: run("flash_bwd_dkv", fn_dkv, (dk, dv)),
+            (dq, dk, dv))

@@ -2,7 +2,10 @@
 
 Twin of ``repro/kernels/ops.py``.  Each public wrapper takes the model's
 layout and goes to the kernel on CUDA tensors and to its plain version
-on CPU tensors (``kernels/ref.py``).
+on CPU tensors (``kernels/ref.py``).  :func:`flash_attention` is
+differentiable, as the JAX twin's ``custom_vjp`` is: its backward is the
+flash backward (two kernels on the card, ``flash_bwd_ref`` on the CPU),
+never autograd of the plain forward.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_update as fu
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +37,9 @@ def set_timing_hook(hook: Optional[Callable[[str, float], None]]) -> None:
 def _timed(name: str, fn, *args, **kw):
     if _timing_hook is None:
         return fn(*args, **kw)
-    devices = {a.device for a in args
+    flat = [t for a in args
+            for t in (a if isinstance(a, (list, tuple)) else (a,))]
+    devices = {a.device for a in flat
                if isinstance(a, torch.Tensor) and a.device.type == "cuda"}
     for dev in devices:
         torch.cuda.synchronize(dev)
@@ -47,22 +53,57 @@ def _timed(name: str, fn, *args, **kw):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"flash_fwd": fa.launches}
+    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_dq,
+            "flash_bwd_dkv": fa.launches_dkv, "fused_update": fu.launches}
 
 
 def reset_launch_counts() -> None:
-    fa.launches = 0
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    fu.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # flash attention
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward ``fa.flash_fwd`` (saving q, k, v, o, lse), backward
+    ``fa.flash_bwd``: the twin of the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+        o, lse = _timed("flash_fwd", fa.flash_fwd, q, k, v, causal=causal,
+                        q_offset=q_offset, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.flash_kw = dict(causal=causal, q_offset=q_offset,
+                            kv_len=kv_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _timed("flash_bwd", fa.flash_bwd, q, k, v, o, lse,
+                            do.contiguous(), **ctx.flash_kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, *, q_offset: int = 0,
                     kv_len: Optional[int] = None):
     """q: [b, sq, H, d]; k, v: [b, sk, KV, d] (H % KV == 0).
     Returns o: [b, sq, H, d].  Query row i sits at position
-    ``q_offset + i``; keys at positions >= ``kv_len`` are masked."""
-    o, _ = _timed("flash_fwd", fa.flash_fwd, q, k, v, causal=causal,
-                  q_offset=q_offset, kv_len=kv_len)
-    return o
+    ``q_offset + i``; keys at positions >= ``kv_len`` are masked.
+    Differentiable in q, k and v through the flash backward."""
+    return _FlashAttention.apply(q, k, v, causal, q_offset, kv_len)
+
+
+# ---------------------------------------------------------------------------
+# fused momentum update + SpecTrain prediction
+
+
+def fused_update(ws, vs, gs, *, lr: float, gamma: float, s: float = 0.0,
+                 whats=None) -> None:
+    """In-place momentum-SGD update of a group of fp32 tensors sharing
+    ``(lr, gamma, s)``, writing the prediction ``w' - s lr v'`` into each
+    given ``whats[i]``.  See ``kernels/fused_update.py``."""
+    _timed("fused_update", fu.fused_update, ws, vs, gs, lr=lr,
+           gamma=gamma, s=s, whats=whats)

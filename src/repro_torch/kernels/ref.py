@@ -72,3 +72,78 @@ def flash_fwd_ref(q, k, v, *, causal: bool, q_offset: int = 0,
     o = o / lsum.permute(0, 3, 1, 2)[..., None]
     lse = (m + torch.log(lsum)).reshape(b, H, sq)
     return o.reshape(b, sq, H, d).to(q.dtype), lse
+
+
+def flash_dl(o, do) -> torch.Tensor:
+    """dl = rowsum(o * do) in fp32, [b, sq, H, d] -> [b, H, sq]: the term
+    the flash backward subtracts from do.v.  Computed in plain torch
+    before the backward kernels run, as the JAX package computes it
+    outside its Pallas kernels."""
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
+                  kv_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the flash backward kernels compute, in the model-side layout.
+
+    q, o, do: [b, sq, H, d]; k, v: [b, sk, KV, d]; lse: [b, H, sq] fp32
+    from the forward.  The masks are :func:`flash_fwd_ref`'s.  Written
+    out as the Pallas kernels' formulas (not autograd of the forward),
+    all in fp32:
+
+        dl = rowsum(o * do)
+        p  = where(mask, exp(s * scale - lse), 0)
+        ds = p * (do.v^T - dl) * scale
+        dq = ds k,   dk = sum over the group's G heads of ds^T q,
+        dv = sum over the group's G heads of p^T do
+
+    Returns (dq in q's dtype, dk and dv in k's dtype)."""
+    b, sq, H, d = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kv_len = sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, sq, KV, G, d)
+    dof = do.float().reshape(b, sq, KV, G, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    kpos = torch.arange(sk, device=q.device)
+    mask = (kpos < kv_len)[None, :].expand(sq, sk)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    lse_g = lse.reshape(b, KV, G, sq)
+    p = torch.where(mask, torch.exp(s - lse_g[..., None]),
+                    torch.zeros_like(s))
+    dl = flash_dl(o, do).reshape(b, KV, G, sq)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - dl[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, sq, H, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused momentum update + SpecTrain prediction
+
+
+def fused_update_ref(w, v, g, *, lr: float, gamma: float, s: float,
+                     what_dtype: Optional[torch.dtype] = None):
+    """Momentum-SGD update (Eqs. 1-2) and weight prediction (Eq. 4).
+
+    Twin of ``repro.kernels.ref.fused_update_ref``.  Returns (w', v', ŵ):
+
+        v' = gamma * v + (1 - gamma) * g        (fp32)
+        w' = w - lr * v'                        (w's dtype)
+        ŵ  = w' - (s * lr) * v'                 (``what_dtype``, default
+                                                 w's dtype)
+
+    ``1 - gamma`` and ``s * lr`` are formed in double on the host, as the
+    Pallas kernel forms them, then rounded to fp32 with every product."""
+    vf = gamma * v.float() + (1.0 - gamma) * g.float()
+    wf = w.float() - lr * vf
+    what = wf - (s * lr) * vf
+    return (wf.to(w.dtype), vf,
+            what.to(w.dtype if what_dtype is None else what_dtype))

@@ -2,8 +2,10 @@
 ``repro/models/attention.py``).
 
 Every attention call goes through ``kernels.ops.flash_attention``: the
-whole-sequence causal call (training-shaped forward and prefill) and the
-single-token decode step against the KV cache.  The JAX package picks
+whole-sequence causal call (training and prefill) and the single-token
+decode step against the KV cache.  The whole-sequence call is the
+training path: it writes nothing in place, so autograd runs through it
+into the flash backward kernels.  The JAX package picks
 between ``_attend`` and its blocked XLA twin by size; here both are the
 flash kernel on the card and its plain version on the CPU.  ``_attend``
 stays as the plain reference the tests hold the kernel path against.

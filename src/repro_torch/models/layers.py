@@ -52,6 +52,28 @@ def tree_map(fn: Callable, tree, *, path: Tuple[str, ...] = ()):
     return fn(path, tree)
 
 
+def tree_leaves(tree) -> list:
+    """Leaves in :func:`tree_map`'s order (jax.tree.leaves' order)."""
+    out: list = []
+    tree_map(lambda _, a: out.append(a), tree)
+    return out
+
+
+def tree_zip_map(fn: Callable, tree, *rest):
+    """``fn(leaf, *leaves_of_rest)`` over trees of one structure."""
+    if isinstance(tree, dict):
+        if any(set(r) != set(tree) for r in rest):
+            raise ValueError("trees differ in keys")
+        return {k: tree_zip_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        if any(len(r) != len(tree) for r in rest):
+            raise ValueError("trees differ in length")
+        return type(tree)(tree_zip_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def _fan_in(shape: Tuple[int, ...]) -> int:
     return shape[-2] if len(shape) >= 2 else max(1, shape[-1])
 
@@ -172,6 +194,23 @@ def unembed_apply(cfg, p, x):
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+
+def softmax_xent(logits, targets, vocab_size: int, z_loss: float = 0.0):
+    """Mean token cross-entropy in fp32, the logsumexp taken over the
+    *padded* vocabulary as the JAX twin takes it (targets are assumed
+    < ``vocab_size``)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss.mean()
 
 
 # ---------------------------------------------------------------------------

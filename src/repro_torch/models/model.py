@@ -1,11 +1,15 @@
-"""Model assembly, the serving half (twin of ``repro/models/model.py``).
+"""Model assembly (twin of ``repro/models/model.py``): the serving half
+(prefill, decode step) and the training half (stage apply, head loss,
+whole-model forward and loss, stage repartitioning).
 
 Parameters use the JAX package's ragged per-stage canonical layout:
 ``params["stages"]`` is a tuple of stage trees whose ``layers`` leaves
-are ``[L_k, ...]``.  Serving walks the layers in flat order through
-views of those stacks, so no stage split is ever copied.  The KV cache
-is ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}`` as in JAX; the
-decode step fills it in place.
+are ``[L_k, ...]``.  Both halves walk the layers through views of those
+stacks (autograd accumulates each layer's gradient into its slice), so
+no stage split is ever copied.  The KV cache is ``{"layers": {"k", "v":
+[L, b, max_seq, KV, hd]}}`` as in JAX; the decode step fills it in
+place.  ``cfg.remat`` is not ported: the streaming runtime recomputes
+each stage from its stashed input anyway.
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_specs,
                                        init_params, leaf_is_weight,
-                                       norm_apply, norm_specs, stack_specs,
-                                       tree_map, unembed_apply)
+                                       norm_apply, norm_specs, softmax_xent,
+                                       stack_specs, tree_map, unembed_apply)
 from repro_torch.models.transformer import (block_apply, block_specs,
                                             check_dense)
 
@@ -124,13 +128,76 @@ class Model:
             for i in range(_n_layers(stage)):
                 yield tree_map(lambda _, a, i=i: a[i], stage["layers"])
 
+    def stage_apply(self, stage_params, carry, *, pos_offset: int = 0):
+        """One pipeline stage: its blocks in order.  The layer count is
+        read off the tree's leading axis, so uniform and ragged stages
+        run the same code.  carry = (x [b, s, d], aux scalar); dense
+        blocks add nothing to aux."""
+        x, aux = carry
+        for i in range(_n_layers(stage_params)):
+            lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
+            x, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
+        return x, aux
+
     # ------------------------------------------------------- embed/head
     def embed(self, outer, batch):
         return embed_apply(self.cfg, outer["embed"], batch["tokens"])
 
+    def head_loss(self, outer, x, targets):
+        return softmax_xent(self.logits(outer, x), targets,
+                            self.cfg.vocab_size)
+
     def logits(self, outer, x):
         x = norm_apply(self.cfg, outer["ln_f"], x)
         return unembed_apply(self.cfg, outer["embed"], x)
+
+    # -------------------------------------------------- reference fwd
+    def hidden(self, params, batch):
+        """Final hidden states (pre-head).  Returns (x, aux_loss)."""
+        x = self.embed(params["outer"], batch)
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+        for sp in params["stages"]:
+            carry = self.stage_apply(sp, carry)
+        return carry
+
+    def forward(self, params, batch):
+        """Full (non-pipelined) forward.  Returns (logits, aux_loss)."""
+        x, aux = self.hidden(params, batch)
+        return self.logits(params["outer"], x), aux
+
+    def loss(self, params, batch):
+        logits, aux = self.forward(params, batch)
+        return softmax_xent(logits, batch["targets"],
+                            self.cfg.vocab_size) + aux
+
+    # --------------------------------------------------------- ragged stages
+    def partition_stage_params(self, stages, sizes):
+        """Regroup ragged stage trees into per-stage trees for ``sizes``
+        (a per-stage layer-count vector summing to ``cfg.n_layers``).  A
+        ragged input whose sizes already match is returned as is; any
+        other is merged through the flat layer order and split again
+        (a copy).  The legacy stacked ``[S, Lps, ...]`` layout and the
+        hybrid shared blocks are not ported."""
+        if not isinstance(stages, (tuple, list)):
+            raise NotImplementedError(
+                "stacked [S, Lps, ...] stage params are not ported to "
+                "PyTorch; pass the ragged per-stage tuple")
+        if any("shared" in t for t in stages):
+            raise NotImplementedError(
+                "hybrid shared blocks are not ported to PyTorch yet")
+        sizes = tuple(int(n) for n in sizes)
+        if sum(sizes) != self.cfg.n_layers:
+            raise ValueError(f"partition sizes {sizes} do not cover "
+                             f"{self.cfg.n_layers} layers")
+        if len(sizes) != self.n_stages:
+            raise ValueError(f"{len(sizes)} partition stages for "
+                             f"{self.n_stages} stages")
+        if min(sizes) < 1:
+            raise ValueError(f"empty stage in partition sizes {sizes}")
+        if tuple(_n_layers(t) for t in stages) == sizes:
+            return tuple(stages)
+        return split_flat_stages({"layers": flat_stage_layers(stages)},
+                                 sizes)
 
     # ------------------------------------------------------------------ decode
     def init_cache(self, batch: int, max_seq: int):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and model path on the card, held against the
+"""The port's CUDA kernels and model path on the card, held against the
 port's plain versions (the CPU path).  Every test is marked ``gpu`` and
 skips where there is no card.
 
@@ -10,7 +10,10 @@ card and no JAX:
         tests/test_torch_gpu.py
 
 Tolerances: 2e-5 (abs and rel) in fp32 with TF32 off, 2e-2 in bf16 (the
-repository's kernel tolerances); 1e-4 for fp32 model logits.
+repository's kernel tolerances); for the backward in fp32 atol 2e-5 and
+rtol 1e-3 (``tests/test_kernels.py::test_flash_bwd``'s); 1e-6 for the
+fused update in fp32 (the kernel rounds where its plain version does);
+1e-4 for fp32 model logits; training ticks as the CPU parity tests.
 """
 import os
 import sys
@@ -23,6 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.planner import serve_plan  # noqa: E402
@@ -31,6 +35,7 @@ from repro_torch.serve import SimpleEngine, poisson_trace  # noqa: E402
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
 MODEL_TOL = 1e-4
+BWD_F32_TOL = (2e-5, 1e-3)      # atol, rtol: tests/test_kernels.py's
 
 
 @pytest.fixture
@@ -49,10 +54,10 @@ def _qkv(seed, b, sq, sk, H, KV, d, dtype):
     return mk(b, sq, H, d), mk(b, sk, KV, d), mk(b, sk, KV, d)
 
 
-def _close(got, want, tol):
+def _close(got, want, tol, rtol=None):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
-                               atol=tol, rtol=tol)
+                               atol=tol, rtol=tol if rtol is None else rtol)
 
 
 GPU_CASES = [
@@ -125,6 +130,99 @@ def test_wrapper_raises_on_card(card):
         fa.flash_fwd(q, k.cpu(), k, causal=True)
 
 
+BWD_CASES = [
+    # b, sq, sk, H, KV, d, q_offset, kv_len, causal, dtype
+    (2, 128, 128, 4, 4, 64, 0, 128, True, torch.float32),
+    (1, 256, 256, 8, 2, 128, 0, 256, True, torch.float32),
+    (2, 128, 256, 4, 1, 64, 0, 256, False, torch.float32),
+    (1, 100, 300, 4, 2, 32, 200, 300, True, torch.float32),
+    (1, 70, 70, 2, 2, 16, 0, 70, True, torch.float32),
+    (3, 65, 130, 8, 2, 64, 0, 97, False, torch.float32),
+    (2, 128, 128, 32, 8, 128, 0, 128, True, torch.bfloat16),
+    (3, 65, 130, 8, 2, 64, 0, 97, False, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bwd_kernels_match_plain(card, case):
+    b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
+    q, k, v = _qkv(8, b, sq, sk, H, KV, d, dt)
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    do = torch.randn_like(o)
+    before = (fa.launches_dq, fa.launches_dkv)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    tol, rtol = BWD_F32_TOL if dt == torch.float32 else (BF16_TOL, None)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dt and got.shape == w.shape
+        _close(got, w, tol, rtol)
+
+
+@pytest.mark.gpu
+def test_attention_grads_on_card_match_cpu(card):
+    q, k, v = _qkv(9, 2, 33, 33, 8, 2, 32, torch.float32)
+    do = torch.randn(2, 33, 8, 32, device=card)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        ins = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*ins, True)
+        grads.append(torch.autograd.grad(o, ins, do.to(dev)))
+    for got, want in zip(*grads):
+        _close(got, want, *BWD_F32_TOL)
+
+
+# ragged leaves: one count that is not a multiple of the kernel's block
+FU_SHAPES = [(64, 48), (4099,), (7,), (3, 1000, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_dt,what_dt", [
+    (torch.float32, None), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_fused_update_matches_plain(card, g_dt, what_dt):
+    rng = np.random.default_rng(10)
+    mk = lambda s, dt=torch.float32: torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32)).to(card, dt)
+    ws = [mk(s) for s in FU_SHAPES]
+    vs = [mk(s) for s in FU_SHAPES]
+    gs = [mk(s, g_dt) for s in FU_SHAPES]
+    whats = (None if what_dt is None else
+             [torch.empty(s, device=card, dtype=what_dt)
+              for s in FU_SHAPES])
+    want = [ref.fused_update_ref(w, v, g, lr=0.05, gamma=0.9, s=6.0,
+                                 what_dtype=what_dt)
+            for w, v, g in zip(ws, vs, gs)]
+    before = fu.launches
+    ops.fused_update(ws, vs, gs, lr=0.05, gamma=0.9, s=6.0, whats=whats)
+    torch.cuda.synchronize()
+    assert fu.launches == before + 1
+    tol = BF16_TOL if what_dt == torch.bfloat16 else 1e-6
+    for i, (w2, v2, wh2) in enumerate(want):
+        _close(ws[i], w2, 1e-6)
+        _close(vs[i], v2, 1e-6)
+        if whats is not None:
+            _close(whats[i], wh2, tol)
+
+
+@pytest.mark.gpu
+def test_fused_update_group_larger_than_table_raises(card):
+    """One launch per group: a group of more tensors than the kernel's
+    table holds raises and leaves the tensors as they were."""
+    ws = [torch.ones(3, device=card) for _ in range(65)]
+    vs = [torch.zeros(3, device=card) for _ in range(65)]
+    gs = [torch.ones(3, device=card) for _ in range(65)]
+    before = fu.launches
+    with pytest.raises(ValueError, match="at most 64"):
+        ops.fused_update(ws, vs, gs, lr=0.05, gamma=0.9)
+    assert fu.launches == before
+    assert all(bool((w == 1).all()) for w in ws)
+
+
 def _smoke_cfg():
     return smoke_config(get_config("granite-8b")).replace(
         n_layers=4, n_kv_heads=2, compute_dtype="float32")
@@ -177,3 +275,50 @@ def test_engine_tokens_on_card_match_cpu(card):
     assert got == want
     assert ops.launch_counts()["flash_fwd"] == cfg.n_layers * (
         eng.n_prefill + eng.n_decode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,fused_predict,bwd_dtype", [
+    ("spectrain", False, None), ("pipedream", False, None),
+    ("spectrain", True, "bfloat16")])
+def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
+                                          bwd_dtype):
+    """2(S-1)+3 streaming ticks on 4 stages at the smoke size in fp32:
+    the card (flash forward/backward and fused update kernels) against
+    the CPU (their plain versions).  Losses to rtol 1e-5, every state
+    leaf to rtol 1e-4 / atol 1e-5 (the CPU parity tests' tolerances);
+    with a bf16 backward, 2e-2."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    cfg = _smoke_cfg().replace(mesh_plan=get_config("granite-8b").mesh_plan)
+    S = 4
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2 * (S - 1) + 3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    out = {}
+    ops.reset_launch_counts()
+    for model, params in ((cpu, p_cpu), (gpu, _on(p_cpu, card))):
+        state = ps.make_state(model, params, batches[0], mode=mode,
+                              fused_predict=fused_predict)
+        step = ps.make_train_step(model, mode=mode, lr=0.05,
+                                  bwd_dtype=bwd_dtype)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        out[model.device.type] = (state, losses)
+    n = len(batches)
+    assert ops.launch_counts() == {
+        "flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
+        "flash_bwd_dkv": cfg.n_layers * n, "fused_update": (S + 1) * n}
+    (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
+    tol = 2e-2 if bwd_dtype else None
+    np.testing.assert_allclose(l_g, l_c, rtol=tol or 1e-5)
+    keys = ["params", "momentum"] + (["pred"] if mode == "spectrain"
+                                     else ["w_stash"])
+    for key in keys:
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            np.testing.assert_allclose(
+                g.float().cpu().numpy(), c.float().numpy(),
+                rtol=tol or 1e-4, atol=tol or 1e-5, err_msg=key)

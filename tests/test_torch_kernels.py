@@ -1,15 +1,17 @@
-"""The port's flash forward against the JAX package's.
+"""The port's flash forward and backward and its fused update against
+the JAX package's.
 
-On the CPU the port's wrapper computes its plain version
-(``repro_torch.kernels.ref.flash_fwd_ref``); these tests hold it against
-the Pallas kernel run in interpret mode, against ``_attend`` and
-against ``blocked_attention``, on the same numpy inputs.  The CUDA
-kernel is held against the plain version on the card in
+On the CPU the port's wrappers compute their plain versions
+(``repro_torch.kernels.ref``); these tests hold them against the Pallas
+kernels run in interpret mode, against ``_attend`` (and autodiff of it)
+and against ``blocked_attention``, on the same numpy inputs.  The CUDA
+kernels are held against the plain versions on the card in
 ``test_torch_gpu.py``, which imports no JAX.
 
 Tolerances: 2e-5 (abs and rel) in fp32, where both sides run the same
-fp32 softmax and differ only in summation order; 2e-2 in bf16, the
-repository's kernel tolerance (``tests/test_kernels.py``).
+fp32 arithmetic and differ only in summation order; 2e-2 in bf16, the
+repository's kernel tolerance (``tests/test_kernels.py``); 1e-6 for the
+fused update in fp32 (elementwise, the same roundings).
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +20,9 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro.kernels import fused_update as jfu
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.models.blocked_attention import blocked_attention
 from repro_torch.kernels import flash_attention as fa
@@ -139,8 +143,13 @@ def test_offsets_match_blocked_attention(pos_offset):
 def test_wrapper_cpu_path_never_counts():
     ops.reset_launch_counts()
     q, k, v = _qkv(4, 1, 4, 4, 2, 2, 16)
-    fa.flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
-    assert ops.launch_counts() == {"flash_fwd": 0}
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, True)
+    o.sum().backward()
+    ops.fused_update([torch.zeros(3)], [torch.zeros(3)], [torch.ones(3)],
+                     lr=0.1, gamma=0.9)
+    assert ops.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0, "fused_update": 0}
 
 
 @pytest.mark.parametrize("bad", [
@@ -172,7 +181,8 @@ def test_timing_hook_sees_each_call():
 
 def test_build_is_lazy_and_keyed_by_source():
     from repro_torch.kernels import build
-    assert "flash_fwd" in build.sources()
+    assert {"flash_fwd", "flash_bwd", "fused_update"} <= set(
+        build.sources())
     path = build.lib_path("flash_fwd")
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path.name.startswith("flash_fwd-")
@@ -180,3 +190,182 @@ def test_build_is_lazy_and_keyed_by_source():
 
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"
+
+
+# (c) the flash backward: the plain version against the Pallas backward
+# in interpret mode (through ops' GQA folding) and against autodiff of
+# _attend
+
+
+def _jax_grads(fn, q, k, v, do):
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port_bwd(q, k, v, do, **kw):
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = ref.flash_fwd_ref(tq, tk, tv, **kw)
+    return ref.flash_bwd_ref(tq, tk, tv, o, lse, torch.from_numpy(do),
+                             **kw)
+
+
+BWD_CASES = [
+    # b, H, KV, sq, sk, d, causal
+    (1, 2, 2, 128, 128, 16, True),
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 8, 2, 128, 128, 16, True),
+    (1, 4, 4, 128, 256, 64, False),
+    (2, 4, 2, 128, 128, 16, False),
+    (1, 4, 1, 128, 256, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_ref_matches_pallas(case):
+    b, H, KV, sq, sk, d, causal = case
+    q, k, v = _qkv(11, b, sq, sk, H, KV, d)
+    do = np.random.default_rng(12).standard_normal(
+        (b, sq, H, d), dtype=np.float32)
+    want = _jax_grads(lambda q_, k_, v_: jops.flash_attention(
+        q_, k_, v_, causal, 128, 128, True), q, k, v, do)
+    got = _port_bwd(q, k, v, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w, F32_TOL)
+
+
+BWD_OFFSET_CASES = OFFSET_CASES + [
+    # b, sq, sk, H, KV, d, q_offset, kv_len, causal
+    (2, 16, 16, 4, 1, 64, 0, 16, True),       # G = 4
+    (1, 9, 20, 2, 2, 16, 0, 13, False),       # G = 1, masked key tail
+]
+
+
+@pytest.mark.parametrize("case", BWD_OFFSET_CASES)
+def test_flash_bwd_ref_matches_attend_vjp(case):
+    b, sq, sk, H, KV, d, off, kv_len, causal = case
+    q, k, v = _qkv(13, b, sq, sk, H, KV, d)
+    do = np.random.default_rng(14).standard_normal(
+        (b, sq, H, d), dtype=np.float32)
+    q_pos = jnp.arange(sq) + off
+    want = _jax_grads(lambda q_, k_, v_: jattn._attend(
+        None, q_, k_, v_, causal=causal, q_pos=q_pos, k_len=sk,
+        k_valid_len=kv_len), q, k, v, do)
+    got = _port_bwd(q, k, v, do, causal=causal, q_offset=off,
+                    kv_len=kv_len)
+    for g, w in zip(got, want):
+        _close(g, w, F32_TOL)
+
+
+@pytest.mark.parametrize("causal,off,kv_len", [(True, 0, None),
+                                               (False, 0, 11),
+                                               (True, 4, None)])
+def test_flash_attention_autograd_is_the_bwd_formula(causal, off, kv_len):
+    """The port's differentiable flash_attention runs flash_bwd_ref as
+    its backward on the CPU (not autograd of the plain forward)."""
+    sk = 12 + off
+    q, k, v = _qkv(15, 2, 12, sk, 4, 2, 16)
+    do = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (2, 12, 4, 16), dtype=np.float32))
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = ops.flash_attention(*ins, causal, q_offset=off, kv_len=kv_len)
+    got = torch.autograd.grad(o, ins, do)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o_r, lse = ref.flash_fwd_ref(tq, tk, tv, **kw)
+    want = ref.flash_bwd_ref(tq, tk, tv, o_r, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(o.detach(), o_r)
+
+
+def test_flash_bwd_wrapper_checks():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(17, 1, 4, 4, 2, 2, 16))
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd(q, k, v, o, lse[:, :, :2], o, causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_bwd(q, k, v, o, lse, o.double(), causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_bwd(q, k, v, o[:, :2], lse, o, causal=True)
+
+
+# (d) the fused update: plain version and CPU wrapper against the Pallas
+# kernel in interpret mode and against the JAX plain version
+
+FU_KW = dict(lr=0.05, gamma=0.9, s=6.0)
+
+
+def _fu_inputs(seed, shape, g_dtype="float32"):
+    rng = np.random.default_rng(seed)
+    w, v, g = (rng.standard_normal(shape, dtype=np.float32)
+               for _ in range(3))
+    return w, v, g.astype(jnp.dtype(g_dtype))
+
+
+@pytest.mark.parametrize("shape", [(8192,), (3, 1000), (7,), (64, 129)])
+def test_fused_update_ref_matches_pallas(shape):
+    w, v, g = _fu_inputs(18, shape)
+    want = jfu.fused_update(*(jnp.asarray(a) for a in (w, v, g)),
+                            interpret=True, **FU_KW)
+    want_ref = jref.fused_update_ref(*(jnp.asarray(a) for a in (w, v, g)),
+                                     **FU_KW)
+    got = ref.fused_update_ref(*(torch.from_numpy(a) for a in (w, v, g)),
+                               **FU_KW)
+    for x, y, z in zip(got, want, want_ref):
+        _close(x, np.asarray(y), 1e-6)
+        _close(x, np.asarray(z), 1e-6)
+
+
+def test_fused_update_ref_bf16_matches_jax():
+    """bf16 weights (w' and ŵ in bf16) and bf16 gradients."""
+    w, v, g = _fu_inputs(19, (3, 517), "bfloat16")
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    want = jref.fused_update_ref(jw, jnp.asarray(v), jnp.asarray(g),
+                                 **FU_KW)
+    want_k = jfu.fused_update(jw, jnp.asarray(v), jnp.asarray(g),
+                              interpret=True, **FU_KW)
+    tg = torch.from_numpy(np.asarray(g, np.float32)).to(torch.bfloat16)
+    got = ref.fused_update_ref(torch.from_numpy(w).to(torch.bfloat16),
+                               torch.from_numpy(v), tg, **FU_KW)
+    assert got[0].dtype == got[2].dtype == torch.bfloat16
+    for x, y, z in zip(got, want, want_k):
+        _close(x.float(), np.asarray(y, np.float32), BF16_TOL)
+        _close(x.float(), np.asarray(z, np.float32), BF16_TOL)
+
+
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_fused_update_wrapper_in_place_matches_pallas(g_dtype):
+    """ops.fused_update on a ragged group, in place, against the Pallas
+    kernel leaf by leaf (fp32 weights, fp32 or bf16 gradients; ŵ in
+    fp32 for some leaves, none for others)."""
+    shapes = [(8192,), (5, 77), (3,)]
+    ins = [_fu_inputs(20 + i, s, g_dtype) for i, s in enumerate(shapes)]
+    ws = [torch.from_numpy(w.copy()) for w, _, _ in ins]
+    vs = [torch.from_numpy(v.copy()) for _, v, _ in ins]
+    gs = [torch.from_numpy(np.asarray(g, np.float32)).to(
+        getattr(torch, g_dtype)) for _, _, g in ins]
+    whats = [torch.empty(shapes[0]), None, torch.empty(shapes[2])]
+    ops.fused_update(ws, vs, gs, whats=whats, **FU_KW)
+    tol = 1e-6 if g_dtype == "float32" else BF16_TOL
+    for i, (w, v, g) in enumerate(ins):
+        jw, jv, jwh = jfu.fused_update(
+            jnp.asarray(w), jnp.asarray(v), jnp.asarray(g),
+            interpret=True, **FU_KW)
+        _close(ws[i], np.asarray(jw), tol)
+        _close(vs[i], np.asarray(jv), tol)
+        if whats[i] is not None:
+            _close(whats[i], np.asarray(jwh), tol)
+
+
+def test_fused_update_wrapper_checks():
+    w = torch.zeros(4)
+    with pytest.raises(TypeError, match="fp32"):
+        ops.fused_update([w.double()], [w], [w], lr=0.1, gamma=0.9)
+    with pytest.raises(ValueError, match="differ in length"):
+        ops.fused_update([w], [w, w], [w], lr=0.1, gamma=0.9)
+    with pytest.raises(ValueError, match="!="):
+        ops.fused_update([w], [torch.zeros(5)], [w], lr=0.1, gamma=0.9)
+    with pytest.raises(TypeError, match="group"):
+        ops.fused_update([w, w], [w, w], [w, w.bfloat16()], lr=0.1,
+                         gamma=0.9)

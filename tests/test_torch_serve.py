@@ -65,7 +65,7 @@ def test_simple_engine_tokens_match_jax(served):
     live = [q for q in trace if got[q.rid]]
     assert eng.n_prefill == 1 + len(live)
     assert eng.n_decode == 1 + sum(q.gen_len - 1 for q in live)
-    assert ops.launch_counts() == {"flash_fwd": 0}
+    assert set(ops.launch_counts().values()) == {0}
 
 
 def test_simple_engine_rejects_what_jax_rejects(served):
