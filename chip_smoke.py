@@ -11,11 +11,13 @@ the JAX package, and in phases:
   1. prints the card (nvidia-smi's name and power limit, torch's name
      and device count);
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
-     csrc`` (one nvcc per source, all at once), with ptxas's registers
-     and shared memory;
+     csrc`` (one nvcc per source, all five at once), with ptxas's
+     registers and shared memory;
   3. holds each kernel against its plain PyTorch version on the card
      (TF32 off for the plain versions): the flash forward at the serving
-     path's decode and prefill shapes, the training shape, the
+     paths' decode and prefill shapes (granite-8b's attention, head_dim
+     128, and zamba2-1.2b's shared block, head_dim 64), the training
+     shape, the
      repository's kernel test cases and a long causal case (2e-5 in
      fp32, 2e-2 in bf16); the flash backward (dq, dk/dv) at the training
      shape, the repository's backward test case and a non-causal GQA
@@ -23,18 +25,28 @@ the JAX package, and in phases:
      bf16); the fused update on a ragged group of tensors, with and
      without the prediction and with bf16 gradients (1e-6 in fp32, 2e-2
      in bf16), and (in phase 8) on the training path's two groups, a
-     full-width stage and the outer tree;
-  4. holds the port's model on the card against the same model on the
-     CPU at the smoke size in fp32: serving (prefill, decode, engine
-     tokens) and 2(S-1)+3 streaming SpecTrain ticks on 4 stages (losses
-     and every parameter, momentum and prediction leaf);
+     full-width stage and the outer tree; the two scans (``rwkv6_scan``,
+     ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0),
+     prefill (s = 12), ragged (s = 37) and s = 2048 at full width, and
+     mamba2 with g > 1, with the decays the models draw (down to ~1e-29
+     and ~1e-5): y and S_T (2e-5 in fp32; 2e-2 on rwkv6's bf16 y), each
+     also with S_T written over S0 in place, as the models call them;
+  4. holds the port's models on the card against the same models on the
+     CPU at the smoke size in fp32: granite serving (prefill, decode,
+     engine tokens), rwkv6 and zamba2 serving (prefill and decode
+     steps: logits and every state and KV leaf, 1e-4), and 2(S-1)+3
+     streaming SpecTrain ticks on 4 stages (losses and every parameter,
+     momentum and prediction leaf);
   5. drives the serving path, ``repro_torch.launch.serve.main``, on the
-     full-width, full-depth granite-8b in bf16 with random weights, and
-     checks every admissible request got its tokens, the logits were
-     finite and the forward kernel ran 36 times per prefill and decode
-     call;
-  6. profiles a few full-width decode steps (wall per step, device
-     busy share, device time per kernel);
+     full-width, full-depth rwkv6-7b (32 layers), zamba2-1.2b (38
+     layers) and granite-8b (36 layers) in bf16 with random weights, one
+     model at a time, and checks every admissible request got its
+     tokens, the logits were finite and each kernel ran exactly as often
+     as the path needs: per prefill and decode call 32 ``rwkv6_scan``;
+     38 ``mamba2_scan`` and 2 ``flash_fwd`` (zamba2's shared attention);
+     36 ``flash_fwd``; and nothing else;
+  6. profiles a few full-width decode steps of each of the three models
+     (wall per step, device busy share, device time per kernel);
   7. drives the training path, ``repro_torch.launch.train.main``, on
      full-width granite-8b cut to 8 layers in 4 stages, bf16 compute,
      SpecTrain, 10 ticks; checks the losses are finite, the loss turns
@@ -45,7 +57,8 @@ the JAX package, and in phases:
   8. times every kernel at its main path's shapes beside its bound, its
      plain version and a library yardstick the port never calls
      (``scaled_dot_product_attention`` forward and backward,
-     ``torch.optim.SGD(fused=True)``).
+     ``torch.optim.SGD(fused=True)``; none computes either recurrence),
+     the scans at decode, prefill and s = 2048.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -65,6 +78,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "granite-8b"
+SSM_ARCHS = ("rwkv6-7b", "zamba2-1.2b")
+# zamba2-1.2b's shared attention block: heads, KV heads, head_dim
+ZAMBA2_ATTN = (32, 32, 64)
 TIMEOUT_S = 60
 
 # published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -247,12 +263,12 @@ def card_info(torch) -> dict:
     return {"smi": smi_line, "kind": name, "count": count}
 
 
-def build_kernels(build, fa, fu) -> None:
+def build_kernels(build, *mods) -> None:
     phase("build")
     t0 = time.perf_counter()
     built = build.build_all()
-    fa.load()
-    fu.load()
+    for mod in mods:
+        mod.load()
     print(f"built {sorted(built) or 'nothing (libraries present)'} in "
           f"{time.perf_counter() - t0:.2f}s")
     for name, info in sorted(built.items()):
@@ -268,18 +284,24 @@ def build_kernels(build, fa, fu) -> None:
         print(f"  dynamic shared memory per block at head_dim {d}: "
               f"flash_fwd {fwd(d)} B, flash_bwd_dq {bwd(0, d)} B, "
               f"flash_bwd_dkv {bwd(1, d)} B; fused_update none")
+    print("  rwkv6_scan, mamba2_scan: static shared memory only (ptxas "
+          "lines above)")
 
 
 def kernel_checks(torch, fa, ref) -> dict:
     phase("flash_fwd against its plain version on the card")
     cfg = (32, 8, 128)       # granite-8b heads, KV heads, head_dim
     cases = []
-    for kv_len in (1, 37, 64):
-        cases.append(Case(f"decode kv_len={kv_len}", 1, 1, 64, *cfg,
-                          "bfloat16", False, kv_len - 1, kv_len))
-    for n in (2, 12):
-        cases.append(Case(f"prefill n={n}", 1, n, n, *cfg, "bfloat16",
-                          True))
+    # the serving paths' calls: granite-8b's attention layers and
+    # zamba2-1.2b's shared attention block (heads, KV heads, head_dim)
+    for arch, heads in (("", cfg), ("zamba2 ", ZAMBA2_ATTN)):
+        for kv_len in (1, 37, 64):
+            cases.append(Case(f"{arch}decode kv_len={kv_len}", 1, 1, 64,
+                              *heads, "bfloat16", False, kv_len - 1,
+                              kv_len))
+        for n in (2, 12):
+            cases.append(Case(f"{arch}prefill n={n}", 1, n, n, *heads,
+                              "bfloat16", True))
     for b, H, KV, sq, sk, d, causal, dt in FLASH_CASES:
         cases.append(Case(f"test_kernels b{b} H{H}/{KV} {sq}x{sk} d{d} "
                           f"{'causal' if causal else 'full'} {dt}",
@@ -336,14 +358,34 @@ def model_check(torch) -> None:
     check(t_c == t_g, "engine tokens differ between the card and the CPU")
 
 
-def main_path(torch, ops, n_layers: int) -> dict:
-    phase(f"main path: repro_torch.launch.serve.main, full {ARCH}, bf16")
+def per_call_launches(arch: str) -> dict:
+    """Kernel launches one prefill or decode call of full ``arch`` makes:
+    one flash forward per attention layer, one scan per rwkv6 / mamba2
+    layer, and one flash forward per shared-block call of a hybrid model
+    (after every full ``shared_attn_every`` segment of each stage)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import uniform_stage_sizes
+    cfg = get_config(arch)
+    if cfg.ssm is None:
+        return {"flash_fwd": cfg.n_layers}
+    if cfg.ssm.kind == "rwkv6":
+        return {"rwkv6_scan": cfg.n_layers}
+    k = cfg.ssm.shared_attn_every
+    sizes = uniform_stage_sizes(cfg.n_layers, cfg.mesh_plan.pipe)
+    return {"mamba2_scan": cfg.n_layers,
+            "flash_fwd": sum(n // k for n in sizes)}
+
+
+def main_path(torch, ops, arch: str, n_layers: int) -> dict:
+    phase(f"main path: repro_torch.launch.serve.main, full {arch}, bf16")
+    import gc
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.planner import serve_plan
     from repro_torch.serve import admissible, poisson_trace
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     check(cfg.n_layers == n_layers, "unexpected depth")
+    per_call = per_call_launches(arch)
     args = dict(requests=8, rate=1.5, prompt_lens=(2, 12),
                 gen_lens=(1, 8), prompt_budget=16, page_seq=64, seed=0)
     trace = poisson_trace(args["requests"], rate=args["rate"],
@@ -357,17 +399,19 @@ def main_path(torch, ops, n_layers: int) -> dict:
     want_decode = 1 + sum(q.gen_len - 1 for q in live)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "serve.jsonl"
-        argv = ["--arch", ARCH, "--requests", str(args["requests"]),
+        argv = ["--arch", arch, "--requests", str(args["requests"]),
                 "--rate", str(args["rate"]), "--prompt-lens", "2,12",
                 "--gen-lens", "1,8", "--prompt-budget", "16",
                 "--page-seq", "64", "--seed", "0",
                 "--metrics-out", str(out)]
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         rc = serve.main(argv)
         torch.cuda.synchronize()
-        launches = ops.launch_counts()["flash_fwd"]
+        counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         recs = [json.loads(x) for x in out.read_text().splitlines()]
     check(rc == 0, f"serve.main returned {rc}")
@@ -383,8 +427,9 @@ def main_path(torch, ops, n_layers: int) -> dict:
           f"{run['token_ms_p99']:.3f} ms/tok   warm-up "
           f"{run['compile_s']:.2f}s")
     print(f"  peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
-    print(f"  flash_fwd launches {launches} = {n_layers} x "
-          f"({n_pf:g} + {n_dec:g})")
+    for name, n in per_call.items():
+        print(f"  {name} launches {counts[name]} = {n} x "
+              f"({n_pf:g} + {n_dec:g})")
     check(run["n_served"] == len(live) and run["n_rejected"] ==
           len(trace) - len(live), "not every admissible request was served")
     check(run["n_tokens"] == sum(q.gen_len for q in live),
@@ -394,24 +439,33 @@ def main_path(torch, ops, n_layers: int) -> dict:
     check((n_pf, n_dec) == (want_prefill, want_decode),
           f"engine made {n_pf} + {n_dec} calls, expected "
           f"{want_prefill} + {want_decode}")
-    check(launches == n_layers * (want_prefill + want_decode),
-          f"flash_fwd ran {launches} times, expected "
-          f"{n_layers * (want_prefill + want_decode)}")
+    want = {name: per_call.get(name, 0) * (want_prefill + want_decode)
+            for name in counts}
+    check(counts == want, f"the run launched {counts}, expected {want}")
     check(all(math.isfinite(run[k]) for k in
               ("tok_per_s", "token_ms_p50", "token_ms_p99")),
           "non-finite serving metrics")
-    return {"launches": launches, "run": run, "peak_bytes": peak}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "run": run, "peak_bytes": peak,
+            "per_call": per_call}
 
 
-def decode_profile(torch) -> dict:
+# the kernel function each wrapper launches, as the profiler names it
+KERNEL_SYMBOL = {"flash_fwd": "flash_fwd_kernel", "rwkv6_scan": "wkv_kernel",
+                 "mamba2_scan": "ssd_kernel"}
+
+
+def decode_profile(torch, arch: str = ARCH) -> dict:
     """Where a full-width decode step spends its time: wall per step
     without the profiler, then device time per kernel under it."""
-    phase(f"a full-width {ARCH} decode step under torch.profiler")
+    phase(f"a full-width {arch} decode step under torch.profiler")
+    import gc
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         dtype=cfg.compute_dtype)
@@ -437,12 +491,16 @@ def decode_profile(torch) -> dict:
             for pos in range(9 + steps, 9 + 2 * steps):
                 step(pos)
             torch.cuda.synchronize()
-    del params, cache
+    del params, cache, model
+    gc.collect()
+    torch.cuda.empty_cache()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    n_kern = sum(e.count for e in kern) / steps
     print(f"  wall per decode step (no profiler): {wall_ms:.3f} ms")
+    print(f"  device kernels per step: {n_kern:.1f}")
     check(bool(kern), "the profiler saw no device activity in the decode "
           "steps")
     print(f"  device busy per step: {busy_ms:.3f} ms, "
@@ -452,15 +510,17 @@ def decode_profile(torch) -> dict:
     for e in kern[:8]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms "
               f"{e.count / steps:6.1f}x  {e.key[:72]}")
-    hits = [e for e in kern if "flash_fwd_kernel" in e.key]
-    n_flash = sum(e.count for e in hits)
-    check(n_flash == cfg.n_layers * steps, f"the profiled decode steps "
-          f"show {n_flash} flash_fwd kernels, expected "
-          f"{cfg.n_layers * steps}")
-    flash = sum(e.self_device_time_total for e in hits) / 1e3 / steps
-    print(f"  flash_fwd: {flash:.4f} ms per step "
-          f"({100 * flash / busy_ms:.1f}% of device busy)")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "flash_ms": flash}
+    by = {}
+    for name, per_step in per_call_launches(arch).items():
+        hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
+        n_hit = sum(e.count for e in hits)
+        check(n_hit == per_step * steps, f"the profiled decode steps show "
+              f"{n_hit} {name} kernels, expected {per_step * steps}")
+        by[name] = sum(e.self_device_time_total for e in hits) / 1e3 / steps
+        print(f"  {name}: {by[name]:.4f} ms per step "
+              f"({100 * by[name] / busy_ms:.1f}% of device busy)")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": by,
+            "idle_share": 1 - busy_ms / wall_ms, "kernels_per_step": n_kern}
 
 
 def timings(torch, fa, ref, errs) -> list:
@@ -471,6 +531,10 @@ def timings(torch, fa, ref, errs) -> list:
     cases = [(Case("decode kv_len=64", 1, 1, 64, *cfg, "bfloat16", False,
                    63, 64), 500),
              (Case("prefill n=12", 1, 12, 12, *cfg, "bfloat16", True), 500),
+             (Case("zamba2 decode kv_len=64", 1, 1, 64, *ZAMBA2_ATTN,
+                   "bfloat16", False, 63, 64), 500),
+             (Case("zamba2 prefill n=12", 1, 12, 12, *ZAMBA2_ATTN,
+                   "bfloat16", True), 500),
              (Case("causal 2048", 1, 2048, 2048, *cfg, "bfloat16", True),
               20),
              (Case("train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
@@ -660,6 +724,220 @@ def fused_checks(torch, ops, ref) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the recurrences: rwkv6_scan and mamba2_scan
+
+# the serving archs' full widths: rwkv6-7b h 64, hd 64; zamba2-1.2b
+# h 64 (d_in 4096 / 64), p 64, n 64, g 1
+SCAN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+class ScanCase:
+    """One scan call in the model layout, with the decays drawn as the
+    models draw them: rwkv6 w = exp(-exp(logw)), logw up to 4.2 (w down
+    to ~1e-29); mamba2 decay = exp(-U(0, 11.5)) (down to ~1e-5)."""
+
+    def __init__(self, kind, name, b, s, h, d, dtype, n=None, g=1):
+        self.kind, self.name, self.b, self.s, self.h = kind, name, b, s, h
+        self.d, self.n, self.g, self.dtype = d, n or d, g, dtype
+
+    def tensors(self, torch, seed=0):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dt = getattr(torch, self.dtype)
+        mk = lambda *sh, sc=1.0, d=torch.float32: (torch.randn(
+            *sh, generator=g, device="cuda") * sc).to(d)
+        uni = lambda *sh: torch.rand(*sh, generator=g, device="cuda")
+        b, s, h, d = self.b, self.s, self.h, self.d
+        if self.kind == "rwkv6":
+            w = torch.exp(-torch.exp(-3.0 + 7.2 * uni(b, s, h, d)))
+            return (mk(b, s, h, d, d=dt), mk(b, s, h, d, sc=0.3, d=dt),
+                    mk(b, s, h, d, d=dt), w, mk(h, d, sc=0.3),
+                    mk(b, h, d, d, sc=0.1))
+        delta = torch.nn.functional.softplus(mk(b, s, h))
+        decay = torch.exp(-11.5 * uni(b, s, h))
+        # B and C as the model has them: strided views of one projection
+        bc = mk(b, s, 2 * self.g * self.n, sc=0.5, d=dt)
+        B, C = (t.reshape(b, s, self.g, self.n) for t in bc.chunk(2, -1))
+        return (mk(b, s, h, d, d=dt), delta, decay, B, C,
+                mk(b, h, d, self.n, sc=0.1))
+
+    def plain(self, torch, ref, args):
+        """The plain version (kernel layout) on the same inputs, back in
+        the model layout: (y, S_T)."""
+        tr = lambda t: t.transpose(1, 2)
+        if self.kind == "rwkv6":
+            r, k, v, w, u, S0 = args
+            y, sT = ref.rwkv6_ref(tr(r), tr(k), tr(v), tr(w), u, S0)
+            return tr(y).to(r.dtype), sT
+        x, delta, decay, B, C, S0 = args
+        rep = self.h // self.g
+        per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+        y, sT = ref.mamba2_ref(tr(x), tr(delta), tr(decay), per_head(B),
+                               per_head(C), S0)
+        return tr(y), sT
+
+    def bound(self):
+        """(least ms, what bounds it).  Bytes: every input read once and
+        y, S_T written once.  Operations, fp32 outside the tensor cores
+        (the recurrence runs in fp32): per step and state element 3 for
+        the update (two products and a sum) and 2 for the read-out (a
+        product and a sum); rwkv6's bonus term folds to O(hd)."""
+        el = 2 if self.dtype == "bfloat16" else 4
+        b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
+        if self.kind == "rwkv6":
+            nbytes = (el * 4 * b * s * h * d        # r, k, v in; y out
+                      + 4 * b * s * h * d           # w
+                      + 4 * h * d                   # u
+                      + 2 * 4 * b * h * d * d)      # S0 in, S_T out
+        else:
+            nbytes = (el * b * s * h * d            # x
+                      + 4 * b * s * h * d           # y (fp32)
+                      + 2 * 4 * b * s * h           # dt, decay
+                      + el * 2 * b * s * self.g * n  # B, C
+                      + 2 * 4 * b * h * d * n)      # S0 in, S_T out
+        flops = 5 * b * s * h * d * n
+        t_b = nbytes / HBM_BPS * 1e3
+        t_f = flops / PEAK_FLOPS["float32"] * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def scan_fn(ops, case: ScanCase):
+    return ops.rwkv6_scan if case.kind == "rwkv6" else ops.mamba2_scan
+
+
+def scan_cases(kind: str) -> list:
+    full = dict(h=64, d=64)            # both archs at full width, b 1
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for name, s in (("decode s=1", 1), ("prefill s=12", 12),
+                        ("ragged s=37", 37), ("full s=2048", 2048)):
+            cases.append(ScanCase(kind, f"{name} {dt}", 1, s, dtype=dt,
+                                  **full))
+    if kind == "mamba2":
+        cases.append(ScanCase(kind, "g=4 b2 h16 p32 n16 s=37 float32", 2,
+                              37, 16, 32, "float32", n=16, g=4))
+        cases.append(ScanCase(kind, "g=2 b1 h8 p16 n64 s=37 bfloat16", 1,
+                              37, 8, 16, "bfloat16", n=64, g=2))
+    return cases
+
+
+def scan_checks(torch, ops, ref) -> dict:
+    """Both scan kernels against their plain versions on the card: y and
+    S_T, fp32 and bf16, decode (s = 1) from a nonzero S0, prefill,
+    ragged, s = 2048 at full width, and mamba2 with g > 1."""
+    errs = {}
+    for kind in ("rwkv6", "mamba2"):
+        phase(f"{kind}_scan against its plain version on the card")
+        for i, case in enumerate(scan_cases(kind)):
+            args = case.tensors(torch, seed=200 + i)
+            y, sT = scan_fn(ops, case)(*args)
+            torch.cuda.synchronize()
+            y_r, sT_r = case.plain(torch, ref, args)
+            e = {}
+            for got, want, nm, tol in (
+                    (y, y_r, "y", SCAN_TOL[case.dtype if case.kind ==
+                                            "rwkv6" else "float32"]),
+                    (sT, sT_r, "S_T", SCAN_TOL["float32"])):
+                got, want = got.float(), want.float()
+                check(bool(torch.isfinite(got).all()),
+                      f"{kind} {case.name}: {nm} not finite")
+                e[nm] = float((got - want).abs().max())
+                check(torch.allclose(got, want, atol=tol, rtol=tol),
+                      f"{kind} {case.name}: {nm} max |d| {e[nm]:.3e} beyond "
+                      f"{tol}")
+            errs[(kind, case.name)] = max(e.values())
+            # the models' call: S_T written over S0 in place, bit for bit
+            S_in = args[-1].clone()
+            y_in, _ = scan_fn(ops, case)(*args[:-1], S_in, out=S_in)
+            torch.cuda.synchronize()
+            check(torch.equal(y_in, y) and torch.equal(S_in, sT),
+                  f"{kind} {case.name}: out=S0 differs from a fresh S_T")
+            w_min = float(args[3 if kind == "rwkv6" else 2].min())
+            print(f"  {case.name:<34} max|d y| {e['y']:.3e}  max|d S_T| "
+                  f"{e['S_T']:.3e}  (smallest decay {w_min:.2e}); in "
+                  f"place: equal")
+    return errs
+
+
+def ssm_model_check(torch) -> None:
+    """The port's rwkv6 and zamba2 models on the card (scan and flash
+    kernels) against themselves on the CPU (plain versions), same
+    weights, smoke size, fp32: prefill and three decode steps, logits
+    and every state and KV leaf."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import Model
+    for arch in ("rwkv6-7b", "zamba2-1.2b"):
+        phase(f"{arch} on the card against the CPU, smoke size, fp32")
+        cfg = smoke_config(get_config(arch)).replace(
+            n_layers=4, compute_dtype="float32")
+        if arch == "zamba2-1.2b":    # stages (3, 2): both branches of the
+            cfg = cfg.replace(n_layers=5, mesh_plan=dataclasses.replace(
+                cfg.mesh_plan, pipe=2))               # shared-block rule
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        p_gpu = _tree_to(p_cpu, "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                             generator=torch.Generator().manual_seed(1))
+        worst = 0.0
+        with torch.inference_mode():
+            l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, 16)
+            l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.cuda()}, 16)
+            pairs = [(l_g, l_c)]
+            for pos in range(9, 12):
+                tok = toks[:, pos - 9:pos - 8]
+                d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, pos)
+                d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.cuda(), pos)
+                pairs.append((d_g, d_c))
+                pairs += [(c_g[grp][k], c_c[grp][k]) for grp in c_c
+                          for k in c_c[grp]]
+        for g_, c_ in pairs:
+            d = float((g_.cpu().float() - c_.float()).abs().max())
+            check(torch.allclose(g_.cpu().float(), c_.float(), atol=1e-4,
+                                 rtol=1e-4),
+                  f"{arch}: card and CPU differ by {d:.3e} (tol 1e-4)")
+            worst = max(worst, d)
+        print(f"  logits and every state leaf, prefill + 3 decode steps: "
+              f"max |d| {worst:.3e} (tol 1e-4)")
+
+
+def scan_timings(torch, ops, ref, errs) -> dict:
+    """Each scan kernel at the decode step and at s = 2048, bf16 inputs
+    (the main path's), full width: device ms, wall ms per call, the
+    plain version's ms, and the bound."""
+    phase("timings of the scan kernels (CUDA events, after warm-up)")
+    rows = {}
+    for kind in ("rwkv6", "mamba2"):
+        rows[kind] = []
+        for case, iters, plain_iters in (
+                (ScanCase(kind, "decode s=1 bfloat16", 1, 1, 64, 64,
+                          "bfloat16"), 500, 20),
+                (ScanCase(kind, "prefill s=12 bfloat16", 1, 12, 64, 64,
+                          "bfloat16"), 500, 10),
+                (ScanCase(kind, "full s=2048 bfloat16", 1, 2048, 64, 64,
+                          "bfloat16"), 20, 2)):
+            args = case.tensors(torch, seed=7)
+            fn = scan_fn(ops, case)
+            ms, wall = time_ms(torch, lambda: fn(*args), iters)
+            plain_ms, _ = time_ms(torch, lambda: case.plain(torch, ref,
+                                                            args),
+                                  plain_iters)
+            bound_ms, bound_by = case.bound()
+            rows[kind].append({
+                "shape": f"{case.name}, b 1, h 64, "
+                         f"{'hd 64' if kind == 'rwkv6' else 'p 64, n 64, g 1'}",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "max_abs_err": errs[(kind, case.name)],
+                "wall_ms_per_call": wall})
+            print(f"  {kind}_scan {case.name:<22} kernel {ms:.4f} ms (wall "
+                  f"{wall:.4f} ms per call)  bound {bound_ms:.5f} ms "
+                  f"({bound_by})  plain {plain_ms:.4f} ms  library: none")
+    print("  library: none -- no single PyTorch call computes either "
+          "recurrence (a data-dependent decay per step and state element)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # training
 
 
@@ -763,7 +1041,7 @@ def train_main_path(torch, ops) -> dict:
         check(got == want_tick, f"tick {s} launched {got}, expected "
               f"{want_tick}")
         prev = counts
-    check(total == {k: v * TRAIN_STEPS for k, v in want_tick.items()},
+    check(total == {k: want_tick.get(k, 0) * TRAIN_STEPS for k in total},
           f"the run launched {total}")
     check(all(math.isfinite(x) for x in rec["loss"]), "non-finite loss")
     check(rec["valid"] == [float(s >= S - 1) for s in range(TRAIN_STEPS)],
@@ -920,24 +1198,33 @@ def run() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
 
     t_start = time.perf_counter()
     try:
         info = card_info(torch)
-        build_kernels(build, fa, fu)
+        build_kernels(build, fa, fu, r6, m2)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         errs = kernel_checks(torch, fa, ref)
         bwd_errs = bwd_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
+        scan_errs = scan_checks(torch, ops, ref)
         model_check(torch)
+        ssm_model_check(torch)
         train_check(torch)
-        n_layers = get_config(ARCH).n_layers
-        main = main_path(torch, ops, n_layers)
+        ssm = {}
+        for arch in SSM_ARCHS:
+            ssm[arch] = main_path(torch, ops, arch,
+                                  get_config(arch).n_layers)
+            ssm[arch]["profile"] = decode_profile(torch, arch)
+        main = main_path(torch, ops, ARCH, get_config(ARCH).n_layers)
         decode_profile(torch)
         train = train_main_path(torch, ops)
         rows = timings(torch, fa, ref, errs)
         train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
+        scan_rows = scan_timings(torch, ops, ref, scan_errs)
     except Exception:   # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -947,9 +1234,11 @@ def run() -> int:
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": main["launches"],
-        "launches_by_path": {"serve": main["launches"],
-                             "train": train["launches"]["flash_fwd"]},
+        "launches": main["launches"]["flash_fwd"],
+        "launches_by_path": {
+            "serve": main["launches"]["flash_fwd"],
+            "serve zamba2-1.2b": ssm["zamba2-1.2b"]["launches"]["flash_fwd"],
+            "train": train["launches"]["flash_fwd"]},
         "max_abs_err": top["max_abs_err"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -972,6 +1261,33 @@ def run() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], **({"shapes": row["shapes"]}
                                       if "shapes" in row else {})})
+    for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
+        name = f"{kind}_scan"
+        top = scan_rows[kind][0]        # the decode step: the common call
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:"
+                        f"{82 if kind == 'rwkv6' else 72}",
+            "launches": ssm[arch]["launches"][name],
+            "launches_per_call": ssm[arch]["per_call"][name],
+            "max_abs_err": max(v for (k, _), v in scan_errs.items()
+                               if k == kind),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the "
+                       "recurrence",
+            "shape": top["shape"], "shapes": scan_rows[kind]})
+    for arch, rec in ssm.items():
+        run, prof = rec["run"], rec["profile"]
+        print(f"{arch} serving: {run['tok_per_s']:.2f} tok/s, p50 "
+              f"{run['token_ms_p50']:.3f} ms/token, p99 "
+              f"{run['token_ms_p99']:.3f}; decode step {prof['wall_ms']:.3f} "
+              f"ms wall, {prof['busy_ms']:.3f} ms busy, "
+              f"{100 * prof['idle_share']:.1f}% idle, "
+              f"{prof['kernels_per_step']:.0f} kernels; peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB")
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "

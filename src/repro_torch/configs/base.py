@@ -223,8 +223,7 @@ _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 # the architectures the JAX package knows that the port does not serve yet
 _NOT_PORTED = (
     "whisper-base", "pixtral-12b", "granite-20b", "starcoder2-15b",
-    "minicpm3-4b", "grok-1-314b", "deepseek-moe-16b", "rwkv6-7b",
-    "zamba2-1.2b",
+    "minicpm3-4b", "grok-1-314b", "deepseek-moe-16b",
 )
 
 

@@ -1,0 +1,133 @@
+"""Mamba-2 SSD recurrence: the wrapper around the Hopper CUDA kernel.
+
+Twin of ``repro/kernels/mamba2_scan.py`` (the Pallas TPU kernel
+``mamba2_scan``).  The kernel itself is ``csrc/mamba2_scan.cu``; its
+source note says what it computes, what bounds it on an H100 and what
+its simple design leaves for later.  Unlike the Pallas kernel it
+computes the recurrence step by step (exact at any decay in (0, 1],
+where the Pallas kernel's in-chunk decay ratios leave fp32's range at
+small decays), takes the model-side layouts through strides, reads the
+B/C group of each head by index instead of repeating B and C per head,
+and takes any s >= 1.
+
+On CUDA tensors :func:`mamba2_scan` launches the kernel or raises; on
+CPU tensors it computes :func:`repro_torch.kernels.ref.mamba2_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import mamba2_ref
+
+HEAD_DIMS = (16, 32, 64)         # for p and for n
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GRID_YZ_MAX = 65535
+
+# kernel launches since the last reset (the CPU path never counts)
+launches = 0
+
+_p = ctypes.c_void_p
+_ARGTYPES = [_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15 + [_p]
+
+
+def _lib():
+    fn = build.library("mamba2_scan").repro_mamba2_scan
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def load() -> None:
+    """Build (at first use) and load the kernel's library."""
+    _lib()
+
+
+def _check(x, dt, decay, B, C, S0) -> None:
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"x and B must be 4-D, got {tuple(x.shape)} and "
+                         f"{tuple(B.shape)}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    for name, t in (("dt", dt), ("decay", decay)):
+        if t.shape != (b, s, h):
+            raise ValueError(f"{name} must be {(b, s, h)}, got "
+                             f"{tuple(t.shape)}")
+    if B.shape[:2] != (b, s) or C.shape != B.shape:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must "
+                         f"be [{b}, {s}, g, n]")
+    if g < 1 or h % g:
+        raise ValueError(f"{h} heads do not group over {g} B/C groups")
+    if p not in HEAD_DIMS or n not in HEAD_DIMS:
+        raise ValueError(f"head size {p} or state size {n} not in "
+                         f"{HEAD_DIMS}")
+    if b < 1 or s < 1:
+        raise ValueError(f"empty sequence {tuple(x.shape)}")
+    if S0.shape != (b, h, p, n):
+        raise ValueError(f"S0 must be {(b, h, p, n)}, got "
+                         f"{tuple(S0.shape)}")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"x, B, C must share one dtype of "
+                        f"{tuple(_DTYPES)}, got {x.dtype}, {B.dtype}, "
+                        f"{C.dtype}")
+    for name, t in (("dt", dt), ("decay", decay), ("S0", S0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be fp32, got {t.dtype}")
+    if len({t.device for t in (x, dt, decay, B, C, S0)}) != 1:
+        raise ValueError("x, dt, decay, B, C, S0 on different devices")
+
+
+def mamba2_scan(x, dt, decay, B, C, S0, out=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b, s, h, p] and B, C [b, s, g, n] (fp32 or bf16; head i reads
+    group i // (h // g)), dt, decay [b, s, h] fp32, S0 [b, h, p, n] fp32
+    -> (y [b, s, h, p] fp32, S_T [b, h, p, n] fp32).  S_T is written
+    into ``out`` when given (contiguous fp32, S0 itself allowed: each
+    state entry is read before it is written).  See ``mamba2_ref`` for
+    the recurrence."""
+    _check(x, dt, decay, B, C, S0)
+    if out is not None and (out.shape != S0.shape or out.dtype !=
+                            torch.float32 or out.device != S0.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous fp32 {tuple(S0.shape)} "
+                         f"on {S0.device}")
+    if x.device.type == "cpu":
+        rep = x.shape[2] // B.shape[2]
+        tr = lambda t: t.transpose(1, 2)
+        per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+        y, sT = mamba2_ref(tr(x), tr(dt), tr(decay), per_head(B),
+                           per_head(C), S0)
+        return tr(y), sT if out is None else out.copy_(sT)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_scan runs on cuda or cpu, not {x.device}")
+    for name, t in (("x", x), ("dt", dt), ("decay", decay), ("B", B),
+                    ("C", C)):
+        if min(t.stride()) < 0 or (t.dim() == 4 and t.stride(-1) != 1):
+            raise ValueError(f"{name} needs a contiguous last dim and "
+                             f"non-negative strides, got {t.stride()}")
+    if not S0.is_contiguous():
+        raise ValueError("S0 must be contiguous")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if b > _GRID_YZ_MAX or h > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    sT = out if out is not None else torch.empty(
+        (b, h, p, n), dtype=torch.float32, device=x.device)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), decay.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), S0.data_ptr(), y.data_ptr(),
+                 sT.data_ptr(), _DTYPES[x.dtype], p, n, b, s, h, g,
+                 *x.stride()[:3], *dt.stride(), *decay.stride(),
+                 *B.stride()[:3], *C.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_scan launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return y, sT

@@ -5,7 +5,10 @@ layout and goes to the kernel on CUDA tensors and to its plain version
 on CPU tensors (``kernels/ref.py``).  :func:`flash_attention` is
 differentiable, as the JAX twin's ``custom_vjp`` is: its backward is the
 flash backward (two kernels on the card, ``flash_bwd_ref`` on the CPU),
-never autograd of the plain forward.
+never autograd of the plain forward.  The two recurrences
+(:func:`rwkv6_scan`, :func:`mamba2_scan`) serve inference and prefill
+only, as in the JAX package, which has no backward kernel for them: they
+raise where autograd would need one.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_update as fu
+from repro_torch.kernels import mamba2_scan as m2
+from repro_torch.kernels import rwkv6_scan as r6
 
 
 # ---------------------------------------------------------------------------
@@ -54,12 +59,13 @@ def _timed(name: str, fn, *args, **kw):
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_dq,
-            "flash_bwd_dkv": fa.launches_dkv, "fused_update": fu.launches}
+            "flash_bwd_dkv": fa.launches_dkv, "fused_update": fu.launches,
+            "rwkv6_scan": r6.launches, "mamba2_scan": m2.launches}
 
 
 def reset_launch_counts() -> None:
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
-    fu.launches = 0
+    fu.launches = r6.launches = m2.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -107,3 +113,34 @@ def fused_update(ws, vs, gs, *, lr: float, gamma: float, s: float = 0.0,
     given ``whats[i]``.  See ``kernels/fused_update.py``."""
     _timed("fused_update", fu.fused_update, ws, vs, gs, lr=lr,
            gamma=gamma, s=s, whats=whats)
+
+
+# ---------------------------------------------------------------------------
+# recurrences (inference/prefill path; no backward kernel exists)
+
+
+def _no_grad(name: str, *ts) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name} has no backward: training the SSM families is not "
+            f"ported (the JAX package trains them through its jnp scans)")
+
+
+def rwkv6_scan(r, k, v, w, u, S0, out=None):
+    """Model-side layout: r, k, v, w [b, s, h, hd]; u [h, hd]; S0
+    [b, h, hd, hd] fp32 -> (y [b, s, h, hd] in r's dtype, S_T fp32),
+    S_T written into ``out`` if given (``out=S0`` updates the state in
+    place).  See ``kernels/rwkv6_scan.py``."""
+    _no_grad("rwkv6_scan", r, k, v, w, u, S0)
+    return _timed("rwkv6_scan", r6.rwkv6_scan, r, k, v, w, u, S0, out)
+
+
+def mamba2_scan(x, dt, decay, B, C, S0, out=None):
+    """Model-side layouts: x [b, s, h, p]; dt, decay [b, s, h]; B, C
+    [b, s, g, n] (the group of head i is i // (h // g), read in place);
+    S0 [b, h, p, n] fp32 -> (y [b, s, h, p] fp32, S_T fp32), S_T written
+    into ``out`` if given (``out=S0`` updates the state in place).  See
+    ``kernels/mamba2_scan.py``."""
+    _no_grad("mamba2_scan", x, dt, decay, B, C, S0)
+    return _timed("mamba2_scan", m2.mamba2_scan, x, dt, decay, B, C, S0,
+                  out)

@@ -126,6 +126,54 @@ def flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# recurrences: sequential scans over time in fp32 (no chunking)
+
+
+def rwkv6_ref(r, k, v, w, u, S0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 WKV recurrence, one step at a time.
+
+    Twin of ``repro.kernels.ref.rwkv6_ref`` (kernel layout): r, k, v, w
+    [b, h, s, hd]; u [h, hd]; S0 [b, h, hd, hd] (key x value).  Per step
+
+        y_t = r_t (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
+
+    all in fp32.  Exact at any decay in (0, 1]: no running product is
+    divided out.  Returns (y [b, h, s, hd] fp32, S_T fp32)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    S = S0.float()
+    ys = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]          # [b, h, hd, hd]
+        ys.append(torch.einsum("bhi,bhij->bhj", rt,
+                               S + u[..., :, None] * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(ys, dim=2), S
+
+
+def mamba2_ref(x, dt, decay, B, C, S0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD recurrence, one step at a time.
+
+    Twin of ``repro.kernels.ref.mamba2_ref`` (kernel layout): x
+    [b, h, s, p]; dt, decay [b, h, s]; B, C [b, h, s, n] (already one per
+    head); S0 [b, h, p, n].  Per step
+
+        S <- decay_t S + (dt_t x_t) B_t^T,   y_t = S C_t
+
+    all in fp32.  Returns (y [b, h, s, p] fp32, S_T fp32)."""
+    x, dt, decay, B, C = (t.float() for t in (x, dt, decay, B, C))
+    S = S0.float()
+    ys = []
+    for t in range(x.shape[2]):
+        S = S * decay[:, :, t, None, None] + (
+            (dt[:, :, t, None] * x[:, :, t])[..., :, None]
+            * B[:, :, t, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", S, C[:, :, t]))
+    return torch.stack(ys, dim=2), S
+
+
+# ---------------------------------------------------------------------------
 # fused momentum update + SpecTrain prediction
 
 

@@ -2,9 +2,12 @@
 
 A seeded Poisson arrival trace (``serve/trace.py``) is served by the
 whole-model ``SimpleEngine``: every request prefills in one causal call
-and decodes token by token, with every attention call on the card going
-through the hand-written flash forward kernel.  The pipelined engine is
-a later slice of the port, so ``--engine`` takes only ``simple``.
+and decodes token by token.  On the card every attention call goes
+through the hand-written flash forward kernel and every RWKV-6 or
+Mamba-2 recurrence through its hand-written scan kernel.  ``--arch``
+takes granite-8b (dense), rwkv6-7b (attention-free) and zamba2-1.2b
+(Mamba-2 with shared attention blocks).  The pipelined engine is a
+later slice of the port, so ``--engine`` takes only ``simple``.
 
 Unlike the JAX launcher, which always shrinks the model, this one
 serves the full configuration unless ``--smoke`` is given.  It runs on
@@ -15,9 +18,10 @@ Reported rates exclude the engine's warm-up (kernel build, one prefill,
 one decode); ``--metrics-out`` appends the per-request events, the
 per-token latency histogram and the summary record as JSONL.
 
-Example (full-width granite-8b on one H100):
+Example (full-width granite-8b, or rwkv6-7b, on one H100):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --requests 8 --rate 1.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ def _pair(s: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--arch", default="granite-8b",
+                    help="granite-8b, rwkv6-7b or zamba2-1.2b")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--smoke", action="store_true",

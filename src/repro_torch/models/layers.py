@@ -142,6 +142,18 @@ def norm_apply(cfg, p, x, kind: Optional[str] = None, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def groupnorm_heads(x, scale, bias, n_heads: int, eps: float = 1e-5):
+    """GroupNorm over head_dim groups (the RWKV output norm), in fp32.
+    x: [..., d]; scale, bias: [d]."""
+    orig = x.shape
+    xf = x.float().reshape(orig[:-1] + (n_heads, orig[-1] // n_heads))
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(orig)
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 
@@ -234,8 +246,19 @@ def apply_rope(x, positions, inv_freq):
     return out.to(x.dtype)
 
 
+# Leaves the forward reads in fp32 whatever the compute dtype: norm scales
+# and biases (``norm_apply``), and the SSM blocks' decay, bonus, norm and
+# skip parameters, which ``repro/models/ssm.py`` casts to fp32 where it
+# reads them: ``w0`` (:201), ``u`` (:214), ``gn_scale``/``gn_bias``
+# (:227, through ``groupnorm_heads``), ``dt_bias`` (:340), ``A_log``
+# (:354), ``D`` (:369) and ``norm_scale`` (:377).  Rounding ``w0`` or
+# ``A_log`` to bf16 would move every decay of the model.
+FP32_LEAVES = frozenset({"scale", "bias", "w0", "u", "gn_scale", "gn_bias",
+                         "dt_bias", "A_log", "D", "norm_scale"})
+
+
 def leaf_is_weight(path: Tuple[str, ...]) -> bool:
-    """Whether a parameter leaf is a matrix the forward casts to the
-    compute dtype (norm scales and biases are read in fp32)."""
-    return path[-1] not in ("scale", "bias")
+    """Whether a parameter leaf is one the forward casts to the compute
+    dtype (every leaf but those of :data:`FP32_LEAVES`)."""
+    return path[-1] not in FP32_LEAVES
 

@@ -4,12 +4,17 @@ whole-model forward and loss, stage repartitioning).
 
 Parameters use the JAX package's ragged per-stage canonical layout:
 ``params["stages"]`` is a tuple of stage trees whose ``layers`` leaves
-are ``[L_k, ...]``.  Both halves walk the layers through views of those
-stacks (autograd accumulates each layer's gradient into its slice), so
-no stage split is ever copied.  The KV cache is ``{"layers": {"k", "v":
-[L, b, max_seq, KV, hd]}}`` as in JAX; the decode step fills it in
-place.  ``cfg.remat`` is not ported: the streaming runtime recomputes
-each stage from its stashed input anyway.
+are ``[L_k, ...]`` (hybrid models add one ``shared`` attention block per
+stage).  Both halves walk the layers through views of those stacks
+(autograd accumulates each layer's gradient into its slice), so no
+stage split is ever copied.  The decode cache follows JAX: for dense
+models ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}``; for rwkv6
+and mamba2 the per-layer recurrent state stacked over ``L``; hybrid
+models add ``{"shared": {"k", "v": [n_shared, ...]}}``.  The decode step
+and prefill fill it in place.  The SSM families serve only: their scan
+kernels have no backward, as in the JAX package.  ``cfg.remat`` is not
+ported: the streaming runtime recomputes each stage from its stashed
+input anyway.
 """
 from __future__ import annotations
 
@@ -19,13 +24,19 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_scan as m2
+from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_specs,
                                        init_params, leaf_is_weight,
                                        norm_apply, norm_specs, softmax_xent,
                                        stack_specs, tree_map, unembed_apply)
 from repro_torch.models.transformer import (block_apply, block_specs,
-                                            check_dense)
+                                            check_ported,
+                                            shared_block_apply,
+                                            shared_block_specs)
 
 
 def uniform_stage_sizes(n_layers: int, n_stages: int) -> Tuple[int, ...]:
@@ -38,12 +49,16 @@ def uniform_stage_sizes(n_layers: int, n_stages: int) -> Tuple[int, ...]:
 
 
 def split_flat_stages(flat_stages, sizes) -> Tuple[Any, ...]:
-    """Flat ``{"layers": [L, ...]}`` -> ragged per-stage trees for
-    ``sizes`` (views, not copies)."""
+    """Flat ``{"layers": [L, ...](, "shared": [S, ...])}`` -> ragged
+    per-stage trees for ``sizes`` (views, not copies)."""
     out, lo = [], 0
-    for n in sizes:
-        out.append({"layers": tree_map(lambda _, a, lo=lo, n=n: a[lo:lo + n],
-                                       flat_stages["layers"])})
+    for k, n in enumerate(sizes):
+        tree = {"layers": tree_map(lambda _, a, lo=lo, n=n: a[lo:lo + n],
+                                   flat_stages["layers"])}
+        if "shared" in flat_stages:
+            tree["shared"] = tree_map(lambda _, a, k=k: a[k],
+                                      flat_stages["shared"])
+        out.append(tree)
         lo += n
     return tuple(out)
 
@@ -70,42 +85,60 @@ def _n_layers(stage) -> int:
 
 
 def cast_for_compute(params, dtype: torch.dtype):
-    """Cast every weight matrix to the compute dtype once, leaving norm
-    scales as they are: the forward then reads the same values the JAX
-    twin's per-call ``.astype(dt)`` gives, without casting per token."""
+    """Cast every weight to the compute dtype once, leaving the leaves
+    the forward reads in fp32 (``layers.FP32_LEAVES``) as they are: the
+    forward then reads the same values the JAX twin's per-call
+    ``.astype(dt)`` gives, without casting per token."""
     return tree_map(lambda path, a: a.to(dtype) if leaf_is_weight(path)
                     else a, params)
 
 
 class Model:
-    """Functional model wrapper for one dense ``ArchConfig`` on one
-    device (``cuda`` by default; raises there if no card is present)."""
+    """Functional model wrapper for one dense, rwkv6 or mamba2/hybrid
+    ``ArchConfig`` on one device (``cuda`` by default; raises there if no
+    card is present)."""
 
     def __init__(self, cfg, device="cuda"):
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         plan = cfg.mesh_plan
         self.n_stages = (plan.pipe if plan.pipe_role == "stage"
                          and plan.pipe > 1 else 1)
         self.stage_sizes = uniform_stage_sizes(cfg.n_layers, self.n_stages)
+        self.hybrid = (cfg.ssm is not None
+                       and cfg.ssm.shared_attn_every > 0)
+
+    def kernel_modules(self):
+        """The kernel wrappers this model's forward launches on the card,
+        each with a ``load()`` that builds its kernel."""
+        mods = []
+        if self.cfg.ssm is None or self.hybrid:
+            mods.append(fa)
+        if self.cfg.ssm is not None:
+            mods.append(r6 if self.cfg.ssm.kind == "rwkv6" else m2)
+        return mods
 
     # ------------------------------------------------------------------ specs
     def _outer_specs(self) -> Dict[str, Any]:
         return {"embed": embed_specs(self.cfg), "ln_f": norm_specs(self.cfg)}
 
     def _flat_param_specs(self) -> Dict[str, Any]:
-        return {"outer": self._outer_specs(),
-                "stages": {"layers": stack_specs(block_specs(self.cfg),
-                                                 self.cfg.n_layers,
-                                                 "layer")}}
+        """All layers in one ``[n_layers, ...]`` stack (hybrid shared
+        blocks ``[S, ...]``), split per stage by :meth:`init`."""
+        stages = {"layers": stack_specs(block_specs(self.cfg),
+                                        self.cfg.n_layers, "layer")}
+        if self.hybrid:
+            stages["shared"] = stack_specs(shared_block_specs(self.cfg),
+                                           self.n_stages, "stage")
+        return {"outer": self._outer_specs(), "stages": stages}
 
     def init(self, generator: torch.Generator, *,
              dtype: Optional[str] = None):
         """Random parameters drawn from ``generator`` (which must live on
         the model's device) with the JAX package's distributions.  With
-        ``dtype``, weight matrices are stored in it as they are drawn
-        (see :func:`cast_for_compute`); norm scales keep the param
+        ``dtype``, weights are stored in it as they are drawn (see
+        :func:`cast_for_compute`); the fp32 leaves keep the param
         dtype."""
         leaf_fn = None
         if dtype is not None:
@@ -128,15 +161,29 @@ class Model:
             for i in range(_n_layers(stage)):
                 yield tree_map(lambda _, a, i=i: a[i], stage["layers"])
 
+    def _fires_shared(self, i: int) -> bool:
+        """Whether a stage's shared block runs after its local layer
+        ``i``: after every *full* ``shared_attn_every`` segment, the JAX
+        rule ``hi < L_s or lo + k == L_s`` (a short last segment, or a
+        stage shorter than k, never runs it)."""
+        return self.hybrid and (i + 1) % self.cfg.ssm.shared_attn_every == 0
+
     def stage_apply(self, stage_params, carry, *, pos_offset: int = 0):
-        """One pipeline stage: its blocks in order.  The layer count is
-        read off the tree's leading axis, so uniform and ragged stages
-        run the same code.  carry = (x [b, s, d], aux scalar); dense
-        blocks add nothing to aux."""
+        """One pipeline stage of a dense model: its blocks in order.  The
+        layer count is read off the tree's leading axis, so uniform and
+        ragged stages run the same code.  carry = (x [b, s, d], aux
+        scalar); these blocks add nothing to aux.  The SSM families have
+        no pipeline stages in the port: they serve only, and their
+        whole-model forward is :meth:`_recurrent_layers`."""
+        if self.cfg.ssm is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: pipeline stages of the SSM families are "
+                f"not ported to PyTorch (they serve only; their scan "
+                f"kernels have no backward)")
         x, aux = carry
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
-            x, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
+            x, _, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
         return x, aux
 
     # ------------------------------------------------------- embed/head
@@ -155,7 +202,10 @@ class Model:
     def hidden(self, params, batch):
         """Final hidden states (pre-head).  Returns (x, aux_loss)."""
         x = self.embed(params["outer"], batch)
-        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.cfg.ssm is not None:
+            return self._recurrent_layers(params["stages"], x), zero
+        carry = (x, zero)
         for sp in params["stages"]:
             carry = self.stage_apply(sp, carry)
         return carry
@@ -177,7 +227,8 @@ class Model:
         ragged input whose sizes already match is returned as is; any
         other is merged through the flat layer order and split again
         (a copy).  The legacy stacked ``[S, Lps, ...]`` layout and the
-        hybrid shared blocks are not ported."""
+        hybrid shared blocks are not ported (the SSM families serve
+        only)."""
         if not isinstance(stages, (tuple, list)):
             raise NotImplementedError(
                 "stacked [S, Lps, ...] stage params are not ported to "
@@ -202,13 +253,26 @@ class Model:
     # ------------------------------------------------------------------ decode
     def init_cache(self, batch: int, max_seq: int):
         cfg = self.cfg
-        one = attn_mod.gqa_init_cache(cfg, batch, max_seq,
-                                      dtype_of(cfg.compute_dtype),
-                                      self.device)
-        return {"layers": {
-            k: torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
-                           device=self.device)
-            for k, a in one.items()}}
+        dt = dtype_of(cfg.compute_dtype)
+        stack = lambda one, n: {
+            k: torch.zeros((n,) + tuple(a.shape), dtype=a.dtype,
+                           device=self.device) for k, a in one.items()}
+        if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+            one = ssm_mod.rwkv6_init_state(cfg, batch, dt, self.device)
+            return {"layers": stack(one, cfg.n_layers)}
+        kv = attn_mod.gqa_init_cache(cfg, batch, max_seq, dt, self.device)
+        if cfg.ssm is None:
+            return {"layers": stack(kv, cfg.n_layers)}
+        one = ssm_mod.mamba2_init_state(cfg, batch, dt, self.device)
+        cache = {"layers": stack(one, cfg.n_layers)}
+        if self.hybrid:
+            # exactly the shared-block calls of one decode step,
+            # floor(L_s / k) per stage, kept >= 1 so that the cache tree
+            # stays constructible (JAX's init_cache)
+            k = cfg.ssm.shared_attn_every
+            cache["shared"] = stack(kv, max(1, sum(
+                n // k for n in self.stage_sizes)))
+        return cache
 
     def decode_step(self, params, cache, token, pos: int):
         """token [b, 1] int64, pos a Python int -> (logits [b, 1, V'],
@@ -216,35 +280,86 @@ class Model:
         cfg = self.cfg
         outer = params["outer"]
         x = embed_apply(cfg, outer["embed"], token)
+        if cfg.ssm is not None:
+            x = self._recurrent_layers(params["stages"], x, cache, pos=pos)
+            return self.logits(outer, x), cache
         ck, cv = cache["layers"]["k"], cache["layers"]["v"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
-            x, _ = block_apply(cfg, lp, x, cache={"k": ck[i], "v": cv[i]},
-                               pos=pos)
+            x, _, _ = block_apply(cfg, lp, x,
+                                  cache={"k": ck[i], "v": cv[i]}, pos=pos)
         return self.logits(outer, x), cache
 
     def prefill(self, params, batch, max_seq: int):
         """Whole-prompt causal forward building a decode cache:
-        batch {"tokens": [b, s]} -> (logits [b, s, V'], cache whose
-        first s positions hold the prompt's keys and values)."""
+        batch {"tokens": [b, s]} -> (logits [b, s, V'], cache).  For
+        dense models the cache's first s positions hold the prompt's
+        keys and values.  For rwkv6 and mamba2 every layer runs the
+        whole prompt through one scan-kernel call and the cache holds
+        the state after the prompt (and, for hybrid models, the shared
+        blocks' keys and values), what JAX's ``SimpleEngine`` gets by
+        stepping ``decode_step`` over the prompt."""
         outer = params["outer"]
         x = self.embed(outer, batch)
         s = x.shape[1]
         cache = self.init_cache(x.shape[0], max_seq)
+        if self.cfg.ssm is not None:
+            x = self._recurrent_layers(params["stages"], x, cache)
+            return self.logits(outer, x), cache
         ck, cv = cache["layers"]["k"], cache["layers"]["v"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
-            x, new_c = block_apply(self.cfg, lp, x, cache={})
+            x, new_c, _ = block_apply(self.cfg, lp, x, cache={})
             ck[i, :, :s] = new_c["k"].to(ck.dtype)
             cv[i, :, :s] = new_c["v"].to(cv.dtype)
         return self.logits(outer, x), cache
 
+    def _recurrent_layers(self, stages, x, cache=None, *,
+                          pos: Optional[int] = None):
+        """Every layer of an rwkv6 or mamba2/hybrid model over x
+        [b, s, d], each shared block after every full segment of its
+        stage (:meth:`_fires_shared`, on the tree's actual partition).
+        Without ``cache`` this is the stateless whole-sequence forward.
+        With it, each block reads its state from the cache and writes
+        the new one over it in place.  With ``pos`` (a Python int,
+        s == 1) this is a decode step and each shared block attends to
+        its KV slot's first pos + 1 positions; without, a prefill from
+        position 0 whose shared blocks run causally and fill their
+        slots' first s positions."""
+        cfg = self.cfg
+        g = slot = 0
+        for stage in stages:
+            for i in range(_n_layers(stage)):
+                lp = tree_map(lambda _, a, i=i: a[i], stage["layers"])
+                st = (None if cache is None else
+                      {k: buf[g] for k, buf in cache["layers"].items()})
+                x, _, _ = block_apply(cfg, lp, x, state=st)
+                g += 1
+                if not self._fires_shared(i):
+                    continue
+                if cache is None:
+                    x, _ = shared_block_apply(cfg, stage["shared"], x)
+                    continue
+                sk, sv = cache["shared"]["k"][slot], cache["shared"]["v"][slot]
+                if pos is None:
+                    x, kv = shared_block_apply(cfg, stage["shared"], x,
+                                               cache={})
+                    sk[:, :x.shape[1]] = kv["k"].to(sk.dtype)
+                    sv[:, :x.shape[1]] = kv["v"].to(sv.dtype)
+                else:
+                    x, _ = shared_block_apply(cfg, stage["shared"], x,
+                                              cache={"k": sk, "v": sv},
+                                              pos=pos)
+                slot += 1
+        return x
+
 
 def from_jax_params(tree, cfg, *, device="cuda"):
     """The JAX package's parameter tree, as nested dicts of numpy arrays
-    (``{"outer": ..., "stages": (per-stage {"layers": ...}, ...)}``, a
-    leading layer axis on every stage leaf), as the port's parameters on
-    ``device``, leaf for leaf in the same dtypes."""
+    (``{"outer": ..., "stages": (per-stage {"layers": ...(, "shared":
+    ...)}, ...)}``, a leading layer axis on every ``layers`` leaf, one
+    shared block per stage for hybrid models), as the port's parameters
+    on ``device``, leaf for leaf in the same dtypes."""
     dev = resolve_device(device)
-    check_dense(cfg)
+    check_ported(cfg)
 
     def leaf(path, a):
         a = np.asarray(a)
@@ -257,7 +372,8 @@ def from_jax_params(tree, cfg, *, device="cuda"):
     stages = tree["stages"]
     if not isinstance(stages, (tuple, list)):
         raise ValueError("expected the ragged per-stage tuple layout")
+    keep = ("layers", "shared")
     return {"outer": tree_map(leaf, tree["outer"]),
-            "stages": tuple(tree_map(leaf, {"layers": s["layers"]})
+            "stages": tuple(tree_map(leaf, {k: s[k] for k in keep if k in s})
                             for s in stages)}
 

@@ -1,34 +1,61 @@
-"""Transformer block assembly (twin of the dense branch of
-``repro/models/transformer.py``).
+"""Transformer block assembly (twin of the dense, RWKV-6 and Mamba-2
+branches of ``repro/models/transformer.py``).
 
-A *block* = one layer: pre-norm attention and MLP, each with a residual.
-The MoE, SSM and cross-attention branches come in later slices.
+A *block* = one layer: for dense models pre-norm attention and MLP, each
+with a residual; for rwkv6 time-mix and channel-mix; for mamba2 (the
+zamba2 backbone) a norm, the Mamba-2 mixer and a residual.  zamba2's
+shared attention block (attention + MLP, one per pipeline stage) is
+:func:`shared_block_apply`.  The MoE and cross-attention branches come
+in later slices.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_specs, norm_apply,
                                        norm_specs)
 
 
-def check_dense(cfg) -> None:
+def check_ported(cfg) -> None:
     """Raise for the families whose blocks are not ported yet."""
     missing = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("ssm", cfg.ssm is not None), ("enc-dec", cfg.is_encdec),
-        ("frontend", cfg.frontend != "none"),
+        ("enc-dec", cfg.is_encdec), ("frontend", cfg.frontend != "none"),
+        ("ssm kind " + str(getattr(cfg.ssm, "kind", "")),
+         cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba2")),
         ("pos_embed=" + cfg.pos_embed,
          cfg.pos_embed not in ("rope", "none"))) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet; "
-            f"the port runs dense decoder-only models")
+            f"the port runs dense, rwkv6 and mamba2/hybrid decoder-only "
+            f"models")
 
 
 def block_specs(cfg) -> Dict[str, Any]:
-    check_dense(cfg)
+    check_ported(cfg)
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return {
+            "ln1": norm_specs(cfg),
+            "tm": ssm_mod.rwkv6_tm_specs(cfg),
+            "ln2": norm_specs(cfg),
+            "cm": ssm_mod.rwkv6_cm_specs(cfg),
+        }
+    if cfg.ssm is not None:
+        # zamba2-style mamba block: norm + mamba mixer + residual (no MLP)
+        return {"ln1": norm_specs(cfg), "mamba": ssm_mod.mamba2_specs(cfg)}
+    return {
+        "ln1": norm_specs(cfg),
+        "attn": attn.gqa_specs(cfg),
+        "ln2": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def shared_block_specs(cfg) -> Dict[str, Any]:
+    """zamba2 shared attention block: full attention + MLP."""
     return {
         "ln1": norm_specs(cfg),
         "attn": attn.gqa_specs(cfg),
@@ -38,13 +65,45 @@ def block_specs(cfg) -> Dict[str, Any]:
 
 
 def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
-                cache: Optional[Dict] = None, pos: Optional[int] = None):
-    """Returns (x, new_cache).  The JAX twin also returns an auxiliary
-    loss and a recurrent state, which dense blocks leave at zero and
-    None."""
+                cache: Optional[Dict] = None, pos: Optional[int] = None,
+                state: Optional[Dict] = None):
+    """Returns (x, new_cache, new_state).  The JAX twin also returns an
+    auxiliary loss, which these blocks leave at zero.  Dense blocks use
+    ``cache`` (and return no state); rwkv6 and mamba2 blocks use
+    ``state``, update it in place and return its leaves (and no
+    cache)."""
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        h, st_tm = ssm_mod.rwkv6_tm_apply(
+            cfg, p["tm"], norm_apply(cfg, p["ln1"], x), state)
+        x = x + h
+        h, st_cm = ssm_mod.rwkv6_cm_apply(
+            cfg, p["cm"], norm_apply(cfg, p["ln2"], x), state)
+        x = x + h
+        new_state = {**st_tm, **st_cm} if state is not None else None
+        return x, None, new_state
+
+    if cfg.ssm is not None:
+        h, new_state = ssm_mod.mamba2_apply(
+            cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), state)
+        return x + h, None, new_state
+
     h, new_cache = attn.gqa_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x),
         pos_offset=pos_offset, causal=causal, cache=cache, pos=pos)
+    x = x + h
+    x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+    return x, new_cache, None
+
+
+def shared_block_apply(cfg, p, x, *, pos_offset: int = 0,
+                       cache: Optional[Dict] = None,
+                       pos: Optional[int] = None):
+    """Returns (x, new_cache): causal GQA attention (through the flash
+    kernel) and the MLP, each with a pre-norm residual."""
+    h, new_cache = attn.gqa_apply(cfg, p["attn"],
+                                  norm_apply(cfg, p["ln1"], x),
+                                  pos_offset=pos_offset, causal=True,
+                                  cache=cache, pos=pos)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
     return x, new_cache

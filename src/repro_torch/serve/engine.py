@@ -11,7 +11,6 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import cast_for_compute
 from repro_torch.serve.scheduler import admissible
@@ -23,14 +22,17 @@ class SimpleEngine:
     first ``vocab_size`` logits, so the two emit the same tokens.
 
     Prefill is one causal :meth:`Model.prefill` over the request's prompt
-    into a fresh cache; decoding then runs :meth:`Model.decode_step`
-    token by token.  Weights are cast to the compute dtype once, here.
-    Reported latencies exclude a warm-up that builds the kernel and runs
-    one prefill and one decode, as the JAX engine's exclude compilation;
-    on the card every timed region ends in a synchronise.
+    into a fresh cache (for rwkv6 and mamba2 one scan-kernel call per
+    layer over the whole prompt); decoding then runs
+    :meth:`Model.decode_step` token by token.  Weights are cast to the
+    compute dtype once, here (the fp32 leaves stay fp32).
+    Reported latencies exclude a warm-up that builds the model's kernels
+    and runs one prefill and one decode, as the JAX engine's exclude
+    compilation; on the card every timed region ends in a synchronise.
 
     ``n_prefill`` / ``n_decode`` count the model calls made, warm-up
-    included (each runs every layer's attention once)."""
+    included (each runs every layer's attention or scan once, and each
+    of a hybrid model's shared-block calls)."""
 
     def __init__(self, model, params, splan, *, registry=None):
         self.model, self.splan = model, splan
@@ -62,12 +64,13 @@ class SimpleEngine:
                                       self._tokens([tok]), pos)
 
     def _warm_up(self) -> None:
-        """Build the kernel and run one prefill and one decode on a
-        throwaway cache, so reported latencies exclude both."""
+        """Build the model's kernels and run one prefill and one decode
+        on a throwaway cache, so reported latencies exclude both."""
         t0 = time.time()
         with torch.inference_mode():
             if self.device.type == "cuda":
-                fa.load()
+                for mod in self.model.kernel_modules():
+                    mod.load()
             _, cache = self._prefill([0])
             self._decode(cache, 0, 1)
             self._sync()

@@ -13,8 +13,12 @@ Tolerances: 2e-5 (abs and rel) in fp32 with TF32 off, 2e-2 in bf16 (the
 repository's kernel tolerances); for the backward in fp32 atol 2e-5 and
 rtol 1e-3 (``tests/test_kernels.py::test_flash_bwd``'s); 1e-6 for the
 fused update in fp32 (the kernel rounds where its plain version does);
-1e-4 for fp32 model logits; training ticks as the CPU parity tests.
+for the two scans 2e-5 on fp32 outputs (every step is fp32 on both
+sides, in another summation order) and 2e-2 on the bf16 rwkv6 y (one
+bf16 rounding of an fp32 value); 1e-4 for fp32 model logits and
+states; training ticks as the CPU parity tests.
 """
+import dataclasses
 import os
 import sys
 
@@ -65,6 +69,9 @@ GPU_CASES = [
     (1, 1, 64, 32, 8, 128, 36, 37, False, torch.bfloat16),
     (1, 1, 64, 32, 8, 128, 0, 1, False, torch.bfloat16),
     (1, 12, 12, 32, 8, 128, 0, 12, True, torch.bfloat16),
+    # zamba2-1.2b's shared attention block (32 heads, KV 32, head_dim 64)
+    (1, 1, 64, 32, 32, 64, 36, 37, False, torch.bfloat16),
+    (1, 12, 12, 32, 32, 64, 0, 12, True, torch.bfloat16),
     (2, 256, 256, 4, 4, 64, 0, 256, True, torch.float32),
     (1, 256, 256, 8, 2, 128, 0, 256, True, torch.float32),
     (2, 128, 256, 4, 1, 64, 0, 256, False, torch.float32),
@@ -311,7 +318,8 @@ def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
     n = len(batches)
     assert ops.launch_counts() == {
         "flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
-        "flash_bwd_dkv": cfg.n_layers * n, "fused_update": (S + 1) * n}
+        "flash_bwd_dkv": cfg.n_layers * n, "fused_update": (S + 1) * n,
+        "rwkv6_scan": 0, "mamba2_scan": 0}
     (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
     tol = 2e-2 if bwd_dtype else None
     np.testing.assert_allclose(l_g, l_c, rtol=tol or 1e-5)
@@ -322,3 +330,170 @@ def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
             np.testing.assert_allclose(
                 g.float().cpu().numpy(), c.float().numpy(),
                 rtol=tol or 1e-4, atol=tol or 1e-5, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences: rwkv6_scan and mamba2_scan against their plain versions
+
+
+def _decays_like_the_models(rng, shape, kind):
+    if kind == "rwkv6":       # w = exp(-exp(logw)), logw up to ~4.2
+        return np.exp(-np.exp(rng.uniform(-3.0, 4.2, shape)))
+    return np.exp(-rng.uniform(0.0, 11.5, shape))     # down to ~1e-5
+
+
+RWKV_GPU_CASES = [
+    # b, s, h, hd, dtype: decode, prefill, ragged, long, each head size
+    (1, 1, 64, 64, torch.bfloat16),
+    (1, 12, 64, 64, torch.bfloat16),
+    (2, 37, 3, 16, torch.float32),
+    (1, 37, 4, 32, torch.bfloat16),
+    (1, 300, 2, 64, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RWKV_GPU_CASES)
+def test_rwkv6_kernel_matches_plain(card, case):
+    b, s, h, hd, dt = case
+    rng = np.random.default_rng(11)
+    mk = lambda sh, sc=1.0, d=torch.float32: torch.from_numpy(
+        rng.standard_normal(sh, dtype=np.float32) * sc).to(card, d)
+    r, k, v = mk((b, s, h, hd), d=dt), mk((b, s, h, hd), 0.3, dt), \
+        mk((b, s, h, hd), d=dt)
+    w = torch.from_numpy(_decays_like_the_models(
+        rng, (b, s, h, hd), "rwkv6").astype(np.float32)).to(card)
+    u, S0 = mk((h, hd), 0.3), mk((b, h, hd, hd), 0.1)
+    before = ops.launch_counts()["rwkv6_scan"]
+    y, sT = ops.rwkv6_scan(r, k, v, w, u, S0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    assert y.shape == r.shape and y.dtype == dt
+    tr = lambda t: t.transpose(1, 2)
+    y_r, sT_r = ref.rwkv6_ref(tr(r), tr(k), tr(v), tr(w), u, S0)
+    _close(y, tr(y_r).to(dt), F32_TOL if dt == torch.float32 else BF16_TOL)
+    _close(sT, sT_r, F32_TOL)
+    # the models' call: S_T written over S0 in place, bit for bit
+    S_in = S0.clone()
+    y_in, sT_in = ops.rwkv6_scan(r, k, v, w, u, S_in, out=S_in)
+    assert sT_in is S_in
+    _close(y_in, y, 0)
+    _close(S_in, sT, 0)
+
+
+MAMBA_GPU_CASES = [
+    # b, s, h, p, n, g, dtype
+    (1, 1, 64, 64, 64, 1, torch.bfloat16),
+    (1, 12, 64, 64, 64, 1, torch.bfloat16),
+    (2, 37, 4, 16, 32, 2, torch.float32),
+    (1, 37, 8, 32, 16, 4, torch.bfloat16),
+    (1, 300, 2, 64, 64, 1, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MAMBA_GPU_CASES)
+def test_mamba2_kernel_matches_plain(card, case):
+    b, s, h, p, n, g, dt = case
+    rng = np.random.default_rng(12)
+    mk = lambda sh, sc=1.0, d=torch.float32: torch.from_numpy(
+        rng.standard_normal(sh, dtype=np.float32) * sc).to(card, d)
+    x = mk((b, s, h, p), d=dt)
+    delta = torch.nn.functional.softplus(mk((b, s, h)))
+    decay = torch.from_numpy(_decays_like_the_models(
+        rng, (b, s, h), "mamba2").astype(np.float32)).to(card)
+    # B and C as the model has them: strided views of one projection
+    bc = mk((b, s, 2 * g * n), 0.5, dt)
+    B, C = (t.reshape(b, s, g, n) for t in bc.chunk(2, dim=-1))
+    S0 = mk((b, h, p, n), 0.1)
+    before = ops.launch_counts()["mamba2_scan"]
+    y, sT = ops.mamba2_scan(x, delta, decay, B, C, S0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_scan"] == before + 1
+    assert y.shape == x.shape and y.dtype == torch.float32
+    tr = lambda t: t.transpose(1, 2)
+    per_head = lambda t: tr(t.repeat_interleave(h // g, dim=2))
+    y_r, sT_r = ref.mamba2_ref(tr(x), tr(delta), tr(decay), per_head(B),
+                               per_head(C), S0)
+    _close(y, tr(y_r), F32_TOL)
+    _close(sT, sT_r, F32_TOL)
+    # the models' call: S_T written over S0 in place, bit for bit
+    S_in = S0.clone()
+    y_in, sT_in = ops.mamba2_scan(x, delta, decay, B, C, S_in, out=S_in)
+    assert sT_in is S_in
+    _close(y_in, y, 0)
+    _close(S_in, sT, 0)
+
+
+@pytest.mark.gpu
+def test_scan_wrappers_raise_on_card(card):
+    r = torch.zeros(1, 2, 2, 16, device=card)
+    u, S0 = torch.zeros(2, 16, device=card), torch.zeros(1, 2, 16, 16,
+                                                         device=card)
+    with pytest.raises(ValueError, match="head size"):
+        ops.rwkv6_scan(*(r[..., :8],) * 4, u[:, :8], S0[..., :8, :8])
+    strided = r.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        ops.rwkv6_scan(r, strided, r, r, u, S0)
+    with pytest.raises(ValueError, match="devices"):
+        ops.rwkv6_scan(r, r, r, r, u.cpu(), S0)
+    x = torch.zeros(1, 2, 4, 16, device=card)
+    d = torch.zeros(1, 2, 4, device=card)
+    Bc = torch.zeros(1, 2, 3, 16, device=card)
+    with pytest.raises(ValueError, match="group"):
+        ops.mamba2_scan(x, d, d, Bc, Bc, torch.zeros(1, 4, 16, 16,
+                                                     device=card))
+
+
+def _ssm_smoke_cfg(arch):
+    cfg = smoke_config(get_config(arch)).replace(compute_dtype="float32")
+    if arch == "zamba2-1.2b":    # stages (3, 2): both branches of the rule
+        return cfg.replace(n_layers=5, mesh_plan=dataclasses.replace(
+            cfg.mesh_plan, pipe=2))
+    return cfg.replace(n_layers=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_ssm_model_on_card_matches_cpu(card, arch):
+    """Prefill and three decode steps at the smoke size in fp32: logits
+    and every state and KV leaf, the card (scan and flash kernels)
+    against the CPU (their plain versions)."""
+    cfg = _ssm_smoke_cfg(arch)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _on(p_cpu, card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, 16)
+        l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.to(card)}, 16)
+        _close(l_g, l_c, MODEL_TOL)
+        for pos in range(9, 12):
+            tok = toks[:, pos - 9:pos - 8]
+            d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, pos)
+            d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.to(card), pos)
+            _close(d_g, d_c, MODEL_TOL)
+            for group in c_c:
+                for key in c_c[group]:
+                    _close(c_g[group][key], c_c[group][key], MODEL_TOL)
+    counts = ops.launch_counts()
+    scan = "rwkv6_scan" if arch == "rwkv6-7b" else "mamba2_scan"
+    assert counts[scan] == cfg.n_layers * 4
+    assert counts["flash_fwd"] == (2 * 4 if gpu.hybrid else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_ssm_engine_tokens_on_card_match_cpu(card, arch):
+    cfg = _ssm_smoke_cfg(arch)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    splan = serve_plan(cfg, n_stages=1, n_slots=1, prompt_budget=8,
+                       page_seq=32)
+    trace = poisson_trace(8, rate=1.5, seed=0, prompt_lens=(1, 8),
+                          vocab=cfg.vocab_size)
+    want = SimpleEngine(cpu, p_cpu, splan).run(trace)
+    got = SimpleEngine(gpu, _on(p_cpu, card), splan).run(trace)
+    assert got == want

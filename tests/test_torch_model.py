@@ -29,12 +29,15 @@ MODEL_TOL = 1e-4
 
 
 def port_cfg(jcfg):
-    """The port's ArchConfig with every field of a JAX one (dense)."""
-    assert jcfg.moe is None and jcfg.mla is None and jcfg.ssm is None
+    """The port's ArchConfig with every field of a JAX one (dense, rwkv6
+    or mamba2/hybrid)."""
+    assert jcfg.moe is None and jcfg.mla is None
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(jcfg)}
     kw["mesh_plan"] = tconfigs.MeshPlan(
         **dataclasses.asdict(jcfg.mesh_plan))
+    if jcfg.ssm is not None:
+        kw["ssm"] = tconfigs.SSMConfig(**dataclasses.asdict(jcfg.ssm))
     return tconfigs.ArchConfig(**kw)
 
 
@@ -63,7 +66,7 @@ def test_granite_config_matches_jax(smoke):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("zamba2-1.2b")
+        tconfigs.get_config("grok-1-314b")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

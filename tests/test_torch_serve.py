@@ -163,7 +163,8 @@ def test_launcher_refuses_unported_paths():
         tlaunch.main(["--smoke", "--device", "cpu", "--engine",
                       "pipelined"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
+        tlaunch.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
+                      "cpu"])
 
 
 # (h) no quiet fallback to the CPU
