@@ -12,19 +12,26 @@ the JAX package, and in phases:
      and device count);
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
      csrc`` (one nvcc per source, all five at once), with ptxas's
-     registers and shared memory;
+     registers and shared memory, and for the two bf16 tensor-core
+     kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``) their
+     registers, spills and static and dynamic shared memory;
   3. holds each kernel against its plain PyTorch version on the card
      (TF32 off for the plain versions): the flash forward at the serving
      paths' decode and prefill shapes (granite-8b's attention, head_dim
      128, and zamba2-1.2b's shared block, head_dim 64), the training
-     shape, the
-     repository's kernel test cases and a long causal case (2e-5 in
-     fp32, 2e-2 in bf16); the flash backward (dq, dk/dv) at the training
-     shape, the repository's backward test case and a non-causal GQA
-     case with masked keys (atol 2e-5 / rtol 1e-3 in fp32, 2e-2 in
-     bf16); the fused update on a ragged group of tensors, with and
-     without the prediction and with bf16 gradients (1e-6 in fp32, 2e-2
-     in bf16), and (in phase 8) on the training path's two groups, a
+     shape, the repository's kernel test cases in fp32 and in bf16, a
+     long causal case and the packed-row edges of the bf16 kernel (G in
+     {1, 2, 4, 8} with sq G off the 16- and 64-row blocks, kv_len off
+     the 64-key tile, q_offset > 0 causal and not, head_dim 16 to 128,
+     sq != sk) (2e-5 in fp32 on the FMA kernel, 2e-2 in bf16 on the
+     tensor-core kernel, each launch counted by its variant); the flash
+     backward (dq, dk/dv) at the training shape, the repository's
+     backward test case, a non-causal GQA case with masked keys and the
+     same packed-row edges in bf16 (atol 2e-5 / rtol 1e-3 in fp32, 2e-2
+     in bf16, dq on the tensor-core kernel in bf16); the fused update on
+     a ragged group of tensors, with and without the prediction and with
+     bf16 gradients (1e-6 in fp32, 2e-2 in bf16), and (in phase 8) on
+     the training path's two groups, a
      full-width stage and the outer tree; the two scans (``rwkv6_scan``,
      ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0),
      prefill (s = 12), ragged (s = 37) and s = 2048 at full width, and
@@ -36,7 +43,8 @@ the JAX package, and in phases:
      engine tokens), rwkv6 and zamba2 serving (prefill and decode
      steps: logits and every state and KV leaf, 1e-4), and 2(S-1)+3
      streaming SpecTrain ticks on 4 stages (losses and every parameter,
-     momentum and prediction leaf);
+     momentum and prediction leaf), each on the fp32 FMA attention
+     kernels only (no tensor-core launch);
   5. drives the serving path, ``repro_torch.launch.serve.main``, on the
      full-width, full-depth rwkv6-7b (32 layers), zamba2-1.2b (38
      layers) and granite-8b (36 layers) in bf16 with random weights, one
@@ -44,7 +52,8 @@ the JAX package, and in phases:
      tokens, the logits were finite and each kernel ran exactly as often
      as the path needs: per prefill and decode call 32 ``rwkv6_scan``;
      38 ``mamba2_scan`` and 2 ``flash_fwd`` (zamba2's shared attention);
-     36 ``flash_fwd``; and nothing else;
+     36 ``flash_fwd``; and nothing else; every ``flash_fwd`` on the
+     bf16 tensor-core kernel;
   6. profiles a few full-width decode steps of each of the three models
      (wall per step, device busy share, device time per kernel);
   7. drives the training path, ``repro_torch.launch.train.main``, on
@@ -52,13 +61,17 @@ the JAX package, and in phases:
      SpecTrain, 10 ticks; checks the losses are finite, the loss turns
      valid at tick S-1, stage 0's weights hold until tick 2(S-1) and
      move after it, and each tick launches exactly 2L flash forwards, L
-     of each backward kernel and S+1 fused updates; profiles one tick
-     and checks the profile shows the same kernels;
+     of each backward kernel and S+1 fused updates, every forward and dq
+     on the tensor-core kernels; profiles one tick and checks the
+     profile shows the same kernels;
   8. times every kernel at its main path's shapes beside its bound, its
      plain version and a library yardstick the port never calls
-     (``scaled_dot_product_attention`` forward and backward,
-     ``torch.optim.SGD(fused=True)``; none computes either recurrence),
-     the scans at decode, prefill and s = 2048.
+     (``scaled_dot_product_attention`` forward and backward, with the
+     device kernels its backend ran; ``torch.optim.SGD(fused=True)``;
+     none computes either recurrence): the flash forward at decode and
+     prefill n = 12 of both serving models, causal 2048 and the training
+     shape, the backward kernels at the training shape, the scans at
+     decode, prefill and s = 2048.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -69,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,6 +123,23 @@ FLASH_CASES = [
     (2, 4, 1, 128, 256, 64, False, "float32"),
     (1, 4, 4, 128, 128, 64, True, "bfloat16"),
     (1, 2, 2, 512, 512, 32, True, "float32"),
+]
+
+
+# the bf16 tensor-core kernels' packed-row edges: name, b, sq, sk, H, KV,
+# d, causal, q_offset, kv_len (G = H / KV; 16- and 64-row blocks, 64-key
+# tiles)
+MMA_EDGES = [
+    ("G1 37 rows", 2, 37, 37, 8, 8, 64, True, 0, 37),
+    ("G2 42 rows offset 29", 1, 21, 50, 8, 4, 32, True, 29, 50),
+    ("G4 52 rows kv_len 77", 2, 13, 100, 16, 4, 128, False, 0, 77),
+    ("G8 24 rows offset 60", 1, 3, 70, 32, 4, 16, True, 60, 63),
+    ("G8 16 rows one warp", 1, 2, 64, 16, 2, 64, False, 10, 12),
+    ("G8 decode 3 key tiles", 1, 1, 200, 8, 1, 128, False, 130, 131),
+    ("G2 200 rows offset 200", 2, 100, 300, 4, 2, 32, True, 200, 300),
+    ("G1 d16 70 rows", 1, 70, 70, 2, 2, 16, True, 0, 70),
+    ("G1 65 rows, row 64 opens a key tile", 1, 65, 65, 4, 4, 64, True, 0,
+     65),
 ]
 
 
@@ -185,8 +216,13 @@ def compare(torch, fa, ref, case: Case, seed=0):
     """Kernel against the plain version on the same card inputs; returns
     (max |d o|, max |d lse|)."""
     q, k, v = case.tensors(torch, seed)
+    before = (fa.launches, fa.launches_mma)
     o, lse = fa.flash_fwd(q, k, v, **case.kw())
     torch.cuda.synchronize()
+    mma = int(case.dtype == "bfloat16")
+    check((fa.launches, fa.launches_mma) == (before[0] + 1, before[1] + mma),
+          f"{case.name}: the {case.dtype} call did not launch the "
+          f"{'tensor-core' if mma else 'FMA'} kernel once")
     o_r, lse_r = ref.flash_fwd_ref(q, k, v, **case.kw())
     tol = TOL[case.dtype]
     for got, want, nm in ((o.float(), o_r.float(), "o"),
@@ -243,6 +279,38 @@ def sdpa_fn(torch, case: Case, q, k, v):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
+def library_kernels(torch, fn) -> list:
+    """Which backend one call of SDPA ran, from torch.profiler: the aten
+    attention ops it dispatched to (``aten::_scaled_dot_product_
+    {flash,efficient,cudnn}_attention...``) and the device kernels the
+    profiler saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = {e.key for e in events if e.device_type == DeviceType.CPU
+           and re.search(r"_attention|_sdpa|scaled_dot", e.key)}
+    kernels = {e.key[:96] for e in events
+               if e.device_type == DeviceType.CUDA}
+    return sorted(ops) + sorted(kernels)
+
+
+def sdpa_flags(torch) -> str:
+    """The SDPA backends torch.backends.cuda leaves enabled."""
+    b = torch.backends.cuda
+    flags = {"flash": b.flash_sdp_enabled(),
+             "mem_efficient": b.mem_efficient_sdp_enabled(),
+             "math": b.math_sdp_enabled()}
+    if hasattr(b, "cudnn_sdp_enabled"):
+        flags["cudnn"] = b.cudnn_sdp_enabled()
+    return ", ".join(k for k, v in flags.items() if v)
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -263,6 +331,28 @@ def card_info(torch) -> dict:
     return {"smi": smi_line, "kind": name, "count": count}
 
 
+def mma_ptxas(log: str) -> dict:
+    """{kernel<args>: "registers, barriers (and static shared memory);
+    spills"} as ptxas prints them, for the tensor-core kernels in one
+    nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            sym = line.split("'")[1]
+            name = None
+            for k in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel"):
+                if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
+                    args = re.findall(r"Li(\d+)E", sym.split(k, 1)[1])
+                    name = f"{k}<{', '.join(args)}>"
+        elif name and "spill stores" in line:
+            out[name] = line.strip().split(", ", 1)[1]
+        elif name and "Used" in line and "registers" in line:
+            out[name] = (line.split("Used", 1)[1].strip() + "; "
+                         + out.get(name, ""))
+            name = None
+    return out
+
+
 def build_kernels(build, *mods) -> None:
     phase("build")
     t0 = time.perf_counter()
@@ -275,6 +365,9 @@ def build_kernels(build, *mods) -> None:
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    for name, info in sorted(built.items()):
+        for kernel, props in mma_ptxas(str(info["log"])).items():
+            print(f"  {name}: {kernel}: {props}")
     # the kernels' shared memory is dynamic, so ptxas does not print it
     import ctypes
     fwd = build.library("flash_fwd").repro_flash_fwd_smem_bytes
@@ -282,8 +375,10 @@ def build_kernels(build, *mods) -> None:
     fwd.restype = bwd.restype = ctypes.c_longlong
     for d in (64, 128):
         print(f"  dynamic shared memory per block at head_dim {d}: "
-              f"flash_fwd {fwd(d)} B, flash_bwd_dq {bwd(0, d)} B, "
-              f"flash_bwd_dkv {bwd(1, d)} B; fused_update none")
+              f"flash_fwd fp32 {fwd(0, d)} B, bf16 mma 4 warps {fwd(1, d)} "
+              f"B, 1 warp {fwd(2, d)} B; flash_bwd_dq fp32 {bwd(0, d)} B, "
+              f"bf16 mma {bwd(2, d)} B; flash_bwd_dkv {bwd(1, d)} B; "
+              f"fused_update none")
     print("  rwkv6_scan, mamba2_scan: static shared memory only (ptxas "
           "lines above)")
 
@@ -303,9 +398,13 @@ def kernel_checks(torch, fa, ref) -> dict:
             cases.append(Case(f"{arch}prefill n={n}", 1, n, n, *heads,
                               "bfloat16", True))
     for b, H, KV, sq, sk, d, causal, dt in FLASH_CASES:
-        cases.append(Case(f"test_kernels b{b} H{H}/{KV} {sq}x{sk} d{d} "
-                          f"{'causal' if causal else 'full'} {dt}",
-                          b, sq, sk, H, KV, d, dt, causal))
+        for dt_ in sorted({dt, "bfloat16"}):   # each also in bf16
+            cases.append(Case(f"test_kernels b{b} H{H}/{KV} {sq}x{sk} d{d} "
+                              f"{'causal' if causal else 'full'} {dt_}",
+                              b, sq, sk, H, KV, d, dt_, causal))
+    for name, b, sq, sk, H, KV, d, causal, off, kv_len in MMA_EDGES:
+        cases.append(Case(f"edge {name} bfloat16", b, sq, sk, H, KV, d,
+                          "bfloat16", causal, off, kv_len))
     cases.append(Case("causal 2048", 1, 2048, 2048, *cfg, "bfloat16",
                       True))
     for dt in ("float32", "bfloat16"):       # the training path's call
@@ -356,6 +455,20 @@ def model_check(torch) -> None:
     t_g = SimpleEngine(gpu, p_gpu, splan).run(trace)
     print(f"  engine tokens equal on card and CPU: {t_c == t_g}")
     check(t_c == t_g, "engine tokens differ between the card and the CPU")
+
+
+def fma_only(ops) -> None:
+    """The fp32 card-vs-CPU checks ran attention on the FMA kernels only:
+    flash forwards and dq kernels were launched, none a tensor-core
+    one."""
+    counts, variants = ops.launch_counts(), ops.variant_counts()
+    print(f"  fp32 model checks: {counts['flash_fwd']} flash_fwd and "
+          f"{counts['flash_bwd_dq']} flash_bwd_dq launches, tensor-core "
+          f"variants {variants}")
+    check(counts["flash_fwd"] > 0 and counts["flash_bwd_dq"] > 0,
+          "the fp32 model checks launched no attention kernel")
+    check(not any(variants.values()),
+          f"an fp32 model check reached a bf16 kernel: {variants}")
 
 
 def per_call_launches(arch: str) -> dict:
@@ -412,6 +525,7 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
         rc = serve.main(argv)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        variants = ops.variant_counts()
         peak = torch.cuda.max_memory_allocated()
         recs = [json.loads(x) for x in out.read_text().splitlines()]
     check(rc == 0, f"serve.main returned {rc}")
@@ -442,18 +556,26 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
     want = {name: per_call.get(name, 0) * (want_prefill + want_decode)
             for name in counts}
     check(counts == want, f"the run launched {counts}, expected {want}")
+    want_v = {"flash_fwd_mma": counts["flash_fwd"], "flash_bwd_dq_mma": 0}
+    print(f"  tensor-core variants: {variants} (every bf16 flash_fwd)")
+    check(variants == want_v, f"the run's tensor-core launches {variants}, "
+          f"expected {want_v}")
     check(all(math.isfinite(run[k]) for k in
               ("tok_per_s", "token_ms_p50", "token_ms_p99")),
           "non-finite serving metrics")
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": counts, "run": run, "peak_bytes": peak,
-            "per_call": per_call}
+    return {"launches": counts, "variants": variants, "run": run,
+            "peak_bytes": peak, "per_call": per_call}
 
 
 # the kernel function each wrapper launches, as the profiler names it
-KERNEL_SYMBOL = {"flash_fwd": "flash_fwd_kernel", "rwkv6_scan": "wkv_kernel",
-                 "mamba2_scan": "ssd_kernel"}
+# (bf16 paths: the tensor-core variant of the forward and of dq)
+KERNEL_SYMBOL = {"flash_fwd": "flash_fwd_mma_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                 "fused_update": "fused_update_kernel",
+                 "rwkv6_scan": "wkv_kernel", "mamba2_scan": "ssd_kernel"}
 
 
 def decode_profile(torch, arch: str = ARCH) -> dict:
@@ -469,7 +591,12 @@ def decode_profile(torch, arch: str = ARCH) -> dict:
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         dtype=cfg.compute_dtype)
-    steps = 8
+    # 8 steps for the wall; 4 under the profiler: one window of 8 steps
+    # is ~20k kernel records, about one CUPTI activity buffer, and once
+    # lost ~1% of them (2,430.6 of 2,455 kernels a step)
+    steps, prof_steps, attempts = 8, 4, 3
+    want = {name: per_step * prof_steps
+            for name, per_step in per_call_launches(arch).items()}
     with torch.inference_mode():
         prompt = torch.arange(1, 9, device="cuda")[None]
         _, cache = model.prefill(params, {"tokens": prompt}, 64)
@@ -486,19 +613,31 @@ def decode_profile(torch, arch: str = ARCH) -> dict:
             step(pos)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for pos in range(9 + steps, 9 + 2 * steps):
-                step(pos)
-            torch.cuda.synchronize()
+        # a profile short of a kernel's exact count (records dropped) is
+        # taken again, at most `attempts` times; an excess fails at once
+        for attempt in range(1, attempts + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for pos in range(9 + steps, 9 + steps + prof_steps):
+                    step(pos)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            seen = {name: sum(e.count for e in kern
+                              if KERNEL_SYMBOL[name] in e.key)
+                    for name in want}
+            check(all(seen[n] <= want[n] for n in want), f"the profiled "
+                  f"decode steps show {seen} kernels, expected {want}")
+            if seen == want or attempt == attempts:
+                break
+            print(f"  profile {attempt} of {attempts} incomplete: {seen} "
+                  f"kernels, expected {want} (records dropped); again")
     del params, cache, model
     gc.collect()
     torch.cuda.empty_cache()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    n_kern = sum(e.count for e in kern) / steps
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / prof_steps
+    n_kern = sum(e.count for e in kern) / prof_steps
     print(f"  wall per decode step (no profiler): {wall_ms:.3f} ms")
     print(f"  device kernels per step: {n_kern:.1f}")
     check(bool(kern), "the profiler saw no device activity in the decode "
@@ -508,15 +647,16 @@ def decode_profile(torch, arch: str = ARCH) -> dict:
           f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%)")
     kern.sort(key=lambda e: -e.self_device_time_total)
     for e in kern[:8]:
-        print(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms "
-              f"{e.count / steps:6.1f}x  {e.key[:72]}")
+        print(f"    {e.self_device_time_total / 1e3 / prof_steps:8.4f} ms "
+              f"{e.count / prof_steps:6.1f}x  {e.key[:72]}")
     by = {}
-    for name, per_step in per_call_launches(arch).items():
+    for name in want:
         hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
         n_hit = sum(e.count for e in hits)
-        check(n_hit == per_step * steps, f"the profiled decode steps show "
-              f"{n_hit} {name} kernels, expected {per_step * steps}")
-        by[name] = sum(e.self_device_time_total for e in hits) / 1e3 / steps
+        check(n_hit == want[name], f"the profiled decode steps show "
+              f"{n_hit} {name} kernels, expected {want[name]}")
+        by[name] = (sum(e.self_device_time_total for e in hits) / 1e3
+                    / prof_steps)
         print(f"  {name}: {by[name]:.4f} ms per step "
               f"({100 * by[name] / busy_ms:.1f}% of device busy)")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": by,
@@ -539,6 +679,8 @@ def timings(torch, fa, ref, errs) -> list:
               20),
              (Case("train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
                    TRAIN_SEQ, *cfg, "bfloat16", True), 20)]
+    print(f"  SDPA backends enabled (torch.backends.cuda): "
+          f"{sdpa_flags(torch)}")
     rows = []
     for case, iters in cases:
         q, k, v = case.tensors(torch, seed=7)
@@ -547,16 +689,19 @@ def timings(torch, fa, ref, errs) -> list:
                            iters)
         plain_ms, _ = time_ms(
             torch, lambda: ref.flash_fwd_ref(q, k, v, **kw), iters)
-        lib_ms, _ = time_ms(torch, sdpa_fn(torch, case, q, k, v), iters)
+        sdpa = sdpa_fn(torch, case, q, k, v)
+        lib_ms, _ = time_ms(torch, sdpa, iters)
+        lib_kernels = library_kernels(torch, sdpa)
         bound_ms, bound_by = case.bound()
         row = {"shape": case.name, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms, "max_abs_err": errs[case.name],
-               "wall_ms_per_call": wall}
+               "library_ms": lib_ms, "library_kernels": lib_kernels,
+               "max_abs_err": errs[case.name], "wall_ms_per_call": wall}
         rows.append(row)
         print(f"  {case.name:<28} kernel {ms:.4f} ms (wall {wall:.4f} ms "
               f"per call)  bound {bound_ms:.5f} ms ({bound_by})  plain "
-              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms")
+              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x sdpa; sdpa ran {lib_kernels})")
     return rows
 
 
@@ -598,8 +743,14 @@ def compare_bwd(torch, fa, ref, case: BwdCase, seed=0):
     """Both backward kernels against the plain version on the same card
     inputs; returns {"dq": max |d dq|, "dkv": max over dk and dv}."""
     q, k, v, o, lse, do = case.all_tensors(torch, fa, seed)
+    before = (fa.launches_dq, fa.launches_dq_mma, fa.launches_dkv)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **case.kw())
     torch.cuda.synchronize()
+    mma = int(case.dtype == "bfloat16")
+    check((fa.launches_dq, fa.launches_dq_mma, fa.launches_dkv) == (
+        before[0] + 1, before[1] + mma, before[2] + 1),
+        f"{case.name}: the {case.dtype} call did not launch dq on the "
+        f"{'tensor-core' if mma else 'FMA'} kernel and dk/dv once each")
     want = ref.flash_bwd_ref(q, k, v, o, lse, do, **case.kw())
     atol, rtol = BWD_TOL[case.dtype]
     errs = {}
@@ -626,6 +777,9 @@ def bwd_checks(torch, fa, ref) -> dict:
                              128, 128, 4, 2, 64, dt, True))
         cases.append(BwdCase(f"full GQA H8/2 65x130 kv_len 97 {dt}", 3,
                              65, 130, 8, 2, 64, dt, False, 0, 97))
+    for name, b, sq, sk, H, KV, d, causal, off, kv_len in MMA_EDGES:
+        cases.append(BwdCase(f"edge {name} bfloat16", b, sq, sk, H, KV, d,
+                             "bfloat16", causal, off, kv_len))
     errs = {}
     for i, case in enumerate(cases):
         e = compare_bwd(torch, fa, ref, case, seed=100 + i)
@@ -998,15 +1152,18 @@ def train_main_path(torch, ops) -> dict:
     from repro_torch.models.layers import tree_leaves
     want_tick = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
                  "fused_update": S + 1}
+    # bf16: every forward and dq on the tensor-core kernels
+    want_var = {"flash_fwd_mma": 2 * L, "flash_bwd_dq_mma": L}
     prof_tick = 7
-    rec = {"counts": [], "valid": [], "loss": [], "t": [], "t_end": [],
-           "stage0": []}
+    rec = {"counts": [], "variants": [], "valid": [], "loss": [], "t": [],
+           "t_end": [], "stage0": []}
     snap = {}
 
     def on_step(s, state, metrics):
         torch.cuda.synchronize()
         rec["t"].append(time.perf_counter())
         rec["counts"].append(dict(ops.launch_counts()))
+        rec["variants"].append(dict(ops.variant_counts()))
         rec["valid"].append(metrics["loss_valid"])
         rec["loss"].append(float(metrics["loss"]))
         stage0 = tree_leaves(state["params"]["stages"][0])
@@ -1035,12 +1192,15 @@ def train_main_path(torch, ops) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"train.main returned {rc}")
     check(len(rec["loss"]) == TRAIN_STEPS, "not every tick ran")
-    prev = {k: 0 for k in want_tick}
-    for s, counts in enumerate(rec["counts"]):
+    prev, prev_v = {k: 0 for k in want_tick}, {k: 0 for k in want_var}
+    for s, (counts, var) in enumerate(zip(rec["counts"], rec["variants"])):
         got = {k: counts[k] - prev[k] for k in want_tick}
         check(got == want_tick, f"tick {s} launched {got}, expected "
               f"{want_tick}")
-        prev = counts
+        got_v = {k: var[k] - prev_v[k] for k in want_var}
+        check(got_v == want_var, f"tick {s} launched tensor-core "
+              f"variants {got_v}, expected {want_var}")
+        prev, prev_v = counts, var
     check(total == {k: want_tick.get(k, 0) * TRAIN_STEPS for k in total},
           f"the run launched {total}")
     check(all(math.isfinite(x) for x in rec["loss"]), "non-finite loss")
@@ -1058,7 +1218,8 @@ def train_main_path(torch, ops) -> dict:
     print(f"  {TRAIN_STEPS} ticks in {time.perf_counter() - t0:.2f}s "
           f"(init and first-tick set-up included); losses "
           f"{[round(x, 4) for x in rec['loss']]}")
-    print(f"  per tick: {want_tick} launches (exact on every tick)")
+    print(f"  per tick: {want_tick} launches, of which tensor-core "
+          f"{want_var} (exact on every tick)")
     print(f"  loss valid from tick {S - 1}; stage 0 unchanged through tick "
           f"{2 * (S - 1) - 1}, moved from tick {2 * (S - 1)}")
     print(f"  tick wall (median of ticks 1..{TRAIN_STEPS - 1} but the "
@@ -1079,14 +1240,15 @@ def train_main_path(torch, ops) -> dict:
               f"{e.count:5d}x  {e.key[:72]}")
     by = {}
     for name, want in want_tick.items():
-        hits = [e for e in kern if f"{name}_kernel" in e.key]
+        hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
         n_hit = sum(e.count for e in hits)
         check(n_hit == want, f"the profiled tick shows {n_hit} {name} "
               f"kernels, expected {want}")
         by[name] = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"  {name}: {n_hit} kernels, {by[name]:.4f} ms per tick "
               f"({100 * by[name] / busy_ms:.1f}% of device busy)")
-    return {"launches": total, "per_tick": want_tick, "wall_ms": wall_ms,
+    return {"launches": total, "per_tick": want_tick,
+            "variants_per_tick": want_var, "wall_ms": wall_ms,
             "tok_per_s": tok_per_s, "peak_bytes": peak,
             "losses": rec["loss"], "busy_ms": busy_ms, "kernel_ms": by}
 
@@ -1113,14 +1275,18 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                         enable_gqa=True)
     dot = do.transpose(1, 2)
-    lib_ms, _ = time_ms(torch, lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), 20)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                           retain_graph=True)
+    lib_ms, _ = time_ms(torch, sdpa_bwd, 20)
+    lib_kernels = library_kernels(torch, sdpa_bwd)
+    print(f"  SDPA backward ran {lib_kernels}")
     for name, which, ms in (("flash_bwd_dq", "dq", ms_dq),
                             ("flash_bwd_dkv", "dkv", ms_dkv)):
         b_ms, b_by = case.bound(which)
         rows.append({"name": name, "shape": case.name, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms,
+                     "library_kernels": lib_kernels,
                      "max_abs_err": bwd_errs[case.name][which]})
         print(f"  {name:<14} {case.name}: kernel {ms:.4f} ms  bound "
               f"{b_ms:.5f} ms ({b_by})  plain (dq, dk, dv together) "
@@ -1211,9 +1377,11 @@ def run() -> int:
         bwd_errs = bwd_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
         scan_errs = scan_checks(torch, ops, ref)
+        ops.reset_launch_counts()
         model_check(torch)
         ssm_model_check(torch)
         train_check(torch)
+        fma_only(ops)
         ssm = {}
         for arch in SSM_ARCHS:
             ssm[arch] = main_path(torch, ops, arch,
@@ -1230,6 +1398,7 @@ def run() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     top = rows[0]        # the decode step: the serving path's common call
+    design = "mma.sync bf16, packed GQA rows, cp.async 2-stage"
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -1239,6 +1408,15 @@ def run() -> int:
             "serve": main["launches"]["flash_fwd"],
             "serve zamba2-1.2b": ssm["zamba2-1.2b"]["launches"]["flash_fwd"],
             "train": train["launches"]["flash_fwd"]},
+        "variant_by_path": {
+            "serve": f"flash_fwd_mma_kernel x "
+                     f"{main['variants']['flash_fwd_mma']}",
+            "serve zamba2-1.2b": f"flash_fwd_mma_kernel x "
+                     f"{ssm['zamba2-1.2b']['variants']['flash_fwd_mma']}",
+            "train": f"flash_fwd_mma_kernel x "
+                     f"{train['variants_per_tick']['flash_fwd_mma']} a tick",
+            "fp32 checks": "flash_fwd_kernel (FMA)"},
+        "design": design,
         "max_abs_err": top["max_abs_err"],
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -1260,7 +1438,14 @@ def run() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], **({"shapes": row["shapes"]}
-                                      if "shapes" in row else {})})
+                                      if "shapes" in row else {}),
+            **({"variant_by_path": {
+                "train": f"flash_bwd_dq_mma_kernel x "
+                         f"{train['variants_per_tick']['flash_bwd_dq_mma']}"
+                         f" a tick",
+                "fp32 checks": "flash_bwd_dq_kernel (FMA)"},
+                "design": design} if row["name"] == "flash_bwd_dq"
+               else {})})
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call

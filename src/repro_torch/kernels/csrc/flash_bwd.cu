@@ -1,9 +1,10 @@
-// Flash attention backward for Hopper (sm_90a), plain C interface: two
-// kernels, one for dq and one for dk/dv.
+// Flash attention backward for Hopper (sm_90a), plain C interface: a dq
+// kernel for each input type and one dk/dv kernel.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/flash_attention.py::
-// flash_bwd (:219): _dq_kernel (:136, here repro_flash_bwd_dq) and
-// _dkv_kernel (:177, here repro_flash_bwd_dkv).  Both recompute the
+// flash_bwd (:219): _dq_kernel (:136, here repro_flash_bwd_dq for fp32
+// and repro_flash_bwd_dq_mma for bf16) and _dkv_kernel (:177, here
+// repro_flash_bwd_dkv).  Both recompute the
 // probabilities from the forward's fp32 log-sum-exp and take
 // dl = rowsum(o * do), computed in fp32 by the caller as the JAX package
 // computes it outside its kernels:
@@ -22,16 +23,37 @@
 // sits at position q_offset + i, keys at positions >= kv_len are masked
 // and causal masks kpos > qpos.  Two differences from the Pallas kernels:
 //
-//   * no GQA folding: the Pallas kernel folds the G query heads of a group
-//     into its sequence axis, so its dk/dv grid sums the group for free;
+//   * GQA: the Pallas kernel folds the G query heads of a group into its
+//     sequence axis head-major, so its dk/dv grid sums the group for free;
 //     here each dk/dv block loops over the G query heads itself and sums
-//     them in registers (no atomics, so the result is deterministic);
+//     them in registers (no atomics, so the result is deterministic), and
+//     the bf16 dq kernel packs the group's rows query-major;
 //   * positions: the Pallas kernels recover causal positions as row % sq,
 //     valid only when sq == sk; these use q_offset + i as the forward does.
 //
-// Inputs are fp32 or bf16; every product and sum is fp32.
+// Which kernel serves which type:
 //
-// Design (simple first), both kernels 256 threads as a 16 x 16 grid:
+//   dq, bf16 (every training step: the model computes in bf16):
+//   flash_bwd_dq_mma_kernel<D>, on the tensor cores through mma.sync
+//   m16n8k16 (flash_mma.cuh), with the forward's layout of work
+//   (flash_fwd.cu): one block per (64 packed rows, KV head, batch row),
+//   packed row r being query r / G of head kvh G + r % G, so one K/V tile
+//   serves the G heads of a group; K and V tiles of 64 keys in a 2-stage
+//   cp.async ring; a causal block stops at key q_offset + (last row) / G.
+//   Per tile each warp (16 rows) forms S = Q K^T and dP = dO V^T (Q, dO,
+//   K, V by ldmatrix from shared memory), then on the fragments p =
+//   exp2(S scale log2(e) - lse log2(e)) (0 where masked) and dS = p (dP -
+//   dl) scale in fp32, rounds dS to bf16 in registers and accumulates
+//   dQ += dS K (K by ldmatrix.trans from the tile already in shared
+//   memory).  lse and dl are gathered per packed row; dQ stays in fp32
+//   registers and is written in bf16.  Q and dO stay in shared memory
+//   and are read per k-step, which keeps the registers to dQ (64 a
+//   thread at d 128), S and dP (32 each).
+//
+//   dq, fp32 (the CPU-parity checks on the card, held to 2e-5 / 1e-3,
+//   which TF32 tensor cores would not meet), and dk/dv for both types:
+//   the PR 12 kernels on the fp32 FMA pipes, every product and sum in
+//   fp32, 256 threads as a 16 x 16 grid:
 //   dq:   one block per (64 query rows, query head, batch row) walks the key
 //         tiles of 64 (stopping at the last key its rows can see when
 //         causal).  Q, dO, K and V tiles are staged in shared memory as
@@ -47,17 +69,20 @@
 //
 // What bounds it on an H100: at the training shape (bf16, sq = sk = 512,
 // d 128) the least time for dq is set by its bytes (q, do, dq and k, v
-// over HBM; its 6 d FLOPs per unmasked pair and head take less at the
-// bf16 tensor-core rate) and for dk/dv by its 8 d FLOPs per pair; both
-// kernels here run far above either, limited by fp32 FMA issue.  What
-// this design leaves on the table: the
-// products run on the fp32 FMA pipes, not the tensor cores (no mma.sync or
-// wgmma); tiles load synchronously (no cp.async or TMA, no double
-// buffering); shared memory (149 KB for dq, 166 KB for dk/dv at d 128)
-// allows one block per SM; the probabilities are recomputed in both
-// kernels, as in the Pallas version.
+// over HBM: 0.035 ms; its 6 d FLOPs per unmasked pair and head take 0.026
+// ms at the bf16 tensor-core rate) and for dk/dv by its 8 d FLOPs per
+// pair.  What the bf16 dq design leaves on the table: mma.sync, not
+// Hopper's wgmma with TMA and warp specialisation; Q and dO re-read from
+// shared memory per tile; 104 KB of shared memory at d 128 (Q, dO and the
+// 2-stage K/V ring), so two blocks fit on an SM; the probabilities are
+// recomputed here and again in dk/dv, as in the Pallas version.  The
+// dk/dv kernel still runs on the fp32 FMA pipes (no tensor cores,
+// synchronous tile loads, 166 KB of shared memory at d 128, one block per
+// SM): the same mma design, transposed, is its redesign.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -384,6 +409,197 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// dq, bf16: tensor cores, packed GQA rows, cp.async 2-stage ring
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+    // Q, dO [64][D + 8]; K, V [2 stages][64][D + 8]; all bf16
+    return 2 * flash_mma::tile_bytes<D>(BQ) +
+           4 * flash_mma::tile_bytes<D>(BK);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
+    using namespace flash_mma;
+    constexpr int NTH = 128;            // 4 warps of 16 packed rows
+    constexpr int BM = BQ;              // packed rows per block
+    constexpr int RS = row_stride<D>();
+    constexpr int KT = BK / 8;          // key n-tiles of S and dP
+    constexpr int DT = D / 8;           // d n-tiles of dQ
+    constexpr float LOG2E = 1.4426950408889634f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* dOs = Qs + BM * RS;
+    bf16* Ks = dOs + BM * RS;           // [2][BK][RS]
+    bf16* Vs = Ks + 2 * BK * RS;        // [2][BK][RS]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int G = p.H / p.KV;
+    const int n_rows = p.sq * G;
+    // the last row blocks (the longest, when causal) start first
+    const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+    const int kvh = blockIdx.y;
+    const int bi = blockIdx.z;
+    const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb +
+                     static_cast<long long>(kvh) * G * p.q_sh;
+    const bf16* og = static_cast<const bf16*>(p.dout) + bi * p.o_sb +
+                     static_cast<long long>(kvh) * G * p.o_sh;
+    const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb +
+                     kvh * p.k_sh;
+    const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb +
+                     kvh * p.v_sh;
+
+    int k_end = p.kv_len;
+    if (p.causal)
+        k_end = min(k_end, p.q_offset + (min(r0 + BM, n_rows) - 1) / G + 1);
+    const int n_tiles = (k_end + BK - 1) / BK;
+
+    const int w0 = r0 + 16 * warp;
+    const bool active = w0 < n_rows;
+    const int w_end = !p.causal ? p.kv_len
+        : min(p.kv_len, p.q_offset + (min(w0 + 16, n_rows) - 1) / G + 1);
+    const int w_first_pos = p.q_offset + w0 / G;
+    const float sl2 = p.scale * LOG2E;
+
+    // rows g (h = 0) and g + 8 (h = 1): position, lse in log2 units, dl
+    int qpos[2];
+    bool row_ok[2];
+    float lse2[2], dlr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = w0 + g + 8 * h;
+        row_ok[h] = row < n_rows;
+        qpos[h] = p.q_offset + row / G;
+        lse2[h] = dlr[h] = 0.f;
+        if (row_ok[h]) {
+            const long long idx =
+                (static_cast<long long>(bi) * p.H + kvh * G + row % G) *
+                    p.sq + row / G;
+            lse2[h] = p.lse[idx] * LOG2E;
+            dlr[h] = p.dl[idx];
+        }
+    }
+
+    load_packed<D, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
+    load_packed<D, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows, tid);
+    load_rows<D, NTH, BK>(Ks, kg, p.k_ss, 0, p.kv_len, tid);
+    load_rows<D, NTH, BK>(Vs, vg, p.v_ss, 0, p.kv_len, tid);
+    cp_async_commit();
+
+    float acc[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = it * BK;
+        if (it + 1 < n_tiles) {
+            const int st = (it + 1) & 1;
+            load_rows<D, NTH, BK>(Ks + st * BK * RS, kg, p.k_ss, k0 + BK,
+                              p.kv_len, tid);
+            load_rows<D, NTH, BK>(Vs + st * BK * RS, vg, p.v_ss, k0 + BK,
+                              p.kv_len, tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+
+        if (active && k0 < w_end) {
+            const bf16* Kt = Ks + (it & 1) * BK * RS;
+            const bf16* Vt = Vs + (it & 1) * BK * RS;
+            float s[KT][4], dp[KT][4];
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t a[4], ao[4];
+                load_a<D>(a, Qs, 16 * warp, 16 * kk, lane);
+                load_a<D>(ao, dOs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < KT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_nk<D>(b, Kt, 16 * np, 16 * kk, lane);
+                    mma_bf16(s[2 * np], a, b[0], b[1]);
+                    mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+                    load_b_nk<D>(b, Vt, 16 * np, 16 * kk, lane);
+                    mma_bf16(dp[2 * np], ao, b[0], b[1]);
+                    mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
+                }
+            }
+
+            // p and dS on the fragments (dS overwrites S)
+            const bool edge = k0 + BK > p.kv_len ||
+                              (p.causal && k0 + BK - 1 > w_first_pos);
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+                    const bool ok = row_ok[h] &&
+                        (!edge || (kpos < p.kv_len &&
+                                   (!p.causal || kpos <= qpos[h])));
+                    const float pr =
+                        ok ? exp2f(s[j][e] * sl2 - lse2[h]) : 0.f;
+                    s[j][e] = pr * (dp[j][e] - dlr[h]) * p.scale;
+                }
+
+            // dQ += dS K: dS rounded to bf16 is the A operand as it lies
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                uint32_t a[4];
+                a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+                for (int np = 0; np < DT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_kn<D>(b, Kt, 16 * kk, 16 * np, lane);
+                    mma_bf16(acc[2 * np], a, b[0], b[1]);
+                    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    if (!active) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = w0 + g + 8 * h;
+        if (!row_ok[h]) continue;
+        bf16* dst = static_cast<bf16*>(p.dq) +
+                    ((static_cast<long long>(bi) * p.sq + row / G) * p.H +
+                     kvh * G + row % G) * D;
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+            *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t) =
+                pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
+template <int D>
+int launch_dq_mma(const Params& p, cudaStream_t stream) {
+    const size_t smem = dq_mma_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rows = p.sq * (p.H / p.KV);
+    const dim3 grid((rows + BQ - 1) / BQ, p.KV, p.b);
+    flash_bwd_dq_mma_kernel<D><<<grid, 128, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// dq (fp32) and dk/dv: the PR 12 kernels' launchers
+
 template <typename T, int D>
 int launch_dq(const Params& p, cudaStream_t stream) {
     const size_t smem = dq_smem_bytes<D>();
@@ -408,18 +624,25 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(const Params& p, int head_dim, int which,
+// which: 0 = dq (fp32 only), 1 = dk/dv (fp32 or bf16), 2 = dq (bf16 only)
+template <int D>
+int launch_which(const Params& p, int which, int dtype,
+                 cudaStream_t stream) {
+    if (dtype == 0 && which == 0) return launch_dq<float, D>(p, stream);
+    if (dtype == 0 && which == 1) return launch_dkv<float, D>(p, stream);
+    if (dtype == 1 && which == 1)
+        return launch_dkv<__nv_bfloat16, D>(p, stream);
+    if (dtype == 1 && which == 2) return launch_dq_mma<D>(p, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_dim(const Params& p, int head_dim, int which, int dtype,
                cudaStream_t stream) {
     switch (head_dim) {
-        case 16: return which ? launch_dkv<T, 16>(p, stream)
-                              : launch_dq<T, 16>(p, stream);
-        case 32: return which ? launch_dkv<T, 32>(p, stream)
-                              : launch_dq<T, 32>(p, stream);
-        case 64: return which ? launch_dkv<T, 64>(p, stream)
-                              : launch_dq<T, 64>(p, stream);
-        case 128: return which ? launch_dkv<T, 128>(p, stream)
-                               : launch_dq<T, 128>(p, stream);
+        case 16: return launch_which<16>(p, which, dtype, stream);
+        case 32: return launch_which<32>(p, which, dtype, stream);
+        case 64: return launch_which<64>(p, which, dtype, stream);
+        case 128: return launch_which<128>(p, which, dtype, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -463,23 +686,28 @@ int run(int which, const void* q, const void* k, const void* v,
     p.q_offset = q_offset;
     p.kv_len = kv_len;
     p.scale = scale;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch_dim<float>(p, head_dim, which, st);
-    if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, which, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dim(p, head_dim, which, dtype,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block (which: 0 = dq, 1 = dk/dv), or -1
-// for a head_dim the kernels do not take.
+// Dynamic shared memory of one block (which: 0 = dq fp32, 1 = dk/dv,
+// 2 = dq bf16), or -1 for a kernel or head_dim it does not have.
 extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
-    switch (head_dim) {
-        case 16: return which ? dkv_smem_bytes<16>() : dq_smem_bytes<16>();
-        case 32: return which ? dkv_smem_bytes<32>() : dq_smem_bytes<32>();
-        case 64: return which ? dkv_smem_bytes<64>() : dq_smem_bytes<64>();
-        case 128:
-            return which ? dkv_smem_bytes<128>() : dq_smem_bytes<128>();
+    switch (head_dim * 4 + which) {
+        case 16 * 4 + 0: return dq_smem_bytes<16>();
+        case 32 * 4 + 0: return dq_smem_bytes<32>();
+        case 64 * 4 + 0: return dq_smem_bytes<64>();
+        case 128 * 4 + 0: return dq_smem_bytes<128>();
+        case 16 * 4 + 1: return dkv_smem_bytes<16>();
+        case 32 * 4 + 1: return dkv_smem_bytes<32>();
+        case 64 * 4 + 1: return dkv_smem_bytes<64>();
+        case 128 * 4 + 1: return dkv_smem_bytes<128>();
+        case 16 * 4 + 2: return dq_mma_smem_bytes<16>();
+        case 32 * 4 + 2: return dq_mma_smem_bytes<32>();
+        case 64 * 4 + 2: return dq_mma_smem_bytes<64>();
+        case 128 * 4 + 2: return dq_mma_smem_bytes<128>();
         default: return -1;
     }
 }
@@ -487,6 +715,9 @@ extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
 // dtype: 0 = fp32, 1 = bf16.  Strides are in elements: q, do [b, sq, H, d]
 // and k, v [b, sk, KV, d] by (batch, position, head).  Each returns a
 // cudaError_t (0 on success); the launch is asynchronous on ``stream``.
+// repro_flash_bwd_dq takes fp32, repro_flash_bwd_dq_mma bf16 whose data
+// pointers and strides are multiples of 16 bytes (cp.async), and
+// repro_flash_bwd_dkv either; each refuses another dtype.
 extern "C" int repro_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dl, void* dq, int dtype, int head_dim,
@@ -515,4 +746,19 @@ extern "C" int repro_flash_bwd_dkv(
                b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, kv_len, scale,
                stream);
+}
+
+extern "C" int repro_flash_bwd_dq_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dl, void* dq, int dtype, int head_dim,
+    int b, int sq, int sk, int H, int KV,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    return run(2, q, k, v, dout, lse, dl, dq, nullptr, nullptr, dtype,
+               head_dim, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
+               k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset,
+               kv_len, scale, stream);
 }

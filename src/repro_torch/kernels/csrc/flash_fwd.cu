@@ -1,12 +1,14 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward for Hopper (sm_90a), plain C interface: two
+// kernels, one per input type.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::flash_fwd
 // (body _fwd_kernel): online-softmax attention that returns o and the fp32
 // log-sum-exp, with scale 1/sqrt(d), the -1e30 mask value and the
 // max(l, 1e-30) guard of the Pallas kernel.  Two generalisations over it:
 //
-//   * no query folding: query head h reads KV head h / (H / KV), so GQA
-//     needs no reshape and a decode step (one query row) is served as is;
+//   * GQA without the Pallas kernel's head-major fold (whose positions,
+//     row % sq, hold only for sq == sk): query head h reads KV head
+//     h / (H / KV), and a decode step (one query row) is served as is;
 //   * q_offset and kv_len: query row i sits at position q_offset + i, keys
 //     at positions >= kv_len are masked, and causal masks kpos > qpos.
 //
@@ -14,28 +16,57 @@
 // [b, sq, H, d], k and v [b, sk, KV, d] (or one layer's slice of the KV
 // cache).  The last dimension must be contiguous.  o is written contiguous
 // [b, sq, H, d] in the input type, lse contiguous [b, H, sq] in fp32.
-// Inputs are fp32 or bf16; every product and sum is fp32, as the Pallas
-// kernel upcasts before each dot.
 //
-// Design (simple first): one block of 256 threads per (64 query rows, query
-// head, batch row).  The block walks the keys in tiles of 64, staged in
-// shared memory as fp32 next to the query tile, and keeps the running max,
-// sum and output accumulator in registers.  Thread (ty, tx) of a 16 x 16
-// grid owns query rows 4*ty .. 4*ty+3: it computes the scores of keys
-// tx + 16*j (j < 4) and the output columns tx + 16*c (c < D/16).  Row
-// maxima and sums reduce over the 16 lanes of a half-warp with shuffles.
-// Causal blocks stop at the last key their rows can see.
+// Which kernel serves which type:
+//
+//   flash_fwd_mma_kernel<D, NW> (bf16, every main path: serving casts the
+//   weights to bf16, training computes in bf16).  Tensor cores through
+//   mma.sync m16n8k16 (flash_mma.cuh).  A block owns one KV head of one
+//   batch row and 16 NW rows packed by GQA group, query-major: packed row
+//   r is query r / G of head kvh G + r % G, so one K/V tile in shared
+//   memory serves all G heads of the group, a row's position is q_offset
+//   + r / G, and a causal block stops at key q_offset + (its last row) /
+//   G.  Each warp owns 16 rows: S = Q K^T (Q and K by ldmatrix) is a
+//   16 x 64 fp32 fragment; mask, scale and the online softmax run on it
+//   (exp2 with scale log2(e) folded in, row max and sum over the quad);
+//   P is rounded to bf16 in registers and is the A operand of O += P V (V
+//   by ldmatrix.trans); O stays in fp32 registers.  K and V tiles of 64
+//   keys go into a 2-stage ring filled by 16-byte cp.async (zero fill past
+//   kv_len): tile j + 1 loads while tile j computes.  The epilogue divides
+//   by max(l, 1e-30) and writes o in bf16; lse comes from the unrounded
+//   fp32 sums.  NW = 4 (64 rows) in general; NW = 1 (16 rows) when sq G
+//   <= 16, which covers granite decode (4 rows), zamba2 decode (1 row)
+//   and short prefill, so no warp of a decode block idles.  (The other
+//   choice, four warps splitting the keys and merging (m, l, O) through
+//   shared memory, splits a single tile at the serving paths' kv_len <=
+//   64 and adds a merge; a one-warp block does the same work with none.)
+//
+//   flash_fwd_kernel<float, D> (fp32: the CPU-parity checks on the card,
+//   held to 2e-5, which TF32 tensor cores would not meet).  The PR 11
+//   design: one block of 256 threads per (64 query rows, query head, batch
+//   row) walks the key tiles staged in shared memory as fp32; thread (ty,
+//   tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3, keys tx + 16 j and
+//   output columns tx + 16 c; products on the fp32 FMA pipes.
 //
 // What bounds it on an H100: at decode (sq = 1) the kernel reads K and V
-// once and is memory-bound, though at the serving path's kv_len <= 64 the
-// launch itself dominates.  At long causal prefill it is compute-bound.
-// What this design leaves on the table: the products run on the fp32 FMA
-// pipes, not the tensor cores (no mma.sync or wgmma), with two shared-memory
-// loads per FMA pair; tiles are loaded synchronously (no cp.async or TMA,
-// no double buffering); a decode block computes 64 query rows to keep one;
-// the G query heads that share a KV head each load it again.
+// once and is memory-bound, though at the serving paths' kv_len <= 64
+// the launch and one tile's load latency dominate.  At the training shape
+// ([8, 512, 32, 128] causal) the bound is bytes (q, k, v, o: 0.025 ms),
+// with the tensor-core FLOPs close behind (0.017 ms).
+// What the bf16 design leaves on the table: mma.sync reaches a fraction of
+// the rate of Hopper's wgmma (asynchronous warpgroup products with TMA
+// loads and warp specialisation); every block of 64 packed rows reads its
+// KV head's K and V tiles again (through L2), and at d 128 its 87 KB of
+// shared memory (Q and the 2-stage ring) lets two blocks of four warps
+// share an SM; Q is re-read from shared memory by each key tile; o is
+// stored from the fragments in 4-byte pieces, not staged for 16-byte
+// stores; and decode is not split over blocks along the keys
+// (flash-decoding), so a long cache would run on KV x b blocks.  Causal
+// blocks run longest first, so the grid's tail is short blocks.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -59,13 +90,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -211,6 +236,210 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, packed GQA rows, cp.async 2-stage ring
+
+template <int D, int NW>
+constexpr size_t mma_smem_bytes() {
+    // Q [16 NW][D + 8]; K, V [2 stages][64][D + 8]; all bf16
+    return flash_mma::tile_bytes<D>(16 * NW) +
+           4 * flash_mma::tile_bytes<D>(BK);
+}
+
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW)
+flash_fwd_mma_kernel(Params p) {
+    using namespace flash_mma;
+    constexpr int NT = 32 * NW;
+    constexpr int BM = 16 * NW;         // packed rows per block
+    constexpr int RS = row_stride<D>();
+    constexpr int KT = BK / 8;          // key n-tiles of S
+    constexpr int DT = D / 8;           // d n-tiles of O
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* Ks = Qs + BM * RS;            // [2][BK][RS]
+    bf16* Vs = Ks + 2 * BK * RS;        // [2][BK][RS]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int G = p.H / p.KV;
+    const int n_rows = p.sq * G;
+    // the last row blocks (the longest, when causal) start first, so the
+    // grid's tail is short blocks
+    const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
+    const int kvh = blockIdx.y;
+    const int bi = blockIdx.z;
+    const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb +
+                     static_cast<long long>(kvh) * G * p.q_sh;
+    const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb +
+                     kvh * p.k_sh;
+    const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb +
+                     kvh * p.v_sh;
+
+    // the block's keys: a causal block stops after its last row's position
+    int k_end = p.kv_len;
+    if (p.causal)
+        k_end = min(k_end, p.q_offset + (min(r0 + BM, n_rows) - 1) / G + 1);
+    const int n_tiles = (k_end + BK - 1) / BK;
+
+    // this warp's 16 rows and the keys they can see
+    const int w0 = r0 + 16 * warp;
+    const bool active = w0 < n_rows;
+    const int w_end = !p.causal ? p.kv_len
+        : min(p.kv_len, p.q_offset + (min(w0 + 16, n_rows) - 1) / G + 1);
+    const int w_first_pos = p.q_offset + w0 / G;
+    const int qpos[2] = {p.q_offset + (w0 + g) / G,
+                         p.q_offset + (w0 + g + 8) / G};
+    const float sl2 = p.scale * 1.4426950408889634f;   // scale log2(e)
+
+    load_packed<D, NT, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
+    load_rows<D, NT, BK>(Ks, kg, p.k_ss, 0, p.kv_len, tid);
+    load_rows<D, NT, BK>(Vs, vg, p.v_ss, 0, p.kv_len, tid);
+    cp_async_commit();
+
+    float o[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};    // running max, log2 units
+    float l[2] = {0.f, 0.f};            // this lane's part of the row sums
+
+    for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = it * BK;
+        if (it + 1 < n_tiles) {         // the next tile into the other stage
+            const int st = (it + 1) & 1;
+            load_rows<D, NT, BK>(Ks + st * BK * RS, kg, p.k_ss, k0 + BK,
+                             p.kv_len, tid);
+            load_rows<D, NT, BK>(Vs + st * BK * RS, vg, p.v_ss, k0 + BK,
+                             p.kv_len, tid);
+        }
+        cp_async_commit();              // (an empty group on the last tile)
+        cp_async_wait<1>();             // this tile (and Q) have landed
+        __syncthreads();
+
+        if (active && k0 < w_end) {
+            const bf16* Kt = Ks + (it & 1) * BK * RS;
+            const bf16* Vt = Vs + (it & 1) * BK * RS;
+            float s[KT][4];
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+                s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t a[4];
+                load_a<D>(a, Qs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < KT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_nk<D>(b, Kt, 16 * np, 16 * kk, lane);
+                    mma_bf16(s[2 * np], a, b[0], b[1]);
+                    mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+
+            // scale into log2 units, mask where a key is out of reach
+            const bool edge = k0 + BK > p.kv_len ||
+                              (p.causal && k0 + BK - 1 > w_first_pos);
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+                    const bool ok = !edge || (kpos < p.kv_len &&
+                                    (!p.causal || kpos <= qpos[e >> 1]));
+                    s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
+                }
+
+            // online softmax, rows g (h = 0) and g + 8 (h = 1)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float mx = m[h];
+#pragma unroll
+                for (int j = 0; j < KT; ++j)
+                    mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+                mx = quad_max(mx);
+                const float corr = exp2f(m[h] - mx);
+                m[h] = mx;
+                float sum = 0.f;
+#pragma unroll
+                for (int j = 0; j < KT; ++j) {
+                    s[j][2 * h] = exp2f(s[j][2 * h] - mx);
+                    s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - mx);
+                    sum += s[j][2 * h] + s[j][2 * h + 1];
+                }
+                l[h] = l[h] * corr + sum;
+#pragma unroll
+                for (int j = 0; j < DT; ++j) {
+                    o[j][2 * h] *= corr;
+                    o[j][2 * h + 1] *= corr;
+                }
+            }
+
+            // O += P V: P rounded to bf16 is the A operand as it lies
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                uint32_t a[4];
+                a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+                for (int np = 0; np < DT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_kn<D>(b, Vt, 16 * kk, 16 * np, lane);
+                    mma_bf16(o[2 * np], a, b[0], b[1]);
+                    mma_bf16(o[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+        }
+        __syncthreads();                // this stage is free for reuse
+    }
+
+    if (!active) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = w0 + g + 8 * h;
+        const float lsum = fmaxf(quad_sum(l[h]), 1e-30f);
+        if (row >= n_rows) continue;
+        const int i = row / G;
+        const int head = kvh * G + row % G;
+        const float inv = 1.f / lsum;
+        bf16* og = static_cast<bf16*>(p.o) +
+                   ((static_cast<long long>(bi) * p.sq + i) * p.H + head) * D;
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+            *reinterpret_cast<uint32_t*>(og + 8 * j + 2 * t) =
+                pack_bf16(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+        if (t == 0)
+            p.lse[(static_cast<long long>(bi) * p.H + head) * p.sq + i] =
+                m[h] * 0.6931471805599453f + logf(lsum);
+    }
+}
+
+template <int D, int NW>
+int launch_mma(const Params& p, cudaStream_t stream) {
+    const size_t smem = mma_smem_bytes<D, NW>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D, NW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rows = p.sq * (p.H / p.KV);
+    const dim3 grid((rows + 16 * NW - 1) / (16 * NW), p.KV, p.b);
+    flash_fwd_mma_kernel<D, NW><<<grid, 32 * NW, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// one warp per block when all of a KV head's packed rows fit in 16
+template <int D>
+int launch_mma_rows(const Params& p, cudaStream_t stream) {
+    return p.sq * (p.H / p.KV) <= 16 ? launch_mma<D, 1>(p, stream)
+                                     : launch_mma<D, 4>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the PR 11 kernel on the FMA pipes
+
 template <typename T, int D>
 int launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
@@ -223,40 +452,27 @@ int launch(const Params& p, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(const Params& p, int head_dim, cudaStream_t stream) {
+int launch_dim(const Params& p, int head_dim, bool mma,
+               cudaStream_t stream) {
     switch (head_dim) {
-        case 16: return launch<T, 16>(p, stream);
-        case 32: return launch<T, 32>(p, stream);
-        case 64: return launch<T, 64>(p, stream);
-        case 128: return launch<T, 128>(p, stream);
+        case 16: return mma ? launch_mma_rows<16>(p, stream)
+                            : launch<float, 16>(p, stream);
+        case 32: return mma ? launch_mma_rows<32>(p, stream)
+                            : launch<float, 32>(p, stream);
+        case 64: return mma ? launch_mma_rows<64>(p, stream)
+                            : launch<float, 64>(p, stream);
+        case 128: return mma ? launch_mma_rows<128>(p, stream)
+                             : launch<float, 128>(p, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-}  // namespace
-
-// Dynamic shared memory of one block, or -1 for a head_dim it does not
-// take.
-extern "C" long long repro_flash_fwd_smem_bytes(int head_dim) {
-    switch (head_dim) {
-        case 16: return smem_bytes<16>();
-        case 32: return smem_bytes<32>();
-        case 64: return smem_bytes<64>();
-        case 128: return smem_bytes<128>();
-        default: return -1;
-    }
-}
-
-// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t (0 on success); the
-// launch is asynchronous on ``stream`` and does not synchronise.
-extern "C" int repro_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int dtype, int head_dim, int b, int sq, int H, int KV,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    int causal, int q_offset, int kv_len, float scale, void* stream) {
+int run(bool mma, const void* q, const void* k, const void* v, void* o,
+        void* lse, int head_dim, int b, int sq, int H, int KV,
+        long long q_sb, long long q_ss, long long q_sh,
+        long long k_sb, long long k_ss, long long k_sh,
+        long long v_sb, long long v_ss, long long v_sh,
+        int causal, int q_offset, int kv_len, float scale, void* stream) {
     Params p;
     p.q = q;
     p.k = k;
@@ -280,8 +496,59 @@ extern "C" int repro_flash_fwd(
     p.q_offset = q_offset;
     p.kv_len = kv_len;
     p.scale = scale;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch_dim<float>(p, head_dim, st);
-    if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dim(p, head_dim, mma, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block, or -1 for a variant or head_dim it
+// does not have.  variant: 0 = fp32 FMA kernel, 1 = bf16 mma kernel with
+// 4 warps (64 packed rows), 2 = bf16 mma kernel with 1 warp (16 rows).
+extern "C" long long repro_flash_fwd_smem_bytes(int variant, int head_dim) {
+    switch (head_dim * 4 + variant) {
+        case 16 * 4 + 0: return smem_bytes<16>();
+        case 32 * 4 + 0: return smem_bytes<32>();
+        case 64 * 4 + 0: return smem_bytes<64>();
+        case 128 * 4 + 0: return smem_bytes<128>();
+        case 16 * 4 + 1: return mma_smem_bytes<16, 4>();
+        case 32 * 4 + 1: return mma_smem_bytes<32, 4>();
+        case 64 * 4 + 1: return mma_smem_bytes<64, 4>();
+        case 128 * 4 + 1: return mma_smem_bytes<128, 4>();
+        case 16 * 4 + 2: return mma_smem_bytes<16, 1>();
+        case 32 * 4 + 2: return mma_smem_bytes<32, 1>();
+        case 64 * 4 + 2: return mma_smem_bytes<64, 1>();
+        case 128 * 4 + 2: return mma_smem_bytes<128, 1>();
+        default: return -1;
+    }
+}
+
+// Each returns a cudaError_t (0 on success); the launch is asynchronous
+// on ``stream`` and does not synchronise.  Strides are in elements.
+// repro_flash_fwd takes fp32 tensors (dtype 0), repro_flash_fwd_mma bf16
+// (dtype 1) whose data pointers and strides are multiples of 16 bytes
+// (cp.async); either refuses another dtype.
+extern "C" int repro_flash_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int head_dim, int b, int sq, int H, int KV,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return run(false, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
+               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
+               kv_len, scale, stream);
+}
+
+extern "C" int repro_flash_fwd_mma(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int head_dim, int b, int sq, int H, int KV,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return run(true, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
+               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
+               kv_len, scale, stream);
 }

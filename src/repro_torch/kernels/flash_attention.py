@@ -5,10 +5,24 @@ Twin of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernels
 ``flash_fwd`` and ``flash_bwd``).  The kernels themselves are
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (dq, and dk/dv); their
 source notes say what they compute, what bounds them on an H100 and what
-their simple design leaves for later.  Unlike the Pallas kernels they
-take the model-side layout and index the KV head as ``h // G``, so they
-serve GQA without folding, and they take a query position offset and a
-key count, so one kernel serves causal prefill and each decode step.
+their design leaves for later.  Unlike the Pallas kernels they take the
+model-side layout and index the KV head as ``h // G``, and they take a
+query position offset and a key count, so one kernel serves causal
+prefill and each decode step.
+
+The forward and dq are chosen by dtype, not as a fallback:
+
+* bf16 (every main path) goes to the tensor-core kernels
+  (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``: mma.sync on
+  bf16 tiles, rows packed by GQA group, a 2-stage cp.async ring), which
+  copy 16-byte pieces, so :func:`check_cp_async_alignment` raises on a
+  tensor they cannot copy that way;
+* fp32 goes to the FMA kernels (``flash_fwd_kernel``,
+  ``flash_bwd_dq_kernel``), which keep the fp32 card-vs-CPU checks at
+  2e-5; TF32 tensor cores keep about three decimal digits.
+
+dk/dv runs on its FMA kernel for both types.  A bf16 call never reaches
+an FMA forward or dq kernel; a failed build, check or launch raises.
 
 On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their
 kernels or raise; on CPU tensors they compute
@@ -31,9 +45,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
 
 # kernel launches since the last reset (the CPU path never counts)
-launches = 0            # flash_fwd
-launches_dq = 0         # flash_bwd_dq
+launches = 0            # flash_fwd, either kernel
+launches_dq = 0         # flash_bwd_dq, either kernel
 launches_dkv = 0        # flash_bwd_dkv
+launches_mma = 0        # flash_fwd on the bf16 tensor-core kernel
+launches_dq_mma = 0     # flash_bwd_dq on the bf16 tensor-core kernel
+
+# cp.async copies 16 bytes at a time, from and to 16-byte aligned addresses
+CP_ASYNC_BYTES = 16
 
 _c = ctypes.c_int
 _ll = ctypes.c_longlong
@@ -47,23 +66,27 @@ _BWD_ARGTYPES = ([_p] * 7 + [_c] * 7 + [_ll] * 12
 
 
 def _lib():
+    """(fp32 forward, bf16 forward) of the flash_fwd library."""
     lib = build.library("flash_fwd")
-    fn = lib.repro_flash_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    fns = (lib.repro_flash_fwd, lib.repro_flash_fwd_mma)
+    for fn in fns:
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def _bwd_lib():
+    """(fp32 dq, bf16 dq, dk/dv) of the flash_bwd library."""
     lib = build.library("flash_bwd")
-    dq, dkv = lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv
-    if dq.argtypes is None:
-        dq.argtypes = _BWD_ARGTYPES
-        dq.restype = ctypes.c_int
-        dkv.argtypes = [_p] * 8 + _BWD_ARGTYPES[7:]
-        dkv.restype = ctypes.c_int
-    return dq, dkv
+    fns = (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dq_mma,
+           lib.repro_flash_bwd_dkv)
+    for fn, argtypes in zip(fns, (_BWD_ARGTYPES, _BWD_ARGTYPES,
+                                  [_p] * 8 + _BWD_ARGTYPES[7:])):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def load() -> None:
@@ -102,6 +125,27 @@ def _check(q, k, v, q_offset: int, kv_len: int) -> None:
         raise ValueError(f"q_offset={q_offset} < 0")
 
 
+def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless each named [b, s, heads, d] tensor can
+    be copied by the bf16 kernels' 16-byte cp.async: its data pointer and
+    its batch, sequence and head strides (where that dimension has more
+    than one entry) must be multiples of 16 bytes.  A pure check of
+    pointers and strides: it runs on tensors on any device."""
+    for name, t in tensors.items():
+        if t.data_ptr() % CP_ASYNC_BYTES:
+            raise ValueError(
+                f"{name}: data pointer {t.data_ptr():#x} is not a multiple "
+                f"of {CP_ASYNC_BYTES} bytes, which the bf16 kernels' "
+                f"cp.async copies need")
+        for dim, what in enumerate(("batch", "sequence", "head")):
+            nbytes = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and nbytes % CP_ASYNC_BYTES:
+                raise ValueError(
+                    f"{name}: {what} stride {t.stride(dim)} ({nbytes} "
+                    f"bytes) is not a multiple of {CP_ASYNC_BYTES} bytes, "
+                    f"which the bf16 kernels' cp.async copies need")
+
+
 def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
               kv_len: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,9 +167,12 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
     KV = k.shape[2]
     if b > _GRID_YZ_MAX or H > _GRID_YZ_MAX:
         raise ValueError(f"batch {b} or heads {H} exceed the launch grid")
+    mma = q.dtype == torch.bfloat16
+    if mma:
+        check_cp_async_alignment(q=q, k=k, v=v)
     o = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
-    fn = _lib()
+    fn = _lib()[mma]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -135,8 +182,9 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
                  1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
-    global launches
+    global launches, launches_mma
     launches += 1
+    launches_mma += mma
     return o, lse
 
 
@@ -175,12 +223,16 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
         raise ValueError("lse must be contiguous")
     if b > _GRID_YZ_MAX or H > _GRID_YZ_MAX:
         raise ValueError(f"batch {b} or heads {H} exceed the launch grid")
+    mma = q.dtype == torch.bfloat16
+    if mma:
+        check_cp_async_alignment(q=q, k=k, v=v, do=do)
     launch_dq, launch_dkv, (dq, dk, dv) = _bwd_launchers(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
         kv_len=kv_len)
-    global launches_dq, launches_dkv
+    global launches_dq, launches_dkv, launches_dq_mma
     launch_dq()
     launches_dq += 1
+    launches_dq_mma += mma
     launch_dkv()
     launches_dkv += 1
     return dq, dk, dv
@@ -190,15 +242,19 @@ def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
                    kv_len: int):
     """Computes dl and allocates dq, dk, dv; returns (launch_dq,
     launch_dkv, (dq, dk, dv)), each launcher starting its kernel once on
-    the current stream (or raising on a CUDA error) without counting.
-    :func:`flash_bwd` counts; ``chip_smoke.py`` times each alone."""
+    the current stream (or raising on a CUDA error) without counting;
+    dq's is the tensor-core kernel for bf16 and the FMA kernel for fp32.
+    :func:`flash_bwd` checks and counts; ``chip_smoke.py`` times each
+    alone."""
     b, sq, H, d = q.shape
     sk, KV = k.shape[1], k.shape[2]
     dl = flash_dl(o, do)
     dq = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
-    fn_dq, fn_dkv = _bwd_lib()
+    fn_dq, fn_dq_mma, fn_dkv = _bwd_lib()
+    if q.dtype == torch.bfloat16:
+        fn_dq = fn_dq_mma
     tail = (_DTYPES[q.dtype], d, b, sq, sk, H, KV, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(d))

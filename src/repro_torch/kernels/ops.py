@@ -63,8 +63,17 @@ def launch_counts() -> Dict[str, int]:
             "rwkv6_scan": r6.launches, "mamba2_scan": m2.launches}
 
 
+def variant_counts() -> Dict[str, int]:
+    """Launches of the bf16 tensor-core kernels since the last reset, a
+    part of :func:`launch_counts`' ``flash_fwd`` and ``flash_bwd_dq``
+    (the rest went to the fp32 FMA kernels)."""
+    return {"flash_fwd_mma": fa.launches_mma,
+            "flash_bwd_dq_mma": fa.launches_dq_mma}
+
+
 def reset_launch_counts() -> None:
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_mma = fa.launches_dq_mma = 0
     fu.launches = r6.launches = m2.launches = 0
 
 

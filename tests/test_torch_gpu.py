@@ -64,6 +64,23 @@ def _close(got, want, tol, rtol=None):
                                atol=tol, rtol=tol if rtol is None else rtol)
 
 
+# bf16 packed-row edges of the tensor-core kernels: G in {1, 2, 4, 8}
+# with sq G off the 16- and 64-row blocks, kv_len off the 64-key tile,
+# q_offset > 0 causal and not, every head_dim, sq != sk
+MMA_EDGES = [(*case, torch.bfloat16) for case in [
+    # b, sq, sk, H, KV, d, q_offset, kv_len, causal
+    (2, 37, 37, 8, 8, 64, 0, 37, True),        # G 1, 37 rows
+    (1, 21, 50, 8, 4, 32, 29, 50, True),       # G 2, 42 rows, offset
+    (2, 13, 100, 16, 4, 128, 0, 77, False),    # G 4, 52 rows, kv_len 77
+    (1, 3, 70, 32, 4, 16, 60, 63, True),       # G 8, 24 rows, offset
+    (1, 2, 64, 16, 2, 64, 10, 12, False),      # G 8, 16 rows: one warp
+    (1, 1, 200, 8, 1, 128, 130, 131, False),   # G 8 decode, 3 key tiles
+    (2, 100, 300, 4, 2, 32, 200, 300, True),   # G 2, 200 rows
+    (1, 70, 70, 2, 2, 16, 0, 70, True),        # d 16
+    (1, 65, 65, 4, 4, 64, 0, 65, True),        # row 64's own key: tile 2
+    (2, 128, 128, 32, 8, 128, 0, 128, True),   # the training layout
+]]
+
 GPU_CASES = [
     # b, sq, sk, H, KV, d, q_offset, kv_len, causal, dtype
     (1, 1, 64, 32, 8, 128, 36, 37, False, torch.bfloat16),
@@ -78,7 +95,7 @@ GPU_CASES = [
     (1, 100, 300, 4, 2, 32, 200, 300, True, torch.float32),
     (1, 70, 70, 2, 2, 16, 0, 70, True, torch.float32),
     (3, 65, 130, 4, 2, 64, 0, 97, False, torch.bfloat16),
-]
+] + MMA_EDGES
 
 
 @pytest.mark.gpu
@@ -86,11 +103,14 @@ GPU_CASES = [
 def test_kernel_matches_plain(card, case):
     b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
     q, k, v = _qkv(6, b, sq, sk, H, KV, d, dt)
-    before = fa.launches
+    before = (fa.launches, fa.launches_mma)
     o, lse = fa.flash_fwd(q, k, v, causal=causal, q_offset=off,
                           kv_len=kv_len)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    # bf16 on the tensor-core kernel, fp32 on the FMA kernel
+    mma = int(dt == torch.bfloat16)
+    assert (fa.launches, fa.launches_mma) == (before[0] + 1,
+                                              before[1] + mma)
     assert o.shape == q.shape and o.dtype == dt
     assert lse.shape == (b, H, sq) and lse.dtype == torch.float32
     o_r, lse_r = ref.flash_fwd_ref(q, k, v, causal=causal, q_offset=off,
@@ -98,6 +118,40 @@ def test_kernel_matches_plain(card, case):
     tol = F32_TOL if dt == torch.float32 else BF16_TOL
     _close(o, o_r, tol)
     _close(lse, lse_r, tol)
+
+
+@pytest.mark.gpu
+def test_fp32_stays_on_fma_kernels(card):
+    q, k, v = _qkv(15, 1, 40, 40, 8, 2, 64, torch.float32)
+    ops.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    fa.flash_bwd(q, k, v, o, lse, torch.randn_like(o), causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_fwd"] == 1
+    assert ops.launch_counts()["flash_bwd_dq"] == 1
+    assert ops.variant_counts() == {"flash_fwd_mma": 0,
+                                    "flash_bwd_dq_mma": 0}
+
+
+@pytest.mark.gpu
+def test_mma_rejects_misaligned_bf16(card):
+    base = torch.randn(1, 5 * 68 + 8, device=card, dtype=torch.bfloat16)
+    k = torch.randn(1, 5, 2, 16, device=card, dtype=torch.bfloat16)
+    # rows 68 elements (136 bytes) apart: not a multiple of 16 bytes
+    q = base.as_strided((1, 5, 4, 16), (base.stride(0), 68, 16, 1))
+    before = (fa.launches, fa.launches_mma)
+    with pytest.raises(ValueError, match="q: sequence stride 68"):
+        fa.flash_fwd(q, k, k, causal=True)
+    # a data pointer 2 bytes past a 16-byte boundary
+    shifted = base.as_strided((1, 5, 2, 16), (base.stride(0), 32, 16, 1),
+                              storage_offset=1)
+    with pytest.raises(ValueError, match="k: data pointer"):
+        fa.flash_fwd(k.reshape(1, 5, 2, 16), shifted, k, causal=True)
+    assert (fa.launches, fa.launches_mma) == before
+    o = torch.zeros(1, 5, 4, 16, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 5, device=card)
+    with pytest.raises(ValueError, match="do: sequence stride 68"):
+        fa.flash_bwd(o, k, k, o, lse, q, causal=True)
 
 
 @pytest.mark.gpu
@@ -147,22 +201,25 @@ BWD_CASES = [
     (3, 65, 130, 8, 2, 64, 0, 97, False, torch.float32),
     (2, 128, 128, 32, 8, 128, 0, 128, True, torch.bfloat16),
     (3, 65, 130, 8, 2, 64, 0, 97, False, torch.bfloat16),
-]
+] + MMA_EDGES
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_bwd_kernels_match_plain(card, case):
+    """In bf16 dq runs on the tensor-core kernel and dk/dv on the FMA
+    kernel, both from the same forward's lse."""
     b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
     q, k, v = _qkv(8, b, sq, sk, H, KV, d, dt)
     kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     do = torch.randn_like(o)
-    before = (fa.launches_dq, fa.launches_dkv)
+    before = (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1,
-                                                 before[1] + 1)
+    mma = int(dt == torch.bfloat16)
+    assert (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma) == (
+        before[0] + 1, before[1] + 1, before[2] + mma)
     want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
     tol, rtol = BWD_F32_TOL if dt == torch.float32 else (BF16_TOL, None)
     for got, w in zip((dq, dk, dv), want):
