@@ -12,9 +12,10 @@ the JAX package, and in phases:
      and device count);
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
      csrc`` (one nvcc per source, all five at once), with ptxas's
-     registers and shared memory, and for the two bf16 tensor-core
-     kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``) their
-     registers, spills and static and dynamic shared memory;
+     registers and shared memory, and for the three bf16 tensor-core
+     kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+     ``flash_bwd_dkv_mma_kernel``) their registers, spills and static
+     and dynamic shared memory;
   3. holds each kernel against its plain PyTorch version on the card
      (TF32 off for the plain versions): the flash forward at the serving
      paths' decode and prefill shapes (granite-8b's attention, head_dim
@@ -26,13 +27,15 @@ the JAX package, and in phases:
      sq != sk) (2e-5 in fp32 on the FMA kernel, 2e-2 in bf16 on the
      tensor-core kernel, each launch counted by its variant); the flash
      backward (dq, dk/dv) at the training shape, the repository's
-     backward test case, a non-causal GQA case with masked keys and the
-     same packed-row edges in bf16 (atol 2e-5 / rtol 1e-3 in fp32, 2e-2
-     in bf16, dq on the tensor-core kernel in bf16); the fused update on
-     a ragged group of tensors, with and without the prediction and with
-     bf16 gradients (1e-6 in fp32, 2e-2 in bf16), and (in phase 8) on
-     the training path's two groups, a
-     full-width stage and the outer tree; the two scans (``rwkv6_scan``,
+     backward test case, a non-causal GQA case with masked keys, the
+     same packed-row edges and the dk/dv kernel's own edges in bf16
+     (atol 2e-5 / rtol 1e-3 in fp32, 2e-2 in bf16, both kernels on the
+     tensor cores in bf16; dk and dv exactly zero past kv_len, and a
+     rerun into NaN-filled outputs repeating the first bit for bit); the
+     fused update on a ragged group of tensors, with and without the
+     prediction and with bf16 gradients (1e-6 in fp32, 2e-2 in bf16),
+     and (in phase 8) on the training path's two groups, a full-width
+     stage and the outer tree; the two scans (``rwkv6_scan``,
      ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0),
      prefill (s = 12), ragged (s = 37) and s = 2048 at full width, and
      mamba2 with g > 1, with the decays the models draw (down to ~1e-29
@@ -61,8 +64,8 @@ the JAX package, and in phases:
      SpecTrain, 10 ticks; checks the losses are finite, the loss turns
      valid at tick S-1, stage 0's weights hold until tick 2(S-1) and
      move after it, and each tick launches exactly 2L flash forwards, L
-     of each backward kernel and S+1 fused updates, every forward and dq
-     on the tensor-core kernels; profiles one tick and checks the
+     of each backward kernel and S+1 fused updates, every forward, dq
+     and dk/dv on the tensor-core kernels; profiles one tick and checks the
      profile shows the same kernels;
   8. times every kernel at its main path's shapes beside its bound, its
      plain version and a library yardstick the port never calls
@@ -140,6 +143,18 @@ MMA_EDGES = [
     ("G1 d16 70 rows", 1, 70, 70, 2, 2, 16, True, 0, 70),
     ("G1 65 rows, row 64 opens a key tile", 1, 65, 65, 4, 4, 64, True, 0,
      65),
+]
+
+# the bf16 dk/dv kernel's own edges (64-key blocks over 64-row packed
+# tiles), in the same form: a key block whose first key is the position
+# of a row tile's first row; G 4 with the first row to see a block mid-
+# tile; kv_len mid-block with sk > kv_len; sq 1 with G 8
+DKV_EDGES = [
+    ("G1 key block 1 at row tile 1", 1, 192, 192, 2, 2, 64, True, 0, 192),
+    ("G4 first visible row mid-tile", 1, 40, 120, 8, 2, 128, True, 50,
+     120),
+    ("G2 kv_len 100 of sk 160", 2, 70, 160, 4, 2, 64, False, 0, 100),
+    ("G8 sq 1", 2, 1, 90, 16, 2, 128, True, 70, 71),
 ]
 
 
@@ -340,7 +355,8 @@ def mma_ptxas(log: str) -> dict:
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
             name = None
-            for k in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel"):
+            for k in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                      "flash_bwd_dkv_mma_kernel"):
                 if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
                     args = re.findall(r"Li(\d+)E", sym.split(k, 1)[1])
                     name = f"{k}<{', '.join(args)}>"
@@ -377,8 +393,8 @@ def build_kernels(build, *mods) -> None:
         print(f"  dynamic shared memory per block at head_dim {d}: "
               f"flash_fwd fp32 {fwd(0, d)} B, bf16 mma 4 warps {fwd(1, d)} "
               f"B, 1 warp {fwd(2, d)} B; flash_bwd_dq fp32 {bwd(0, d)} B, "
-              f"bf16 mma {bwd(2, d)} B; flash_bwd_dkv {bwd(1, d)} B; "
-              f"fused_update none")
+              f"bf16 mma {bwd(2, d)} B; flash_bwd_dkv fp32 {bwd(1, d)} B, "
+              f"bf16 mma {bwd(3, d)} B; fused_update none")
     print("  rwkv6_scan, mamba2_scan: static shared memory only (ptxas "
           "lines above)")
 
@@ -459,13 +475,15 @@ def model_check(torch) -> None:
 
 def fma_only(ops) -> None:
     """The fp32 card-vs-CPU checks ran attention on the FMA kernels only:
-    flash forwards and dq kernels were launched, none a tensor-core
-    one."""
+    flash forwards and both backward kernels were launched, none a
+    tensor-core one."""
     counts, variants = ops.launch_counts(), ops.variant_counts()
-    print(f"  fp32 model checks: {counts['flash_fwd']} flash_fwd and "
-          f"{counts['flash_bwd_dq']} flash_bwd_dq launches, tensor-core "
+    print(f"  fp32 model checks: {counts['flash_fwd']} flash_fwd, "
+          f"{counts['flash_bwd_dq']} flash_bwd_dq and "
+          f"{counts['flash_bwd_dkv']} flash_bwd_dkv launches, tensor-core "
           f"variants {variants}")
-    check(counts["flash_fwd"] > 0 and counts["flash_bwd_dq"] > 0,
+    check(counts["flash_fwd"] > 0 and counts["flash_bwd_dq"] > 0
+          and counts["flash_bwd_dkv"] > 0,
           "the fp32 model checks launched no attention kernel")
     check(not any(variants.values()),
           f"an fp32 model check reached a bf16 kernel: {variants}")
@@ -556,7 +574,8 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
     want = {name: per_call.get(name, 0) * (want_prefill + want_decode)
             for name in counts}
     check(counts == want, f"the run launched {counts}, expected {want}")
-    want_v = {"flash_fwd_mma": counts["flash_fwd"], "flash_bwd_dq_mma": 0}
+    want_v = {"flash_fwd_mma": counts["flash_fwd"], "flash_bwd_dq_mma": 0,
+              "flash_bwd_dkv_mma": 0}
     print(f"  tensor-core variants: {variants} (every bf16 flash_fwd)")
     check(variants == want_v, f"the run's tensor-core launches {variants}, "
           f"expected {want_v}")
@@ -570,10 +589,10 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
 
 
 # the kernel function each wrapper launches, as the profiler names it
-# (bf16 paths: the tensor-core variant of the forward and of dq)
+# (bf16 paths: the tensor-core variants of the forward and backward)
 KERNEL_SYMBOL = {"flash_fwd": "flash_fwd_mma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
                  "fused_update": "fused_update_kernel",
                  "rwkv6_scan": "wkv_kernel", "mamba2_scan": "ssd_kernel"}
 
@@ -741,16 +760,33 @@ class BwdCase(Case):
 
 def compare_bwd(torch, fa, ref, case: BwdCase, seed=0):
     """Both backward kernels against the plain version on the same card
-    inputs; returns {"dq": max |d dq|, "dkv": max over dk and dv}."""
+    inputs; returns {"dq": max |d dq|, "dkv": max over dk and dv}.  Keys
+    at positions >= kv_len must come back exactly zero."""
     q, k, v, o, lse, do = case.all_tensors(torch, fa, seed)
-    before = (fa.launches_dq, fa.launches_dq_mma, fa.launches_dkv)
+    counters = lambda: (fa.launches_dq, fa.launches_dq_mma,
+                        fa.launches_dkv, fa.launches_dkv_mma)
+    before = counters()
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **case.kw())
     torch.cuda.synchronize()
     mma = int(case.dtype == "bfloat16")
-    check((fa.launches_dq, fa.launches_dq_mma, fa.launches_dkv) == (
-        before[0] + 1, before[1] + mma, before[2] + 1),
-        f"{case.name}: the {case.dtype} call did not launch dq on the "
-        f"{'tensor-core' if mma else 'FMA'} kernel and dk/dv once each")
+    check(counters() == (before[0] + 1, before[1] + mma, before[2] + 1,
+                         before[3] + mma),
+          f"{case.name}: the {case.dtype} call did not launch dq and dk/dv "
+          f"once each on the {'tensor-core' if mma else 'FMA'} kernels")
+    # dk/dv again (uncounted) into NaN-filled outputs: a key the kernel
+    # does not write stays NaN, and a second run must repeat the first
+    # bit for bit (no atomics)
+    _, launch_dkv, (_, dk2, dv2) = fa._bwd_launchers(q, k, v, o, lse, do,
+                                                     **case.kw())
+    dk2.fill_(float("nan"))
+    dv2.fill_(float("nan"))
+    launch_dkv()
+    torch.cuda.synchronize()
+    check(torch.equal(dk2, dk) and torch.equal(dv2, dv), f"{case.name}: "
+          f"dk/dv into NaN-filled outputs differ from the first run")
+    for nm, t in (("dk", dk), ("dv", dv)):
+        check(bool((t[:, case.kv_len:] == 0).all()), f"{case.name}: {nm} "
+              f"not exactly zero for keys past kv_len {case.kv_len}")
     want = ref.flash_bwd_ref(q, k, v, o, lse, do, **case.kw())
     atol, rtol = BWD_TOL[case.dtype]
     errs = {}
@@ -777,7 +813,8 @@ def bwd_checks(torch, fa, ref) -> dict:
                              128, 128, 4, 2, 64, dt, True))
         cases.append(BwdCase(f"full GQA H8/2 65x130 kv_len 97 {dt}", 3,
                              65, 130, 8, 2, 64, dt, False, 0, 97))
-    for name, b, sq, sk, H, KV, d, causal, off, kv_len in MMA_EDGES:
+    for name, b, sq, sk, H, KV, d, causal, off, kv_len in (MMA_EDGES +
+                                                           DKV_EDGES):
         cases.append(BwdCase(f"edge {name} bfloat16", b, sq, sk, H, KV, d,
                              "bfloat16", causal, off, kv_len))
     errs = {}
@@ -1152,8 +1189,9 @@ def train_main_path(torch, ops) -> dict:
     from repro_torch.models.layers import tree_leaves
     want_tick = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
                  "fused_update": S + 1}
-    # bf16: every forward and dq on the tensor-core kernels
-    want_var = {"flash_fwd_mma": 2 * L, "flash_bwd_dq_mma": L}
+    # bf16: every forward, dq and dk/dv on the tensor-core kernels
+    want_var = {"flash_fwd_mma": 2 * L, "flash_bwd_dq_mma": L,
+                "flash_bwd_dkv_mma": L}
     prof_tick = 7
     rec = {"counts": [], "variants": [], "valid": [], "loss": [], "t": [],
            "t_end": [], "stage0": []}
@@ -1293,7 +1331,9 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
               f"{plain_ms:.4f} ms  SDPA backward (dq, dk, dv together) "
               f"{lib_ms:.4f} ms")
     print(f"  flash_bwd wrapper (dl + both kernels): {ms_wrap:.4f} ms "
-          f"device, {wall_wrap:.4f} ms wall per call")
+          f"device, {wall_wrap:.4f} ms wall per call; dq + dk/dv "
+          f"{ms_dq + ms_dkv:.4f} ms = {(ms_dq + ms_dkv) / lib_ms:.2f}x SDPA "
+          f"backward")
     del qt, kt, vt, ot, q, k, v, o, lse, do, launch_dq, launch_dkv
 
     # the main path's two kinds of group, fp32 w/v/g: one stage (2
@@ -1440,11 +1480,11 @@ def run() -> int:
             "shape": row["shape"], **({"shapes": row["shapes"]}
                                       if "shapes" in row else {}),
             **({"variant_by_path": {
-                "train": f"flash_bwd_dq_mma_kernel x "
-                         f"{train['variants_per_tick']['flash_bwd_dq_mma']}"
+                "train": f"{row['name']}_mma_kernel x "
+                         f"{train['variants_per_tick'][row['name'] + '_mma']}"
                          f" a tick",
-                "fp32 checks": "flash_bwd_dq_kernel (FMA)"},
-                "design": design} if row["name"] == "flash_bwd_dq"
+                "fp32 checks": f"{row['name']}_kernel (FMA)"},
+                "design": design} if row["name"].startswith("flash_bwd")
                else {})})
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"

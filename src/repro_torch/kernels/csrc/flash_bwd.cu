@@ -1,13 +1,13 @@
 // Flash attention backward for Hopper (sm_90a), plain C interface: a dq
-// kernel for each input type and one dk/dv kernel.
+// and a dk/dv kernel for each input type.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/flash_attention.py::
 // flash_bwd (:219): _dq_kernel (:136, here repro_flash_bwd_dq for fp32
 // and repro_flash_bwd_dq_mma for bf16) and _dkv_kernel (:177, here
-// repro_flash_bwd_dkv).  Both recompute the
-// probabilities from the forward's fp32 log-sum-exp and take
-// dl = rowsum(o * do), computed in fp32 by the caller as the JAX package
-// computes it outside its kernels:
+// repro_flash_bwd_dkv for fp32 and repro_flash_bwd_dkv_mma for bf16).
+// All recompute the probabilities from the forward's fp32 log-sum-exp and
+// take dl = rowsum(o * do), computed in fp32 by the caller as the JAX
+// package computes it outside its kernels:
 //
 //     p  = exp(q.k * scale - lse)        (0 where masked)
 //     ds = p * (do.v - dl) * scale
@@ -19,41 +19,60 @@
 // flash_fwd.cu: q and do [b, sq, H, d], k and v [b, sk, KV, d] (last dim
 // contiguous); lse and dl contiguous [b, H, sq] fp32.  dq is written
 // contiguous [b, sq, H, d] in q's type, dk and dv contiguous [b, sk, KV, d]
-// in k's type.  Query head h reads KV head h / G (G = H / KV), query row i
-// sits at position q_offset + i, keys at positions >= kv_len are masked
-// and causal masks kpos > qpos.  Two differences from the Pallas kernels:
+// in k's type, exact zeros for keys at positions >= kv_len.  Query head h
+// reads KV head h / G (G = H / KV), query row i sits at position
+// q_offset + i, keys at positions >= kv_len are masked and causal masks
+// kpos > qpos.  Two differences from the Pallas kernels:
 //
 //   * GQA: the Pallas kernel folds the G query heads of a group into its
 //     sequence axis head-major, so its dk/dv grid sums the group for free;
-//     here each dk/dv block loops over the G query heads itself and sums
-//     them in registers (no atomics, so the result is deterministic), and
-//     the bf16 dq kernel packs the group's rows query-major;
+//     here the bf16 kernels pack the group's rows query-major (a dk/dv
+//     block walks all G heads' rows, so the sum falls out of the walk) and
+//     the fp32 dk/dv block loops over the G heads; either way the sum stays
+//     in registers (no atomics, so the result is deterministic);
 //   * positions: the Pallas kernels recover causal positions as row % sq,
 //     valid only when sq == sk; these use q_offset + i as the forward does.
 //
 // Which kernel serves which type:
 //
-//   dq, bf16 (every training step: the model computes in bf16):
-//   flash_bwd_dq_mma_kernel<D>, on the tensor cores through mma.sync
-//   m16n8k16 (flash_mma.cuh), with the forward's layout of work
-//   (flash_fwd.cu): one block per (64 packed rows, KV head, batch row),
-//   packed row r being query r / G of head kvh G + r % G, so one K/V tile
-//   serves the G heads of a group; K and V tiles of 64 keys in a 2-stage
-//   cp.async ring; a causal block stops at key q_offset + (last row) / G.
-//   Per tile each warp (16 rows) forms S = Q K^T and dP = dO V^T (Q, dO,
-//   K, V by ldmatrix from shared memory), then on the fragments p =
-//   exp2(S scale log2(e) - lse log2(e)) (0 where masked) and dS = p (dP -
-//   dl) scale in fp32, rounds dS to bf16 in registers and accumulates
-//   dQ += dS K (K by ldmatrix.trans from the tile already in shared
-//   memory).  lse and dl are gathered per packed row; dQ stays in fp32
-//   registers and is written in bf16.  Q and dO stay in shared memory
-//   and are read per k-step, which keeps the registers to dQ (64 a
-//   thread at d 128), S and dP (32 each).
+//   bf16 (every training step: the model computes in bf16), both on the
+//   tensor cores through mma.sync m16n8k16 (flash_mma.cuh), with the
+//   forward's packed rows: packed row r of KV head kvh is query r / G of
+//   head kvh G + r % G, and lse and dl are gathered per packed row.
+//   dq:   flash_bwd_dq_mma_kernel<D>, the forward's layout of work
+//         (flash_fwd.cu): one block per (64 packed rows, KV head, batch
+//         row); K and V tiles of 64 keys in a 2-stage cp.async ring; a
+//         causal block stops at key q_offset + (last row) / G.  Per tile
+//         each warp (16 rows) forms S = Q K^T and dP = dO V^T (Q, dO, K,
+//         V by ldmatrix from shared memory), then on the fragments p =
+//         exp2(S scale log2(e) - lse log2(e)) (0 where masked) and dS =
+//         p (dP - dl) scale in fp32, rounds dS to bf16 in registers and
+//         accumulates dQ += dS K (K by ldmatrix.trans from the tile already
+//         in shared memory).  Q and dO stay in shared memory and are read
+//         per k-step, which keeps the registers to dQ (64 a thread at d
+//         128), S and dP (32 each).
+//   dkv:  flash_bwd_dkv_mma_kernel<D>, the same design transposed: one
+//         block per (64 keys, KV head, batch row), key blocks
+//         slowest in a flat grid so the longest causal walks start first;
+//         each warp owns 16 keys as the M dimension.  K and V are loaded
+//         once (cp.async) and stay in shared memory; the block walks the
+//         group's packed rows in tiles of 64 through a 2-stage cp.async
+//         ring (Q, dO and the gathered lse, dl of each tile), from the tile
+//         that holds packed row max(0, k0 - q_offset) G (the first to see
+//         key k0) when causal.  Per 32-row chunk of a tile each warp forms
+//         S^T = K Q^T and dP^T = V dO^T (K, V the A operand; Q, dO the B
+//         operand stored n by k), then on the fragments P^T = exp2(S^T
+//         scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T - dl) scale,
+//         rounds both to bf16 and accumulates dV += P^T dO and dK += dS^T
+//         Q with dO and Q by ldmatrix.trans.  A warp skips chunks whose
+//         last row cannot see its first key; masks are applied per
+//         element only on edge chunks (past kv_len or n_rows, or a causal
+//         diagonal).  dK and dV stay in fp32 registers (128 a thread at d
+//         128); the 32-row chunks keep S^T and dP^T to 32 more.
 //
-//   dq, fp32 (the CPU-parity checks on the card, held to 2e-5 / 1e-3,
-//   which TF32 tensor cores would not meet), and dk/dv for both types:
-//   the PR 12 kernels on the fp32 FMA pipes, every product and sum in
-//   fp32, 256 threads as a 16 x 16 grid:
+//   fp32 (the CPU-parity checks on the card, held to 2e-5 / 1e-3, which
+//   TF32 tensor cores would not meet): the first kernels on the fp32 FMA
+//   pipes, every product and sum in fp32, 256 threads as a 16 x 16 grid:
 //   dq:   one block per (64 query rows, query head, batch row) walks the key
 //         tiles of 64 (stopping at the last key its rows can see when
 //         causal).  Q, dO, K and V tiles are staged in shared memory as
@@ -71,14 +90,12 @@
 // d 128) the least time for dq is set by its bytes (q, do, dq and k, v
 // over HBM: 0.035 ms; its 6 d FLOPs per unmasked pair and head take 0.026
 // ms at the bf16 tensor-core rate) and for dk/dv by its 8 d FLOPs per
-// pair.  What the bf16 dq design leaves on the table: mma.sync, not
-// Hopper's wgmma with TMA and warp specialisation; Q and dO re-read from
-// shared memory per tile; 104 KB of shared memory at d 128 (Q, dO and the
-// 2-stage K/V ring), so two blocks fit on an SM; the probabilities are
-// recomputed here and again in dk/dv, as in the Pallas version.  The
-// dk/dv kernel still runs on the fp32 FMA pipes (no tensor cores,
-// synchronous tile loads, 166 KB of shared memory at d 128, one block per
-// SM): the same mma design, transposed, is its redesign.
+// pair (0.035 ms).  What the bf16 designs leave on the table: mma.sync,
+// not Hopper's wgmma with TMA and warp specialisation; the B operands
+// (K, V for dq; Q, dO for dk/dv) re-read from shared memory by every warp
+// and, in dk/dv, K and V re-read per 32-row chunk; two blocks of four
+// warps per SM (104 KB of shared memory each at d 128); the probabilities
+// recomputed in both kernels, as in the Pallas version.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -89,6 +106,11 @@ namespace {
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int NT = 256;       // threads per block (16 x 16)
+// bf16 dk/dv: warps of 16 keys per block, and packed rows per S^T, dP^T
+// pass of a warp (4 and 32 beat 8 warps and 16- or 64-row passes at the
+// training shape; 64 rows spill at d 128)
+constexpr int DKV_WARPS = 4;
+constexpr int DKV_CHUNK = 32;
 
 struct Params {
     const void* q;
@@ -110,13 +132,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-}
 
 // rows [r0, r0 + n) of a strided [seq, d] slice into shared [n][S] fp32,
 // zero past `limit`
@@ -598,6 +614,234 @@ int launch_dq_mma(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// dk/dv, bf16: tensor cores, keys per warp, packed GQA query rows in a
+// cp.async 2-stage ring
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+    // K, V [16 DKV_WARPS][D + 8] bf16; Q, dO [2 stages][64][D + 8] bf16;
+    // lse, dl [2 stages][64] fp32
+    return 2 * flash_mma::tile_bytes<D>(16 * DKV_WARPS) +
+           4 * flash_mma::tile_bytes<D>(BQ) + 4 * BQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * DKV_WARPS)
+flash_bwd_dkv_mma_kernel(Params p) {
+    using namespace flash_mma;
+    constexpr int NTH = 32 * DKV_WARPS;
+    constexpr int KB = 16 * DKV_WARPS;  // keys per block, 16 per warp
+    constexpr int RC = DKV_CHUNK;
+    constexpr int BM = BQ;              // packed rows per ring tile
+    constexpr int RS = row_stride<D>();
+    constexpr int CT = RC / 8;          // row n-tiles of S^T and dP^T
+    constexpr int DT = D / 8;           // d n-tiles of dK and dV
+    constexpr float LOG2E = 1.4426950408889634f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+    bf16* Vs = Ks + KB * RS;
+    bf16* Qs = Vs + KB * RS;            // [2][BM][RS]
+    bf16* dOs = Qs + 2 * BM * RS;       // [2][BM][RS]
+    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BM * RS);  // [2][BM]
+    float* dl_s = lse_s + 2 * BM;                                // [2][BM]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int G = p.H / p.KV;
+    const int n_rows = p.sq * G;
+    // one flat grid, key blocks slowest: every (KV head, batch row) of key
+    // block 0 (the longest walk, when causal) starts before key block 1
+    const int kvh = blockIdx.x % p.KV;
+    const int bi = (blockIdx.x / p.KV) % p.b;
+    const int k0 = blockIdx.x / (p.KV * p.b) * KB;
+    const long long qh = static_cast<long long>(kvh) * G;
+    const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb +
+                     qh * p.q_sh;
+    const bf16* og = static_cast<const bf16*>(p.dout) + bi * p.o_sb +
+                     qh * p.o_sh;
+    const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb +
+                     kvh * p.k_sh;
+    const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb +
+                     kvh * p.v_sh;
+    const long long row_base = (static_cast<long long>(bi) * p.H + qh) *
+                               p.sq;
+    const float* lseg = p.lse + row_base;
+    const float* dlg = p.dl + row_base;
+
+    // the causal start: packed row max(0, k0 - q_offset) G is the first
+    // to see key k0; walk from the ring tile that holds it
+    const int t_begin = p.causal ? max(0, k0 - p.q_offset) * G / BM : 0;
+    const int n_tiles = k0 < p.kv_len
+        ? max(0, (n_rows + BM - 1) / BM - t_begin) : 0;
+
+    const int kw0 = k0 + 16 * warp;     // this warp's first key
+    const bool active = kw0 < p.kv_len;
+    const float sl2 = p.scale * LOG2E;
+
+    // K, V and the first tile (none when the block has nothing to walk:
+    // its dK and dV are zeros, and no copy is left in flight at exit)
+    if (n_tiles > 0) {
+        const int r0 = t_begin * BM;
+        load_rows<D, NTH, KB>(Ks, kg, p.k_ss, k0, p.kv_len, tid);
+        load_rows<D, NTH, KB>(Vs, vg, p.v_ss, k0, p.kv_len, tid);
+        load_packed<D, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
+        load_packed<D, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows, tid);
+        load_packed_f32<NTH, BM>(lse_s, lseg, p.sq, G, r0, n_rows, tid);
+        load_packed_f32<NTH, BM>(dl_s, dlg, p.sq, G, r0, n_rows, tid);
+    }
+    cp_async_commit();
+
+    float dk[DT][4], dv[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        const int r0 = (t_begin + it) * BM;
+        if (it + 1 < n_tiles) {
+            const int st = (it + 1) & 1;
+            load_packed<D, NTH, BM>(Qs + st * BM * RS, qg, p.q_ss, p.q_sh,
+                                    G, r0 + BM, n_rows, tid);
+            load_packed<D, NTH, BM>(dOs + st * BM * RS, og, p.o_ss, p.o_sh,
+                                    G, r0 + BM, n_rows, tid);
+            load_packed_f32<NTH, BM>(lse_s + st * BM, lseg, p.sq, G,
+                                     r0 + BM, n_rows, tid);
+            load_packed_f32<NTH, BM>(dl_s + st * BM, dlg, p.sq, G, r0 + BM,
+                                     n_rows, tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+
+        const bf16* Qt = Qs + (it & 1) * BM * RS;
+        const bf16* dOt = dOs + (it & 1) * BM * RS;
+        const float* lse_t = lse_s + (it & 1) * BM;
+        const float* dl_t = dl_s + (it & 1) * BM;
+#pragma unroll
+        for (int c0 = 0; c0 < BM; c0 += RC) {
+            const int h0 = r0 + c0;     // the chunk's first packed row
+            // warp-uniform skips: no active key, no row, or (causal) no
+            // row of the chunk that sees the warp's first key
+            if (!active || h0 >= n_rows ||
+                (p.causal &&
+                 p.q_offset + (min(h0 + RC, n_rows) - 1) / G < kw0))
+                continue;
+            // S^T = K Q^T and dP^T = V dO^T: K, V rows are the A operand,
+            // Q and dO rows the B operand stored n by k
+            float s[CT][4], dp[CT][4];
+#pragma unroll
+            for (int j = 0; j < CT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t a[4], av[4];
+                load_a<D>(a, Ks, 16 * warp, 16 * kk, lane);
+                load_a<D>(av, Vs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < CT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_nk<D>(b, Qt, c0 + 16 * np, 16 * kk, lane);
+                    mma_bf16(s[2 * np], a, b[0], b[1]);
+                    mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+                    load_b_nk<D>(b, dOt, c0 + 16 * np, 16 * kk, lane);
+                    mma_bf16(dp[2 * np], av, b[0], b[1]);
+                    mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
+                }
+            }
+
+            // P^T and dS^T on the fragments (P^T over S^T, dS^T over dP^T);
+            // element e of n-tile j: key kw0 + g + 8 (e / 2), packed row
+            // h0 + 8 j + 2 t + e % 2
+            const bool edge = h0 + RC > n_rows || kw0 + 16 > p.kv_len ||
+                              (p.causal && kw0 + 15 > p.q_offset + h0 / G);
+#pragma unroll
+            for (int j = 0; j < CT; ++j) {
+                const int c = c0 + 8 * j + 2 * t;
+                const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+                const float2 d2 = *reinterpret_cast<const float2*>(dl_t + c);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int row = r0 + c + (e & 1);
+                    const int kpos = kw0 + g + 8 * (e >> 1);
+                    const bool ok = !edge ||
+                        (row < n_rows && kpos < p.kv_len &&
+                         (!p.causal || kpos <= p.q_offset + row / G));
+                    const float lse2 = ((e & 1) ? l2.y : l2.x) * LOG2E;
+                    const float pr = ok ? exp2f(s[j][e] * sl2 - lse2) : 0.f;
+                    s[j][e] = pr;
+                    dp[j][e] = pr * (dp[j][e] - ((e & 1) ? d2.y : d2.x)) *
+                               p.scale;
+                }
+            }
+
+            // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16
+            // are A operands as they lie; dO and Q by ldmatrix.trans
+#pragma unroll
+            for (int kk = 0; kk < RC / 16; ++kk) {
+                uint32_t ap[4], ad[4];
+                ap[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                ap[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                ap[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                ap[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+                ad[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+                ad[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+                ad[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+                ad[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+                for (int np = 0; np < DT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_kn<D>(b, dOt, c0 + 16 * kk, 16 * np, lane);
+                    mma_bf16(dv[2 * np], ap, b[0], b[1]);
+                    mma_bf16(dv[2 * np + 1], ap, b[2], b[3]);
+                    load_b_kn<D>(b, Qt, c0 + 16 * kk, 16 * np, lane);
+                    mma_bf16(dk[2 * np], ad, b[0], b[1]);
+                    mma_bf16(dk[2 * np + 1], ad, b[2], b[3]);
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    // every key of the block below sk is written, zeros for keys past
+    // kv_len (and for keys no row sees)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int key = kw0 + g + 8 * h;
+        if (key >= p.sk) continue;
+        const long long off =
+            ((static_cast<long long>(bi) * p.sk + key) * p.KV + kvh) * D;
+        bf16* dkp = static_cast<bf16*>(p.dk) + off;
+        bf16* dvp = static_cast<bf16*>(p.dv) + off;
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+            *reinterpret_cast<uint32_t*>(dkp + 8 * j + 2 * t) =
+                pack_bf16(dk[j][2 * h], dk[j][2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(dvp + 8 * j + 2 * t) =
+                pack_bf16(dv[j][2 * h], dv[j][2 * h + 1]);
+        }
+    }
+}
+
+template <int D>
+int launch_dkv_mma(const Params& p, cudaStream_t stream) {
+    const size_t smem = dkv_mma_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int KB = 16 * DKV_WARPS;
+    const long long blocks =
+        static_cast<long long>((p.sk + KB - 1) / KB) * p.KV * p.b;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_dkv_mma_kernel<D>
+        <<<static_cast<unsigned>(blocks), 32 * DKV_WARPS, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // dq (fp32) and dk/dv: the PR 12 kernels' launchers
 
 template <typename T, int D>
@@ -624,15 +868,15 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = dq (fp32 only), 1 = dk/dv (fp32 or bf16), 2 = dq (bf16 only)
+// which: 0 = dq, 1 = dk/dv (fp32 only); 2 = dq, 3 = dk/dv (bf16 only)
 template <int D>
 int launch_which(const Params& p, int which, int dtype,
                  cudaStream_t stream) {
     if (dtype == 0 && which == 0) return launch_dq<float, D>(p, stream);
     if (dtype == 0 && which == 1) return launch_dkv<float, D>(p, stream);
-    if (dtype == 1 && which == 1)
-        return launch_dkv<__nv_bfloat16, D>(p, stream);
     if (dtype == 1 && which == 2) return launch_dq_mma<D>(p, stream);
+    if (dtype == 1 && which == 3)
+        return launch_dkv_mma<D>(p, stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -692,8 +936,9 @@ int run(int which, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Dynamic shared memory of one block (which: 0 = dq fp32, 1 = dk/dv,
-// 2 = dq bf16), or -1 for a kernel or head_dim it does not have.
+// Dynamic shared memory of one block (which: 0 = dq fp32, 1 = dk/dv fp32,
+// 2 = dq bf16, 3 = dk/dv bf16), or -1 for a kernel or head_dim it does
+// not have.
 extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
     switch (head_dim * 4 + which) {
         case 16 * 4 + 0: return dq_smem_bytes<16>();
@@ -708,6 +953,10 @@ extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
         case 32 * 4 + 2: return dq_mma_smem_bytes<32>();
         case 64 * 4 + 2: return dq_mma_smem_bytes<64>();
         case 128 * 4 + 2: return dq_mma_smem_bytes<128>();
+        case 16 * 4 + 3: return dkv_mma_smem_bytes<16>();
+        case 32 * 4 + 3: return dkv_mma_smem_bytes<32>();
+        case 64 * 4 + 3: return dkv_mma_smem_bytes<64>();
+        case 128 * 4 + 3: return dkv_mma_smem_bytes<128>();
         default: return -1;
     }
 }
@@ -715,9 +964,10 @@ extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
 // dtype: 0 = fp32, 1 = bf16.  Strides are in elements: q, do [b, sq, H, d]
 // and k, v [b, sk, KV, d] by (batch, position, head).  Each returns a
 // cudaError_t (0 on success); the launch is asynchronous on ``stream``.
-// repro_flash_bwd_dq takes fp32, repro_flash_bwd_dq_mma bf16 whose data
-// pointers and strides are multiples of 16 bytes (cp.async), and
-// repro_flash_bwd_dkv either; each refuses another dtype.
+// repro_flash_bwd_dq and repro_flash_bwd_dkv take fp32;
+// repro_flash_bwd_dq_mma and repro_flash_bwd_dkv_mma take bf16 whose data
+// pointers and strides are multiples of 16 bytes (cp.async); each refuses
+// another dtype.
 extern "C" int repro_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dl, void* dq, int dtype, int head_dim,
@@ -761,4 +1011,19 @@ extern "C" int repro_flash_bwd_dq_mma(
                head_dim, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset,
                kv_len, scale, stream);
+}
+
+extern "C" int repro_flash_bwd_dkv_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dl, void* dk, void* dv, int dtype,
+    int head_dim, int b, int sq, int sk, int H, int KV,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    return run(3, q, k, v, dout, lse, dl, nullptr, dk, dv, dtype, head_dim,
+               b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+               v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, kv_len, scale,
+               stream);
 }

@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the bf16 flash kernels (flash_fwd.cu's
-// flash_fwd_mma_kernel and flash_bwd.cu's flash_bwd_dq_mma_kernel), for
-// Hopper (sm_90a) through the Ampere-style warp-level instructions:
+// flash_fwd_mma_kernel, flash_bwd.cu's flash_bwd_dq_mma_kernel and
+// flash_bwd_dkv_mma_kernel), for Hopper (sm_90a) through the Ampere-style
+// warp-level instructions:
 //
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: one warp
 //     multiplies a 16 x 16 bf16 A fragment by a 16 x 8 bf16 B fragment
@@ -8,7 +9,8 @@
 //   * ldmatrix (.x4, and .trans for a B operand stored along its k axis):
 //     four 8 x 8 bf16 matrices from shared memory into fragments;
 //   * 16-byte cp.async.cg with zero fill (src-size 0) for rows past the
-//     sequence, plus commit and wait;
+//     sequence, 4-byte cp.async.ca for per-row fp32 gathers, plus commit
+//     and wait;
 //   * the quad reductions of a row held by the four lanes of a quad.
 //
 // Fragment layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane
@@ -58,6 +60,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                  "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+                 "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -168,6 +177,20 @@ __device__ __forceinline__ void load_packed(bf16* tile, const bf16* src,
                                  (row % G) * h_stride + ch * 8
                            : src;
         cp_async16(tile + r * row_stride<D>() + ch * 8, p, ok);
+    }
+}
+
+// one fp32 value per packed row [r0, r0 + BM) of a [heads, sq] array
+// (lse or dl) whose group's first head `src` points at: packed row R
+// reads head R % G, query R / G; zero past `n_rows`
+template <int NT, int BM>
+__device__ __forceinline__ void load_packed_f32(float* dst, const float* src,
+                                                int sq, int G, int r0,
+                                                int n_rows, int tid) {
+    for (int c = tid; c < BM; c += NT) {
+        const int row = r0 + c;
+        const bool ok = row < n_rows;
+        cp_async4(dst + c, ok ? src + (row % G) * sq + row / G : src, ok);
     }
 }
 

@@ -10,19 +10,21 @@ model-side layout and index the KV head as ``h // G``, and they take a
 query position offset and a key count, so one kernel serves causal
 prefill and each decode step.
 
-The forward and dq are chosen by dtype, not as a fallback:
+Each kernel is chosen by dtype, not as a fallback:
 
 * bf16 (every main path) goes to the tensor-core kernels
-  (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``: mma.sync on
-  bf16 tiles, rows packed by GQA group, a 2-stage cp.async ring), which
-  copy 16-byte pieces, so :func:`check_cp_async_alignment` raises on a
-  tensor they cannot copy that way;
+  (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+  ``flash_bwd_dkv_mma_kernel``: mma.sync on bf16 tiles, rows packed by
+  GQA group, a 2-stage cp.async ring), which copy 16-byte pieces, so
+  :func:`check_cp_async_alignment` raises on a tensor they cannot copy
+  that way;
 * fp32 goes to the FMA kernels (``flash_fwd_kernel``,
-  ``flash_bwd_dq_kernel``), which keep the fp32 card-vs-CPU checks at
-  2e-5; TF32 tensor cores keep about three decimal digits.
+  ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``), which keep the fp32
+  card-vs-CPU checks at 2e-5; TF32 tensor cores keep about three decimal
+  digits.
 
-dk/dv runs on its FMA kernel for both types.  A bf16 call never reaches
-an FMA forward or dq kernel; a failed build, check or launch raises.
+A bf16 call never reaches an FMA kernel; a failed build, check or launch
+raises.
 
 On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their
 kernels or raise; on CPU tensors they compute
@@ -47,9 +49,10 @@ _GRID_YZ_MAX = 65535
 # kernel launches since the last reset (the CPU path never counts)
 launches = 0            # flash_fwd, either kernel
 launches_dq = 0         # flash_bwd_dq, either kernel
-launches_dkv = 0        # flash_bwd_dkv
+launches_dkv = 0        # flash_bwd_dkv, either kernel
 launches_mma = 0        # flash_fwd on the bf16 tensor-core kernel
 launches_dq_mma = 0     # flash_bwd_dq on the bf16 tensor-core kernel
+launches_dkv_mma = 0    # flash_bwd_dkv on the bf16 tensor-core kernel
 
 # cp.async copies 16 bytes at a time, from and to 16-byte aligned addresses
 CP_ASYNC_BYTES = 16
@@ -77,16 +80,18 @@ def _lib():
 
 
 def _bwd_lib():
-    """(fp32 dq, bf16 dq, dk/dv) of the flash_bwd library."""
+    """((fp32 dq, bf16 dq), (fp32 dk/dv, bf16 dk/dv)) of the flash_bwd
+    library."""
     lib = build.library("flash_bwd")
-    fns = (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dq_mma,
-           lib.repro_flash_bwd_dkv)
-    for fn, argtypes in zip(fns, (_BWD_ARGTYPES, _BWD_ARGTYPES,
-                                  [_p] * 8 + _BWD_ARGTYPES[7:])):
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return fns
+    dq = (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dq_mma)
+    dkv = (lib.repro_flash_bwd_dkv, lib.repro_flash_bwd_dkv_mma)
+    for fns, argtypes in ((dq, _BWD_ARGTYPES),
+                          (dkv, [_p] * 8 + _BWD_ARGTYPES[7:])):
+        for fn in fns:
+            if fn.argtypes is None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return dq, dkv
 
 
 def load() -> None:
@@ -194,7 +199,8 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
     """Gradients of :func:`flash_fwd`: q, o, do [b, sq, H, d]; k, v
     [b, sk, KV, d]; lse [b, H, sq] fp32 from the forward -> (dq in q's
     dtype, dk and dv in k's dtype).  Two kernels: dq, then dk/dv.  See
-    ``flash_bwd_ref`` for the formulas."""
+    ``flash_bwd_ref`` for the formulas; dk and dv are exact zeros for keys
+    at positions >= ``kv_len``."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
@@ -229,12 +235,13 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
     launch_dq, launch_dkv, (dq, dk, dv) = _bwd_launchers(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
         kv_len=kv_len)
-    global launches_dq, launches_dkv, launches_dq_mma
+    global launches_dq, launches_dkv, launches_dq_mma, launches_dkv_mma
     launch_dq()
     launches_dq += 1
     launches_dq_mma += mma
     launch_dkv()
     launches_dkv += 1
+    launches_dkv_mma += mma
     return dq, dk, dv
 
 
@@ -243,7 +250,7 @@ def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
     """Computes dl and allocates dq, dk, dv; returns (launch_dq,
     launch_dkv, (dq, dk, dv)), each launcher starting its kernel once on
     the current stream (or raising on a CUDA error) without counting;
-    dq's is the tensor-core kernel for bf16 and the FMA kernel for fp32.
+    each is the tensor-core kernel for bf16 and the FMA kernel for fp32.
     :func:`flash_bwd` checks and counts; ``chip_smoke.py`` times each
     alone."""
     b, sq, H, d = q.shape
@@ -252,9 +259,8 @@ def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
     dq = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
-    fn_dq, fn_dq_mma, fn_dkv = _bwd_lib()
-    if q.dtype == torch.bfloat16:
-        fn_dq = fn_dq_mma
+    mma = q.dtype == torch.bfloat16
+    fn_dq, fn_dkv = (fns[mma] for fns in _bwd_lib())
     tail = (_DTYPES[q.dtype], d, b, sq, sk, H, KV, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(d))

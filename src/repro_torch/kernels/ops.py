@@ -65,15 +65,16 @@ def launch_counts() -> Dict[str, int]:
 
 def variant_counts() -> Dict[str, int]:
     """Launches of the bf16 tensor-core kernels since the last reset, a
-    part of :func:`launch_counts`' ``flash_fwd`` and ``flash_bwd_dq``
-    (the rest went to the fp32 FMA kernels)."""
+    part of :func:`launch_counts`' ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` (the rest went to the fp32 FMA kernels)."""
     return {"flash_fwd_mma": fa.launches_mma,
-            "flash_bwd_dq_mma": fa.launches_dq_mma}
+            "flash_bwd_dq_mma": fa.launches_dq_mma,
+            "flash_bwd_dkv_mma": fa.launches_dkv_mma}
 
 
 def reset_launch_counts() -> None:
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
-    fa.launches_mma = fa.launches_dq_mma = 0
+    fa.launches_mma = fa.launches_dq_mma = fa.launches_dkv_mma = 0
     fu.launches = r6.launches = m2.launches = 0
 
 

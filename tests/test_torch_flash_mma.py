@@ -2,9 +2,9 @@
 CPU and held against the JAX package and the port's plain versions.
 
 ``csrc/flash_fwd.cu::flash_fwd_mma_kernel`` and ``csrc/flash_bwd.cu::
-flash_bwd_dq_mma_kernel`` run only on the card.  This file keeps a
-PyTorch emulation of what they do, block by block, so that their
-arithmetic is tested here:
+flash_bwd_dq_mma_kernel`` and ``flash_bwd_dkv_mma_kernel`` run only on
+the card.  This file keeps a PyTorch emulation of what they do, block by
+block, so that their arithmetic is tested here:
 
 * rows packed by GQA group, query-major: packed row ``r`` of KV head
   ``kvh`` is query ``r // G`` of head ``kvh * G + r % G``; blocks of 64
@@ -15,7 +15,14 @@ arithmetic is tested here:
 * an fp32 online softmax in log2 units, ``exp2`` with ``scale * log2(e)``
   folded in, the -1e30 mask and the ``max(l, 1e-30)`` guard;
 * P (forward) and dS (dq) rounded to bf16 before the second product, as
-  the kernels reuse the fp32 accumulator fragments as bf16 A operands.
+  the kernels reuse the fp32 accumulator fragments as bf16 A operands;
+* dk/dv transposed: blocks of 64 keys, 16 per warp, walking the group's
+  packed rows in 64-row tiles from the causal start tile (the one that
+  holds packed row ``max(0, k0 - q_offset) * G``), each warp in 32-row
+  chunks that it skips when their last row cannot see its first key;
+  P^T and dS^T rounded to bf16 before dV += P^T dO and dK += dS^T Q, and
+  masks applied only on the kernel's edge chunks (the emulation asserts
+  that the mask is all true elsewhere).
 
 The emulation's products are fp32 matmuls on the CPU, where the card
 sums bf16 products in fp32 in another order.
@@ -28,7 +35,8 @@ Tolerances and why:
   log2-scaled scores against exp of scaled scores), the port's fp32
   tolerance;
 * 2e-2 where P or dS is rounded to bf16 (a relative 2^-9 on each
-  probability or dS entry, so up to ~2^-9 max|v| on o) or where the
+  probability or dS entry, so up to ~2^-9 max|v| on o; on dk and dv a
+  relative 2^-9 on each term of a sum over the group's rows) or where the
   inputs are bf16 (the outputs are bf16 too): the repository's bf16
   kernel tolerance, the one ``chip_smoke.py`` holds the kernels to;
 * lse is never rounded: 2e-5 against the fp32 plain version.
@@ -163,6 +171,92 @@ def emulate_dq(q, k, v, o, lse, do, *, causal, q_offset=0, kv_len=None,
     return dq.to(q.dtype), writes
 
 
+# the dk/dv kernel's blocking: keys per block (4 warps of 16), packed
+# rows per ring tile, packed rows per S^T / dP^T pass of a warp
+DKV_KB = 64
+DKV_BM = 64
+DKV_RC = 32
+
+
+def _dkv_start_tile(k0, q_offset, G, causal):
+    """The ring tile a dk/dv block starts at: the one holding packed row
+    max(0, k0 - q_offset) G, the first to see key k0 when causal."""
+    return max(0, k0 - q_offset) * G // DKV_BM if causal else 0
+
+
+def emulate_dkv(q, k, v, o, lse, do, *, causal, q_offset=0, kv_len=None,
+                round_pds=True):
+    """flash_bwd_dkv_mma_kernel's algorithm: returns (dk, dv in k's dtype,
+    writes [b, sk, KV]: how often each (key, KV head) was written).  The
+    outputs start as NaN, so a key that is never written shows."""
+    b, sq, H, d = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n_rows = sq * G
+    kv_len = sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(d)
+    dl = ref.flash_dl(o, do)
+    dk = torch.full((b, sk, KV, d), float("nan"))
+    dv = torch.full((b, sk, KV, d), float("nan"))
+    writes = torch.zeros(b, sk, KV, dtype=torch.int64)
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if round_pds else (
+        lambda x: x)
+    n_row_tiles = -(-n_rows // DKV_BM)
+    for bi in range(b):
+        for kvh in range(KV):
+            rows = torch.arange(n_rows)
+            qi, heads = rows // G, kvh * G + rows % G
+            qp, dop = q[bi, qi, heads].float(), do[bi, qi, heads].float()
+            lse2 = lse[bi, heads, qi] * LOG2E
+            dlr = dl[bi, heads, qi]
+            for k0 in range(0, sk, DKV_KB):
+                t_begin = _dkv_start_tile(k0, q_offset, G, causal)
+                n_tiles = max(0, n_row_tiles - t_begin) if k0 < kv_len else 0
+                for kw0 in range(k0, k0 + DKV_KB, 16):
+                    acc_k, acc_v = torch.zeros(16, d), torch.zeros(16, d)
+                    kt = torch.zeros(16, d)
+                    vt = torch.zeros(16, d)
+                    n = max(0, min(16, kv_len - kw0))
+                    kt[:n] = k[bi, kw0:kw0 + n, kvh].float()
+                    vt[:n] = v[bi, kw0:kw0 + n, kvh].float()
+                    kpos = torch.arange(kw0, kw0 + 16)
+                    for tile in range(t_begin, t_begin + n_tiles):
+                        for h0 in range(tile * DKV_BM, (tile + 1) * DKV_BM,
+                                        DKV_RC):
+                            if h0 >= n_rows:       # no row: skipped
+                                continue
+                            r = torch.arange(h0, min(h0 + DKV_RC, n_rows))
+                            qpos = q_offset + r // G
+                            ok = (kpos < kv_len)[:, None].expand(16, len(r))
+                            if causal:
+                                ok = ok & (kpos[:, None] <= qpos[None, :])
+                            if kw0 >= kv_len or (causal and
+                                                 int(qpos[-1]) < kw0):
+                                # the kernel skips the chunk: nothing in it
+                                # is visible
+                                assert not bool(ok.any())
+                                continue
+                            edge = (h0 + DKV_RC > n_rows or
+                                    kw0 + 16 > kv_len or
+                                    (causal and kw0 + 15 > q_offset + h0 // G))
+                            if not edge:
+                                assert bool(ok.all())
+                            p = torch.where(
+                                ok, torch.exp2((kt @ qp[r].T) * (scale * LOG2E)
+                                               - lse2[r][None, :]),
+                                torch.tensor(0.0))
+                            ds = p * ((vt @ dop[r].T) - dlr[r][None, :]) * scale
+                            acc_v = acc_v + rnd(p) @ dop[r]
+                            acc_k = acc_k + rnd(ds) @ qp[r]
+                    keys = slice(kw0, min(kw0 + 16, sk))
+                    n_w = keys.stop - keys.start
+                    if n_w > 0:
+                        dk[bi, keys, kvh] = acc_k[:n_w]
+                        dv[bi, keys, kvh] = acc_v[:n_w]
+                        writes[bi, keys, kvh] += 1
+    return dk.to(k.dtype), dv.to(k.dtype), writes
+
+
 def _qkv(seed, b, sq, sk, H, KV, d):
     rng = np.random.default_rng(seed)
     mk = lambda *s: rng.standard_normal(s, dtype=np.float32)
@@ -191,6 +285,18 @@ EMU_CASES = [
     (1, 16, 100, 4, 1, 64, 80, 96, True),     # G 4: 64 rows, offset 80
     (1, 70, 70, 2, 2, 128, 0, 70, True),      # G 1: 70 rows, 2 key tiles
     (1, 65, 65, 2, 2, 16, 0, 65, True),       # row 64's own key opens a tile
+]
+
+
+# the dk/dv kernel's edges (as chip_smoke.py's DKV_EDGES): key block 1
+# opens at row tile 1's first row (G 1); G 4 with the first row to see a
+# block mid-tile; kv_len mid-block with sk > kv_len (the last block all
+# past kv_len); sq 1 with G 8
+DKV_EDGE_CASES = [
+    (1, 192, 192, 2, 2, 16, 0, 192, True),
+    (1, 40, 120, 8, 2, 64, 50, 120, True),
+    (2, 70, 160, 4, 2, 16, 0, 100, False),
+    (2, 1, 90, 16, 2, 32, 70, 71, True),
 ]
 
 
@@ -262,7 +368,7 @@ def test_emulated_kernels_match_pallas_interpret(case):
     fn = lambda q_, k_, v_: jops.flash_attention(q_, k_, v_, True, bq, bk,
                                                  True)
     o_j, vjp = jax.vjp(fn, jq, jk, jv)
-    dq_j = vjp(jnp.asarray(do))[0]
+    dq_j, dk_j, dv_j = vjp(jnp.asarray(do))
     _, lse_j = jfa.flash_fwd(jops._fold_gqa(jq, KV), jnp.swapaxes(jk, 1, 2),
                              jnp.swapaxes(jv, 1, 2), causal=True,
                              block_q=bq, block_k=bk, interpret=True)
@@ -276,6 +382,13 @@ def test_emulated_kernels_match_pallas_interpret(case):
     _close(dq, np.asarray(dq_j), F32_TOL)
     dq, _ = emulate_dq(tq, tk, tv, o, lse, tdo, causal=True)
     _close(dq, np.asarray(dq_j), BF16_TOL)
+    dk, dv, _ = emulate_dkv(tq, tk, tv, o, lse, tdo, causal=True,
+                            round_pds=False)
+    _close(dk, np.asarray(dk_j), F32_TOL)
+    _close(dv, np.asarray(dv_j), F32_TOL)
+    dk, dv, _ = emulate_dkv(tq, tk, tv, o, lse, tdo, causal=True)
+    _close(dk, np.asarray(dk_j), BF16_TOL)
+    _close(dv, np.asarray(dv_j), BF16_TOL)
 
 
 @pytest.mark.parametrize("case", EMU_CASES)
@@ -307,6 +420,80 @@ def test_emulated_dq_matches_plain_version_and_attend_vjp(case):
     dq_w = fa.flash_bwd(qb, kb, vb, ob, lseb, dob, **_kw(case))[0]
     assert dq.dtype == torch.bfloat16
     _close(dq.float(), dq_w.float(), BF16_TOL)
+
+
+@pytest.mark.parametrize("case", EMU_CASES + DKV_EDGE_CASES)
+def test_emulated_dkv_matches_plain_version_and_attend_vjp(case):
+    b, sq, sk, H, KV, d, off, kv_len, causal = case
+    q, k, v = _qkv(7, b, sq, sk, H, KV, d)
+    do = np.random.default_rng(8).standard_normal((b, sq, H, d),
+                                                  dtype=np.float32)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = ref.flash_fwd_ref(tq, tk, tv, **_kw(case))
+    _, dk_r, dv_r = ref.flash_bwd_ref(tq, tk, tv, o, lse, tdo, **_kw(case))
+    dk, dv, writes = emulate_dkv(tq, tk, tv, o, lse, tdo, round_pds=False,
+                                 **_kw(case))
+    assert bool((writes == 1).all()), "a (key, KV head) written != once"
+    _close(dk, dk_r, F32_TOL)
+    _close(dv, dv_r, F32_TOL)
+    # against autodiff of JAX _attend (fp32: no probability rounding)
+    q_pos = jnp.arange(sq) + off
+    _, vjp = jax.vjp(lambda q_, k_, v_: jattn._attend(
+        None, q_, k_, v_, causal=causal, q_pos=q_pos, k_len=sk,
+        k_valid_len=kv_len), *(jnp.asarray(a) for a in (q, k, v)))
+    _, dk_j, dv_j = vjp(jnp.asarray(do))
+    _close(dk, np.asarray(dk_j), F32_TOL)
+    _close(dv, np.asarray(dv_j), F32_TOL)
+    # the kernel's algorithm: P^T and dS^T rounded to bf16
+    dk, dv, _ = emulate_dkv(tq, tk, tv, o, lse, tdo, **_kw(case))
+    _close(dk, dk_r, BF16_TOL)
+    _close(dv, dv_r, BF16_TOL)
+    # bf16 inputs: against the port's CPU path on the same bf16 values
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (tq, tk, tv, tdo))
+    ob, lseb = fa.flash_fwd(qb, kb, vb, **_kw(case))
+    dk, dv, _ = emulate_dkv(qb, kb, vb, ob, lseb, dob, **_kw(case))
+    _, dk_w, dv_w = fa.flash_bwd(qb, kb, vb, ob, lseb, dob, **_kw(case))
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    _close(dk.float(), dk_w.float(), BF16_TOL)
+    _close(dv.float(), dv_w.float(), BF16_TOL)
+
+
+@pytest.mark.parametrize("case", EMU_CASES + DKV_EDGE_CASES)
+def test_emulated_dkv_writes_each_key_once_and_zeros_past_kv_len(case):
+    b, sq, sk, H, KV, d, off, kv_len, causal = case
+    q, k, v = _t(*_qkv(9, b, sq, sk, H, KV, d))
+    do = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (b, sq, H, d), dtype=np.float32))
+    o, lse = ref.flash_fwd_ref(q, k, v, **_kw(case))
+    dk, dv, writes = emulate_dkv(q, k, v, o, lse, do, **_kw(case))
+    assert writes.shape == (b, sk, KV) and bool((writes == 1).all())
+    assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
+    assert bool((dk[:, kv_len:] == 0).all())
+    assert bool((dv[:, kv_len:] == 0).all())
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("q_offset", [0, 5, 37, 130])
+def test_dkv_causal_start_tile_covers_every_row_that_sees_the_block(
+        G, q_offset):
+    """Every packed row that sees a key block's first key lies at or past
+    the block's start tile, the start tile holds the first such row, and
+    the rows before it see no key of the block."""
+    sq = 150
+    n_rows = sq * G
+    sk = q_offset + sq
+    rows = np.arange(n_rows)
+    pos = q_offset + rows // G
+    for k0 in range(0, sk, DKV_KB):
+        r0 = _dkv_start_tile(k0, q_offset, G, True) * DKV_BM
+        sees = rows[pos >= k0]
+        if len(sees) == 0:
+            assert r0 >= n_rows
+            continue
+        assert sees.min() >= r0
+        assert r0 <= sees.min() < r0 + DKV_BM
+        assert (pos[:r0] < k0).all()
+        assert _dkv_start_tile(k0, q_offset, G, False) == 0
 
 
 @pytest.mark.parametrize("sq,H,KV,want", [
@@ -370,7 +557,8 @@ def test_variant_counters_stay_zero_on_cpu():
     o = ops.flash_attention(*ins, True)
     o.float().sum().backward()
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
-                                    "flash_bwd_dq_mma": 0}
+                                    "flash_bwd_dq_mma": 0,
+                                    "flash_bwd_dkv_mma": 0}
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_update",
         "rwkv6_scan", "mamba2_scan"}
@@ -378,10 +566,11 @@ def test_variant_counters_stay_zero_on_cpu():
 
 
 def test_reset_clears_the_variant_counters():
-    fa.launches_mma, fa.launches_dq_mma = 3, 2
+    fa.launches_mma, fa.launches_dq_mma, fa.launches_dkv_mma = 3, 2, 4
     ops.reset_launch_counts()
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
-                                    "flash_bwd_dq_mma": 0}
+                                    "flash_bwd_dq_mma": 0,
+                                    "flash_bwd_dkv_mma": 0}
 
 
 def test_jax_stays_on_cpu():

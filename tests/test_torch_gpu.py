@@ -81,6 +81,16 @@ MMA_EDGES = [(*case, torch.bfloat16) for case in [
     (2, 128, 128, 32, 8, 128, 0, 128, True),   # the training layout
 ]]
 
+# the bf16 dk/dv kernel's own edges (64-key blocks over 64-row packed
+# tiles), as chip_smoke.py's DKV_EDGES
+DKV_EDGES = [(*case, torch.bfloat16) for case in [
+    # b, sq, sk, H, KV, d, q_offset, kv_len, causal
+    (1, 192, 192, 2, 2, 64, 0, 192, True),     # key block 1 at row tile 1
+    (1, 40, 120, 8, 2, 128, 50, 120, True),    # G 4, first row mid-tile
+    (2, 70, 160, 4, 2, 64, 0, 100, False),     # kv_len 100 of sk 160
+    (2, 1, 90, 16, 2, 128, 70, 71, True),      # sq 1, G 8
+]]
+
 GPU_CASES = [
     # b, sq, sk, H, KV, d, q_offset, kv_len, causal, dtype
     (1, 1, 64, 32, 8, 128, 36, 37, False, torch.bfloat16),
@@ -129,8 +139,10 @@ def test_fp32_stays_on_fma_kernels(card):
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_fwd"] == 1
     assert ops.launch_counts()["flash_bwd_dq"] == 1
+    assert ops.launch_counts()["flash_bwd_dkv"] == 1
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
-                                    "flash_bwd_dq_mma": 0}
+                                    "flash_bwd_dq_mma": 0,
+                                    "flash_bwd_dkv_mma": 0}
 
 
 @pytest.mark.gpu
@@ -201,30 +213,61 @@ BWD_CASES = [
     (3, 65, 130, 8, 2, 64, 0, 97, False, torch.float32),
     (2, 128, 128, 32, 8, 128, 0, 128, True, torch.bfloat16),
     (3, 65, 130, 8, 2, 64, 0, 97, False, torch.bfloat16),
-] + MMA_EDGES
+] + MMA_EDGES + DKV_EDGES
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_bwd_kernels_match_plain(card, case):
-    """In bf16 dq runs on the tensor-core kernel and dk/dv on the FMA
-    kernel, both from the same forward's lse."""
+    """In bf16 dq and dk/dv run on the tensor-core kernels, in fp32 on the
+    FMA kernels, both from the same forward's lse; dk and dv are exactly
+    zero for keys past kv_len."""
     b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
     q, k, v = _qkv(8, b, sq, sk, H, KV, d, dt)
     kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     do = torch.randn_like(o)
-    before = (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma)
+    counters = lambda: (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma,
+                        fa.launches_dkv_mma)
+    before = counters()
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     mma = int(dt == torch.bfloat16)
-    assert (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma) == (
-        before[0] + 1, before[1] + 1, before[2] + mma)
+    assert counters() == (before[0] + 1, before[1] + 1, before[2] + mma,
+                          before[3] + mma)
+    assert bool((dk[:, kv_len:] == 0).all())
+    assert bool((dv[:, kv_len:] == 0).all())
     want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
     tol, rtol = BWD_F32_TOL if dt == torch.float32 else (BF16_TOL, None)
     for got, w in zip((dq, dk, dv), want):
         assert got.dtype == dt and got.shape == w.shape
         _close(got, w, tol, rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DKV_EDGES + MMA_EDGES[-1:])
+def test_dkv_mma_writes_every_key_and_repeats_bitwise(card, case):
+    """The bf16 dk/dv kernel into NaN-filled outputs, twice: every key is
+    written (no NaN is left) and the second run repeats the first bit for
+    bit (no atomics)."""
+    b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
+    q, k, v = _qkv(10, b, sq, sk, H, KV, d, dt)
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    do = torch.randn_like(o)
+    _, launch_dkv, (_, dk, dv) = fa._bwd_launchers(q, k, v, o, lse, do,
+                                                   **kw)
+    runs = []
+    for _ in range(2):
+        dk.fill_(float("nan"))
+        dv.fill_(float("nan"))
+        launch_dkv()
+        torch.cuda.synchronize()
+        runs.append((dk.clone(), dv.clone()))
+    for t in runs[0]:
+        assert bool(torch.isfinite(t).all())
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.gpu
