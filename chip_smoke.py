@@ -14,8 +14,9 @@ the JAX package, and in phases:
      csrc`` (one nvcc per source, all five at once), with ptxas's
      registers and shared memory, and for the three bf16 tensor-core
      kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
-     ``flash_bwd_dkv_mma_kernel``) their registers, spills and static
-     and dynamic shared memory;
+     ``flash_bwd_dkv_mma_kernel``) and the scans' decode, scores and
+     chunked kernels their registers, spills and static and dynamic
+     shared memory;
   3. holds each kernel against its plain PyTorch version on the card
      (TF32 off for the plain versions): the flash forward at the serving
      paths' decode and prefill shapes (granite-8b's attention, head_dim
@@ -36,11 +37,14 @@ the JAX package, and in phases:
      prediction and with bf16 gradients (1e-6 in fp32, 2e-2 in bf16),
      and (in phase 8) on the training path's two groups, a full-width
      stage and the outer tree; the two scans (``rwkv6_scan``,
-     ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0),
-     prefill (s = 12), ragged (s = 37) and s = 2048 at full width, and
-     mamba2 with g > 1, with the decays the models draw (down to ~1e-29
-     and ~1e-5): y and S_T (2e-5 in fp32; 2e-2 on rwkv6's bf16 y), each
-     also with S_T written over S0 in place, as the models call them;
+     ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0; the
+     decode kernels), prefill (s = 12) and ragged (s = 37) (the stepwise
+     kernels), s = 2048, 64, 65 and 200 with b 2 and exact-zero decays
+     (the chunked kernels), and mamba2 with g > 1, with the decays the
+     models draw (down to ~1e-29 and ~1e-5): y and S_T (2e-5 in fp32;
+     2e-2 on rwkv6's bf16 y), each call checked to launch the variant its
+     length routes it to, and each also with S_T written over S0 in
+     place, as the models call them;
   4. holds the port's models on the card against the same models on the
      CPU at the smoke size in fp32: granite serving (prefill, decode,
      engine tokens), rwkv6 and zamba2 serving (prefill and decode
@@ -56,7 +60,8 @@ the JAX package, and in phases:
      as the path needs: per prefill and decode call 32 ``rwkv6_scan``;
      38 ``mamba2_scan`` and 2 ``flash_fwd`` (zamba2's shared attention);
      36 ``flash_fwd``; and nothing else; every ``flash_fwd`` on the
-     bf16 tensor-core kernel;
+     bf16 tensor-core kernel, every decode step's scan on the decode
+     kernel, no scan on the chunked kernels;
   6. profiles a few full-width decode steps of each of the three models
      (wall per step, device busy share, device time per kernel);
   7. drives the training path, ``repro_torch.launch.train.main``, on
@@ -74,7 +79,15 @@ the JAX package, and in phases:
      none computes either recurrence): the flash forward at decode and
      prefill n = 12 of both serving models, causal 2048 and the training
      shape, the backward kernels at the training shape, the scans at
-     decode, prefill and s = 2048.
+     decode (beside a copy of the same 1 MB state), prefill and s = 2048,
+     each variant its own row;
+  9. (run after phase 6) drives ``repro_torch.launch.serve.main`` on
+     full rwkv6-7b and zamba2-1.2b with long prompts (3 requests,
+     1024-2048 tokens, generation 1-4): every request served with finite
+     logits, every prefill's scans on the chunked kernels (32 or 38 per
+     call) and every decode step's on the decode kernels, each request's
+     time to first token, and one prefill of the longest prompt timed
+     and profiled (wall, device busy, the scans' share).
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -103,7 +116,7 @@ TIMEOUT_S = 60
 # published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # fp32 FLOP/s outside the tensor cores (the kernel's fp32 path)
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the backward's (atol, rtol): tests/test_kernels.py::test_flash_bwd's in
 # fp32, the kernel tolerance in bf16
@@ -348,17 +361,25 @@ def card_info(torch) -> dict:
 
 def mma_ptxas(log: str) -> dict:
     """{kernel<args>: "registers, barriers (and static shared memory);
-    spills"} as ptxas prints them, for the tensor-core kernels in one
-    nvcc -Xptxas -v log."""
+    spills"} as ptxas prints them, for the tensor-core kernels and the
+    scans' decode, scores and chunked kernels in one nvcc -Xptxas -v
+    log."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
             name = None
             for k in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                      "flash_bwd_dkv_mma_kernel"):
+                      "flash_bwd_dkv_mma_kernel", "wkv_decode_kernel",
+                      "wkv_scores_kernel", "wkv_chunk_kernel",
+                      "ssd_decode_kernel", "ssd_scores_kernel",
+                      "ssd_chunk_kernel"):
                 if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
-                    args = re.findall(r"Li(\d+)E", sym.split(k, 1)[1])
+                    rest = sym.split(k, 1)[1]
+                    args = re.findall(r"Li(\d+)E", rest)
+                    if rest.startswith("I"):    # a type argument first
+                        args.insert(0, "bf16" if "bfloat16" in rest
+                                    else "fp32")
                     name = f"{k}<{', '.join(args)}>"
         elif name and "spill stores" in line:
             out[name] = line.strip().split(", ", 1)[1]
@@ -369,11 +390,11 @@ def mma_ptxas(log: str) -> dict:
     return out
 
 
-def build_kernels(build, *mods) -> None:
+def build_kernels(build, r6, m2, *mods) -> None:
     phase("build")
     t0 = time.perf_counter()
     built = build.build_all()
-    for mod in mods:
+    for mod in (r6, m2, *mods):
         mod.load()
     print(f"built {sorted(built) or 'nothing (libraries present)'} in "
           f"{time.perf_counter() - t0:.2f}s")
@@ -395,8 +416,15 @@ def build_kernels(build, *mods) -> None:
               f"B, 1 warp {fwd(2, d)} B; flash_bwd_dq fp32 {bwd(0, d)} B, "
               f"bf16 mma {bwd(2, d)} B; flash_bwd_dkv fp32 {bwd(1, d)} B, "
               f"bf16 mma {bwd(3, d)} B; fused_update none")
-    print("  rwkv6_scan, mamba2_scan: static shared memory only (ptxas "
-          "lines above)")
+    import torch
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"  dynamic shared memory per block at 64 wide, {dt}: "
+              f"wkv_chunk_kernel {r6.chunk_smem_bytes(dt, 64)} B, "
+              f"wkv_scores_kernel {r6.chunk_smem_bytes(dt, 64, True)} B, "
+              f"ssd_chunk_kernel {m2.chunk_smem_bytes(dt, 64)} B, "
+              f"ssd_scores_kernel {m2.chunk_smem_bytes(dt, 64, True)} B; "
+              f"the scans' decode and stepwise kernels: static only (ptxas "
+              f"lines above)")
 
 
 def kernel_checks(torch, fa, ref) -> dict:
@@ -477,7 +505,9 @@ def fma_only(ops) -> None:
     """The fp32 card-vs-CPU checks ran attention on the FMA kernels only:
     flash forwards and both backward kernels were launched, none a
     tensor-core one."""
-    counts, variants = ops.launch_counts(), ops.variant_counts()
+    counts = ops.launch_counts()
+    variants = {k: v for k, v in ops.variant_counts().items()
+                if k.endswith("_mma")}
     print(f"  fp32 model checks: {counts['flash_fwd']} flash_fwd, "
           f"{counts['flash_bwd_dq']} flash_bwd_dq and "
           f"{counts['flash_bwd_dkv']} flash_bwd_dkv launches, tensor-core "
@@ -574,10 +604,16 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
     want = {name: per_call.get(name, 0) * (want_prefill + want_decode)
             for name in counts}
     check(counts == want, f"the run launched {counts}, expected {want}")
-    want_v = {"flash_fwd_mma": counts["flash_fwd"], "flash_bwd_dq_mma": 0,
-              "flash_bwd_dkv_mma": 0}
-    print(f"  tensor-core variants: {variants} (every bf16 flash_fwd)")
-    check(variants == want_v, f"the run's tensor-core launches {variants}, "
+    # every bf16 flash_fwd on the tensor cores; the scans: the decode
+    # kernel for every decode step and the warm-up's one-token prefill,
+    # the stepwise kernel for every request's prefill (prompts 2-12), the
+    # chunked kernel never
+    want_v = {k: 0 for k in variants}
+    want_v["flash_fwd_mma"] = counts["flash_fwd"]
+    for scan in ("rwkv6_scan", "mamba2_scan"):
+        want_v[f"{scan}_decode"] = per_call.get(scan, 0) * (want_decode + 1)
+    print(f"  variants: {variants}")
+    check(variants == want_v, f"the run's variant launches {variants}, "
           f"expected {want_v}")
     check(all(math.isfinite(run[k]) for k in
               ("tok_per_s", "token_ms_p50", "token_ms_p99")),
@@ -589,12 +625,14 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
 
 
 # the kernel function each wrapper launches, as the profiler names it
-# (bf16 paths: the tensor-core variants of the forward and backward)
+# (bf16 paths: the tensor-core variants of the forward and backward; a
+# decode step's scans: their decode kernels)
 KERNEL_SYMBOL = {"flash_fwd": "flash_fwd_mma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
                  "fused_update": "fused_update_kernel",
-                 "rwkv6_scan": "wkv_kernel", "mamba2_scan": "ssd_kernel"}
+                 "rwkv6_scan": "wkv_decode_kernel",
+                 "mamba2_scan": "ssd_decode_kernel"}
 
 
 def decode_profile(torch, arch: str = ARCH) -> dict:
@@ -925,11 +963,20 @@ SCAN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 class ScanCase:
     """One scan call in the model layout, with the decays drawn as the
     models draw them: rwkv6 w = exp(-exp(logw)), logw up to 4.2 (w down
-    to ~1e-29); mamba2 decay = exp(-U(0, 11.5)) (down to ~1e-5)."""
+    to ~1e-29); mamba2 decay = exp(-U(0, 11.5)) (down to ~1e-5); with
+    ``zeros``, that share of the decays exactly 0 (a reset)."""
 
-    def __init__(self, kind, name, b, s, h, d, dtype, n=None, g=1):
+    def __init__(self, kind, name, b, s, h, d, dtype, n=None, g=1,
+                 zeros=0.0):
         self.kind, self.name, self.b, self.s, self.h = kind, name, b, s, h
         self.d, self.n, self.g, self.dtype = d, n or d, g, dtype
+        self.zeros = zeros
+
+    def variant(self) -> str:
+        """The kernel the wrapper launches for this call."""
+        if self.s == 1:
+            return "decode"
+        return "chunk" if self.s >= 64 else "step"
 
     def tensors(self, torch, seed=0):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -938,13 +985,15 @@ class ScanCase:
             *sh, generator=g, device="cuda") * sc).to(d)
         uni = lambda *sh: torch.rand(*sh, generator=g, device="cuda")
         b, s, h, d = self.b, self.s, self.h, self.d
+        reset = lambda x: (x.masked_fill(uni(*x.shape) < self.zeros, 0.0)
+                           if self.zeros else x)
         if self.kind == "rwkv6":
-            w = torch.exp(-torch.exp(-3.0 + 7.2 * uni(b, s, h, d)))
+            w = reset(torch.exp(-torch.exp(-3.0 + 7.2 * uni(b, s, h, d))))
             return (mk(b, s, h, d, d=dt), mk(b, s, h, d, sc=0.3, d=dt),
                     mk(b, s, h, d, d=dt), w, mk(h, d, sc=0.3),
                     mk(b, h, d, d, sc=0.1))
         delta = torch.nn.functional.softplus(mk(b, s, h))
-        decay = torch.exp(-11.5 * uni(b, s, h))
+        decay = reset(torch.exp(-11.5 * uni(b, s, h)))
         # B and C as the model has them: strided views of one projection
         bc = mk(b, s, 2 * self.g * self.n, sc=0.5, d=dt)
         B, C = (t.reshape(b, s, self.g, self.n) for t in bc.chunk(2, -1))
@@ -966,12 +1015,27 @@ class ScanCase:
                                per_head(C), S0)
         return tr(y), sT
 
+    def recurrence_ms(self) -> float:
+        """The fp32 recurrence's operations over the fp32 peak outside the
+        tensor cores: per step and state element 3 for the update (two
+        products and a sum) and 2 for the read-out (a product and a sum);
+        rwkv6's bonus term folds to O(hd).  The operation bound of the
+        stepwise and decode kernels, which run the recurrence itself."""
+        flops = 5 * self.b * self.s * self.h * self.d * self.n
+        return flops / PEAK_FLOPS["float32"] * 1e3
+
     def bound(self):
-        """(least ms, what bounds it).  Bytes: every input read once and
-        y, S_T written once.  Operations, fp32 outside the tensor cores
-        (the recurrence runs in fp32): per step and state element 3 for
-        the update (two products and a sum) and 2 for the read-out (a
-        product and a sum); rwkv6's bonus term folds to O(hd)."""
+        """(least ms, what bounds it), the larger of: bytes, every input
+        read once and y, S_T written once, over HBM; and operations.  For
+        the decode and stepwise kernels the operations are the fp32
+        recurrence's (``recurrence_ms``).  For the chunked kernels (s >=
+        64) they are the chunked form's tensor-core products over the
+        TF32 peak, each counted once (not per 3xTF32 pass): rwkv6 per
+        step and head 4 hd^2 (y and the state, sub-chunks of 16) + 32 hd
+        (the diagonal scores times v); mamba2 per step and head 4 p n
+        (C S^T, x^T B) + 128 p (the scores times x), and per step and B/C
+        group 128 n (C B^T).  That form needs fewer operations than the
+        recurrence, so the recurrence's count is no floor for it."""
         el = 2 if self.dtype == "bfloat16" else 4
         b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
         if self.kind == "rwkv6":
@@ -979,16 +1043,26 @@ class ScanCase:
                       + 4 * b * s * h * d           # w
                       + 4 * h * d                   # u
                       + 2 * 4 * b * h * d * d)      # S0 in, S_T out
+            tc = b * s * h * (4 * d * d + 32 * d)
         else:
             nbytes = (el * b * s * h * d            # x
                       + 4 * b * s * h * d           # y (fp32)
                       + 2 * 4 * b * s * h           # dt, decay
                       + el * 2 * b * s * self.g * n  # B, C
                       + 2 * 4 * b * h * d * n)      # S0 in, S_T out
-        flops = 5 * b * s * h * d * n
+            tc = b * s * (h * (4 * d * n + 128 * d) + self.g * 128 * n)
         t_b = nbytes / HBM_BPS * 1e3
-        t_f = flops / PEAK_FLOPS["float32"] * 1e3
+        t_f = (tc / PEAK_FLOPS["tf32"] * 1e3 if self.variant() == "chunk"
+               else self.recurrence_ms())
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+# the kernel function each scan variant launches, as the profiler names it
+SCAN_SYMBOLS = {
+    "rwkv6": {"decode": "wkv_decode_kernel", "step": "wkv_kernel",
+              "chunk": "wkv_scores_kernel + wkv_chunk_kernel"},
+    "mamba2": {"decode": "ssd_decode_kernel", "step": "ssd_kernel",
+               "chunk": "ssd_scores_kernel + ssd_chunk_kernel"}}
 
 
 def scan_fn(ops, case: ScanCase):
@@ -1003,25 +1077,48 @@ def scan_cases(kind: str) -> list:
                         ("ragged s=37", 37), ("full s=2048", 2048)):
             cases.append(ScanCase(kind, f"{name} {dt}", 1, s, dtype=dt,
                                   **full))
+    # the chunked kernels' edges: one chunk, one chunk and a step, a
+    # partial last chunk at b 2 with exact-zero decays; and decode at b 2
+    cases += [
+        ScanCase(kind, "chunk s=64 float32", 1, 64, dtype="float32", **full),
+        ScanCase(kind, "chunk s=65 bfloat16", 1, 65, dtype="bfloat16",
+                 **full),
+        ScanCase(kind, "chunk s=200 b2 zeros float32", 2, 200,
+                 dtype="float32", zeros=0.05, **full),
+        ScanCase(kind, "chunk s=200 b2 zeros bfloat16", 2, 200,
+                 dtype="bfloat16", zeros=0.05, **full),
+        ScanCase(kind, "decode b2 zeros float32", 2, 1, dtype="float32",
+                 zeros=0.05, **full)]
     if kind == "mamba2":
         cases.append(ScanCase(kind, "g=4 b2 h16 p32 n16 s=37 float32", 2,
                               37, 16, 32, "float32", n=16, g=4))
         cases.append(ScanCase(kind, "g=2 b1 h8 p16 n64 s=37 bfloat16", 1,
                               37, 8, 16, "bfloat16", n=64, g=2))
+        cases.append(ScanCase(kind, "g=4 b2 h16 p32 n16 s=130 float32", 2,
+                              130, 16, 32, "float32", n=16, g=4))
     return cases
 
 
 def scan_checks(torch, ops, ref) -> dict:
-    """Both scan kernels against their plain versions on the card: y and
-    S_T, fp32 and bf16, decode (s = 1) from a nonzero S0, prefill,
-    ragged, s = 2048 at full width, and mamba2 with g > 1."""
+    """Both scans' kernels against their plain versions on the card: y
+    and S_T, fp32 and bf16, decode (s = 1) from a nonzero S0, prefill,
+    ragged, s = 2048 at full width, the chunked kernels' edges (s = 64,
+    65, 200 with b 2 and exact-zero decays), and mamba2 with g > 1; each
+    call launches the variant its length routes it to."""
     errs = {}
     for kind in ("rwkv6", "mamba2"):
         phase(f"{kind}_scan against its plain version on the card")
         for i, case in enumerate(scan_cases(kind)):
             args = case.tensors(torch, seed=200 + i)
+            before = ops.variant_counts()
             y, sT = scan_fn(ops, case)(*args)
             torch.cuda.synchronize()
+            after = ops.variant_counts()
+            got = {v: after[f"{kind}_scan_{v}"] - before[f"{kind}_scan_{v}"]
+                   for v in ("decode", "chunk")}
+            want = {v: int(case.variant() == v) for v in got}
+            check(got == want, f"{kind} {case.name}: launched {got} of the "
+                  f"decode and chunked kernels, expected {want}")
             y_r, sT_r = case.plain(torch, ref, args)
             e = {}
             for got, want, nm, tol in (
@@ -1042,10 +1139,13 @@ def scan_checks(torch, ops, ref) -> dict:
             torch.cuda.synchronize()
             check(torch.equal(y_in, y) and torch.equal(S_in, sT),
                   f"{kind} {case.name}: out=S0 differs from a fresh S_T")
-            w_min = float(args[3 if kind == "rwkv6" else 2].min())
-            print(f"  {case.name:<34} max|d y| {e['y']:.3e}  max|d S_T| "
-                  f"{e['S_T']:.3e}  (smallest decay {w_min:.2e}); in "
-                  f"place: equal")
+            decays = args[3 if kind == "rwkv6" else 2]
+            w_min = float(decays[decays > 0].min())
+            n_zero = int((decays == 0).sum())
+            print(f"  {case.name:<34} {case.variant():<6} max|d y| "
+                  f"{e['y']:.3e}  max|d S_T| {e['S_T']:.3e}  (smallest "
+                  f"decay {w_min:.2e}, {n_zero} exact zeros); in place: "
+                  f"equal")
     return errs
 
 
@@ -1092,10 +1192,17 @@ def ssm_model_check(torch) -> None:
 
 
 def scan_timings(torch, ops, ref, errs) -> dict:
-    """Each scan kernel at the decode step and at s = 2048, bf16 inputs
-    (the main path's), full width: device ms, wall ms per call, the
-    plain version's ms, and the bound."""
+    """Each scan variant at its main path's shape, bf16 inputs, full width
+    (b 1, h 64, 64-wide state): decode (s = 1) beside a copy of the same 1
+    MB state (the practical floor of that I/O), the stepwise kernel at s
+    = 12, the chunked kernels at s = 2048; device ms, wall ms per call,
+    the plain version's ms and the bound."""
     phase("timings of the scan kernels (CUDA events, after warm-up)")
+    state = torch.randn(1, 64, 64, 64, device="cuda")
+    dst = torch.empty_like(state)
+    copy_ms, _ = time_ms(torch, lambda: dst.copy_(state), 500)
+    print(f"  copy of the 1 MB fp32 state (dst.copy_(S), 1 MB read and 1 MB "
+          f"written): {copy_ms:.5f} ms")
     rows = {}
     for kind in ("rwkv6", "mamba2"):
         rows[kind] = []
@@ -1113,19 +1220,173 @@ def scan_timings(torch, ops, ref, errs) -> dict:
                                                             args),
                                   plain_iters)
             bound_ms, bound_by = case.bound()
-            rows[kind].append({
-                "shape": f"{case.name}, b 1, h 64, "
-                         f"{'hd 64' if kind == 'rwkv6' else 'p 64, n 64, g 1'}",
+            width = "hd 64" if kind == "rwkv6" else "p 64, n 64, g 1"
+            row = {
+                "shape": f"{case.name}, b 1, h 64, {width}",
+                "variant": case.variant(),
+                "kernel": SCAN_SYMBOLS[kind][case.variant()],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
                 "max_abs_err": errs[(kind, case.name)],
-                "wall_ms_per_call": wall})
-            print(f"  {kind}_scan {case.name:<22} kernel {ms:.4f} ms (wall "
-                  f"{wall:.4f} ms per call)  bound {bound_ms:.5f} ms "
-                  f"({bound_by})  plain {plain_ms:.4f} ms  library: none")
+                "wall_ms_per_call": wall}
+            extra = ""
+            if case.variant() == "decode":
+                row["state_copy_ms"] = copy_ms
+                extra = f"  {ms / copy_ms:.2f}x the state copy"
+            elif case.variant() == "chunk":
+                extra = (f"  (fp32 recurrence's operations: "
+                         f"{case.recurrence_ms():.4f} ms)")
+            rows[kind].append(row)
+            print(f"  {kind}_scan {case.name:<22} {row['kernel']}: {ms:.4f} "
+                  f"ms (wall {wall:.4f} ms per call)  bound {bound_ms:.5f} "
+                  f"ms ({bound_by})  plain {plain_ms:.4f} ms  library: "
+                  f"none{extra}")
     print("  library: none -- no single PyTorch call computes either "
           "recurrence (a data-dependent decay per step and state element)")
     return rows
+
+
+# the long-prompt phase: full-width, full-depth rwkv6-7b and zamba2-1.2b
+# serving prompts of 1024-2048 tokens through the chunked scans
+LONG_PROMPT = dict(requests=3, rate=1.0, prompt_lens=(1024, 2048),
+                   gen_lens=(1, 4), prompt_budget=2048, page_seq=2112,
+                   seed=0)
+
+
+def long_prompt(torch, ops, arch: str) -> dict:
+    """``repro_torch.launch.serve.main`` on full ``arch`` with long
+    prompts: every request served, finite logits, every request's prefill
+    scans on the chunked kernels and every decode step's on the decode
+    kernels, and each request's time to first token; then
+    :func:`long_prefill`."""
+    lp = LONG_PROMPT
+    phase(f"long prompt: repro_torch.launch.serve.main, full {arch}, bf16, "
+          f"prompts {lp['prompt_lens'][0]}-{lp['prompt_lens'][1]}")
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.planner import serve_plan
+    from repro_torch.serve import admissible, poisson_trace
+    cfg = get_config(arch)
+    per_call = per_call_launches(arch)
+    scan = "rwkv6_scan" if cfg.ssm.kind == "rwkv6" else "mamba2_scan"
+    trace = poisson_trace(lp["requests"], rate=lp["rate"], seed=lp["seed"],
+                          prompt_lens=lp["prompt_lens"],
+                          gen_lens=lp["gen_lens"], vocab=cfg.vocab_size)
+    splan = serve_plan(cfg, n_stages=1, n_slots=1,
+                       prompt_budget=lp["prompt_budget"],
+                       page_seq=lp["page_seq"])
+    live = [q for q in trace if admissible(q, splan)]
+    check(len(live) == len(trace), "a long prompt was not admissible")
+    want_prefill = 1 + len(live)                 # + the warm-up's one
+    want_decode = 1 + sum(q.gen_len - 1 for q in live)
+    pair = lambda lo_hi: f"{lo_hi[0]},{lo_hi[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "serve.jsonl"
+        argv = ["--arch", arch, "--requests", str(lp["requests"]),
+                "--rate", str(lp["rate"]),
+                "--prompt-lens", pair(lp["prompt_lens"]),
+                "--gen-lens", pair(lp["gen_lens"]),
+                "--prompt-budget", str(lp["prompt_budget"]),
+                "--page-seq", str(lp["page_seq"]), "--seed", str(lp["seed"]),
+                "--metrics-out", str(out)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        rc = serve.main(argv)
+        torch.cuda.synchronize()
+        counts, variants = ops.launch_counts(), ops.variant_counts()
+        recs = [json.loads(x) for x in out.read_text().splitlines()]
+    check(rc == 0, f"serve.main returned {rc}")
+    run = [r for r in recs if r["event"] == "serve_run"][-1]
+    summary = [r for r in recs if r["event"] == "summary"][-1]
+    n_pf = summary["gauges"]["serve/prefill_calls"]
+    n_dec = summary["gauges"]["serve/decode_calls"]
+    check(run["n_served"] == len(live), "not every long prompt was served")
+    check(summary["counters"].get("serve/nonfinite_logits", 0) == 0,
+          "non-finite logits")
+    check((n_pf, n_dec) == (want_prefill, want_decode),
+          f"engine made {n_pf} + {n_dec} calls, expected {want_prefill} + "
+          f"{want_decode}")
+    want = {name: per_call.get(name, 0) * (want_prefill + want_decode)
+            for name in counts}
+    check(counts == want, f"the run launched {counts}, expected {want}")
+    # every request's prefill on the chunked kernels; the decode steps and
+    # the warm-up's one-token prefill on the decode kernel
+    L = per_call[scan]
+    got = (variants[f"{scan}_chunk"], variants[f"{scan}_decode"])
+    exp = (L * (want_prefill - 1), L * (want_decode + 1))
+    check(got == exp, f"{scan} chunked, decode launches {got}, expected "
+          f"{exp}")
+    print(f"  {scan}: {got[0]} chunked launches = {L} x {len(live)} "
+          f"prefills, {got[1]} decode launches = {L} x ({want_decode} "
+          f"decode steps + the warm-up's one-token prefill)")
+    ttft = [(r["prompt_len"], r["ttft_ms"]) for r in recs
+            if r["event"] == "serve_request"]
+    check(len(ttft) == len(live) and all(math.isfinite(t) and t > 0
+                                         for _, t in ttft),
+          f"time to first token not reported for every request: {ttft}")
+    for n, t in ttft:
+        print(f"  request of {n} tokens: time to first token {t:.3f} ms")
+    return {"ttft_ms": ttft, "launches": counts, "variants": variants,
+            **long_prefill(torch, arch)}
+
+
+def long_prefill(torch, arch: str) -> dict:
+    """One prefill of the long-prompt trace's longest prompt on full
+    ``arch``, bf16, random weights: timed (wall, the median of 3 after a
+    warm-up) and profiled (device busy, the scans' share).  It calls only
+    ``Model`` and the serving trace, so it also times another commit of
+    the port imported in its place."""
+    import gc
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import poisson_trace
+    lp = LONG_PROMPT
+    cfg = get_config(arch)
+    trace = poisson_trace(lp["requests"], rate=lp["rate"], seed=lp["seed"],
+                          prompt_lens=lp["prompt_lens"],
+                          gen_lens=lp["gen_lens"], vocab=cfg.vocab_size)
+    req = max(trace, key=lambda q: len(q.prompt))
+    longest = len(req.prompt)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg.compute_dtype)
+    prompt = torch.tensor(list(req.prompt), device="cuda")[None]
+    walls = []
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = model.prefill(params, {"tokens": prompt},
+                                      lp["page_seq"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, {"tokens": prompt}, lp["page_seq"])
+            torch.cuda.synchronize()
+    del params, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall_ms = sorted(walls[1:])[1]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    check(bool(kern), "the profiler saw no device activity in the prefill")
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    stem = "wkv_" if cfg.ssm.kind == "rwkv6" else "ssd_"
+    scan_kern = [e for e in kern if stem in e.key]
+    scan_ms = sum(e.self_device_time_total for e in scan_kern) / 1e3
+    print(f"  one prefill of {longest} tokens: wall {wall_ms:.3f} ms (median "
+          f"of 3), device busy {busy_ms:.3f} ms, of which the scans "
+          f"{scan_ms:.3f} ms ({sum(e.count for e in scan_kern)} kernels: "
+          f"{sorted({e.key[:40] for e in scan_kern})})")
+    return {"prefill_tokens": longest, "prefill_wall_ms": wall_ms,
+            "prefill_busy_ms": busy_ms, "prefill_scan_ms": scan_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1410,7 +1671,7 @@ def run() -> int:
     t_start = time.perf_counter()
     try:
         info = card_info(torch)
-        build_kernels(build, fa, fu, r6, m2)
+        build_kernels(build, r6, m2, fa, fu)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         errs = kernel_checks(torch, fa, ref)
@@ -1427,6 +1688,8 @@ def run() -> int:
             ssm[arch] = main_path(torch, ops, arch,
                                   get_config(arch).n_layers)
             ssm[arch]["profile"] = decode_profile(torch, arch)
+        for arch in SSM_ARCHS:
+            ssm[arch]["long_prompt"] = long_prompt(torch, ops, arch)
         main = main_path(torch, ops, ARCH, get_config(ARCH).n_layers)
         decode_profile(torch)
         train = train_main_path(torch, ops)
@@ -1442,7 +1705,7 @@ def run() -> int:
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "replaces": "src/repro/kernels/flash_attention.py:39",
         "launches": main["launches"]["flash_fwd"],
         "launches_by_path": {
             "serve": main["launches"]["flash_fwd"],
@@ -1489,13 +1752,21 @@ def run() -> int:
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
+        v_serve = ssm[arch]["variants"]
+        v_long = ssm[arch]["long_prompt"]["variants"]
+        launches = {
+            "decode": v_serve[f"{name}_decode"],
+            "step": ssm[arch]["launches"][name] - v_serve[f"{name}_decode"]
+            - v_serve[f"{name}_chunk"],
+            "chunk": v_long[f"{name}_chunk"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:"
-                        f"{82 if kind == 'rwkv6' else 72}",
+                        f"{36 if kind == 'rwkv6' else 29}",
             "launches": ssm[arch]["launches"][name],
             "launches_per_call": ssm[arch]["per_call"][name],
+            "launches_long_prompt": ssm[arch]["long_prompt"]["launches"][name],
             "max_abs_err": max(v for (k, _), v in scan_errs.items()
                                if k == kind),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -1503,7 +1774,21 @@ def run() -> int:
             "library_ms": None,
             "library": "none: no single PyTorch call computes the "
                        "recurrence",
-            "shape": top["shape"], "shapes": scan_rows[kind]})
+            "shape": top["shape"], "shapes": scan_rows[kind],
+            "variants": [dict(row, launches=launches[row["variant"]],
+                              launches_on=("long-prompt serving"
+                                           if row["variant"] == "chunk"
+                                           else "serving"))
+                         for row in scan_rows[kind]]})
+    for arch, rec in ssm.items():
+        lp = rec["long_prompt"]
+        print(f"{arch} long prompts: time to first token "
+              f"{[round(t, 3) for _, t in lp['ttft_ms']]} ms at "
+              f"{[n for n, _ in lp['ttft_ms']]} tokens; one "
+              f"{lp['prefill_tokens']}-token prefill "
+              f"{lp['prefill_wall_ms']:.3f} ms wall, "
+              f"{lp['prefill_busy_ms']:.3f} ms busy, scans "
+              f"{lp['prefill_scan_ms']:.3f} ms")
     for arch, rec in ssm.items():
         run, prof = rec["run"], rec["profile"]
         print(f"{arch} serving: {run['tok_per_s']:.2f} tok/s, p50 "

@@ -132,7 +132,7 @@ def _check(q, k, v, q_offset: int, kv_len: int) -> None:
 
 def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
     """Raise ``ValueError`` unless each named [b, s, heads, d] tensor can
-    be copied by the bf16 kernels' 16-byte cp.async: its data pointer and
+    be copied by the kernels' 16-byte cp.async: its data pointer and
     its batch, sequence and head strides (where that dimension has more
     than one entry) must be multiples of 16 bytes.  A pure check of
     pointers and strides: it runs on tensors on any device."""
@@ -140,7 +140,7 @@ def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
         if t.data_ptr() % CP_ASYNC_BYTES:
             raise ValueError(
                 f"{name}: data pointer {t.data_ptr():#x} is not a multiple "
-                f"of {CP_ASYNC_BYTES} bytes, which the bf16 kernels' "
+                f"of {CP_ASYNC_BYTES} bytes, which the kernels' 16-byte "
                 f"cp.async copies need")
         for dim, what in enumerate(("batch", "sequence", "head")):
             nbytes = t.stride(dim) * t.element_size()
@@ -148,7 +148,7 @@ def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
                 raise ValueError(
                     f"{name}: {what} stride {t.stride(dim)} ({nbytes} "
                     f"bytes) is not a multiple of {CP_ASYNC_BYTES} bytes, "
-                    f"which the bf16 kernels' cp.async copies need")
+                    f"which the kernels' 16-byte cp.async copies need")
 
 
 def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,

@@ -1,17 +1,30 @@
-"""Mamba-2 SSD recurrence: the wrapper around the Hopper CUDA kernel.
+"""Mamba-2 SSD recurrence: the wrapper around the Hopper CUDA kernels.
 
 Twin of ``repro/kernels/mamba2_scan.py`` (the Pallas TPU kernel
-``mamba2_scan``).  The kernel itself is ``csrc/mamba2_scan.cu``; its
-source note says what it computes, what bounds it on an H100 and what
-its simple design leaves for later.  Unlike the Pallas kernel it
-computes the recurrence step by step (exact at any decay in (0, 1],
-where the Pallas kernel's in-chunk decay ratios leave fp32's range at
-small decays), takes the model-side layouts through strides, reads the
-B/C group of each head by index instead of repeating B and C per head,
-and takes any s >= 1.
+``mamba2_scan``, body ``_ssd_kernel``).  The kernels are in
+``csrc/mamba2_scan.cu``, whose source note says what each computes, what
+bounds it on an H100 and what its design does about that.  Unlike the
+Pallas kernel, whose in-chunk decay ratios leave fp32's range at small
+decays, every kernel here is exact at any decay in [0, 1]; they take the
+model-side layouts through strides, read the B/C group of each head by
+index instead of repeating B and C per head, and take any s >= 1.
+:func:`variant` picks the kernel by s:
 
-On CUDA tensors :func:`mamba2_scan` launches the kernel or raises; on
-CPU tensors it computes :func:`repro_torch.kernels.ref.mamba2_ref`.
+  * s = 1: ``ssd_decode_kernel``, one decode step, bound by the bytes of
+    the fp32 state (read and written once, float4 a thread);
+  * 2 <= s < ``CHUNK_MIN_S``: ``ssd_kernel``, the recurrence step by step
+    (the serving paths' short prompts);
+  * s >= ``CHUNK_MIN_S``: ``ssd_scores_kernel``, each chunk's [64 x 64]
+    decay matrix (running products) and scores for every chunk at once
+    (into a scratch tensor the wrapper allocates), then
+    ``ssd_chunk_kernel``, the chunks in order, the chunked dual form on
+    the tensor cores (3xTF32 ``mma.sync``) (a long prompt).  The pair
+    counts as one launch of the chunked variant.
+
+This is routing by shape, not a fallback: each variant is exact and
+each raises on what it does not take.  On CUDA tensors
+:func:`mamba2_scan` launches its variant or raises; on CPU tensors it
+computes :func:`repro_torch.kernels.ref.mamba2_ref`.
 """
 from __future__ import annotations
 
@@ -21,17 +34,27 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import check_cp_async_alignment
 from repro_torch.kernels.ref import mamba2_ref
+from repro_torch.kernels.rwkv6_scan import CHUNK_MIN_S, variant
 
 HEAD_DIMS = (16, 32, 64)         # for p and for n
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
+_VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 
-# kernel launches since the last reset (the CPU path never counts)
+# kernel launches since the last reset (the CPU path never counts):
+# all variants, and of them the decode and the chunked kernel's
 launches = 0
+launches_decode = 0
+launches_chunk = 0
 
 _p = ctypes.c_void_p
-_ARGTYPES = [_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15 + [_p]
+_ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 15 + [_p])
+# one (batch row, head, chunk) record of the chunked kernel's scores: the
+# [64 x 64] score matrix, A_i and T_j dt_j
+_RECORD = 64 * 64 + 2 * 64
 
 
 def _lib():
@@ -40,6 +63,16 @@ def _lib():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def chunk_smem_bytes(dtype: torch.dtype, n: int, scores: bool = False
+                     ) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_kernel`` block, or with
+    ``scores`` of one ``ssd_scores_kernel`` block."""
+    fn = build.library("mamba2_scan").repro_mamba2_scan_chunk_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(_DTYPES[dtype], n, int(scores)))
 
 
 def load() -> None:
@@ -118,16 +151,30 @@ def mamba2_scan(x, dt, decay, B, C, S0, out=None
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     sT = out if out is not None else torch.empty(
         (b, h, p, n), dtype=torch.float32, device=x.device)
+    kind = variant(s)
+    scores = None
+    if kind == "decode":                # float4 state reads and writes
+        check_cp_async_alignment(S0=S0, out=sT)
+    elif kind == "chunk":               # 16-byte cp.async tiles
+        check_cp_async_alignment(x=x, B=B, C=C)
+        n_chunks = -(-s // CHUNK_MIN_S)
+        scores = torch.empty(b * h * n_chunks * _RECORD,
+                             dtype=torch.float32, device=x.device)
+    scores_ptr = None if scores is None else scores.data_ptr()
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), decay.data_ptr(),
-                 B.data_ptr(), C.data_ptr(), S0.data_ptr(), y.data_ptr(),
-                 sT.data_ptr(), _DTYPES[x.dtype], p, n, b, s, h, g,
+        err = fn(_VARIANTS[kind], x.data_ptr(), dt.data_ptr(),
+                 decay.data_ptr(), B.data_ptr(), C.data_ptr(),
+                 S0.data_ptr(), y.data_ptr(), sT.data_ptr(), scores_ptr,
+                 _DTYPES[x.dtype], p, n, b, s, h, g,
                  *x.stride()[:3], *dt.stride(), *decay.stride(),
                  *B.stride()[:3], *C.stride()[:3], stream)
     if err != 0:
-        raise RuntimeError(f"mamba2_scan launch failed: CUDA error {err}")
-    global launches
+        raise RuntimeError(f"mamba2_scan ({kind}) launch failed: CUDA "
+                           f"error {err}")
+    global launches, launches_decode, launches_chunk
     launches += 1
+    launches_decode += kind == "decode"
+    launches_chunk += kind == "chunk"
     return y, sT

@@ -64,18 +64,26 @@ def launch_counts() -> Dict[str, int]:
 
 
 def variant_counts() -> Dict[str, int]:
-    """Launches of the bf16 tensor-core kernels since the last reset, a
-    part of :func:`launch_counts`' ``flash_fwd``, ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` (the rest went to the fp32 FMA kernels)."""
+    """Launches of kernel variants since the last reset, each a part of
+    its :func:`launch_counts` total: the bf16 tensor-core kernels of
+    ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the rest went
+    to the fp32 FMA kernels), and the scans' decode (s = 1) and chunked
+    (s >= 64) kernels (the rest went to the stepwise ones)."""
     return {"flash_fwd_mma": fa.launches_mma,
             "flash_bwd_dq_mma": fa.launches_dq_mma,
-            "flash_bwd_dkv_mma": fa.launches_dkv_mma}
+            "flash_bwd_dkv_mma": fa.launches_dkv_mma,
+            "rwkv6_scan_decode": r6.launches_decode,
+            "rwkv6_scan_chunk": r6.launches_chunk,
+            "mamba2_scan_decode": m2.launches_decode,
+            "mamba2_scan_chunk": m2.launches_chunk}
 
 
 def reset_launch_counts() -> None:
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_mma = fa.launches_dq_mma = fa.launches_dkv_mma = 0
     fu.launches = r6.launches = m2.launches = 0
+    r6.launches_decode = r6.launches_chunk = 0
+    m2.launches_decode = m2.launches_chunk = 0
 
 
 # ---------------------------------------------------------------------------

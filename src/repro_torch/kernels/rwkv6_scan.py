@@ -1,16 +1,29 @@
-"""RWKV-6 WKV recurrence: the wrapper around the Hopper CUDA kernel.
+"""RWKV-6 WKV recurrence: the wrapper around the Hopper CUDA kernels.
 
 Twin of ``repro/kernels/rwkv6_scan.py`` (the Pallas TPU kernel
-``rwkv6_scan``).  The kernel itself is ``csrc/rwkv6_scan.cu``; its source
-note says what it computes, what bounds it on an H100 and what its
-simple design leaves for later.  Unlike the Pallas kernel it computes the
-recurrence step by step (exact at any decay in (0, 1], where the Pallas
-kernel's in-chunk rescaling holds only for w in [~0.5, 1)), takes the
-model-side layout ``[b, s, h, hd]`` through strides, and takes any
-s >= 1, so one kernel serves prefill and each decode step.
+``rwkv6_scan``, body ``_wkv_kernel``).  The kernels are in
+``csrc/rwkv6_scan.cu``, whose source note says what each computes, what
+bounds it on an H100 and what its design does about that.  Unlike the
+Pallas kernel, which divides by a running decay product inside a chunk
+(valid only for w in [~0.5, 1)), every kernel here is exact at any decay
+in [0, 1]; they take the model-side layout ``[b, s, h, hd]`` through
+strides and any s >= 1.  :func:`variant` picks the kernel by s:
 
-On CUDA tensors :func:`rwkv6_scan` launches the kernel or raises; on CPU
-tensors it computes :func:`repro_torch.kernels.ref.rwkv6_ref`.
+  * s = 1: ``wkv_decode_kernel``, one decode step, bound by the bytes
+    of the fp32 state (read and written once, float4 a thread);
+  * 2 <= s < ``CHUNK_MIN_S``: ``wkv_kernel``, the recurrence step by step
+    (the serving paths' short prompts);
+  * s >= ``CHUNK_MIN_S``: ``wkv_scores_kernel``, the diagonal scores of
+    every chunk of 64 steps at once (into a scratch tensor the wrapper
+    allocates), then ``wkv_chunk_kernel``, the chunks in order on the
+    tensor cores (3xTF32 ``mma.sync``), the decay factors formed as
+    products over sub-chunks of 16 (a long prompt).  The pair counts as
+    one launch of the chunked variant.
+
+This is routing by shape, not a fallback: each variant is exact and
+each raises on what it does not take.  On CUDA tensors
+:func:`rwkv6_scan` launches its variant or raises; on CPU tensors it
+computes :func:`repro_torch.kernels.ref.rwkv6_ref`.
 """
 from __future__ import annotations
 
@@ -20,17 +33,35 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import check_cp_async_alignment
 from repro_torch.kernels.ref import rwkv6_ref
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
+# the shortest sequence the chunked tensor-core kernel takes
+CHUNK_MIN_S = 64
+_VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 
-# kernel launches since the last reset (the CPU path never counts)
+# kernel launches since the last reset (the CPU path never counts):
+# all variants, and of them the decode and the chunked kernel's
 launches = 0
+launches_decode = 0
+launches_chunk = 0
 
 _p = ctypes.c_void_p
-_ARGTYPES = [_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [_p]
+_ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12 + [_p])
+# diagonal scores of one (batch row, head, chunk) for the chunked kernel
+_SCORES_PER_CHUNK = 4 * 16 * 16
+
+
+def variant(s: int) -> str:
+    """The kernel a call of sequence length ``s`` launches: ``"decode"``
+    (s = 1), ``"step"`` (2 <= s < CHUNK_MIN_S) or ``"chunk"``."""
+    if s == 1:
+        return "decode"
+    return "chunk" if s >= CHUNK_MIN_S else "step"
 
 
 def _lib():
@@ -39,6 +70,16 @@ def _lib():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def chunk_smem_bytes(dtype: torch.dtype, hd: int, scores: bool = False
+                     ) -> int:
+    """Dynamic shared memory of one ``wkv_chunk_kernel`` block, or with
+    ``scores`` of one ``wkv_scores_kernel`` block."""
+    fn = build.library("rwkv6_scan").repro_rwkv6_scan_chunk_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(_DTYPES[dtype], hd, int(scores)))
 
 
 def load() -> None:
@@ -107,16 +148,30 @@ def rwkv6_scan(r, k, v, w, u, S0, out=None
     y = torch.empty((b, s, h, hd), dtype=r.dtype, device=r.device)
     sT = out if out is not None else torch.empty(
         (b, h, hd, hd), dtype=torch.float32, device=r.device)
+    kind = variant(s)
+    scores = None
+    if kind == "decode":                # float4 state reads and writes
+        check_cp_async_alignment(S0=S0, out=sT)
+    elif kind == "chunk":               # 16-byte cp.async tiles
+        check_cp_async_alignment(r=r, k=k, v=v, w=w)
+        n_chunks = -(-s // CHUNK_MIN_S)
+        scores = torch.empty(b * h * n_chunks * _SCORES_PER_CHUNK,
+                             dtype=torch.float32, device=r.device)
+    scores_ptr = None if scores is None else scores.data_ptr()
     fn = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), S0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+        err = fn(_VARIANTS[kind], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 w.data_ptr(), u.data_ptr(), S0.data_ptr(), y.data_ptr(),
+                 sT.data_ptr(), scores_ptr,
                  _DTYPES[r.dtype], hd, b, s, h,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *w.stride()[:3], stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
-    global launches
+        raise RuntimeError(f"rwkv6_scan ({kind}) launch failed: CUDA "
+                           f"error {err}")
+    global launches, launches_decode, launches_chunk
     launches += 1
+    launches_decode += kind == "decode"
+    launches_chunk += kind == "chunk"
     return y, sT

@@ -29,6 +29,8 @@ class SimpleEngine:
     Reported latencies exclude a warm-up that builds the model's kernels
     and runs one prefill and one decode, as the JAX engine's exclude
     compilation; on the card every timed region ends in a synchronise.
+    Each request's ``serve_request`` event carries ``ttft_ms``, the wall
+    of its prefill and first token (its time to first token).
 
     ``n_prefill`` / ``n_decode`` count the model calls made, warm-up
     included (each runs every layer's attention or scan once, and each
@@ -99,8 +101,9 @@ class SimpleEngine:
                 bad += (~torch.isfinite(row)).sum()
                 toks = [int(torch.argmax(row))]
                 self._sync()
+                ttft_ms = (time.time() - t0) * 1e3
                 if hist is not None:
-                    hist.observe((time.time() - t0) * 1e3)
+                    hist.observe(ttft_ms)
                 pos = len(req.prompt)
                 while len(toks) < req.gen_len:
                     t0 = time.time()
@@ -116,7 +119,7 @@ class SimpleEngine:
                 if self.registry is not None:
                     self.registry.emit("serve_request", rid=req.rid,
                                        prompt_len=len(req.prompt),
-                                       gen=req.gen_len)
+                                       gen=req.gen_len, ttft_ms=ttft_ms)
         if self.registry is not None:
             self.registry.counter("serve/nonfinite_logits").inc(int(bad))
             self.registry.gauge("serve/prefill_calls").set(self.n_prefill)

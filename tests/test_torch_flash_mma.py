@@ -53,8 +53,10 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as r6
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -558,7 +560,11 @@ def test_variant_counters_stay_zero_on_cpu():
     o.float().sum().backward()
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
                                     "flash_bwd_dq_mma": 0,
-                                    "flash_bwd_dkv_mma": 0}
+                                    "flash_bwd_dkv_mma": 0,
+                                    "rwkv6_scan_decode": 0,
+                                    "rwkv6_scan_chunk": 0,
+                                    "mamba2_scan_decode": 0,
+                                    "mamba2_scan_chunk": 0}
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_update",
         "rwkv6_scan", "mamba2_scan"}
@@ -567,10 +573,16 @@ def test_variant_counters_stay_zero_on_cpu():
 
 def test_reset_clears_the_variant_counters():
     fa.launches_mma, fa.launches_dq_mma, fa.launches_dkv_mma = 3, 2, 4
+    r6.launches_decode, r6.launches_chunk = 5, 6
+    m2.launches_decode, m2.launches_chunk = 7, 8
     ops.reset_launch_counts()
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
                                     "flash_bwd_dq_mma": 0,
-                                    "flash_bwd_dkv_mma": 0}
+                                    "flash_bwd_dkv_mma": 0,
+                                    "rwkv6_scan_decode": 0,
+                                    "rwkv6_scan_chunk": 0,
+                                    "mamba2_scan_decode": 0,
+                                    "mamba2_scan_chunk": 0}
 
 
 def test_jax_stays_on_cpu():

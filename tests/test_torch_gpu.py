@@ -142,7 +142,11 @@ def test_fp32_stays_on_fma_kernels(card):
     assert ops.launch_counts()["flash_bwd_dkv"] == 1
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
                                     "flash_bwd_dq_mma": 0,
-                                    "flash_bwd_dkv_mma": 0}
+                                    "flash_bwd_dkv_mma": 0,
+                                    "rwkv6_scan_decode": 0,
+                                    "rwkv6_scan_chunk": 0,
+                                    "mamba2_scan_decode": 0,
+                                    "mamba2_scan_chunk": 0}
 
 
 @pytest.mark.gpu
@@ -436,38 +440,65 @@ def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
 # the recurrences: rwkv6_scan and mamba2_scan against their plain versions
 
 
-def _decays_like_the_models(rng, shape, kind):
+def _decays_like_the_models(rng, shape, kind, zeros=0.0):
+    """The models' decays; with ``zeros``, that share of them exactly 0
+    (a reset, which the chunked kernels' products must carry exactly)."""
     if kind == "rwkv6":       # w = exp(-exp(logw)), logw up to ~4.2
-        return np.exp(-np.exp(rng.uniform(-3.0, 4.2, shape)))
-    return np.exp(-rng.uniform(0.0, 11.5, shape))     # down to ~1e-5
+        d = np.exp(-np.exp(rng.uniform(-3.0, 4.2, shape)))
+    else:
+        d = np.exp(-rng.uniform(0.0, 11.5, shape))    # down to ~1e-5
+    if zeros:
+        d = np.where(rng.random(shape) < zeros, 0.0, d)
+    return d
+
+
+def _variant_step(kind, s, before):
+    """Assert the call of length s launched exactly its variant: s = 1
+    the decode kernel, s >= 64 the chunked one, else the stepwise one."""
+    after = ops.variant_counts()
+    want = {"decode": int(s == 1), "chunk": int(s >= 64)}
+    got = {v: after[f"{kind}_scan_{v}"] - before[f"{kind}_scan_{v}"]
+           for v in want}
+    assert got == want
 
 
 RWKV_GPU_CASES = [
-    # b, s, h, hd, dtype: decode, prefill, ragged, long, each head size
+    # b, s, h, hd, dtype[, share of exact-zero decays]: decode, prefill,
+    # ragged, long, each head size
     (1, 1, 64, 64, torch.bfloat16),
     (1, 12, 64, 64, torch.bfloat16),
     (2, 37, 3, 16, torch.float32),
     (1, 37, 4, 32, torch.bfloat16),
     (1, 300, 2, 64, torch.float32),
+    # the chunked kernel: one chunk, one chunk and a step, a partial last
+    # chunk, b 2, every head size, exact zeros; and decode at b 2
+    (1, 64, 4, 64, torch.float32),
+    (1, 65, 4, 64, torch.bfloat16),
+    (2, 200, 3, 16, torch.float32, 0.05),
+    (2, 130, 2, 32, torch.bfloat16, 0.05),
+    (1, 2048, 64, 64, torch.bfloat16),
+    (2, 1, 5, 32, torch.float32),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", RWKV_GPU_CASES)
 def test_rwkv6_kernel_matches_plain(card, case):
-    b, s, h, hd, dt = case
+    b, s, h, hd, dt = case[:5]
     rng = np.random.default_rng(11)
     mk = lambda sh, sc=1.0, d=torch.float32: torch.from_numpy(
         rng.standard_normal(sh, dtype=np.float32) * sc).to(card, d)
     r, k, v = mk((b, s, h, hd), d=dt), mk((b, s, h, hd), 0.3, dt), \
         mk((b, s, h, hd), d=dt)
     w = torch.from_numpy(_decays_like_the_models(
-        rng, (b, s, h, hd), "rwkv6").astype(np.float32)).to(card)
+        rng, (b, s, h, hd), "rwkv6", *case[5:]).astype(np.float32)).to(card)
     u, S0 = mk((h, hd), 0.3), mk((b, h, hd, hd), 0.1)
     before = ops.launch_counts()["rwkv6_scan"]
+    before_v = ops.variant_counts()
     y, sT = ops.rwkv6_scan(r, k, v, w, u, S0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    _variant_step("rwkv6", s, before_v)
     assert y.shape == r.shape and y.dtype == dt
     tr = lambda t: t.transpose(1, 2)
     y_r, sT_r = ref.rwkv6_ref(tr(r), tr(k), tr(v), tr(w), u, S0)
@@ -482,34 +513,44 @@ def test_rwkv6_kernel_matches_plain(card, case):
 
 
 MAMBA_GPU_CASES = [
-    # b, s, h, p, n, g, dtype
+    # b, s, h, p, n, g, dtype[, share of exact-zero decays]
     (1, 1, 64, 64, 64, 1, torch.bfloat16),
     (1, 12, 64, 64, 64, 1, torch.bfloat16),
     (2, 37, 4, 16, 32, 2, torch.float32),
     (1, 37, 8, 32, 16, 4, torch.bfloat16),
     (1, 300, 2, 64, 64, 1, torch.float32),
+    # the chunked kernel: one chunk, one chunk and a step, a partial last
+    # chunk, b 2, g 4, every p and n, exact zeros; and decode at b 2
+    (1, 64, 4, 64, 64, 1, torch.float32),
+    (1, 65, 4, 64, 64, 1, torch.bfloat16),
+    (2, 200, 8, 32, 16, 4, torch.float32, 0.05),
+    (2, 130, 4, 16, 32, 2, torch.bfloat16, 0.05),
+    (1, 2048, 64, 64, 64, 1, torch.bfloat16),
+    (2, 1, 8, 32, 16, 4, torch.float32),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", MAMBA_GPU_CASES)
 def test_mamba2_kernel_matches_plain(card, case):
-    b, s, h, p, n, g, dt = case
+    b, s, h, p, n, g, dt = case[:7]
     rng = np.random.default_rng(12)
     mk = lambda sh, sc=1.0, d=torch.float32: torch.from_numpy(
         rng.standard_normal(sh, dtype=np.float32) * sc).to(card, d)
     x = mk((b, s, h, p), d=dt)
     delta = torch.nn.functional.softplus(mk((b, s, h)))
     decay = torch.from_numpy(_decays_like_the_models(
-        rng, (b, s, h), "mamba2").astype(np.float32)).to(card)
+        rng, (b, s, h), "mamba2", *case[7:]).astype(np.float32)).to(card)
     # B and C as the model has them: strided views of one projection
     bc = mk((b, s, 2 * g * n), 0.5, dt)
     B, C = (t.reshape(b, s, g, n) for t in bc.chunk(2, dim=-1))
     S0 = mk((b, h, p, n), 0.1)
     before = ops.launch_counts()["mamba2_scan"]
+    before_v = ops.variant_counts()
     y, sT = ops.mamba2_scan(x, delta, decay, B, C, S0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["mamba2_scan"] == before + 1
+    _variant_step("mamba2", s, before_v)
     assert y.shape == x.shape and y.dtype == torch.float32
     tr = lambda t: t.transpose(1, 2)
     per_head = lambda t: tr(t.repeat_interleave(h // g, dim=2))
@@ -523,6 +564,61 @@ def test_mamba2_kernel_matches_plain(card, case):
     assert sT_in is S_in
     _close(y_in, y, 0)
     _close(S_in, sT, 0)
+
+
+def _scan_inputs(kind, b, s, h, d, dt, rng):
+    """A scan's inputs at width d (rwkv6 hd = d; mamba2 p = n = d, g 1),
+    with the models' decays and 5% exact zeros."""
+    mk = lambda sh, sc=1.0, t=torch.float32: torch.from_numpy(
+        rng.standard_normal(sh, dtype=np.float32) * sc).to("cuda", t)
+    dec = lambda sh: torch.from_numpy(_decays_like_the_models(
+        rng, sh, kind, 0.05).astype(np.float32)).to("cuda")
+    if kind == "rwkv6":
+        return (mk((b, s, h, d), t=dt), mk((b, s, h, d), 0.3, dt),
+                mk((b, s, h, d), t=dt), dec((b, s, h, d)), mk((h, d), 0.3),
+                mk((b, h, d, d), 0.1))
+    bc = mk((b, s, 2 * d), 0.5, dt)
+    B, C = (t.reshape(b, s, 1, d) for t in bc.chunk(2, dim=-1))
+    return (mk((b, s, h, d), t=dt), torch.nn.functional.softplus(
+        mk((b, s, h))), dec((b, s, h)), B, C, mk((b, h, d, d), 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,s", [(k, s) for k in ("rwkv6", "mamba2")
+                                    for s in (1, 12, 130)])
+def test_scan_kernels_repeat_bitwise_and_write_only_their_outputs(
+        card, kind, s, dt):
+    """Each variant (s = 1 decode, 12 stepwise, 130 chunked), 20 calls on
+    the same inputs, S_T written into the middle of a NaN-filled buffer
+    and the allocator's free memory NaN-filled before each call: y and
+    S_T repeat the first call bit for bit (a race, or a read of memory
+    the kernels did not write, would vary), and the buffer around S_T
+    stays NaN (no state write out of bounds)."""
+    b, h, d = 2, 4, 64
+    args = _scan_inputs(kind, b, s, h, d, dt, np.random.default_rng(13))
+    fn = ops.rwkv6_scan if kind == "rwkv6" else ops.mamba2_scan
+    n = b * h * d * d
+    before = ops.variant_counts()
+    first = None
+    for _ in range(20):
+        junk = torch.full((8 * n + 4 * b * s * h * d,), float("nan"),
+                          device=card)
+        del junk
+        buf = torch.full((3 * n,), float("nan"), device=card)
+        out = buf[n:2 * n].view(b, h, d, d)
+        y, sT = fn(*args, out=out)
+        torch.cuda.synchronize()
+        assert sT is out
+        assert bool(torch.isnan(buf[:n]).all())
+        assert bool(torch.isnan(buf[2 * n:]).all())
+        assert bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
+        if first is None:
+            first = (y.clone(), sT.clone())
+        assert torch.equal(y, first[0]) and torch.equal(sT, first[1])
+    got = {v: ops.variant_counts()[f"{kind}_scan_{v}"]
+           - before[f"{kind}_scan_{v}"] for v in ("decode", "chunk")}
+    assert got == {"decode": 20 * (s == 1), "chunk": 20 * (s >= 64)}
 
 
 @pytest.mark.gpu
@@ -582,6 +678,44 @@ def test_ssm_model_on_card_matches_cpu(card, arch):
     scan = "rwkv6_scan" if arch == "rwkv6-7b" else "mamba2_scan"
     assert counts[scan] == cfg.n_layers * 4
     assert counts["flash_fwd"] == (2 * 4 if gpu.hybrid else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_ssm_long_prompt_on_card_matches_cpu(card, arch):
+    """A prompt of 130 tokens (two chunks and a tail) and two decode
+    steps at the smoke size in fp32: logits and every state and KV leaf,
+    the card (chunked scan kernels for the prefill, decode kernels for
+    the steps) against the CPU, within ``ssm_model_check``'s 1e-4."""
+    cfg = _ssm_smoke_cfg(arch)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _on(p_cpu, card)
+    toks = torch.randint(0, cfg.vocab_size, (1, 132),
+                         generator=torch.Generator().manual_seed(2))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks[:, :130]}, 160)
+        l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks[:, :130].to(card)},
+                               160)
+        _close(l_g, l_c, MODEL_TOL)
+        for group in c_c:
+            for key in c_c[group]:
+                _close(c_g[group][key], c_c[group][key], MODEL_TOL)
+        scan = "rwkv6_scan" if arch == "rwkv6-7b" else "mamba2_scan"
+        assert ops.variant_counts()[f"{scan}_chunk"] == cfg.n_layers
+        for pos in (130, 131):
+            tok = toks[:, pos:pos + 1]
+            d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, pos)
+            d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.to(card), pos)
+            _close(d_g, d_c, MODEL_TOL)
+            for group in c_c:
+                for key in c_c[group]:
+                    _close(c_g[group][key], c_c[group][key], MODEL_TOL)
+    v = ops.variant_counts()
+    assert (v[f"{scan}_chunk"], v[f"{scan}_decode"]) == (cfg.n_layers,
+                                                         2 * cfg.n_layers)
+    assert ops.launch_counts()[scan] == 3 * cfg.n_layers
 
 
 @pytest.mark.gpu

@@ -158,6 +158,22 @@ def test_launcher_serves_smoke_on_cpu(tmp_path, capsys):
     assert summary["counters"]["serve/nonfinite_logits"] == 0
 
 
+def test_launcher_reports_time_to_first_token(tmp_path):
+    """Every served request's ``serve_request`` event carries its time to
+    first token (``ttft_ms``: the prefill and first token, wall)."""
+    out = tmp_path / "serve.jsonl"
+    rc = tlaunch.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
+                       "--requests", "3", "--prompt-lens", "20,70",
+                       "--prompt-budget", "80", "--page-seq", "96",
+                       "--metrics-out", str(out)])
+    assert rc == 0
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    reqs = [r for r in recs if r["event"] == "serve_request"]
+    assert len(reqs) == 3
+    assert all(r["ttft_ms"] > 0 and 20 <= r["prompt_len"] <= 70
+               for r in reqs)
+
+
 def test_launcher_refuses_unported_paths():
     with pytest.raises(SystemExit, match="not ported"):
         tlaunch.main(["--smoke", "--device", "cpu", "--engine",
