@@ -89,6 +89,36 @@ the JAX package, and in phases:
      time to first token, and one prefill of the longest prompt timed
      and profiled (wall, device busy, the scans' share).
 
+The paper's evaluation adds three phases:
+
+ 10. (after phase 4) the simulator (``repro_torch.core.simulator``) on
+     the card against the CPU, 10 steps of each of the four schemes for
+     ``make_mlp_staged`` (4 stages, Fig. 8's RMSEs on) and for
+     ``staged_from_model`` (the 4-layer smoke granite on 2 stages, fp32
+     flash kernels): every metric and the final parameters within the
+     CPU parity tests' rtol 1e-5 / atol 1e-6, N + 1 ``fused_update``
+     launches a step; and checkpoint and exact resume through
+     ``repro_torch.launch.train.main`` (4 layers, pipe 2, spectrain and
+     pipedream): 6 ticks against 3, ``--resume auto`` and 3 more, the
+     final checkpoints bit-equal;
+ 11. (after phase 7) the four schemes on the full-width, full-depth
+     snn-paper (32 FC layers of 2048, input 3072, 10 classes, 4 stages,
+     140,597,258 parameters, 8 versions held), batch 128 of the
+     synthetic teacher task, 600 steps each at lr 0.01, then spectrain
+     again with Fig. 8's RMSEs at s = 1, 2, 3: ms per step (the median
+     of the steady steps), device busy and idle share under
+     ``torch.profiler``, final loss, held-out loss and accuracy, peak
+     memory, exactly 5 ``fused_update`` launches a step (and nothing
+     else), finite and falling losses, each scheme past the label
+     prior (final loss below its entropy, held-out accuracy above the
+     majority share), RMSE(pred) < RMSE(stale) at every s; the Table 1
+     ordering printed against the JAX test's bounds; the kernel held
+     against its plain version at the simulator's two groups (a stage
+     tree, the outer tree) with the simulator's arguments, then timed
+     beside ``torch.optim.SGD(fused=True)``;
+ 12. ``repro_torch.bench.rmse`` and ``.convergence`` on the card at
+     their default (the JAX scripts') sizes.
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -96,6 +126,7 @@ repository's ``src/``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -901,15 +932,17 @@ def make_group(torch, specs, predicted, seed=0):
 FU_KW = dict(lr=1e-2, gamma=0.9, s=6.0)
 
 
-def fu_compare(torch, ops, ref, ws, vs, gs, whats, what: str) -> float:
-    """One kernel launch over a group against its plain version on the
-    same inputs (computed first: the kernel writes in place); returns the
-    largest |d| over w', v' and ŵ."""
+def fu_compare(torch, ops, ref, ws, vs, gs, whats, what: str,
+               kw=FU_KW) -> float:
+    """One kernel launch over a group, with the update's arguments
+    ``kw``, against its plain version on the same inputs (computed
+    first: the kernel writes in place); returns the largest |d| over w',
+    v' and ŵ."""
     whats_l = [None] * len(ws) if whats is None else whats
     want = [ref.fused_update_ref(
-        w, v, g, what_dtype=None if wh is None else wh.dtype, **FU_KW)
+        w, v, g, what_dtype=None if wh is None else wh.dtype, **kw)
         for w, v, g, wh in zip(ws, vs, gs, whats_l)]
-    ops.fused_update(ws, vs, gs, whats=whats, **FU_KW)
+    ops.fused_update(ws, vs, gs, whats=whats, **kw)
     torch.cuda.synchronize()
     worst = 0.0
     for i, (w2, v2, wh2) in enumerate(want):
@@ -1645,6 +1678,411 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the paper's evaluation: the four-scheme simulator (Fig. 7), Fig. 8's
+# RMSE and Table 1's ordering, on the full-width snn-paper
+
+EVAL_ARCH, EVAL_CLASSES = "snn-paper", 10       # CIFAR-10's classes
+# the loss plateaus near the label prior's entropy for ~300 steps and
+# then falls: at 600 every scheme is well past the prior (sync ~1.76
+# against 2.30, held-out accuracy ~0.40 against a 0.11 majority share)
+EVAL_BATCH, EVAL_STEPS = 128, 600
+EVAL_HELD = 4096                    # held-out teacher samples a scheme
+# staleness shows at 0.01: vanilla and pipedream end above sync,
+# spectrain near it; at 0.02 vanilla diverges, at 0.1 sync does too
+EVAL_LR = 0.01
+EVAL_PROFILED = (200, 203)          # steady steps under torch.profiler
+SIM_TOL = (1e-5, 1e-6)              # rtol, atol: the CPU parity tests'
+
+
+def _mean(xs) -> float:
+    return float(sum(xs) / len(xs))
+
+
+def _sim_metrics_close(got, want, what: str) -> float:
+    """Every metric of every step within ``SIM_TOL``; the largest
+    relative difference."""
+    rtol, atol = SIM_TOL
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.keys() == w.keys(), f"{what} step {i}: metrics differ")
+        for k in w:
+            d = abs(g[k] - w[k])
+            check(d <= atol + rtol * abs(w[k]), f"{what} step {i} {k}: "
+                  f"card {g[k]!r} CPU {w[k]!r}")
+            worst = max(worst, d / max(abs(w[k]), 1e-30))
+    return worst
+
+
+def _trees_close(torch, got, want, what: str) -> float:
+    from repro_torch.models.layers import tree_leaves
+    rtol, atol = SIM_TOL
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g = g.cpu()
+        check(torch.allclose(g, w, rtol=rtol, atol=atol),
+              f"{what}: a leaf differs by {float((g - w).abs().max())}")
+        worst = max(worst, float((g - w).abs().max()))
+    return worst
+
+
+def simulator_check(torch, ops) -> None:
+    """The simulator on the card (cuBLAS, the fused update kernel and,
+    through ``staged_from_model``, the fp32 flash kernels) against the
+    same simulator on the CPU, 10 steps of each scheme at the CPU tests'
+    sizes, within their tolerances."""
+    phase("simulator on the card against the CPU: 10 steps of each "
+          "scheme, make_mlp_staged and staged_from_model, fp32")
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.simulator import (Simulator, make_mlp_staged,
+                                            staged_from_model)
+    from repro_torch.models import Model
+    rng = np.random.default_rng(0)
+    w_true = rng.standard_normal((16, 8)).astype(np.float32)
+    mlp_batches = []
+    for _ in range(10):
+        x = rng.standard_normal((32, 16)).astype(np.float32)
+        mlp_batches.append({"x": x, "y": (x @ w_true).argmax(-1)})
+    cfg = smoke_config(get_config(ARCH)).replace(
+        n_layers=4, n_kv_heads=2, compute_dtype="float32",
+        mesh_plan=dataclasses.replace(get_config(ARCH).mesh_plan, pipe=2))
+    lm_batches = []
+    for _ in range(10):
+        t = rng.integers(0, cfg.vocab_size, size=(2, 9))
+        lm_batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    models = {dev: Model(cfg, device=dev) for dev in ("cpu", "cuda")}
+    p_lm = models["cpu"].init(torch.Generator().manual_seed(0))
+
+    def setups(dev):
+        fns, params = make_mlp_staged(
+            torch.Generator().manual_seed(0), in_dim=16, width=32, depth=4,
+            n_classes=8, n_stages=4, device=dev)
+        yield "make_mlp_staged", fns, params, 4, mlp_batches, (1, 2, 3)
+        fns, repack = staged_from_model(models[dev])
+        yield ("staged_from_model", fns, repack(_tree_to(p_lm, dev)), 2,
+               lm_batches, (1,))
+
+    for scheme in Simulator.SCHEMES:
+        for (name, f_c, p_c, n, bs, rs), (_, f_g, p_g, _, _, _) in zip(
+                setups("cpu"), setups("cuda")):
+            runs = {}
+            for dev, fns, params in (("cpu", f_c, p_c), ("cuda", f_g, p_g)):
+                sim = Simulator(fns, params, n_stages=n, scheme=scheme,
+                                lr=0.05, rmse_s=rs)
+                ops.reset_launch_counts()
+                runs[dev] = ([sim.step(b) for b in bs], sim.params,
+                             ops.launch_counts())
+            counts = runs["cuda"][2]
+            layers = cfg.n_layers if name == "staged_from_model" else 0
+            want = {"fused_update": (n + 1) * len(bs),
+                    "flash_fwd": 2 * layers * len(bs),
+                    "flash_bwd_dq": layers * len(bs),
+                    "flash_bwd_dkv": layers * len(bs)}
+            check({k: counts[k] for k in want} == want,
+                  f"{scheme} {name}: launches {counts}, expected {want}")
+            m_err = _sim_metrics_close(runs["cuda"][0], runs["cpu"][0],
+                                       f"{scheme} {name}")
+            p_err = _trees_close(torch, runs["cuda"][1], runs["cpu"][1],
+                                 f"{scheme} {name}")
+            print(f"  {scheme:<9} {name:<17} losses and RMSEs max rel |d| "
+                  f"{m_err:.3e}, params max |d| {p_err:.3e} (rtol "
+                  f"{SIM_TOL[0]:g} / atol {SIM_TOL[1]:g}); launches "
+                  f"{want}")
+
+
+def resume_check(torch) -> None:
+    """Checkpoint and exact resume through the launcher on the card:
+    6 ticks in one run against 3 ticks, a save, and a second run resumed
+    to 6 (``--ckpt-dir``, ``--resume auto``); every leaf of the final
+    checkpoint bit for bit, for spectrain and pipedream."""
+    phase("checkpoint and exact resume on the card: train.main, smoke "
+          "size, 4 layers, pipe 2, 6 ticks against 3 + resume + 3")
+    import numpy as np
+    from repro_torch.launch import train
+    argv = ["--arch", ARCH, "--smoke", "--layers", "4", "--pipe", "2",
+            "--batch", "4", "--seq", "16", "--save-every", "3",
+            "--log-every", "100"]
+    for mode in ("spectrain", "pipedream"):
+        with tempfile.TemporaryDirectory() as d:
+            one, two = f"{d}/one", f"{d}/two"
+            check(train.main(argv + ["--mode", mode, "--steps", "6",
+                                     "--ckpt-dir", one]) == 0, "run A")
+            check(train.main(argv + ["--mode", mode, "--steps", "3",
+                                     "--ckpt-dir", two]) == 0, "run B")
+            ran = []
+            check(train.main(argv + ["--mode", mode, "--steps", "6",
+                                     "--ckpt-dir", two, "--resume", "auto"],
+                             on_step=lambda s, st, m: ran.append(s)) == 0,
+                  "run B resumed")
+            check(ran == [3, 4, 5], f"the resumed run ran steps {ran}")
+            last = "step_00000005/shard_0.npz"
+            with np.load(f"{one}/{last}") as a, np.load(f"{two}/{last}") as b:
+                check(set(a.files) == set(b.files), "leaf sets differ")
+                same = [k for k in a.files if np.array_equal(a[k], b[k])]
+                n_par = sum(k.startswith(("params/", "momentum/"))
+                            for k in a.files)
+                check(len(same) == len(a.files), f"{mode}: leaves differ "
+                      f"after resume: {sorted(set(a.files) - set(same))}")
+        print(f"  {mode}: all {len(a.files)} leaves of the step-5 "
+              f"checkpoint bit-equal ({n_par} params and momentum leaves)")
+
+
+def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
+               profiled=EVAL_PROFILED) -> dict:
+    """The four schemes on the full-width, full-depth snn-paper (32 FC
+    layers of 2048, input 3072, 10 classes, 4 stages), batch 128 of the
+    synthetic teacher task, ``steps`` steps each, every update through
+    the fused update kernel (N + 1 launches a step); then spectrain
+    again with Fig. 8's RMSEs at s = 1, 2, 3 (the same trajectory).
+    Each scheme's final weights are scored on a held-out teacher batch;
+    every scheme must have learned past the label prior (a final loss
+    below the prior's entropy, a held-out accuracy above the majority
+    share, each by three standard errors).  The update kernel is held against
+    its plain version at the simulator's two groups, then timed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench import teacher_batches
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import Simulator, make_mlp_staged
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import tree_leaves
+    import gc
+    cfg = get_config(EVAL_ARCH)
+    dims = dict(in_dim=cfg.vocab_size, width=cfg.d_model,
+                depth=cfg.n_layers, n_classes=EVAL_CLASSES,
+                n_stages=cfg.mesh_plan.pipe)
+    N, B = dims["n_stages"], EVAL_BATCH
+    phase(f"main path: the paper's evaluation, {EVAL_ARCH} full width and "
+          f"depth ({dims}), batch {B}, lr {lr}, {steps} steps a scheme")
+    fns, params = make_mlp_staged(torch.Generator("cuda").manual_seed(0),
+                                  device="cuda", **dims)
+    leaves = tree_leaves(params)
+    P = sum(t.numel() for t in leaves)
+    P_mat = sum(t.numel() for t in leaves if t.dim() == 2)
+    check(len(leaves) == 68 and P == 140_597_258,
+          f"snn-paper has {len(leaves)} leaves, {P} parameters")
+    data = teacher_batches(in_dim=dims["in_dim"], n_classes=EVAL_CLASSES,
+                           batch=B, seed=1, device="cuda")
+    batches = [next(data) for _ in range(steps)]
+    held = next(teacher_batches(in_dim=dims["in_dim"],
+                                n_classes=EVAL_CLASSES, batch=EVAL_HELD,
+                                seed=2, device="cuda"))
+    # the label prior: its entropy is the loss of a model that learned
+    # only the class shares; the majority share, its accuracy
+    shares = torch.bincount(torch.cat([b["y"] for b in batches]),
+                            minlength=EVAL_CLASSES).double()
+    shares = shares[shares > 0] / shares.sum()
+    prior_loss = float(-(shares * shares.log()).sum())
+    majority = float(torch.bincount(held["y"]).max()) / EVAL_HELD
+    acc_se = math.sqrt(majority * (1 - majority) / EVAL_HELD)
+
+    def sub(tree):
+        return sum(x.numel() for x in tree_leaves(tree))
+
+    P_stage = [sub(t) for t in params["stages"]]
+    P_in, P_out = sub(params["outer"]["in"]), sub(params["outer"]["out"])
+    # fp32 operations one step needs: forward, weight gradients, input
+    # gradients of every layer but the first
+    flops = 2 * B * P_mat * 3 - 2 * B * dims["in_dim"] * dims["width"]
+    out = {}
+    # spectrain twice: the training step alone, then with Fig. 8's RMSEs
+    # (three whole-tree predictions and six whole-tree reductions a step)
+    runs = [(scheme, scheme, ()) for scheme in Simulator.SCHEMES] + [
+        ("spectrain+rmse", "spectrain", (1, 2, 3))]
+    for name, scheme, rmse_s in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulator(fns, params, n_stages=N, scheme=scheme, lr=lr,
+                        rmse_s=rmse_s)
+        ms, walls, per_step = [], [], []
+        prof = None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for i, b in enumerate(batches):
+            if i == profiled[0]:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            before = fu.launches
+            t = time.perf_counter()
+            ms.append(sim.step(b))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            per_step.append(fu.launches - before)
+            if i == profiled[1] - 1:
+                prof.__exit__(None, None, None)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in ms]
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: a loss is not finite")
+        check(_mean(losses[-20:]) < _mean(losses[:20]),
+              f"{name}: the last 20 losses average "
+              f"{_mean(losses[-20:])}, the first 20 {_mean(losses[:20])}")
+        check(per_step == [N + 1] * steps,
+              f"{name}: fused_update launches per step {set(per_step)}")
+        check(counts == {k: (N + 1) * steps if k == "fused_update" else 0
+                         for k in counts}, f"{name}: launches {counts}")
+        n_prof = profiled[1] - profiled[0]
+        steady = sorted(w for i, w in enumerate(walls)
+                        if i >= 10 and not profiled[0] <= i < profiled[1])
+        wall_ms = steady[len(steady) // 2] * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        check(bool(kern), f"{name}: the profiler saw no device activity")
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_prof
+        fu_ms = sum(e.self_device_time_total for e in kern
+                    if "fused_update" in e.key) / 1e3 / n_prof
+        # bytes the step must move (fp32): the update reads w, v, g and
+        # writes w', v'; each prediction reads w, v and writes ŵ; each
+        # RMSE at s predicts the whole tree and reads it, the stale and
+        # the new tree twice over
+        pred = 0
+        if scheme == "spectrain":
+            pred += sum(P_stage[k] for k in range(N) if sim.s_fwd[k] > 0)
+            pred += sum(P_stage[k] for k in range(N) if sim.s_bwd[k] > 0)
+            pred += P_in * ((sim.s_fwd[0] > 0) + (sim.s_bwd[0] > 0))
+            pred += P_out * (sim.s_bwd[N - 1] > 0)
+        nbytes = 4 * (5 * P + 3 * pred + 7 * P * len(rmse_s))
+        bound_ms = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["float32"]) * 1e3
+        with torch.no_grad():
+            p_ = sim.params
+            h = fns.embed(p_["outer"]["in"], held)
+            for sp in p_["stages"]:
+                h = fns.stage(sp, h)
+            held_loss = float(fns.head_loss(p_["outer"]["out"], h, held))
+            logits = h @ p_["outer"]["out"]["w"] + p_["outer"]["out"]["b"]
+            acc = float((logits.argmax(-1) == held["y"]).double().mean())
+        last = losses[-40:]
+        loss_se = math.sqrt(sum((x - _mean(last)) ** 2 for x in last)
+                            / (len(last) - 1) / len(last))
+        check(_mean(last) < prior_loss - 3 * loss_se,
+              f"{name}: final loss {_mean(last)} is not below the label "
+              f"prior's entropy {prior_loss} by 3 standard errors "
+              f"({loss_se})")
+        check(acc > majority + 3 * acc_se,
+              f"{name}: held-out accuracy {acc} is not above the majority "
+              f"share {majority} by 3 standard errors")
+        upd_kw = dict(lr=sim.lr, gamma=sim.gamma, s=0.0)
+        rec = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+               "idle": 1 - busy_ms / wall_ms, "fused_update_ms": fu_ms,
+               "final_loss": _mean(last), "final_loss_se": loss_se,
+               "held_loss": held_loss, "held_acc": acc,
+               "peak_bytes": peak,
+               "launches": counts["fused_update"], "per_step": N + 1,
+               "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
+               "first_loss": losses[0], "losses": losses}
+        if rmse_s:
+            rec["rmse"] = {}
+            for s_ in rmse_s:
+                p_ = _mean([m[f"rmse_pred_s{s_}"] for m in ms[20:]])
+                st_ = _mean([m[f"rmse_stale_s{s_}"] for m in ms[20:]])
+                rec["rmse"][s_] = (p_, st_)
+                check(p_ < st_, f"Fig. 8 at s={s_}: RMSE(pred) {p_} is not "
+                      f"below RMSE(stale) {st_}")
+        out[name] = rec
+        print(f"  {name:<14} {wall_ms:8.3f} ms/step wall (median of steady "
+              f"steps), {busy_ms:8.3f} ms busy ({100 * rec['idle']:.1f}% "
+              f"idle), fused_update {fu_ms:.3f} ms; bound {bound_ms:.3f} "
+              f"ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP); loss "
+              f"{losses[0]:.4f} -> final {rec['final_loss']:.4f} (± "
+              f"{loss_se:.4f}); held-out loss {held_loss:.4f}, accuracy "
+              f"{acc:.4f}; {N + 1} fused_update a step; peak "
+              f"{peak / 2**30:.2f} GiB")
+        for s_, (p_, st_) in rec.get("rmse", {}).items():
+            print(f"    Fig. 8 s={s_}: RMSE(pred) {p_:.3e}  RMSE(stale) "
+                  f"{st_:.3e}  stale/pred {st_ / p_:.3f}")
+        kern.sort(key=lambda e: -e.self_device_time_total)
+        for e in kern[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / n_prof:9.4f} ms a "
+                  f"step {e.count // n_prof:5d}x  {e.key[:70]}")
+        del sim
+    f = {k: out[k]["final_loss"] for k in Simulator.SCHEMES}
+    check(out["spectrain+rmse"]["losses"] == out["spectrain"]["losses"],
+          "the RMSEs changed spectrain's trajectory")
+    table1 = {"spectrain <= vanilla * 1.05":
+              f["spectrain"] <= f["vanilla"] * 1.05,
+              "spectrain <= pipedream * 1.05":
+              f["spectrain"] <= f["pipedream"] * 1.05,
+              "spectrain <= sync * 1.25 + 0.05":
+              f["spectrain"] <= f["sync"] * 1.25 + 0.05}
+    print(f"  Table 1 (final loss, mean of the last 40 steps): "
+          f"{ {k: round(v, 4) for k, v in f.items()} }; the JAX test's "
+          f"bounds (a finding here, not a check): {table1}")
+    print(f"  label prior: loss {prior_loss:.4f} (entropy of the training "
+          f"labels), held-out accuracy {majority:.4f} (majority share, "
+          f"± {acc_se:.4f}); held-out accuracy "
+          f"{ {k: round(out[k]['held_acc'], 4) for k in f} }")
+    out["table1"] = table1
+    out["prior"] = {"loss": prior_loss, "majority": majority}
+    # the kernel at the simulator's two groups (one stage tree, the outer
+    # tree), with its arguments (no ŵ, s 0): checked, then timed
+    g = torch.Generator("cuda").manual_seed(3)
+    mk = lambda w, scale: torch.randn(w.shape, generator=g,
+                                      device="cuda") * scale
+    out["fu_rows"] = []
+    for label, tree in (
+            (f"snn-paper stage ({dims['depth'] // N} layers of "
+             f"{dims['width']})", params["stages"][0]),
+            (f"snn-paper outer tree (in {dims['in_dim']}x{dims['width']}, "
+             f"out {dims['width']}x{EVAL_CLASSES})", params["outer"])):
+        ws = [t.clone() for t in tree_leaves(tree)]
+        vs = [mk(w, 1e-2) for w in ws]
+        gs = [mk(w, 1.0) for w in ws]
+        n = sum(w.numel() for w in ws)
+        err = fu_compare(torch, ops, ref, ws, vs, gs, None, label, upd_kw)
+        ms_, _ = time_ms(torch, lambda: ops.fused_update(
+            ws, vs, gs, **upd_kw), 10)
+        plain_ms, _ = time_ms(torch, lambda: [
+            ref.fused_update_ref(w, v, g_, **upd_kw)
+            for w, v, g_ in zip(ws, vs, gs)], 3)
+        # with no ŵ, torch.optim.SGD(fused=True, dampening=gamma)
+        # computes the same update (but for its first step, which sets v
+        # to g)
+        opt_params = [torch.nn.Parameter(w) for w in ws]
+        for p_, g_ in zip(opt_params, gs):
+            p_.grad = g_
+        opt = torch.optim.SGD(opt_params, lr=upd_kw["lr"],
+                              momentum=upd_kw["gamma"],
+                              dampening=upd_kw["gamma"], fused=True)
+        lib_ms, _ = time_ms(torch, opt.step, 10)
+        b_ms = 4 * 5 * n / HBM_BPS * 1e3
+        row = {"shape": f"{label}: {len(ws)} tensors, {n} elements, fp32 "
+                        f"w/v/g, no ŵ, lr {upd_kw['lr']:g}, gamma "
+                        f"{upd_kw['gamma']:g}",
+               "ms": ms_, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": "bytes", "library_ms": lib_ms,
+               "max_abs_err": err}
+        out["fu_rows"].append(row)
+        print(f"  fused_update at {row['shape']}: one launch against its "
+              f"plain version max |d| {err:.3e} (tol "
+              f"{FU_TOL['float32']:g}); {ms_:.4f} ms, bound {b_ms:.4f} ms "
+              f"(bytes), plain {plain_ms:.4f} ms, torch.optim.SGD(fused) "
+              f"{lib_ms:.4f} ms")
+        del ws, vs, gs, opt_params, opt
+    del params, batches
+    return out
+
+
+def bench_scripts(torch) -> None:
+    """The evaluation scripts' own runs on the card at their default
+    (the JAX scripts') sizes."""
+    phase("python -m repro_torch.bench.rmse / .convergence on the card, "
+          "their default sizes")
+    from repro_torch.bench import convergence, rmse
+    for mod in (rmse, convergence):
+        t0 = time.perf_counter()
+        lines = mod.main(device="cuda")
+        for line in lines:
+            print(f"  {line}")
+        check(not any(re.search(r"nan|inf", line) for line in lines),
+              f"{mod.__name__}: a non-finite number")
+        print(f"  ({mod.__name__}: {time.perf_counter() - t0:.1f} s)")
+
+
 def run() -> int:
     try:
         import torch
@@ -1683,6 +2121,8 @@ def run() -> int:
         ssm_model_check(torch)
         train_check(torch)
         fma_only(ops)
+        simulator_check(torch, ops)
+        resume_check(torch)
         ssm = {}
         for arch in SSM_ARCHS:
             ssm[arch] = main_path(torch, ops, arch,
@@ -1693,6 +2133,8 @@ def run() -> int:
         main = main_path(torch, ops, ARCH, get_config(ARCH).n_layers)
         decode_profile(torch)
         train = train_main_path(torch, ops)
+        evaluation = paper_eval(torch, ops, fu)
+        bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
         train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
         scan_rows = scan_timings(torch, ops, ref, scan_errs)
@@ -1729,7 +2171,12 @@ def run() -> int:
     sources = {"flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:136"),
                "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:177"),
                "fused_update": ("fused_update.cu", "fused_update.py:22")}
+    eval_launches = sum(evaluation[k]["launches"]
+                        for k in ("sync", "vanilla", "pipedream",
+                                  "spectrain", "spectrain+rmse"))
     for row in train_rows:
+        if row["name"] == "fused_update":
+            row["shapes"].extend(evaluation["fu_rows"])
         src_file, tpu = sources[row["name"]]
         kernels.append({
             "name": row["name"], "route": "cuda",
@@ -1737,6 +2184,12 @@ def run() -> int:
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": train["launches"][row["name"]],
             "launches_per_tick": train["per_tick"][row["name"]],
+            **({"launches_by_path": {
+                "train": train["launches"]["fused_update"],
+                "paper evaluation (snn-paper, 4 schemes + spectrain with "
+                "RMSEs)": eval_launches},
+                "launches_per_simulator_step": evaluation["sync"][
+                    "per_step"]} if row["name"] == "fused_update" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1800,6 +2253,20 @@ def run() -> int:
               f"{rec['peak_bytes'] / 2**30:.2f} GiB")
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
+    for scheme in ("sync", "vanilla", "pipedream", "spectrain",
+                   "spectrain+rmse"):
+        rec = evaluation[scheme]
+        rmse = "".join(f"; s={k} stale/pred {st / pr:.3f}"
+                       for k, (pr, st) in rec.get("rmse", {}).items())
+        print(f"snn-paper {scheme}: {rec['wall_ms']:.3f} ms/step wall, "
+              f"{rec['busy_ms']:.3f} ms busy ({100 * rec['idle']:.1f}% "
+              f"idle), bound {rec['bound_ms']:.3f} ms; final loss "
+              f"{rec['final_loss']:.4f}, held-out accuracy "
+              f"{rec['held_acc']:.4f}; peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB{rmse}")
+    print(f"snn-paper label prior: loss {evaluation['prior']['loss']:.4f}, "
+          f"majority share {evaluation['prior']['majority']:.4f}; Table 1 "
+          f"bounds: {evaluation['table1']}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

@@ -13,6 +13,12 @@ this one trains the full configuration unless ``--smoke`` or the size
 flags cut it.  It runs on the card unless ``--device cpu`` is given; on
 a machine without a card, ``--device cuda`` (the default) fails.
 
+``--ckpt-dir`` saves the whole train state every ``--save-every`` steps
+on a background thread (one writer at a time) and once at the end;
+``--resume auto`` restores the newest checkpoint there and continues
+from the step after it.  The format is the JAX package's
+(``runtime/checkpoint.py``).
+
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
 at granite-8b's full vocabulary.
@@ -39,6 +45,7 @@ from repro_torch.data.pipeline import KINDS
 from repro_torch.models import Model
 from repro_torch.models.layers import tree_leaves
 from repro_torch.obs import MetricsRegistry, format_step
+from repro_torch.runtime import checkpoint as ckpt
 
 SCHEDULES = ("stream", "gpipe", "1f1b", "2bw", "interleaved")
 
@@ -69,8 +76,7 @@ def _not_ported(args) -> Optional[str]:
         return (f"--schedule {args.schedule} is not ported to PyTorch yet "
                 f"(the IR-interpreter schedules are a later slice); use "
                 f"--schedule stream")
-    for flag, on in (("--trace", args.trace), ("--ckpt-dir", args.ckpt_dir),
-                     ("--resume", args.resume),
+    for flag, on in (("--trace", args.trace),
                      ("--compress", args.compress)):
         if on:
             return f"{flag} is not ported to PyTorch yet"
@@ -112,10 +118,11 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     ap.add_argument("--metrics-out", default="", dest="metrics_out",
                     help="append structured JSONL telemetry (step records, "
                          "summary) to this path")
+    ap.add_argument("--ckpt-dir", default="", dest="ckpt_dir")
+    ap.add_argument("--save-every", type=int, default=20, dest="save_every")
+    ap.add_argument("--resume", default="", choices=("", "auto"))
     # accepted so that the JAX launcher's command lines fail clearly
     ap.add_argument("--trace", default="")
-    ap.add_argument("--ckpt-dir", default="", dest="ckpt_dir")
-    ap.add_argument("--resume", default="", choices=("", "auto"))
     ap.add_argument("--compress", default="", choices=("", "topk", "int8"))
     args = ap.parse_args(argv)
     why = _not_ported(args)
@@ -135,6 +142,11 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
               f"bwd_lag={lag} fb_gap={gap}")
 
     registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
+    bg_save = None
+    interrupted = False
+    # the last step run, and the last one saved: the final save writes
+    # only a state no save has written, under its own step
+    ran = saved = None
     try:
         if args.mode == "sync":
             state = pipeline_sync.init_state(model, gen)
@@ -149,6 +161,13 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
             step_fn = pipeline_stream.make_train_step(
                 model, mode=args.mode, lr=args.lr, gamma=args.gamma,
                 clip=args.clip or None, ticks_per_step=max(args.ticks, 1))
+        start = 0
+        if args.resume == "auto" and args.ckpt_dir:
+            last = ckpt.latest_step(args.ckpt_dir)
+            if last is not None:
+                state, last = ckpt.restore(args.ckpt_dir, state)
+                start = last + 1
+                print(f"# resumed from step {last}")
         n_params = sum(p.numel() for p in tree_leaves(state["params"]))
         device_name = (torch.cuda.get_device_name(model.device)
                        if model.device.type == "cuda" else "cpu")
@@ -159,11 +178,18 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
 
         t0 = time.time()
         tokens = 0
-        for s in range(args.steps):
+        for s in range(start, args.steps):
             state, metrics = step_fn(state, data.batch_at(s))
+            ran = s
             tokens += args.batch * args.seq
             if on_step is not None:
                 on_step(s, state, metrics)
+            if args.ckpt_dir and (s + 1) % args.save_every == 0:
+                if bg_save is not None:
+                    bg_save.join()  # never two writers on the same dir
+                bg_save = ckpt.save(args.ckpt_dir, state, s,
+                                    background=True)
+                saved = s
             if (s + 1) % args.log_every == 0 or s == args.steps - 1:
                 loss = float(metrics["loss"])
                 dt = time.time() - t0
@@ -173,11 +199,15 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
                     loss_valid=float(metrics.get("loss_valid", 1.0)))
                 print(json.dumps(rec) if args.json else format_step(rec))
     except KeyboardInterrupt:
+        interrupted = True
         print("# interrupted -- metrics flushed")
-        return 1
     finally:
         registry.close()
-    return 0
+        if bg_save is not None:
+            bg_save.join()
+    if args.ckpt_dir and not interrupted and ran != saved:
+        ckpt.save(args.ckpt_dir, state, ran)
+    return 1 if interrupted else 0
 
 
 if __name__ == "__main__":

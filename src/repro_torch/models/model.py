@@ -221,14 +221,20 @@ class Model:
                             self.cfg.vocab_size) + aux
 
     # --------------------------------------------------------- ragged stages
-    def partition_stage_params(self, stages, sizes):
+    def partition_stage_params(self, stages, sizes, *, n_chunks=None):
         """Regroup ragged stage trees into per-stage trees for ``sizes``
         (a per-stage layer-count vector summing to ``cfg.n_layers``).  A
         ragged input whose sizes already match is returned as is; any
         other is merged through the flat layer order and split again
-        (a copy).  The legacy stacked ``[S, Lps, ...]`` layout and the
-        hybrid shared blocks are not ported (the SSM families serve
-        only)."""
+        (a copy).  ``n_chunks``: the expected tree count; only the
+        model's stage count is accepted (the JAX twin's interleaved
+        chunk-stages are not ported).  The legacy stacked
+        ``[S, Lps, ...]`` layout and the hybrid shared blocks are not
+        ported (the SSM families serve only)."""
+        if n_chunks is not None and n_chunks != self.n_stages:
+            raise NotImplementedError(
+                f"{n_chunks} chunk-stages on {self.n_stages} stages: "
+                f"interleaved plans are not ported to PyTorch yet")
         if not isinstance(stages, (tuple, list)):
             raise NotImplementedError(
                 "stacked [S, Lps, ...] stage params are not ported to "

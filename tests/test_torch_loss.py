@@ -222,7 +222,7 @@ def test_launcher_step_hook_and_data_kind(capsys):
 
 @pytest.mark.parametrize("argv", [["--schedule", "1f1b"],
                                   ["--trace", "t.json"],
-                                  ["--ckpt-dir", "ck"],
+                                  ["--schedule", "2bw"],
                                   ["--compress", "int8"]])
 def test_launcher_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported"):
