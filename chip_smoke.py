@@ -26,7 +26,10 @@ the JAX package, and in phases:
      {1, 2, 4, 8} with sq G off the 16- and 64-row blocks, kv_len off
      the 64-key tile, q_offset > 0 causal and not, head_dim 16 to 128,
      sq != sk) (2e-5 in fp32 on the FMA kernel, 2e-2 in bf16 on the
-     tensor-core kernel, each launch counted by its variant); the flash
+     tensor-core kernel, each launch counted by its variant); the paged
+     rows of both forward kernels (the decode wave: R in {1, 3, 8} rows
+     at lengths 1, 17 and 64, two rows on one trash page, d 128 and 64,
+     fp32 and bf16, one launch a call); the flash
      backward (dq, dk/dv) at the training shape, the repository's
      backward test case, a non-causal GQA case with masked keys, the
      same packed-row edges and the dk/dv kernel's own edges in bf16
@@ -40,7 +43,9 @@ the JAX package, and in phases:
      ``mamba2_scan``) in fp32 and bf16 at decode (s = 1, nonzero S0; the
      decode kernels), prefill (s = 12) and ragged (s = 37) (the stepwise
      kernels), s = 2048, 64, 65 and 200 with b 2 and exact-zero decays
-     (the chunked kernels), and mamba2 with g > 1, with the decays the
+     (the chunked kernels), mamba2 with g > 1, and rwkv6's decode wave
+     (b 8, fp32 and bf16, S0 gathered from nonzero page states with two
+     rows on one trash page, S_T scattered back), with the decays the
      models draw (down to ~1e-29 and ~1e-5): y and S_T (2e-5 in fp32;
      2e-2 on rwkv6's bf16 y), each call checked to launch the variant its
      length routes it to, and each also with S_T written over S0 in
@@ -50,8 +55,10 @@ the JAX package, and in phases:
      engine tokens), rwkv6 and zamba2 serving (prefill and decode
      steps: logits and every state and KV leaf, 1e-4), and 2(S-1)+3
      streaming SpecTrain ticks on 4 stages (losses and every parameter,
-     momentum and prediction leaf), each on the fp32 FMA attention
-     kernels only (no tensor-core launch);
+     momentum and prediction leaf), and the pipelined ``ServeEngine``
+     (granite and rwkv6, pipe 2: equal tokens, a clean request trace,
+     one kernel a layer for each wave and prefill lane), each on the
+     fp32 FMA attention kernels only (no tensor-core launch);
   5. drives the serving path, ``repro_torch.launch.serve.main``, on the
      full-width, full-depth rwkv6-7b (32 layers), zamba2-1.2b (38
      layers) and granite-8b (36 layers) in bf16 with random weights, one
@@ -80,7 +87,8 @@ the JAX package, and in phases:
      prefill n = 12 of both serving models, causal 2048 and the training
      shape, the backward kernels at the training shape, the scans at
      decode (beside a copy of the same 1 MB state), prefill and s = 2048,
-     each variant its own row;
+     each variant its own row, and the decode wave's paged call (R 8,
+     ragged lengths) beside SDPA with a boolean key mask;
   9. (run after phase 6) drives ``repro_torch.launch.serve.main`` on
      full rwkv6-7b and zamba2-1.2b with long prompts (3 requests,
      1024-2048 tokens, generation 1-4): every request served with finite
@@ -119,6 +127,29 @@ The paper's evaluation adds three phases:
  12. ``repro_torch.bench.rmse`` and ``.convergence`` on the card at
      their default (the JAX scripts') sizes.
 
+The pipelined engine adds one phase:
+
+ 13. (after phase 6) ``repro_torch.launch.serve.main --engine
+     pipelined`` on full-width, full-depth granite-8b and rwkv6-7b (pipe
+     4, 8 slots and pages, 2 prefill lanes, bf16) over one Poisson
+     trace of 24 requests (rate 2.0, prompts 2-12, generation 8-24),
+     then ``SimpleEngine`` with the same weights on the same trace:
+     every admissible request gets its tokens, live rows' logits
+     finite, the request trace verifies, each request's first token
+     equals ``SimpleEngine``'s, every round launches exactly L
+     ``flash_fwd`` or ``rwkv6_scan`` for its wave and L a prefill lane
+     (bf16 attention on the tensor cores, the wave's scans on the decode
+     kernel); one full-width wave (8 live rows) against SimpleEngine's
+     decode step taken row by row from the same page states, logits and
+     each row's state after it, within ``WAVE_STEP_FACTOR`` times the
+     steps' own distance from the same steps in fp32, and the engine's
+     round from those states emitting the wave's argmax and leaving its
+     pages; tok/s over ``run()``'s wall after warm-up for both engines
+     (a second pipelined run of the trace, its tokens equal to the
+     first's), p50/p99 and rounds beside ``SimpleEngine``'s, one steady
+     decode round profiled (wall, busy, idle, kernels), the page writes
+     and the rwkv6 state gather/scatter timed alone, peak memory.
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -127,6 +158,7 @@ repository's ``src/``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -591,7 +623,8 @@ def main_path(torch, ops, arch: str, n_layers: int) -> dict:
     want_decode = 1 + sum(q.gen_len - 1 for q in live)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "serve.jsonl"
-        argv = ["--arch", arch, "--requests", str(args["requests"]),
+        argv = ["--arch", arch, "--engine", "simple",
+                "--requests", str(args["requests"]),
                 "--rate", str(args["rate"]), "--prompt-lens", "2,12",
                 "--gen-lens", "1,8", "--prompt-budget", "16",
                 "--page-seq", "64", "--seed", "0",
@@ -997,13 +1030,17 @@ class ScanCase:
     """One scan call in the model layout, with the decays drawn as the
     models draw them: rwkv6 w = exp(-exp(logw)), logw up to 4.2 (w down
     to ~1e-29); mamba2 decay = exp(-U(0, 11.5)) (down to ~1e-5); with
-    ``zeros``, that share of the decays exactly 0 (a reset)."""
+    ``zeros``, that share of the decays exactly 0 (a reset).  With
+    ``pages`` (one per row), S0 is gathered from a buffer of
+    ``n_pages + 1`` nonzero page states, as the decode wave gathers its
+    rows' states (``Model.stage_decode``); rows may share a page."""
 
     def __init__(self, kind, name, b, s, h, d, dtype, n=None, g=1,
-                 zeros=0.0):
+                 zeros=0.0, pages=None, n_pages=8):
         self.kind, self.name, self.b, self.s, self.h = kind, name, b, s, h
         self.d, self.n, self.g, self.dtype = d, n or d, g, dtype
         self.zeros = zeros
+        self.pages, self.n_pages = pages, n_pages
 
     def variant(self) -> str:
         """The kernel the wrapper launches for this call."""
@@ -1022,9 +1059,12 @@ class ScanCase:
                            if self.zeros else x)
         if self.kind == "rwkv6":
             w = reset(torch.exp(-torch.exp(-3.0 + 7.2 * uni(b, s, h, d))))
+            if self.pages is None:
+                S0 = mk(b, h, d, d, sc=0.1)
+            else:                   # the wave's gather: buf[i][pages]
+                S0 = self.page_buffer(torch, seed)[self.page_index(torch)]
             return (mk(b, s, h, d, d=dt), mk(b, s, h, d, sc=0.3, d=dt),
-                    mk(b, s, h, d, d=dt), w, mk(h, d, sc=0.3),
-                    mk(b, h, d, d, sc=0.1))
+                    mk(b, s, h, d, d=dt), w, mk(h, d, sc=0.3), S0)
         delta = torch.nn.functional.softplus(mk(b, s, h))
         decay = reset(torch.exp(-11.5 * uni(b, s, h)))
         # B and C as the model has them: strided views of one projection
@@ -1032,6 +1072,16 @@ class ScanCase:
         B, C = (t.reshape(b, s, self.g, self.n) for t in bc.chunk(2, -1))
         return (mk(b, s, h, d, d=dt), delta, decay, B, C,
                 mk(b, h, d, self.n, sc=0.1))
+
+    def page_buffer(self, torch, seed=0):
+        """The page states the rows' S0 is gathered from: [n_pages + 1,
+        h, d, n] fp32, nonzero, the last page the trash page."""
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        return torch.randn(self.n_pages + 1, self.h, self.d, self.n,
+                           generator=g, device="cuda") * 0.1
+
+    def page_index(self, torch):
+        return torch.tensor(self.pages, dtype=torch.long, device="cuda")
 
     def plain(self, torch, ref, args):
         """The plain version (kernel layout) on the same inputs, back in
@@ -1122,6 +1172,12 @@ def scan_cases(kind: str) -> list:
                  dtype="bfloat16", zeros=0.05, **full),
         ScanCase(kind, "decode b2 zeros float32", 2, 1, dtype="float32",
                  zeros=0.05, **full)]
+    if kind == "rwkv6":
+        # the decode wave's call: 8 rows, their states gathered from the
+        # pages, the last two rows idle on the trash page (page 8)
+        cases += [ScanCase(kind, f"wave decode b8 {dt}", 8, 1, dtype=dt,
+                           pages=WAVE_PAGES, **full)
+                  for dt in ("float32", "bfloat16")]
     if kind == "mamba2":
         cases.append(ScanCase(kind, "g=4 b2 h16 p32 n16 s=37 float32", 2,
                               37, 16, 32, "float32", n=16, g=4))
@@ -1172,6 +1228,21 @@ def scan_checks(torch, ops, ref) -> dict:
             torch.cuda.synchronize()
             check(torch.equal(y_in, y) and torch.equal(S_in, sT),
                   f"{kind} {case.name}: out=S0 differs from a fresh S_T")
+            if case.pages is not None:
+                # the wave's scatter: buf[i][pages] = S_T; each page then
+                # holds its row's S_T, the shared trash page in each
+                # element one of its rows' (which write lands is left
+                # open, element by element)
+                buf = case.page_buffer(torch, seed=200 + i)
+                buf[case.page_index(torch)] = S_in
+                for p in set(case.pages):
+                    rows = [r for r, q in enumerate(case.pages) if q == p]
+                    hit = torch.zeros_like(buf[p], dtype=torch.bool)
+                    for r in rows:
+                        hit |= buf[p] == sT[r]
+                    check(bool(hit.all()), f"{kind} {case.name}: page {p} "
+                          f"after the scatter holds values of none of its "
+                          f"rows' S_T {rows}")
             decays = args[3 if kind == "rwkv6" else 2]
             w_min = float(decays[decays > 0].min())
             n_zero = int((decays == 0).sum())
@@ -1316,7 +1387,8 @@ def long_prompt(torch, ops, arch: str) -> dict:
     pair = lambda lo_hi: f"{lo_hi[0]},{lo_hi[1]}"
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "serve.jsonl"
-        argv = ["--arch", arch, "--requests", str(lp["requests"]),
+        argv = ["--arch", arch, "--engine", "simple",
+                "--requests", str(lp["requests"]),
                 "--rate", str(lp["rate"]),
                 "--prompt-lens", pair(lp["prompt_lens"]),
                 "--gen-lens", pair(lp["gen_lens"]),
@@ -1420,6 +1492,606 @@ def long_prefill(torch, arch: str) -> dict:
           f"{sorted({e.key[:40] for e in scan_kern})})")
     return {"prefill_tokens": longest, "prefill_wall_ms": wall_ms,
             "prefill_busy_ms": busy_ms, "prefill_scan_ms": scan_ms}
+
+
+# ---------------------------------------------------------------------------
+# the pipelined engine: the paged decode wave and continuous batching
+
+# the full-width pipelined run: the launcher's flags (pipe 4, 8 slots and
+# pages, 2 prefill lanes, 16-token prompt budget, 64-position pages) and
+# one seeded Poisson trace both engines serve
+PIPE_ARCHS = ("granite-8b", "rwkv6-7b")
+PIPE_PLAN = dict(n_stages=4, n_slots=8, max_prefill=2, prompt_budget=16,
+                 n_pages=8, page_seq=64)
+PIPE_TRACE = dict(n_requests=24, rate=2.0, seed=0, prompt_lens=(2, 12),
+                  gen_lens=(8, 24))
+PIPE_ARGV = ["--engine", "pipelined", "--pipe", "4", "--slots", "8",
+             "--pages", "8", "--max-prefill", "2", "--prompt-budget", "16",
+             "--page-seq", "64", "--requests", "24", "--rate", "2.0",
+             "--prompt-lens", "2,12", "--gen-lens", "8,24", "--seed", "0"]
+# the wave's attention row: granite-8b's heads, R = 8 rows at ragged
+# lengths <= 64 on pages 0-7 of 9
+WAVE_LENS = (64, 40, 17, 1, 64, 9, 33, 2)
+# the rwkv6 wave's scan rows: pages 0-5 live, two idle rows on the trash
+# page 8 of 9
+WAVE_PAGES = (0, 1, 2, 3, 4, 5, 8, 8)
+# the full-width wave against SimpleEngine's steps from the same page
+# states: the wave may stray from the steps at most this many times as
+# far as the steps stray from the same steps in fp32 (bf16 rounding)
+WAVE_STEP_FACTOR = 4.0
+
+
+class PagedCase:
+    """One paged flash forward call (the decode wave): q [R, 1, H, d]
+    against pages [n_pages + 1, page_seq, KV, d], row r at length
+    ``lens[r]`` on page ``pages[r]``."""
+
+    def __init__(self, name, H, KV, d, dtype, lens, pages, n_pages=8,
+                 page_seq=64):
+        self.name, self.H, self.KV, self.d = name, H, KV, d
+        self.dtype, self.lens, self.pages = dtype, list(lens), list(pages)
+        self.R, self.n_pages, self.page_seq = len(lens), n_pages, page_seq
+
+    def tensors(self, torch, seed=0):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dt = getattr(torch, self.dtype)
+        mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dt)
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+        return (mk(self.R, 1, self.H, self.d),
+                mk(self.n_pages + 1, self.page_seq, self.KV, self.d),
+                mk(self.n_pages + 1, self.page_seq, self.KV, self.d),
+                i32(self.pages), i32(self.lens))
+
+    def bound(self):
+        """(least ms, what bounds it): q, each page's keys and values up
+        to the longest length a row reads there (a page that rows share
+        read once), o and lse; QK^T and PV over the rows' lengths."""
+        el = 2 if self.dtype == "bfloat16" else 4
+        keys = {}
+        for p, n in zip(self.pages, self.lens):
+            keys[p] = max(keys.get(p, 0), n)
+        nbytes = el * (2 * self.R * self.H * self.d
+                       + 2 * sum(keys.values()) * self.KV * self.d)
+        nbytes += 4 * self.R * self.H
+        flops = 4 * self.H * self.d * sum(self.lens)
+        t_b = nbytes / HBM_BPS * 1e3
+        t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def paged_cases() -> list:
+    """R in {1, 3, 8} at lengths 1, 17 and 64 mixed, the last two rows
+    of R >= 3 on the trash page; granite's heads (d 128) and zamba2's
+    (d 64); fp32 and bf16; and the wave's row."""
+    cases = []
+    for heads, tag in (((32, 8, 128), "d128"), (ZAMBA2_ATTN, "d64")):
+        for R in (1, 3, 8):
+            pages = list(range(R))
+            if R >= 3:
+                pages[-2:] = [8, 8]
+            lens = [(1, 17, 64)[r % 3] for r in range(R)]
+            for dt in ("float32", "bfloat16"):
+                cases.append(PagedCase(f"paged R={R} {tag} {dt}", *heads,
+                                       dt, lens, pages))
+    cases.append(PagedCase("wave R=8 ragged bfloat16", 32, 8, 128,
+                           "bfloat16", WAVE_LENS, range(8)))
+    return cases
+
+
+def paged_checks(torch, fa, ref) -> dict:
+    """The paged rows of both forward kernels against the plain version
+    on the card (2e-5 fp32 on the FMA kernel, 2e-2 bf16 on the
+    tensor-core kernel), one launch a call of the dtype's variant."""
+    phase("flash_fwd paged rows (the decode wave) against the plain "
+          "version on the card")
+    errs = {}
+    for i, case in enumerate(paged_cases()):
+        args = case.tensors(torch, seed=300 + i)
+        before = (fa.launches, fa.launches_mma)
+        o, lse = fa.flash_fwd_paged(*args)
+        torch.cuda.synchronize()
+        mma = int(case.dtype == "bfloat16")
+        check((fa.launches, fa.launches_mma) ==
+              (before[0] + 1, before[1] + mma),
+              f"{case.name}: not one launch of the "
+              f"{'tensor-core' if mma else 'FMA'} kernel")
+        o_r, lse_r = ref.flash_fwd_paged_ref(*args)
+        tol = TOL[case.dtype]
+        e = {}
+        for got, want, nm in ((o.float(), o_r.float(), "o"),
+                              (lse, lse_r, "lse")):
+            check(bool(torch.isfinite(got).all()),
+                  f"{case.name}: {nm} not finite")
+            e[nm] = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=tol, rtol=tol),
+                  f"{case.name}: {nm} max |d| {e[nm]:.3e} beyond {tol}")
+        errs[case.name] = e["o"]
+        print(f"  {case.name:<30} lens {case.lens} pages {case.pages}: "
+              f"max|d o| {e['o']:.3e}  max|d lse| {e['lse']:.3e}  (tol "
+              f"{tol:g})")
+    return errs
+
+
+def pipelined_check(torch) -> None:
+    """The pipelined engine on the card against the CPU at the smoke
+    size in fp32 (granite 4 layers, KV 2; rwkv6 4 layers; pipe 2):
+    equal tokens, a clean request trace, one flash_fwd or rwkv6_scan a
+    layer for each wave and each prefill lane."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.planner import serve_plan
+    from repro_torch.planner import verify as pv
+    from repro_torch.serve import ServeEngine, poisson_trace
+    for arch in PIPE_ARCHS:
+        phase(f"pipelined engine, {arch}: the card against the CPU, smoke "
+              f"size, fp32, pipe 2")
+        cfg = smoke_config(get_config(arch)).replace(
+            n_layers=4, compute_dtype="float32")
+        if cfg.ssm is None:
+            cfg = cfg.replace(n_kv_heads=2)
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        splan = serve_plan(cfg, n_stages=2, n_slots=4, max_prefill=2,
+                           prompt_budget=8, page_seq=32)
+        trace = poisson_trace(10, rate=1.5, seed=0, prompt_lens=(1, 8),
+                              vocab=cfg.vocab_size)
+        want = ServeEngine(cpu, p_cpu, splan).run(trace)
+        eng = ServeEngine(gpu, _tree_to(p_cpu, "cuda"), splan)
+        name = "flash_fwd" if cfg.ssm is None else "rwkv6_scan"
+        before = ops.launch_counts()[name]
+        got = eng.run(trace)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()[name] - before
+        rep = pv.verify_request_trace(eng.last_events, n_slots=4,
+                                      n_pages=4, n_stages=2)
+        print(f"  tokens equal on card and CPU: {got == want}; request "
+              f"trace clean: {rep.ok}; {n} {name} launches = "
+              f"{cfg.n_layers} x ({eng.n_waves} waves + {eng.n_lanes} "
+              f"lanes)")
+        check(got == want, f"{arch}: pipelined tokens differ between the "
+              f"card and the CPU")
+        check(rep.ok, f"{arch}: request trace: {rep.violations[:3]}")
+        check(n == cfg.n_layers * (eng.n_waves + eng.n_lanes),
+              f"{arch}: {n} {name} launches, expected "
+              f"{cfg.n_layers} x ({eng.n_waves} + {eng.n_lanes})")
+
+
+def _steady_round(eng, n_pages: int, pos: int = 40) -> dict:
+    """A decode round with every slot live (page i, position ``pos``) and
+    no prefill lane."""
+    import numpy as np
+    R = eng.splan.n_slots
+    F = max(eng.splan.max_prefill, 1)
+    return {"dec_tokens": np.arange(1, R + 1, dtype=np.int32),
+            "dec_pos": np.full((R,), pos, np.int32),
+            "dec_pages": np.arange(R, dtype=np.int32) % n_pages,
+            "pf_tokens": np.zeros((F, eng.splan.prompt_budget), np.int32),
+            "pf_len": np.zeros((F,), np.int32),
+            "pf_pages": np.full((F,), n_pages, np.int32)}
+
+
+def wave_against_steps(torch, eng, simple) -> dict:
+    """One full-width decode wave (8 live rows on pages 0-7, ragged
+    positions) against SimpleEngine's decode step taken row by row from
+    the same page states: the logits and each row's state after the step
+    (rwkv6 x_tm, x_cm, S; dense the page's keys and values).  Both are
+    also held against the same steps in fp32 (the bf16 weights upcast),
+    which measures bf16 rounding: the wave must stay within
+    ``WAVE_STEP_FACTOR`` times the steps' own distance from fp32.  The
+    engine's own round from the same states must then emit the wave's
+    argmax and leave the pages bit for bit as the wave did."""
+    import numpy as np
+    from repro_torch.models import Model
+    model, splan, dev = eng.model, eng.splan, eng.device
+    cfg, vocab, C = model.cfg, model.cfg.vocab_size, len(eng._caches)
+    R = splan.n_slots
+    batch = _steady_round(eng, splan.n_pages)
+    batch["dec_tokens"] = toks = np.random.default_rng(0).integers(
+        0, vocab, R).astype(np.int32)
+    batch["dec_pos"] = pos = np.array([n - 1 for n in WAVE_LENS],
+                                      np.int32)[:R]
+    pages = batch["dec_pages"]
+    snap = [{k: a.clone() for k, a in c["layers"].items()}
+            for c in eng._caches]
+
+    def restore():
+        for c, sn in zip(eng._caches, snap):
+            for k, a in c["layers"].items():
+                a.copy_(sn[k])
+
+    pidx = torch.as_tensor(pages, dtype=torch.long, device=dev)
+
+    def rows_state(layers):        # {k: [R, L, ...]} the rows' pages
+        return {k: torch.cat([c[k][:, pidx] for c in layers], 0)
+                .transpose(0, 1) for k in layers[0]}
+
+    with torch.inference_mode():
+        t = lambda a, dt=torch.int32: torch.tensor(a, dtype=dt,
+                                                   device=dev)
+        pos_t, pages_t = t(pos), t(pages)
+        x = model.decode_embed(eng._outer, t(toks, torch.long)[:, None],
+                               pos_t[:, None])
+        for q in range(C):
+            x = model.stage_decode(eng._chunks[q], eng._caches[q], x,
+                                   pos_t, pages_t)
+        wave = model.logits(eng._outer, x)[:, 0, :vocab].float()
+        wave_st = rows_state([c["layers"] for c in eng._caches])
+        restore()
+        dec_next, _, _ = eng._round(batch)
+        round_st = rows_state([c["layers"] for c in eng._caches])
+        restore()
+        m32 = Model(cfg.replace(compute_dtype="float32"), device=dev)
+        steps = {"bf16": ([], []), "fp32": ([], [])}
+        for r in range(R):
+            p = int(pages[r])
+            one = {k: torch.cat([sn[k][:, p:p + 1] for sn in snap], 0)
+                   for k in snap[0]}
+            for tag in steps:
+                cache = {"layers": {k: (a.clone() if tag == "bf16"
+                                        else a.float())
+                                    for k, a in one.items()}}
+                if tag == "bf16":
+                    logits, cache = simple._decode(cache, int(toks[r]),
+                                                   int(pos[r]))
+                else:
+                    logits, cache = m32.decode_step(
+                        simple.params, cache, t([[toks[r]]], torch.long),
+                        int(pos[r]))
+                steps[tag][0].append(logits[0, -1, :vocab].float())
+                steps[tag][1].append({k: a[:, 0] for k, a in
+                                      cache["layers"].items()})
+    lg = {tag: torch.stack(v[0]) for tag, v in steps.items()}
+    st = {tag: {k: torch.stack([d[k] for d in v[1]]).float()
+                for k in v[1][0]} for tag, v in steps.items()}
+    wave_f = {k: a.float() for k, a in wave_st.items()}
+    check(bool(torch.isfinite(wave).all()), "wave logits not finite")
+    check(np.array_equal(dec_next, wave.argmax(-1).cpu().numpy()),
+          "the engine's round emitted other tokens than the wave's argmax")
+    check(all(torch.equal(round_st[k], wave_st[k]) for k in wave_st),
+          "the engine's round left other page states than the wave")
+    dist = lambda a, b: float((a - b).abs().max())
+    out = {}
+    for what, w, s16, s32 in (
+            [("logits", wave, lg["bf16"], lg["fp32"])]
+            + [(k, wave_f[k], st["bf16"][k], st["fp32"][k])
+               for k in wave_f]):
+        e_ws, e_sf, e_wf = dist(w, s16), dist(s16, s32), dist(w, s32)
+        out[what] = {"wave_step": e_ws, "step_fp32": e_sf,
+                     "wave_fp32": e_wf, "scale": float(s32.abs().max())}
+        print(f"  wave vs steps, {what:<7}: max|wave - step| {e_ws:.3e}, "
+              f"max|step - fp32| {e_sf:.3e}, max|wave - fp32| {e_wf:.3e} "
+              f"(max|fp32| {out[what]['scale']:.3e})")
+        check(e_ws <= WAVE_STEP_FACTOR * e_sf, f"wave {what}: max|wave - "
+              f"step| {e_ws:.3e} beyond {WAVE_STEP_FACTOR} x the steps' "
+              f"bf16 rounding {e_sf:.3e}")
+    top2 = lg["fp32"].topk(2, -1).values
+    am = {tag: a.argmax(-1) for tag, a in
+          (("wave", wave), ("step", lg["bf16"]), ("fp32", lg["fp32"]))}
+    out["argmax_equal"] = {
+        "wave_step": int((am["wave"] == am["step"]).sum()),
+        "step_fp32": int((am["step"] == am["fp32"]).sum()),
+        "wave_fp32": int((am["wave"] == am["fp32"]).sum()), "rows": R}
+    out["fp32_top2_margin"] = [float(m) for m in top2[:, 0] - top2[:, 1]]
+    print(f"  argmax equal over {R} rows: wave/step "
+          f"{out['argmax_equal']['wave_step']}, step/fp32 "
+          f"{out['argmax_equal']['step_fp32']}, wave/fp32 "
+          f"{out['argmax_equal']['wave_fp32']}; fp32 top-2 margins "
+          f"{[round(m, 4) for m in out['fp32_top2_margin']]}")
+    return out
+
+
+def pipelined_path(torch, ops, arch: str) -> dict:
+    """``repro_torch.launch.serve.main --engine pipelined`` on full
+    ``arch`` (pipe 4, 8 slots and pages, bf16, random weights from seed
+    0) over one Poisson trace of 24 requests, then ``SimpleEngine`` with
+    the same weights on the same trace; a steady decode round profiled;
+    the page writes and the rwkv6 state gather/scatter timed alone."""
+    phase(f"pipelined serving: repro_torch.launch.serve.main --engine "
+          f"pipelined, full {arch}, bf16")
+    import gc
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.planner import serve_plan
+    from repro_torch.planner import verify as pv
+    from repro_torch.serve import SimpleEngine, admissible, poisson_trace
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    name = "flash_fwd" if cfg.ssm is None else "rwkv6_scan"
+    tr = dict(PIPE_TRACE)
+    trace = poisson_trace(tr.pop("n_requests"), vocab=cfg.vocab_size, **tr)
+    splan = serve_plan(cfg, **PIPE_PLAN)
+    live = [q for q in trace if admissible(q, splan)]
+    held = {}
+
+    class Recording(serve.ServeEngine):
+        """The launcher's engine, kept for the comparison and the
+        profile, with each round's launches recorded."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rounds = []
+            held["engine"] = self
+            torch.cuda.synchronize()
+            held["init_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        def _round(self, batch):
+            c0, v0 = ops.launch_counts(), ops.variant_counts()
+            out = super()._round(batch)
+            c1, v1 = ops.launch_counts(), ops.variant_counts()
+            self.rounds.append({
+                "wave": bool((batch["dec_pages"] < splan.n_pages).any()),
+                "lanes": [int(n) for n in batch["pf_len"] if n > 0],
+                "launches": {k: c1[k] - c0[k] for k in c1},
+                "variants": {k: v1[k] - v0[k] for k in v1}})
+            return out
+
+        def run(self, *a, **k):
+            held["results"] = super().run(*a, **k)
+            return held["results"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    orig = serve.ServeEngine
+    serve.ServeEngine = Recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "serve.jsonl"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            rc = serve.main(["--arch", arch, *PIPE_ARGV,
+                             "--metrics-out", str(out)])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            variants = ops.variant_counts()
+            peak = torch.cuda.max_memory_allocated()
+            recs = [json.loads(x) for x in out.read_text().splitlines()]
+    finally:
+        serve.ServeEngine = orig
+    check(rc == 0, f"serve.main returned {rc}")
+    eng, results = held["engine"], held["results"]
+    run = [r for r in recs if r["event"] == "serve_run"][-1]
+    summary = [r for r in recs if r["event"] == "summary"][-1]
+    gauges, counters = summary["gauges"], summary["counters"]
+    check(run["engine"] == "pipelined", "the launcher did not serve "
+          "through the pipelined engine")
+    check(run["n_served"] == len(live) and all(
+        len(results[q.rid]) == q.gen_len for q in live),
+        "an admissible request did not get its gen_len tokens")
+    check(counters.get("serve/nonfinite_logits", 0) == 0,
+          "non-finite logits in a live row")
+    rep = pv.verify_request_trace(eng.last_events, n_slots=splan.n_slots,
+                                  n_pages=splan.n_pages,
+                                  n_stages=splan.n_stages)
+    check(rep.ok, f"request trace: {rep.violations[:3]}")
+    # every round: L launches for the wave (when a slot is live) and L a
+    # lane, nothing else; bf16 attention on the tensor cores, the wave's
+    # scans (and a one-token lane's) on the decode kernel
+    for i, rd in enumerate(eng.rounds):
+        n_calls = int(rd["wave"]) + len(rd["lanes"])
+        want = {k: 0 for k in rd["launches"]}
+        want[name] = L * n_calls
+        check(rd["launches"] == want, f"round {i}: launched "
+              f"{rd['launches']}, expected {want}")
+        want_v = {k: 0 for k in rd["variants"]}
+        if name == "flash_fwd":
+            want_v["flash_fwd_mma"] = L * n_calls
+        else:
+            want_v["rwkv6_scan_decode"] = L * (
+                int(rd["wave"]) + sum(n == 1 for n in rd["lanes"]))
+        check(rd["variants"] == want_v, f"round {i}: variants "
+              f"{rd['variants']}, expected {want_v}")
+    ev = eng.last_events
+    waves = 1 + len({e["round"] for e in ev if e["ev"] == "decode"})
+    lanes = 1 + sum(e["ev"] == "admit" for e in ev)
+    check((eng.n_waves, eng.n_lanes) == (waves, lanes)
+          == (gauges["serve/wave_calls"], gauges["serve/lane_calls"])
+          == (sum(rd["wave"] for rd in eng.rounds),
+              sum(len(rd["lanes"]) for rd in eng.rounds)),
+          f"waves/lanes {eng.n_waves}/{eng.n_lanes}, event log "
+          f"{waves}/{lanes} (warm-up included)")
+    check(counts[name] == L * (waves + lanes),
+          f"{counts[name]} {name} launches, expected {L} x ({waves} + "
+          f"{lanes})")
+    rounds_run = len(eng.rounds) - 1
+    tok_per_s = gauges["serve/decode_tok_per_s"]
+    print(f"  served {run['n_served']}/{run['n_requests']} requests, "
+          f"{run['n_tokens']} tokens in {rounds_run} rounds ({waves - 1} "
+          f"waves, {lanes - 1} prefill lanes); request trace clean")
+    print(f"  {counts[name]} {name} launches = {L} x ({waves} + {lanes}) "
+          f"(warm-up round included); variants {variants}")
+    print(f"  pipelined: {tok_per_s:.2f} tok/s over the rounds' wall "
+          f"({run['tok_per_s']:.2f} with the launcher's wall, warm-up "
+          f"included), p50 {run['token_ms_p50']:.3f} ms/token, p99 "
+          f"{run['token_ms_p99']:.3f}; warm-up {run['compile_s']:.2f}s; "
+          f"peak {peak / 2**30:.2f} GiB serving (weights, pages, "
+          f"activations), {held['init_peak'] / 2**30:.2f} GiB while the "
+          f"launcher drew the weights")
+
+    # SimpleEngine with the same weights (no copy) on the same trace
+    reg = MetricsRegistry()
+    simple = SimpleEngine(eng.model, {"outer": eng._outer,
+                                      "stages": eng._chunks},
+                          serve_plan(cfg, n_stages=1, n_slots=1,
+                                     max_prefill=1, prompt_budget=16,
+                                     page_seq=64, validate=False),
+                          registry=reg)
+    simple._warm_up()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_res = simple.run(trace)
+    s_wall = time.perf_counter() - t0
+    s_tokens = sum(len(t) for t in s_res.values())
+    s_hist = reg.histogram("serve/token_ms")
+    check(reg.counter("serve/nonfinite_logits").value == 0,
+          "SimpleEngine: non-finite logits")
+    first = [s_res[q.rid][0] == results[q.rid][0] for q in live]
+    whole = [s_res[q.rid] == results[q.rid] for q in live]
+    # where each request's two sequences part (the token index)
+    parts = sorted(next((i for i, (a, b) in enumerate(zip(
+        s_res[q.rid], results[q.rid])) if a != b), None)
+        for q in live if s_res[q.rid] != results[q.rid])
+    simple_tok_s = s_tokens / s_wall
+    # the pipelined engine timed as SimpleEngine is: run(trace) after its
+    # warm-up, by the wall clock around the call (bench/serve.py's window)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(trace)
+    p_wall = time.perf_counter() - t0
+    p_tok_s = sum(len(t) for t in again.values()) / p_wall
+    check(again == results, "a second pipelined run of the trace emitted "
+          "other tokens than the first")
+    print(f"  SimpleEngine, same weights and trace: {simple_tok_s:.2f} "
+          f"tok/s over run()'s wall ({s_wall:.3f} s), p50 "
+          f"{s_hist.percentile(50.0):.3f} ms/token, p99 "
+          f"{s_hist.percentile(99.0):.3f}")
+    print(f"  pipelined, the same window (run()'s wall after warm-up): "
+          f"{p_tok_s:.2f} tok/s ({p_wall:.3f} s; the same tokens again); "
+          f"pipelined / simple {p_tok_s / simple_tok_s:.2f}x")
+    print(f"  first tokens equal to SimpleEngine's: {sum(first)}/"
+          f"{len(first)}; whole sequences equal: {sum(whole)}/{len(whole)} "
+          f"(not gated: bf16 GEMMs at M = 8 and M = 1 round apart); the "
+          f"others part at token {parts}")
+    check(all(first), "a request's first token differs from "
+          "SimpleEngine's (same kernels on the same prefill shapes)")
+    wave_cmp = wave_against_steps(torch, eng, simple)
+
+    # one steady decode round: every slot live, no prefill lane
+    batch = _steady_round(eng, splan.n_pages)
+    with torch.inference_mode():
+        for _ in range(2):
+            eng._round(batch)
+        steps, prof_steps = 8, 2
+        t = time.perf_counter()
+        for _ in range(steps):
+            eng._round(batch)
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+        # a profile short of the kernel's exact count (records dropped,
+        # as decode_profile has seen) is taken again, at most 3 times
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(prof_steps):
+                    eng._round(batch)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
+            n_hit = sum(e.count for e in hits)
+            check(n_hit <= L * prof_steps, f"the profiled rounds show "
+                  f"{n_hit} {KERNEL_SYMBOL[name]}, expected "
+                  f"{L * prof_steps}")
+            if n_hit == L * prof_steps:
+                break
+            print(f"  profile {attempt + 1} incomplete: {n_hit} "
+                  f"{KERNEL_SYMBOL[name]}; again")
+    check(bool(kern), "the profiler saw no device activity in the rounds")
+    check(n_hit == L * prof_steps, f"the profiled rounds show {n_hit} "
+          f"{KERNEL_SYMBOL[name]}, expected {L * prof_steps}")
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / prof_steps
+    n_kern = sum(e.count for e in kern) / prof_steps
+    kernel_ms = sum(e.self_device_time_total for e in hits) / 1e3 / \
+        prof_steps
+    index_ms = sum(e.self_device_time_total for e in kern
+                   if "index" in e.key.lower()) / 1e3 / prof_steps
+    idle = 100 * (1 - busy_ms / wall_ms)
+    print(f"  steady decode round (8 live slots, no lane): {wall_ms:.3f} "
+          f"ms wall, {busy_ms:.3f} ms busy ({idle:.1f}% idle), "
+          f"{n_kern:.1f} kernels; {KERNEL_SYMBOL[name]} "
+          f"{kernel_ms:.4f} ms; indexing kernels {index_ms:.4f} ms")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:8]:
+        print(f"    {e.self_device_time_total / 1e3 / prof_steps:8.4f} ms "
+              f"{e.count / prof_steps:6.1f}x  {e.key[:72]}")
+    # the wave's page traffic alone, one layer's worth, CUDA events
+    bufs = eng._caches[0]["layers"]
+    rows = torch.arange(splan.n_slots, device="cuda")
+    with torch.inference_mode():
+        if name == "flash_fwd":
+            kx = torch.randn(splan.n_slots, cfg.n_kv_heads, cfg.hd,
+                             device="cuda").to(bufs["k"].dtype)
+            cols = torch.full_like(rows, 40)
+
+            def writes():
+                bufs["k"][0][rows, cols] = kx
+                bufs["v"][0][rows, cols] = kx
+            page_ms, _ = time_ms(torch, writes, 200)
+            traffic = {"page writes (k and v)": page_ms * L}
+        else:
+            st = {k: b[0][rows] for k, b in bufs.items()}
+
+            def gather():
+                return {k: b[0][rows] for k, b in bufs.items()}
+
+            def scatter():
+                for k, b in bufs.items():
+                    b[0][rows] = st[k]
+            g_ms, _ = time_ms(torch, gather, 200)
+            s_ms, _ = time_ms(torch, scatter, 200)
+            traffic = {"state gather": g_ms * L, "state scatter": s_ms * L}
+    for what, ms in traffic.items():
+        print(f"  {what}: {ms:.4f} ms of device time a wave ({L} layers, "
+              f"timed alone)")
+    return {"launches": counts, "variants": variants, "run": run,
+              "tok_per_s": tok_per_s, "rounds": rounds_run,
+              "waves": waves - 1, "lanes": lanes - 1, "peak_bytes": peak,
+              "simple_tok_per_s": simple_tok_s,
+              "simple_p50": s_hist.percentile(50.0),
+              "simple_p99": s_hist.percentile(99.0),
+              "first_equal": (sum(first), len(first)),
+              "whole_equal": (sum(whole), len(whole)),
+              "round_wall_ms": wall_ms, "round_busy_ms": busy_ms,
+              "round_kernels": n_kern, "round_kernel_ms": kernel_ms,
+              "round_index_ms": index_ms, "traffic_ms": traffic,
+              "parts_at": parts, "wave_vs_steps": wave_cmp,
+              "run_wall_s": p_wall, "run_tok_per_s": p_tok_s,
+              "simple_wall_s": s_wall,
+              "init_peak_bytes": held["init_peak"]}
+
+
+def wave_timing(torch, fa, ref, errs) -> dict:
+    """The wave's attention row (granite heads, R = 8, ragged lengths <=
+    64, bf16): the kernel, its plain version, its bound, and SDPA on the
+    gathered pages with a boolean key mask (the gather untimed)."""
+    import torch.nn.functional as F
+    case = paged_cases()[-1]
+    q, kp, vp, pages, lens = case.tensors(torch, seed=7)
+    # as the wave calls it: ranges checked on the host beforehand, so the
+    # call does not read them back from the card
+    ms, _ = time_ms(torch, lambda: fa.flash_fwd_paged(
+        q, kp, vp, pages, lens, ranges_checked=True), 500)
+    plain_ms, _ = time_ms(torch, lambda: ref.flash_fwd_paged_ref(
+        q, kp, vp, pages, lens), 500)
+    idx = pages.long()
+    kt, vt = kp[idx].transpose(1, 2), vp[idx].transpose(1, 2)
+    mask = (torch.arange(case.page_seq, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    o_lib = sdpa().transpose(1, 2)
+    o_ker, _ = fa.flash_fwd_paged(q, kp, vp, pages, lens)
+    check(torch.allclose(o_lib.float(), o_ker.float(), atol=2e-2,
+                         rtol=2e-2), "SDPA with the key mask disagrees "
+          "with the paged kernel")
+    lib_ms, _ = time_ms(torch, sdpa, 500)
+    bound_ms, bound_by = case.bound()
+    row = {"shape": case.name, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+           "library": "SDPA on the gathered pages, boolean key mask",
+           "max_abs_err": errs[case.name]}
+    print(f"  {case.name:<28} kernel {ms:.4f} ms  bound "
+          f"{bound_ms:.5f} ms ({bound_by})  plain {plain_ms:.4f} ms  "
+          f"sdpa+mask {lib_ms:.4f} ms "
+          f"({ms / lib_ms:.2f}x sdpa)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2113,12 +2785,14 @@ def run() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         errs = kernel_checks(torch, fa, ref)
+        paged_errs = paged_checks(torch, fa, ref)
         bwd_errs = bwd_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
         scan_errs = scan_checks(torch, ops, ref)
         ops.reset_launch_counts()
         model_check(torch)
         ssm_model_check(torch)
+        pipelined_check(torch)
         train_check(torch)
         fma_only(ops)
         simulator_check(torch, ops)
@@ -2132,10 +2806,16 @@ def run() -> int:
             ssm[arch]["long_prompt"] = long_prompt(torch, ops, arch)
         main = main_path(torch, ops, ARCH, get_config(ARCH).n_layers)
         decode_profile(torch)
+        pipelined = {}
+        for arch in PIPE_ARCHS:
+            pipelined[arch] = pipelined_path(torch, ops, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
         train = train_main_path(torch, ops)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
+        rows.append(wave_timing(torch, fa, ref, paged_errs))
         train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
         scan_rows = scan_timings(torch, ops, ref, scan_errs)
     except Exception:   # every phase's failure ends the run non-zero
@@ -2152,12 +2832,17 @@ def run() -> int:
         "launches_by_path": {
             "serve": main["launches"]["flash_fwd"],
             "serve zamba2-1.2b": ssm["zamba2-1.2b"]["launches"]["flash_fwd"],
+            "serve pipelined granite-8b":
+                pipelined["granite-8b"]["launches"]["flash_fwd"],
             "train": train["launches"]["flash_fwd"]},
         "variant_by_path": {
             "serve": f"flash_fwd_mma_kernel x "
                      f"{main['variants']['flash_fwd_mma']}",
             "serve zamba2-1.2b": f"flash_fwd_mma_kernel x "
                      f"{ssm['zamba2-1.2b']['variants']['flash_fwd_mma']}",
+            "serve pipelined granite-8b": f"flash_fwd_mma_kernel x "
+                     f"{pipelined['granite-8b']['variants']['flash_fwd_mma']}"
+                     f" (paged rows in the wave)",
             "train": f"flash_fwd_mma_kernel x "
                      f"{train['variants_per_tick']['flash_fwd_mma']} a tick",
             "fp32 checks": "flash_fwd_kernel (FMA)"},
@@ -2218,6 +2903,11 @@ def run() -> int:
             "replaces": f"src/repro/kernels/{name}.py:"
                         f"{36 if kind == 'rwkv6' else 29}",
             "launches": ssm[arch]["launches"][name],
+            **({"launches_by_path": {
+                "serve": ssm[arch]["launches"][name],
+                "serve pipelined rwkv6-7b":
+                    pipelined["rwkv6-7b"]["launches"][name]}}
+               if kind == "rwkv6" else {}),
             "launches_per_call": ssm[arch]["per_call"][name],
             "launches_long_prompt": ssm[arch]["long_prompt"]["launches"][name],
             "max_abs_err": max(v for (k, _), v in scan_errs.items()
@@ -2251,6 +2941,27 @@ def run() -> int:
               f"{100 * prof['idle_share']:.1f}% idle, "
               f"{prof['kernels_per_step']:.0f} kernels; peak "
               f"{rec['peak_bytes'] / 2**30:.2f} GiB")
+    for arch, rec in pipelined.items():
+        run = rec["run"]
+        wv = rec["wave_vs_steps"]["logits"]
+        print(f"{arch} pipelined serving (pipe 4, 8 slots, 24 requests): "
+              f"{rec['run_tok_per_s']:.2f} tok/s against SimpleEngine's "
+              f"{rec['simple_tok_per_s']:.2f}, both over run()'s wall "
+              f"after warm-up "
+              f"({rec['run_tok_per_s'] / rec['simple_tok_per_s']:.2f}x; "
+              f"{rec['tok_per_s']:.2f} tok/s inside the rounds); p50 "
+              f"{run['token_ms_p50']:.3f} / {rec['simple_p50']:.3f} ms/token, "
+              f"p99 {run['token_ms_p99']:.3f} / {rec['simple_p99']:.3f}; "
+              f"{rec['rounds']} rounds; steady round "
+              f"{rec['round_wall_ms']:.3f} ms wall, "
+              f"{rec['round_busy_ms']:.3f} ms busy "
+              f"({100 * (1 - rec['round_busy_ms'] / rec['round_wall_ms']):.1f}"
+              f"% idle), {rec['round_kernels']:.0f} kernels; "
+              f"{rec['traffic_ms']}; peak {rec['peak_bytes'] / 2**30:.2f} "
+              f"GiB; first tokens equal {rec['first_equal']}, whole "
+              f"{rec['whole_equal']}; one wave's logits vs the steps "
+              f"{wv['wave_step']:.3e}, the steps vs fp32 "
+              f"{wv['step_fp32']:.3e}")
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
     for scheme in ("sync", "vanilla", "pipedream", "spectrain",

@@ -10,7 +10,15 @@
 //     row % sq, hold only for sq == sk): query head h reads KV head
 //     h / (H / KV), and a decode step (one query row) is served as is;
 //   * q_offset and kv_len: query row i sits at position q_offset + i, keys
-//     at positions >= kv_len are masked, and causal masks kpos > qpos.
+//     at positions >= kv_len are masked, and causal masks kpos > qpos;
+//   * paged rows (the pipelined engine's decode wave): with `kv_lens` and
+//     `pages` set, batch row bi reads its keys and values from page
+//     pages[bi] of k and v (base k + pages[bi] * k_sb) and masks keys at
+//     positions >= kv_lens[bi], both read from device memory, so one
+//     launch serves R requests at R lengths where the JAX package vmaps
+//     a scalar-position decode over the requests.  Rows may share a page
+//     (idle rows all compute on the trash page); o and lse stay indexed
+//     by bi.
 //
 // Layouts are the model side's, read in place through strides: q is
 // [b, sq, H, d], k and v [b, sk, KV, d] (or one layer's slice of the KV
@@ -87,7 +95,17 @@ struct Params {
     long long v_sb, v_ss, v_sh;
     int causal, q_offset, kv_len;
     float scale;
+    const int* kv_lens;   // per batch row, or null: kv_len for every row
+    const int* pages;     // per batch row's page of k and v, or null: bi
 };
+
+// batch row bi's key count and the offset of its keys and values
+__device__ __forceinline__ int row_kv_len(const Params& p, int bi) {
+    return p.kv_lens ? p.kv_lens[bi] : p.kv_len;
+}
+__device__ __forceinline__ long long row_page(const Params& p, int bi) {
+    return p.pages ? p.pages[bi] : bi;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -118,9 +136,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     const int h = blockIdx.y;
     const int bi = blockIdx.z;
     const int kvh = h / (p.H / p.KV);
+    const int kv_len = row_kv_len(p, bi);
+    const long long pg = row_page(p, bi);
     const T* qg = static_cast<const T*>(p.q) + bi * p.q_sb + h * p.q_sh;
-    const T* kg = static_cast<const T*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
-    const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
+    const T* kg = static_cast<const T*>(p.k) + pg * p.k_sb + kvh * p.k_sh;
+    const T* vg = static_cast<const T*>(p.v) + pg * p.v_sb + kvh * p.v_sh;
 
     for (int i = tid; i < BQ * D; i += NT) {
         const int r = i / D, c = i % D;
@@ -137,7 +157,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
     }
 
-    int k_end = p.kv_len;
+    int k_end = kv_len;
     if (p.causal) {
         const int last_q = min(q0 + BQ, p.sq) - 1;
         k_end = min(k_end, p.q_offset + last_q + 1);
@@ -148,7 +168,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
         for (int i = tid; i < BK * D; i += NT) {
             const int r = i / D, c = i % D;
             const int kj = k0 + r;
-            const bool ok = kj < p.kv_len;
+            const bool ok = kj < kv_len;
             Ks[r * KS + c] = ok ? to_f32(kg[kj * p.k_ss + c]) : 0.f;
             Vs[r * D + c] = ok ? to_f32(vg[kj * p.v_ss + c]) : 0.f;
         }
@@ -180,7 +200,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int kpos = k0 + tx + 16 * j;
-                const bool ok = kpos < p.kv_len && (!p.causal || kpos <= qpos);
+                const bool ok = kpos < kv_len && (!p.causal || kpos <= qpos);
                 s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
                 rmax = fmaxf(rmax, s[i][j]);
             }
@@ -270,15 +290,17 @@ flash_fwd_mma_kernel(Params p) {
     const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
     const int kvh = blockIdx.y;
     const int bi = blockIdx.z;
+    const int kv_len = row_kv_len(p, bi);
+    const long long pg = row_page(p, bi);
     const bf16* qg = static_cast<const bf16*>(p.q) + bi * p.q_sb +
                      static_cast<long long>(kvh) * G * p.q_sh;
-    const bf16* kg = static_cast<const bf16*>(p.k) + bi * p.k_sb +
+    const bf16* kg = static_cast<const bf16*>(p.k) + pg * p.k_sb +
                      kvh * p.k_sh;
-    const bf16* vg = static_cast<const bf16*>(p.v) + bi * p.v_sb +
+    const bf16* vg = static_cast<const bf16*>(p.v) + pg * p.v_sb +
                      kvh * p.v_sh;
 
     // the block's keys: a causal block stops after its last row's position
-    int k_end = p.kv_len;
+    int k_end = kv_len;
     if (p.causal)
         k_end = min(k_end, p.q_offset + (min(r0 + BM, n_rows) - 1) / G + 1);
     const int n_tiles = (k_end + BK - 1) / BK;
@@ -286,16 +308,16 @@ flash_fwd_mma_kernel(Params p) {
     // this warp's 16 rows and the keys they can see
     const int w0 = r0 + 16 * warp;
     const bool active = w0 < n_rows;
-    const int w_end = !p.causal ? p.kv_len
-        : min(p.kv_len, p.q_offset + (min(w0 + 16, n_rows) - 1) / G + 1);
+    const int w_end = !p.causal ? kv_len
+        : min(kv_len, p.q_offset + (min(w0 + 16, n_rows) - 1) / G + 1);
     const int w_first_pos = p.q_offset + w0 / G;
     const int qpos[2] = {p.q_offset + (w0 + g) / G,
                          p.q_offset + (w0 + g + 8) / G};
     const float sl2 = p.scale * 1.4426950408889634f;   // scale log2(e)
 
     load_packed<D, NT, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
-    load_rows<D, NT, BK>(Ks, kg, p.k_ss, 0, p.kv_len, tid);
-    load_rows<D, NT, BK>(Vs, vg, p.v_ss, 0, p.kv_len, tid);
+    load_rows<D, NT, BK>(Ks, kg, p.k_ss, 0, kv_len, tid);
+    load_rows<D, NT, BK>(Vs, vg, p.v_ss, 0, kv_len, tid);
     cp_async_commit();
 
     float o[DT][4];
@@ -310,9 +332,9 @@ flash_fwd_mma_kernel(Params p) {
         if (it + 1 < n_tiles) {         // the next tile into the other stage
             const int st = (it + 1) & 1;
             load_rows<D, NT, BK>(Ks + st * BK * RS, kg, p.k_ss, k0 + BK,
-                             p.kv_len, tid);
+                                 kv_len, tid);
             load_rows<D, NT, BK>(Vs + st * BK * RS, vg, p.v_ss, k0 + BK,
-                             p.kv_len, tid);
+                                 kv_len, tid);
         }
         cp_async_commit();              // (an empty group on the last tile)
         cp_async_wait<1>();             // this tile (and Q) have landed
@@ -339,14 +361,14 @@ flash_fwd_mma_kernel(Params p) {
             }
 
             // scale into log2 units, mask where a key is out of reach
-            const bool edge = k0 + BK > p.kv_len ||
+            const bool edge = k0 + BK > kv_len ||
                               (p.causal && k0 + BK - 1 > w_first_pos);
 #pragma unroll
             for (int j = 0; j < KT; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-                    const bool ok = !edge || (kpos < p.kv_len &&
+                    const bool ok = !edge || (kpos < kv_len &&
                                     (!p.causal || kpos <= qpos[e >> 1]));
                     s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
                 }
@@ -472,7 +494,8 @@ int run(bool mma, const void* q, const void* k, const void* v, void* o,
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh,
-        int causal, int q_offset, int kv_len, float scale, void* stream) {
+        int causal, int q_offset, int kv_len, float scale,
+        const int* kv_lens, const int* pages, void* stream) {
     Params p;
     p.q = q;
     p.k = k;
@@ -496,6 +519,8 @@ int run(bool mma, const void* q, const void* k, const void* v, void* o,
     p.q_offset = q_offset;
     p.kv_len = kv_len;
     p.scale = scale;
+    p.kv_lens = kv_lens;
+    p.pages = pages;
     return launch_dim(p, head_dim, mma, static_cast<cudaStream_t>(stream));
 }
 
@@ -526,18 +551,22 @@ extern "C" long long repro_flash_fwd_smem_bytes(int variant, int head_dim) {
 // on ``stream`` and does not synchronise.  Strides are in elements.
 // repro_flash_fwd takes fp32 tensors (dtype 0), repro_flash_fwd_mma bf16
 // (dtype 1) whose data pointers and strides are multiples of 16 bytes
-// (cp.async); either refuses another dtype.
+// (cp.async); either refuses another dtype.  kv_lens and pages are null,
+// or int32 device arrays of b entries (a key count in [1, sk] and a page
+// of k and v for each batch row; the caller checks the ranges), which
+// then replace kv_len and the row's own batch index.
 extern "C" int repro_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int head_dim, int b, int sq, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_len, float scale, const int* kv_lens,
+    const int* pages, void* stream) {
     if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
     return run(false, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
-               kv_len, scale, stream);
+               kv_len, scale, kv_lens, pages, stream);
 }
 
 extern "C" int repro_flash_fwd_mma(
@@ -546,9 +575,10 @@ extern "C" int repro_flash_fwd_mma(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int q_offset, int kv_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_len, float scale, const int* kv_lens,
+    const int* pages, void* stream) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return run(true, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
-               kv_len, scale, stream);
+               kv_len, scale, kv_lens, pages, stream);
 }

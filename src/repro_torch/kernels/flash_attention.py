@@ -8,7 +8,10 @@ source notes say what they compute, what bounds them on an H100 and what
 their design leaves for later.  Unlike the Pallas kernels they take the
 model-side layout and index the KV head as ``h // G``, and they take a
 query position offset and a key count, so one kernel serves causal
-prefill and each decode step.
+prefill and each decode step; and :func:`flash_fwd_paged` gives each
+batch row its own key count and its own page of a paged KV buffer, read
+from device memory, so one launch serves the pipelined engine's whole
+decode wave.
 
 Each kernel is chosen by dtype, not as a fallback:
 
@@ -26,9 +29,10 @@ Each kernel is chosen by dtype, not as a fallback:
 A bf16 call never reaches an FMA kernel; a failed build, check or launch
 raises.
 
-On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch their
-kernels or raise; on CPU tensors they compute
-:func:`repro_torch.kernels.ref.flash_fwd_ref` and
+On CUDA tensors :func:`flash_fwd`, :func:`flash_fwd_paged` and
+:func:`flash_bwd` launch their kernels or raise; on CPU tensors they
+compute :func:`repro_torch.kernels.ref.flash_fwd_ref`,
+:func:`repro_torch.kernels.ref.flash_fwd_paged_ref` and
 :func:`repro_torch.kernels.ref.flash_bwd_ref`.
 """
 from __future__ import annotations
@@ -40,17 +44,18 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_bwd_ref, flash_dl, flash_fwd_ref
+from repro_torch.kernels.ref import (flash_bwd_ref, flash_dl, flash_fwd_ref,
+                                     flash_fwd_paged_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
 
 # kernel launches since the last reset (the CPU path never counts)
-launches = 0            # flash_fwd, either kernel
+launches = 0            # flash_fwd and flash_fwd_paged, either kernel
 launches_dq = 0         # flash_bwd_dq, either kernel
 launches_dkv = 0        # flash_bwd_dkv, either kernel
-launches_mma = 0        # flash_fwd on the bf16 tensor-core kernel
+launches_mma = 0        # the same on the bf16 tensor-core kernel
 launches_dq_mma = 0     # flash_bwd_dq on the bf16 tensor-core kernel
 launches_dkv_mma = 0    # flash_bwd_dkv on the bf16 tensor-core kernel
 
@@ -61,7 +66,7 @@ _c = ctypes.c_int
 _ll = ctypes.c_longlong
 _p = ctypes.c_void_p
 _ARGTYPES = ([_p] * 5 + [_c] * 6 + [_ll] * 9
-             + [_c, _c, _c, ctypes.c_float, _p])
+             + [_c, _c, _c, ctypes.c_float, _p, _p, _p])
 
 
 _BWD_ARGTYPES = ([_p] * 7 + [_c] * 7 + [_ll] * 12
@@ -100,7 +105,10 @@ def load() -> None:
     _bwd_lib()
 
 
-def _check(q, k, v, q_offset: int, kv_len: int) -> None:
+def _check(q, k, v, q_offset: int, kv_len: int, *,
+           paged: bool = False) -> None:
+    """Shapes, dtypes and devices of a flash call; with ``paged`` k and v
+    are a page buffer, whose page count need not equal q's batch."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D [b, s, heads, d], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -108,7 +116,7 @@ def _check(q, k, v, q_offset: int, kv_len: int) -> None:
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
     b, sq, H, d = q.shape
     bk, sk, KV, dk = k.shape
-    if bk != b or dk != d:
+    if (bk != b and not paged) or dk != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          f"disagree on batch or head_dim")
     if KV < 1 or H % KV:
@@ -164,6 +172,57 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
                              kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
+    return _launch_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                       kv_len=kv_len)
+
+
+def flash_fwd_paged(q, k_pages, v_pages, pages, kv_lens, *,
+                    ranges_checked: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode wave's attention: q [R, 1, H, d]; k_pages, v_pages
+    [n_pages + 1, page_seq, KV, d], one layer's paged KV buffer; pages
+    and kv_lens int32 [R] on q's device.  Row r attends, without a
+    causal mask, to the first ``kv_lens[r]`` keys of page ``pages[r]``.
+    Rows may share a page.  Returns (o [R, 1, H, d] in q's dtype, lse
+    [R, H, 1] fp32).  One kernel launch for all R rows, counted under
+    ``flash_fwd``; forward only.  Raises unless every page lies in
+    ``[0, n_pages]`` and every length in ``[1, page_seq]``: a check that
+    reads both tensors to the host, and so waits for the card.  A caller
+    that has checked the ranges on the host before the upload (the serve
+    engine, once a round) passes ``ranges_checked=True`` to skip it."""
+    _check(q, k_pages, v_pages, 0, k_pages.shape[1], paged=True)
+    R, n_buf = q.shape[0], k_pages.shape[0]
+    for name, t in (("pages", pages), ("kv_lens", kv_lens)):
+        if t.dtype != torch.int32 or t.shape != (R,):
+            raise ValueError(f"{name} must be int32 [{R}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.shape[1] != 1:
+        raise ValueError(f"a paged call takes one query a row, got "
+                         f"{tuple(q.shape)}")
+    bad = None if ranges_checked else (
+        (pages < 0) | (pages >= n_buf) | (kv_lens < 1)
+        | (kv_lens > k_pages.shape[1]))
+    if bad is not None and bool(bad.any()):
+        raise ValueError(f"pages outside [0, {n_buf - 1}] or kv_lens "
+                         f"outside [1, {k_pages.shape[1]}]: pages "
+                         f"{pages.tolist()}, kv_lens {kv_lens.tolist()}")
+    if q.device.type == "cpu":
+        return flash_fwd_paged_ref(q, k_pages, v_pages, pages, kv_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd_paged runs on cuda or cpu, not "
+                         f"{q.device}")
+    pages, kv_lens = pages.contiguous(), kv_lens.contiguous()
+    return _launch_fwd(q, k_pages, v_pages, causal=False, q_offset=0,
+                       kv_len=k_pages.shape[1], kv_lens=kv_lens,
+                       pages=pages)
+
+
+def _launch_fwd(q, k, v, *, causal: bool, q_offset: int, kv_len: int,
+                kv_lens=None, pages=None):
+    """Launches the forward kernel of q's dtype once and counts it; the
+    arguments are checked by the callers."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a contiguous last dim and "
@@ -184,7 +243,9 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
                  lse.data_ptr(), _DTYPES[q.dtype], d, b, sq, H, KV,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(bool(causal)), q_offset, kv_len,
-                 1.0 / math.sqrt(d), stream)
+                 1.0 / math.sqrt(d),
+                 None if kv_lens is None else kv_lens.data_ptr(),
+                 None if pages is None else pages.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     global launches, launches_mma

@@ -120,6 +120,20 @@ def flash_attention(q, k, v, causal: bool = True, *, q_offset: int = 0,
     return _FlashAttention.apply(q, k, v, causal, q_offset, kv_len)
 
 
+def flash_attention_paged(q, k_pages, v_pages, pages, kv_lens, *,
+                          ranges_checked: bool = False):
+    """The pipelined engine's decode wave: q [R, 1, H, d] against one
+    layer's paged KV buffer k_pages, v_pages [n_pages + 1, page_seq, KV,
+    d]; row r sees the first ``kv_lens[r]`` keys of page ``pages[r]``
+    (int32 [R] tensors on q's device).  Returns o [R, 1, H, d].  One
+    kernel launch for all rows, counted under ``flash_fwd``; forward
+    only (serving).  See ``flash_attention.flash_fwd_paged``, also for
+    ``ranges_checked``."""
+    o, _ = _timed("flash_fwd", fa.flash_fwd_paged, q, k_pages, v_pages,
+                  pages, kv_lens, ranges_checked=ranges_checked)
+    return o
+
+
 # ---------------------------------------------------------------------------
 # fused momentum update + SpecTrain prediction
 

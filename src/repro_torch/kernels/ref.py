@@ -52,18 +52,42 @@ def flash_fwd_ref(q, k, v, *, causal: bool, q_offset: int = 0,
     The softmax runs in fp32 with the Pallas kernel's -1e30 mask and
     ``max(l, 1e-30)`` guard.  Returns ``o`` [b, sq, H, d] in q's dtype
     and the fp32 log-sum-exp ``lse`` [b, H, sq]."""
-    b, sq, H, d = q.shape
-    sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    sq, sk = q.shape[1], k.shape[1]
     kv_len = sk if kv_len is None else kv_len
-    qf = q.float().reshape(b, sq, KV, G, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (
-        1.0 / math.sqrt(d))
     kpos = torch.arange(sk, device=q.device)
     mask = (kpos < kv_len)[None, :].expand(sq, sk)
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
         mask = mask & (kpos[None, :] <= qpos[:, None])
+    return _masked_attention(q, k, v, mask)
+
+
+def flash_fwd_paged_ref(q, k_pages, v_pages, pages, kv_lens
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the flash forward kernel computes on paged rows (the decode
+    wave): q [R, 1, H, d]; k_pages, v_pages [n_pages + 1, page_seq, KV,
+    d]; pages, kv_lens int [R].  Row r attends, without a causal mask, to
+    the first ``kv_lens[r]`` keys of page ``pages[r]``: the pages are
+    gathered and :func:`flash_fwd_ref`'s arithmetic runs with each row's
+    own length.  Returns (o [R, 1, H, d], lse [R, H, 1] fp32)."""
+    pages, kv_lens = pages.long(), kv_lens.long()
+    k, v = k_pages[pages], v_pages[pages]
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = (kpos[None, :] < kv_lens[:, None])[:, None, None, None, :]
+    return _masked_attention(q, k, v, mask)
+
+
+def _masked_attention(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward's arithmetic: q [b, sq, H, d] against k, v
+    [b, sk, KV, d] (query head h reads KV head h // (H // KV)) where
+    ``mask`` (broadcast to [b, KV, G, sq, sk]) is true; fp32 softmax
+    with the -1e30 mask value and the max(l, 1e-30) guard."""
+    b, sq, H, d = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(b, sq, KV, G, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (
+        1.0 / math.sqrt(d))
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])

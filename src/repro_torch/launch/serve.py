@@ -1,31 +1,45 @@
 """Greedy serving driver for the port (twin of ``repro/launch/serve.py``).
 
-A seeded Poisson arrival trace (``serve/trace.py``) is served by the
-whole-model ``SimpleEngine``: every request prefills in one causal call
-and decodes token by token.  On the card every attention call goes
-through the hand-written flash forward kernel and every RWKV-6 or
-Mamba-2 recurrence through its hand-written scan kernel.  ``--arch``
-takes granite-8b (dense), rwkv6-7b (attention-free) and zamba2-1.2b
-(Mamba-2 with shared attention blocks).  The pipelined engine is a
-later slice of the port, so ``--engine`` takes only ``simple``.
+A seeded Poisson arrival trace (``serve/trace.py``) is served by one of
+two engines.  ``--engine pipelined`` runs the continuous-batching
+``ServeEngine``: each round, one decode wave over ``--slots`` request
+slots and up to ``--max-prefill`` prefill lanes, interpreted from the
+schedule IR's serve table over ``--pipe`` stages (all on one device)
+with ``--pages`` KV pages of ``--page-seq`` positions.  ``--engine
+simple`` serves each request on its own through the whole-model
+``SimpleEngine``: prefill in one causal call, then token by token.
+``--engine auto`` (the default) picks simple for hybrid models, whose
+decode state the stage split cannot page, and pipelined otherwise.  On
+the card every attention call goes through the hand-written flash
+forward kernel (the decode wave through its paged rows) and every
+RWKV-6 or Mamba-2 recurrence through its hand-written scan kernel.
+``--arch`` takes granite-8b (dense), rwkv6-7b (attention-free) and
+zamba2-1.2b (Mamba-2 with shared attention blocks).
 
 Unlike the JAX launcher, which always shrinks the model, this one
 serves the full configuration unless ``--smoke`` is given.  It runs on
 the card unless ``--device cpu`` is given; on a machine without a card,
 ``--device cuda`` (the default) fails.
 
-Reported rates exclude the engine's warm-up (kernel build, one prefill,
-one decode); ``--metrics-out`` appends the per-request events, the
-per-token latency histogram and the summary record as JSONL.
+The summary's ``compile`` is the engine's warm-up (kernel build and
+one round, or one prefill and one decode), whose tokens are not
+counted; its tok/s is over the whole ``run()``, warm-up included, as
+the JAX launcher's (the pipelined engine's ``serve/decode_tok_per_s``
+is over its rounds alone).  ``--metrics-out`` appends the scheduler's
+admit/decode/evict events (pipelined) or the per-request events
+(simple), the per-token latency histogram and the summary record as
+JSONL.
 
 Example (full-width granite-8b, or rwkv6-7b, on one H100):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
-        --requests 8 --rate 1.5
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+        --pipe 4 --slots 8 --requests 24 --rate 2.0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --engine simple
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
 
@@ -35,7 +49,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import Model
 from repro_torch.obs import MetricsRegistry
 from repro_torch.planner import serve_plan
-from repro_torch.serve import SimpleEngine, poisson_trace
+from repro_torch.serve import ServeEngine, SimpleEngine, poisson_trace
 
 
 def _pair(s: str):
@@ -51,11 +65,15 @@ def main(argv=None) -> int:
                     help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced smoke config of --arch")
-    ap.add_argument("--engine", default="simple",
-                    choices=("simple", "pipelined"),
-                    help="'simple' serves each request through the "
-                         "whole-model decode_step ('pipelined' is a later "
-                         "slice of the port)")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "pipelined", "simple"),
+                    help="'pipelined' runs rounds through the schedule "
+                         "IR; 'simple' serves each request through the "
+                         "whole-model decode_step; 'auto' picks "
+                         "pipelined except for hybrid archs")
+    ap.add_argument("--pipe", type=int, default=2,
+                    help="pipeline stages the serving rounds fold over "
+                         "(pipelined engine)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--requests", type=int, default=8,
                     help="trace length (seeded Poisson arrivals)")
@@ -72,14 +90,22 @@ def main(argv=None) -> int:
                     help="longest prompt admitted")
     ap.add_argument("--page-seq", type=int, default=64, dest="page_seq",
                     help="KV positions per request (caps prompt + gen)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="live-request slots (decode wave width)")
+    ap.add_argument("--max-prefill", type=int, default=2,
+                    dest="max_prefill",
+                    help="prompts admitted per round (prefill lanes)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="KV pages per stage (default: --slots)")
+    ap.add_argument("--max-rounds", type=int, default=0,
+                    dest="max_rounds",
+                    help="abort if the trace does not drain in this "
+                         "many rounds (0: auto bound)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default="", dest="metrics_out",
                     help="append per-request events, latency histograms "
                          "and the summary record as JSONL to this path")
     args = ap.parse_args(argv)
-    if args.engine == "pipelined":
-        raise SystemExit("--engine pipelined is not ported to PyTorch yet "
-                         "(a later slice); use --engine simple")
 
     registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
     try:
@@ -88,14 +114,34 @@ def main(argv=None) -> int:
             cfg = smoke_config(cfg)
         if args.layers:
             cfg = cfg.replace(n_layers=args.layers)
+        hybrid = cfg.ssm is not None and cfg.ssm.shared_attn_every > 0
+        engine_kind = args.engine
+        if engine_kind == "auto":
+            engine_kind = "simple" if hybrid else "pipelined"
+        if engine_kind == "pipelined":
+            if hybrid:
+                raise SystemExit(
+                    f"--engine pipelined cannot serve {cfg.name}: hybrid "
+                    f"decode state is not per-layer pageable; use "
+                    f"--engine simple (or auto)")
+            # the weights come split as the plan's stages (no regrouping)
+            cfg = cfg.replace(mesh_plan=dataclasses.replace(
+                cfg.mesh_plan, pipe=args.pipe, tensor=1))
         model = Model(cfg, device=args.device)
         gen = torch.Generator(device=model.device).manual_seed(args.seed)
         params = model.init(gen, dtype=cfg.compute_dtype)
 
-        # the simple engine serves one request at a time on one device
-        splan = serve_plan(cfg, n_stages=1, n_slots=1, max_prefill=1,
-                           prompt_budget=args.prompt_budget,
-                           page_seq=args.page_seq)
+        if engine_kind == "pipelined":
+            splan = serve_plan(cfg, n_stages=args.pipe, n_slots=args.slots,
+                               max_prefill=args.max_prefill,
+                               prompt_budget=args.prompt_budget,
+                               n_pages=args.pages or None,
+                               page_seq=args.page_seq)
+        else:
+            # the simple engine serves one request at a time
+            splan = serve_plan(cfg, n_stages=1, n_slots=1, max_prefill=1,
+                               prompt_budget=args.prompt_budget,
+                               page_seq=args.page_seq, validate=False)
         trace = poisson_trace(
             args.requests, rate=args.rate, seed=args.seed,
             prompt_lens=args.prompt_lens, gen_lens=args.gen_lens,
@@ -103,15 +149,24 @@ def main(argv=None) -> int:
         device_name = (torch.cuda.get_device_name(model.device)
                        if model.device.type == "cuda" else "cpu")
         print(f"# {splan.summary()}")
-        print(f"# arch={cfg.name} engine=simple device={device_name} "
-              f"layers={cfg.n_layers} d_model={cfg.d_model} "
+        print(f"# arch={cfg.name} engine={engine_kind} "
+              f"device={device_name} layers={cfg.n_layers} "
+              f"d_model={cfg.d_model} "
               f"dtype={cfg.compute_dtype} requests={len(trace)} "
               f"rate={args.rate} seed={args.seed}")
 
-        engine = SimpleEngine(model, params, splan, registry=registry)
+        if engine_kind == "pipelined":
+            engine = ServeEngine(model, params, splan, registry=registry)
+            execution = "scan"
+        else:
+            engine = SimpleEngine(model, params, splan, registry=registry)
+            execution = "eager"
         del params
         t0 = time.time()
-        results = engine.run(trace)
+        if engine_kind == "pipelined":
+            results = engine.run(trace, max_rounds=args.max_rounds or None)
+        else:
+            results = engine.run(trace)
         wall_s = time.time() - t0
 
         served = {r: t for r, t in results.items() if t}
@@ -125,8 +180,8 @@ def main(argv=None) -> int:
         registry.gauge("serve/wall_s").set(wall_s)
         registry.gauge("serve/tok_per_s").set(tok_per_s)
         registry.emit(
-            "serve_run", arch=cfg.name, engine="simple",
-            execution="eager", device=device_name,
+            "serve_run", arch=cfg.name, engine=engine_kind,
+            execution=execution, device=device_name,
             n_requests=len(trace), n_served=len(served),
             n_rejected=len(rejected), n_tokens=n_tokens, rate=args.rate,
             seed=args.seed, wall_s=wall_s, compile_s=compile_s,

@@ -3,7 +3,9 @@
 
 Every attention call goes through ``kernels.ops.flash_attention``: the
 whole-sequence causal call (training and prefill) and the single-token
-decode step against the KV cache.  The whole-sequence call is the
+decode step against the KV cache; the pipelined engine's decode wave
+goes through ``kernels.ops.flash_attention_paged``, one call for all
+its requests.  The whole-sequence call is the
 training path: it writes nothing in place, so autograd runs through it
 into the flash backward kernels.  The JAX package picks
 between ``_attend`` and its blocked XLA twin by size; here both are the
@@ -63,16 +65,20 @@ def _attend(cfg, q, k, v, *, causal: bool, q_pos, k_len: int,
 
 
 def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
-              cache: Optional[Cache] = None, pos: Optional[int] = None
+              cache: Optional[Cache] = None, pos=None, pages=None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: [b,s,d].  If ``cache`` holds ``k``/``v`` and s == 1, this is a
     decode step at position ``pos`` (a Python int).  An empty ``cache``
-    dict asks for the new keys and values back (prefill).
+    dict asks for the new keys and values back (prefill).  With
+    ``pages`` it is the pipelined engine's decode wave
+    (:func:`gqa_decode_wave`).
 
     The decode step writes the new key and value into ``cache`` in
     place, where the JAX twin returns an updated copy: the cache is one
     layer's slice of the model's KV buffer, and copying it every token
     would move the whole buffer."""
+    if pages is not None:
+        return gqa_decode_wave(cfg, p, x, cache, pos, pages)
     dt = x.dtype
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -101,6 +107,37 @@ def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     new_cache = {"k": k, "v": v} if cache is not None else None
     out = ops.flash_attention(q, k, v, causal, q_offset=q_offset)
     return out.reshape(b, s, H * hd) @ p["wo"].to(dt), new_cache
+
+
+def gqa_decode_wave(cfg, p, x, cache: Cache, pos, pages
+                    ) -> Tuple[torch.Tensor, Cache]:
+    """One layer of the decode wave over R requests: x [R, 1, d]; pos
+    and pages int32 [R] on x's device; ``cache`` one layer's paged
+    buffer, ``{"k", "v": [n_pages + 1, page_seq, KV, hd]}``.  Row r is
+    roped at ``pos[r]``, writes its key and value in place at
+    ``(pages[r], pos[r])`` and attends to the first ``pos[r] + 1`` keys
+    of its page, all rows in one paged kernel call: what the JAX twin
+    computes by vmapping the scalar-position decode step over the
+    requests (``repro/serve/engine.py::_decode_chunk``).  The caller
+    keeps pages in ``[0, n_pages]`` and pos in ``[0, page_seq)``,
+    checked on the host before the upload (``ServeEngine._round`` does,
+    once a round), so the kernel call skips its device-side check."""
+    dt = x.dtype
+    R = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(dt)).view(R, 1, H, hd)
+    k = (x @ p["wk"].to(dt)).view(R, 1, KV, hd)
+    v = (x @ p["wv"].to(dt)).view(R, 1, KV, hd)
+    if cfg.pos_embed == "rope":
+        inv = rope_freqs(cfg, device=x.device)
+        q = apply_rope(q, pos[:, None], inv)
+        k = apply_rope(k, pos[:, None], inv)
+    ck, cv = cache["k"], cache["v"]
+    ck[pages, pos] = k[:, 0].to(ck.dtype)
+    cv[pages, pos] = v[:, 0].to(cv.dtype)
+    out = ops.flash_attention_paged(q, ck.to(dt), cv.to(dt), pages,
+                                    pos + 1, ranges_checked=True)
+    return out.reshape(R, 1, H * hd) @ p["wo"].to(dt), cache
 
 
 def gqa_init_cache(cfg, batch: int, max_seq: int, dtype, device):

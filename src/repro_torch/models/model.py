@@ -1,5 +1,6 @@
 """Model assembly (twin of ``repro/models/model.py``): the serving half
-(prefill, decode step) and the training half (stage apply, head loss,
+(prefill, decode step, and the pipelined engine's per-chunk decode wave
+and prefill lane) and the training half (stage apply, head loss,
 whole-model forward and loss, stage repartitioning).
 
 Parameters use the JAX package's ragged per-stage canonical layout:
@@ -226,15 +227,13 @@ class Model:
         (a per-stage layer-count vector summing to ``cfg.n_layers``).  A
         ragged input whose sizes already match is returned as is; any
         other is merged through the flat layer order and split again
-        (a copy).  ``n_chunks``: the expected tree count; only the
-        model's stage count is accepted (the JAX twin's interleaved
-        chunk-stages are not ported).  The legacy stacked
-        ``[S, Lps, ...]`` layout and the hybrid shared blocks are not
-        ported (the SSM families serve only)."""
-        if n_chunks is not None and n_chunks != self.n_stages:
-            raise NotImplementedError(
-                f"{n_chunks} chunk-stages on {self.n_stages} stages: "
-                f"interleaved plans are not ported to PyTorch yet")
+        (a copy).  ``n_chunks``: the expected tree count when it is not
+        the model's stage count (the pipelined engine splits the layers
+        into its plan's stages whatever ``cfg.mesh_plan.pipe`` says; the
+        JAX twin also asks that it fold onto the model's devices, which
+        one card does not need).  The legacy stacked ``[S, Lps, ...]``
+        layout and the hybrid shared blocks are not ported (the SSM
+        families serve only)."""
         if not isinstance(stages, (tuple, list)):
             raise NotImplementedError(
                 "stacked [S, Lps, ...] stage params are not ported to "
@@ -246,9 +245,10 @@ class Model:
         if sum(sizes) != self.cfg.n_layers:
             raise ValueError(f"partition sizes {sizes} do not cover "
                              f"{self.cfg.n_layers} layers")
-        if len(sizes) != self.n_stages:
+        want = self.n_stages if n_chunks is None else n_chunks
+        if len(sizes) != want:
             raise ValueError(f"{len(sizes)} partition stages for "
-                             f"{self.n_stages} stages")
+                             f"{want} (chunk-)stages")
         if min(sizes) < 1:
             raise ValueError(f"empty stage in partition sizes {sizes}")
         if tuple(_n_layers(t) for t in stages) == sizes:
@@ -317,6 +317,78 @@ class Model:
             ck[i, :, :s] = new_c["k"].to(ck.dtype)
             cv[i, :, :s] = new_c["v"].to(cv.dtype)
         return self.logits(outer, x), cache
+
+    # ------------------------------------------------------ pipelined serve
+    def _check_pageable(self, what: str) -> None:
+        if self.hybrid:
+            raise NotImplementedError(
+                f"{what} does not support hybrid models ({self.cfg.name}): "
+                f"their decode state is not a per-layer scan (tied shared "
+                f"blocks); serve them with launch/serve.py's whole-model "
+                f"SimpleEngine")
+
+    def decode_embed(self, outer, tokens, pos):
+        """Embed decode tokens at per-row positions: ``tokens`` [b, s],
+        ``pos`` broadcastable to it (the decode wave's [R, 1], a prefill
+        lane's [1, n]).  The JAX twin adds a sinusoidal term here for
+        ``pos_embed="sinusoidal"``, which the port does not serve
+        (``transformer.check_ported``); rope is applied in attention, so
+        this is :meth:`embed`."""
+        return embed_apply(self.cfg, outer["embed"], tokens)
+
+    def stage_decode(self, stage_params, chunk_cache, x, pos, pages):
+        """One chunk of the decode wave over R requests: x [R, 1, d];
+        pos and pages int32 [R] on the model's device (idle rows on the
+        trash page at position 0), pages in ``[0, n_pages]`` and pos in
+        ``[0, page_seq)``, which the caller checks on the host (the
+        paged kernel call does not); ``chunk_cache`` the chunk's paged
+        cache (``serve.engine.chunk_page_caches``), updated in place.
+        Returns y [R, 1, d].  Dense layers write each row's key and value at
+        (page, pos) and attend through one paged kernel call for all
+        rows; rwkv6 layers gather the rows' states from their pages, run
+        the scan's decode kernel at b = R and write the states back.
+        The JAX twin (``_decode_chunk`` over ``stage_decode``) vmaps a
+        scalar-position decode over the requests."""
+        self._check_pageable("stage_decode")
+        bufs = chunk_cache["layers"]
+        for i in range(_n_layers(stage_params)):
+            lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
+            if self.cfg.ssm is None:
+                x, _, _ = block_apply(
+                    self.cfg, lp, x, cache={"k": bufs["k"][i],
+                                            "v": bufs["v"][i]},
+                    pos=pos, pages=pages)
+                continue
+            st = {k: buf[i][pages] for k, buf in bufs.items()}
+            x, _, _ = block_apply(self.cfg, lp, x, state=st)
+            for k, buf in bufs.items():
+                buf[i][pages] = st[k]
+        return x
+
+    def stage_prefill(self, stage_params, chunk_cache, x_seq, page: int):
+        """One chunk of a prefill lane: x_seq [1, n, d], the lane's n
+        valid prompt tokens, in one causal call per layer from a fresh
+        state, written into page ``page`` of ``chunk_cache`` (dense:
+        positions [0, n), later ones masked by the wave's per-row
+        lengths; rwkv6: the state after the prompt).  Returns y_seq
+        [1, n, d].  The JAX twin scans its stage_decode over the padded
+        prompt from a fresh init page."""
+        self._check_pageable("stage_prefill")
+        bufs = chunk_cache["layers"]
+        n = x_seq.shape[1]
+        x = x_seq
+        for i in range(_n_layers(stage_params)):
+            lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
+            if self.cfg.ssm is None:
+                x, kv, _ = block_apply(self.cfg, lp, x, cache={})
+                bufs["k"][i, page, :n] = kv["k"][0].to(bufs["k"].dtype)
+                bufs["v"][i, page, :n] = kv["v"][0].to(bufs["v"].dtype)
+                continue
+            st = {k: buf[i][page:page + 1] for k, buf in bufs.items()}
+            for a in st.values():
+                a.zero_()                      # rwkv6's init state
+            x, _, _ = block_apply(self.cfg, lp, x, state=st)
+        return x
 
     def _recurrent_layers(self, stages, x, cache=None, *,
                           pos: Optional[int] = None):

@@ -65,11 +65,14 @@ def shared_block_specs(cfg) -> Dict[str, Any]:
 
 
 def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
-                cache: Optional[Dict] = None, pos: Optional[int] = None,
+                cache: Optional[Dict] = None, pos=None, pages=None,
                 state: Optional[Dict] = None):
     """Returns (x, new_cache, new_state).  The JAX twin also returns an
     auxiliary loss, which these blocks leave at zero.  Dense blocks use
-    ``cache`` (and return no state); rwkv6 and mamba2 blocks use
+    ``cache`` (and return no state); with ``pages`` (and ``pos`` an
+    int32 tensor, one position per row) theirs is the pipelined
+    engine's decode wave over a paged buffer
+    (``attention.gqa_decode_wave``).  rwkv6 and mamba2 blocks use
     ``state``, update it in place and return its leaves (and no
     cache)."""
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
@@ -89,7 +92,8 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
 
     h, new_cache = attn.gqa_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x),
-        pos_offset=pos_offset, causal=causal, cache=cache, pos=pos)
+        pos_offset=pos_offset, causal=causal, cache=cache, pos=pos,
+        pages=pages)
     x = x + h
     x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
     return x, new_cache, None

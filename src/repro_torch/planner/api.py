@@ -1,10 +1,10 @@
 """Serving plan (twin of ``ServePlan`` / ``serve_plan`` in
 ``repro/planner/api.py``).
 
-Only the geometry that the whole-model ``SimpleEngine`` and the serve
-launcher's summary line read.  The serve table, device streams and the
-static verifier come with the pipelined engine in a later slice, as does
-the profile-guided (``dp``) partitioner.
+The round geometry both engines read, and the serving round's compiled
+artifacts (``planner/schedule_ir``) with their static verifier
+(``planner/verify``).  The profile-guided (``dp``) partitioner comes
+with the planner slice; the port plans the uniform split.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from repro_torch.models.model import uniform_stage_sizes
+from repro_torch.planner import schedule_ir as ir
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,38 @@ class ServePlan:
     page_seq: int
     partitioner: str = "uniform"
 
+    @property
+    def n_chunks(self) -> int:
+        return self.n_stages
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_stages
+
+    def serve_events(self):
+        """The round's staircase events ``(kind, lane, chunk, t)``."""
+        return ir.serve_round_events(self.n_chunks, self.max_prefill)
+
+    def serve_table(self) -> ir.ServeTable:
+        """Dense int32 lowering of one serving round: what
+        ``ServeEngine`` interprets row by row."""
+        return ir.compile_serve_table(self.serve_events(), self.n_chunks,
+                                      self.max_prefill)
+
+    def serve_streams(self) -> ir.ServeStreams:
+        """Per-device tick streams of one serving round (the JAX
+        package's MPMD backend runs them; compiled and verified here)."""
+        return ir.compile_serve_streams(
+            self.serve_events(), self.n_chunks, self.max_prefill,
+            self.n_devices)
+
+    def verify(self, *, device_streams: bool = True) -> None:
+        """Statically verify the serving round's compiled artifacts
+        (``planner/verify.py``).  Raises
+        :class:`~repro_torch.planner.verify.VerificationError`."""
+        from repro_torch.planner import verify as pv
+        pv.check_serve_plan(self, device_streams=device_streams)
+
     def summary(self) -> str:
         return (f"serve_plan[x{self.n_stages} "
                 f"part={self.partitioner}:{self.stage_sizes} "
@@ -42,12 +75,14 @@ def serve_plan(config=None, n_stages: int = 2, *, n_slots: int = 4,
                max_prefill: int = 1, prompt_budget: int = 16,
                n_pages: Optional[int] = None, page_seq: int = 64,
                n_layers: Optional[int] = None,
-               partitioner: str = "uniform") -> ServePlan:
+               partitioner: str = "uniform",
+               validate: bool = True) -> ServePlan:
     """Build a :class:`ServePlan` with the JAX twin's validation.
 
     ``config`` is an ``ArchConfig`` or None with bare ``n_layers``.
     ``n_pages`` defaults to ``n_slots``; ``page_seq`` must cover
-    ``prompt_budget``."""
+    ``prompt_budget``.  With ``validate`` the round's compiled artifacts
+    are verified (:meth:`ServePlan.verify`), as the JAX twin does."""
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
     if max_prefill < 0:
@@ -71,9 +106,12 @@ def serve_plan(config=None, n_stages: int = 2, *, n_slots: int = 4,
     if n_layers < n_stages:
         raise ValueError(f"{n_layers} layers cannot fill "
                          f"{n_stages} stages")
-    return ServePlan(
+    splan = ServePlan(
         n_stages=n_stages,
         stage_sizes=uniform_stage_sizes(n_layers, n_stages),
         n_slots=n_slots, max_prefill=max_prefill,
         prompt_budget=prompt_budget, n_pages=n_pages, page_seq=page_seq,
         partitioner=partitioner)
+    if validate:
+        splan.verify()
+    return splan

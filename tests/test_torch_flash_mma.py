@@ -259,6 +259,18 @@ def emulate_dkv(q, k, v, o, lse, do, *, causal, q_offset=0, kv_len=None,
     return dk.to(k.dtype), dv.to(k.dtype), writes
 
 
+def emulate_fwd_paged(q, k_pages, v_pages, pages, kv_lens, round_p=True):
+    """flash_fwd_mma_kernel on paged rows (the decode wave): the blocks of
+    batch row bi read page pages[bi] at length kv_lens[bi] and write row
+    bi of o and lse; blocks share nothing, so each row is the unpaged
+    algorithm on its own page."""
+    outs = [emulate_fwd(q[bi:bi + 1], k_pages[p:p + 1], v_pages[p:p + 1],
+                        causal=False, kv_len=n, round_p=round_p)
+            for bi, (p, n) in enumerate(zip(pages.tolist(),
+                                            kv_lens.tolist()))]
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
 def _qkv(seed, b, sq, sk, H, KV, d):
     rng = np.random.default_rng(seed)
     mk = lambda *s: rng.standard_normal(s, dtype=np.float32)
@@ -496,6 +508,40 @@ def test_dkv_causal_start_tile_covers_every_row_that_sees_the_block(
         assert r0 <= sees.min() < r0 + DKV_BM
         assert (pos[:r0] < k0).all()
         assert _dkv_start_tile(k0, q_offset, G, False) == 0
+
+
+# R, H, KV, d, kv_lens, pages (page 5 is the trash page that idle rows
+# share): the decode wave's shapes, lengths across and at the 64-key tile
+PAGED_CASES = [
+    (1, 4, 1, 16, [1], [0]),
+    (3, 8, 2, 64, [17, 1, 64], [2, 5, 5]),
+    (8, 32, 8, 128, [1, 17, 64, 40, 3, 64, 1, 1], [0, 1, 2, 3, 4, 5, 5, 5]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_emulated_paged_fwd_matches_plain_version(case):
+    R, H, KV, d, lens, pages = case
+    rng = np.random.default_rng(R)
+    mk = lambda *s: torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32))
+    q, kp, vp = mk(R, 1, H, d), mk(6, 64, KV, d), mk(6, 64, KV, d)
+    pages = torch.tensor(pages, dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    o_r, lse_r = ref.flash_fwd_paged_ref(q, kp, vp, pages, lens)
+    o, lse, writes = emulate_fwd_paged(q, kp, vp, pages, lens,
+                                       round_p=False)
+    assert bool((writes == 1).all())
+    _close(o, o_r, F32_TOL)
+    _close(lse, lse_r, F32_TOL)
+    o, lse, _ = emulate_fwd_paged(q, kp, vp, pages, lens)
+    _close(o, o_r, BF16_TOL)
+    _close(lse, lse_r, F32_TOL)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    o, lse, _ = emulate_fwd_paged(qb, kb, vb, pages, lens)
+    o_w, lse_w = fa.flash_fwd_paged(qb, kb, vb, pages, lens)
+    _close(o.float(), o_w.float(), BF16_TOL)
+    _close(lse, lse_w, F32_TOL)
 
 
 @pytest.mark.parametrize("sq,H,KV,want", [

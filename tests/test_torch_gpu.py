@@ -553,6 +553,9 @@ RWKV_GPU_CASES = [
     (2, 130, 2, 32, torch.bfloat16, 0.05),
     (1, 2048, 64, 64, torch.bfloat16),
     (2, 1, 5, 32, torch.float32),
+    # the pipelined engine's decode wave: 8 rows at full width
+    (8, 1, 64, 64, torch.float32),
+    (8, 1, 64, 64, torch.bfloat16),
 ]
 
 
@@ -894,3 +897,86 @@ def test_resume_on_card_is_bit_exact(card, mode, tmp_path):
         assert set(a.files) == set(b.files)
         for k in a.files:
             assert np.array_equal(a[k], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the pipelined engine: the paged decode wave and the engine on the card
+
+
+def _paged_inputs(seed, R, H, KV, d, dtype, n_pages=8, page_seq=64):
+    """R rows at mixed lengths 1, 17 and 64 on distinct pages, the last
+    rows (when R > 2) both on the trash page n_pages."""
+    q = _randn(seed, R, 1, H, d, dtype=dtype)
+    kp = _randn(seed + 1, n_pages + 1, page_seq, KV, d, dtype=dtype)
+    vp = _randn(seed + 2, n_pages + 1, page_seq, KV, d, dtype=dtype)
+    pages = list(range(1, R + 1))
+    if R > 2:
+        pages[-2:] = [n_pages, n_pages]
+    lens = [(1, 17, 64)[r % 3] for r in range(R)]
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    return q, kp, vp, i32(pages), i32(lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("H,KV,d", [(32, 8, 128), (8, 8, 64)])
+def test_paged_kernel_matches_plain(card, dtype, R, H, KV, d):
+    q, kp, vp, pages, lens = _paged_inputs(R, R, H, KV, d, dtype)
+    before = ops.launch_counts()["flash_fwd"], \
+        ops.variant_counts()["flash_fwd_mma"]
+    o, lse = fa.flash_fwd_paged(q, kp, vp, pages, lens)
+    torch.cuda.synchronize()
+    mma = int(dtype == torch.bfloat16)
+    assert (ops.launch_counts()["flash_fwd"],
+            ops.variant_counts()["flash_fwd_mma"]) == \
+        (before[0] + 1, before[1] + mma)
+    o_r, lse_r = ref.flash_fwd_paged_ref(q, kp, vp, pages, lens)
+    tol = BF16_TOL if mma else F32_TOL
+    _close(o, o_r, tol)
+    _close(lse, lse_r, F32_TOL if not mma else BF16_TOL)
+    # row by row, each against the unpaged kernel on its own page
+    for r in range(R):
+        p, n = int(pages[r]), int(lens[r])
+        o1, _ = fa.flash_fwd(q[r:r + 1], kp[p:p + 1], vp[p:p + 1],
+                             causal=False, kv_len=n)
+        _close(o[r:r + 1], o1, tol)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_raises_on_card(card):
+    q, kp, vp, pages, lens = _paged_inputs(0, 3, 8, 2, 64, torch.bfloat16)
+    before = fa.launches
+    for bad_pages, bad_lens in ((pages + 8, lens), (pages, lens * 0),
+                                (pages, lens + 64)):
+        with pytest.raises(ValueError, match="outside"):
+            fa.flash_fwd_paged(q, kp, vp, bad_pages, bad_lens)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_fwd_paged(q, kp, vp, pages.cpu(), lens)
+    assert fa.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b"])
+def test_pipelined_engine_tokens_on_card_match_cpu(card, arch):
+    from repro_torch.planner import verify as pv
+    from repro_torch.serve import ServeEngine
+    cfg = (_smoke_cfg() if arch == "granite-8b"
+           else _ssm_smoke_cfg(arch))
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    splan = serve_plan(cfg, n_stages=2, n_slots=4, max_prefill=2,
+                       prompt_budget=8, page_seq=32)
+    trace = poisson_trace(10, rate=1.5, seed=0, prompt_lens=(1, 8),
+                          vocab=cfg.vocab_size)
+    want = ServeEngine(cpu, p_cpu, splan).run(trace)
+    assert want == SimpleEngine(cpu, p_cpu, splan).run(trace)
+    eng = ServeEngine(gpu, _on(p_cpu, card), splan)
+    ops.reset_launch_counts()
+    got = eng.run(trace)
+    assert got == want
+    name = "flash_fwd" if arch == "granite-8b" else "rwkv6_scan"
+    assert ops.launch_counts()[name] == cfg.n_layers * (
+        eng.n_waves + eng.n_lanes)
+    assert pv.verify_request_trace(eng.last_events, n_slots=4, n_pages=4,
+                                   n_stages=2).ok

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package (``repro``).  Checked on
+``chip_smoke.py`` imports JAX, the JAX package (``repro``) or its
+benchmarks (``benchmarks``).  Checked on
 the source with ``ast``, so an import inside a function counts too."""
 import ast
 import pathlib
@@ -7,7 +8,7 @@ import pathlib
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 
@@ -46,7 +47,8 @@ def test_no_jax_or_repro_imports(path):
 @pytest.mark.parametrize("module,bad", [
     ("jax", True), ("jax.numpy", True), ("repro.models", True),
     ("repro", True), ("repro_torch.models", False), ("torch", False),
-    ("reprox", False),
+    ("reprox", False), ("benchmarks.serve_bench", True),
+    ("repro_torch.bench", False),
 ])
 def test_guard_classifies(module, bad):
     assert _forbidden(module) is bad

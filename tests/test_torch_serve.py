@@ -138,8 +138,8 @@ def test_serve_plan_summary_and_validation_match_jax():
 def test_launcher_serves_smoke_on_cpu(tmp_path, capsys):
     out = tmp_path / "serve.jsonl"
     rc = tlaunch.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
-                       "--requests", "4", "--rate", "1.5",
-                       "--metrics-out", str(out)])
+                       "--engine", "simple", "--requests", "4",
+                       "--rate", "1.5", "--metrics-out", str(out)])
     assert rc == 0
     text = capsys.readouterr().out
     assert text.startswith("# serve_plan[x1 ")
@@ -163,7 +163,8 @@ def test_launcher_reports_time_to_first_token(tmp_path):
     first token (``ttft_ms``: the prefill and first token, wall)."""
     out = tmp_path / "serve.jsonl"
     rc = tlaunch.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu",
-                       "--requests", "3", "--prompt-lens", "20,70",
+                       "--engine", "simple", "--requests", "3",
+                       "--prompt-lens", "20,70",
                        "--prompt-budget", "80", "--page-seq", "96",
                        "--metrics-out", str(out)])
     assert rc == 0
@@ -175,9 +176,9 @@ def test_launcher_reports_time_to_first_token(tmp_path):
 
 
 def test_launcher_refuses_unported_paths():
-    with pytest.raises(SystemExit, match="not ported"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--engine",
-                      "pipelined"])
+    with pytest.raises(SystemExit, match="not per-layer pageable"):
+        tlaunch.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+                      "--engine", "pipelined"])
     with pytest.raises(NotImplementedError, match="not ported"):
         tlaunch.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                       "cpu"])

@@ -168,10 +168,12 @@ def test_constructor_checks_match_jax():
             sim(fns, params)            # neither n_stages nor plan
     with pytest.raises(ValueError, match="scheme"):
         tsim.Simulator(tf, tp, n_stages=4, scheme="gpipe")
-    with pytest.raises(NotImplementedError, match="interleaved"):
-        Model(port_cfg(tiny_cfg("granite-8b", n_layers=4, pipe=2)),
-              device="cpu").partition_stage_params((), (1, 1, 1, 1),
-                                                   n_chunks=4)
+    # a chunk count that disagrees with the partition: both refuse
+    jm = JModel(tiny_cfg("granite-8b", n_layers=4, pipe=2))
+    tm = Model(port_cfg(jm.cfg), device="cpu")
+    for m in (jm, tm):
+        with pytest.raises(ValueError, match="partition stages for"):
+            m.partition_stage_params(({"layers": {}},), (2, 2), n_chunks=4)
 
 
 # ---------------------------------------------------------------------------
