@@ -21,7 +21,8 @@ the JAX package, and in phases:
      (TF32 off for the plain versions): the flash forward at the serving
      paths' decode and prefill shapes (granite-8b's attention, head_dim
      128, and zamba2-1.2b's shared block, head_dim 64), the training
-     shape, the repository's kernel test cases in fp32 and in bf16, a
+     shapes (the tick's batch of 8 rows, an IR round's microbatch of
+     one row), the repository's kernel test cases in fp32 and in bf16, a
      long causal case and the packed-row edges of the bf16 kernel (G in
      {1, 2, 4, 8} with sq G off the 16- and 64-row blocks, kv_len off
      the 64-key tile, q_offset > 0 causal and not, head_dim 16 to 128,
@@ -30,7 +31,7 @@ the JAX package, and in phases:
      rows of both forward kernels (the decode wave: R in {1, 3, 8} rows
      at lengths 1, 17 and 64, two rows on one trash page, d 128 and 64,
      fp32 and bf16, one launch a call); the flash
-     backward (dq, dk/dv) at the training shape, the repository's
+     backward (dq, dk/dv) at the training shapes, the repository's
      backward test case, a non-causal GQA case with masked keys, the
      same packed-row edges and the dk/dv kernel's own edges in bf16
      (atol 2e-5 / rtol 1e-3 in fp32, 2e-2 in bf16, both kernels on the
@@ -112,8 +113,9 @@ The paper's evaluation adds three phases:
  11. (after phase 7) the four schemes on the full-width, full-depth
      snn-paper (32 FC layers of 2048, input 3072, 10 classes, 4 stages,
      140,597,258 parameters, 8 versions held), batch 128 of the
-     synthetic teacher task, 600 steps each at lr 0.01, then spectrain
-     again with Fig. 8's RMSEs at s = 1, 2, 3: ms per step (the median
+     synthetic teacher task, 600 steps each at lr 0.01, then spectrain's
+     first 300 steps again with Fig. 8's RMSEs at s = 1, 2, 3 (the
+     same losses, step for step): ms per step (the median
      of the steady steps), device busy and idle share under
      ``torch.profiler``, final loss, held-out loss and accuracy, peak
      memory, exactly 5 ``fused_update`` launches a step (and nothing
@@ -149,6 +151,31 @@ The pipelined engine adds one phase:
      first's), p50/p99 and rounds beside ``SimpleEngine``'s, one steady
      decode round profiled (wall, busy, idle, kernels), the page writes
      and the rwkv6 state gather/scatter timed alone, peak memory.
+
+The planner and the round schedules add two phases:
+
+ 14. (after phase 4) three IR rounds of gpipe, 1f1b, 2bw (spectrain,
+     pipedream) and interleaved v2 through ``make_ir_state`` /
+     ``make_ir_train_step`` on the card against the CPU (2 stages of a
+     5-layer smoke granite in fp32, a ragged dp split): losses to rtol
+     1e-5, every params, momentum and 2bw stash leaf to rtol 1e-4 / atol
+     1e-5, on the fp32 FMA kernels only;
+ 15. (``ir_schedules``, after phase 7) ``fused_update`` at the IR
+     update's full-width groups (a chunk tree of 1 and 2 layers, the
+     outer tree; fp32 g, no ŵ), one launch each against its plain
+     version; then ``repro_torch.launch.train.main`` on full-width
+     granite-8b, 4 stages, batch 8 x 512, bf16, under gpipe, 1f1b, 2bw
+     (spectrain, pipedream), interleaved (``--virtual-stages 2``, 8
+     chunks of one layer) and 1f1b on 7 layers (the dp plan's (2, 2, 1,
+     2), regrouped from the model's uniform (2, 2, 2, 1)), 4 rounds
+     each: the dp plan printed and verified before the first round,
+     finite losses,
+     exactly 2·L·M ``flash_fwd``, L·M of each backward kernel and C + 1
+     ``fused_update`` launches a round (M = 8 microbatches, C chunks),
+     every attention launch on the tensor cores; a round's wall (median
+     of the unprofiled steady rounds), tokens/s, one profiled round
+     (busy, idle, kernels, ``fused_update`` ms), peak memory, and for
+     2bw the stash copy's ms (CUDA events).
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -189,6 +216,10 @@ FU_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 # the training path: full-width granite-8b, 8 layers in 4 stages
 TRAIN_LAYERS, TRAIN_STAGES, TRAIN_STEPS = 8, 4, 10
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# the IR rounds: the launcher's round-size rule splits the batch into
+# IR_ROUND microbatches of IR_MB_ROWS rows
+IR_ROUND = 8
+IR_MB_ROWS = TRAIN_BATCH // IR_ROUND
 TRAIN_ARGV = ["--arch", ARCH, "--layers", str(TRAIN_LAYERS),
               "--pipe", str(TRAIN_STAGES), "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ), "--dtype", "bfloat16",
@@ -243,8 +274,105 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_T0 = [None]       # the run's start (set by run()), for phase times
+
+
+# torch.profiler keeps only the device records that fall inside its
+# capture window on the host's clock; a record converted from the card's
+# clock to just past the window's edge is lost.  Every profile waits this
+# long after it starts and, the card synchronized, before it stops
+PROFILE_SETTLE_S = 0.02
+
+
+def device_profile():
+    """A torch.profiler context over the card's activity alone: the host
+    op events are not read, and recording them costs seconds a phase.
+    It settles for ``PROFILE_SETTLE_S`` at both ends of its window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    class _Settled(profile):
+        def __enter__(self):
+            super().__enter__()
+            time.sleep(PROFILE_SETTLE_S)
+            return self
+
+        def __exit__(self, *exc):
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_SETTLE_S)
+            return super().__exit__(*exc)
+
+    return _Settled(activities=[ProfilerActivity.CUDA])
+
+
+@dataclasses.dataclass
+class KernelSum:
+    """One kernel name's device time in a profile, under the names
+    ``key_averages()`` gives them (times in µs)."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def device_kernels(prof) -> list:
+    """A :func:`device_profile`'s device events (kernels, copies, fills)
+    summed by name, read from the raw kineto events: ``key_averages()``
+    first builds the whole event tree, ~2.5 s for a round's 16k
+    kernels."""
+    from torch.autograd import DeviceType
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n_us = by.setdefault(e.name(), [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.duration_ns() / 1e3
+    return [KernelSum(k, n, us) for k, (n, us) in by.items()]
+
+
+class StepProfile:
+    """One profiled step of a training loop, driven from its ``on_step``
+    hook (called with the card synchronized): the profile starts after
+    step ``first - 1`` and stops after step ``first``.  A profile short of
+    the step's exact kernel counts ``want`` (records lost) is taken again
+    on the next step, up to step ``last``; an excess fails at once.
+    ``steps`` lists every profiled step, for the wall to leave out."""
+
+    def __init__(self, what: str, want: dict, first: int, last: int):
+        self.what, self.want, self.first, self.last = what, want, first, last
+        self.prof, self.kern, self.at, self.steps = None, None, None, []
+
+    def hook(self, s: int) -> None:
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            kern, self.prof = device_kernels(self.prof), None
+            self.steps.append(s)
+            seen = {n: sum(e.count for e in kern
+                           if KERNEL_SYMBOL[n] in e.key) for n in self.want}
+            check(all(seen[n] <= self.want[n] for n in self.want),
+                  f"{self.what}: the profiled step {s} shows {seen} "
+                  f"kernels, expected {self.want}")
+            if seen == self.want:
+                self.kern, self.at = kern, s
+            else:
+                print(f"  profile of step {s} incomplete: {seen} kernels, "
+                      f"expected {self.want} (records lost)"
+                      + ("; again" if s < self.last else ""))
+        if self.kern is None and self.first <= s + 1 <= self.last:
+            self.prof = device_profile()
+            self.prof.__enter__()
+
+    def result(self) -> list:
+        """The complete profile's kernels; fails if every try came up
+        short."""
+        check(self.kern is not None, f"{self.what}: every profile of "
+              f"steps {self.steps} came up short of {self.want}")
+        return self.kern
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    at = ("" if _T0[0] is None
+          else f"  [{time.perf_counter() - _T0[0]:.1f} s]")
+    print(f"\n== {name}{at}", flush=True)
 
 
 def _tree_to(tree, device):
@@ -514,9 +642,11 @@ def kernel_checks(torch, fa, ref) -> dict:
                           "bfloat16", causal, off, kv_len))
     cases.append(Case("causal 2048", 1, 2048, 2048, *cfg, "bfloat16",
                       True))
-    for dt in ("float32", "bfloat16"):       # the training path's call
+    for dt in ("float32", "bfloat16"):       # the training paths' calls
         cases.append(Case(f"train b8 512 causal {dt}", TRAIN_BATCH,
                           TRAIN_SEQ, TRAIN_SEQ, *cfg, dt, True))
+        cases.append(Case(f"train IR microbatch b1 512 causal {dt}",
+                          IR_MB_ROWS, TRAIN_SEQ, TRAIN_SEQ, *cfg, dt, True))
     errs = {}
     for i, case in enumerate(cases):
         e_o, e_l = compare(torch, fa, ref, case, seed=i)
@@ -704,8 +834,6 @@ def decode_profile(torch, arch: str = ARCH) -> dict:
     without the profiler, then device time per kernel under it."""
     phase(f"a full-width {arch} decode step under torch.profiler")
     import gc
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     cfg = get_config(arch)
@@ -737,14 +865,11 @@ def decode_profile(torch, arch: str = ARCH) -> dict:
         # a profile short of a kernel's exact count (records dropped) is
         # taken again, at most `attempts` times; an excess fails at once
         for attempt in range(1, attempts + 1):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 for pos in range(9 + steps, 9 + steps + prof_steps):
                     step(pos)
                 torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
+            kern = device_kernels(prof)
             seen = {name: sum(e.count for e in kern
                               if KERNEL_SYMBOL[name] in e.key)
                     for name in want}
@@ -911,6 +1036,9 @@ def bwd_checks(torch, fa, ref) -> dict:
     for dt in ("float32", "bfloat16"):
         cases.append(BwdCase(f"train b8 512 causal {dt}", TRAIN_BATCH,
                              TRAIN_SEQ, TRAIN_SEQ, *cfg, dt, True))
+        cases.append(BwdCase(f"train IR microbatch b1 512 causal {dt}",
+                             IR_MB_ROWS, TRAIN_SEQ, TRAIN_SEQ, *cfg, dt,
+                             True))
         cases.append(BwdCase(f"test_flash_bwd b1 H4/2 128 d64 {dt}", 1,
                              128, 128, 4, 2, 64, dt, True))
         cases.append(BwdCase(f"full GQA H8/2 65x130 kv_len 97 {dt}", 3,
@@ -1444,8 +1572,6 @@ def long_prefill(torch, arch: str) -> dict:
     ``Model`` and the serving trace, so it also times another commit of
     the port imported in its place."""
     import gc
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serve import poisson_trace
@@ -1470,17 +1596,14 @@ def long_prefill(torch, arch: str) -> dict:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             model.prefill(params, {"tokens": prompt}, lp["page_seq"])
             torch.cuda.synchronize()
     del params, model, logits
     gc.collect()
     torch.cuda.empty_cache()
     wall_ms = sorted(walls[1:])[1]
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = device_kernels(prof)
     check(bool(kern), "the profiler saw no device activity in the prefill")
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     stem = "wkv_" if cfg.ssm.kind == "rwkv6" else "ssd_"
@@ -1791,8 +1914,6 @@ def pipelined_path(torch, ops, arch: str) -> dict:
           f"pipelined, full {arch}, bf16")
     import gc
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.obs import MetricsRegistry
@@ -1975,14 +2096,11 @@ def pipelined_path(torch, ops, arch: str) -> dict:
         # a profile short of the kernel's exact count (records dropped,
         # as decode_profile has seen) is taken again, at most 3 times
         for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 for _ in range(prof_steps):
                     eng._round(batch)
                 torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
+            kern = device_kernels(prof)
             hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
             n_hit = sum(e.count for e in hits)
             check(n_hit <= L * prof_steps, f"the profiled rounds show "
@@ -2149,8 +2267,6 @@ def train_main_path(torch, ops) -> dict:
     S, L = TRAIN_STAGES, TRAIN_LAYERS
     phase(f"main path: repro_torch.launch.train.main, {ARCH} full width, "
           f"{L} layers in {S} stages, bf16, spectrain, {TRAIN_STEPS} ticks")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train
     from repro_torch.models.layers import tree_leaves
     want_tick = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
@@ -2158,7 +2274,8 @@ def train_main_path(torch, ops) -> dict:
     # bf16: every forward, dq and dk/dv on the tensor-core kernels
     want_var = {"flash_fwd_mma": 2 * L, "flash_bwd_dq_mma": L,
                 "flash_bwd_dkv_mma": L}
-    prof_tick = 7
+    # tick 7 profiled (8 or 9 if a profile comes up short)
+    sp = StepProfile("train tick", want_tick, 7, TRAIN_STEPS - 1)
     rec = {"counts": [], "variants": [], "valid": [], "loss": [], "t": [],
            "t_end": [], "stage0": []}
     snap = {}
@@ -2175,12 +2292,7 @@ def train_main_path(torch, ops) -> dict:
             snap["stage0"] = [t.clone() for t in stage0]
         rec["stage0"].append(all(torch.equal(a, b) for a, b in
                                  zip(stage0, snap["stage0"])))
-        if s == prof_tick - 1:
-            snap["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA])
-            snap["prof"].__enter__()
-        elif s == prof_tick:
-            snap["prof"].__exit__(None, None, None)
+        sp.hook(s)
         rec["t_end"].append(time.perf_counter())
 
     import gc
@@ -2216,7 +2328,7 @@ def train_main_path(torch, ops) -> dict:
     # tick i: from the end of the hook after tick i-1 to the start of the
     # hook after tick i (which synchronises first)
     steady = sorted(rec["t"][i] - rec["t_end"][i - 1]
-                    for i in range(1, TRAIN_STEPS) if i != prof_tick)
+                    for i in range(1, TRAIN_STEPS) if i not in sp.steps)
     wall_ms = steady[len(steady) // 2] * 1e3
     tok_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
     print(f"  {TRAIN_STEPS} ticks in {time.perf_counter() - t0:.2f}s "
@@ -2229,15 +2341,14 @@ def train_main_path(torch, ops) -> dict:
     print(f"  tick wall (median of ticks 1..{TRAIN_STEPS - 1} but the "
           f"profiled one): {wall_ms:.3f} ms  ({tok_per_s:.1f} tokens/s)")
     print(f"  peak torch.cuda.max_memory_allocated: {peak / 2**30:.2f} GiB")
-    kern = [e for e in snap["prof"].key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = sp.result()
     check(bool(kern), f"the profiler saw no device activity in tick "
-          f"{prof_tick}")
+          f"{sp.at}")
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"  tick {prof_tick} under torch.profiler: device busy "
+    print(f"  tick {sp.at} under torch.profiler: device busy "
           f"{busy_ms:.3f} ms, {100 * busy_ms / wall_ms:.1f}% of the "
           f"unprofiled tick wall (idle {100 * (1 - busy_ms / wall_ms):.1f}%)")
+    print(f"  device ms by kind: {kernel_kinds(kern)}")
     kern.sort(key=lambda e: -e.self_device_time_total)
     for e in kern[:10]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms "
@@ -2255,6 +2366,276 @@ def train_main_path(torch, ops) -> dict:
             "variants_per_tick": want_var, "wall_ms": wall_ms,
             "tok_per_s": tok_per_s, "peak_bytes": peak,
             "losses": rec["loss"], "busy_ms": busy_ms, "kernel_ms": by}
+
+
+# ---------------------------------------------------------------------------
+# the round schedules through the IR interpreter (gpipe, 1f1b, 2bw,
+# interleaved), planned by the port's planner
+
+IR_ROUNDS, IR_PROF_ROUND = 4, 2
+IR_BASE = ["--arch", ARCH, "--pipe", str(TRAIN_STAGES), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype", "bfloat16",
+           "--data-kind", "uniform", "--steps", str(IR_ROUNDS),
+           "--log-every", "1"]
+# (label, argv, layers, virtual stages, the dp split the plan must carry);
+# 2bw's vanilla mode is held to JAX on the CPU only.  At 7 layers the dp
+# split (2, 2, 1, 2) differs from the model's uniform (2, 2, 2, 1), so the
+# stage trees are regrouped at full width
+IR_RUNS = [
+    ("gpipe spectrain", ["--schedule", "gpipe"], 8, 1, (2, 2, 2, 2)),
+    ("1f1b spectrain", ["--schedule", "1f1b"], 8, 1, (2, 2, 2, 2)),
+    ("2bw spectrain", ["--schedule", "2bw"], 8, 1, (2, 2, 2, 2)),
+    ("2bw pipedream", ["--schedule", "2bw", "--mode", "pipedream"], 8, 1,
+     (2, 2, 2, 2)),
+    ("interleaved v2 spectrain", ["--schedule", "interleaved",
+                                  "--virtual-stages", "2"], 8, 2, (1,) * 8),
+    ("1f1b spectrain, 7 layers (dp regroups)", ["--schedule", "1f1b"], 7,
+     1, (2, 2, 1, 2)),
+]
+# the IR update's arguments (the launcher's defaults; no ŵ, s 0)
+IR_FU_KW = dict(lr=1e-2, gamma=0.9, s=0.0)
+IR_CHECK_SCHEDULES = [("gpipe", "spectrain", 1), ("1f1b", "vanilla", 1),
+                      ("2bw", "spectrain", 1), ("2bw", "pipedream", 1),
+                      ("interleaved", "spectrain", 2)]
+
+
+# a profiled kernel's kind, by its name: the first pattern it contains
+KERNEL_KINDS = (("attention", ("flash_",)), ("fused_update",
+                                             ("fused_update",)),
+                ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                ("copy", ("Memcpy", "direct_copy")),
+                ("fill", ("FillFunctor", "Memset")),
+                ("add", ("CUDAFunctor_add",)),
+                ("elementwise", ("elementwise",)))
+
+
+def kernel_kinds(kern) -> dict:
+    """Device ms of a profile's kernels summed by :data:`KERNEL_KINDS`
+    (the rest under "other"), rounded to 0.001 ms."""
+    by = {}
+    for e in kern:
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(p in e.key for p in pats)), "other")
+        by[kind] = by.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return {k: round(v, 3) for k, v in sorted(by.items(),
+                                              key=lambda kv: -kv[1])}
+
+
+def ir_check(torch) -> None:
+    """Three IR rounds of each round schedule on the card against the
+    same rounds on the CPU: 2 stages of a 5-layer smoke granite in fp32
+    (a ragged dp split; 4 chunks of the interleaved plan), the CPU parity
+    tests' tolerances."""
+    phase("IR rounds on the card against the CPU: gpipe, 1f1b, 2bw "
+          "(spectrain, pipedream), interleaved v2, smoke size, fp32")
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.planner import plan
+    cfg = smoke_config(get_config(ARCH)).replace(
+        n_layers=5, n_kv_heads=2, compute_dtype="float32",
+        mesh_plan=dataclasses.replace(get_config(ARCH).mesh_plan, pipe=2))
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    for schedule, mode, v in IR_CHECK_SCHEDULES:
+        pplan = plan(cfg, n_stages=2, schedule=schedule, virtual_stages=v,
+                     n_microbatches=2, batch=4, seq=16, device="cpu")
+        runs = {}
+        # copies: a state takes its params over and updates them
+        for name, model, params in (("cpu", cpu, _tree_to(p_cpu, "cpu")),
+                                    ("gpu", gpu, _tree_to(p_cpu, "cuda"))):
+            state = ps.make_ir_state(model, params, plan=pplan, mode=mode)
+            step = ps.make_ir_train_step(model, plan=pplan, mode=mode,
+                                         lr=0.05)
+            runs[name] = (state, [float(step(state, b)[1]["loss"])
+                                  for b in batches])
+        (s_c, l_c), (s_g, l_g) = runs["cpu"], runs["gpu"]
+        l_err = max(abs(a - b) / max(abs(b), 1e-12)
+                    for a, b in zip(l_g, l_c))
+        check(l_err <= 1e-5, f"{schedule}: losses differ by rel "
+              f"{l_err:.3e} (tol 1e-5)")
+        worst = 0.0
+        for key in ("params", "momentum") + (("stash",) if "stash" in s_c
+                                             else ()):
+            for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+                g = g.cpu()
+                check(torch.allclose(g, c, rtol=1e-4, atol=1e-5),
+                      f"{schedule} {mode}: {key} leaf differs by "
+                      f"{float((g - c).abs().max())}")
+                worst = max(worst, float((g - c).abs().max()))
+        print(f"  {schedule} {mode} ({pplan.summary()}): losses max rel "
+              f"|d| {l_err:.3e} (tol 1e-5); every state leaf max |d| "
+              f"{worst:.3e} (rtol 1e-4 / atol 1e-5)")
+
+
+def ir_update_checks(torch, ops, ref) -> None:
+    """The IR update's groups at full width, one launch each against its
+    plain version: a chunk tree of every layer count the runs below
+    give a chunk, and the outer tree; fp32 w, v and the round's fp32
+    mean gradient, no ŵ."""
+    phase("fused_update at the IR rounds' groups against its plain "
+          "version on the card")
+    n_layers = sorted({n for *_, sizes in IR_RUNS for n in sizes})
+    for label, specs in ([(f"chunk tree of {n} layer(s)",
+                           group_specs("stage", n)) for n in n_layers]
+                         + [("outer tree", group_specs("outer"))]):
+        ws, vs, gs, _ = make_group(torch, specs, lambda path: False)
+        err = fu_compare(torch, ops, ref, ws, vs, gs, None, label,
+                         IR_FU_KW)
+        print(f"  {label}: {len(ws)} tensors, "
+              f"{sum(w.numel() for w in ws)} elements, {IR_FU_KW}: one "
+              f"launch, max |d| {err:.3e} (tol {FU_TOL['float32']:g})")
+        del ws, vs, gs
+        torch.cuda.empty_cache()
+
+
+def ir_schedules(torch, ops, ref) -> dict:
+    """Each round schedule through ``repro_torch.launch.train.main`` on
+    full-width granite-8b, 4 stages, batch 8 x 512, bf16: the plan (dp,
+    verified before the first round), finite losses, exact launches a
+    round, one profiled round, peak memory and, for 2bw, the stash
+    copy."""
+    import contextlib
+    import io
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.launch import train
+    ir_update_checks(torch, ops, ref)
+    out = {}
+    for label, argv, L, v, sizes in IR_RUNS:
+        phase(f"ir_schedules: repro_torch.launch.train.main, {ARCH} full "
+              f"width, {L} layers in {TRAIN_STAGES} stages, bf16, {label}, "
+              f"{IR_ROUNDS} rounds")
+        rec = {"counts": [], "variants": [], "loss": [], "t": [],
+               "t_end": []}
+        snap = {}
+        M, C = IR_ROUND, TRAIN_STAGES * v
+        want = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M,
+                "flash_bwd_dkv": L * M, "fused_update": C + 1}
+        want_v = {"flash_fwd_mma": 2 * L * M, "flash_bwd_dq_mma": L * M,
+                  "flash_bwd_dkv_mma": L * M}
+        sp = StepProfile(label, want, IR_PROF_ROUND, IR_ROUNDS - 1)
+
+        def on_step(s, state, metrics):
+            torch.cuda.synchronize()
+            rec["t"].append(time.perf_counter())
+            rec["counts"].append(dict(ops.launch_counts()))
+            rec["variants"].append(dict(ops.variant_counts()))
+            rec["loss"].append(float(metrics["loss"]))
+            sp.hook(s)
+            if s == IR_ROUNDS - 1 and "stash" in state:
+                # the double buffer's copy alone (after the last round:
+                # it rewrites the stash), CUDA events, 3 runs
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                times = []
+                for _ in range(3):
+                    ev[0].record()
+                    ps._stash_before_update(state)
+                    ev[1].record()
+                    ev[1].synchronize()
+                    times.append(ev[0].elapsed_time(ev[1]))
+                snap["stash_ms"] = sorted(times)[1]
+                snap["stash_bytes"] = 2 * sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves(state["stash"]))
+            rec["t_end"].append(time.perf_counter())
+
+        from repro_torch.models.layers import tree_leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(IR_BASE + ["--layers", str(L)] + argv,
+                            on_step=on_step)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        total = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        text = buf.getvalue()
+        print("  " + text.strip().replace("\n", "\n  "))
+        check(rc == 0, f"{label}: train.main returned {rc}")
+        check(len(rec["loss"]) == IR_ROUNDS, f"{label}: not every round ran")
+        plan_line = next((x for x in text.splitlines()
+                          if x.startswith("# plan[")), "")
+        check(f"part=dp:{sizes}" in plan_line,
+              f"{label}: the plan is not the dp split {sizes}: "
+              f"{plan_line!r}")
+        m = re.search(r"# schedule \S+: round=(\d+) microbatches", text)
+        check(m is not None, f"{label}: no round line printed")
+        check(int(m.group(1)) == M, f"{label}: round of {m.group(1)} "
+              f"microbatches, expected {M}")
+        prev, prev_v = {k: 0 for k in want}, {k: 0 for k in want_v}
+        for s, (counts, var) in enumerate(zip(rec["counts"],
+                                              rec["variants"])):
+            got = {k: counts[k] - prev[k] for k in want}
+            check(got == want, f"{label}: round {s} launched {got}, "
+                  f"expected {want}")
+            got_v = {k: var[k] - prev_v[k] for k in want_v}
+            check(got_v == want_v, f"{label}: round {s} launched "
+                  f"tensor-core variants {got_v}, expected {want_v}")
+            prev, prev_v = counts, var
+        check(total == {k: want.get(k, 0) * IR_ROUNDS for k in total},
+              f"{label}: the run launched {total}")
+        check(all(math.isfinite(x) for x in rec["loss"]),
+              f"{label}: non-finite loss {rec['loss']}")
+        steady = sorted(rec["t"][i] - rec["t_end"][i - 1]
+                        for i in range(1, IR_ROUNDS) if i not in sp.steps)
+        wall_ms = steady[len(steady) // 2] * 1e3
+        kern = sp.result()
+        check(bool(kern), f"{label}: the profiler saw no device activity")
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        by = {}
+        for name, n in want.items():
+            hits = [e for e in kern if KERNEL_SYMBOL[name] in e.key]
+            n_hit = sum(e.count for e in hits)
+            check(n_hit == n, f"{label}: the profiled round shows {n_hit} "
+                  f"{name} kernels, expected {n}")
+            by[name] = sum(e.self_device_time_total for e in hits) / 1e3
+        r = {"label": label, "layers": L, "chunks": C, "round": M,
+             "plan": plan_line, "launches": total, "per_round": want,
+             "wall_ms": wall_ms, "busy_ms": busy_ms,
+             "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3),
+             "peak_bytes": peak, "losses": rec["loss"], "kernel_ms": by,
+             "n_kernels": sum(e.count for e in kern), "run_s": run_s,
+             "stash_ms": snap.get("stash_ms"),
+             "stash_bytes": snap.get("stash_bytes")}
+        print(f"  per round: {want} launches, every attention launch on "
+              f"the tensor cores {want_v} (exact on every round); losses "
+              f"{[round(x, 4) for x in rec['loss']]}")
+        print(f"  round wall (median of rounds 1..{IR_ROUNDS - 1} but the "
+              f"profiled ones {sp.steps}): {wall_ms:.3f} ms "
+              f"({r['tok_per_s']:.1f} tokens/s); profiled round {sp.at}: "
+              f"device busy "
+              f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%"
+              f" of the unprofiled wall), {r['n_kernels']} kernels; "
+              f"fused_update {by['fused_update']:.3f} ms in {C + 1} "
+              f"launches; attention fwd+dq+dk/dv "
+              f"{by['flash_fwd'] + by['flash_bwd_dq'] + by['flash_bwd_dkv']:.3f}"
+              f" ms; peak {peak / 2**30:.2f} GiB; run {run_s:.1f} s")
+        if r["stash_ms"] is not None:
+            print(f"  2bw stash copy (params + momentum, "
+                  f"{r['stash_bytes'] / 1e9:.2f} GB moved): "
+                  f"{r['stash_ms']:.3f} ms")
+        r["by_kind"] = kernel_kinds(kern)
+        print(f"  device ms by kind: {r['by_kind']}")
+        kern.sort(key=lambda e: -e.self_device_time_total)
+        for e in kern[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.4f} ms "
+                  f"{e.count:5d}x  {e.key[:72]}")
+        out[label] = r
+        del snap
+    return out
 
 
 def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
@@ -2359,6 +2740,9 @@ EVAL_ARCH, EVAL_CLASSES = "snn-paper", 10       # CIFAR-10's classes
 # then falls: at 600 every scheme is well past the prior (sync ~1.76
 # against 2.30, held-out accuracy ~0.40 against a 0.11 majority share)
 EVAL_BATCH, EVAL_STEPS = 128, 600
+# spectrain's second run, with Fig. 8's RMSEs, follows the first 300 steps
+# of the same trajectory (its learning is checked on the first run)
+EVAL_RMSE_STEPS = 300
 EVAL_HELD = 4096                    # held-out teacher samples a scheme
 # staleness shows at 0.01: vanilla and pipedream end above sync,
 # spectrain near it; at 0.02 vanilla diverges, at 0.1 sync does too
@@ -2501,19 +2885,18 @@ def resume_check(torch) -> None:
 
 
 def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
-               profiled=EVAL_PROFILED) -> dict:
+               rmse_steps=EVAL_RMSE_STEPS, profiled=EVAL_PROFILED) -> dict:
     """The four schemes on the full-width, full-depth snn-paper (32 FC
     layers of 2048, input 3072, 10 classes, 4 stages), batch 128 of the
     synthetic teacher task, ``steps`` steps each, every update through
     the fused update kernel (N + 1 launches a step); then spectrain
-    again with Fig. 8's RMSEs at s = 1, 2, 3 (the same trajectory).
+    again for its first ``rmse_steps`` steps with Fig. 8's RMSEs at
+    s = 1, 2, 3 (the same trajectory).
     Each scheme's final weights are scored on a held-out teacher batch;
     every scheme must have learned past the label prior (a final loss
     below the prior's entropy, a held-out accuracy above the majority
     share, each by three standard errors).  The update kernel is held against
     its plain version at the simulator's two groups, then timed."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.bench import teacher_batches
     from repro_torch.configs import get_config
     from repro_torch.core.simulator import Simulator, make_mlp_staged
@@ -2560,9 +2943,9 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
     out = {}
     # spectrain twice: the training step alone, then with Fig. 8's RMSEs
     # (three whole-tree predictions and six whole-tree reductions a step)
-    runs = [(scheme, scheme, ()) for scheme in Simulator.SCHEMES] + [
-        ("spectrain+rmse", "spectrain", (1, 2, 3))]
-    for name, scheme, rmse_s in runs:
+    runs = [(scheme, scheme, (), steps) for scheme in Simulator.SCHEMES]
+    runs.append(("spectrain+rmse", "spectrain", (1, 2, 3), rmse_steps))
+    for name, scheme, rmse_s, n_steps in runs:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2572,10 +2955,9 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
         prof = None
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        for i, b in enumerate(batches):
+        for i, b in enumerate(batches[:n_steps]):
             if i == profiled[0]:
-                prof = profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA])
+                prof = device_profile()
                 prof.__enter__()
             before = fu.launches
             t = time.perf_counter()
@@ -2590,20 +2972,16 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
         losses = [m["loss"] for m in ms]
         check(all(math.isfinite(x) for x in losses),
               f"{name}: a loss is not finite")
-        check(_mean(losses[-20:]) < _mean(losses[:20]),
-              f"{name}: the last 20 losses average "
-              f"{_mean(losses[-20:])}, the first 20 {_mean(losses[:20])}")
-        check(per_step == [N + 1] * steps,
+        check(per_step == [N + 1] * n_steps,
               f"{name}: fused_update launches per step {set(per_step)}")
-        check(counts == {k: (N + 1) * steps if k == "fused_update" else 0
-                         for k in counts}, f"{name}: launches {counts}")
+        check(counts == {k: (N + 1) * n_steps if k == "fused_update"
+                         else 0 for k in counts},
+              f"{name}: launches {counts}")
         n_prof = profiled[1] - profiled[0]
         steady = sorted(w for i, w in enumerate(walls)
                         if i >= 10 and not profiled[0] <= i < profiled[1])
         wall_ms = steady[len(steady) // 2] * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
+        kern = device_kernels(prof)
         check(bool(kern), f"{name}: the profiler saw no device activity")
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n_prof
         fu_ms = sum(e.self_device_time_total for e in kern
@@ -2620,34 +2998,22 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
             pred += P_out * (sim.s_bwd[N - 1] > 0)
         nbytes = 4 * (5 * P + 3 * pred + 7 * P * len(rmse_s))
         bound_ms = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["float32"]) * 1e3
-        with torch.no_grad():
-            p_ = sim.params
-            h = fns.embed(p_["outer"]["in"], held)
-            for sp in p_["stages"]:
-                h = fns.stage(sp, h)
-            held_loss = float(fns.head_loss(p_["outer"]["out"], h, held))
-            logits = h @ p_["outer"]["out"]["w"] + p_["outer"]["out"]["b"]
-            acc = float((logits.argmax(-1) == held["y"]).double().mean())
-        last = losses[-40:]
-        loss_se = math.sqrt(sum((x - _mean(last)) ** 2 for x in last)
-                            / (len(last) - 1) / len(last))
-        check(_mean(last) < prior_loss - 3 * loss_se,
-              f"{name}: final loss {_mean(last)} is not below the label "
-              f"prior's entropy {prior_loss} by 3 standard errors "
-              f"({loss_se})")
-        check(acc > majority + 3 * acc_se,
-              f"{name}: held-out accuracy {acc} is not above the majority "
-              f"share {majority} by 3 standard errors")
         upd_kw = dict(lr=sim.lr, gamma=sim.gamma, s=0.0)
         rec = {"wall_ms": wall_ms, "busy_ms": busy_ms,
                "idle": 1 - busy_ms / wall_ms, "fused_update_ms": fu_ms,
-               "final_loss": _mean(last), "final_loss_se": loss_se,
-               "held_loss": held_loss, "held_acc": acc,
                "peak_bytes": peak,
                "launches": counts["fused_update"], "per_step": N + 1,
                "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
                "first_loss": losses[0], "losses": losses}
+        head = (f"  {name:<14} {wall_ms:8.3f} ms/step wall (median of "
+                f"steady steps), {busy_ms:8.3f} ms busy "
+                f"({100 * rec['idle']:.1f}% idle), fused_update "
+                f"{fu_ms:.3f} ms; bound {bound_ms:.3f} ms "
+                f"({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP); ")
+        tail = (f"; {N + 1} fused_update a step; peak "
+                f"{peak / 2**30:.2f} GiB")
         if rmse_s:
+            # the learning is the first run's: the same trajectory
             rec["rmse"] = {}
             for s_ in rmse_s:
                 p_ = _mean([m[f"rmse_pred_s{s_}"] for m in ms[20:]])
@@ -2655,15 +3021,39 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
                 rec["rmse"][s_] = (p_, st_)
                 check(p_ < st_, f"Fig. 8 at s={s_}: RMSE(pred) {p_} is not "
                       f"below RMSE(stale) {st_}")
+            print(f"{head}{n_steps} steps, the first run's losses{tail}")
+        else:
+            check(_mean(losses[-20:]) < _mean(losses[:20]),
+                  f"{name}: the last 20 losses average "
+                  f"{_mean(losses[-20:])}, the first 20 "
+                  f"{_mean(losses[:20])}")
+            with torch.no_grad():
+                p_ = sim.params
+                h = fns.embed(p_["outer"]["in"], held)
+                for sp in p_["stages"]:
+                    h = fns.stage(sp, h)
+                held_loss = float(fns.head_loss(p_["outer"]["out"], h,
+                                                held))
+                logits = (h @ p_["outer"]["out"]["w"]
+                          + p_["outer"]["out"]["b"])
+                acc = float((logits.argmax(-1) == held["y"])
+                            .double().mean())
+            last = losses[-40:]
+            loss_se = math.sqrt(sum((x - _mean(last)) ** 2 for x in last)
+                                / (len(last) - 1) / len(last))
+            check(_mean(last) < prior_loss - 3 * loss_se,
+                  f"{name}: final loss {_mean(last)} is not below the "
+                  f"label prior's entropy {prior_loss} by 3 standard "
+                  f"errors ({loss_se})")
+            check(acc > majority + 3 * acc_se,
+                  f"{name}: held-out accuracy {acc} is not above the "
+                  f"majority share {majority} by 3 standard errors")
+            rec.update(final_loss=_mean(last), final_loss_se=loss_se,
+                       held_loss=held_loss, held_acc=acc)
+            print(f"{head}loss {losses[0]:.4f} -> final {_mean(last):.4f} "
+                  f"(± {loss_se:.4f}); held-out loss {held_loss:.4f}, "
+                  f"accuracy {acc:.4f}{tail}")
         out[name] = rec
-        print(f"  {name:<14} {wall_ms:8.3f} ms/step wall (median of steady "
-              f"steps), {busy_ms:8.3f} ms busy ({100 * rec['idle']:.1f}% "
-              f"idle), fused_update {fu_ms:.3f} ms; bound {bound_ms:.3f} "
-              f"ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP); loss "
-              f"{losses[0]:.4f} -> final {rec['final_loss']:.4f} (± "
-              f"{loss_se:.4f}); held-out loss {held_loss:.4f}, accuracy "
-              f"{acc:.4f}; {N + 1} fused_update a step; peak "
-              f"{peak / 2**30:.2f} GiB")
         for s_, (p_, st_) in rec.get("rmse", {}).items():
             print(f"    Fig. 8 s={s_}: RMSE(pred) {p_:.3e}  RMSE(stale) "
                   f"{st_:.3e}  stale/pred {st_ / p_:.3f}")
@@ -2673,7 +3063,8 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
                   f"step {e.count // n_prof:5d}x  {e.key[:70]}")
         del sim
     f = {k: out[k]["final_loss"] for k in Simulator.SCHEMES}
-    check(out["spectrain+rmse"]["losses"] == out["spectrain"]["losses"],
+    check(out["spectrain+rmse"]["losses"]
+          == out["spectrain"]["losses"][:rmse_steps],
           "the RMSEs changed spectrain's trajectory")
     table1 = {"spectrain <= vanilla * 1.05":
               f["spectrain"] <= f["vanilla"] * 1.05,
@@ -2778,7 +3169,7 @@ def run() -> int:
     from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import rwkv6_scan as r6
 
-    t_start = time.perf_counter()
+    t_start = _T0[0] = time.perf_counter()
     try:
         info = card_info(torch)
         build_kernels(build, r6, m2, fa, fu)
@@ -2794,6 +3185,7 @@ def run() -> int:
         ssm_model_check(torch)
         pipelined_check(torch)
         train_check(torch)
+        ir_check(torch)
         fma_only(ops)
         simulator_check(torch, ops)
         resume_check(torch)
@@ -2812,6 +3204,7 @@ def run() -> int:
             gc.collect()
             torch.cuda.empty_cache()
         train = train_main_path(torch, ops)
+        ir_runs = ir_schedules(torch, ops, ref)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -2887,6 +3280,17 @@ def run() -> int:
                 "fp32 checks": f"{row['name']}_kernel (FMA)"},
                 "design": design} if row["name"].startswith("flash_bwd")
                else {})})
+    # the IR rounds' launches (each run counted from 0 to its end)
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "fused_update"):
+            k.setdefault("launches_by_path", {
+                "train": train["launches"][k["name"]]})
+            k["launches_by_path"]["train IR rounds (all runs)"] = sum(
+                r["launches"][k["name"]] for r in ir_runs.values())
+            k["launches_per_ir_round"] = {
+                label: r["per_round"][k["name"]]
+                for label, r in ir_runs.items()}
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
@@ -2969,15 +3373,27 @@ def run() -> int:
         rec = evaluation[scheme]
         rmse = "".join(f"; s={k} stale/pred {st / pr:.3f}"
                        for k, (pr, st) in rec.get("rmse", {}).items())
+        learned = (f"; final loss {rec['final_loss']:.4f}, held-out "
+                   f"accuracy {rec['held_acc']:.4f}" if "held_acc" in rec
+                   else f"; {len(rec['losses'])} steps")
         print(f"snn-paper {scheme}: {rec['wall_ms']:.3f} ms/step wall, "
               f"{rec['busy_ms']:.3f} ms busy ({100 * rec['idle']:.1f}% "
-              f"idle), bound {rec['bound_ms']:.3f} ms; final loss "
-              f"{rec['final_loss']:.4f}, held-out accuracy "
-              f"{rec['held_acc']:.4f}; peak "
+              f"idle), bound {rec['bound_ms']:.3f} ms{learned}; peak "
               f"{rec['peak_bytes'] / 2**30:.2f} GiB{rmse}")
     print(f"snn-paper label prior: loss {evaluation['prior']['loss']:.4f}, "
           f"majority share {evaluation['prior']['majority']:.4f}; Table 1 "
           f"bounds: {evaluation['table1']}")
+    for label, r in ir_runs.items():
+        stash = (f", stash copy {r['stash_ms']:.3f} ms"
+                 if r["stash_ms"] is not None else "")
+        print(f"IR round {label} ({r['layers']} layers, {r['chunks']} "
+              f"chunks, {r['round']} microbatches): "
+              f"{r['wall_ms']:.3f} ms wall, {r['busy_ms']:.3f} ms busy "
+              f"({100 * (1 - r['busy_ms'] / r['wall_ms']):.1f}% idle), "
+              f"{r['tok_per_s']:.1f} tokens/s, fused_update "
+              f"{r['kernel_ms']['fused_update']:.3f} ms in "
+              f"{r['per_round']['fused_update']} launches, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB{stash}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

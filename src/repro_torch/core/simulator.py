@@ -86,15 +86,17 @@ class Simulator:
                  gamma: float = 0.9, clip: Optional[float] = None,
                  rmse_s: Sequence[int] = (), plan=None):
         """``params``: fp32 tensors, all on one device (the simulator's);
-        the simulator never writes them.  ``plan``: any object with
-        ``n_stages``, optionally ``n_chunks``, and per-stage ``s_fwd`` /
-        ``s_bwd`` (a planner ``PipelinePlan`` in the JAX package; the
-        port has no planner yet); its staleness vectors replace the
-        round-robin closed forms of Eqs. (5)/(6)."""
+        the simulator never writes them.  ``plan``: an optional
+        ``repro_torch.planner.PipelinePlan``; its IR-derived per-stage
+        (s_fwd, s_bwd) replace the round-robin closed forms of Eqs.
+        (5)/(6), so any emitted schedule's staleness can be simulated.
+        Interleaved plans simulate at chunk-stage granularity
+        (``plan.n_chunks`` stages: the device folding changes the
+        timeline, never the per-chunk staleness)."""
         if scheme not in self.SCHEMES:
             raise ValueError(f"scheme {scheme!r} not in {self.SCHEMES}")
         if plan is not None:
-            n_chunks = getattr(plan, "n_chunks", plan.n_stages)
+            n_chunks = plan.n_chunks
             if n_stages and n_stages != n_chunks:
                 raise ValueError(f"n_stages={n_stages} contradicts "
                                  f"plan's {n_chunks} chunk-stages")
@@ -303,11 +305,11 @@ def staged_from_model(model, partition=None
     """Adapt a dense ``repro_torch.models.Model`` into StagedFns.
 
     Returns (fns, repack) where ``repack(model_params)`` produces the
-    simulator param layout.  ``partition``: an optional object with
-    ``n_layers`` and ``sizes()`` (a planner ``Partition`` in the JAX
-    package) — repack then builds ragged per-stage trees from its layer
-    counts; one stage per pipeline stage (interleaved chunk-stages are
-    not ported).
+    simulator param layout.  ``partition``: an optional planner
+    ``Partition`` — repack then builds ragged per-stage trees from its
+    layer ranges, so non-uniform dp splits simulate as they execute.  A
+    partition with ``n_stages · v`` chunk-stages (interleaved plans)
+    yields that many chunk trees, which the simulator runs as stages.
     """
     if partition is not None and partition.n_layers != model.cfg.n_layers:
         raise ValueError(f"partition covers {partition.n_layers} layers, "

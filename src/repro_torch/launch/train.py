@@ -1,17 +1,29 @@
 """Training launcher for the port (twin of ``repro/launch/train.py``,
 restricted to what is ported).
 
-Runs the streaming SpecTrain pipeline (``--mode {vanilla,pipedream,
-spectrain}``, ``--schedule stream``) or the synchronous GPipe baseline
-(``--mode sync``) on one device, every attention forward and backward
-through the hand-written flash kernels and every optimizer update
-through the fused update kernel.  Stage sizes are the uniform split
-(the JAX launcher with ``--partitioner uniform``); in place of the
-planner's summary it prints the closed-form ``s_fwd`` / ``bwd_lag`` /
-``fb_gap``.  Unlike the JAX launcher, which always shrinks the model,
-this one trains the full configuration unless ``--smoke`` or the size
-flags cut it.  It runs on the card unless ``--device cpu`` is given; on
-a machine without a card, ``--device cuda`` (the default) fails.
+Runs the streaming pipeline (``--mode {vanilla,pipedream,spectrain}``,
+``--schedule stream``), the round schedules through the IR interpreter
+(``--schedule {gpipe,1f1b,2bw,interleaved}``, one flush round or 2BW
+group per step; ``--virtual-stages v`` gives each device v chunk-stages
+under ``interleaved``; ``--ir-backend {scan,unrolled}`` picks the round
+body), or the synchronous GPipe baseline (``--mode sync``) on one
+device, every attention forward and backward through the hand-written
+flash kernels and every optimizer update through the fused update
+kernel.  Every run is planned, as the JAX launcher plans it: a
+``PipelinePlan`` for the schedule, with the stage split from
+``--partitioner {dp,uniform}`` (default ``dp``) over a per-layer profile
+(``--profile-method``, default ``analytic``; ``timed`` times one block
+on the run's device), verified before the first step unless
+``--no-verify``.  The round size of an IR schedule is ``--ticks`` when
+given, else the largest divisor of ``--batch`` up to 2·pipe·v that the
+schedule accepts.  It prints the plan (``# plan[...]``), the realized
+stages and, for round schedules, the round size, bubble and stash
+depths.  Unlike the JAX launcher, which always shrinks the model, this
+one trains the full configuration unless ``--smoke`` or the size flags
+cut it.  It runs on the card unless ``--device cpu`` is given; on a
+machine without a card, ``--device cuda`` (the default) fails.
+``--trace``, ``--compress``, ``--execution mpmd`` and
+``--profile-method hlo`` are not ported yet and are refused.
 
 ``--ckpt-dir`` saves the whole train state every ``--save-every`` steps
 on a background thread (one writer at a time) and once at the end;
@@ -26,7 +38,7 @@ at granite-8b's full vocabulary.
 Example (full-width granite-8b, 8 layers in 4 stages, on one H100):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --layers 8 --pipe 4 --batch 8 --seq 512 --dtype bfloat16 \\
-        --mode spectrain --data-kind uniform --steps 10 --log-every 1
+        --schedule 1f1b --data-kind uniform --steps 10 --log-every 1
 """
 from __future__ import annotations
 
@@ -38,6 +50,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.api import (Runtime, add_runtime_args,
+                             runtime_config_from_args)
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import pipeline_stream, pipeline_sync
 from repro_torch.data import DataConfig, SyntheticLM
@@ -45,9 +59,9 @@ from repro_torch.data.pipeline import KINDS
 from repro_torch.models import Model
 from repro_torch.models.layers import tree_leaves
 from repro_torch.obs import MetricsRegistry, format_step
+from repro_torch.planner import check_against_closed_forms
+from repro_torch.planner import plan as make_plan
 from repro_torch.runtime import checkpoint as ckpt
-
-SCHEDULES = ("stream", "gpipe", "1f1b", "2bw", "interleaved")
 
 
 def build(args):
@@ -72,15 +86,57 @@ def build(args):
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.schedule != "stream":
-        return (f"--schedule {args.schedule} is not ported to PyTorch yet "
-                f"(the IR-interpreter schedules are a later slice); use "
-                f"--schedule stream")
     for flag, on in (("--trace", args.trace),
-                     ("--compress", args.compress)):
+                     ("--compress", args.compress),
+                     ("--execution mpmd", args.execution == "mpmd"),
+                     ("--profile-method hlo", args.profile_method == "hlo")):
         if on:
             return f"{flag} is not ported to PyTorch yet"
     return None
+
+
+def round_size(schedule: str, batch: int, pipe: int, v: int,
+               ticks: int) -> int:
+    """The IR schedule's round size, by the JAX launcher's rule:
+    ``ticks`` when it is > 1, else the largest divisor of ``batch`` up
+    to 2·pipe·v that the schedule accepts (interleaved groups
+    microbatches by pipe, 2bw needs m >= pipe for its two weight
+    buffers).  Raises ``SystemExit`` when there is none."""
+    def legal(M):
+        if batch % M:
+            return False
+        if schedule == "interleaved":
+            return M % pipe == 0
+        if schedule == "2bw":
+            return M >= pipe
+        return True
+
+    M = ticks if ticks > 1 else next(
+        (c for c in range(min(2 * pipe * v, batch), 0, -1) if legal(c)), 0)
+    if not M or not legal(M):
+        raise SystemExit(
+            f"no round size for --schedule {schedule}: need a divisor of "
+            f"--batch {batch} that is "
+            + ("a multiple of" if schedule == "interleaved" else "at least")
+            + f" --pipe {pipe}" + (f" (got --ticks {M})" if M else ""))
+    return M
+
+
+def _print_plan(pplan, ir_round: bool) -> None:
+    print(f"# {pplan.summary()}")
+    stage_desc = " ".join(
+        f"s{k}:L[{lo}:{hi})={c:.2e}s"
+        for k, ((lo, hi), c) in enumerate(zip(pplan.stage_ranges,
+                                              pplan.stage_costs_s)))
+    print(f"# realized stages: {stage_desc}  "
+          f"bottleneck={pplan.bottleneck_s:.2e}s "
+          f"(uniform would be {pplan.uniform_bottleneck_s:.2e}s)")
+    if ir_round:
+        print(f"# schedule {pplan.schedule}: "
+              f"round={pplan.round_microbatches} microbatches, "
+              f"bubble={pplan.bubble_frac:.3f}, "
+              f"act_stash={pplan.act_stash}, "
+              f"w_stash_depth={pplan.w_stash_depth}")
 
 
 def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
@@ -98,13 +154,17 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--mode", default="spectrain",
-                    choices=("sync",) + pipeline_stream.MODES)
-    ap.add_argument("--schedule", default="stream", choices=SCHEDULES,
-                    help="pipeline schedule; only 'stream' is ported")
-    ap.add_argument("--lr", type=float, default=1e-2)
-    ap.add_argument("--gamma", type=float, default=0.9)
-    ap.add_argument("--clip", type=float, default=0.0)
+    add_runtime_args(ap)
+    ap.add_argument("--virtual-stages", type=int, default=1,
+                    dest="virtual_stages",
+                    help="chunks per device for --schedule interleaved")
+    ap.add_argument("--partitioner", default="dp", choices=("dp", "uniform"),
+                    help="stage-partition method for the planner")
+    ap.add_argument("--profile-method", default="analytic",
+                    choices=("auto", "hlo", "timed", "analytic"),
+                    dest="profile_method",
+                    help="per-layer cost acquisition for the planner "
+                         "('timed' runs one block on --device)")
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -128,6 +188,15 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     why = _not_ported(args)
     if why:
         raise SystemExit(why)
+    if args.mode == "sync" and args.schedule != "stream":
+        raise SystemExit(
+            f"--mode sync runs the fill/drain pipeline and cannot honor "
+            f"--schedule {args.schedule}; drop one of the two flags")
+    if args.virtual_stages > 1 and args.schedule != "interleaved":
+        raise SystemExit(
+            f"--virtual-stages {args.virtual_stages} requires "
+            f"--schedule interleaved, got --schedule {args.schedule}")
+    rc = runtime_config_from_args(args, ticks_per_step=max(args.ticks, 1))
 
     cfg = build(args)
     model = Model(cfg, device=args.device)
@@ -135,11 +204,25 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
                                   seed=args.seed, kind=args.data_kind))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     S = model.n_stages
-    if args.mode != "sync":
-        s_fwd, lag, gap = pipeline_stream._plan_vectors(S)
-        print(f"# stream schedule (closed forms, uniform split "
-              f"{pipeline_stream.stage_sizes(model)}): s_fwd={s_fwd} "
-              f"bwd_lag={lag} fb_gap={gap}")
+
+    # the plan of the schedule this run executes (gpipe for the sync
+    # fill/drain pipeline): its partition is executed, the runtimes
+    # regroup the stage weights by its layer ranges
+    schedule = "gpipe" if args.mode == "sync" else args.schedule
+    ir_round = schedule in pipeline_stream.IR_SCHEDULES and \
+        args.mode != "sync"
+    plan_kw = {}
+    if ir_round:
+        plan_kw["n_microbatches"] = round_size(
+            schedule, args.batch, args.pipe, args.virtual_stages,
+            args.ticks)
+    pplan = make_plan(
+        cfg, n_stages=S, schedule=schedule,
+        virtual_stages=args.virtual_stages, partitioner=args.partitioner,
+        profile_method=args.profile_method, batch=args.batch, seq=args.seq,
+        device=model.device, **plan_kw)
+    check_against_closed_forms(pplan)
+    _print_plan(pplan, ir_round)
 
     registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
     bg_save = None
@@ -155,12 +238,9 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
                 num_microbatches=cfg.mesh_plan.num_microbatches,
                 clip=args.clip or None)
         else:
-            state = pipeline_stream.init_state(
-                model, gen, data.batch_at(0), mode=args.mode,
-                ticks_per_step=max(args.ticks, 1))
-            step_fn = pipeline_stream.make_train_step(
-                model, mode=args.mode, lr=args.lr, gamma=args.gamma,
-                clip=args.clip or None, ticks_per_step=max(args.ticks, 1))
+            rt = Runtime(pplan, model, rc)
+            state = rt.init_state(model.init(gen), data.batch_at(0))
+            step_fn = rt.train_step
         start = 0
         if args.resume == "auto" and args.ckpt_dir:
             last = ckpt.latest_step(args.ckpt_dir)

@@ -223,22 +223,24 @@ class Model:
 
     # --------------------------------------------------------- ragged stages
     def partition_stage_params(self, stages, sizes, *, n_chunks=None):
-        """Regroup ragged stage trees into per-stage trees for ``sizes``
-        (a per-stage layer-count vector summing to ``cfg.n_layers``).  A
-        ragged input whose sizes already match is returned as is; any
-        other is merged through the flat layer order and split again
-        (a copy).  ``n_chunks``: the expected tree count when it is not
-        the model's stage count (the pipelined engine splits the layers
-        into its plan's stages whatever ``cfg.mesh_plan.pipe`` says; the
-        JAX twin also asks that it fold onto the model's devices, which
-        one card does not need).  The legacy stacked ``[S, Lps, ...]``
-        layout and the hybrid shared blocks are not ported (the SSM
-        families serve only)."""
-        if not isinstance(stages, (tuple, list)):
-            raise NotImplementedError(
-                "stacked [S, Lps, ...] stage params are not ported to "
-                "PyTorch; pass the ragged per-stage tuple")
-        if any("shared" in t for t in stages):
+        """Regroup stage params into per-stage trees for ``sizes`` (a
+        per-stage layer-count vector summing to ``cfg.n_layers``, a
+        planner ``Partition.sizes()``).  ``stages`` is the ragged
+        canonical tuple (any partition) or the legacy stacked layout
+        ``{"layers": [S, Lps, ...]}``.  A ragged input whose sizes
+        already match is returned as is; any other is merged through the
+        flat layer order and split again (views of one flat copy).
+
+        ``n_chunks``: the expected tree count when it is not the model's
+        stage count: interleaved plans split the layers into ``S·v``
+        chunk-stages (device d then holds chunks d, d+S, …, see
+        :meth:`device_chunk_params`), and the pipelined engine splits
+        them into its plan's stages whatever ``cfg.mesh_plan.pipe``
+        says.  The JAX twin also asks that ``n_chunks`` fold onto the
+        model's devices, which one card does not need.  Hybrid shared
+        blocks are not ported (the SSM families serve only)."""
+        ragged_in = isinstance(stages, (tuple, list))
+        if any("shared" in t for t in (stages if ragged_in else [stages])):
             raise NotImplementedError(
                 "hybrid shared blocks are not ported to PyTorch yet")
         sizes = tuple(int(n) for n in sizes)
@@ -251,10 +253,28 @@ class Model:
                              f"{want} (chunk-)stages")
         if min(sizes) < 1:
             raise ValueError(f"empty stage in partition sizes {sizes}")
+        if not ragged_in:
+            # stacked [S, Lps, ...] leaves: the flat order is S-major
+            flat = tree_map(lambda _, a: a.reshape((-1,) + a.shape[2:]),
+                            stages["layers"])
+            return split_flat_stages({"layers": flat}, sizes)
         if tuple(_n_layers(t) for t in stages) == sizes:
             return tuple(stages)
         return split_flat_stages({"layers": flat_stage_layers(stages)},
                                  sizes)
+
+    def device_chunk_params(self, chunk_trees, n_devices=None):
+        """Group chunk-stage trees by hosting device: device ``d`` hosts
+        chunk-stages ``d, d+S, …`` (Megatron's round-robin placement),
+        so the result is a tuple of ``n_devices`` tuples of ``v`` trees
+        (the layout a stage-local deployment holds per device)."""
+        S = n_devices if n_devices is not None else self.n_stages
+        C = len(chunk_trees)
+        if S < 1 or C % S:
+            raise ValueError(f"{C} chunk trees do not fold onto {S} devices")
+        v = C // S
+        return tuple(tuple(chunk_trees[c * S + d] for c in range(v))
+                     for d in range(S))
 
     # ------------------------------------------------------------------ decode
     def init_cache(self, batch: int, max_seq: int):

@@ -17,7 +17,8 @@ the fp32 attention backward on the card and on the CPU each against an
 fp64 evaluation at atol 2e-5 / rtol 1e-3 (over 200 seeds both sides'
 largest error was 5.6e-6, NVIDIA H100 80GB HBM3); the simulator on the
 card against the CPU at the CPU parity tests' rtol 1e-5 / atol 1e-6;
-resume bit for bit;
+resume bit for bit; IR rounds of every round schedule as the training
+ticks;
 for the two scans 2e-5 on fp32 outputs (every step is fp32 on both
 sides, in another summation order) and 2e-2 on the bf16 rwkv6 y (one
 bf16 rounding of an fp32 value); 1e-4 for fp32 model logits and
@@ -980,3 +981,58 @@ def test_pipelined_engine_tokens_on_card_match_cpu(card, arch):
         eng.n_waves + eng.n_lanes)
     assert pv.verify_request_trace(eng.last_events, n_slots=4, n_pages=4,
                                    n_stages=2).ok
+
+
+# ---------------------------------------------------------------------------
+# the round schedules through the IR interpreter
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule,mode,v,backend", [
+    ("gpipe", "spectrain", 1, "scan"), ("1f1b", "vanilla", 1, "scan"),
+    ("2bw", "spectrain", 1, "scan"), ("2bw", "pipedream", 1, "unrolled"),
+    ("interleaved", "spectrain", 2, "scan")])
+def test_ir_rounds_on_card_match_cpu(card, schedule, mode, v, backend):
+    """Three IR rounds on 2 stages of a 5-layer smoke granite in fp32 (a
+    ragged dp split; 4 chunks of the interleaved plan): the card (flash
+    forward/backward and fused update kernels) against the CPU (their
+    plain versions), at the streaming tick's tolerances: losses to rtol
+    1e-5, every state leaf (the 2bw stash too) to rtol 1e-4 / atol 1e-5.
+    A round launches 2·L·M flash forwards (each backward recomputes its
+    chunk), L·M of each backward kernel and C + 1 fused updates."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.planner import plan
+    cfg = _smoke_cfg().replace(n_layers=5, mesh_plan=dataclasses.replace(
+        get_config("granite-8b").mesh_plan, pipe=2))
+    pplan = plan(cfg, n_stages=2, schedule=schedule, virtual_stages=v,
+                 n_microbatches=2, batch=4, seq=16)
+    C, M, L = pplan.n_chunks, pplan.round_microbatches, cfg.n_layers
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    out = {}
+    ops.reset_launch_counts()
+    for model, params in ((cpu, p_cpu), (gpu, _on(p_cpu, card))):
+        state = ps.make_ir_state(model, params, plan=pplan, mode=mode)
+        step = ps.make_ir_train_step(model, plan=pplan, mode=mode, lr=0.05,
+                                     backend=backend)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        out[model.device.type] = (state, losses)
+    n = len(batches)
+    assert ops.launch_counts() == {
+        "flash_fwd": 2 * L * M * n, "flash_bwd_dq": L * M * n,
+        "flash_bwd_dkv": L * M * n, "fused_update": (C + 1) * n,
+        "rwkv6_scan": 0, "mamba2_scan": 0}
+    (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    keys = ["params", "momentum"] + (["stash"] if "stash" in s_c else [])
+    for key in keys:
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            np.testing.assert_allclose(
+                g.float().cpu().numpy(), c.float().numpy(),
+                rtol=1e-4, atol=1e-5, err_msg=key)

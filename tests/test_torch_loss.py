@@ -141,11 +141,51 @@ def test_partition_stage_params():
         tm.partition_stage_params(stages, (3, 3, 3))
     with pytest.raises(ValueError, match="empty"):
         tm.partition_stage_params(stages, (0, 3, 4))
-    with pytest.raises(NotImplementedError, match="stacked"):
-        tm.partition_stage_params({"layers": {}}, (3, 2, 2))
     with pytest.raises(NotImplementedError, match="shared"):
         tm.partition_stage_params(
             tuple({**s, "shared": {}} for s in stages), (3, 2, 2))
+
+
+def test_partition_stacked_and_chunked_like_jax():
+    """The legacy stacked [S, Lps, ...] input, the interleaved plans'
+    n_chunks = S·v chunk trees (ragged too) and their per-device
+    grouping, each equal to JAX's."""
+    cfg, jm, jparams, tm, tparams = _pair(3, 6)
+    jstacked = jm.stack_stage_params(jparams["stages"])
+    tstacked = {"layers": tree_map(
+        lambda path, _: torch.stack([_at(t["layers"], path) for t in
+                                     tparams["stages"]]),
+        tparams["stages"][0]["layers"])}
+    for sizes, n_chunks in (((1, 2, 3), None), ((2, 2, 2), None),
+                            ((1,) * 6, 6)):
+        for src_t, src_j in ((tstacked, jstacked),
+                             (tparams["stages"], jparams["stages"])):
+            got = tm.partition_stage_params(src_t, sizes, n_chunks=n_chunks)
+            want = jm.partition_stage_params(src_j, sizes,
+                                             n_chunks=n_chunks)
+            _close_trees(got, want, rtol=0, atol=0)
+    # a ragged chunk split: 7 layers in 6 chunks on 3 devices
+    _, jm, jparams, tm, tparams = _pair(3, 7)
+    chunks_t = tm.partition_stage_params(tparams["stages"],
+                                         (2, 1, 1, 1, 1, 1), n_chunks=6)
+    chunks_j = jm.partition_stage_params(jparams["stages"],
+                                         (2, 1, 1, 1, 1, 1), n_chunks=6)
+    _close_trees(chunks_t, chunks_j, rtol=0, atol=0)
+    by_dev_t = tm.device_chunk_params(chunks_t)
+    by_dev_j = jm.device_chunk_params(chunks_j)
+    assert [len(d) for d in by_dev_t] == [len(d) for d in by_dev_j] == \
+        [2, 2, 2]
+    for dt, dj in zip(by_dev_t, by_dev_j):
+        _close_trees(dt, dj, rtol=0, atol=0)
+    for m in (tm, jm):
+        with pytest.raises(ValueError, match="fold"):
+            m.device_chunk_params(chunks_t[:5])
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 @pytest.mark.parametrize("S,L,clip", [(2, 4, None), (3, 7, 0.5)])
@@ -196,8 +236,14 @@ def test_launcher_smoke_on_cpu(mode, tmp_path, capsys):
                       "--metrics-out", str(out), "--ticks", "2"])
     assert rc == 0
     text = capsys.readouterr().out
+    # every run is planned: the stream plan's IR-derived s_fwd, gpipe's
+    # for the sync fill/drain pipeline
     if mode != "sync":
-        assert "s_fwd=[2, 0] bwd_lag=[2, 1] fb_gap=[2, 0]" in text
+        assert "# plan[stream x2 part=dp:(2, 2) s_fwd=(2, 0) s_bwd=(0, 0)" \
+            in text
+    else:
+        assert "# plan[gpipe x2 part=dp:(2, 2) s_fwd=(0, 0)" in text
+    assert "# realized stages: s0:L[0:2)" in text
     recs = [json.loads(x) for x in out.read_text().splitlines()]
     steps = [r for r in recs if r["event"] == "train_step"]
     assert [r["step"] for r in steps] == [2, 4]
@@ -224,9 +270,23 @@ def test_launcher_step_hook_and_data_kind(capsys):
                                   ["--trace", "t.json"],
                                   ["--schedule", "2bw"],
                                   ["--compress", "int8"]])
-def test_launcher_not_ported(argv):
-    with pytest.raises(SystemExit, match="not ported"):
-        ttrain.main(["--smoke", "--device", "cpu"] + argv)
+def test_launcher_not_ported(argv, capsys):
+    """``--trace`` and ``--compress`` are still refused; the round
+    schedules, refused before the planner slice, now train: the plan
+    and the round are printed and every round's loss is finite."""
+    base = ["--smoke", "--device", "cpu"]
+    if argv[0] != "--schedule":
+        with pytest.raises(SystemExit, match="not ported"):
+            ttrain.main(base + argv)
+        return
+    assert ttrain.main(base + argv + ["--steps", "2", "--log-every",
+                                      "1", "--json"]) == 0
+    out = capsys.readouterr().out
+    assert f"# plan[{argv[1]} x2 part=dp:(1, 1)" in out
+    assert f"# schedule {argv[1]}: round=4 microbatches" in out
+    recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in recs)
 
 
 def test_launcher_cuda_without_card_raises():

@@ -16,6 +16,7 @@ import torch
 from conftest import tiny_cfg
 from repro.models import Model as JModel
 from repro.planner import serve_plan as jserve_plan
+from repro.planner import synthetic_profile as jsynthetic
 from repro.serve import Request as JRequest
 from repro.serve import SimpleEngine as JSimpleEngine
 from repro.serve import admissible as jadmissible
@@ -25,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import Model, from_jax_params
 from repro_torch.planner import serve_plan
+from repro_torch.planner import synthetic_profile as tsynthetic
 from repro_torch.serve import (Request, SimpleEngine, admissible,
                                poisson_trace)
 from test_torch_model import port_cfg
@@ -128,8 +130,22 @@ def test_serve_plan_summary_and_validation_match_jax():
             serve_plan(None, n_stages=2, **kw)
         with pytest.raises(ValueError):
             jserve_plan(None, n_stages=2, validate=False, **kw)
-    with pytest.raises(NotImplementedError):
-        serve_plan(None, n_stages=2, partitioner="dp", **PLAN_KW)
+    # the dp partitioner (refused before the planner slice): equal to
+    # JAX's on a skewed profile and on a config's analytic profile
+    costs = [4.0, 1.0, 1.0, 1.0, 1.0, 2.0]
+    got = serve_plan(None, n_stages=3, partitioner="dp",
+                     profile=tsynthetic(costs), **PLAN_KW)
+    want = jserve_plan(None, n_stages=3, partitioner="dp",
+                       profile=jsynthetic(costs), **PLAN_KW)
+    assert got.summary() == want.summary()
+    assert got.partition.boundaries == want.partition.boundaries
+    assert got.stage_sizes == want.stage_sizes != (2, 2, 2)
+    jcfg = tiny_cfg("granite-8b", n_layers=7, pipe=3)
+    got = serve_plan(port_cfg(jcfg), n_stages=3, partitioner="dp",
+                     **PLAN_KW)
+    want = jserve_plan(jcfg, n_stages=3, partitioner="dp", **PLAN_KW)
+    assert got.summary() == want.summary()
+    assert got.stage_ranges == want.stage_ranges
 
 
 # (g) the launcher, end to end on the CPU

@@ -12,8 +12,6 @@ Then the JAX test file's claims (``tests/test_simulator.py``), on the
 port alone at the JAX sizes, and the port's own mechanics: the
 copy-on-write history and the update in N + 1 groups.
 """
-import types
-
 import jax
 import numpy as np
 import pytest
@@ -28,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import Model, from_jax_params
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import sgd
+from repro_torch.planner import plan as tplan
 from test_torch_model import port_cfg
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -122,17 +121,55 @@ def test_clip_matches_jax(scheme):
 
 @pytest.mark.parametrize("scheme", ["pipedream", "spectrain"])
 def test_plan_staleness_matches_jax(scheme):
-    """A duck-typed plan carrying a JAX planner plan's staleness vectors
-    (the stream schedule: s_fwd = 2(N-1-k), s_bwd = 0) against the JAX
-    simulator given the plan itself."""
+    """The port's own stream plan (s_fwd = 2(N-1-k), s_bwd = 0) against
+    the JAX simulator given the JAX plan."""
     p = jplan(n_layers=4, n_stages=4, schedule="stream")
-    duck = types.SimpleNamespace(n_stages=p.n_stages,
-                                 n_chunks=getattr(p, "n_chunks", p.n_stages),
-                                 s_fwd=tuple(p.s_fwd), s_bwd=tuple(p.s_bwd))
-    assert duck.s_fwd == (6, 4, 2, 0)
+    tp_plan = tplan(n_layers=4, n_stages=4, schedule="stream")
+    assert tp_plan.s_fwd == tuple(p.s_fwd) == (6, 4, 2, 0)
+    assert tp_plan.s_bwd == tuple(p.s_bwd)
     jf, jp, tf, tp = _mlp_pair(4, 4)
     _run_pair(jf, jp, tf, tp, _teacher(STEPS), jkw={"plan": p},
-              tkw={"plan": duck}, scheme=scheme, lr=0.05, rmse_s=(1, 2))
+              tkw={"plan": tp_plan}, scheme=scheme, lr=0.05, rmse_s=(1, 2))
+
+
+@pytest.mark.parametrize("schedule,v", [("1f1b_rr", 1), ("2bw", 1),
+                                        ("interleaved", 2)])
+def test_port_plans_match_jax(schedule, v):
+    """The port's round-robin, 2BW and interleaved chunk plans (4 chunk
+    stages) drive the port's simulator as the JAX plans drive JAX's."""
+    kw = dict(n_layers=4, n_stages=4 // v, schedule=schedule,
+              virtual_stages=v)
+    p, t = jplan(**kw), tplan(**kw)
+    assert (t.n_chunks, t.s_fwd, t.s_bwd) == (p.n_chunks, tuple(p.s_fwd),
+                                              tuple(p.s_bwd))
+    jf, jp, tf, tp = _mlp_pair(4, 4)
+    _run_pair(jf, jp, tf, tp, _teacher(STEPS), jkw={"plan": p},
+              tkw={"plan": t}, scheme="spectrain", lr=0.05)
+
+
+def test_staged_from_model_interleaved_chunks_match_jax():
+    """An interleaved plan's 4 chunk trees of a 4-layer granite on 2
+    devices, through ``staged_from_model(partition=...)`` on both
+    sides."""
+    cfg = tiny_cfg("granite-8b", n_layers=4, pipe=2, n_kv_heads=2)
+    jm = JModel(cfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = Model(port_cfg(cfg), device="cpu")
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tm.cfg,
+                              device="cpu")
+    kw = dict(n_stages=2, schedule="interleaved", virtual_stages=2,
+              n_layers=4)
+    p, t = jplan(**kw), tplan(**kw)
+    jf, jrepack = jsim.staged_from_model(jm, p.partition)
+    tf, trepack = tsim.staged_from_model(tm, t.partition)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(4):
+        tok = rng.integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+        batches.append({"tokens": tok[:, :-1], "targets": tok[:, 1:]})
+    _run_pair(jf, jrepack(jparams), tf, trepack(tparams), batches,
+              jkw={"plan": p}, tkw={"plan": t}, scheme="spectrain",
+              lr=0.05)
 
 
 @pytest.mark.parametrize("scheme", tsim.Simulator.SCHEMES)

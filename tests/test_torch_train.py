@@ -22,9 +22,13 @@ from conftest import tiny_cfg
 from repro.core import pipeline_stream as jps
 from repro.core import spectrain as jst
 from repro.models import Model as JModel
+from repro.planner import plan as jplan
+from repro.planner import synthetic_profile as jsynthetic
 from repro_torch.core import pipeline_stream as tps
 from repro_torch.models import Model, from_jax_params
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.planner import plan as tplan
+from repro_torch.planner import synthetic_profile as tsynthetic
 from test_torch_model import port_cfg
 
 LOSS_RTOL = 1e-5
@@ -273,9 +277,49 @@ def test_pipedream_last_stage_reads_old_stash_slot():
 
 
 def test_plan_raises_not_ported():
-    _, _, _, tm, tparams = _pair(2, 4)
-    with pytest.raises(NotImplementedError, match="planner not ported"):
-        tps.make_state(tm, tparams, _batches(tm.cfg, 1)[0], plan=object())
+    """``plan=`` runs (it used to raise, the planner not being ported): a
+    stream plan whose dp split of 7 layers on 3 stages, over a skewed
+    profile, differs from the model's own (3, 2, 2) drives the port's
+    tick as the JAX plan drives JAX's (spectrain: the plan's prediction
+    distances; pipedream: its ring offsets over the regrouped weight
+    stash); a round-schedule plan is refused by both."""
+    cfg, jm, jparams, tm, tparams = _pair(3, 7)
+    kw = dict(n_stages=3, schedule="stream", partitioner="dp",
+              profile=jsynthetic([3, 1, 1, 1, 1, 1, 1]))
+    jp = jplan(cfg, **kw)
+    tp = tplan(tm.cfg, **dict(kw, profile=tsynthetic([3, 1, 1, 1, 1, 1,
+                                                      1])))
+    assert tp.partition.sizes() == jp.partition.sizes() == (1, 3, 3)
+    assert (tp.s_fwd, tp.bwd_lag, tp.fb_gap) == (
+        tuple(jp.s_fwd), tuple(jp.bwd_lag), tuple(jp.fb_gap))
+    bs = _batches(cfg, 2 * 2 + 3)
+    sds = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                       bs[0])
+    for mode in ("spectrain", "pipedream"):
+        js = jps.make_state(jm, jparams, sds, mode=mode, plan=jp)
+        ts = tps.make_state(
+            tm, tree_map(lambda _, a: a.clone(), tparams), bs[0],
+            mode=mode, plan=tp)
+        assert [tree_leaves(t)[0].shape[0] for t in
+                ts["params"]["stages"]] == [1, 3, 3]
+        jstep = jax.jit(jps.make_train_step(jm, mode=mode, lr=LR, plan=jp))
+        tstep = tps.make_train_step(tm, mode=mode, lr=LR, plan=tp)
+        jl, tl = [], []
+        for b in bs:
+            if mode == "pipedream":
+                js = _repair_pipedream(js)
+            js, jmet = jstep(js, b)
+            ts, tmet = tstep(ts, b)
+            jl.append((float(jmet["loss"]), float(jmet["loss_valid"])))
+            tl.append((float(tmet["loss"]), float(tmet["loss_valid"])))
+        _check(js, ts, jl, tl, 3, mode)
+    round_plan = tplan(tm.cfg, n_stages=3, schedule="1f1b")
+    for make in (lambda: jps.make_state(jm, jparams, sds, plan=jplan(
+            cfg, n_stages=3, schedule="1f1b")),
+                 lambda: tps.make_state(tm, tparams, bs[0],
+                                        plan=round_plan)):
+        with pytest.raises(ValueError, match="stream schedule"):
+            make()
 
 
 def test_jax_stays_on_cpu():
