@@ -3,6 +3,7 @@
 card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mpmd-only    # phases 15 (three runs) and 16
 
 Run from the root of the repository on a machine with one NVIDIA card
 (an H100 is what the numbers are for).  It imports nothing of JAX or of
@@ -176,6 +177,34 @@ The planner and the round schedules add two phases:
      of the unprofiled steady rounds), tokens/s, one profiled round
      (busy, idle, kernels, ``fused_update`` ms), peak memory, and for
      2bw the stash copy's ms (CUDA events).
+
+Stage-local (MPMD) execution adds two phases, each run through the
+launchers with one process per stage (``launch/mesh.py``), the 4 ranks
+sharing the one card over gloo through pinned host buffers:
+
+ 16. (``mpmd_train``, after phase 15, the SPMD states freed first)
+     ``repro_torch.launch.train.main --execution mpmd`` on the same
+     full-width granite-8b, 8 layers, 4 stages, batch 8 x 512, bf16,
+     dp plan, from the same seed, under 1f1b, 2bw and interleaved v2
+     (spectrain), 4 rounds each: the losses and an exact digest of
+     every params, momentum and 2bw stash leaf (integer reductions of
+     its bits, taken on the card in each rank) against phase 15's SPMD
+     rounds (the leaves bit-equal counted; a leaf that is not is named
+     and held to rtol 1e-4 / atol 1e-5 on a strided sample); each
+     rank's launches a round exactly its chunks' share, summing to the
+     SPMD round's (2·L·M ``flash_fwd``, L·M of each backward kernel)
+     and C + 2 ``fused_update`` (the outer leaves live on ranks 0 and
+     3); each rank's payloads a round equal to the device streams'
+     prediction in count and bytes; the round wall (median of the
+     unprofiled steady rounds on rank 0, after a barrier), each rank's
+     device busy time and kernels in one profiled round, its peak memory
+     and its time in the transport;
+ 17. (``mpmd_serve``, after phase 13) ``repro_torch.launch.serve.main
+     --execution mpmd`` on full granite-8b and rwkv6-7b with phase 13's
+     flags and trace: every request's tokens against the scan backend's
+     from phase 13 (the first difference printed if any), the ranks'
+     launches summing to phase 13's run without its warm-up round,
+     tok/s over ``run()`` after warm-up and a steady round's wall.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -2158,6 +2187,7 @@ def pipelined_path(torch, ops, arch: str) -> dict:
         print(f"  {what}: {ms:.4f} ms of device time a wave ({L} layers, "
               f"timed alone)")
     return {"launches": counts, "variants": variants, "run": run,
+              "results": results, "layers": L,
               "tok_per_s": tok_per_s, "rounds": rounds_run,
               "waves": waves - 1, "lanes": lanes - 1, "peak_bytes": peak,
               "simple_tok_per_s": simple_tok_s,
@@ -2496,7 +2526,7 @@ def ir_update_checks(torch, ops, ref) -> None:
         torch.cuda.empty_cache()
 
 
-def ir_schedules(torch, ops, ref) -> dict:
+def ir_schedules(torch, ops, ref, runs=None) -> dict:
     """Each round schedule through ``repro_torch.launch.train.main`` on
     full-width granite-8b, 4 stages, batch 8 x 512, bf16: the plan (dp,
     verified before the first round), finite losses, exact launches a
@@ -2508,7 +2538,7 @@ def ir_schedules(torch, ops, ref) -> dict:
     from repro_torch.launch import train
     ir_update_checks(torch, ops, ref)
     out = {}
-    for label, argv, L, v, sizes in IR_RUNS:
+    for label, argv, L, v, sizes in (IR_RUNS if runs is None else runs):
         phase(f"ir_schedules: repro_torch.launch.train.main, {ARCH} full "
               f"width, {L} layers in {TRAIN_STAGES} stages, bf16, {label}, "
               f"{IR_ROUNDS} rounds")
@@ -2529,6 +2559,9 @@ def ir_schedules(torch, ops, ref) -> dict:
             rec["variants"].append(dict(ops.variant_counts()))
             rec["loss"].append(float(metrics["loss"]))
             sp.hook(s)
+            if s == IR_ROUNDS - 1 and label in MPMD_LABELS:
+                # before the stash timing below rewrites the stash
+                snap["digests"] = leaf_digests(torch, state)
             if s == IR_ROUNDS - 1 and "stash" in state:
                 # the double buffer's copy alone (after the last round:
                 # it rewrites the stash), CUDA events, 3 runs
@@ -2609,7 +2642,11 @@ def ir_schedules(torch, ops, ref) -> dict:
              "peak_bytes": peak, "losses": rec["loss"], "kernel_ms": by,
              "n_kernels": sum(e.count for e in kern), "run_s": run_s,
              "stash_ms": snap.get("stash_ms"),
-             "stash_bytes": snap.get("stash_bytes")}
+             "stash_bytes": snap.get("stash_bytes"),
+             "digests": snap.get("digests"), "kern_counts": {
+                 name: sum(e.count for e in kern
+                           if KERNEL_SYMBOL[name] in e.key)
+                 for name in want}}
         print(f"  per round: {want} launches, every attention launch on "
               f"the tensor cores {want_v} (exact on every round); losses "
               f"{[round(x, 4) for x in rec['loss']]}")
@@ -2635,6 +2672,346 @@ def ir_schedules(torch, ops, ref) -> dict:
                   f"{e.count:5d}x  {e.key[:72]}")
         out[label] = r
         del snap
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stage-local (MPMD) execution: one process per stage on the one card
+
+# (label of the ir_schedules run it is held to, argv, virtual stages)
+MPMD_RUNS = [
+    ("1f1b spectrain", ["--schedule", "1f1b"], 1),
+    ("2bw spectrain", ["--schedule", "2bw"], 1),
+    ("interleaved v2 spectrain", ["--schedule", "interleaved",
+                                  "--virtual-stages", "2"], 2),
+]
+MPMD_LABELS = tuple(r[0] for r in MPMD_RUNS)
+# a bit digest's chunk (elements) and index weights' period
+DIGEST_CHUNK, DIGEST_PERIOD = 1 << 24, 8191
+DIGEST_SAMPLE = 256
+
+
+def leaf_digests(torch, state) -> dict:
+    """``{key: {"d": [s1, s2], "sample": [...]}}`` for every tensor leaf of
+    a train state's params, momentum and 2bw stash, keyed by its path
+    (``params/stages/3/layers/...``): ``s1`` the sum of its bit patterns
+    as int64, ``s2`` the sum weighted by ``(index % 8191) + 1`` (the two
+    reduced on the card in chunks, wrapping alike on both sides), and a
+    strided sample of 256 values in fp32 for a tolerance check where the
+    bits differ.  Only the sums and the sample cross to the host."""
+    from repro_torch.models.layers import tree_map
+    out = {}
+
+    def one(path, t):
+        if not isinstance(t, torch.Tensor):
+            return
+        flat = t.detach().reshape(-1)
+        ints = flat.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+        s1 = s2 = None
+        for lo in range(0, flat.numel(), DIGEST_CHUNK):
+            b = ints[lo:lo + DIGEST_CHUNK].to(torch.int64)
+            w = torch.arange(lo, lo + b.numel(), device=t.device,
+                             dtype=torch.int64) % DIGEST_PERIOD + 1
+            a1, a2 = b.sum(), (b * w).sum()
+            s1 = a1 if s1 is None else s1 + a1
+            s2 = a2 if s2 is None else s2 + a2
+        idx = torch.arange(DIGEST_SAMPLE, device=t.device) * \
+            (flat.numel() - 1) // (DIGEST_SAMPLE - 1)
+        out["/".join(path)] = {"d": [int(s1), int(s2)],
+                               "sample": flat[idx].float().cpu().tolist()}
+    for name in ("params", "momentum", "stash"):
+        if name in state:
+            tree_map(lambda path, t: one((name,) + path, t), state[name])
+    return out
+
+
+class MpmdProbe:
+    """The ``on_step`` hook of an MPMD run, called in every rank (it
+    pickles into the spawned ranks): each round's launches, payload
+    counters and loss (the last chunk's rank), its wall on rank 0
+    between barriers, one profiled round (``StepProfile``, exact counts
+    of the rank's own kernels), and after the last round the leaves'
+    digests, the peak memory and the transport time; written to
+    ``<out>/rank<r>.json``."""
+
+    def __init__(self, out: str, label: str, M: int):
+        self.out, self.label, self.M = out, label, M
+        self.rec = None
+
+    def _want(self, state) -> dict:
+        L_r = sum(int(t["layers"]["ln1"]["scale"].shape[0])
+                  for t in state["params"]["stages"] if t)
+        n_trees = sum(1 for t in state["params"]["stages"] if t) + \
+            int(bool(state["params"]["outer"]))
+        return {"flash_fwd": 2 * L_r * self.M, "flash_bwd_dq": L_r * self.M,
+                "flash_bwd_dkv": L_r * self.M, "fused_update": n_trees}
+
+    def __call__(self, s, state, metrics):
+        import torch
+        from repro_torch.kernels import ops
+        from repro_torch.runtime import sharding as rsh
+        g = rsh.current_group()
+        torch.cuda.synchronize()
+        g.barrier()
+        if self.rec is None:
+            want = self._want(state)
+            self.rec = {"rank": g.rank, "want": want, "t": [], "t_end": [],
+                        "counts": [], "variants": [], "xfer": [],
+                        "loss": [], "transport": g.describe(),
+                        # joining the group, the draw and round 0
+                        "first_s": time.perf_counter() - g.t0}
+            self.sp = StepProfile(f"{self.label} rank {g.rank}", want,
+                                  IR_PROF_ROUND, IR_ROUNDS - 1)
+        rec = self.rec
+        rec["t"].append(time.perf_counter())
+        rec["counts"].append(dict(ops.launch_counts()))
+        rec["variants"].append(dict(ops.variant_counts()))
+        rec["xfer"].append(g.counters())
+        g.reset_counters()
+        if metrics["loss"] is not None:
+            rec["loss"].append(float(metrics["loss"]))
+        self.sp.hook(s)
+        if s == IR_ROUNDS - 1:
+            kern = self.sp.result()
+            rec["busy_ms"] = sum(e.self_device_time_total
+                                 for e in kern) / 1e3
+            rec["n_kernels"] = sum(e.count for e in kern)
+            rec["prof_round"] = self.sp.at
+            rec["prof_steps"] = self.sp.steps
+            rec["digests"] = leaf_digests(torch, state)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            with open(Path(self.out) / f"rank{g.rank}.json", "w") as f:
+                json.dump(rec, f)
+        torch.cuda.synchronize()
+        g.barrier()
+        rec["t_end"].append(time.perf_counter())
+
+
+def _digests_agree(spmd: dict, ranks: list, what: str) -> dict:
+    """The SPMD run's leaf digests against the ranks': every leaf held
+    (by every rank the placement names), bit-equal counted; a leaf whose
+    bits differ is named and held to rtol 1e-4 / atol 1e-5 on its
+    sample."""
+    held = {}
+    for rep in ranks:
+        for k, v in rep["digests"].items():
+            held.setdefault(k, []).append((rep["rank"], v))
+    check(set(held) == set(spmd), f"{what}: the ranks hold "
+          f"{len(held)} leaves, the SPMD state {len(spmd)}; missing "
+          f"{sorted(set(spmd) - set(held))[:3]}, extra "
+          f"{sorted(set(held) - set(spmd))[:3]}")
+    equal, differ = 0, []
+    for k, want in spmd.items():
+        for r, got in held[k]:
+            if got["d"] == want["d"]:
+                equal += 1
+                continue
+            a, b = got["sample"], want["sample"]
+            worst = max(abs(x - y) - 1e-4 * abs(y) for x, y in zip(a, b))
+            differ.append((k, r, worst))
+            check(worst <= 1e-5, f"{what}: leaf {k} on rank {r} differs "
+                  f"from the SPMD run's beyond rtol 1e-4 / atol 1e-5 "
+                  f"(sample excess {worst:.3e})")
+    return {"leaves": len(spmd), "copies": sum(map(len, held.values())),
+            "bit_equal": equal, "differ": differ}
+
+
+def mpmd_train(torch, ops, ir_runs: dict) -> dict:
+    """``repro_torch.launch.train.main --execution mpmd`` (4 ranks on the
+    card) under 1f1b, 2bw and interleaved v2, held to ``ir_schedules``'
+    SPMD rounds of the same label (see the module docstring, phase
+    16)."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.launch import train
+    from repro_torch.runtime import sharding as rsh
+    out = {}
+    for label, argv, v in MPMD_RUNS:
+        phase(f"mpmd_train: repro_torch.launch.train.main --execution mpmd, "
+              f"{ARCH} full width, {TRAIN_LAYERS} layers, {TRAIN_STAGES} "
+              f"ranks on the card, bf16, {label}, {IR_ROUNDS} rounds")
+        spmd = ir_runs[label]
+        full = IR_BASE + ["--layers", str(TRAIN_LAYERS)] + argv + \
+            ["--execution", "mpmd"]
+        args = train.parse_args(full)
+        cfg = train.build(args)
+        pplan, _ = train.run_plan(args, cfg, "cpu")
+        S, C, M, L = TRAIN_STAGES, pplan.n_chunks, IR_ROUND, TRAIN_LAYERS
+        head = rsh.head_rank(C, S)
+        pred = ps.mpmd_transfers(pplan.device_streams())
+        act_bytes = IR_MB_ROWS * TRAIN_SEQ * cfg.d_model * 2
+        sizes = pplan.partition.sizes()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            rc = train.main(full, on_step=MpmdProbe(tmp, label, M))
+            run_s = time.perf_counter() - t0
+            reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                    for r in range(S)]
+        check(rc == 0, f"{label}: train.main --execution mpmd returned {rc}")
+        want_t = rsh.describe_transport(rsh.choose_transport("cuda", S), S)
+        check(all(r["transport"] == want_t for r in reps),
+              f"{label}: transport {reps[0]['transport']!r}, expected "
+              f"{want_t!r}")
+        design = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M,
+                  "flash_bwd_dkv": L * M, "fused_update": C + len({0, head})}
+        check({k: spmd["per_round"][k] for k in design if k !=
+               "fused_update"} == {k: design[k] for k in design
+                                   if k != "fused_update"},
+              f"{label}: SPMD round {spmd['per_round']} vs design {design}")
+        for r, rep in enumerate(reps):
+            L_r = sum(sizes[q] for q in rsh.local_chunks(r, C, S))
+            want_r = {"flash_fwd": 2 * L_r * M, "flash_bwd_dq": L_r * M,
+                      "flash_bwd_dkv": L_r * M,
+                      "fused_update": len(rsh.local_chunks(r, C, S))
+                      + int(r in (0, head))}
+            check(rep["want"] == want_r, f"{label}: rank {r} expects "
+                  f"{rep['want']}, the plan gives {want_r}")
+            prev = {k: 0 for k in want_r}
+            for s_, c in enumerate(rep["counts"]):
+                got = {k: c[k] - prev[k] for k in want_r}
+                check(got == want_r, f"{label}: rank {r} round {s_} "
+                      f"launched {got}, expected {want_r}")
+                prev = c
+            mma = rep["variants"][-1]
+            check(mma["flash_fwd_mma"] == want_r["flash_fwd"] * IR_ROUNDS,
+                  f"{label}: rank {r} ran flash_fwd off the tensor cores")
+            n_s = pred[r]["fwd_sent"] + pred[r]["bwd_sent"]
+            n_r = pred[r]["fwd_recv"] + pred[r]["bwd_recv"]
+            for s_, x in enumerate(rep["xfer"]):
+                check((x["n_sent"], x["n_recv"], x["bytes_sent"],
+                       x["bytes_recv"], x["n_ctl"]) ==
+                      (n_s, n_r, n_s * act_bytes, n_r * act_bytes, 0),
+                      f"{label}: rank {r} round {s_} moved {x}, the "
+                      f"streams predict {n_s} sends and {n_r} receives "
+                      f"of {act_bytes} B")
+        total = {k: sum(rep["counts"][-1][k] for rep in reps)
+                 for k in design}
+        check(total == {k: n * IR_ROUNDS for k, n in design.items()},
+              f"{label}: the ranks launched {total}, expected {design} a "
+              f"round")
+        losses = reps[head]["loss"]
+        check(len(losses) == IR_ROUNDS, f"{label}: {len(losses)} losses")
+        loss_equal = losses == spmd["losses"]
+        if not loss_equal:
+            worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, spmd["losses"]))
+            print(f"  losses differ from the SPMD run's: {losses} vs "
+                  f"{spmd['losses']} (rel {worst:.3e})")
+            check(worst <= 1e-4, f"{label}: losses beyond rtol 1e-4")
+        dg = _digests_agree(spmd["digests"], reps, label)
+        r0 = reps[0]
+        prof = set().union(*(rep["prof_steps"] for rep in reps))
+        steady = sorted(r0["t"][i] - r0["t_end"][i - 1]
+                        for i in range(1, IR_ROUNDS) if i not in prof)
+        check(bool(steady), f"{label}: no unprofiled steady round")
+        wall_ms = steady[len(steady) // 2] * 1e3
+        # each rank's transport time a round: the median of the steady
+        # rounds (round 0 waits out the other ranks' first launches)
+        xfer_s = [sorted(rep["xfer"][i]["transport_s"]
+                         for i in range(1, IR_ROUNDS) if i not in prof)
+                  for rep in reps]
+        xfer_s = [x[len(x) // 2] for x in xfer_s]
+        res = {"label": label, "chunks": C, "wall_ms": wall_ms,
+               "spmd_wall_ms": spmd["wall_ms"], "losses": losses,
+               "loss_equal": loss_equal, "digests": dg, "per_round": design,
+               "per_rank": [rep["want"] for rep in reps],
+               "busy_ms": [rep["busy_ms"] for rep in reps],
+               "n_kernels": [rep["n_kernels"] for rep in reps],
+               "peak_bytes": [rep["peak_bytes"] for rep in reps],
+               "transport_ms": [1e3 * t for t in xfer_s],
+               "sent": [pred[r]["fwd_sent"] + pred[r]["bwd_sent"]
+                        for r in range(S)],
+               "act_bytes": act_bytes, "run_s": run_s,
+               "launches": total, "transport": r0["transport"]}
+        print(f"  transport: {r0['transport']}")
+        print(f"  launches a round, per rank: {res['per_rank']}; summed "
+              f"{design} (SPMD: {spmd['per_round']}); exact on every "
+              f"round, every attention launch on the tensor cores")
+        print(f"  payloads a round, per rank sent: {res['sent']} of "
+              f"{act_bytes} B each, as the streams predict; no control "
+              f"messages")
+        print(f"  losses {[round(x, 6) for x in losses]}: "
+              f"{'bit-equal to' if loss_equal else 'within rtol of'} the "
+              f"SPMD run's; leaves bit-equal {dg['bit_equal']}/"
+              f"{dg['copies']} ({dg['leaves']} leaves)"
+              + (f"; differing {dg['differ'][:4]}" if dg["differ"] else ""))
+        print(f"  round wall (rank 0, median of the unprofiled steady "
+              f"rounds): {wall_ms:.3f} ms (SPMD {spmd['wall_ms']:.3f} ms); "
+              f"per rank: busy {[round(b, 3) for b in res['busy_ms']]} ms "
+              f"in {res['n_kernels']} kernels (profiled round "
+              f"{r0['prof_round']}), peak "
+              f"{[round(p / 2**30, 2) for p in res['peak_bytes']]} GiB, "
+              f"transport {[round(t, 3) for t in res['transport_ms']]} ms "
+              f"a steady round (median); run {run_s:.1f} s, of it "
+              f"{max(r['first_s'] for r in reps):.1f} s from a rank's "
+              f"joining to the end of round 0")
+        out[label] = res
+    return out
+
+
+def mpmd_serve(torch, ops, pipelined: dict) -> dict:
+    """``repro_torch.launch.serve.main --execution mpmd`` (4 ranks on the
+    card) on full granite-8b and rwkv6-7b, held to phase 13's scan run
+    (module docstring, phase 17)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    out = {}
+    for arch in PIPE_ARCHS:
+        phase(f"mpmd_serve: repro_torch.launch.serve.main --execution "
+              f"mpmd, full {arch}, bf16, {PIPE_PLAN['n_stages']} ranks on "
+              f"the card")
+        scan = pipelined[arch]
+        L = get_config(arch).n_layers
+        name = "flash_fwd" if get_config(arch).ssm is None else "rwkv6_scan"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reps = []
+        t0 = time.perf_counter()
+        rc = serve.main(["--arch", arch, *PIPE_ARGV, "--execution", "mpmd"],
+                        ranks_out=reps)
+        run_s = time.perf_counter() - t0
+        check(rc == 0, f"{arch}: serve.main --execution mpmd returned {rc}")
+        got, want = reps[0]["results"], scan["results"]
+        same = [rid for rid in want if got.get(rid) == want[rid]]
+        if len(same) != len(want):
+            rid = next(r for r in sorted(want) if got.get(r) != want[r])
+            a, b = list(got.get(rid, ())), list(want[rid])
+            at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      min(len(a), len(b)))
+            print(f"  first difference: request {rid} at token {at}: "
+                  f"mpmd {a[at:at + 4]} vs scan {b[at:at + 4]}")
+        check(len(same) == len(want), f"{arch}: {len(same)}/{len(want)} "
+              f"requests' tokens equal the scan backend's")
+        launched = sum(rep["launches"][name] for rep in reps)
+        check(launched == scan["launches"][name] - 2 * L,
+              f"{arch}: the ranks launched {launched} {name}, the scan run "
+              f"{scan['launches'][name]} with its warm-up round (2 x {L})")
+        check(all(rep["n_waves"] == reps[0]["n_waves"] for rep in reps),
+              f"{arch}: the ranks ran different waves")
+        n_tokens = sum(len(t) for t in got.values())
+        tok_s = n_tokens / reps[0]["wall_s"]
+        rounds = sorted(reps[0]["round_ms"])
+        steady_ms = rounds[len(rounds) // 2]
+        res = {"equal": (len(same), len(want)), "tok_per_s": tok_s,
+               "scan_tok_per_s": scan["run_tok_per_s"],
+               "round_ms": steady_ms, "launches": launched,
+               "per_rank": [rep["launches"][name] for rep in reps],
+               "sent": [rep["n_sent"] for rep in reps],
+               "bytes_sent": [rep["bytes_sent"] for rep in reps],
+               "transport_s": [rep["transport_s"] for rep in reps],
+               "run_s": run_s}
+        print(f"  tokens equal the scan backend's for {len(same)}/"
+              f"{len(want)} requests; {name} launches per rank "
+              f"{res['per_rank']} (sum {launched} = the scan run's without "
+              f"its warm-up round)")
+        print(f"  {tok_s:.2f} tok/s over run() after warm-up (scan backend "
+              f"{scan['run_tok_per_s']:.2f}); median round "
+              f"{steady_ms:.3f} ms on rank 0; payloads sent per rank "
+              f"{res['sent']} ({[round(b / 1e6, 2) for b in res['bytes_sent']]}"
+              f" MB), transport {[round(t, 3) for t in res['transport_s']]}"
+              f" s; run {run_s:.1f} s")
+        out[arch] = res
     return out
 
 
@@ -3146,22 +3523,68 @@ def bench_scripts(torch) -> None:
         print(f"  ({mod.__name__}: {time.perf_counter() - t0:.1f} s)")
 
 
-def run() -> int:
+def _torch_or_none():
+    """torch with a card and the repository's ``src/`` on the path, or
+    None (the reason printed)."""
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+        return None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
-        return 2
+        return None
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
         print(f"chip_smoke: {src}/repro_torch not found; run from the root "
               f"of the repository", file=sys.stderr)
-        return 2
+        return None
     sys.path.insert(0, str(src))
+    return torch
+
+
+def run_mpmd_only() -> int:
+    """``python3 chip_smoke.py --mpmd-only``: the card, the build, phase
+    15's three SPMD runs that the stage-local runs are held to, and
+    phase 16 on the cards present (with one card each, as on a machine
+    of four, the ranks take NCCL).  Prints the MPMD lines; no JSON."""
+    torch = _torch_or_none()
+    if torch is None:
+        return 2
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    t_start = _T0[0] = time.perf_counter()
+    try:
+        info = card_info(torch)
+        build_kernels(build, r6, m2, fa, fu)
+        ir_runs = ir_schedules(torch, ops, ref, [
+            r for r in IR_RUNS if r[0] in MPMD_LABELS])
+        gc.collect()
+        torch.cuda.empty_cache()
+        mpmd_runs = mpmd_train(torch, ops, ir_runs)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    for label, r in mpmd_runs.items():
+        print(f"MPMD round {label} ({r['transport']}): {r['wall_ms']:.3f} "
+              f"ms wall on rank 0 (SPMD {r['spmd_wall_ms']:.3f}); leaves "
+              f"bit-equal {r['digests']['bit_equal']}/"
+              f"{r['digests']['copies']}, losses "
+              f"{'bit-equal' if r['loss_equal'] else 'within rtol'}")
+    print(f"chip_smoke --mpmd-only: passed in "
+          f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
+    return 0
+
+
+def run() -> int:
+    torch = _torch_or_none()
+    if torch is None:
+        return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -3203,8 +3626,12 @@ def run() -> int:
             pipelined[arch] = pipelined_path(torch, ops, arch)
             gc.collect()
             torch.cuda.empty_cache()
+        mpmd_srv = mpmd_serve(torch, ops, pipelined)
         train = train_main_path(torch, ops)
         ir_runs = ir_schedules(torch, ops, ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mpmd_runs = mpmd_train(torch, ops, ir_runs)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -3291,6 +3718,21 @@ def run() -> int:
             k["launches_per_ir_round"] = {
                 label: r["per_round"][k["name"]]
                 for label, r in ir_runs.items()}
+    # the MPMD runs' launches, summed over the ranks and per rank
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "fused_update"):
+            k["launches_by_path"]["train IR rounds mpmd (all runs, sum "
+                                  "over ranks)"] = sum(
+                r["launches"][k["name"]] for r in mpmd_runs.values())
+            k["launches_per_mpmd_round_per_rank"] = {
+                label: [w[k["name"]] for w in r["per_rank"]]
+                for label, r in mpmd_runs.items()}
+        if k["name"] == "flash_fwd":
+            k["launches_by_path"]["serve pipelined mpmd granite-8b"] = \
+                mpmd_srv["granite-8b"]["launches"]
+            k["launches_per_rank_serve_mpmd"] = \
+                mpmd_srv["granite-8b"]["per_rank"]
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
@@ -3310,7 +3752,11 @@ def run() -> int:
             **({"launches_by_path": {
                 "serve": ssm[arch]["launches"][name],
                 "serve pipelined rwkv6-7b":
-                    pipelined["rwkv6-7b"]["launches"][name]}}
+                    pipelined["rwkv6-7b"]["launches"][name],
+                "serve pipelined mpmd rwkv6-7b (sum over ranks)":
+                    mpmd_srv["rwkv6-7b"]["launches"]},
+                "launches_per_rank_serve_mpmd":
+                    mpmd_srv["rwkv6-7b"]["per_rank"]}
                if kind == "rwkv6" else {}),
             "launches_per_call": ssm[arch]["per_call"][name],
             "launches_long_prompt": ssm[arch]["long_prompt"]["launches"][name],
@@ -3394,6 +3840,22 @@ def run() -> int:
               f"{r['kernel_ms']['fused_update']:.3f} ms in "
               f"{r['per_round']['fused_update']} launches, peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB{stash}")
+    for label, r in mpmd_runs.items():
+        print(f"MPMD round {label} ({r['chunks']} chunks, {r['transport']}):"
+              f" {r['wall_ms']:.3f} ms wall on rank 0 (SPMD "
+              f"{r['spmd_wall_ms']:.3f}), per-rank busy "
+              f"{[round(b, 3) for b in r['busy_ms']]} ms, kernels "
+              f"{r['n_kernels']}, peak "
+              f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB, "
+              f"transport {[round(t, 3) for t in r['transport_ms']]} ms; "
+              f"leaves bit-equal {r['digests']['bit_equal']}/"
+              f"{r['digests']['copies']}, losses "
+              f"{'bit-equal' if r['loss_equal'] else 'within rtol'}")
+    for arch, r in mpmd_srv.items():
+        print(f"MPMD serving {arch}: tokens equal {r['equal'][0]}/"
+              f"{r['equal'][1]}, {r['tok_per_s']:.2f} tok/s (scan "
+              f"{r['scan_tok_per_s']:.2f}), median round {r['round_ms']:.3f}"
+              f" ms")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "
@@ -3406,4 +3868,4 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    sys.exit(run_mpmd_only() if "--mpmd-only" in sys.argv[1:] else run())

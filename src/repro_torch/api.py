@@ -17,7 +17,11 @@ stream schedule runs the streaming tick runtime, one with a round
 schedule the IR interpreter; a ``ServePlan`` the pipelined
 ``ServeEngine``.  There is no jit and no donation here: the steps update
 their state in place, and :meth:`Runtime.train_step` calls the built
-step.  ``execution="mpmd"`` and ``trace`` are not ported yet and raise.
+step.  ``execution="mpmd"`` binds one rank of a stage group
+(``Runtime(..., group=)``, one process per stage, made by
+``repro_torch.launch.mesh.run_stage_ranks``): the state, the round and
+the serving engine are that rank's.  ``trace`` is not ported yet and
+raises.
 
 ``add_runtime_args`` / ``runtime_config_from_args`` are the argparse
 wiring the training launcher builds its config from.
@@ -42,8 +46,11 @@ class RuntimeConfig:
                    or an IR round schedule), cross-checked against the
                    plan at bind time; ``None`` adopts the plan's.
     ``backend``    the IR interpreter's round body (scan / unrolled).
-    ``execution``  ``"spmd"`` (every chunk on the one device); the
-                   stage-local ``"mpmd"`` is not ported yet.
+    ``execution``  ``"spmd"`` (every chunk on the one device) or
+                   ``"mpmd"`` (stage-local: one process per stage, the
+                   Runtime bound to its rank's ``StageGroup``); MPMD
+                   runs the IR round schedules and serving, without
+                   ``clip``.
     ``verify``     statically verify compiled schedule artifacts before
                    execution (``planner/verify.py``).
     ``trace``      the pipeline tracer; not ported yet.
@@ -74,10 +81,20 @@ class RuntimeConfig:
             raise ValueError(f"unknown execution {self.execution!r}; "
                              f"known: {ps.EXECS}")
         if self.execution == "mpmd" and self.schedule == "stream":
-            raise ValueError(
-                "execution='mpmd' runs IR round schedules "
-                f"({'/'.join(ps.IR_SCHEDULES)}) and serving rounds; "
-                "the stream schedule is SPMD-only")
+            raise ValueError(str(ps._unsupported(
+                "execution='mpmd' with the stream schedule",
+                "the streaming tick runtime keeps every stage's rings in "
+                "one state; stage-local execution runs IR round schedules "
+                f"({'/'.join(ps.IR_SCHEDULES)}) and serving rounds",
+                "execution='spmd' with schedule='stream', or "
+                "execution='mpmd' with a round schedule")))
+        if self.execution == "mpmd" and self.clip:
+            raise ValueError(str(ps._unsupported(
+                "execution='mpmd' with clip_by_global_norm",
+                "the global norm's canonical-order reduction is not "
+                "bit-reproducible on the packed stage layout",
+                "execution='spmd' with clip, or execution='mpmd' with "
+                "clip=None")))
         if self.ticks_per_step < 1:
             raise ValueError(f"ticks_per_step must be >= 1, got "
                              f"{self.ticks_per_step}")
@@ -99,7 +116,7 @@ class Runtime:
     request trace through it."""
 
     def __init__(self, plan, model, config: Optional[RuntimeConfig]
-                 = None, *, registry=None):
+                 = None, *, registry=None, group=None):
         from repro_torch.planner.api import PipelinePlan, ServePlan
         if not isinstance(plan, (PipelinePlan, ServePlan)):
             raise TypeError(
@@ -113,10 +130,17 @@ class Runtime:
             raise NotImplementedError(
                 "the pipeline tracer (obs/trace.py) is not ported to "
                 "PyTorch yet")
-        if self.config.execution == "mpmd":
-            raise NotImplementedError(
-                "execution='mpmd' (stage-local execution) is not ported "
-                "to PyTorch yet; it is the next slice of the port")
+        if self.config.execution == "mpmd" and group is None:
+            raise ValueError(
+                "execution='mpmd' binds one rank of a stage group: pass "
+                "group= (made by repro_torch.launch.mesh.run_stage_ranks)")
+        if self.config.execution == "mpmd" and not self.serving and \
+                plan.schedule not in ps.IR_SCHEDULES:
+            raise ValueError(
+                f"execution='mpmd' runs IR round schedules "
+                f"({'/'.join(ps.IR_SCHEDULES)}); the plan's schedule is "
+                f"{plan.schedule!r}")
+        self.group = group
         if not self.serving and self.config.schedule is not None \
                 and self.config.schedule != plan.schedule:
             raise ValueError(
@@ -146,7 +170,8 @@ class Runtime:
         if self._ir:
             return ps.make_ir_state(self.model, params, batch,
                                     plan=self.plan, mode=c.mode,
-                                    execution=c.execution, verify=c.verify)
+                                    execution=c.execution, verify=c.verify,
+                                    group=self.group)
         return ps.make_state(self.model, params, batch, mode=c.mode,
                              ticks_per_step=c.ticks_per_step,
                              plan=self.plan)
@@ -161,7 +186,7 @@ class Runtime:
                 self._step = ps.make_ir_train_step(
                     self.model, plan=self.plan, mode=c.mode, lr=c.lr,
                     gamma=c.gamma, clip=c.clip, backend=c.backend,
-                    execution=c.execution)
+                    execution=c.execution, group=self.group)
             else:
                 self._step = ps.make_train_step(
                     self.model, mode=c.mode, lr=c.lr, gamma=c.gamma,
@@ -171,15 +196,19 @@ class Runtime:
 
     # -------------------------------------------------------------- serving
     def serve_engine(self, params):
-        """The pipelined engine for ``params`` (built once and cached)."""
+        """The pipelined engine for ``params`` (built once and cached;
+        ``config.execution`` picks the scan or mpmd serving round)."""
         if not self.serving:
             raise TypeError("serve_engine needs a ServePlan; this "
                             "Runtime binds a training PipelinePlan — "
                             "use init_state/train_step")
         if self._engine is None:
             from repro_torch.serve import ServeEngine
+            backend = "mpmd" if self.config.execution == "mpmd" \
+                else "scan"
             self._engine = ServeEngine(
-                self.model, params, self.plan, registry=self.registry,
+                self.model, params, self.plan, backend=backend,
+                group=self.group, registry=self.registry,
                 verify=self.config.verify)
         return self._engine
 
@@ -212,8 +241,9 @@ def add_runtime_args(ap) -> None:
     ap.add_argument("--clip", type=float, default=0.0)
     ap.add_argument("--execution", default=None, dest="execution",
                     choices=ps.EXECS,
-                    help="execution backend: 'spmd' (default); 'mpmd' "
-                         "(stage-local) is not ported yet")
+                    help="execution backend: 'spmd' (default, every "
+                         "stage on one device) or 'mpmd' (one process per "
+                         "stage, payloads crossing the stage cuts)")
     ap.add_argument("--no-verify", action="store_true", dest="no_verify",
                     help="skip the static schedule verifier "
                          "(planner/verify.py) that runs by default at "

@@ -10,8 +10,10 @@ script's format (primary column: µs per emitted token, 1e6 / tok/s):
   serve/scan_tok    the pipelined engine (the scan backend); derived
                     tok/s and the p50/p99 per-token latency of its
                     round histogram;
-  serve/mpmd_tok    skipped: the mpmd backend is not ported (it comes
-                    with stage-local execution);
+  serve/mpmd_tok    the pipelined engine's mpmd backend on the same
+                    trace, one process per stage (2 ranks, sharing the
+                    card, or on the CPU), its tokens checked equal to
+                    the scan backend's before its time is reported;
   serve/simple_tok  ``SimpleEngine`` on the same trace, its tokens
                     checked equal to the pipelined engine's; the derived
                     speedup is the continuous-batching win;
@@ -41,6 +43,16 @@ def _drive(engine, trace):
     return results, sum(len(t) for t in results.values()), wall_s
 
 
+def _mpmd_rank(group, cfg, splan, trace):
+    """One rank of the mpmd row: the same weights (seed 0) and trace;
+    rank 0's (results, tokens, wall) after warm-up."""
+    model = Model(cfg, device=group.device)
+    params = model.init(torch.Generator(model.device).manual_seed(0))
+    eng = ServeEngine(model, params, splan, backend="mpmd", group=group)
+    eng._warm_up()
+    return _drive(eng, trace)
+
+
 def main(fast: bool = True, *, device="cuda"):
     cfg = tiny_cfg("granite-8b", n_layers=4, pipe=2)
     model = Model(cfg, device=device)
@@ -64,8 +76,19 @@ def main(fast: bool = True, *, device="cuda"):
             f"p50_ms={hist.percentile(50.0):.2f};"
             f"p99_ms={hist.percentile(99.0):.2f};"
             f"requests={n_req};tokens={n_tokens}",
-            f"serve/compile,{compile_s * 1e6:.0f},backend=scan",
-            "serve/mpmd_tok,0,skipped=mpmd backend not ported"]
+            f"serve/compile,{compile_s * 1e6:.0f},backend=scan"]
+
+    from repro_torch.launch.mesh import run_stage_ranks
+    mpmd_res, n_tokens, wall_s = run_stage_ranks(
+        _mpmd_rank, splan.n_stages, device, args=(cfg, splan, trace))[0]
+    if mpmd_res != scan_res:
+        raise RuntimeError("the mpmd backend diverged from the scan "
+                           "backend's tokens")
+    mpmd_us = wall_s / max(n_tokens, 1) * 1e6
+    rows.append(f"serve/mpmd_tok,{mpmd_us:.0f},"
+                f"tok_per_s={n_tokens / max(wall_s, 1e-9):.1f};"
+                f"ranks={splan.n_stages};vs_scan="
+                f"{mpmd_us / max(scan_us, 1e-9):.2f}x")
 
     simple = SimpleEngine(model, params, splan)
     simple._warm_up()

@@ -64,6 +64,13 @@ stashed previous version (its IR-derived weight-stash depth is 2), and
 as the tick does.  The gradient is the mean over the round's
 microbatches and the update runs once a round, one fused update launch
 for the outer tree and one for each chunk tree.
+
+``execution="mpmd"`` runs the same rounds stage-locally, one process
+per stage (``launch/mesh.py``): each rank holds its chunks and the
+outer leaves it reads, walks its column of the plan's device streams
+through the same event bodies (:class:`_Round`), and sends activations
+and cotangents only across the stage cuts (:func:`_make_mpmd_step`),
+bit for bit the SPMD round.
 """
 from __future__ import annotations
 
@@ -77,6 +84,7 @@ from repro_torch.models.layers import dtype_of, tree_leaves, tree_map
 from repro_torch.models.model import cast_for_compute
 from repro_torch.optim import sgd
 from repro_torch.planner import schedule_ir as sir
+from repro_torch.runtime import sharding as rsh
 
 MODES = ("vanilla", "pipedream", "spectrain")
 
@@ -426,16 +434,27 @@ def _unsupported(combo: str, why: str, use: str) -> NotImplementedError:
         f"supported alternative: {use}")
 
 
-def _check_execution(execution: Optional[str]) -> None:
+def _check_execution(execution: Optional[str], model, group) -> str:
+    """The execution model, checked: ``mpmd`` needs a stage group and
+    refuses hybrid models, as the JAX twin does."""
     execution = "spmd" if execution is None else execution
     if execution not in EXECS:
         raise ValueError(f"unknown execution {execution!r}; known: {EXECS}")
-    if execution == "mpmd":
+    if execution == "spmd":
+        return execution
+    if model.hybrid:
         raise _unsupported(
-            "execution='mpmd'",
-            "stage-local (one process per stage) execution is not ported "
-            "to PyTorch yet; it is the next slice of the port",
-            "execution='spmd' (every chunk on the one device)")
+            "execution='mpmd' with a hybrid SSM/attention model",
+            "per-stage 'shared' blocks have no flat layer order to "
+            "pack into the [v, S, Lmax] stage-local layout",
+            "execution='spmd' (runs hybrid models with every "
+            "schedule)")
+    if group is None:
+        raise ValueError(
+            "execution='mpmd' runs one process per stage and needs this "
+            "rank's group= (repro_torch.runtime.sharding.StageGroup, made "
+            "by repro_torch.launch.mesh.run_stage_ranks)")
+    return execution
 
 
 def _ir_plan_check(model, plan) -> Tuple[int, ...]:
@@ -471,7 +490,7 @@ def _ir_plan_check(model, plan) -> Tuple[int, ...]:
 
 def make_ir_state(model, params, batch=None, *, plan,
                   mode: str = "spectrain", execution: Optional[str] = None,
-                  verify: bool = True) -> Dict[str, Any]:
+                  verify: bool = True, group=None) -> Dict[str, Any]:
     """Train state for the IR interpreter: chunked params + momentum
     (+ the 2BW double buffer when the IR derives a stash depth of 2).
 
@@ -484,17 +503,27 @@ def make_ir_state(model, params, batch=None, *, plan,
     by the schedule (peak = ``plan.act_stash``), so ``batch`` is not
     needed (the JAX twin's signature takes its shapes).  ``verify``
     statically verifies the plan's compiled artifacts first
-    (``planner/verify.py``)."""
+    (``planner/verify.py``).
+
+    ``execution="mpmd"`` with this rank's ``group`` builds the
+    rank-local state (see :func:`mpmd_local_params`): the same keys,
+    with ``{}`` for every chunk tree another rank holds and only the
+    outer leaves this rank reads, on the group's device: copied out of
+    a whole model (which the caller can then drop), or taken over when
+    ``params`` is already the rank's part (``Model.init_part``)."""
     del batch
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    _check_execution(execution)
+    execution = _check_execution(execution, model, group)
     sizes = _ir_plan_check(model, plan)
     if verify:
         plan.verify()
-    params = {"outer": params["outer"],
-              "stages": model.partition_stage_params(
-                  params["stages"], sizes, n_chunks=plan.n_chunks)}
+    if execution == "mpmd":
+        params = mpmd_local_params(model, params, plan, group)
+    else:
+        params = {"outer": params["outer"],
+                  "stages": model.partition_stage_params(
+                      params["stages"], sizes, n_chunks=plan.n_chunks)}
     state: Dict[str, Any] = {"params": params,
                              "momentum": sgd.init(params).v, "step": 0}
     if max(plan.w_stash_depth) > 1:
@@ -652,11 +681,11 @@ class _Round:
 
 def _tree_of(like, leaves):
     """A tree shaped as ``like`` from a leaf list in its order, zeros
-    (fp32) where an entry is None."""
-    it = iter(leaves)
+    (fp32) where an entry is None (every entry, when ``leaves`` is)."""
+    it = iter(leaves) if leaves is not None else None
 
     def one(_, p):
-        g = next(it)
+        g = next(it) if it is not None else None
         return torch.zeros(p.shape, dtype=torch.float32,
                            device=p.device) if g is None else g
     return tree_map(one, like)
@@ -665,7 +694,8 @@ def _tree_of(like, leaves):
 def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
                        gamma: float = 0.9, clip: Optional[float] = None,
                        backend: str = "scan", tracer=None,
-                       execution: Optional[str] = None) -> Callable:
+                       execution: Optional[str] = None,
+                       group=None) -> Callable:
     """Schedule-driven step, ``train_step(state, batch) -> (state,
     metrics)`` updating the state in place: one call executes one flush
     round (gpipe / 1f1b / interleaved) or one 2BW accumulation group of
@@ -677,20 +707,36 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
     row over a value pool ``P`` and a cotangent pool ``Q`` (their slots
     register-allocated by the table); ``"unrolled"`` walks the round
     program with per-value dicts and raises on tensors left in flight.
-    The plan is verified once, by :func:`make_ir_state`.  ``tracer``
-    and ``execution="mpmd"`` are not ported yet and raise."""
+    The plan is verified once, by :func:`make_ir_state`.
+
+    ``execution="mpmd"`` with this rank's ``group`` runs the rank's
+    column of the plan's device streams against the rank-local state
+    of ``make_ir_state(..., execution="mpmd")`` (see
+    :func:`_make_mpmd_step`); ``backend`` applies to the SPMD path only,
+    and ``clip`` and hybrid models are refused, as in the JAX twin.
+    ``tracer`` is not ported yet and raises."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if backend not in IR_BACKENDS:
         raise ValueError(
             f"unknown IR backend {backend!r}; known: {IR_BACKENDS}")
-    _check_execution(execution)
+    if (execution or "spmd") == "mpmd" and clip:
+        raise _unsupported(
+            "execution='mpmd' with clip_by_global_norm",
+            "the global norm's canonical-order reduction is not "
+            "bit-reproducible on the packed stage layout",
+            "execution='spmd' with clip, or execution='mpmd' with "
+            "clip=None")
+    execution = _check_execution(execution, model, group)
     if tracer is not None:
         raise _unsupported(
             "a tracer on the IR interpreter",
             "tracing (obs/trace.py, fed by CUDA events) is not ported to "
             "PyTorch yet; it is a later slice of the port",
             "tracer=None")
+    if execution == "mpmd":
+        return _make_mpmd_step(model, plan=plan, mode=mode, lr=lr,
+                               gamma=gamma, group=group)
     _ir_plan_check(model, plan)
     prog = plan.round_program()
     C, M = plan.n_chunks, plan.round_microbatches
@@ -783,6 +829,208 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
         sgd.update(params["outer"], sgd.MomentumState(mom["outer"]),
                    grads["outer"], lr=lr, gamma=gamma)
         for q in range(C):
+            sgd.update(params["stages"][q],
+                       sgd.MomentumState(mom["stages"][q]),
+                       grads["stages"][q], lr=lr, gamma=gamma)
+        state["step"] += 1
+        return state, {"loss": loss, "loss_valid": 1.0}
+
+    return step
+
+
+# ===========================================================================
+# stage-local (MPMD) execution: one process per pipeline stage, the
+# payloads crossing only the stage cuts
+# ===========================================================================
+
+def mpmd_local_params(model, params, plan, group):
+    """The part of ``params`` that ``group``'s rank holds under ``plan``
+    (``runtime.sharding.rank_part`` over the plan's chunk split): its
+    chunk trees, ``{}`` for the others, the outer leaves it reads."""
+    if plan.n_devices != group.world:
+        raise ValueError(f"the plan folds its {plan.n_chunks} chunks onto "
+                         f"{plan.n_devices} devices, the group has "
+                         f"{group.world} ranks")
+    return rsh.rank_part(model, params, plan.partition.sizes(), group.rank,
+                         group.world, group.device)
+
+
+def mpmd_transfers(streams) -> Tuple[Dict[str, int], ...]:
+    """Per rank, the payloads one round moves across ranks: ``fwd_sent``
+    / ``fwd_recv`` (activations on the forward ring, rank d -> d + 1) and
+    ``bwd_sent`` / ``bwd_recv`` (cotangents, d -> d - 1).  Checks first
+    that in every tick each send has its receive on the neighbour's row
+    of the same tick and each receive its send; raises ``ValueError``
+    where one does not.  Idle ticks move nothing, and at S = 1 a
+    payload stays on its rank (no transfer)."""
+    rows = streams.rows
+    T, S = rows.shape[0], rows.shape[1]
+    C, nop = streams.n_chunks, len(streams.branches)
+    out = tuple({"fwd_sent": 0, "fwd_recv": 0, "bwd_sent": 0,
+                 "bwd_recv": 0} for _ in range(S))
+    for t in range(T):
+        for d in range(S):
+            br = int(rows[t, d, sir.DCOL_BRANCH])
+            kind, q = (None, -1) if br == nop else streams.branches[br][:2]
+            for ring, sends, nb, col in (
+                    ("fwd", kind == sir.FWD and q < C - 1, (d + 1) % S,
+                     sir.DCOL_RECV_F),
+                    ("bwd", kind == sir.BWD and q > 0, (d - 1) % S,
+                     sir.DCOL_RECV_B)):
+                recv = int(rows[t, nb, col]) >= 0
+                if sends != recv:
+                    raise ValueError(
+                        f"tick {t}: rank {d} "
+                        f"{'sends' if sends else 'sends no'} {ring} "
+                        f"payload but rank {nb}'s row "
+                        f"{'names no' if sends else 'names a'} receive "
+                        f"slot")
+                if sends and S > 1:
+                    out[d][f"{ring}_sent"] += 1
+                    out[nb][f"{ring}_recv"] += 1
+    return out
+
+
+def _make_mpmd_step(model, *, plan, mode: str, lr: float, gamma: float,
+                    group) -> Callable:
+    """The rank's round, the counterpart of the JAX twin's
+    ``_make_mpmd_step``: walk the rank's column of
+    ``plan.device_streams()`` tick by tick, dispatching each row to the
+    interpreter's event bodies (:class:`_Round`) on the rank's chunks;
+    after each row, one :meth:`StageGroup.exchange` sends the payload
+    the row produced (a forward output to rank d + 1, an input cotangent
+    to rank d - 1) and receives what the row's ``DCOL_RECV_F`` /
+    ``DCOL_RECV_B`` slots name; a tick that moves nothing makes no call.
+
+    Bit for bit the SPMD interpreter's round: a rank's stream keeps the
+    timeline order of its own chunks' events, so every accumulator adds
+    in the same order; the outer gradient is head + embed as in SPMD,
+    each on the rank(s) holding the leaf (a tied embedding's two
+    partials cross between rank 0 and the head rank, and both add them
+    in that order, so both copies take the same update); the update is
+    elementwise, one fused launch per local chunk tree and one for the
+    local outer leaves.  The loss is reported on rank ``(C - 1) % S``
+    (``None`` elsewhere)."""
+    from repro_torch.runtime.sharding import TAG_BWD, TAG_CTL, TAG_FWD
+    _ir_plan_check(model, plan)
+    S, r = group.world, group.rank
+    if plan.n_devices != S:
+        raise ValueError(f"the plan folds its chunks onto "
+                         f"{plan.n_devices} devices, the group has {S} "
+                         f"ranks")
+    if model.device != group.device:
+        raise ValueError(f"model on {model.device}, rank {r} on "
+                         f"{group.device}")
+    streams = plan.device_streams()
+    mpmd_transfers(streams)         # every send meets its receive
+    C, M = plan.n_chunks, plan.round_microbatches
+    two_buf = max(plan.w_stash_depth) > 1
+    rows = streams.rows[:, r].tolist()
+    nop = len(streams.branches)
+    head = rsh.head_rank(C, S)
+    tied = model.cfg.tie_embeddings
+    cdt = dtype_of(model.cfg.compute_dtype)
+    local = rsh.local_chunks(r, C, S)
+
+    def run_round(rnd: _Round, act: Tuple[int, ...]) -> None:
+        V: List[Optional[torch.Tensor]] = [None] * streams.n_val_slots
+        Ct: List[Optional[torch.Tensor]] = \
+            [None] * max(streams.n_cot_slots, 1)
+        for row in rows:
+            sends = []
+            if row[sir.DCOL_BRANCH] != nop:
+                kind, q, s = streams.branches[row[sir.DCOL_BRANCH]]
+                m, a, b = row[sir.DCOL_MB], row[sir.DCOL_A], row[sir.DCOL_B]
+                if kind == sir.FWD:
+                    if q == 0:
+                        V[a] = rnd.embed(m, s)
+                    y = rnd.fwd(q, s, V[a])
+                    if q == C - 1:
+                        V[b] = y
+                    else:
+                        sends.append((y, group.next, TAG_FWD))
+                else:
+                    x, V[a] = V[a], None
+                    if q == C - 1:
+                        out, V[b] = V[b], None
+                        cot = rnd.head(m, s, out,
+                                       first=row[sir.DCOL_FIRST_O] > 0)
+                    else:
+                        c = row[sir.DCOL_C]
+                        cot, Ct[c] = Ct[c], None
+                    gx = rnd.bwd(q, s, x, cot,
+                                 first=row[sir.DCOL_FIRST_G] > 0)
+                    if q == 0:
+                        rnd.embed_bwd(m, s, gx,
+                                      first=row[sir.DCOL_FIRST_E] > 0)
+                    else:
+                        sends.append((gx, group.prev, TAG_BWD))
+            for t, _, _ in sends:
+                if tuple(t.shape) != act or t.dtype != cdt:
+                    raise ValueError(
+                        f"mpmd needs one uniform transfer shape: "
+                        f"{tuple(t.shape)}/{t.dtype}, expected {act}/{cdt}")
+            rf, rb = row[sir.DCOL_RECV_F], row[sir.DCOL_RECV_B]
+            recvs = ([(act, cdt, group.prev, TAG_FWD)] if rf >= 0 else []) \
+                + ([(act, cdt, group.next, TAG_BWD)] if rb >= 0 else [])
+            got = group.exchange(sends, recvs)
+            if rf >= 0:
+                V[rf] = got.pop(0)
+            if rb >= 0:
+                Ct[rb] = got.pop(0)
+
+    def outer_grads(rnd: _Round, params) -> Dict[str, Any]:
+        """Head partial (zeros where the head reads nothing the rank
+        holds) + embed partial, on the rank(s) holding each leaf."""
+        g_outer = _tree_of(params["outer"], rnd.g_head)
+        if "tok" not in g_outer.get("embed", {}):
+            return g_outer
+        if tied and S > 1 and head != 0:
+            shape = tuple(g_outer["embed"]["tok"].shape)
+            if r == 0:       # holds the embed partial, receives the head's
+                (g,) = group.exchange(
+                    [(rnd.g_tok, head, TAG_CTL)],
+                    [(shape, torch.float32, head, TAG_CTL)])
+                g_outer["embed"]["tok"] = g.add_(rnd.g_tok)
+            else:
+                (ge,) = group.exchange(
+                    [(g_outer["embed"]["tok"], 0, TAG_CTL)],
+                    [(shape, torch.float32, 0, TAG_CTL)])
+                g_outer["embed"]["tok"].add_(ge)
+        else:
+            g_outer["embed"]["tok"].add_(rnd.g_tok)
+        return g_outer
+
+    def step(state: Dict[str, Any], batch):
+        batch = device_batch(batch, group.device)
+        B = batch["tokens"].shape[0]
+        if B % M:
+            raise ValueError(
+                f"batch {B} not divisible by the {plan.schedule!r} plan's "
+                f"round size (round_microbatches={M})")
+        mbs = {k: v.reshape((M, B // M) + tuple(v.shape[1:]))
+               for k, v in batch.items()}
+        params, mom = state["params"], state["momentum"]
+        base = state["stash"] if two_buf else {"params": params,
+                                               "momentum": mom}
+        rnd = _Round(model, base["params"], base["momentum"], mode=mode,
+                     lr=lr, mbs=mbs, n_chunks=C)
+        act = (B // M,) + tuple(batch["tokens"].shape[1:]) + \
+            (model.cfg.d_model,)
+        run_round(rnd, act)
+        grads = {"outer": outer_grads(rnd, params),
+                 "stages": tuple(_tree_of(t, g) for t, g in
+                                 zip(params["stages"], rnd.g_chunks))}
+        for g in tree_leaves(grads):
+            g.div_(M)
+        loss = rnd.loss_sum / M if r == head else None
+        del rnd
+        if two_buf:
+            _stash_before_update(state)
+        if tree_leaves(params["outer"]):
+            sgd.update(params["outer"], sgd.MomentumState(mom["outer"]),
+                       grads["outer"], lr=lr, gamma=gamma)
+        for q in local:
             sgd.update(params["stages"][q],
                        sgd.MomentumState(mom["stages"][q]),
                        grads["stages"][q], lr=lr, gamma=gamma)

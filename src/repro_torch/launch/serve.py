@@ -9,7 +9,13 @@ with ``--pages`` KV pages of ``--page-seq`` positions.  ``--engine
 simple`` serves each request on its own through the whole-model
 ``SimpleEngine``: prefill in one causal call, then token by token.
 ``--engine auto`` (the default) picks simple for hybrid models, whose
-decode state the stage split cannot page, and pipelined otherwise.  On
+decode state the stage split cannot page, and pipelined otherwise.
+``--execution mpmd`` runs the pipelined engine stage-locally: one
+process per stage (``launch/mesh.py``), rank 0 owning the batcher and
+printing the summary, every rank a ``# rank`` line with its waves,
+lanes, kernel launches and transfers; the transport (NCCL with a card
+per rank, gloo through pinned host buffers when ranks share one, gloo
+on the CPU) is printed.  Hybrid models are refused under it.  On
 the card every attention call goes through the hand-written flash
 forward kernel (the decode wave through its paged rows) and every
 RWKV-6 or Mamba-2 recurrence through its hand-written scan kernel.
@@ -42,6 +48,7 @@ import argparse
 import dataclasses
 import math
 import time
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,7 +64,10 @@ def _pair(s: str):
     return lo, hi
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
+    """``ranks_out``, if given, receives each rank's report under
+    ``--execution mpmd`` (a library hook: ``chip_smoke.py`` reads the
+    tokens, launches and transfers through it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
                     help="granite-8b, rwkv6-7b or zamba2-1.2b")
@@ -75,6 +85,9 @@ def main(argv=None) -> int:
                     help="pipeline stages the serving rounds fold over "
                          "(pipelined engine)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--execution", default="spmd", choices=("spmd", "mpmd"),
+                    help="pipelined engine: 'spmd' runs every stage in "
+                         "this process, 'mpmd' one process per stage")
     ap.add_argument("--requests", type=int, default=8,
                     help="trace length (seeded Poisson arrivals)")
     ap.add_argument("--rate", type=float, default=1.0,
@@ -127,10 +140,14 @@ def main(argv=None) -> int:
             # the weights come split as the plan's stages (no regrouping)
             cfg = cfg.replace(mesh_plan=dataclasses.replace(
                 cfg.mesh_plan, pipe=args.pipe, tensor=1))
-        model = Model(cfg, device=args.device)
-        gen = torch.Generator(device=model.device).manual_seed(args.seed)
-        params = model.init(gen, dtype=cfg.compute_dtype)
-
+        if args.execution == "mpmd" and engine_kind != "pipelined":
+            raise SystemExit(
+                f"unsupported combination: --execution mpmd with the "
+                f"simple engine ({cfg.name}) — stage-local execution runs "
+                f"the pipelined engine's serve streams, which cannot page "
+                f"a hybrid model's decode state; supported alternative: "
+                f"--execution spmd, or --engine pipelined for a dense or "
+                f"rwkv6 --arch")
         if engine_kind == "pipelined":
             splan = serve_plan(cfg, n_stages=args.pipe, n_slots=args.slots,
                                max_prefill=args.max_prefill,
@@ -146,58 +163,124 @@ def main(argv=None) -> int:
             args.requests, rate=args.rate, seed=args.seed,
             prompt_lens=args.prompt_lens, gen_lens=args.gen_lens,
             vocab=cfg.vocab_size)
-        device_name = (torch.cuda.get_device_name(model.device)
-                       if model.device.type == "cuda" else "cpu")
         print(f"# {splan.summary()}")
-        print(f"# arch={cfg.name} engine={engine_kind} "
-              f"device={device_name} layers={cfg.n_layers} "
-              f"d_model={cfg.d_model} "
-              f"dtype={cfg.compute_dtype} requests={len(trace)} "
-              f"rate={args.rate} seed={args.seed}")
-
+        if args.execution == "mpmd":
+            from repro_torch.launch.mesh import run_stage_ranks
+            registry.close()
+            outs = run_stage_ranks(_serve_rank, args.pipe, args.device,
+                                   args=(args, cfg, splan, trace))
+            if ranks_out is not None:
+                ranks_out.extend(outs)
+            return outs[0]["rc"]
+        model = Model(cfg, device=args.device)
+        gen = torch.Generator(device=model.device).manual_seed(args.seed)
+        params = model.init(gen, dtype=cfg.compute_dtype)
         if engine_kind == "pipelined":
             engine = ServeEngine(model, params, splan, registry=registry)
-            execution = "scan"
         else:
             engine = SimpleEngine(model, params, splan, registry=registry)
-            execution = "eager"
         del params
-        t0 = time.time()
-        if engine_kind == "pipelined":
-            results = engine.run(trace, max_rounds=args.max_rounds or None)
-        else:
-            results = engine.run(trace)
-        wall_s = time.time() - t0
+        return _serve(engine, trace, args, cfg, registry, engine_kind,
+                      "scan" if engine_kind == "pipelined" else "eager")[0]
+    finally:
+        registry.close()
 
-        served = {r: t for r, t in results.items() if t}
-        rejected = sorted(r for r, t in results.items() if not t)
-        n_tokens = sum(len(t) for t in served.values())
-        hist = registry.histogram("serve/token_ms")
-        p50 = hist.percentile(50.0)
-        p99 = hist.percentile(99.0)
-        compile_s = registry.gauge("serve/compile_s").value or 0.0
-        tok_per_s = n_tokens / max(wall_s, 1e-9)
-        registry.gauge("serve/wall_s").set(wall_s)
-        registry.gauge("serve/tok_per_s").set(tok_per_s)
-        registry.emit(
-            "serve_run", arch=cfg.name, engine=engine_kind,
-            execution=execution, device=device_name,
-            n_requests=len(trace), n_served=len(served),
-            n_rejected=len(rejected), n_tokens=n_tokens, rate=args.rate,
-            seed=args.seed, wall_s=wall_s, compile_s=compile_s,
-            tok_per_s=tok_per_s, token_ms_p50=p50, token_ms_p99=p99)
-        print(f"compile: {compile_s:.2f}s   "
-              f"decode: {tok_per_s:.1f} tok/s   "
-              f"p50: {p50:.2f} ms/tok   p99: {p99:.2f} ms/tok")
-        print(f"served {len(served)}/{len(trace)} requests "
-              f"({len(rejected)} rejected), {n_tokens} tokens "
-              f"in {wall_s:.2f}s")
-        first = min(served) if served else None
-        if first is not None:
-            print(f"sample (rid {first}):", list(served[first])[:16])
-        if not all(math.isfinite(v) for v in (tok_per_s, p50, p99)):
-            raise RuntimeError("non-finite serving metrics")
-        return 0
+
+def _serve(engine, trace, args, cfg, registry, engine_kind: str,
+           execution: str) -> Tuple[int, dict]:
+    """Drive ``trace`` through ``engine`` and print (and record) the
+    summary.  Returns ``(0, {rid: tokens})``."""
+    device_name = (torch.cuda.get_device_name(engine.device)
+                   if engine.device.type == "cuda" else "cpu")
+    print(f"# arch={cfg.name} engine={engine_kind} execution={execution} "
+          f"device={device_name} layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} "
+          f"dtype={cfg.compute_dtype} requests={len(trace)} "
+          f"rate={args.rate} seed={args.seed}")
+    t0 = time.time()
+    if engine_kind == "pipelined":
+        results = engine.run(trace, max_rounds=args.max_rounds or None)
+    else:
+        results = engine.run(trace)
+    wall_s = time.time() - t0
+
+    served = {r: t for r, t in results.items() if t}
+    rejected = sorted(r for r, t in results.items() if not t)
+    n_tokens = sum(len(t) for t in served.values())
+    hist = registry.histogram("serve/token_ms")
+    p50 = hist.percentile(50.0)
+    p99 = hist.percentile(99.0)
+    compile_s = registry.gauge("serve/compile_s").value or 0.0
+    tok_per_s = n_tokens / max(wall_s, 1e-9)
+    registry.gauge("serve/wall_s").set(wall_s)
+    registry.gauge("serve/tok_per_s").set(tok_per_s)
+    registry.emit(
+        "serve_run", arch=cfg.name, engine=engine_kind,
+        execution=execution, device=device_name,
+        n_requests=len(trace), n_served=len(served),
+        n_rejected=len(rejected), n_tokens=n_tokens, rate=args.rate,
+        seed=args.seed, wall_s=wall_s, compile_s=compile_s,
+        tok_per_s=tok_per_s, token_ms_p50=p50, token_ms_p99=p99)
+    print(f"compile: {compile_s:.2f}s   "
+          f"decode: {tok_per_s:.1f} tok/s   "
+          f"p50: {p50:.2f} ms/tok   p99: {p99:.2f} ms/tok")
+    print(f"served {len(served)}/{len(trace)} requests "
+          f"({len(rejected)} rejected), {n_tokens} tokens "
+          f"in {wall_s:.2f}s")
+    first = min(served) if served else None
+    if first is not None:
+        print(f"sample (rid {first}):", list(served[first])[:16])
+    if not all(math.isfinite(v) for v in (tok_per_s, p50, p99)):
+        raise RuntimeError("non-finite serving metrics")
+    return 0, results
+
+
+def _serve_rank(group, args, cfg, splan, trace) -> dict:
+    """One stage rank of ``--execution mpmd``: its part of the model the
+    SPMD run draws from ``--seed`` (``launch.mesh.draw_rank_part``).
+    Rank 0 serves the trace and prints the summary; every rank prints
+    its ``# rank`` line.  Returns the rank's report:
+    ``rc``, the results (rank 0), the run's wall, its kernel launches
+    and the transport counters."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import draw_rank_part
+    model = Model(cfg, device=group.device)
+    params = draw_rank_part(model, splan.stage_sizes, args.seed, group,
+                            dtype=cfg.compute_dtype)
+    lead = group.rank == 0
+    registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
+                               if lead else None)
+    try:
+        engine = ServeEngine(model, params, splan, backend="mpmd",
+                             group=group, registry=registry)
+        del params
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+        if lead:
+            print(f"# mpmd: {group.describe()}; "
+                  f"transport={group.transport}", flush=True)
+        engine._warm_up()
+        group.reset_counters()
+        c0 = ops.launch_counts()
+        t0 = time.time()
+        if lead:
+            rc, results = _serve(engine, trace, args, cfg, registry,
+                                 "pipelined", "mpmd")
+        else:
+            rc, results = 0, engine.run(trace)
+        wall_s = time.time() - t0
+        launches = {k: v - c0.get(k, 0)
+                    for k, v in ops.launch_counts().items()}
+        rep = {"rank": group.rank, "rc": rc, "results": results,
+               "wall_s": wall_s, "launches": launches,
+               "n_waves": engine.n_waves, "n_lanes": engine.n_lanes,
+               "round_ms": list(engine.round_ms),
+               **group.counters()}
+        print(f"# rank {group.rank}: waves={engine.n_waves} "
+              f"lanes={engine.n_lanes} launches={launches} sent="
+              f"{group.n_sent} ({group.bytes_sent} B) recv={group.n_recv} "
+              f"transport={group.transport_s:.3f}s", flush=True)
+        return rep
     finally:
         registry.close()
 

@@ -22,14 +22,28 @@ depths.  Unlike the JAX launcher, which always shrinks the model, this
 one trains the full configuration unless ``--smoke`` or the size flags
 cut it.  It runs on the card unless ``--device cpu`` is given; on a
 machine without a card, ``--device cuda`` (the default) fails.
-``--trace``, ``--compress``, ``--execution mpmd`` and
-``--profile-method hlo`` are not ported yet and are refused.
+``--trace``, ``--compress`` and ``--profile-method hlo`` are not ported
+yet and are refused.
+
+``--execution mpmd`` runs a round schedule stage-locally: one process
+per stage (``launch/mesh.py``), rank ``r`` on ``cuda:(r % cards)`` (or
+the CPU with ``--device cpu``), activations and cotangents crossing the
+stage cuts (NCCL when every rank has a card, gloo through pinned host
+buffers when ranks share one, gloo on the CPU; the choice is printed).
+Each rank draws the model from ``--seed`` as the SPMD run does (the
+ranks in turn), keeps its part, and makes each batch itself; rank 0
+prints the plan and the transport, the last chunk's rank the losses.  As in the JAX
+launcher, ``--mode sync`` and ``--schedule stream`` are refused under
+it, and so is ``--clip``.
 
 ``--ckpt-dir`` saves the whole train state every ``--save-every`` steps
 on a background thread (one writer at a time) and once at the end;
 ``--resume auto`` restores the newest checkpoint there and continues
 from the step after it.  The format is the JAX package's
-(``runtime/checkpoint.py``).
+(``runtime/checkpoint.py``).  Under ``--execution mpmd`` a save
+gathers the state to rank 0, which writes the JAX package's packed MPMD
+layout (``[v, S, Lmax, ...]`` stage leaves and ``chunk_sizes``); a
+resume restores it on rank 0 and scatters it back.
 
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
@@ -88,10 +102,39 @@ def build(args):
 def _not_ported(args) -> Optional[str]:
     for flag, on in (("--trace", args.trace),
                      ("--compress", args.compress),
-                     ("--execution mpmd", args.execution == "mpmd"),
                      ("--profile-method hlo", args.profile_method == "hlo")):
         if on:
             return f"{flag} is not ported to PyTorch yet"
+    return None
+
+
+def _mpmd_refusal(args) -> Optional[str]:
+    """The JAX launcher's gates on ``--execution mpmd``, each in the
+    three-part form: the combination, why, and what runs instead."""
+    if args.execution != "mpmd":
+        return None
+    rounds = "/".join(pipeline_stream.IR_SCHEDULES)
+    if args.mode == "sync":
+        return str(pipeline_stream._unsupported(
+            "--execution mpmd with --mode sync",
+            f"--execution mpmd runs IR round schedules ({rounds}), not the "
+            f"synchronous fill/drain baseline",
+            "--execution spmd --mode sync, or --execution mpmd with "
+            "--schedule gpipe"))
+    if args.schedule == "stream":
+        return str(pipeline_stream._unsupported(
+            "--execution mpmd with --schedule stream",
+            f"the streaming tick runtime keeps every stage's rings in one "
+            f"state; stage-local execution runs IR round schedules "
+            f"({rounds})",
+            "--execution spmd --schedule stream, or --execution mpmd "
+            "with a round schedule"))
+    if args.clip:
+        return str(pipeline_stream._unsupported(
+            "--execution mpmd with --clip",
+            "the global norm's canonical-order reduction is not "
+            "bit-reproducible on the packed stage layout",
+            "--execution spmd with --clip, or --execution mpmd without it"))
     return None
 
 
@@ -139,10 +182,8 @@ def _print_plan(pplan, ir_round: bool) -> None:
               f"w_stash_depth={pplan.w_stash_depth}")
 
 
-def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
-    """``on_step(step_index, state, metrics)``, if given, is called after
-    every train step (a library hook: ``chip_smoke.py`` reads the
-    kernels' launch counts and the weights through it)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--smoke", action="store_true")
@@ -184,8 +225,37 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     # accepted so that the JAX launcher's command lines fail clearly
     ap.add_argument("--trace", default="")
     ap.add_argument("--compress", default="", choices=("", "topk", "int8"))
-    args = ap.parse_args(argv)
-    why = _not_ported(args)
+    return ap.parse_args(argv)
+
+
+def run_plan(args, cfg, device):
+    """The plan of the schedule the run executes (gpipe for the sync
+    fill/drain pipeline), checked against the closed forms: its
+    partition is executed, the runtimes regroup the stage weights by its
+    layer ranges.  Returns ``(plan, ir_round)``."""
+    schedule = "gpipe" if args.mode == "sync" else args.schedule
+    ir_round = schedule in pipeline_stream.IR_SCHEDULES and \
+        args.mode != "sync"
+    plan_kw = {}
+    if ir_round:
+        plan_kw["n_microbatches"] = round_size(
+            schedule, args.batch, args.pipe, args.virtual_stages,
+            args.ticks)
+    pplan = make_plan(
+        cfg, n_stages=Model(cfg, device="cpu").n_stages, schedule=schedule,
+        virtual_stages=args.virtual_stages, partitioner=args.partitioner,
+        profile_method=args.profile_method, batch=args.batch, seq=args.seq,
+        device=device, **plan_kw)
+    check_against_closed_forms(pplan)
+    return pplan, ir_round
+
+
+def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
+    """``on_step(step_index, state, metrics)``, if given, is called after
+    every train step (a library hook: ``chip_smoke.py`` reads the
+    kernels' launch counts and the weights through it)."""
+    args = parse_args(argv)
+    why = _not_ported(args) or _mpmd_refusal(args)
     if why:
         raise SystemExit(why)
     if args.mode == "sync" and args.schedule != "stream":
@@ -200,29 +270,17 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
 
     cfg = build(args)
     model = Model(cfg, device=args.device)
+    S = model.n_stages
+    pplan, ir_round = run_plan(args, cfg, model.device)
+    _print_plan(pplan, ir_round)
+    if rc.execution == "mpmd":
+        from repro_torch.launch.mesh import run_stage_ranks
+        outs = run_stage_ranks(_mpmd_rank, S, args.device,
+                               args=(args, cfg, pplan, rc, on_step))
+        return max(outs)
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed, kind=args.data_kind))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    S = model.n_stages
-
-    # the plan of the schedule this run executes (gpipe for the sync
-    # fill/drain pipeline): its partition is executed, the runtimes
-    # regroup the stage weights by its layer ranges
-    schedule = "gpipe" if args.mode == "sync" else args.schedule
-    ir_round = schedule in pipeline_stream.IR_SCHEDULES and \
-        args.mode != "sync"
-    plan_kw = {}
-    if ir_round:
-        plan_kw["n_microbatches"] = round_size(
-            schedule, args.batch, args.pipe, args.virtual_stages,
-            args.ticks)
-    pplan = make_plan(
-        cfg, n_stages=S, schedule=schedule,
-        virtual_stages=args.virtual_stages, partitioner=args.partitioner,
-        profile_method=args.profile_method, batch=args.batch, seq=args.seq,
-        device=model.device, **plan_kw)
-    check_against_closed_forms(pplan)
-    _print_plan(pplan, ir_round)
 
     registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
     bg_save = None
@@ -288,6 +346,76 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     if args.ckpt_dir and not interrupted and ran != saved:
         ckpt.save(args.ckpt_dir, state, ran)
     return 1 if interrupted else 0
+
+
+def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:
+    """One stage rank of ``--execution mpmd``: its part of the model the
+    SPMD run draws from ``--seed`` (``launch.mesh.draw_rank_part``),
+    then the training loop; saves and resumes go through rank 0.
+    Peak-memory statistics restart once the state is built.
+    ``on_step(step_index, state, metrics)`` runs on every rank with the
+    rank's local state (it must pickle)."""
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import sharding as rsh
+    dev = group.device
+    model = Model(cfg, device=dev)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                  seed=args.seed, kind=args.data_kind))
+    rt = Runtime(pplan, model, rc, group=group)
+    part = mesh.draw_rank_part(model, pplan.partition.sizes(), args.seed,
+                               group)
+    state = rt.init_state(part, data.batch_at(0))
+    del part
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    head = rsh.head_rank(pplan.n_chunks, group.world)
+    lead = group.rank == 0
+    start = 0
+    if args.resume == "auto" and args.ckpt_dir:
+        if ckpt.latest_step(args.ckpt_dir) is not None:
+            state, last = ckpt.restore_mpmd(args.ckpt_dir, state, model,
+                                            pplan, group)
+            start = last + 1
+            if lead:
+                print(f"# resumed from step {last}")
+
+    def save(s: int) -> None:
+        ckpt.save_mpmd(args.ckpt_dir, state, s, model, pplan, group)
+
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    if lead:
+        print(f"# mpmd: {group.describe()}; transport={group.transport}")
+    print(f"# rank {group.rank}: device={dev} params={n_params:,} chunks="
+          f"{rsh.local_chunks(group.rank, pplan.n_chunks, group.world)} "
+          f"ready {time.perf_counter() - group.t0:.1f} s after joining",
+          flush=True)
+    registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
+                               if group.rank == head else None)
+    t0, tokens, ran, saved = time.time(), 0, None, None
+    try:
+        for s in range(start, args.steps):
+            state, metrics = rt.train_step(state, data.batch_at(s))
+            ran = s
+            tokens += args.batch * args.seq
+            if on_step is not None:
+                on_step(s, state, metrics)
+            if args.ckpt_dir and (s + 1) % args.save_every == 0:
+                save(s)
+                saved = s
+            if group.rank == head and ((s + 1) % args.log_every == 0
+                                       or s == args.steps - 1):
+                dt = time.time() - t0
+                rec = registry.log_step(
+                    step=s + 1, loss=round(float(metrics["loss"]), 4),
+                    tok_per_s=round(tokens / max(dt, 1e-9), 1),
+                    loss_valid=float(metrics.get("loss_valid", 1.0)))
+                print(json.dumps(rec) if args.json else format_step(rec),
+                      flush=True)
+    finally:
+        registry.close()
+    if args.ckpt_dir and ran is not None and ran != saved:
+        save(ran)
+    return 0
 
 
 if __name__ == "__main__":

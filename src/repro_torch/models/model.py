@@ -19,7 +19,7 @@ input anyway.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +33,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_specs,
                                        init_params, leaf_is_weight,
                                        norm_apply, norm_specs, softmax_xent,
-                                       stack_specs, tree_map, unembed_apply)
+                                       stack_specs, tree_leaves, tree_map,
+                                       unembed_apply)
 from repro_torch.models.transformer import (block_apply, block_specs,
                                             check_ported,
                                             shared_block_apply,
@@ -78,6 +79,73 @@ def flat_stage_layers(stages):
 def _at(tree, path):
     for key in path:
         tree = tree[key]
+    return tree
+
+
+def pack_chunk_params(chunks, n_devices: int):
+    """Ragged chunk trees -> the JAX package's dense MPMD layout: every
+    ``layers`` leaf becomes ``[v, S, Lmax, ...]`` with chunk ``q`` at
+    index ``[q // S, q % S]``, zero-padded to ``Lmax = max(sizes)``
+    rows.  Returns ``(packed_tree, sizes)``.  In the port this is the
+    on-disk and interchange format only: a rank holds its own chunks as
+    ragged trees and needs no padding.  Hybrid ``shared`` blocks have no
+    layer stack to pad and are refused, as in JAX."""
+    C, S = len(chunks), int(n_devices)
+    if S < 1 or C % S:
+        raise ValueError(f"{C} chunk trees do not fold onto {S} devices")
+    if any("shared" in t for t in chunks):
+        raise ValueError(
+            "hybrid stage trees carry per-stage 'shared' blocks with no "
+            "flat layer order; the packed MPMD layout does not cover them")
+    sizes = tuple(int(tree_leaves(t["layers"])[0].shape[0]) for t in chunks)
+    Lmax, v = max(sizes), C // S
+    trees = [t["layers"] for t in chunks]
+
+    def leaf(path, _):
+        xs = [_at(t, path) for t in trees]
+        out = xs[0].new_zeros((C, Lmax) + tuple(xs[0].shape[1:]))
+        for q, x in enumerate(xs):
+            out[q, :x.shape[0]] = x
+        return out.reshape((v, S, Lmax) + tuple(xs[0].shape[1:]))
+
+    return {"layers": tree_map(leaf, trees[0])}, sizes
+
+
+def unpack_chunk_params(packed, sizes) -> Tuple[Any, ...]:
+    """Inverse of :func:`pack_chunk_params`: ``[v, S, Lmax, ...]`` leaves
+    back to the ragged chunk trees (padding rows dropped; views)."""
+    sizes = tuple(int(n) for n in sizes)
+    C = len(sizes)
+
+    def flat(_, a):
+        if a.shape[0] * a.shape[1] != C:
+            raise ValueError(
+                f"packed leaf folds {a.shape[0] * a.shape[1]} chunks, "
+                f"sizes cover {C}")
+        return a.reshape((C,) + tuple(a.shape[2:]))
+
+    rows = tree_map(flat, packed["layers"])
+    return tuple({"layers": tree_map(lambda _, a, q=q: a[q, :sizes[q]],
+                                     rows)} for q in range(C))
+
+
+class _Rows:
+    """One drawn layer leaf's rows, by chunk (a leaf to ``tree_map``)."""
+    __slots__ = ("by_chunk",)
+
+    def __init__(self, by_chunk):
+        self.by_chunk = by_chunk
+
+    def __getitem__(self, q):
+        return self.by_chunk[q]
+
+
+def _pruned(tree):
+    """``tree`` without its None leaves and the dicts left empty."""
+    if isinstance(tree, dict):
+        out = {k: _pruned(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items()
+                if v is not None and not (isinstance(v, dict) and not v)}
     return tree
 
 
@@ -151,6 +219,43 @@ class Model:
         return {"outer": params["outer"],
                 "stages": split_flat_stages(params["stages"],
                                             self.stage_sizes)}
+
+    def init_part(self, generator: torch.Generator, sizes, chunks,
+                  keep_outer: Callable[[Tuple[str, ...]], bool], *,
+                  dtype: Optional[str] = None):
+        """The part of :meth:`init`'s draw that one stage rank holds: the
+        whole model is drawn from ``generator`` leaf by leaf, as
+        :meth:`init` draws it (the same values), and of each leaf only
+        the layer rows of the chunks ``chunks`` of the split ``sizes``
+        and the outer leaves whose path ``keep_outer`` accepts are kept,
+        each draw freed before the next.  Returns ``{"outer": the kept
+        leaves, "stages": one tree per chunk, {} where not kept}``.
+        Hybrid shared blocks are not covered."""
+        if self.hybrid:
+            raise NotImplementedError(
+                "init_part keeps layer rows; hybrid shared blocks have no "
+                "flat layer order")
+        sizes = tuple(int(n) for n in sizes)
+        if sum(sizes) != self.cfg.n_layers:
+            raise ValueError(f"partition sizes {sizes} do not cover "
+                             f"{self.cfg.n_layers} layers")
+        lo = np.cumsum((0,) + sizes)
+        chunks = tuple(sorted(chunks))
+        dt = dtype_of(dtype) if dtype is not None else None
+
+        def leaf_fn(path, a):
+            if dt is not None and leaf_is_weight(path):
+                a = a.to(dt)
+            if path[0] == "stages":
+                return _Rows({q: a[lo[q]:lo[q + 1]].clone() for q in chunks})
+            return a if keep_outer(path[1:]) else None
+        flat = init_params(self._flat_param_specs(), generator,
+                           self.cfg.param_dtype, self.device, leaf_fn)
+        stages = tuple(
+            {"layers": tree_map(lambda _, r, q=q: r[q],
+                                flat["stages"]["layers"])}
+            if q in chunks else {} for q in range(len(sizes)))
+        return {"outer": _pruned(flat["outer"]), "stages": stages}
 
     # ------------------------------------------------------------ layers
     def flat_layers(self, stages):

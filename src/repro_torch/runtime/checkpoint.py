@@ -353,3 +353,37 @@ def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None
                     f"or differently-partitioned spelling to migrate from)")
             leaves[key] = _as_leaf(arr, leaf, key)
     return tree_map(lambda path, _: leaves[_key(path)], template), step
+
+
+# ------------------------------------------------------------------ mpmd
+def save_mpmd(ckpt_dir: str, state: Any, step: int, model, plan, group,
+              *, keep: int = 3) -> None:
+    """Checkpoint an MPMD state: every rank calls it; the ranks' states
+    gather to rank 0 (``runtime.elastic.gather_mpmd_state``), which
+    writes the JAX package's packed layout (``[v, S, Lmax, ...]`` stage
+    leaves and ``chunk_sizes``), so JAX ``restore`` plus
+    ``unpack_mpmd_state`` reads it.  Returns once the write is done on
+    every rank."""
+    from repro_torch.runtime import elastic
+    full = elastic.gather_mpmd_state(state, model, plan, group)
+    if group.rank == 0:
+        save(ckpt_dir, elastic.pack_mpmd_state(full, group.world), step,
+             keep=keep)
+    group.barrier()
+
+
+def restore_mpmd(ckpt_dir: str, state: Any, model, plan, group, *,
+                 step: Optional[int] = None) -> Tuple[Any, int]:
+    """Every rank: restore checkpoint ``step`` (default the newest) of
+    any layout (packed, ragged, another partition) into this rank's MPMD
+    ``state``'s layout.  Rank 0 reads it into the gathered whole state
+    and scatters it back.  Returns (the rank's state, step)."""
+    from repro_torch.runtime import elastic
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    full = elastic.gather_mpmd_state(state, model, plan, group)
+    if group.rank == 0:
+        full, step = restore(ckpt_dir, full, step=step)
+    return elastic.scatter_mpmd_state(full, model, plan, group), step

@@ -10,8 +10,16 @@ request by one token in one pass over the layers (one paged attention
 kernel or one scan kernel a layer for all ``n_slots`` rows), so one
 pass's host cost buys up to ``n_slots`` tokens; each prefill lane runs
 one admitted prompt through every chunk in one causal call a layer.
-All chunks run on one card; the JAX package's ``lax.scan`` interpreter
-is this Python loop (``backend="scan"``).
+With ``backend="scan"`` all chunks run on one card, and the JAX
+package's ``lax.scan`` interpreter is this Python loop.  With
+``backend="mpmd"`` each chunk is one process of a stage group (the JAX
+twin's ``make_mpmd_round``): rank 0 owns the batcher and sends each
+round's descriptor to every rank, each rank walks its column of
+``splan.serve_streams()`` over its own chunk's paged cache, the decode
+``[R, 1, d]`` and prefill ``[1, n, d]`` hiddens ride the forward ring,
+and the last chunk's rank returns the emitted tokens to rank 0; a stop
+descriptor ends the other ranks' loops.  Both backends run the same
+per-chunk calls at the same shapes, so they emit the same tokens.
 
 KV state is paged per chunk: chunk ``q`` owns :func:`chunk_page_caches`
 buffers of ``n_pages + 1`` pages (the last, the trash page, is where
@@ -32,9 +40,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import dtype_of, tree_map
 from repro_torch.models.model import cast_for_compute
 from repro_torch.planner import schedule_ir as sir
+from repro_torch.runtime import sharding as rsh
 from repro_torch.serve.scheduler import ContinuousBatcher, admissible
 
 SERVE_BACKENDS = ("scan", "mpmd")
@@ -71,6 +80,39 @@ def chunk_page_caches(model, sizes: Sequence[int], n_pages: int,
     return tuple(out)
 
 
+def pack_serve_caches(caches, sizes: Sequence[int]):
+    """Per-chunk paged caches -> one dense tree: every leaf
+    ``[L_q, n_pages + 1, ...]`` zero-padded to ``Lmax`` layers and
+    stacked to ``[S, Lmax, n_pages + 1, ...]`` (the JAX twin stacks its
+    page-first chunk leaves the same way, to ``[S, n_pages + 1, Lmax,
+    ...]``).  An interchange format: each rank of the mpmd backend holds
+    its own chunk's cache unpadded."""
+    Lmax = max(sizes)
+    trees = [c["layers"] for c in caches]
+
+    def leaf(path, a0):
+        out = a0.new_zeros((len(trees), Lmax) + tuple(a0.shape[1:]))
+        for q, t in enumerate(trees):
+            a = t
+            for k in path:
+                a = a[k]
+            out[q, :a.shape[0]] = a
+        return out
+    return {"layers": tree_map(leaf, trees[0])}
+
+
+def unpack_serve_caches(packed, sizes: Sequence[int]):
+    """Inverse of :func:`pack_serve_caches` (padding layers dropped;
+    views)."""
+    return tuple({"layers": tree_map(lambda _, a, q=q: a[q, :sizes[q]],
+                                     packed["layers"])}
+                 for q in range(len(sizes)))
+
+
+_DESC_KEYS = ("dec_tokens", "dec_pos", "dec_pages", "pf_tokens", "pf_len",
+              "pf_pages")
+
+
 class ServeEngine:
     """Continuous-batching inference through the schedule-IR serving
     round on one device.  Emits, for a given trace, exactly the tokens
@@ -78,48 +120,88 @@ class ServeEngine:
     fp32, and the port's :class:`SimpleEngine`'s.
 
     ``n_waves`` / ``n_lanes`` count the decode waves and prefill lanes
-    run, warm-up included: each wave launches one attention or scan
-    kernel per layer for all ``n_slots`` rows, each lane one per layer.
+    run (on this rank, under mpmd), warm-up included: each wave launches
+    one attention or scan kernel per layer for all ``n_slots`` rows,
+    each lane one per layer.
+
+    ``backend="mpmd"`` needs this rank's ``group`` (a
+    :class:`~repro_torch.runtime.sharding.StageGroup` of
+    ``splan.n_stages`` ranks, every rank constructing the engine with
+    the same ``params``): the rank keeps its chunk and the outer leaves
+    it reads.  Every rank calls :meth:`run`; rank 0's ``requests`` are
+    served, and the other ranks follow its descriptors and return
+    ``{}``.  ``restate`` is not ported under mpmd.
     """
 
     def __init__(self, model, params, splan, *, backend: str = "scan",
-                 registry=None, verify: bool = True):
+                 group=None, registry=None, verify: bool = True):
         if backend not in SERVE_BACKENDS:
             raise ValueError(f"unknown serve backend {backend!r}; "
                              f"choose from {SERVE_BACKENDS}")
-        if backend == "mpmd":
-            raise NotImplementedError(
-                "the mpmd serving backend (one process per stage, hidden "
-                "states sent between them) is not ported to PyTorch yet: "
-                "it comes with stage-local execution; use backend='scan'")
         if model.cfg.is_encdec or model.hybrid:
             raise _unsupported_arch(model, "the pipelined ServeEngine")
+        if backend == "mpmd":
+            if group is None:
+                raise ValueError(
+                    "backend='mpmd' runs one process per stage and needs "
+                    "this rank's group= (made by repro_torch.launch.mesh."
+                    "run_stage_ranks)")
+            if group.world != splan.n_stages:
+                raise ValueError(f"the serve plan has {splan.n_stages} "
+                                 f"stages, the group {group.world} ranks")
+            if model.device != group.device:
+                raise ValueError(f"model on {model.device}, rank "
+                                 f"{group.rank} on {group.device}")
         self.model, self.splan, self.backend = model, splan, backend
+        self.group = group
         self.registry = registry
         self.verify = verify
         if verify:
-            splan.verify(device_streams=False)
+            splan.verify(device_streams=(backend == "mpmd"))
         params = cast_for_compute(params, dtype_of(model.cfg.compute_dtype))
-        self._outer = params["outer"]
         sizes = splan.stage_sizes
-        self._chunks = model.partition_stage_params(
-            params["stages"], sizes, n_chunks=len(sizes))
+        C = len(sizes)
+        if backend == "mpmd":
+            part = rsh.rank_part(model, params, sizes, group.rank, C,
+                                 group.device)
+            self._outer, chunks = part["outer"], part["stages"]
+        else:
+            chunks = model.partition_stage_params(
+                params["stages"], sizes, n_chunks=C)
+            self._outer = params["outer"]
+        self._chunks = chunks
         self.device = model.device
         self.n_waves = 0
         self.n_lanes = 0
         self.last_events: List[Dict[str, Any]] = []
+        self.round_ms: List[float] = []     # each round's host wall
         self._build(sizes)
 
     def _build(self, sizes) -> None:
         splan = self.splan
         self._sizes = tuple(sizes)
-        self._table = splan.serve_table()
-        self._caches = chunk_page_caches(self.model, sizes, splan.n_pages,
-                                         splan.page_seq)
+        self._caches = self._new_caches()
+        if self.backend == "mpmd":
+            self._streams = splan.serve_streams()
+        else:
+            self._table = splan.serve_table()
         self._warm = False
+
+    def _new_caches(self):
+        caches = chunk_page_caches(self.model, self._sizes,
+                                   self.splan.n_pages, self.splan.page_seq)
+        if self.backend == "mpmd":      # the rank's own chunk only
+            caches = tuple(c if q == self.group.rank else None
+                           for q, c in enumerate(caches))
+        return caches
 
     # ------------------------------------------------------------ one round
     def _round(self, batch: Dict[str, np.ndarray]):
+        if self.backend == "mpmd":
+            return self._round_mpmd(batch)
+        return self._round_scan(batch)
+
+    def _round_scan(self, batch: Dict[str, np.ndarray]):
         """Run one round of the table on ``batch`` (a
         :meth:`ContinuousBatcher.poll`); returns (dec_next [n_slots],
         pf_next [max(max_prefill, 1)]) int32 on the host and the count of
@@ -188,6 +270,146 @@ class ServeEngine:
         got = nxt.cpu().numpy().astype(np.int32)     # one copy, one sync
         return got[:R], got[R:], bad
 
+    def _round_mpmd(self, batch: Dict[str, np.ndarray]):
+        """This rank's column of the serve streams over ``batch``, the
+        same per-chunk calls as :meth:`_round_scan`.  After each row one
+        exchange sends the hidden it produced to the next rank and
+        receives what the row's receive slots name; a decode payload
+        moves only in a round with a wave, a prefill payload only for a
+        lane with a prompt (the sender's row names the lane).  The last
+        chunk's rank sends ``[R + F]`` tokens and the non-finite count
+        to rank 0, which returns them as :meth:`_round_scan` does; the
+        other ranks return None."""
+        model, g, st, dev = self.model, self.group, self._streams, \
+            self.device
+        outer, chunks, caches = self._outer, self._chunks, self._caches
+        vocab, d = model.cfg.vocab_size, model.cfg.d_model
+        cdt = dtype_of(model.cfg.compute_dtype)
+        C, r, nop = st.n_chunks, g.rank, len(st.branches)
+        live = batch["dec_pages"] < self.splan.n_pages
+        wave = bool(live.any())
+        pf_len, pf_pages = batch["pf_len"], batch["pf_pages"]
+        R, F = len(live), len(pf_len)
+        if wave:
+            self._check_rows(batch)
+            self.n_waves += 1
+            dec = torch.from_numpy(np.stack(
+                [batch["dec_tokens"], batch["dec_pos"], batch["dec_pages"],
+                 live.astype(np.int32)])).to(dev)
+            toks, pos, pages = dec[0].long(), dec[1], dec[2]
+        dec_pool: List[Optional[torch.Tensor]] = [None] * st.n_dec_slots
+        pf_pool: List[Optional[torch.Tensor]] = [None] * st.n_pf_slots
+        nxt = torch.zeros(R + F + 1, dtype=torch.long, device=dev)
+        for t in range(st.rows.shape[0]):
+            row = st.rows[t, r].tolist()
+            sends = []
+            if row[sir.SDCOL_BRANCH] != nop:
+                kind, q = st.branches[row[sir.SDCOL_BRANCH]]
+                a = row[sir.SDCOL_A]
+                if kind == sir.DECODE and wave:
+                    if q == 0:
+                        x = model.decode_embed(outer, toks[:, None],
+                                               pos[:, None])
+                    else:
+                        x, dec_pool[a] = dec_pool[a], None
+                    y = model.stage_decode(chunks[q], caches[q], x, pos,
+                                           pages)
+                    if q < C - 1:
+                        sends.append((y, g.next, rsh.TAG_FWD))
+                    else:
+                        logits = model.logits(outer, y)[:, 0, :vocab]
+                        nxt[R + F] += (~torch.isfinite(
+                            logits[dec[3].bool()])).sum()
+                        nxt[:R] = torch.argmax(logits, -1)
+                elif kind == sir.PREFILL and pf_len[row[sir.SDCOL_MB]]:
+                    j = row[sir.SDCOL_MB]
+                    n = int(pf_len[j])
+                    if q == 0:
+                        self.n_lanes += 1
+                        toks_j = torch.from_numpy(batch["pf_tokens"][
+                            j, :n].astype(np.int64)).to(dev)
+                        x = model.decode_embed(
+                            outer, toks_j[None],
+                            torch.arange(n, device=dev)[None])
+                    else:
+                        x, pf_pool[a] = pf_pool[a], None
+                    y = model.stage_prefill(chunks[q], caches[q], x,
+                                            int(pf_pages[j]))
+                    if q < C - 1:
+                        sends.append((y, g.next, rsh.TAG_PREFILL))
+                    else:
+                        logits = model.logits(outer, y)[0, -1, :vocab]
+                        nxt[R + F] += (~torch.isfinite(logits)).sum()
+                        nxt[R + j] = torch.argmax(logits)
+            recvs, slots = [], []
+            sd, sp = row[sir.SDCOL_RECV_D], row[sir.SDCOL_RECV_P]
+            if sd >= 0 and wave:
+                recvs.append(((R, 1, d), cdt, g.prev, rsh.TAG_FWD))
+                slots.append((dec_pool, sd))
+            if sp >= 0:
+                n = int(pf_len[st.rows[t, g.prev, sir.SDCOL_MB]])
+                if n:
+                    recvs.append(((1, n, d), cdt, g.prev, rsh.TAG_PREFILL))
+                    slots.append((pf_pool, sp))
+            for (pool, k), x in zip(slots, g.exchange(sends, recvs)):
+                pool[k] = x
+        if C > 1 and r == C - 1:
+            g.send(nxt, 0)
+        if r != 0:
+            return None
+        if C > 1:
+            nxt = g.recv((R + F + 1,), torch.long, C - 1)
+        got = nxt.cpu().numpy()
+        return (got[:R].astype(np.int32), got[R:R + F].astype(np.int32),
+                int(got[R + F]))
+
+    def _desc_size(self) -> int:
+        splan = self.splan
+        R, F, P = splan.n_slots, max(splan.max_prefill, 1), \
+            splan.prompt_budget
+        return 1 + 3 * R + F * P + 2 * F
+
+    def _send_desc(self, batch: Optional[Dict[str, np.ndarray]]) -> None:
+        """Rank 0: one round's descriptor (tokens, positions, pages,
+        prefill lanes) to every other rank; ``None`` is the stop
+        message."""
+        g = self.group
+        if batch is None:
+            flat = np.zeros((self._desc_size(),), np.int64)
+            flat[0] = 1
+        else:
+            flat = np.concatenate([np.zeros((1,), np.int64)] + [
+                np.asarray(batch[k], np.int64).reshape(-1)
+                for k in _DESC_KEYS])
+        t = torch.from_numpy(flat)
+        g.exchange([(t, q, rsh.TAG_CTL) for q in range(1, g.world)], [])
+
+    def _recv_desc(self) -> Optional[Dict[str, np.ndarray]]:
+        splan = self.splan
+        R, F, P = splan.n_slots, max(splan.max_prefill, 1), \
+            splan.prompt_budget
+        flat = self.group.recv((self._desc_size(),), torch.int64,
+                               0).cpu().numpy()
+        if flat[0]:
+            return None
+        out, lo = {}, 1
+        for k, shape in zip(_DESC_KEYS, ((R,), (R,), (R,), (F, P), (F,),
+                                         (F,))):
+            n = int(np.prod(shape))
+            out[k] = flat[lo:lo + n].reshape(shape).astype(np.int32)
+            lo += n
+        return out
+
+    def _follow(self) -> Dict[int, tuple]:
+        """A rank other than 0: run rounds on rank 0's descriptors until
+        the stop message."""
+        with torch.inference_mode():
+            while True:
+                batch = self._recv_desc()
+                if batch is None:
+                    return {}
+                self._round_mpmd(batch)
+
     def _check_rows(self, batch: Dict[str, np.ndarray]) -> None:
         """Raise unless every wave row's page lies in ``[0, n_pages]`` and
         its position in ``[0, page_seq)``: the ranges the paged kernel
@@ -225,8 +447,7 @@ class ServeEngine:
                      "pf_len": pf_len,
                      "pf_pages": np.zeros((F,), np.int32)}
             real = self._caches
-            self._caches = chunk_page_caches(self.model, self._sizes,
-                                             splan.n_pages, splan.page_seq)
+            self._caches = self._new_caches()
             try:
                 self._round(batch)
             finally:
@@ -248,6 +469,9 @@ class ServeEngine:
             raise ValueError("max_prefill=0 can never admit a request")
         if not self._warm:
             self._warm_up()
+        mpmd = self.backend == "mpmd"
+        if mpmd and self.group.rank != 0:
+            return self._follow()
         sched = ContinuousBatcher(self.splan, requests,
                                   registry=self.registry)
         limit = max_rounds if max_rounds is not None else (
@@ -257,6 +481,7 @@ class ServeEngine:
         hist = (self.registry.histogram("serve/token_ms")
                 if self.registry is not None else None)
         r, n_tokens, busy_s = 0, 0, 0.0
+        self.round_ms = []
         bad = torch.zeros((), dtype=torch.long, device=self.device)
         with torch.inference_mode():
             while sched.active:
@@ -271,8 +496,11 @@ class ServeEngine:
                     r = max(r + 1, nxt if nxt is not None else r + 1)
                     continue
                 t0 = time.time()
+                if mpmd:
+                    self._send_desc(batch)
                 dec_next, pf_next, round_bad = self._round(batch)
                 dt_s = time.time() - t0         # the tokens' copy synced
+                self.round_ms.append(dt_s * 1e3)
                 bad += round_bad
                 toks = sched.n_round_tokens()
                 busy_s += dt_s
@@ -282,6 +510,8 @@ class ServeEngine:
                         hist.observe(dt_s * 1e3)
                 sched.commit(r, dec_next, pf_next)
                 r += 1
+        if mpmd:
+            self._send_desc(None)
         self.last_events = sched.events
         if self.registry is not None:
             if busy_s > 0:
@@ -299,7 +529,14 @@ class ServeEngine:
         stage weights regroup by flat layer order and the paged buffers
         concat-and-resplit along the layer axis, so every request's state
         stays at its page index and the emitted tokens are unchanged.
-        Page geometry must match."""
+        Page geometry must match.  Not ported under mpmd."""
+        if self.backend == "mpmd":
+            raise NotImplementedError(
+                "unsupported combination: ServeEngine.restate with "
+                "backend='mpmd' — moving stage-local paged caches and "
+                "weights between ranks is not ported to PyTorch yet; "
+                "supported alternative: backend='scan', or a new mpmd "
+                "engine on the new plan")
         old = self.splan
         for f in ("n_slots", "max_prefill", "prompt_budget", "n_pages",
                   "page_seq"):

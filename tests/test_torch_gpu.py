@@ -1036,3 +1036,90 @@ def test_ir_rounds_on_card_match_cpu(card, schedule, mode, v, backend):
             np.testing.assert_allclose(
                 g.float().cpu().numpy(), c.float().numpy(),
                 rtol=1e-4, atol=1e-5, err_msg=key)
+
+
+def _mpmd_card_rank(group, cfg, params, batches, M):
+    """One stage rank of an MPMD 1f1b run on the card (fp32 weights from
+    numpy): its losses (the last chunk's rank), its kernel launches, the
+    transport, and the state gathered to rank 0 (numpy)."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_map
+    from repro_torch.planner import plan
+    from repro_torch.runtime import elastic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(cfg, device=group.device)
+    pplan = plan(cfg, n_stages=group.world, schedule="1f1b",
+                 n_microbatches=M, batch=4, seq=16, device="cpu")
+    p = tree_map(lambda _, a: torch.from_numpy(a).to(group.device), params)
+    state = ps.make_ir_state(model, p, plan=pplan, mode="spectrain",
+                             execution="mpmd", group=group)
+    step = ps.make_ir_train_step(model, plan=pplan, mode="spectrain",
+                                 lr=0.05, execution="mpmd", group=group)
+    ops.reset_launch_counts()
+    losses = []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(None if met["loss"] is None else float(met["loss"]))
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts())
+    full = elastic.gather_mpmd_state(state, model, pplan, group)
+    return {"losses": losses, "counts": counts,
+            "transport": group.transport,
+            "state": None if full is None else tree_map(
+                lambda _, a: a.numpy() if isinstance(a, torch.Tensor)
+                else a, full)}
+
+
+def _mpmd_against_spmd(card, cards: int, transport: str):
+    """2 ranks of a 4-layer smoke granite (fp32), 1f1b, 3 rounds, against
+    the SPMD interpreter on the card: losses and every state leaf bit for
+    bit; the ranks' launches sum to the SPMD round's, but for one more
+    fused update (the outer leaves live on two ranks)."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.launch.mesh import run_stage_ranks
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.planner import plan
+    cfg = _smoke_cfg().replace(mesh_plan=dataclasses.replace(
+        get_config("granite-8b").mesh_plan, pipe=2))
+    M = 2
+    cpu = Model(cfg, device="cpu")
+    params = tree_map(lambda _, a: a.numpy(),
+                      cpu.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    gpu = Model(cfg)
+    pplan = plan(cfg, n_stages=2, schedule="1f1b", n_microbatches=M,
+                 batch=4, seq=16, device="cpu")
+    state = ps.make_ir_state(gpu, tree_map(
+        lambda _, a: torch.from_numpy(a).to(card), params), plan=pplan)
+    step = ps.make_ir_train_step(gpu, plan=pplan, lr=0.05)
+    ops.reset_launch_counts()
+    want = [float(step(state, b)[1]["loss"]) for b in batches]
+    torch.cuda.synchronize()
+    want_counts = dict(ops.launch_counts())
+    ranks = run_stage_ranks(_mpmd_card_rank, 2, "cuda", cards=cards,
+                            args=(cfg, params, batches, M), timeout_s=300.0)
+    assert all(r["transport"] == transport for r in ranks)
+    assert ranks[1]["losses"] == want
+    got = ranks[0]["state"]
+    for key in ("params", "momentum"):
+        for g, w in zip(tree_leaves(got[key]), tree_leaves(state[key])):
+            assert np.array_equal(g, w.cpu().numpy()), key
+    total = {k: sum(r["counts"][k] for r in ranks) for k in want_counts}
+    want_counts["fused_update"] += len(batches)
+    assert total == want_counts
+
+
+@pytest.mark.gpu
+def test_mpmd_ranks_sharing_the_card_match_spmd(card):
+    _mpmd_against_spmd(card, 1, "gloo-host")
+
+
+@pytest.mark.gpu
+def test_mpmd_over_nccl_matches_spmd(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the NCCL transport needs a card per rank (2 cards)")
+    _mpmd_against_spmd(card, 2, "nccl")

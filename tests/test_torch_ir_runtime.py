@@ -28,7 +28,9 @@ def test_refusals():
         tps.make_ir_state(tm, tparams, plan=stream)
     with pytest.raises(ValueError, match="needs a plan"):
         tps.make_ir_train_step(tm, plan=None, lr=LR)
-    with pytest.raises(NotImplementedError, match="mpmd"):
+    # mpmd runs one process per stage: without this rank's group it
+    # cannot start (tests/test_torch_mpmd.py runs it)
+    with pytest.raises(ValueError, match="mpmd"):
         tps.make_ir_state(tm, tparams, plan=one, execution="mpmd")
     with pytest.raises(NotImplementedError, match="mpmd"):
         tps.make_ir_train_step(tm, plan=one, lr=LR, execution="mpmd",
@@ -74,7 +76,7 @@ def test_runtime_config_and_dispatch():
     with pytest.raises(ValueError, match="does not match"):
         Runtime(tplan(tm.cfg, n_stages=2, schedule="1f1b"), tm,
                 RuntimeConfig(schedule="gpipe"))
-    with pytest.raises(NotImplementedError, match="mpmd"):
+    with pytest.raises(ValueError, match="group"):
         Runtime(tplan(tm.cfg, n_stages=2, schedule="1f1b"), tm,
                 RuntimeConfig(execution="mpmd"))
     with pytest.raises(TypeError, match="serve"):
@@ -144,7 +146,8 @@ def test_launcher_runs_each_schedule(argv, capsys):
     (["--schedule", "1f1b", "--virtual-stages", "2"], "requires"),
     (["--schedule", "interleaved", "--virtual-stages", "2", "--batch",
       "3"], "no round size"),
-    (["--schedule", "1f1b", "--execution", "mpmd"], "not ported"),
+    (["--schedule", "1f1b", "--execution", "mpmd", "--trace", "t.json"],
+     "not ported"),
     (["--profile-method", "hlo"], "not ported")])
 def test_launcher_refusals(argv, why):
     with pytest.raises(SystemExit, match=why):

@@ -292,7 +292,7 @@ def test_refusals(granite):
     eng = ServeEngine(tm, tp, _splans()[0])
     with pytest.raises(ValueError, match="page_seq"):
         eng.restate(_splans(page_seq=64)[0])
-    with pytest.raises(NotImplementedError, match="mpmd"):
+    with pytest.raises(ValueError, match="mpmd"):   # no stage group
         ServeEngine(tm, tp, _splans()[0], backend="mpmd")
     with pytest.raises(ValueError, match="backend"):
         ServeEngine(tm, tp, _splans()[0], backend="xla")
