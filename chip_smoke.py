@@ -206,6 +206,31 @@ sharing the one card over gloo through pinned host buffers:
      launches summing to phase 13's run without its warm-up round,
      tok/s over ``run()`` after warm-up and a steady round's wall.
 
+The pipeline tracer (``repro_torch.obs``) adds one phase:
+
+ 18. (``trace``, after phase 16) ``repro_torch.launch.train.main
+     --trace`` on the round-schedule configuration of phase 15 (same
+     seed), 1f1b (scan backend) and interleaved v2, each run untraced
+     and then traced for 4 rounds: losses and the digest of every leaf
+     bit-equal between the two, the launches a round unchanged; every
+     round filed with 2·C·M marks (64 / 128, CUDA events) and none
+     dropped (the launcher's ``# trace rounds`` line); the written trace
+     valid, with 2·2·C·M span events in 4 device lanes and every
+     measured span positive; the events' mean sum a round between phase
+     15's profiled busy less its ``fused_update`` time and the traced
+     round's mean wall; the drift report printed; the traced and
+     untraced round walls (median of rounds 1-3) printed, not gated,
+     and the overhead measured apart: 10 pairs of an untraced and a
+     traced 1f1b round on one state, alternating which runs first.
+     Then ``--execution mpmd --trace`` under 1f1b (4 ranks on the
+     card): every rank's leaves and the losses bit-equal to phase 16's
+     untraced run, launches and payloads a round unchanged and no
+     control message, one measured lane per rank with every event, the
+     trace valid (also through ``python -m repro_torch.obs.perfetto``).
+     Then the stream tick traced (``probe_stage_costs`` on the card:
+     positive stage costs; the attributed spans valid), and
+     ``python -m repro_torch.bench.trace_overhead``'s rows on the card.
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -213,10 +238,13 @@ repository's ``src/``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2732,10 +2760,12 @@ class MpmdProbe:
     between barriers, one profiled round (``StepProfile``, exact counts
     of the rank's own kernels), and after the last round the leaves'
     digests, the peak memory and the transport time; written to
-    ``<out>/rank<r>.json``."""
+    ``<out>/rank<r>.json``.  ``profile=False`` leaves the profiled round
+    out (the trace phase's traced rounds)."""
 
-    def __init__(self, out: str, label: str, M: int):
+    def __init__(self, out: str, label: str, M: int, profile: bool = True):
         self.out, self.label, self.M = out, label, M
+        self.profile = profile
         self.rec = None
 
     def _want(self, state) -> dict:
@@ -2760,8 +2790,9 @@ class MpmdProbe:
                         "loss": [], "transport": g.describe(),
                         # joining the group, the draw and round 0
                         "first_s": time.perf_counter() - g.t0}
-            self.sp = StepProfile(f"{self.label} rank {g.rank}", want,
-                                  IR_PROF_ROUND, IR_ROUNDS - 1)
+            self.sp = (StepProfile(f"{self.label} rank {g.rank}", want,
+                                   IR_PROF_ROUND, IR_ROUNDS - 1)
+                       if self.profile else None)
         rec = self.rec
         rec["t"].append(time.perf_counter())
         rec["counts"].append(dict(ops.launch_counts()))
@@ -2770,14 +2801,16 @@ class MpmdProbe:
         g.reset_counters()
         if metrics["loss"] is not None:
             rec["loss"].append(float(metrics["loss"]))
-        self.sp.hook(s)
+        if self.sp is not None:
+            self.sp.hook(s)
         if s == IR_ROUNDS - 1:
-            kern = self.sp.result()
-            rec["busy_ms"] = sum(e.self_device_time_total
-                                 for e in kern) / 1e3
-            rec["n_kernels"] = sum(e.count for e in kern)
-            rec["prof_round"] = self.sp.at
-            rec["prof_steps"] = self.sp.steps
+            if self.sp is not None:
+                kern = self.sp.result()
+                rec["busy_ms"] = sum(e.self_device_time_total
+                                     for e in kern) / 1e3
+                rec["n_kernels"] = sum(e.count for e in kern)
+                rec["prof_round"] = self.sp.at
+            rec["prof_steps"] = self.sp.steps if self.sp is not None else []
             rec["digests"] = leaf_digests(torch, state)
             rec["peak_bytes"] = torch.cuda.max_memory_allocated()
             with open(Path(self.out) / f"rank{g.rank}.json", "w") as f:
@@ -2923,7 +2956,8 @@ def mpmd_train(torch, ops, ir_runs: dict) -> dict:
                "sent": [pred[r]["fwd_sent"] + pred[r]["bwd_sent"]
                         for r in range(S)],
                "act_bytes": act_bytes, "run_s": run_s,
-               "launches": total, "transport": r0["transport"]}
+               "launches": total, "transport": r0["transport"],
+               "rank_digests": [rep["digests"] for rep in reps]}
         print(f"  transport: {r0['transport']}")
         print(f"  launches a round, per rank: {res['per_rank']}; summed "
               f"{design} (SPMD: {spmd['per_round']}); exact on every "
@@ -2947,6 +2981,357 @@ def mpmd_train(torch, ops, ir_runs: dict) -> dict:
               f"{max(r['first_s'] for r in reps):.1f} s from a rank's "
               f"joining to the end of round 0")
         out[label] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline tracer (obs/trace, drift, Perfetto) on the training paths
+
+# (label of the ir_schedules run it is held to, argv, virtual stages)
+TRACE_RUNS = [
+    ("1f1b spectrain", ["--schedule", "1f1b"], 1),
+    ("interleaved v2 spectrain", ["--schedule", "interleaved",
+                                  "--virtual-stages", "2"], 2),
+]
+# pairs of untraced and traced full-width rounds for the overhead
+TRACE_PAIRS = 10
+TRACE_ROUNDS_RE = re.compile(
+    r"# trace rounds: (\d+) filed, (\d+) dropped, (\d+) events a round")
+TRACE_BUBBLE_RE = re.compile(
+    r"# bubble: measured (\S+)\s+ir-predicted (\S+)\s+cost-weighted (\S+)")
+
+
+@contextlib.contextmanager
+def fd_stdout(path: str):
+    """Send file descriptor 1 to ``path`` for the block: this process's
+    standard output and that of the processes it spawns (the stage
+    ranks print there)."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _trace_file(path, n_events: int, lanes: int, what: str) -> dict:
+    """The written trace: valid (``validate_trace``), 2·n_events span
+    events (the measured and the IR-predicted lane groups), ``lanes``
+    measured lanes, every measured span positive; the measured spans'
+    sum and, per (op, chunk) and per lane, their mean durations (ms)."""
+    from repro_torch.obs import validate_trace
+    obj = json.loads(Path(path).read_text())
+    problems = validate_trace(obj)
+    check(not problems, f"{what}: the trace is invalid: {problems[:3]}")
+    xs = [e for e in obj["traceEvents"] if e["ph"] == "X"]
+    meas = [e for e in xs if e["pid"] == 0]
+    check(len(xs) == 2 * n_events and len(meas) == n_events,
+          f"{what}: {len(xs)} span events ({len(meas)} measured), expected "
+          f"2 x {n_events}")
+    check(sorted({e["tid"] for e in meas}) == list(range(lanes)),
+          f"{what}: measured lanes {sorted({e['tid'] for e in meas})}, "
+          f"expected {lanes}")
+    check(all(e["dur"] > 0 for e in meas),
+          f"{what}: a measured span is not positive")
+    by_kind, by_lane = {}, {}
+    for e in meas:
+        by_kind.setdefault(f"{e['args']['op']} q{e['args']['chunk']}",
+                           []).append(e["dur"] / 1e3)
+        by_lane.setdefault(e["tid"], []).append(e["dur"] / 1e3)
+    return {"sum_ms": sum(e["dur"] for e in meas) / 1e3,
+            "by_kind": {k: sum(v) / len(v) for k, v in sorted(
+                by_kind.items())},
+            "lane_ms": [sum(by_lane[d]) for d in range(lanes)]}
+
+
+def _trace_summary(text: str, what: str, rounds: int, events: int) -> dict:
+    """The launcher's ``# trace rounds`` and ``# bubble`` lines: every
+    round filed with ``events`` marks, none dropped."""
+    m = TRACE_ROUNDS_RE.search(text)
+    check(m is not None, f"{what}: no '# trace rounds' line printed")
+    filed, dropped, n = (int(x) for x in m.groups())
+    check((filed, dropped, n) == (rounds, 0, events),
+          f"{what}: {filed} rounds filed, {dropped} dropped, {n} events a "
+          f"round; expected {rounds}, 0, {events}")
+    b = TRACE_BUBBLE_RE.search(text)
+    check(b is not None, f"{what}: no drift report printed")
+    return {"bubble": float(b.group(1)), "bubble_ir": float(b.group(2)),
+            "bubble_weighted": float(b.group(3))}
+
+
+def _ir_rounds(torch, ops, argv: list, want: dict, what: str) -> dict:
+    """``train.main`` over IR_BASE + ``argv`` (IR_ROUNDS rounds): its
+    printed lines, every round's loss, exact launches a round, the host
+    wall of rounds 1.. (the card synchronized), the last state's leaf
+    digests."""
+    from repro_torch.launch import train
+    rec = {"t": [], "t_end": [], "loss": [], "counts": []}
+
+    def on_step(s, state, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["counts"].append(dict(ops.launch_counts()))
+        rec["loss"].append(float(metrics["loss"]))
+        if s == IR_ROUNDS - 1:
+            rec["digests"] = leaf_digests(torch, state)
+        rec["t_end"].append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(IR_BASE + argv, on_step=on_step)
+    check(rc == 0, f"{what}: train.main returned {rc}")
+    check(len(rec["loss"]) == IR_ROUNDS, f"{what}: not every round ran")
+    prev = {k: 0 for k in want}
+    for s, c in enumerate(rec["counts"]):
+        got = {k: c[k] - prev[k] for k in want}
+        check(got == want, f"{what}: round {s} launched {got}, expected "
+              f"{want}")
+        prev = c
+    rec["walls_ms"] = [1e3 * (rec["t"][i] - rec["t_end"][i - 1])
+                       for i in range(1, IR_ROUNDS)]
+    rec["text"] = buf.getvalue()
+    return rec
+
+
+def trace_pairs(torch) -> dict:
+    """The tracer's cost at full width: TRACE_PAIRS pairs of an untraced
+    and a traced 1f1b round (the launcher's configuration and seed) on
+    one state, alternating which runs first
+    (``repro_torch.bench.trace_overhead.paired_walls``)."""
+    from statistics import median
+
+    from repro_torch.bench.trace_overhead import paired_walls
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.obs import PipelineTracer
+    phase(f"trace: overhead, {TRACE_PAIRS} pairs of an untraced and a "
+          f"traced 1f1b round on one state, alternating, {ARCH} full "
+          f"width, {TRAIN_LAYERS} layers in {TRAIN_STAGES} stages, bf16")
+    args = train.parse_args(IR_BASE + ["--layers", str(TRAIN_LAYERS),
+                                       "--schedule", "1f1b"])
+    cfg = train.build(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, device=args.device)
+    pplan, _ = train.run_plan(args, cfg, model.device)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    state = ps.make_ir_state(model, model.init(gen), plan=pplan,
+                             mode=args.mode)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                   seed=args.seed, kind=args.data_kind)
+                        ).batch_at(0)
+    kw = dict(plan=pplan, mode=args.mode, lr=args.lr, gamma=args.gamma)
+    tracer = PipelineTracer(pplan, device=model.device)
+    off, on = paired_walls(ps.make_ir_train_step(model, **kw),
+                           tracer.wrap_step(ps.make_ir_train_step(
+                               model, tracer=tracer, **kw)),
+                           state, batch, model.device, TRACE_PAIRS)
+    check(len(tracer.rounds) == TRACE_PAIRS + 1
+          and tracer.dropped_rounds == 0,
+          f"overhead: {len(tracer.rounds)} rounds filed, "
+          f"{tracer.dropped_rounds} dropped")
+    del state
+    r = {"off_ms": 1e3 * median(off), "on_ms": 1e3 * median(on),
+         "slower": sum(b > a for a, b in zip(off, on)),
+         "off_iqr_ms": 1e3 * (sorted(off)[3 * TRACE_PAIRS // 4]
+                              - sorted(off)[TRACE_PAIRS // 4])}
+    r["pct"] = 100 * (r["on_ms"] / r["off_ms"] - 1)
+    print(f"  untraced {[round(1e3 * x, 3) for x in off]} ms")
+    print(f"  traced   {[round(1e3 * x, 3) for x in on]} ms")
+    print(f"  medians: traced {r['on_ms']:.3f} ms, untraced "
+          f"{r['off_ms']:.3f} ms ({r['pct']:+.2f}%); traced slower in "
+          f"{r['slower']} of {TRACE_PAIRS} pairs; the untraced rounds' "
+          f"quartile spread {r['off_iqr_ms']:.3f} ms")
+    return r
+
+
+def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
+    """The pipeline tracer through ``repro_torch.launch.train.main
+    --trace`` (see the module docstring, phase 18): traced IR rounds of
+    1f1b and interleaved v2 against untraced ones, a traced MPMD 1f1b
+    run against phase 16's, the traced stream tick, the overhead
+    benchmark."""
+    from statistics import median
+
+    from repro_torch.bench import trace_overhead
+    from repro_torch.launch import train
+    from repro_torch.runtime import sharding as rsh
+    out = {"ir": {}}
+    M = IR_ROUND
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv, v in TRACE_RUNS:
+            phase(f"trace: repro_torch.launch.train.main --trace, {ARCH} "
+                  f"full width, {TRAIN_LAYERS} layers in {TRAIN_STAGES} "
+                  f"stages, bf16, {label}, {IR_ROUNDS} rounds traced and "
+                  f"untraced")
+            C, L = TRAIN_STAGES * v, TRAIN_LAYERS
+            n_ev = 2 * C * M
+            want = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M,
+                    "flash_bwd_dkv": L * M, "fused_update": C + 1}
+            path = str(Path(tmp) / f"ir{v}.json")
+            base = ["--layers", str(L)] + argv
+            plain = _ir_rounds(torch, ops, base, want, f"{label} untraced")
+            traced = _ir_rounds(torch, ops, base + ["--trace", path], want,
+                                f"{label} traced")
+            print("  " + traced["text"].strip().replace("\n", "\n  "))
+            check(traced["loss"] == plain["loss"],
+                  f"{label}: traced losses {traced['loss']} vs untraced "
+                  f"{plain['loss']}")
+            differ = [k for k, d in plain["digests"].items()
+                      if traced["digests"].get(k, {}).get("d") != d["d"]]
+            check(set(traced["digests"]) == set(plain["digests"])
+                  and not differ, f"{label}: traced leaves differ from the "
+                  f"untraced: {differ[:4]}")
+            summ = _trace_summary(traced["text"], label, IR_ROUNDS, n_ev)
+            tf = _trace_file(path, n_ev, TRAIN_STAGES, label)
+            spmd = ir_runs[label]
+            lo = spmd["busy_ms"] - spmd["kernel_ms"]["fused_update"]
+            # the tracer's mean over rounds 1..; each round's marks lie
+            # inside its step, so the mean sum is under the mean wall
+            hi = sum(traced["walls_ms"]) / len(traced["walls_ms"])
+            check(lo <= tf["sum_ms"] <= hi,
+                  f"{label}: the events sum to {tf['sum_ms']:.3f} ms, "
+                  f"outside [busy - fused_update, wall] = [{lo:.3f}, "
+                  f"{hi:.3f}]")
+            r = {"label": label, "events": n_ev, "leaves": len(
+                plain["digests"]), "busy_ms": spmd["busy_ms"],
+                 "update_ms": spmd["kernel_ms"]["fused_update"],
+                 "plain_ms": median(plain["walls_ms"]),
+                 "traced_ms": median(traced["walls_ms"]),
+                 "traced_mean_ms": hi, **summ, **tf}
+            r["overhead_pct"] = 100 * (r["traced_ms"] / r["plain_ms"] - 1)
+            print(f"  traced against untraced: losses and all {r['leaves']}"
+                  f" leaves bit-equal; {n_ev} marks a round, "
+                  f"{IR_ROUNDS} rounds filed, none dropped; launches a "
+                  f"round {want} both")
+            print(f"  events sum to {tf['sum_ms']:.3f} ms a round (mean of "
+                  f"rounds 1..{IR_ROUNDS - 1}), within [busy "
+                  f"{spmd['busy_ms']:.3f} - fused_update "
+                  f"{r['update_ms']:.3f}, mean traced wall {hi:.3f}]; "
+                  f"bubble measured {r['bubble']:.3f}, IR {r['bubble_ir']:.3f}"
+                  f", cost-weighted {r['bubble_weighted']:.3f}")
+            print(f"  mean event ms by (op, chunk): "
+                  f"{ {k: round(x, 3) for k, x in tf['by_kind'].items()} }; "
+                  f"per device lane {[round(x, 3) for x in tf['lane_ms']]}")
+            print(f"  overhead: round wall (median of rounds 1..."
+                  f"{IR_ROUNDS - 1}) traced {r['traced_ms']:.3f} ms, "
+                  f"untraced {r['plain_ms']:.3f} ms "
+                  f"({r['overhead_pct']:+.1f}%; host-bound rounds, not "
+                  f"gated)")
+            out["ir"][label] = r
+
+        out["pairs"] = trace_pairs(torch)
+
+        label = "1f1b spectrain"
+        phase(f"trace: repro_torch.launch.train.main --execution mpmd "
+              f"--trace, {ARCH} full width, {TRAIN_LAYERS} layers, "
+              f"{TRAIN_STAGES} ranks on the card, bf16, {label}, "
+              f"{IR_ROUNDS} rounds")
+        path = str(Path(tmp) / "mpmd.json")
+        log = str(Path(tmp) / "mpmd.log")
+        full = IR_BASE + ["--layers", str(TRAIN_LAYERS), "--schedule",
+                          "1f1b", "--execution", "mpmd", "--trace", path]
+        pdir = Path(tmp) / "probe"
+        pdir.mkdir()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with fd_stdout(log):
+            rc = train.main(full, on_step=MpmdProbe(str(pdir), label, M,
+                                                    profile=False))
+        run_s = time.perf_counter() - t0
+        text = Path(log).read_text()
+        print("  " + text.strip().replace("\n", "\n  "))
+        check(rc == 0, f"mpmd {label}: train.main returned {rc}")
+        reps = [json.loads((pdir / f"rank{r}.json").read_text())
+                for r in range(TRAIN_STAGES)]
+        ref = mpmd_runs[label]
+        for r, rep in enumerate(reps):
+            want_d = ref["rank_digests"][r]
+            differ = [k for k, d in want_d.items()
+                      if rep["digests"].get(k, {}).get("d") != d["d"]]
+            check(set(rep["digests"]) == set(want_d) and not differ,
+                  f"mpmd {label}: rank {r}'s traced leaves differ from the "
+                  f"untraced run's: {differ[:4]}")
+            check(rep["want"] == ref["per_rank"][r],
+                  f"mpmd {label}: rank {r} launches {rep['want']}")
+            prev = {k: 0 for k in rep["want"]}
+            for s_, c in enumerate(rep["counts"]):
+                got = {k: c[k] - prev[k] for k in rep["want"]}
+                check(got == rep["want"], f"mpmd {label}: rank {r} round "
+                      f"{s_} launched {got}")
+                prev = c
+            n_s = ref["sent"][r]
+            check(all(x["n_sent"] == n_s and x["n_ctl"] == 0
+                      for x in rep["xfer"]),
+                  f"mpmd {label}: rank {r} moved {rep['xfer']}")
+        losses = reps[rsh.head_rank(TRAIN_STAGES, TRAIN_STAGES)]["loss"]
+        check(losses == ref["losses"], f"mpmd {label}: traced losses "
+              f"{losses} vs untraced {ref['losses']}")
+        n_ev = 2 * TRAIN_STAGES * M
+        summ = _trace_summary(text, f"mpmd {label}", IR_ROUNDS, n_ev)
+        tf = _trace_file(path, n_ev, TRAIN_STAGES, f"mpmd {label}")
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.obs.perfetto",
+                      path], capture_output=True, text=True,
+                     timeout=TIMEOUT_S, cwd=str(ROOT),
+                     env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(cli.returncode == 0 and f"OK: {2 * n_ev} span events" in
+              cli.stdout, f"python -m repro_torch.obs.perfetto: "
+              f"{cli.stdout.strip()} {cli.stderr.strip()[-300:]}")
+        r0 = reps[0]
+        walls = [1e3 * (r0["t"][i] - r0["t_end"][i - 1])
+                 for i in range(1, IR_ROUNDS)]
+        out["mpmd"] = {"label": label, "events": n_ev, **summ, **tf,
+                       "run_s": run_s, "wall_ms": median(walls),
+                       "plain_wall_ms": ref["wall_ms"]}
+        print(f"  traced against phase 16's untraced run: losses and every "
+              f"rank's leaves bit-equal, launches and payloads a round "
+              f"unchanged, no control message; {n_ev} events a round in "
+              f"{TRAIN_STAGES} lanes (one a rank); {cli.stdout.strip()}")
+        print(f"  per lane, the rank's ticks sum to "
+              f"{[round(x, 3) for x in tf['lane_ms']]} ms a round (mean of "
+              f"rounds 1..{IR_ROUNDS - 1}, transport waits included); "
+              f"bubble measured {summ['bubble']:.3f}, IR "
+              f"{summ['bubble_ir']:.3f}; rank 0's round wall "
+              f"{out['mpmd']['wall_ms']:.3f} ms (untraced "
+              f"{ref['wall_ms']:.3f}); run {run_s:.1f} s")
+
+        phase(f"trace: the stream tick, repro_torch.launch.train.main "
+              f"--trace, {ARCH} full width, {TRAIN_LAYERS} layers in "
+              f"{TRAIN_STAGES} stages, bf16, spectrain, {TRAIN_STEPS} ticks")
+        path = str(Path(tmp) / "stream.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(TRAIN_ARGV + ["--trace", path])
+        text = buf.getvalue()
+        print("  " + text.strip().replace("\n", "\n  "))
+        check(rc == 0, f"stream --trace: train.main returned {rc}")
+        n_sp = (TRAIN_STEPS - 1) * TRAIN_STAGES
+        tf = _trace_file(path, n_sp, TRAIN_STAGES, "stream --trace")
+        meas = [float(m.group(1)) for m in re.finditer(
+            r"#  s\d+\s+\S+\s+(\S+)", text)]
+        check(len(meas) == TRAIN_STAGES and all(x > 0 for x in meas),
+              f"stream --trace: probed stage costs {meas}")
+        out["stream"] = {"probed_ms": [1e3 * x for x in meas], **tf}
+        print(f"  probed stage forwards {[round(1e3 * x, 3) for x in meas]}"
+              f" ms (after a warm call, the card synchronized); "
+              f"{n_sp} attributed spans")
+
+        phase("python -m repro_torch.bench.trace_overhead on the card")
+        rows = trace_overhead.main(device="cuda")
+        print("  " + "\n  ".join(rows))
+        out["bench"] = rows
     return out
 
 
@@ -3632,6 +4017,7 @@ def run() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mpmd_runs = mpmd_train(torch, ops, ir_runs)
+        traced = trace_phase(torch, ops, ir_runs, mpmd_runs)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -3856,6 +4242,28 @@ def run() -> int:
               f"{r['equal'][1]}, {r['tok_per_s']:.2f} tok/s (scan "
               f"{r['scan_tok_per_s']:.2f}), median round {r['round_ms']:.3f}"
               f" ms")
+    for label, r in traced["ir"].items():
+        print(f"traced IR round {label}: {r['events']} events, bit-equal "
+              f"to untraced; events {r['sum_ms']:.3f} ms of a "
+              f"{r['traced_mean_ms']:.3f} ms wall (busy {r['busy_ms']:.3f}, "
+              f"fused_update {r['update_ms']:.3f}); bubble measured "
+              f"{r['bubble']:.3f} vs IR {r['bubble_ir']:.3f}; wall traced "
+              f"{r['traced_ms']:.3f} / untraced {r['plain_ms']:.3f} ms "
+              f"({r['overhead_pct']:+.1f}%)")
+    r = traced["mpmd"]
+    print(f"traced MPMD round {r['label']}: {r['events']} events in "
+          f"{len(r['lane_ms'])} rank lanes, bit-equal to untraced; lanes "
+          f"{[round(x, 3) for x in r['lane_ms']]} ms; bubble measured "
+          f"{r['bubble']:.3f} vs IR {r['bubble_ir']:.3f}; rank 0 wall "
+          f"{r['wall_ms']:.3f} ms (untraced {r['plain_wall_ms']:.3f})")
+    r = traced["pairs"]
+    print(f"tracer overhead, full-width 1f1b, {TRACE_PAIRS} alternating "
+          f"pairs on one state: traced {r['on_ms']:.3f} / untraced "
+          f"{r['off_ms']:.3f} ms ({r['pct']:+.2f}%, traced slower in "
+          f"{r['slower']} of {TRACE_PAIRS})")
+    print(f"traced stream tick: probed stage forwards "
+          f"{[round(x, 3) for x in traced['stream']['probed_ms']]} ms; "
+          f"{'; '.join(traced['bench'])}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

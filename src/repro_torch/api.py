@@ -20,8 +20,10 @@ their state in place, and :meth:`Runtime.train_step` calls the built
 step.  ``execution="mpmd"`` binds one rank of a stage group
 (``Runtime(..., group=)``, one process per stage, made by
 ``repro_torch.launch.mesh.run_stage_ranks``): the state, the round and
-the serving engine are that rank's.  ``trace`` is not ported yet and
-raises.
+the serving engine are that rank's.  ``Runtime(..., tracer=)`` with
+``RuntimeConfig(trace=True)`` instruments the training step for a
+``repro_torch.obs.PipelineTracer`` (per-event marks in the round
+schedules, the step wall of the stream tick).
 
 ``add_runtime_args`` / ``runtime_config_from_args`` are the argparse
 wiring the training launcher builds its config from.
@@ -53,7 +55,8 @@ class RuntimeConfig:
                    ``clip``.
     ``verify``     statically verify compiled schedule artifacts before
                    execution (``planner/verify.py``).
-    ``trace``      the pipeline tracer; not ported yet.
+    ``trace``      instrument steps for the pipeline tracer (a tracer
+                   passed to :class:`Runtime` requires it).
     ``lr/gamma/clip/ticks_per_step``  optimizer and tick knobs.
     """
     mode: str = "spectrain"
@@ -110,13 +113,14 @@ class Runtime:
     Training (``plan`` is a :class:`~repro_torch.planner.PipelinePlan`):
     :meth:`init_state` builds the schedule's train state from canonical
     init params and :meth:`train_step` runs one tick (stream) or one
-    round (IR schedules).  Serving (``plan`` is a
+    round (IR schedules), inside ``tracer.wrap_step`` when a tracer is
+    given.  Serving (``plan`` is a
     :class:`~repro_torch.planner.ServePlan`): :meth:`serve_engine`
     builds the pipelined ``ServeEngine`` and :meth:`serve_step` drives a
     request trace through it."""
 
     def __init__(self, plan, model, config: Optional[RuntimeConfig]
-                 = None, *, registry=None, group=None):
+                 = None, *, registry=None, group=None, tracer=None):
         from repro_torch.planner.api import PipelinePlan, ServePlan
         if not isinstance(plan, (PipelinePlan, ServePlan)):
             raise TypeError(
@@ -126,10 +130,12 @@ class Runtime:
         self.config = config if config is not None else RuntimeConfig()
         self.registry = registry
         self.serving = isinstance(plan, ServePlan)
-        if self.config.trace:
-            raise NotImplementedError(
-                "the pipeline tracer (obs/trace.py) is not ported to "
-                "PyTorch yet")
+        if tracer is not None and not self.config.trace:
+            raise ValueError("a tracer was passed but config.trace is "
+                             "False; set RuntimeConfig(trace=True)")
+        if tracer is not None:
+            tracer.check_device(model.device)
+        self.tracer = tracer
         if self.config.execution == "mpmd" and group is None:
             raise ValueError(
                 "execution='mpmd' binds one rank of a stage group: pass "
@@ -183,15 +189,19 @@ class Runtime:
         if self._step is None:
             c = self.config
             if self._ir:
-                self._step = ps.make_ir_train_step(
+                fn = ps.make_ir_train_step(
                     self.model, plan=self.plan, mode=c.mode, lr=c.lr,
                     gamma=c.gamma, clip=c.clip, backend=c.backend,
-                    execution=c.execution, group=self.group)
+                    execution=c.execution, group=self.group,
+                    tracer=self.tracer)
             else:
-                self._step = ps.make_train_step(
+                fn = ps.make_train_step(
                     self.model, mode=c.mode, lr=c.lr, gamma=c.gamma,
                     clip=c.clip, ticks_per_step=c.ticks_per_step,
                     plan=self.plan)
+            if self.tracer is not None:
+                fn = self.tracer.wrap_step(fn)
+            self._step = fn
         return self._step(state, batch)
 
     # -------------------------------------------------------------- serving

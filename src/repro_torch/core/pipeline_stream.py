@@ -71,6 +71,11 @@ outer leaves it reads, walks its column of the plan's device streams
 through the same event bodies (:class:`_Round`), and sends activations
 and cotangents only across the stage cuts (:func:`_make_mpmd_step`),
 bit for bit the SPMD round.
+
+A ``repro_torch.obs.PipelineTracer`` passed as ``tracer=`` to
+:func:`make_ir_train_step` takes one mark per compute event of the round
+(under MPMD one per row of the rank's device stream); without one the
+round takes none.
 """
 from __future__ import annotations
 
@@ -714,7 +719,14 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
     of ``make_ir_state(..., execution="mpmd")`` (see
     :func:`_make_mpmd_step`); ``backend`` applies to the SPMD path only,
     and ``clip`` and hybrid models are refused, as in the JAX twin.
-    ``tracer`` is not ported yet and raises."""
+
+    ``tracer`` (a ``repro_torch.obs.PipelineTracer`` for this plan and
+    the model's device) takes one mark per compute event, in the IR's
+    timeline order (MPMD: one per row of the rank's device stream, after
+    its exchange); wrap the step in ``tracer.wrap_step`` to file the
+    rounds.  ``embed`` is part of chunk 0's fwd event, ``head`` and
+    ``embed_bwd`` part of the bwd event that calls them.  With
+    ``tracer=None`` the round takes no mark."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if backend not in IR_BACKENDS:
@@ -729,14 +741,14 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
             "clip=None")
     execution = _check_execution(execution, model, group)
     if tracer is not None:
-        raise _unsupported(
-            "a tracer on the IR interpreter",
-            "tracing (obs/trace.py, fed by CUDA events) is not ported to "
-            "PyTorch yet; it is a later slice of the port",
-            "tracer=None")
+        if tracer.plan != plan:
+            raise ValueError("the tracer was made for another plan than "
+                             "the step's")
+        tracer.check_device(model.device)
+    mark = None if tracer is None else tracer._mark
     if execution == "mpmd":
         return _make_mpmd_step(model, plan=plan, mode=mode, lr=lr,
-                               gamma=gamma, group=group)
+                               gamma=gamma, group=group, tracer=tracer)
     _ir_plan_check(model, plan)
     prog = plan.round_program()
     C, M = plan.n_chunks, plan.round_microbatches
@@ -753,18 +765,20 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
                 x = rnd.embed(m, s) if q == 0 else outs.pop((m, q - 1))
                 acts[(m, q)] = x
                 outs[(m, q)] = rnd.fwd(q, s, x)
-                continue
-            if q == C - 1:
-                cot = rnd.head(m, s, outs.pop((m, q)),
-                               first=rnd.g_head is None)
             else:
-                cot = cots.pop((m, q + 1))
-            gx = rnd.bwd(q, s, acts.pop((m, q)), cot,
-                         first=rnd.g_chunks[q] is None)
-            if q == 0:
-                rnd.embed_bwd(m, s, gx, first=rnd.g_tok is None)
-            else:
-                cots[(m, q)] = gx
+                if q == C - 1:
+                    cot = rnd.head(m, s, outs.pop((m, q)),
+                                   first=rnd.g_head is None)
+                else:
+                    cot = cots.pop((m, q + 1))
+                gx = rnd.bwd(q, s, acts.pop((m, q)), cot,
+                             first=rnd.g_chunks[q] is None)
+                if q == 0:
+                    rnd.embed_bwd(m, s, gx, first=rnd.g_tok is None)
+                else:
+                    cots[(m, q)] = gx
+            if mark is not None:
+                mark()
         if acts or outs or cots:
             raise ValueError(
                 f"{plan.schedule!r} round program (round size {M}) "
@@ -787,19 +801,22 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
                                         + x.shape)
                     P[a].copy_(x)
                 P[b].copy_(rnd.fwd(q, s, P[a]))
-                continue
-            if q == C - 1:
-                cot = rnd.head(m, s, P[b],
-                               first=row[sir.COL_FIRST_O] > 0)
             else:
-                cot = Q[b]
-            # every input is read before the write: the table may hand
-            # this event's freed cotangent slot to its own output
-            gx = rnd.bwd(q, s, P[a], cot, first=row[sir.COL_FIRST_G] > 0)
-            if q == 0:
-                rnd.embed_bwd(m, s, gx, first=row[sir.COL_FIRST_E] > 0)
-            else:
-                Q[row[sir.COL_C]].copy_(gx)
+                if q == C - 1:
+                    cot = rnd.head(m, s, P[b],
+                                   first=row[sir.COL_FIRST_O] > 0)
+                else:
+                    cot = Q[b]
+                # every input is read before the write: the table may
+                # hand this event's freed cotangent slot to its own output
+                gx = rnd.bwd(q, s, P[a], cot,
+                             first=row[sir.COL_FIRST_G] > 0)
+                if q == 0:
+                    rnd.embed_bwd(m, s, gx, first=row[sir.COL_FIRST_E] > 0)
+                else:
+                    Q[row[sir.COL_C]].copy_(gx)
+            if mark is not None:
+                mark()
 
     run_round = scan_round if backend == "scan" else unrolled_round
 
@@ -892,7 +909,7 @@ def mpmd_transfers(streams) -> Tuple[Dict[str, int], ...]:
 
 
 def _make_mpmd_step(model, *, plan, mode: str, lr: float, gamma: float,
-                    group) -> Callable:
+                    group, tracer=None) -> Callable:
     """The rank's round, the counterpart of the JAX twin's
     ``_make_mpmd_step``: walk the rank's column of
     ``plan.device_streams()`` tick by tick, dispatching each row to the
@@ -910,7 +927,13 @@ def _make_mpmd_step(model, *, plan, mode: str, lr: float, gamma: float,
     in that order, so both copies take the same update); the update is
     elementwise, one fused launch per local chunk tree and one for the
     local outer leaves.  The loss is reported on rank ``(C - 1) % S``
-    (``None`` elsewhere)."""
+    (``None`` elsewhere).
+
+    With a ``tracer`` the rank marks after each row's exchange, so a
+    tick's span holds the rank's wait in the transport; the tracer's
+    ``wrap_step`` gathers the ranks' tick durations once a round
+    (``PipelineTracer.set_stage_group``).  Untraced, a round sends
+    nothing more than its payloads."""
     from repro_torch.runtime.sharding import TAG_BWD, TAG_CTL, TAG_FWD
     _ir_plan_check(model, plan)
     S, r = group.world, group.rank
@@ -931,6 +954,10 @@ def _make_mpmd_step(model, *, plan, mode: str, lr: float, gamma: float,
     tied = model.cfg.tie_embeddings
     cdt = dtype_of(model.cfg.compute_dtype)
     local = rsh.local_chunks(r, C, S)
+    mark = None
+    if tracer is not None:
+        tracer.set_stage_group(group, len(rows))
+        mark = tracer._mark
 
     def run_round(rnd: _Round, act: Tuple[int, ...]) -> None:
         V: List[Optional[torch.Tensor]] = [None] * streams.n_val_slots
@@ -978,6 +1005,8 @@ def _make_mpmd_step(model, *, plan, mode: str, lr: float, gamma: float,
                 V[rf] = got.pop(0)
             if rb >= 0:
                 Ct[rb] = got.pop(0)
+            if mark is not None:
+                mark()
 
     def outer_grads(rnd: _Round, params) -> Dict[str, Any]:
         """Head partial (zeros where the head reads nothing the rank

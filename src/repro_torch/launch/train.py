@@ -22,8 +22,18 @@ depths.  Unlike the JAX launcher, which always shrinks the model, this
 one trains the full configuration unless ``--smoke`` or the size flags
 cut it.  It runs on the card unless ``--device cpu`` is given; on a
 machine without a card, ``--device cuda`` (the default) fails.
-``--trace``, ``--compress`` and ``--profile-method hlo`` are not ported
-yet and are refused.
+``--compress`` and ``--profile-method hlo`` are not ported yet and are
+refused.
+
+``--trace PATH`` instruments the run with a ``PipelineTracer``
+(``repro_torch.obs``): one mark per compute event of a round schedule
+(CUDA events on the card, the host clock on the CPU), one per
+device-stream row and rank under ``--execution mpmd`` (the ranks'
+tick durations gathered once a round), the step wall of the stream tick
+attributed by ``probe_stage_costs``.  At the end it writes the Perfetto
+trace (measured and IR-predicted lanes; rank 0 under MPMD) and prints
+the drift report.  As in the JAX launcher it is refused with ``--mode
+sync`` and with ``--pipe`` below 2.
 
 ``--execution mpmd`` runs a round schedule stage-locally: one process
 per stage (``launch/mesh.py``), rank ``r`` on ``cuda:(r % cards)`` (or
@@ -72,7 +82,9 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.data.pipeline import KINDS
 from repro_torch.models import Model
 from repro_torch.models.layers import tree_leaves
-from repro_torch.obs import MetricsRegistry, format_step
+from repro_torch.obs import (MetricsRegistry, PipelineTracer, drift_report,
+                             format_drift, format_step, probe_stage_costs,
+                             write_trace)
 from repro_torch.planner import check_against_closed_forms
 from repro_torch.planner import plan as make_plan
 from repro_torch.runtime import checkpoint as ckpt
@@ -100,8 +112,7 @@ def build(args):
 
 
 def _not_ported(args) -> Optional[str]:
-    for flag, on in (("--trace", args.trace),
-                     ("--compress", args.compress),
+    for flag, on in (("--compress", args.compress),
                      ("--profile-method hlo", args.profile_method == "hlo")):
         if on:
             return f"{flag} is not ported to PyTorch yet"
@@ -222,8 +233,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default="", dest="ckpt_dir")
     ap.add_argument("--save-every", type=int, default=20, dest="save_every")
     ap.add_argument("--resume", default="", choices=("", "auto"))
+    ap.add_argument("--trace", default="",
+                    help="write a Perfetto/Chrome trace JSON (per-device "
+                         "measured + IR-predicted lanes) to this path and "
+                         "print the predicted-vs-measured drift report")
     # accepted so that the JAX launcher's command lines fail clearly
-    ap.add_argument("--trace", default="")
     ap.add_argument("--compress", default="", choices=("", "topk", "int8"))
     return ap.parse_args(argv)
 
@@ -262,6 +276,11 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
         raise SystemExit(
             f"--mode sync runs the fill/drain pipeline and cannot honor "
             f"--schedule {args.schedule}; drop one of the two flags")
+    if args.trace and args.mode == "sync":
+        raise SystemExit("--trace instruments the streaming/IR runtimes; "
+                         "--mode sync is not traceable")
+    if args.trace and args.pipe < 2:
+        raise SystemExit("--trace needs a real pipeline (--pipe >= 2)")
     if args.virtual_stages > 1 and args.schedule != "interleaved":
         raise SystemExit(
             f"--virtual-stages {args.virtual_stages} requires "
@@ -288,6 +307,7 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     # the last step run, and the last one saved: the final save writes
     # only a state no save has written, under its own step
     ran = saved = None
+    tracer = None
     try:
         if args.mode == "sync":
             state = pipeline_sync.init_state(model, gen)
@@ -296,8 +316,17 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
                 num_microbatches=cfg.mesh_plan.num_microbatches,
                 clip=args.clip or None)
         else:
-            rt = Runtime(pplan, model, rc)
+            tracer = (PipelineTracer(pplan, device=model.device)
+                      if args.trace else None)
+            rt = Runtime(pplan, model, rc, tracer=tracer)
             state = rt.init_state(model.init(gen), data.batch_at(0))
+            if tracer is not None and not ir_round:
+                # the fused tick is not separable per stage: probe each
+                # stage's cost alone (PipeDream-style) for the per-device
+                # attribution in the trace and the drift report
+                tracer.set_probed(probe_stage_costs(
+                    model, state["params"]["stages"],
+                    mb=max(1, args.batch // args.ticks), seq=args.seq))
             step_fn = rt.train_step
         start = 0
         if args.resume == "auto" and args.ckpt_dir:
@@ -345,7 +374,20 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
             bg_save.join()
     if args.ckpt_dir and not interrupted and ran != saved:
         ckpt.save(args.ckpt_dir, state, ran)
+    if tracer is not None and tracer.n_steps():
+        _report_trace(args.trace, tracer)
     return 1 if interrupted else 0
+
+
+def _report_trace(path: str, tracer) -> None:
+    """Write the trace and print its summary and the drift report."""
+    write_trace(path, tracer)
+    print(f"# trace written to {path} ({tracer.n_steps()} steps recorded)")
+    if tracer.is_round:
+        print(f"# trace rounds: {len(tracer.rounds)} filed, "
+              f"{tracer.dropped_rounds} dropped, {len(tracer.metas)} "
+              f"events a round")
+    print(format_drift(drift_report(tracer)), flush=True)
 
 
 def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:
@@ -354,14 +396,16 @@ def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:
     then the training loop; saves and resumes go through rank 0.
     Peak-memory statistics restart once the state is built.
     ``on_step(step_index, state, metrics)`` runs on every rank with the
-    rank's local state (it must pickle)."""
+    rank's local state (it must pickle).  Under ``--trace`` every rank
+    marks its rounds and rank 0 writes the trace."""
     from repro_torch.launch import mesh
     from repro_torch.runtime import sharding as rsh
     dev = group.device
     model = Model(cfg, device=dev)
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed, kind=args.data_kind))
-    rt = Runtime(pplan, model, rc, group=group)
+    tracer = PipelineTracer(pplan, device=dev) if args.trace else None
+    rt = Runtime(pplan, model, rc, group=group, tracer=tracer)
     part = mesh.draw_rank_part(model, pplan.partition.sizes(), args.seed,
                                group)
     state = rt.init_state(part, data.batch_at(0))
@@ -415,6 +459,8 @@ def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:
         registry.close()
     if args.ckpt_dir and ran is not None and ran != saved:
         save(ran)
+    if lead and tracer is not None and tracer.n_steps():
+        _report_trace(args.trace, tracer)
     return 0
 
 

@@ -19,7 +19,15 @@ from repro_torch.models.layers import (mlp_apply, mlp_specs, norm_apply,
 
 
 def check_ported(cfg) -> None:
-    """Raise for the families whose blocks are not ported yet."""
+    """Raise for the families whose blocks are not ported yet, and for
+    the recurrent family, whose reference model does not exist."""
+    if cfg.family == "rnn":
+        raise NotImplementedError(
+            f"{cfg.name}: family 'rnn' is not ported to PyTorch: its "
+            f"reference model does not exist (the JAX config, "
+            f"repro/configs/paper_models.py, names models/rnn.py, which "
+            f"the JAX package does not have), and its dimensions would "
+            f"build dense attention blocks, another model")
     missing = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("enc-dec", cfg.is_encdec), ("frontend", cfg.frontend != "none"),

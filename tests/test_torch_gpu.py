@@ -1038,6 +1038,59 @@ def test_ir_rounds_on_card_match_cpu(card, schedule, mode, v, backend):
                 rtol=1e-4, atol=1e-5, err_msg=key)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule,v,backend", [
+    ("1f1b", 1, "scan"), ("1f1b", 1, "unrolled"),
+    ("interleaved", 2, "scan")])
+def test_traced_ir_rounds_on_card_bit_equal(card, schedule, v, backend):
+    """Three traced IR rounds on the card (2 stages of a 4-layer smoke
+    granite in fp32) against three untraced rounds from the same
+    weights: losses and every state leaf bit-equal.  Every round files
+    ``len(metas)`` durations from CUDA events, each positive, summing to
+    no more than the step's host wall; the stream tick's probed stage
+    costs are positive."""
+    from repro_torch import obs
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.planner import plan
+    cfg = _smoke_cfg().replace(mesh_plan=dataclasses.replace(
+        get_config("granite-8b").mesh_plan, pipe=2))
+    pplan = plan(cfg, n_stages=2, schedule=schedule, virtual_stages=v,
+                 n_microbatches=4, batch=4, seq=16)
+    model = Model(cfg)
+    p0 = model.init(torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    out = {}
+    for tracer in (None, obs.PipelineTracer(pplan, device=card)):
+        # the state takes its params over and updates them in place
+        state = ps.make_ir_state(
+            model, tree_map(lambda _, a: a.clone(), p0), plan=pplan)
+        step = ps.make_ir_train_step(model, plan=pplan, lr=0.05,
+                                     backend=backend, tracer=tracer)
+        if tracer is not None:
+            step = tracer.wrap_step(step)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        out[tracer is None] = (state, losses, tracer)
+    (s_p, l_p, _), (s_t, l_t, tr) = out[True], out[False]
+    assert l_t == l_p
+    keys = ["params", "momentum"] + (["stash"] if "stash" in s_p else [])
+    for key in keys:
+        for a, b in zip(tree_leaves(s_t[key]), tree_leaves(s_p[key])):
+            assert torch.equal(a, b), key
+    assert tr.dropped_rounds == 0 and len(tr.rounds) == len(batches)
+    for r, wall in zip(tr.rounds, tr.step_walls):
+        assert len(r) == len(tr.metas) == 2 * pplan.n_chunks * 4
+        assert all(d > 0 for d in r) and sum(r) <= wall
+    costs = obs.probe_stage_costs(
+        model, model.partition_stage_params(p0["stages"], (2, 2)),
+        mb=2, seq=16)
+    assert len(costs) == 2 and all(c > 0 for c in costs)
+
+
 def _mpmd_card_rank(group, cfg, params, batches, M):
     """One stage rank of an MPMD 1f1b run on the card (fp32 weights from
     numpy): its losses (the last chunk's rank), its kernel launches, the

@@ -12,6 +12,7 @@ from repro_torch.api import Runtime, RuntimeConfig
 from repro_torch.core import pipeline_stream as tps
 from repro_torch.launch import train as ttrain
 from repro_torch.models.layers import tree_map
+from repro_torch.obs import PipelineTracer
 from repro_torch.planner import plan as tplan
 from test_torch_train import LR, _batches, _pair
 
@@ -35,8 +36,11 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="mpmd"):
         tps.make_ir_train_step(tm, plan=one, lr=LR, execution="mpmd",
                                clip=1.0)
-    with pytest.raises(NotImplementedError, match="trac"):
-        tps.make_ir_train_step(tm, plan=one, lr=LR, tracer=object())
+    # a tracer must be made for the step's plan (tracing itself is
+    # tests/test_torch_obs.py's)
+    with pytest.raises(ValueError, match="trac"):
+        tps.make_ir_train_step(tm, plan=one, lr=LR, tracer=PipelineTracer(
+            tplan(tm.cfg, n_stages=2, schedule="gpipe")))
     with pytest.raises(ValueError, match="backend"):
         tps.make_ir_train_step(tm, plan=one, lr=LR, backend="loop")
     three = tplan(n_layers=4, n_stages=3, schedule="1f1b")
@@ -146,7 +150,7 @@ def test_launcher_runs_each_schedule(argv, capsys):
     (["--schedule", "1f1b", "--virtual-stages", "2"], "requires"),
     (["--schedule", "interleaved", "--virtual-stages", "2", "--batch",
       "3"], "no round size"),
-    (["--schedule", "1f1b", "--execution", "mpmd", "--trace", "t.json"],
+    (["--schedule", "1f1b", "--execution", "mpmd", "--compress", "int8"],
      "not ported"),
     (["--profile-method", "hlo"], "not ported")])
 def test_launcher_refusals(argv, why):

@@ -267,11 +267,12 @@ def test_launcher_step_hook_and_data_kind(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--schedule", "1f1b"],
-                                  ["--trace", "t.json"],
+                                  ["--profile-method", "hlo"],
                                   ["--schedule", "2bw"],
                                   ["--compress", "int8"]])
 def test_launcher_not_ported(argv, capsys):
-    """``--trace`` and ``--compress`` are still refused; the round
+    """``--profile-method hlo`` and ``--compress`` are still refused (the
+    tracer's ``--trace`` runs: tests/test_torch_obs.py); the round
     schedules, refused before the planner slice, now train: the plan
     and the round are printed and every round's loss is finite."""
     base = ["--smoke", "--device", "cpu"]

@@ -71,6 +71,21 @@ def test_unported_arch_raises():
         tconfigs.get_config("no-such-arch")
 
 
+def test_rnn_family_refused():
+    """The residual LSTM has no reference model to port (the JAX config
+    names a ``models/rnn.py`` the JAX package does not have); its
+    dimensions would build dense attention blocks, so the port refuses
+    the family by name."""
+    from repro_torch.models.transformer import check_ported
+    cfg = tconfigs.get_config("residual-lstm-paper")
+    assert cfg.family == "rnn"
+    for build in (lambda: check_ported(cfg),
+                  lambda: Model(cfg, device="cpu"),
+                  lambda: Model(tconfigs.smoke_config(cfg), device="cpu")):
+        with pytest.raises(NotImplementedError, match="models/rnn.py"):
+            build()
+
+
 # (c) layers
 
 
