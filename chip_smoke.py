@@ -4,6 +4,7 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mpmd-only    # phases 15 (three runs) and 16
+    python3 chip_smoke.py --dp-only      # phase 19 alone
 
 Run from the root of the repository on a machine with one NVIDIA card
 (an H100 is what the numbers are for).  It imports nothing of JAX or of
@@ -231,6 +232,47 @@ The pipeline tracer (``repro_torch.obs``) adds one phase:
      positive stage costs; the attributed spans valid), and
      ``python -m repro_torch.bench.trace_overhead``'s rows on the card.
 
+The data-parallel baseline (the data axis as all-reducing replicas)
+adds one phase:
+
+ 19. (``dp_train``, after phase 18, the SPMD and MPMD states freed)
+     first ``fused_update`` with no ŵ at the data-parallel update's
+     group (the outer tree and 8 full-width layers, 2,147,553,280
+     elements) and at a stage tree, each against its plain version and
+     timed beside ``torch.optim.SGD(fused=True, momentum=γ,
+     dampening=γ)``, the same function after its first step; then
+     ``repro_torch.launch.train.main --mode sync --pipe 1`` on full-width
+     granite-8b, 8 layers, batch 8 x 512, bf16, seed 0, uniform data, 4
+     steps: once in this process (``--data 1``, the reference), then
+     with ``--data 2`` (2 replicas sharing the card over gloo through
+     pinned host buffers; NCCL with a card each) and, on a machine of 4
+     cards, ``--data 4`` (on fewer cards its memory is reckoned from the
+     measured peak and printed, not run): every replica's params and
+     momentum bit-equal to replica 0's after every step (exact digests);
+     the replicas bit-equal to ``SyncPodDP`` run in this process on the
+     same row blocks (the same GEMM shapes; at N > 2 the ring sums in
+     another order, so within rtol 1e-4 / atol 1e-5 there); against the
+     one process on the whole batch, the mean losses and a strided
+     sample of every params leaf within rtol 1e-4 / atol 1e-5, and of
+     every momentum leaf within 2e-2 of the leaf's scale (the bf16
+     GEMMs round otherwise at 4,096 rows than at 2,048, and momentum
+     holds the gradients; the excess over rtol 1e-4 printed); each
+     replica's launches a
+     step exactly L ``flash_fwd`` (tensor cores), L dq, L dk/dv and one
+     ``fused_update``, and its all-reduce a step exactly 4 B x the
+     parameter count in ``ceil(bytes / BUCKET_BYTES)`` calls; the step
+     wall (replica 0, median of the unprofiled steady steps) and
+     tokens/s, each replica's busy time in one profiled step, the
+     all-reduce's host time and the peaks, beside phase 16's MPMD 1f1b
+     round and the P40 timeline model's Data-P / Model-P ratio
+     (``bench/_timeline.py``, the paper's platform, labelled so).  Then
+     ``SyncPodDP`` and ``AsyncPodDP`` (predict on, off) on full-width
+     granite-8b at 2 layers, 2 pods, ``model.loss``, 3 steps: finite
+     losses and exact launches; and the tests' toy problem card against
+     CPU within 1e-5.  ``--dp-only`` runs this phase alone (on four
+     cards: ``--data 2`` and ``--data 4`` over NCCL, the
+     interconnect printed by ``nvidia-smi topo -m``).
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -399,6 +441,12 @@ class StepProfile:
         self.prof, self.kern, self.at, self.steps = None, None, None, []
 
     def hook(self, s: int) -> None:
+        self.stop(s)
+        self.start(s)
+
+    def stop(self, s: int) -> None:
+        """Stop a running profile after step ``s`` and keep it if it is
+        complete (the first half of :meth:`hook`)."""
         if self.prof is not None:
             self.prof.__exit__(None, None, None)
             kern, self.prof = device_kernels(self.prof), None
@@ -414,6 +462,10 @@ class StepProfile:
                 print(f"  profile of step {s} incomplete: {seen} kernels, "
                       f"expected {self.want} (records lost)"
                       + ("; again" if s < self.last else ""))
+
+    def start(self, s: int) -> None:
+        """Start the profile of step ``s + 1`` if one is still wanted
+        (the second half of :meth:`hook`)."""
         if self.kern is None and self.first <= s + 1 <= self.last:
             self.prof = device_profile()
             self.prof.__enter__()
@@ -3335,6 +3387,542 @@ def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel baseline: the data axis as all-reducing replicas
+
+# the paper's Data-P: --pipe 1, one whole model a replica, the training
+# configuration's batch split over the replicas (B / N rows each)
+DP_STEPS, DP_PROF_STEP = 4, 2
+DP_ARGV = ["--arch", ARCH, "--layers", str(TRAIN_LAYERS), "--pipe", "1",
+           "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype",
+           "bfloat16", "--mode", "sync", "--data-kind", "uniform",
+           "--seed", "0", "--steps", str(DP_STEPS), "--log-every", "1"]
+# the data sizes: 2 always (sharing the card when there is one); 4 where
+# the machine has 4 cards, else its memory is reckoned, not run
+DP_SIZES = (2, 4)
+# the pod references on full-width granite-8b: layers, pods, steps, rows
+DP_POD = dict(layers=2, pods=2, steps=3, rows=2)
+DP_TOY_TOL = 1e-5       # the toy problem, card against the CPU
+DP_TOY_STEPS, DP_TOY_LR = 20, 0.5
+
+
+class DpProbe:
+    """The ``on_step`` hook of a ``--data`` run, called in every replica
+    (it pickles into the spawned replicas), or of the one-process
+    reference (no group): each step's launches, all-reduce counters and
+    loss, and an exact digest of every params and momentum leaf; the
+    step walls between barriers; one profiled step (``StepProfile``,
+    the digests outside its window); after the last step each leaf's
+    sample and the peak memory, to ``<out>/rank<r>.json``."""
+
+    def __init__(self, out: str, label: str, want: dict):
+        self.out, self.label, self.want = out, label, want
+        self.rec = None
+
+    def __call__(self, s, state, metrics):
+        import torch
+        from repro_torch.kernels import ops
+        from repro_torch.runtime import sharding as rsh
+        g = rsh.current_group()
+        torch.cuda.synchronize()
+        if g is not None:
+            g.barrier()
+        rank = 0 if g is None else g.rank
+        if self.rec is None:
+            self.rec = {"rank": rank, "t": [], "t_end": [], "counts": [],
+                        "variants": [], "xfer": [], "loss": [],
+                        "digests": [],
+                        "transport": None if g is None else g.describe()}
+            self.sp = StepProfile(f"{self.label} replica {rank}", self.want,
+                                  DP_PROF_STEP, DP_STEPS - 1)
+        rec = self.rec
+        rec["t"].append(time.perf_counter())
+        self.sp.stop(s)
+        rec["counts"].append(dict(ops.launch_counts()))
+        rec["variants"].append(dict(ops.variant_counts()))
+        if g is not None:
+            rec["xfer"].append(g.counters())
+            g.reset_counters()
+        rec["loss"].append(float(metrics["loss"]))
+        dg = leaf_digests(torch, state)
+        rec["digests"].append({k: v["d"] for k, v in dg.items()})
+        if s == DP_STEPS - 1:
+            kern = self.sp.result()
+            rec["busy_ms"] = sum(e.self_device_time_total
+                                 for e in kern) / 1e3
+            rec["n_kernels"] = sum(e.count for e in kern)
+            rec["prof_step"] = self.sp.at
+            rec["prof_steps"] = self.sp.steps
+            rec["samples"] = {k: v["sample"] for k, v in dg.items()}
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            with open(Path(self.out) / f"rank{rank}.json", "w") as f:
+                json.dump(rec, f)
+        self.sp.start(s)
+        torch.cuda.synchronize()
+        if g is not None:
+            g.barrier()
+        rec["t_end"].append(time.perf_counter())
+
+
+def _dp_run(torch, n: int, want: dict, label: str) -> tuple:
+    """``train.main(DP_ARGV + --data n)`` with a :class:`DpProbe` in
+    every replica (in this process for n = 1); returns (the replicas'
+    records, the run's seconds)."""
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = train.main(DP_ARGV + ["--data", str(n)],
+                        on_step=DpProbe(tmp, label, want))
+        run_s = time.perf_counter() - t0
+        check(rc == 0, f"{label}: train.main returned {rc}")
+        reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(n)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reps, run_s
+
+
+def _steady(rec) -> list:
+    """The step walls (ms) of the unprofiled steps after the first,
+    sorted: each from the end of one hook to the start of the next."""
+    return sorted(1e3 * (rec["t"][i] - rec["t_end"][i - 1])
+                  for i in range(1, DP_STEPS)
+                  if i not in rec["prof_steps"])
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def dp_blocks_reference(torch, cfg, n: int) -> dict:
+    """``SyncPodDP`` in this process on the ``n`` row blocks the replicas
+    take (``pipeline_sync.pipeline_loss`` a block, the mean gradient
+    ``sum(xs) / len(xs)``), from the weights the launcher draws: the
+    losses a step and the digests of every params and momentum leaf
+    after the last step.  The same GEMM shapes as a replica's, so it
+    separates the replicas' arithmetic from the whole batch's bf16
+    rounding."""
+    from repro_torch.core import async_dp, pipeline_sync
+    from repro_torch.core.pipeline_stream import device_batch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0, kind="uniform"))
+    algo = async_dp.SyncPodDP(
+        lambda p, b: pipeline_sync.pipeline_loss(model, p, b, 1),
+        model.init(torch.Generator(device="cuda").manual_seed(0)),
+        n_pods=n, lr=1e-2, gamma=0.9)
+    rows = TRAIN_BATCH // n
+    losses = []
+    for s_ in range(DP_STEPS):
+        b = device_batch(data.batch_at(s_), "cuda")
+        losses.append(algo.step([{k: v[r * rows:(r + 1) * rows]
+                                  for k, v in b.items()}
+                                 for r in range(n)])["loss"])
+    dg = leaf_digests(torch, {"params": algo.params,
+                              "momentum": algo.mom.v})
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "digests": {k: v["d"] for k, v in dg.items()},
+            "samples": {k: v["sample"] for k, v in dg.items()}}
+
+
+def _sample_excess(got: dict, want: dict) -> list:
+    """[(excess over rtol 1e-4, leaf, got, want, largest |want|, largest
+    |got - want|)] of every leaf's sample, the excess and the pair at its
+    worst element, the worst leaf first."""
+    out = []
+    for k, w in want.items():
+        g = got[k]
+        i = max(range(len(g)), key=lambda j: abs(g[j] - w[j])
+                - 1e-4 * abs(w[j]))
+        out.append((abs(g[i] - w[i]) - 1e-4 * abs(w[i]), k, g[i], w[i],
+                    max(abs(y) for y in w),
+                    max(abs(x - y) for x, y in zip(g, w))))
+    return sorted(out, reverse=True)
+
+
+def dp_update_timings(torch, ops, ref) -> list:
+    """``fused_update`` with no ŵ (the data-parallel update) at the
+    path's whole tree (one group: the outer tree and 8 full-width
+    layers) and at one stage tree (2 layers), each checked once against
+    its plain version and timed beside ``torch.optim.SGD(fused=True,
+    momentum=γ, dampening=γ)`` on the same tensors, which computes the
+    same function (v' = γv + (1−γ)g, w' = w − ηv') after its first step
+    (before it, torch seeds the buffer with the raw gradient)."""
+    phase("dp_train: fused_update with no ŵ at the data-parallel update's "
+          "group and a stage tree, against torch.optim.SGD(fused=True)")
+    rows = []
+    for label, specs in (
+            (f"the data-parallel tree (outer + {TRAIN_LAYERS} layers), "
+             f"no ŵ", group_specs("outer")
+             + group_specs("stage", TRAIN_LAYERS)),
+            (f"one stage ({TRAIN_LAYERS // TRAIN_STAGES} layers), no ŵ",
+             group_specs("stage", TRAIN_LAYERS // TRAIN_STAGES))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ws, vs, gs, _ = make_group(torch, specs, lambda path: False)
+        n = sum(w.numel() for w in ws)
+        ops.reset_launch_counts()
+        err = fu_compare(torch, ops, ref, ws, vs, gs, None, label,
+                         kw=IR_FU_KW)
+        check(ops.launch_counts()["fused_update"] == 1,
+              f"{label}: {ops.launch_counts()} launches, expected one")
+        ms, _ = time_ms(torch, lambda: ops.fused_update(
+            ws, vs, gs, **IR_FU_KW), 10)
+        plain_ms, _ = time_ms(torch, lambda: [
+            ref.fused_update_ref(w, v, g, **IR_FU_KW)
+            for w, v, g in zip(ws, vs, gs)], 3)
+        params = [torch.nn.Parameter(w) for w in ws]
+        for p_, g in zip(params, gs):
+            p_.grad = g
+        opt = torch.optim.SGD(params, lr=IR_FU_KW["lr"],
+                              momentum=IR_FU_KW["gamma"],
+                              dampening=IR_FU_KW["gamma"], fused=True)
+        opt.step()          # the seeding step: buffer = g
+        lib_ms, _ = time_ms(torch, opt.step, 10)
+        nbytes = 4 * 5 * n          # w, v, g read; w', v' written
+        b_ms = nbytes / HBM_BPS * 1e3
+        shape = f"{label}: {len(ws)} tensors, {n} elements, fp32 w/v/g"
+        rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": "bytes",
+                     "library_ms": lib_ms, "max_abs_err": err})
+        print(f"  fused_update   {shape} ({nbytes / 1e9:.2f} GB): one launch "
+              f"against its plain version max |d| {err:.3e}; kernel "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)  bound "
+              f"{b_ms:.4f} ms (bytes)  plain {plain_ms:.4f} ms  "
+              f"torch.optim.SGD(fused, momentum=γ, dampening=γ) "
+              f"{lib_ms:.4f} ms ({lib_ms / ms:.3f}x the kernel)")
+        del ws, vs, gs, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _toy_problem(torch, device, seed=0, dim=24, classes=6):
+    """tests/test_torch_dp.py's pod problem (numpy draws) on ``device``."""
+    import numpy as np
+    wtrue = np.random.default_rng(99).standard_normal(
+        (dim, classes)).astype(np.float32)
+    w0 = {"w": torch.from_numpy((np.random.default_rng(seed)
+                                 .standard_normal((dim, classes)) * 0.01)
+                                .astype(np.float32)).to(device),
+          "b": torch.zeros((classes,), device=device)}
+
+    def batches(step, n_pods=2, bs=32):
+        out = []
+        for p in range(n_pods):
+            x = np.random.default_rng(step * 17 + p).standard_normal(
+                (bs, dim)).astype(np.float32)
+            out.append({"x": torch.from_numpy(x).to(device),
+                        "y": torch.from_numpy((x @ wtrue).argmax(-1))
+                        .to(device)})
+        return out
+
+    def loss_fn(p, batch):
+        logits = batch["x"] @ p["w"] + p["b"]
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, batch["y"][:, None])[:, 0]
+        return (lse - gold).mean()
+
+    return w0, batches, loss_fn
+
+
+def dp_pods(torch, ops) -> dict:
+    """``SyncPodDP`` and ``AsyncPodDP`` (predict on and off) on
+    full-width granite-8b at ``DP_POD['layers']`` layers, 2 pods,
+    ``model.loss``: finite losses, exact launches a step; then the toy
+    problem of the tests held card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import async_dp
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    L, P, T, R = (DP_POD[k] for k in ("layers", "pods", "steps", "rows"))
+    phase(f"dp_train: SyncPodDP / AsyncPodDP (predict on, off) on {ARCH} "
+          f"full width, {L} layers, {P} pods of {R} x {TRAIN_SEQ}, bf16, "
+          f"{T} steps")
+    base = get_config(ARCH)
+    cfg = base.replace(n_layers=L, param_dtype="float32",
+                       compute_dtype="bfloat16",
+                       mesh_plan=dataclasses.replace(base.mesh_plan, pipe=1,
+                                                     tensor=1))
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = []
+    for _ in range(T):
+        toks = torch.randint(0, cfg.vocab_size, (P, R, TRAIN_SEQ + 1),
+                             device="cuda", generator=gen)
+        batches.append([{"tokens": t[:, :-1], "targets": t[:, 1:]}
+                        for t in toks])
+    out = {}
+    for label, cls, kw in (("sync", async_dp.SyncPodDP, {}),
+                           ("async predict", async_dp.AsyncPodDP,
+                            {"predict": True}),
+                           ("async stale", async_dp.AsyncPodDP,
+                            {"predict": False})):
+        algo = cls(model.loss, params, n_pods=P, **kw)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [algo.step(b)["loss"] for b in batches]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+        counts = dict(ops.launch_counts())
+        want = {"flash_fwd": L * P * T, "flash_bwd_dq": L * P * T,
+                "flash_bwd_dkv": L * P * T,
+                "fused_update": (1 if cls is async_dp.SyncPodDP else P) * T}
+        check({k: counts[k] for k in want} == want,
+              f"pods {label}: launched {counts}, expected {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"pods {label}: losses {losses}")
+        out[label] = {"losses": losses, "ms": ms}
+        print(f"  {label}: losses {[round(x, 5) for x in losses]}, "
+              f"{ms:.1f} ms a step (host wall, warm-up included), "
+              f"launches {want} as predicted")
+        del algo
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for label, cls, kw in (("sync", async_dp.SyncPodDP, {}),
+                           ("async predict d8", async_dp.AsyncPodDP,
+                            {"predict": True, "delay": 8}),
+                           ("async stale", async_dp.AsyncPodDP,
+                            {"predict": False})):
+        runs = []
+        for dev in ("cuda", "cpu"):
+            w0, bat, loss_fn = _toy_problem(torch, dev)
+            algo = cls(loss_fn, w0, lr=DP_TOY_LR, **kw)
+            ls = [algo.step(bat(s))["loss"] for s in range(DP_TOY_STEPS)]
+            ps = algo.params if isinstance(algo.params, list) \
+                else [algo.params]
+            runs.append((ls, [t.cpu() for p in ps for t in tree_leaves(p)]))
+        (lc, pc), (lh, ph) = runs
+        for a, b in zip(lc, lh):
+            check(abs(a - b) <= DP_TOY_TOL * (1 + abs(b)),
+                  f"toy {label}: loss {a} on the card, {b} on the CPU")
+        for a, b in zip(pc, ph):
+            d = float((a - b).abs().max())
+            worst = max(worst, d)
+            check(torch.allclose(a, b, rtol=DP_TOY_TOL, atol=DP_TOY_TOL),
+                  f"toy {label}: params differ by {d:.3e}")
+    print(f"  the tests' toy problem ({DP_TOY_STEPS} steps at lr "
+          f"{DP_TOY_LR}; sync, async predict delay 8, async stale): card "
+          f"against CPU within {DP_TOY_TOL} (largest |d| {worst:.3e})")
+    out["toy_worst"] = worst
+    return out
+
+
+def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
+    """The data-parallel baseline through ``repro_torch.launch.train.main
+    --mode sync --pipe 1 --data N`` (see the module docstring, phase
+    19), held to the one-process sync step, beside phase 16's MPMD 1f1b
+    round and the P40 timeline model."""
+    from repro_torch.bench import _timeline as tl
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime import sharding as rsh
+    out = {"update_rows": dp_update_timings(torch, ops, ref)}
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True,
+                              timeout=TIMEOUT_S)
+        print("  interconnect (nvidia-smi topo -m):")
+        for line in (topo.stdout or topo.stderr).splitlines():
+            print(f"    {line}")
+    cfg = train.build(train.parse_args(DP_ARGV))
+    L = cfg.n_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "fused_update": 1}
+    phase(f"dp_train: the one-process sync step, {ARCH} full width, {L} "
+          f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, {DP_STEPS} "
+          f"steps (the reference)")
+    (one,), one_s = _dp_run(torch, 1, want, "one process")
+    n_params = sum(math.prod(sp.shape) for sp in tree_leaves(
+        Model(cfg, device="cpu").param_specs()))
+    one_wall = _median(_steady(one))
+    print(f"  losses {[round(x, 6) for x in one['loss']]}; step wall "
+          f"{one_wall:.3f} ms, {TRAIN_BATCH * TRAIN_SEQ / one_wall * 1e3:.1f}"
+          f" tokens/s; busy {one['busy_ms']:.3f} ms; peak "
+          f"{one['peak_bytes'] / 2**30:.2f} GiB; run {one_s:.1f} s")
+    buckets = -(-4 * n_params // rsh.BUCKET_BYTES)
+    out["one"] = {"wall_ms": one_wall, "busy_ms": one["busy_ms"],
+                  "peak_bytes": one["peak_bytes"], "losses": one["loss"]}
+    runs = {}
+    for n in DP_SIZES:
+        if n > 2 and n > cards:
+            peak = max(r["peak_bytes"] for r in runs[2]["reps"])
+            total = torch.cuda.get_device_properties(0).total_memory
+            print(f"\n  --data {n} on {cards} card(s): {n} replicas x "
+                  f"{peak / 2**30:.2f} GiB (the measured peak of a --data "
+                  f"2 replica) = {n * peak / 2**30:.1f} GiB against the "
+                  f"card's {total / 2**30:.1f} GiB: reckoned, not run (each "
+                  f"replica holds the whole model: fp32 params, momentum "
+                  f"and gradients of {n_params:,} parameters alone are "
+                  f"{12 * n_params / 1e9:.1f} GB)")
+            runs[n] = {"reckoned_bytes": n * peak}
+            continue
+        transport = rsh.choose_transport("cuda", n)
+        phase(f"dp_train: repro_torch.launch.train.main --mode sync --pipe 1 "
+              f"--data {n}, {ARCH} full width, {L} layers, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_BATCH // n} rows a "
+              f"replica), bf16, {DP_STEPS} steps, {transport}")
+        out["pods_ref"] = dp_blocks_reference(torch, cfg, n)
+        reps, run_s = _dp_run(torch, n, want, f"--data {n}")
+        want_t = rsh.describe_transport(transport, n)
+        check(all(r["transport"] == want_t for r in reps),
+              f"--data {n}: transport {reps[0]['transport']!r}, expected "
+              f"{want_t!r}")
+        for rep in reps:
+            prev = {k: 0 for k in want}
+            for s_, c in enumerate(rep["counts"]):
+                got = {k: c[k] - prev[k] for k in want}
+                check(got == want, f"--data {n}: replica {rep['rank']} step "
+                      f"{s_} launched {got}, expected {want}")
+                prev = c
+            check(rep["variants"][-1]["flash_fwd_mma"] == L * DP_STEPS,
+                  f"--data {n}: replica {rep['rank']} ran flash_fwd off the "
+                  f"tensor cores")
+            for s_, x in enumerate(rep["xfer"]):
+                check((x["n_reduce"], x["bytes_reduce"], x["n_sent"],
+                       x["n_ctl"]) == (buckets, 4 * n_params, 0, 0),
+                      f"--data {n}: replica {rep['rank']} step {s_} reduced "
+                      f"{x}, expected {buckets} calls of {4 * n_params} B "
+                      f"in all")
+            for s_ in range(DP_STEPS):
+                check(rep["digests"][s_] == reps[0]["digests"][s_],
+                      f"--data {n}: replica {rep['rank']} differs from "
+                      f"replica 0 after step {s_}: "
+                      + str(sorted(k for k, v in rep["digests"][s_].items()
+                                   if v != reps[0]["digests"][s_][k])[:3]))
+        losses = [sum(r["loss"][s_] for r in reps) / n
+                  for s_ in range(DP_STEPS)]
+        for a, b in zip(losses, one["loss"]):
+            check(abs(a - b) <= 1e-5 + 1e-4 * abs(b),
+                  f"--data {n}: losses {losses} against the one process's "
+                  f"{one['loss']} beyond rtol 1e-4 / atol 1e-5")
+        # the replicas against SyncPodDP on the same row blocks in one
+        # process: the same GEMM shapes, so bit-equal at N = 2 (a + b = b +
+        # a), within rtol 1e-4 / atol 1e-5 beyond (the ring's order)
+        blocks = out["pods_ref"]
+        same = sum(reps[0]["digests"][-1][k] == d
+                   for k, d in blocks["digests"].items())
+        b_excess = _sample_excess(reps[0]["samples"], blocks["samples"])
+        print(f"  against SyncPodDP on the same {n} row blocks in one "
+              f"process: {same}/{len(blocks['digests'])} leaves bit-equal, "
+              f"losses {'bit-equal' if losses == blocks['losses'] else 'differ'}"
+              f" ({[round(x, 6) for x in blocks['losses']]}); largest sample "
+              f"excess over rtol 1e-4 {b_excess[0][0]:.3e}")
+        if n == 2:
+            check(same == len(blocks["digests"])
+                  and losses == blocks["losses"],
+                  f"--data {n}: the replicas are not bit-equal to SyncPodDP "
+                  f"on the same row blocks ({same}/{len(blocks['digests'])} "
+                  f"leaves)")
+        for a, b in zip(losses, blocks["losses"]):
+            check(abs(a - b) <= 1e-5 + 1e-4 * abs(b),
+                  f"--data {n}: losses {losses} against SyncPodDP's "
+                  f"{blocks['losses']}")
+        check(b_excess[0][0] <= 1e-5, f"--data {n}: leaf {b_excess[0][1]} "
+              f"differs from SyncPodDP's beyond rtol 1e-4 / atol 1e-5")
+        # against the one process on the whole batch: the losses and the
+        # params within rtol 1e-4 / atol 1e-5; the momentum holds the
+        # gradients, whose bf16 GEMMs round otherwise at 4,096 rows than
+        # at 2,048, so it is held to the bf16 tolerance (2e-2) of each
+        # leaf's scale, its excess over rtol 1e-4 printed
+        excess = _sample_excess(reps[0]["samples"], one["samples"])
+        worst = excess[0][0]
+        print("  leaf samples against the one process on the whole batch, "
+              "the three largest excesses over rtol 1e-4 (excess, leaf, "
+              "replica, one process, largest |value| of the sample): "
+              + "; ".join(f"{e:.3e} {k} {x:.6e} {y:.6e} {m:.3e}"
+                          for e, k, x, y, m, _ in excess[:3]))
+        for e, k, _, _, m, d in excess:
+            if k.startswith("params/"):
+                check(e <= 1e-5, f"--data {n}: leaf {k} differs from the one "
+                      f"process's beyond rtol 1e-4 / atol 1e-5 (sample "
+                      f"excess {e:.3e})")
+            else:
+                check(d <= TOL["bfloat16"] * m,
+                      f"--data {n}: leaf {k} differs from the one process's "
+                      f"by {d:.3e}, beyond 2e-2 of its scale {m:.3e}")
+        walls = _steady(reps[0])
+        check(bool(walls), f"--data {n}: no unprofiled steady step")
+        wall = _median(walls)
+        reduce_ms = [1e3 * _median(r["xfer"][i]["reduce_s"]
+                                   for i in range(1, DP_STEPS)) for r in reps]
+        rec = {"n": n, "transport": reps[0]["transport"], "wall_ms": wall,
+               "walls_ms": walls, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ
+               / wall * 1e3, "busy_ms": [r["busy_ms"] for r in reps],
+               "n_kernels": [r["n_kernels"] for r in reps],
+               "reduce_ms": reduce_ms,
+               "peak_bytes": [r["peak_bytes"] for r in reps],
+               "losses": losses, "sample_excess": worst, "run_s": run_s,
+               "launches": {k: n * v * DP_STEPS for k, v in want.items()},
+               "reps": [{"peak_bytes": r["peak_bytes"]} for r in reps]}
+        runs[n] = rec
+        print(f"  transport: {rec['transport']}")
+        print(f"  launches a step, every replica: {want}, exact on every "
+              f"step, every attention launch on the tensor cores; "
+              f"all-reduce {buckets} calls and {4 * n_params:,} B a step "
+              f"per replica (4 B x {n_params:,} parameters)")
+        print(f"  replicas bit-equal after every step (params and momentum, "
+              f"{len(reps[0]['digests'][0])} leaves); losses "
+              f"{[round(x, 6) for x in losses]} against the one process's "
+              f"{[round(x, 6) for x in one['loss']]} (rtol 1e-4 / atol "
+              f"1e-5); params samples within rtol 1e-4 / atol 1e-5, momentum "
+              f"within 2e-2 of each leaf's scale (largest excess over rtol "
+              f"1e-4 of any leaf {worst:.3e})")
+        print(f"  step wall (replica 0, median of the unprofiled steady "
+              f"steps {[round(w, 3) for w in walls]}): {wall:.3f} ms, "
+              f"{rec['tok_per_s']:.1f} tokens/s (one process {one_wall:.3f} "
+              f"ms); per replica: busy "
+              f"{[round(b, 3) for b in rec['busy_ms']]} ms in "
+              f"{rec['n_kernels']} kernels (profiled step "
+              f"{reps[0]['prof_step']}), all-reduce host "
+              f"{[round(t, 1) for t in reduce_ms]} ms a step, peak "
+              f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; run "
+              f"{run_s:.1f} s")
+    out["runs"] = runs
+    # the paper's modelled platform, for the same model and batch
+    base = get_config(ARCH)
+    m = tl.ModelCost(f"{ARCH} {L} layers", n_params,
+                     2.0 * n_params * TRAIN_SEQ,
+                     (base.d_model * TRAIN_SEQ,) * 3, batch=TRAIN_BATCH)
+    out["p40_ratio"] = {n: tl.dp_step_time(m, n)["step"]
+                        / tl.pipeline_step_time(m, n)["step"]
+                        for n in (2, 4)}
+    print(f"\n  P40 timeline model (bench/_timeline.py, the paper's 4x P40 "
+          f"PCIe platform, not this card), {ARCH} {L} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: Data-P step / Model-P step "
+          f"{out['p40_ratio'][2]:.2f} at 2 GPUs, {out['p40_ratio'][4]:.2f} "
+          f"at 4")
+    if mpmd_runs:
+        r = mpmd_runs["1f1b spectrain"]
+        out["mpmd_wall_ms"] = r["wall_ms"]
+        print(f"  against phase 16's MPMD 1f1b round on the same {L} layers "
+              f"and {TRAIN_BATCH * TRAIN_SEQ} tokens ({r['transport']}): "
+              f"{r['wall_ms']:.3f} ms")
+    out["pods"] = dp_pods(torch, ops)
+    return out
+
+
 def mpmd_serve(torch, ops, pipelined: dict) -> dict:
     """``repro_torch.launch.serve.main --execution mpmd`` (4 ranks on the
     card) on full granite-8b and rwkv6-7b, held to phase 13's scan run
@@ -3966,6 +4554,63 @@ def run_mpmd_only() -> int:
     return 0
 
 
+def print_dp(dp: dict) -> None:
+    """The data-parallel phase's summary lines."""
+    for n, r in dp["runs"].items():
+        if "wall_ms" not in r:
+            print(f"Data-P --data {n}: reckoned, not run "
+                  f"({r['reckoned_bytes'] / 2**30:.1f} GiB of replicas)")
+            continue
+        print(f"Data-P --data {n} ({r['transport']}): {r['wall_ms']:.3f} ms "
+              f"a step, {r['tok_per_s']:.1f} tokens/s (one process "
+              f"{dp['one']['wall_ms']:.3f} ms"
+              + (f", MPMD 1f1b round {dp['mpmd_wall_ms']:.3f} ms"
+                 if "mpmd_wall_ms" in dp else "")
+              + f"); per-replica busy "
+              f"{[round(b, 3) for b in r['busy_ms']]} ms, all-reduce host "
+              f"{[round(t, 1) for t in r['reduce_ms']]} ms, peak "
+              f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB; "
+              f"replicas bit-equal every step")
+    print(f"P40 timeline model (the paper's platform, not this card): "
+          f"Data-P / Model-P step {dp['p40_ratio'][2]:.2f} at 2 GPUs, "
+          f"{dp['p40_ratio'][4]:.2f} at 4")
+    rows = dp["update_rows"]
+    print("fused_update, no ŵ: " + "; ".join(
+        f"{r['shape'].split(':')[0]}: {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f}, SGD(fused) {r['library_ms']:.4f})"
+        for r in rows))
+
+
+def run_dp_only() -> int:
+    """``python3 chip_smoke.py --dp-only``: the card, the build and phase
+    19 alone, on the cards present (with a card each the replicas take
+    NCCL, and ``--data 4`` runs where there are 4).  Prints the Data-P
+    lines; no JSON."""
+    torch = _torch_or_none()
+    if torch is None:
+        return 2
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    t_start = _T0[0] = time.perf_counter()
+    try:
+        info = card_info(torch)
+        build_kernels(build, r6, m2, fa, fu)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dp = dp_train(torch, ops, ref)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print_dp(dp)
+    print(f"chip_smoke --dp-only: passed in "
+          f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
+    return 0
+
+
 def run() -> int:
     torch = _torch_or_none()
     if torch is None:
@@ -4018,6 +4663,9 @@ def run() -> int:
         torch.cuda.empty_cache()
         mpmd_runs = mpmd_train(torch, ops, ir_runs)
         traced = trace_phase(torch, ops, ir_runs, mpmd_runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp = dp_train(torch, ops, ref, mpmd_runs)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -4119,6 +4767,17 @@ def run() -> int:
                 mpmd_srv["granite-8b"]["launches"]
             k["launches_per_rank_serve_mpmd"] = \
                 mpmd_srv["granite-8b"]["per_rank"]
+    # the data-parallel replicas' launches, summed over the replicas
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "fused_update"):
+            for n, r in dp["runs"].items():
+                if "launches" in r:
+                    k["launches_by_path"][
+                        f"train data-parallel --data {n} (sum over "
+                        f"replicas)"] = r["launches"][k["name"]]
+        if k["name"] == "fused_update":
+            k["shapes"].extend(dp["update_rows"])
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
@@ -4264,6 +4923,7 @@ def run() -> int:
     print(f"traced stream tick: probed stage forwards "
           f"{[round(x, 3) for x in traced['stream']['probed_ms']]} ms; "
           f"{'; '.join(traced['bench'])}")
+    print_dp(dp)
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "
@@ -4276,4 +4936,5 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run_mpmd_only() if "--mpmd-only" in sys.argv[1:] else run())
+    sys.exit(run_mpmd_only() if "--mpmd-only" in sys.argv[1:]
+             else run_dp_only() if "--dp-only" in sys.argv[1:] else run())

@@ -4,13 +4,14 @@ The port's own copy of the JAX package's ``configs/base.py``: the same
 frozen ``ArchConfig`` and sub-configs, field for field, so a config
 built here describes the same model as its twin.  Only the
 architectures the port serves are registered; asking for another one
-raises ``NotImplementedError``.
+raises ``NotImplementedError``.  The other seven are copied too, read
+for their cost only through :func:`arch_config`.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -227,11 +228,53 @@ _NOT_PORTED = (
 )
 
 
+# the same architectures' configs, read only for their cost (parameter
+# counts: the figure twins in ``repro_torch.bench``), never built
+_COST_ONLY: Dict[str, Callable[[], ArchConfig]] = {}
+
+
 def register(name: str):
     def deco(fn):
         _REGISTRY[name] = fn
         return fn
     return deco
+
+
+def register_cost_only(name: str):
+    """Register a config that :func:`arch_config` reads for its cost and
+    :func:`get_config` keeps refusing."""
+    if name not in _NOT_PORTED:
+        raise ValueError(f"{name!r} is not one of the unported "
+                         f"architectures {_NOT_PORTED}")
+
+    def deco(fn):
+        _COST_ONLY[name] = fn
+        return fn
+    return deco
+
+
+def arch_config(name: str) -> ArchConfig:
+    """Any architecture's config, for cost arithmetic only: a ported one
+    (as :func:`get_config` gives it) or one of the unported seven, from
+    which no model is built (``models.transformer.check_ported``
+    refuses them)."""
+    if name in _COST_ONLY:
+        return _COST_ONLY[name]()
+    return get_config(name)
+
+
+def list_archs() -> Tuple[str, ...]:
+    # the ten assigned architectures
+    return (
+        "whisper-base", "pixtral-12b", "granite-8b", "granite-20b",
+        "starcoder2-15b", "minicpm3-4b", "grok-1-314b", "deepseek-moe-16b",
+        "rwkv6-7b", "zamba2-1.2b",
+    )
+
+
+def cost_only(name: str) -> bool:
+    """Whether ``name`` is read for its cost only (not ported)."""
+    return name in _COST_ONLY
 
 
 def get_config(name: str) -> ArchConfig:

@@ -7,6 +7,11 @@ through the stages tick by tick in a Python loop (the JAX twin's
 pipeline.  The weight update is one synchronous momentum-SGD step per
 global batch, in place through the fused update kernel — the semantics
 of data parallelism, which is why it is the staleness-free reference.
+
+Given a data group (``runtime.sharding.StageGroup`` of the data-parallel
+replicas), the step is one replica's: it runs on the replica's rows,
+averages the gradients over the replicas (``all_reduce_mean``) and then
+updates, so every replica runs the same update on the same bits.
 """
 from __future__ import annotations
 
@@ -60,9 +65,12 @@ def pipeline_loss(model, params, batch, num_microbatches: int):
 
 def make_train_step(model, *, lr: float, gamma: float = 0.9,
                     num_microbatches: Optional[int] = None,
-                    clip: Optional[float] = None) -> Callable:
+                    clip: Optional[float] = None, group=None) -> Callable:
     """Synchronous pipelined train step (params+momentum in state),
-    updating the state in place."""
+    updating the state in place.  ``group``: the data group of the
+    replicas, whose mean gradient (after the backward, before clipping
+    and the update) the step applies; ``metrics["loss"]`` stays this
+    replica's loss."""
     M = num_microbatches or model.cfg.mesh_plan.num_microbatches
 
     def train_step(state: Dict[str, Any], batch):
@@ -71,6 +79,8 @@ def make_train_step(model, *, lr: float, gamma: float = 0.9,
             leaves = _leaves_like(state["params"])
             loss = pipeline_loss(model, leaves, batch, M)
             grads, _ = _grads(loss, leaves, None)
+        if group is not None:
+            group.all_reduce_mean(grads)
         metrics = {"loss": loss.detach()}
         if clip:
             grads, metrics["grad_norm"] = sgd.clip_by_global_norm(grads,

@@ -18,8 +18,14 @@ again: a script that calls :func:`run_stage_ranks` keeps its work under
 ``if __name__ == "__main__":``.
 
 On the CPU each rank runs one intra-op thread, so a rank's arithmetic
-does not depend on how many cores the machine has.  The JAX module's
-production and smoke meshes (data and tensor axes) are not ported.
+does not depend on how many cores the machine has.
+
+The JAX module's production and smoke meshes are here as rank grids
+(:func:`make_production_mesh`, :func:`make_smoke_mesh`: a
+``runtime.mesh_utils.RankMesh`` of integer ranks).  They need no
+device: no machine gives one process 256 cards, so they are the shape
+arithmetic the sharding rules read.  The data-parallel launcher spawns
+its replicas through :func:`run_stage_ranks` as well.
 """
 from __future__ import annotations
 
@@ -31,9 +37,25 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.runtime import sharding
+from repro_torch.runtime.mesh_utils import RankMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    """Single pod: (data=16, model=16) = 256 ranks.
+    Multi-pod:   (pod=2, data=16, model=16) = 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return RankMesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
+
+
+def make_smoke_mesh(*, data: int = 2, model: int = 4) -> RankMesh:
+    """Tiny (data, model) grid for CI-scale tests."""
+    return RankMesh(np.arange(data * model).reshape(data, model),
+                    ("data", "model"))
 
 
 def _rank_entry(fn, rank: int, world: int, device: str, store_path: str,

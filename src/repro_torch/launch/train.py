@@ -55,6 +55,22 @@ gathers the state to rank 0, which writes the JAX package's packed MPMD
 layout (``[v, S, Lmax, ...]`` stage leaves and ``chunk_sizes``); a
 resume restores it on rank 0 and scatters it back.
 
+``--data N`` (default 1) is the mesh's data axis: N replicas, one
+process each (``launch/mesh.py``), the data-parallel baseline of the
+paper's comparison.  Each replica draws the whole model from ``--seed``
+(every parameter leaf must be replicated over ``data``:
+``runtime.sharding.check_data_replicated``; a config with ``fsdp`` is
+refused), takes its block of ``B / N`` rows of every global batch
+(``batch_specs``' ``act_batch`` rule), runs ``--mode sync``'s step on it
+and averages the gradients over the replicas before the update
+(``StageGroup.all_reduce_mean``: NCCL with a card per replica, gloo
+through pinned host buffers when they share one, gloo on the CPU; the
+choice is printed).  Rank 0 prints the step lines, the loss the mean of
+the replicas'.  ``--pipe`` stays legal inside a replica; the paper's
+Data-P is ``--pipe 1``.  Refused with ``--data`` > 1: any mode but
+``sync``, ``--execution mpmd``, ``--trace``, ``--ckpt-dir``, and a
+``--batch`` that ``N·ticks`` does not divide.
+
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
 at granite-8b's full vocabulary.
@@ -149,6 +165,51 @@ def _mpmd_refusal(args) -> Optional[str]:
     return None
 
 
+def _data_refusal(args) -> Optional[str]:
+    """The gates on ``--data N`` > 1, each in the three-part form."""
+    N = args.data
+    if N < 1:
+        return f"--data {N}: the data axis needs at least one replica"
+    if N == 1:
+        return None
+    U = pipeline_stream._unsupported
+    if args.mode != "sync":
+        return str(U(
+            f"--data {N} with --mode {args.mode}",
+            "the data axis runs replicas of the synchronous step; the "
+            "streaming SpecTrain tick and the IR rounds on a data axis are "
+            "not ported",
+            f"--mode sync --data {N}, or --mode {args.mode} with --data 1"))
+    if args.execution == "mpmd":
+        return str(U(
+            f"--data {N} with --execution mpmd",
+            "a replica runs its pipeline stages in its own process; "
+            "stage ranks inside data replicas are not ported",
+            f"--execution spmd --data {N}, or --execution mpmd with "
+            f"--data 1"))
+    if args.trace:
+        return str(U(
+            f"--data {N} with --trace",
+            "the tracer marks the streaming and IR runtimes, not the "
+            "synchronous replicas",
+            f"--data {N} without --trace, or --trace with --data 1"))
+    if args.ckpt_dir:
+        return str(U(
+            f"--data {N} with --ckpt-dir",
+            "checkpoints of the replicas (rank 0 writing, every replica "
+            "restoring) are not ported",
+            f"--data {N} without --ckpt-dir, or --ckpt-dir with --data 1"))
+    per = N * max(args.ticks, 1)
+    if args.batch % per:
+        return str(U(
+            f"--data {N} with --batch {args.batch} and --ticks {args.ticks}",
+            f"each replica takes B / N rows and splits them into "
+            f"{max(args.ticks, 1)} microbatches, so N·ticks = {per} must "
+            f"divide --batch",
+            f"a --batch that is a multiple of {per}"))
+    return None
+
+
 def round_size(schedule: str, batch: int, pipe: int, v: int,
                ticks: int) -> int:
     """The IR schedule's round size, by the JAX launcher's rule:
@@ -218,6 +279,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="per-layer cost acquisition for the planner "
                          "('timed' runs one block on --device)")
     ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--data", type=int, default=1,
+                    help="the mesh's data axis: N replicas, one process "
+                         "each")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--data-kind", default="bigram", choices=KINDS,
@@ -269,7 +333,7 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     every train step (a library hook: ``chip_smoke.py`` reads the
     kernels' launch counts and the weights through it)."""
     args = parse_args(argv)
-    why = _not_ported(args) or _mpmd_refusal(args)
+    why = _not_ported(args) or _data_refusal(args) or _mpmd_refusal(args)
     if why:
         raise SystemExit(why)
     if args.mode == "sync" and args.schedule != "stream":
@@ -292,6 +356,12 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     S = model.n_stages
     pplan, ir_round = run_plan(args, cfg, model.device)
     _print_plan(pplan, ir_round)
+    if args.data > 1:
+        from repro_torch.launch.mesh import run_stage_ranks
+        _print_data_axis(cfg, model, args.data)
+        outs = run_stage_ranks(_dp_replica, args.data, args.device,
+                               args=(args, cfg, on_step))
+        return max(outs)
     if rc.execution == "mpmd":
         from repro_torch.launch.mesh import run_stage_ranks
         outs = run_stage_ranks(_mpmd_rank, S, args.device,
@@ -388,6 +458,85 @@ def _report_trace(path: str, tracer) -> None:
               f"{tracer.dropped_rounds} dropped, {len(tracer.metas)} "
               f"events a round")
     print(format_drift(drift_report(tracer)), flush=True)
+
+
+def _print_data_axis(cfg, model, n: int) -> None:
+    """Check that every parameter leaf is replicated over ``data`` (else
+    ``SystemExit`` with the three-part refusal) and print the data axis,
+    with ZeRO-1's momentum layout reckoned beside the replicated one the
+    replicas run."""
+    from repro_torch.runtime import sharding as rsh
+    mesh = rsh.data_mesh(n)
+    axes, shapes = model.param_axes(), model.param_specs()
+    try:
+        leaves = rsh.check_data_replicated(cfg, axes, shapes, mesh)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    z = rsh.zero1_layout(cfg, axes, shapes, mesh)
+    print(f"# data axis: {n} replicas, one process each; {leaves} "
+          f"parameter leaves replicated over data; ZeRO-1 momentum "
+          f"(reckoned, not run): {z['sharded']} of {z['leaves']} leaves "
+          f"over data, {z['zero1_bytes'] / 2**30:.2f} GiB a replica "
+          f"against {z['replicated_bytes'] / 2**30:.2f} GiB replicated")
+
+
+def _dp_replica(group, args, cfg, on_step) -> int:
+    """One replica of ``--data N``: the whole model drawn from ``--seed``
+    (as the one-process run draws it), its rows of every global batch,
+    the synchronous step with the gradients averaged over the replicas.
+    Peak-memory statistics restart once the state is built.
+    ``on_step(step_index, state, metrics)`` runs on every replica with
+    its state (it must pickle); ``metrics["loss"]`` is the replica's."""
+    from repro_torch.runtime import sharding as rsh
+    dev = group.device
+    model = Model(cfg, device=dev)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                  seed=args.seed, kind=args.data_kind))
+    mesh = rsh.data_mesh(group.world)
+    specs = rsh.batch_specs(cfg, data.batch_at(0), mesh,
+                            rsh.logical_rules(cfg, mesh))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = pipeline_sync.init_state(model, gen)
+    step_fn = pipeline_sync.make_train_step(
+        model, lr=args.lr, gamma=args.gamma,
+        num_microbatches=cfg.mesh_plan.num_microbatches,
+        clip=args.clip or None, group=group)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    lead = group.rank == 0
+    rows = args.batch // group.world
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    if lead:
+        print(f"# data: {group.describe()}; transport={group.transport}")
+    print(f"# replica {group.rank}: device={dev} params={n_params:,} rows "
+          f"[{group.rank * rows}:{(group.rank + 1) * rows}) of "
+          f"{args.batch}; ready {time.perf_counter() - group.t0:.1f} s "
+          f"after joining", flush=True)
+    registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
+                               if lead else None)
+    t0, tokens = time.time(), 0
+    try:
+        for s in range(args.steps):
+            batch = rsh.local_rows(data.batch_at(s), specs, mesh,
+                                   group.rank)
+            state, metrics = step_fn(state, batch)
+            tokens += args.batch * args.seq
+            if on_step is not None:
+                on_step(s, state, metrics)
+            if (s + 1) % args.log_every == 0 or s == args.steps - 1:
+                losses = group.all_gather_object(float(metrics["loss"]))
+                if lead:
+                    dt = time.time() - t0
+                    rec = registry.log_step(
+                        step=s + 1,
+                        loss=round(sum(losses) / len(losses), 4),
+                        tok_per_s=round(tokens / max(dt, 1e-9), 1),
+                        loss_valid=1.0)
+                    print(json.dumps(rec) if args.json
+                          else format_step(rec), flush=True)
+    finally:
+        registry.close()
+    return 0
 
 
 def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:

@@ -192,6 +192,24 @@ class Model:
     def _outer_specs(self) -> Dict[str, Any]:
         return {"embed": embed_specs(self.cfg), "ln_f": norm_specs(self.cfg)}
 
+    def param_specs(self) -> Dict[str, Any]:
+        """Specs in the canonical layout (the JAX model's
+        ``param_specs``): the ragged per-stage tuple, ``layers`` leaves
+        ``[L_k, ...]``, one ``shared`` block per stage for hybrid
+        models."""
+        stages = []
+        for n in self.stage_sizes:
+            tree: Dict[str, Any] = {
+                "layers": stack_specs(block_specs(self.cfg), n, "layer")}
+            if self.hybrid:
+                tree["shared"] = shared_block_specs(self.cfg)
+            stages.append(tree)
+        return {"outer": self._outer_specs(), "stages": tuple(stages)}
+
+    def param_axes(self) -> Dict[str, Any]:
+        """Every leaf's logical axis names (:meth:`param_specs`' axes)."""
+        return tree_map(lambda _, sp: sp.axes, self.param_specs())
+
     def _flat_param_specs(self) -> Dict[str, Any]:
         """All layers in one ``[n_layers, ...]`` stack (hybrid shared
         blocks ``[S, ...]``), split per stage by :meth:`init`."""

@@ -21,6 +21,12 @@ from repro_torch.models.layers import (mlp_apply, mlp_specs, norm_apply,
 def check_ported(cfg) -> None:
     """Raise for the families whose blocks are not ported yet, and for
     the recurrent family, whose reference model does not exist."""
+    from repro_torch.configs.base import cost_only
+    if cost_only(cfg.name):
+        raise NotImplementedError(
+            f"{cfg.name}: this config is read for its cost only "
+            f"(configs.arch_config); serving or training it is not ported "
+            f"to PyTorch yet")
     if cfg.family == "rnn":
         raise NotImplementedError(
             f"{cfg.name}: family 'rnn' is not ported to PyTorch: its "

@@ -31,21 +31,44 @@ gets a timeout, and rendezvous goes through a ``FileStore`` in a
 temporary directory (no TCP port, so parallel runs cannot collide)
 unless ``RANK`` / ``WORLD_SIZE`` are set, as under ``torchrun``.
 
-The SPMD data/tensor rules of the JAX module (``logical_rules``,
-``spec_for_leaf``, ``stream_state_shardings``, ...) are not ported.
+The data axis (the data-parallel baseline):
+
+* the JAX module's logical-axis rules as pure functions
+  (:func:`logical_rules`, :func:`decode_rules`, :func:`spec_for_leaf`,
+  :func:`shardings_for`, :func:`momentum_rules`, :func:`batch_specs`).
+  They read a ``runtime.mesh_utils.RankMesh`` (or anything with
+  ``axis_names`` and ``devices``) and return spec tuples equal to
+  ``tuple(PartitionSpec)`` where JAX returns ``NamedSharding``s;
+* the data axis executed as replicas: one process a replica, every
+  replica holding the whole model (:func:`check_data_replicated` refuses
+  a layout that shards a parameter over ``data``), taking its block of
+  every global batch (:func:`local_rows`, by ``batch_specs``'
+  ``act_batch`` rule) and averaging its gradients with the others
+  through :meth:`StageGroup.all_reduce_mean` (fixed-size fp32 buckets,
+  one ``all_reduce`` each, on the transport below).  The all-reduce runs
+  after the backward, not overlapped with it; ZeRO-1's momentum layout
+  (:func:`momentum_rules`) is reckoned but momentum runs replicated; the
+  tensor axis and the SPMD state shardings (``stream_state_shardings``
+  and the rest) are not ported.
 """
 from __future__ import annotations
 
 import os
 import time
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.runtime.mesh_utils import RankMesh, axis_sizes, rank_coords
+
 TRANSPORTS = ("nccl", "gloo-host", "gloo")
 TAG_FWD, TAG_BWD, TAG_CTL, TAG_PREFILL = 1, 2, 3, 4
+# the all-reduce's bucket: 256 MiB of fp32 gradient a call, which bounds
+# the pinned host buffer under gloo-host (one buffer a rank, reused)
+BUCKET_BYTES = 256 * 2**20
 
 _CURRENT: List[Optional["StageGroup"]] = [None]
 
@@ -103,7 +126,10 @@ class StageGroup:
     ``n_ctl`` / ``bytes_ctl`` the control messages this rank sent
     (serving descriptors and tokens, gradient partials, gathers);
     ``transport_s`` is the host wall spent in :meth:`exchange`, host
-    copies and waits included."""
+    copies and waits included; ``n_reduce`` / ``bytes_reduce`` the
+    all-reduce calls of :meth:`all_reduce_mean` and the bytes they
+    reduced, ``reduce_s`` its host wall (packing, the calls, the
+    division and unpacking)."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  transport: str, cards: Optional[int] = None):
@@ -115,6 +141,7 @@ class StageGroup:
         self.next, self.prev = (rank + 1) % world, (rank - 1) % world
         self.cards = cards
         self.t0 = time.perf_counter()   # when the rank began to join
+        self._bucket: Optional[torch.Tensor] = None
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -122,12 +149,17 @@ class StageGroup:
         self.n_recv = self.bytes_recv = 0
         self.n_ctl = self.bytes_ctl = 0
         self.transport_s = 0.0
+        self.n_reduce = self.bytes_reduce = 0
+        self.reduce_s = 0.0
 
     def counters(self) -> Dict[str, float]:
         return {"n_sent": self.n_sent, "bytes_sent": self.bytes_sent,
                 "n_recv": self.n_recv, "bytes_recv": self.bytes_recv,
                 "n_ctl": self.n_ctl, "bytes_ctl": self.bytes_ctl,
-                "transport_s": self.transport_s}
+                "transport_s": self.transport_s,
+                "n_reduce": self.n_reduce,
+                "bytes_reduce": self.bytes_reduce,
+                "reduce_s": self.reduce_s}
 
     def describe(self) -> str:
         return describe_transport(self.transport, self.world, self.cards)
@@ -217,6 +249,72 @@ class StageGroup:
                 dist.barrier(device_ids=[self.device.index])
             else:
                 dist.barrier()
+
+    # ------------------------------------------------------ data axis
+    def all_reduce_mean(self, tree, *, bucket_bytes: int = BUCKET_BYTES):
+        """Replace every leaf of ``tree`` (fp32 tensors on this rank's
+        device: the gradients) by its mean over the group's ranks, in
+        place, and return ``tree``.
+
+        The leaves, taken in ``tree_leaves`` order as one flat sequence,
+        are cut into buckets of ``bucket_bytes``; each bucket is packed
+        into one buffer (on the card under ``nccl``, pinned host memory
+        under ``gloo-host``, the CPU under ``gloo``; one buffer a rank,
+        reused), reduced by one ``all_reduce(SUM)``, copied back and
+        divided by the world size.  Every rank divides the same sum, so
+        the ranks' results are bit-equal.  The calls run after the
+        backward, one after another: overlapping them with the backward
+        is not done.  Under ``nccl`` the host waits for the card at the
+        end, so ``reduce_s`` is the reduction's wall there too."""
+        from repro_torch.models.layers import tree_leaves
+        leaves = tree_leaves(tree)
+        for g in leaves:
+            if g.dtype != torch.float32 or g.device != self.device:
+                raise ValueError(
+                    f"all_reduce_mean takes fp32 leaves on {self.device}, "
+                    f"got {g.dtype} on {g.device}")
+        if self.world == 1:
+            return tree
+        t0 = time.perf_counter()
+        cap = max(1, int(bucket_bytes) // 4)
+        if self._bucket is None or self._bucket.numel() != cap:
+            self._bucket = (torch.empty(cap, pin_memory=True)
+                            if self.transport == "gloo-host" else
+                            torch.empty(cap, device=self.device))
+        buf = self._bucket
+        flats = [g.view(-1) for g in leaves]
+        pieces: List[Tuple[torch.Tensor, int]] = []    # (slice, offset)
+        fill = 0
+
+        def flush():
+            nonlocal fill, pieces
+            dist.all_reduce(buf[:fill], op=dist.ReduceOp.SUM)
+            for part, off in pieces:
+                part.copy_(buf[off:off + part.numel()])
+                part.div_(self.world)
+            self.n_reduce += 1
+            self.bytes_reduce += 4 * fill
+            pieces, fill = [], 0
+
+        for flat in flats:
+            lo = 0
+            while lo < flat.numel():
+                n = min(cap - fill, flat.numel() - lo)
+                part = flat[lo:lo + n]
+                buf[fill:fill + n].copy_(part)
+                pieces.append((part, fill))
+                fill += n
+                lo += n
+                if fill == cap:
+                    flush()
+        if fill:
+            flush()
+        if self.transport == "nccl":
+            # NCCL's calls return once queued: wait for them, so that
+            # reduce_s is the reduction's wall as on the other transports
+            torch.cuda.synchronize(self.device)
+        self.reduce_s += time.perf_counter() - t0
+        return tree
 
     def all_gather_object(self, obj) -> list:
         """Every rank's ``obj`` (small, picklable), in rank order."""
@@ -363,3 +461,265 @@ def local_outer(outer, rank: int, n_chunks: int, world: int, tied: bool):
         return tree if rank in outer_leaf_ranks(path, n_chunks, world,
                                                 tied) else None
     return keep(outer, ()) or {}
+
+
+# ------------------------------------------------------ the data rules
+# (the JAX module's logical-axis rules, as pure functions over a rank
+# mesh: a spec is the tuple ``tuple(PartitionSpec)`` would give)
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+
+def logical_rules(cfg, mesh, *, zero1: bool = True) -> Dict[str, AxisVal]:
+    plan = cfg.mesh_plan
+    sizes = axis_sizes(mesh)
+    has_pod = "pod" in sizes
+    tensor = sizes.get("tensor", 1)
+    batch: AxisVal = ("pod", "data") if has_pod else ("data",)
+
+    rules: Dict[str, AxisVal] = {
+        # --- params -------------------------------------------------------
+        "stage": "pipe" if plan.pipe_role == "stage" else None,
+        "layer": None,
+        "embed": "data" if plan.fsdp else None,
+        "embed2": None,
+        "heads": "tensor" if cfg.n_heads % tensor == 0 else None,
+        "kv": "tensor" if (cfg.n_kv_heads % tensor == 0) else None,
+        "mlp": "tensor" if cfg.d_ff % tensor == 0 else None,
+        "vocab": "tensor",
+        "expert": "tensor",
+        "ssm": "tensor",
+        # --- activations ----------------------------------------------------
+        "act_batch": batch,
+        "act_seq": "pipe" if plan.pipe_role == "context" else None,
+        # --- decode caches ------------------------------------------
+        "act_kvseq": None,
+        "head_dim": None,
+        "state": None,
+    }
+    if cfg.moe is not None and cfg.moe.num_experts % tensor != 0:
+        rules["expert"] = None
+    return rules
+
+
+def decode_rules(cfg, mesh, *, global_batch: int) -> Dict[str, AxisVal]:
+    """Rules for serve_step cells.  When the request batch cannot occupy the
+    data axis (long-context B=1), shard the KV-cache sequence dim over it
+    instead (context-parallel cache)."""
+    rules = logical_rules(cfg, mesh)
+    sizes = axis_sizes(mesh)
+    d_sz = sizes.get("data", 1)
+    pod = sizes.get("pod", 1)
+    if global_batch % (d_sz * pod) != 0:
+        rules["act_batch"] = None
+        rules["act_kvseq"] = "data"
+    # decode has seq len 1 — never context-shard activations
+    rules["act_seq"] = None
+    return rules
+
+
+def _resolve(axis: Optional[str], rules: Dict[str, AxisVal]) -> AxisVal:
+    if axis is None:
+        return None
+    return rules.get(axis)
+
+
+def spec_for_leaf(axes: Sequence[Optional[str]], shape: Sequence[int],
+                  rules: Dict[str, AxisVal], sizes: Dict[str, int]
+                  ) -> Tuple[AxisVal, ...]:
+    used: set = set()
+    out: List[AxisVal] = []
+    for ax, dim in zip(axes, shape):
+        val = _resolve(ax, rules)
+        if val is None:
+            out.append(None)
+            continue
+        names = (val,) if isinstance(val, str) else tuple(val)
+        names = tuple(n for n in names if n in sizes and n not in used)
+        prod = int(np.prod([sizes[n] for n in names])) if names else 1
+        if not names or prod == 1 or dim % prod != 0:
+            out.append(None)
+            continue
+        used.update(names)
+        out.append(names[0] if len(names) == 1 else names)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def _map_axes(fn, axes_tree, sds_tree):
+    """``fn(axes, leaf)`` over an axes tree (tuples of names are leaves)
+    and a tree of the same structure whose leaves have ``.shape``."""
+    if _is_axes(axes_tree):
+        return fn(axes_tree, sds_tree)
+    if isinstance(axes_tree, dict):
+        if set(axes_tree) != set(sds_tree):
+            raise ValueError(f"trees differ in keys: {sorted(axes_tree)} "
+                             f"vs {sorted(sds_tree)}")
+        return {k: _map_axes(fn, axes_tree[k], sds_tree[k])
+                for k in sorted(axes_tree)}
+    if isinstance(axes_tree, (tuple, list)):
+        if len(axes_tree) != len(sds_tree):
+            raise ValueError("trees differ in length")
+        return type(axes_tree)(_map_axes(fn, a, b)
+                               for a, b in zip(axes_tree, sds_tree))
+    raise TypeError(f"not an axes tree: {type(axes_tree).__name__}")
+
+
+def shardings_for(axes_tree: Any, sds_tree: Any, mesh,
+                  rules: Dict[str, AxisVal]):
+    """Spec-tuple tree for (axes, shaped-leaf) trees (the JAX function's
+    ``NamedSharding`` tree, each as ``tuple(sharding.spec)``)."""
+    sizes = axis_sizes(mesh)
+    return _map_axes(lambda axes, sds: spec_for_leaf(axes, sds.shape, rules,
+                                                     sizes),
+                     axes_tree, sds_tree)
+
+
+def momentum_rules(cfg, rules: Dict[str, AxisVal],
+                   mesh) -> Dict[str, AxisVal]:
+    """ZeRO-1: momentum additionally sharded over the data axis on the
+    first shardable (so far unsharded) dim — realized by remapping the
+    'embed' logical axis of optimizer-state leaves to 'data'."""
+    r = dict(rules)
+    if r.get("embed") is None:
+        r["embed"] = "data"
+    return r
+
+
+def batch_specs(cfg, batch_sds: Any, mesh, rules: Dict[str, AxisVal]):
+    """Specs for a data batch: leading dim batch, second seq."""
+    sizes = axis_sizes(mesh)
+
+    def leaf(sds):
+        axes = ["act_batch", "act_seq"] + [None] * (len(sds.shape) - 2)
+        return spec_for_leaf(axes, sds.shape, rules, sizes)
+
+    if isinstance(batch_sds, dict):
+        return {k: batch_specs(cfg, batch_sds[k], mesh, rules)
+                for k in sorted(batch_sds)}
+    if isinstance(batch_sds, (tuple, list)):
+        return type(batch_sds)(batch_specs(cfg, b, mesh, rules)
+                               for b in batch_sds)
+    return leaf(batch_sds)
+
+
+# ----------------------------------------- the data axis as replicas
+def data_mesh(n_replicas: int) -> RankMesh:
+    """The rank grid of a data-parallel run: ``(data=N, pipe=1,
+    tensor=1)``; a replica's pipeline stages run inside its process."""
+    return RankMesh(np.arange(n_replicas).reshape(n_replicas, 1, 1),
+                    ("data", "pipe", "tensor"))
+
+
+def _names(spec_entry) -> Tuple[str, ...]:
+    if spec_entry is None:
+        return ()
+    return (spec_entry,) if isinstance(spec_entry, str) else spec_entry
+
+
+def check_data_replicated(cfg, axes_tree, shapes_tree, mesh) -> int:
+    """Every parameter leaf's spec under ``logical_rules`` must leave the
+    ``data`` axis out (the replicas each hold the whole model).  Returns
+    the number of leaves checked; raises ``ValueError`` in three parts
+    (what, why, what runs instead) naming the first leaf that shards
+    over ``data``."""
+    specs = shardings_for(axes_tree, shapes_tree, mesh,
+                          logical_rules(cfg, mesh))
+    bad, n = [], [0]
+
+    def one(path, spec):
+        n[0] += 1
+        if any("data" in _names(e) for e in spec):
+            bad.append(("/".join(path), spec))
+    _spec_leaves(specs, one)
+    if bad:
+        path, spec = bad[0]
+        raise ValueError(
+            f"--data with a parameter layout sharded over 'data' "
+            f"({'fsdp=True, ' if cfg.mesh_plan.fsdp else ''}{len(bad)} "
+            f"leaves, e.g. {path} -> {spec}) is not supported: the port "
+            f"runs the data axis as replicas that each hold the whole "
+            f"model and all-reduce their gradients; use a config with "
+            f"fsdp=False, or --pipe to split the model over stages")
+    return n[0]
+
+
+def _spec_leaves(tree, fn, path: Tuple[str, ...] = ()) -> None:
+    """``fn(path, spec)`` over a spec-tuple tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _spec_leaves(tree[k], fn, path + (str(k),))
+    elif isinstance(tree, list) or (isinstance(tree, tuple)
+                                    and not _is_spec(tree)):
+        for i, t in enumerate(tree):
+            _spec_leaves(t, fn, path + (str(i),))
+    else:
+        fn(path, tree)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(n, str) for n in e))
+        for e in x)
+
+
+def zero1_layout(cfg, axes_tree, shapes_tree, mesh) -> Dict[str, int]:
+    """ZeRO-1's momentum layout (:func:`momentum_rules`) reckoned over the
+    parameter leaves: how many leaves would shard over ``data`` and the
+    momentum bytes a replica would hold (fp32), against the replicated
+    layout the port runs."""
+    sizes = axis_sizes(mesh)
+    rules = momentum_rules(cfg, logical_rules(cfg, mesh), mesh)
+    specs = shardings_for(axes_tree, shapes_tree, mesh, rules)
+    out = {"leaves": 0, "sharded": 0, "replicated_bytes": 0,
+           "zero1_bytes": 0}
+    flat_shapes: List[Tuple[int, ...]] = []
+    _map_axes(lambda _, sds: flat_shapes.append(tuple(sds.shape)),
+              axes_tree, shapes_tree)
+    flat_specs: List[tuple] = []
+    _spec_leaves(specs, lambda _, sp: flat_specs.append(sp))
+    for shape, spec in zip(flat_shapes, flat_specs):
+        n = int(np.prod(shape)) * 4
+        div = int(np.prod([sizes[a] for e in spec for a in _names(e)]))
+        out["leaves"] += 1
+        out["sharded"] += int(any("data" in _names(e) for e in spec))
+        out["replicated_bytes"] += n
+        out["zero1_bytes"] += n // div
+    return out
+
+
+def local_rows(batch: Dict[str, Any], specs: Dict[str, tuple], mesh,
+               rank: int) -> Dict[str, Any]:
+    """This rank's block of a global batch: each leaf cut along every dim
+    its spec names, the block index the rank's coordinates on those axes
+    (row-major over the named axes), as a ``data``-sharded leading dim
+    places contiguous blocks of ``B / N`` rows."""
+    sizes = axis_sizes(mesh)
+    coords = rank_coords(mesh, rank)
+    out = {}
+    for k, x in batch.items():
+        for dim, entry in enumerate(specs[k]):
+            names = _names(entry)
+            if not names:
+                continue
+            n = int(np.prod([sizes[a] for a in names]))
+            idx = 0
+            for a in names:
+                idx = idx * sizes[a] + coords[a]
+            size = x.shape[dim]
+            if size % n:
+                raise ValueError(f"batch leaf {k!r} dim {dim} of size "
+                                 f"{size} does not split over {names} "
+                                 f"({n} blocks)")
+            blk = size // n
+            sl = [slice(None)] * len(x.shape)
+            sl[dim] = slice(idx * blk, (idx + 1) * blk)
+            x = x[tuple(sl)]
+        out[k] = x
+    return out

@@ -1176,3 +1176,111 @@ def test_mpmd_over_nccl_matches_spmd(card):
     if torch.cuda.device_count() < 2:
         pytest.skip("the NCCL transport needs a card per rank (2 cards)")
     _mpmd_against_spmd(card, 2, "nccl")
+
+
+# ------------------------------------------------ the data axis (replicas)
+def _card_reduce_rank(group, trees, bucket_bytes):
+    """This rank's tree on its card, averaged over the ranks by
+    ``all_reduce_mean`` in buckets of ``bucket_bytes``; numpy back."""
+    from repro_torch.models.layers import tree_map
+    mine = tree_map(lambda _, a: torch.from_numpy(a).to(group.device),
+                    trees[group.rank])
+    group.all_reduce_mean(mine, bucket_bytes=bucket_bytes)
+    torch.cuda.synchronize()
+    return (group.transport, group.counters()["n_reduce"],
+            tree_map(lambda _, a: a.cpu().numpy(), mine))
+
+
+def _reduce_on_cards(card, cards: int, transport: str):
+    """Two ranks' fp32 trees (a leaf split over buckets, a scalar leaf)
+    averaged on the card(s): the ranks bit-equal, and equal to (a + b) / 2
+    computed on one card."""
+    from repro_torch.launch.mesh import run_stage_ranks
+    from repro_torch.models.layers import tree_leaves
+    rng = np.random.default_rng(3)
+
+    def draw():
+        f = lambda *s: rng.standard_normal(s).astype(np.float32)
+        return {"a": f(300, 70), "b": {"c": f(5), "d": f()}}
+    trees = [draw(), draw()]
+    outs = run_stage_ranks(_card_reduce_rank, 2, "cuda", cards=cards,
+                           args=(trees, 4096 * 4), timeout_s=300.0)
+    want = [((torch.from_numpy(x).to(card) + torch.from_numpy(y).to(card))
+             / 2).cpu().numpy()
+            for x, y in zip(tree_leaves(trees[0]), tree_leaves(trees[1]))]
+    n = sum(w.size for w in want)
+    for got_t, n_reduce, got in outs:
+        assert got_t == transport
+        assert n_reduce == -(-n // 4096)
+        for g, w in zip(tree_leaves(got), want):
+            assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_all_reduce_mean_sharing_the_card(card):
+    _reduce_on_cards(card, 1, "gloo-host")
+
+
+@pytest.mark.gpu
+def test_all_reduce_mean_over_nccl(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the NCCL transport needs a card per rank (2 cards)")
+    _reduce_on_cards(card, 2, "nccl")
+
+
+def _dp_replica_rank(group, cfg, params, batches):
+    """One replica of the sync step with ``group=``: the numpy weights on
+    its device, its block of rows of each global batch, 3 steps; its
+    losses and its params and momentum (numpy) back."""
+    from repro_torch.core import pipeline_sync
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import sgd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(cfg, device=group.device)
+    p = tree_map(lambda _, a: torch.from_numpy(a).to(group.device), params)
+    state = {"params": p, "momentum": sgd.init(p).v, "step": 0}
+    step = pipeline_sync.make_train_step(model, lr=0.05, num_microbatches=1,
+                                         group=group)
+    rows = len(batches[0]["tokens"]) // group.world
+    lo = group.rank * rows
+    losses = []
+    for b in batches:
+        state, met = step(state, {k: v[lo:lo + rows] for k, v in b.items()})
+        losses.append(float(met["loss"]))
+    return {"losses": losses, "transport": group.transport,
+            "leaves": [a.detach().cpu().numpy() for key in
+                       ("params", "momentum")
+                       for a in tree_leaves(state[key])]}
+
+
+@pytest.mark.gpu
+def test_data_replicas_on_card_match_cpu(card):
+    """Two replicas of the sync step (smoke granite, fp32, 3 steps) on
+    the card, sharing it through pinned host buffers: bit-equal to each
+    other and within the training tolerance of the same replicas on the
+    CPU over gloo, from the same numpy weights and batches."""
+    from repro_torch.launch.mesh import run_stage_ranks
+    from repro_torch.models.layers import tree_map
+    cfg = _smoke_cfg()
+    params = tree_map(lambda _, a: a.numpy(), Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    got = {dev: run_stage_ranks(_dp_replica_rank, 2, dev, cards=1,
+                                args=(cfg, params, batches),
+                                timeout_s=300.0)
+           for dev in ("cuda", "cpu")}
+    c0, c1 = got["cuda"]
+    assert (c0["transport"], got["cpu"][0]["transport"]) == ("gloo-host",
+                                                             "gloo")
+    for a, b in zip(c0["leaves"], c1["leaves"]):
+        assert np.array_equal(a, b)
+    for r in range(2):
+        np.testing.assert_allclose(got["cuda"][r]["losses"],
+                                   got["cpu"][r]["losses"], rtol=1e-4,
+                                   atol=1e-5)
+    for a, b in zip(c0["leaves"], got["cpu"][0]["leaves"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
