@@ -4,7 +4,7 @@ The port's own copy of the JAX package's ``configs/base.py``: the same
 frozen ``ArchConfig`` and sub-configs, field for field, so a config
 built here describes the same model as its twin.  Only the
 architectures the port serves are registered; asking for another one
-raises ``NotImplementedError``.  The other seven are copied too, read
+raises ``NotImplementedError``.  The other three are copied too, read
 for their cost only through :func:`arch_config`.
 """
 from __future__ import annotations
@@ -222,10 +222,7 @@ class ArchConfig:
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 # the architectures the JAX package knows that the port does not serve yet
-_NOT_PORTED = (
-    "whisper-base", "pixtral-12b", "granite-20b", "starcoder2-15b",
-    "minicpm3-4b", "grok-1-314b", "deepseek-moe-16b",
-)
+_NOT_PORTED = ("whisper-base", "pixtral-12b", "minicpm3-4b")
 
 
 # the same architectures' configs, read only for their cost (parameter
@@ -255,7 +252,7 @@ def register_cost_only(name: str):
 
 def arch_config(name: str) -> ArchConfig:
     """Any architecture's config, for cost arithmetic only: a ported one
-    (as :func:`get_config` gives it) or one of the unported seven, from
+    (as :func:`get_config` gives it) or one of the unported three, from
     which no model is built (``models.transformer.check_ported``
     refuses them)."""
     if name in _COST_ONLY:

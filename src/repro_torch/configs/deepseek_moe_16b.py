@@ -2,15 +2,12 @@
 
 28L, d_model=2048, 16H (kv=16 = MHA), d_ff=1408 per expert, vocab=102400.
 [arXiv:2401.06066]
-
-The port's copy of ``repro/configs/deepseek_moe_16b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
 """
 from repro_torch.configs.base import (ArchConfig, MeshPlan, MoEConfig,
-                                      register_cost_only)
+                                      register)
 
 
-@register_cost_only("deepseek-moe-16b")
+@register("deepseek-moe-16b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="deepseek-moe-16b", family="moe", source="arXiv:2401.06066",

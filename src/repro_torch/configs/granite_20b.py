@@ -2,14 +2,11 @@
 
 52L, d_model=6144, 48H (GQA kv=1 = MQA), d_ff=24576 (non-gated), vocab=49152.
 [arXiv:2405.04324]
-
-The port's copy of ``repro/configs/granite_20b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
 """
-from repro_torch.configs.base import ArchConfig, MeshPlan, register_cost_only
+from repro_torch.configs.base import ArchConfig, MeshPlan, register
 
 
-@register_cost_only("granite-20b")
+@register("granite-20b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="granite-20b", family="dense", source="arXiv:2405.04324",

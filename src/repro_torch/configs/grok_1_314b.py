@@ -2,15 +2,12 @@
 
 64L, d_model=6144, 48H (GQA kv=8), d_ff=32768 per expert, vocab=131072.
 [hf:xai-org/grok-1]
-
-The port's copy of ``repro/configs/grok_1_314b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
 """
 from repro_torch.configs.base import (ArchConfig, MeshPlan, MoEConfig,
-                                      register_cost_only)
+                                      register)
 
 
-@register_cost_only("grok-1-314b")
+@register("grok-1-314b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="grok-1-314b", family="moe", source="hf:xai-org/grok-1",

@@ -2,14 +2,11 @@
 
 40L, d_model=6144, 48H (GQA kv=4), d_ff=24576 (non-gated), vocab=49152.
 [arXiv:2402.19173]
-
-The port's copy of ``repro/configs/starcoder2_15b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
 """
-from repro_torch.configs.base import ArchConfig, MeshPlan, register_cost_only
+from repro_torch.configs.base import ArchConfig, MeshPlan, register
 
 
-@register_cost_only("starcoder2-15b")
+@register("starcoder2-15b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="starcoder2-15b", family="dense", source="arXiv:2402.19173",

@@ -268,7 +268,12 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
     (its ``s_fwd`` are the prediction distances, ``bwd_lag`` and
     ``fb_gap`` the ring offsets).  Metrics: ``loss`` (a 0-d tensor on the
     device) and ``loss_valid`` (1.0 once the pipeline has filled; with several ticks
-    per step, the number of valid ticks averaged into ``loss``)."""
+    per step, the number of valid ticks averaged into ``loss``); for MoE
+    models also ``aux``, the load-balance losses of the tick's forwards
+    over the stages whose input is valid (with several ticks per step,
+    their mean; with one stage, the step's).  Each stage's backward
+    takes its aux loss with cotangent ``valid_b[k]``, as the JAX twin's
+    does."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     S = model.n_stages
@@ -287,14 +292,17 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
         batch = device_batch(batch, model.device)
         with torch.enable_grad():
             leaves = _leaves_like(state["params"])
-            loss = model.loss(leaves, batch)
+            loss, aux = model.loss_and_aux(leaves, batch)
             grads, _ = _grads(loss, leaves, None)
         if clip:
             grads, _ = sgd.clip_by_global_norm(grads, clip)
         sgd.update(state["params"], sgd.MomentumState(state["momentum"]),
                    grads, lr=lr, gamma=gamma)
         state["step"] += 1
-        return state, {"loss": loss.detach(), "loss_valid": 1.0}
+        metrics = {"loss": loss.detach(), "loss_valid": 1.0}
+        if model.cfg.moe is not None:
+            metrics["aux"] = aux.detach()
+        return state, metrics
 
     if S == 1:
         return step_degenerate
@@ -318,7 +326,8 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
         # ---------- inject + forward all stages --------------------------
         with torch.no_grad():
             fwd_buf[0].copy_(model.embed(outer_embed_f, batch))
-            outs = [stage_fn(stages_f[k], fwd_buf[k])[0] for k in range(S)]
+            fwd = [stage_fn(stages_f[k], fwd_buf[k]) for k in range(S)]
+            outs = [y for y, _ in fwd]
             stash[:, slot].copy_(fwd_buf)
             for name, r in ring.items():
                 r[slot].copy_(batch[name])
@@ -357,9 +366,15 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             with torch.enable_grad():
                 sp = _leaves_like(stages_b[k], bdt)
                 xk = stash[k, idx[k]].detach().requires_grad_()
-                y, _aux = stage_fn(sp, xk)
-                gw, (gx,) = _grads(y, sp, bwd_buf[k] * valid_b[k],
-                                   extra=(xk,))
+                y, aux = stage_fn(sp, xk)
+                # the stage's aux loss (MoE) takes cotangent valid_b[k],
+                # as in the JAX twin; the other blocks' constant zero
+                # has no graph and takes none
+                ys, cots = [y], [bwd_buf[k] * valid_b[k]]
+                if aux.requires_grad:
+                    ys.append(aux)
+                    cots.append(torch.full_like(aux, valid_b[k]))
+                gw, (gx,) = _grads(ys, sp, cots, extra=(xk,))
             gW.append(gw)
             gX.append(gx)
 
@@ -399,7 +414,13 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
                 bwd_buf[k].copy_(gX[(k + 1) % S])
         state["tick"] = t + 1
         state["step"] += 1
-        return state, {"loss": loss.detach(), "loss_valid": valid_head}
+        metrics = {"loss": loss.detach(), "loss_valid": valid_head}
+        if model.cfg.moe is not None:
+            # the aux losses of this tick's forwards, each stage on its
+            # own microbatch, over the stages whose input is valid
+            metrics["aux"] = sum(a for k, (_, a) in enumerate(fwd)
+                                 if t >= k)
+        return state, metrics
 
     def train_step(state, batch):
         batch = device_batch(batch, model.device)
@@ -408,14 +429,19 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             return tick_fn(state, batch)
         mbs = [{k: v.reshape((T, v.shape[0] // T) + tuple(v.shape[1:]))[i]
                 for k, v in batch.items()} for i in range(T)]
-        losses, valid = [], []
+        losses, valid, auxes = [], [], []
         for mb in mbs:
             state, met = tick_fn(state, mb)
             losses.append(met["loss"] * met["loss_valid"])
             valid.append(met["loss_valid"])
+            if "aux" in met:
+                auxes.append(met["aux"])
         n = max(sum(valid), 1.0)
-        return state, {"loss": torch.stack(losses).sum() / n,
-                       "loss_valid": sum(valid)}
+        metrics = {"loss": torch.stack(losses).sum() / n,
+                   "loss_valid": sum(valid)}
+        if auxes:
+            metrics["aux"] = sum(auxes) / T
+        return state, metrics
 
     return train_step
 
@@ -618,8 +644,9 @@ class _Round:
         return acc
 
     def _stage(self, sp, x):
+        """(y, the stage's aux loss)."""
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self.model.stage_apply(sp, (x, zero))[0]
+        return self.model.stage_apply(sp, (x, zero))
 
     # ------------------------------------------------------------ events
     def embed(self, m: int, s: int) -> torch.Tensor:
@@ -628,7 +655,7 @@ class _Round:
 
     def fwd(self, q: int, s: int, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return self._stage(self.chunk_w(q, s), x)
+            return self._stage(self.chunk_w(q, s), x)[0]
 
     def head(self, m: int, s: int, out: torch.Tensor, first: bool
              ) -> torch.Tensor:
@@ -650,13 +677,19 @@ class _Round:
     def bwd(self, q: int, s: int, x: torch.Tensor, cot: torch.Tensor,
             first: bool) -> torch.Tensor:
         """Chunk q's backward, recomputed from its stashed input;
-        accumulates its weight gradient and returns the input's."""
+        accumulates its weight gradient and returns the input's.  An MoE
+        chunk's aux loss takes cotangent 1, as in the JAX twin, whose
+        round loss leaves it out all the same."""
         with torch.enable_grad():
             sp = _leaves_like(self.chunk_w(q, s))
             xk = x.detach().requires_grad_()
+            y, aux = self._stage(sp, xk)
+            ys, cots = [y], [cot]
+            if aux.requires_grad:
+                ys.append(aux)
+                cots.append(torch.ones_like(aux))
             *gs, gx = torch.autograd.grad(
-                self._stage(sp, xk), tree_leaves(sp) + [xk], cot,
-                allow_unused=True)
+                ys, tree_leaves(sp) + [xk], cots, allow_unused=True)
         self.g_chunks[q] = self._acc(self.g_chunks[q], gs, first)
         return gx
 

@@ -26,9 +26,16 @@ from repro_torch.optim import sgd
 
 def pipeline_loss(model, params, batch, num_microbatches: int):
     """Forward loss through the circular pipeline."""
+    loss, aux = _loss_and_aux(model, params, batch, num_microbatches)
+    return loss
+
+
+def _loss_and_aux(model, params, batch, num_microbatches: int):
+    """(the loss, the aux loss it includes): the head loss plus the
+    stages' aux losses, their mean over the microbatches."""
     S = model.n_stages
     if S == 1:
-        return model.loss(params, batch)
+        return model.loss_and_aux(params, batch)
     M = num_microbatches
     outer, stages = params["outer"], params["stages"]
     if not isinstance(stages, (tuple, list)):
@@ -60,7 +67,7 @@ def pipeline_loss(model, params, batch, num_microbatches: int):
     # drained outputs: ticks S-1 .. T-1 hold microbatches 0..M-1
     outs = torch.stack(ys[S - 1:]).reshape((B,) + tuple(x.shape[1:]))
     loss = model.head_loss(outer, outs, batch["targets"])
-    return loss + aux_sum / M
+    return loss + aux_sum / M, aux_sum / M
 
 
 def make_train_step(model, *, lr: float, gamma: float = 0.9,
@@ -70,18 +77,21 @@ def make_train_step(model, *, lr: float, gamma: float = 0.9,
     updating the state in place.  ``group``: the data group of the
     replicas, whose mean gradient (after the backward, before clipping
     and the update) the step applies; ``metrics["loss"]`` stays this
-    replica's loss."""
+    replica's loss (and, for MoE models, ``metrics["aux"]`` the aux loss
+    it includes)."""
     M = num_microbatches or model.cfg.mesh_plan.num_microbatches
 
     def train_step(state: Dict[str, Any], batch):
         batch = device_batch(batch, model.device)
         with torch.enable_grad():
             leaves = _leaves_like(state["params"])
-            loss = pipeline_loss(model, leaves, batch, M)
+            loss, aux = _loss_and_aux(model, leaves, batch, M)
             grads, _ = _grads(loss, leaves, None)
         if group is not None:
             group.all_reduce_mean(grads)
         metrics = {"loss": loss.detach()}
+        if model.cfg.moe is not None:
+            metrics["aux"] = aux.detach()
         if clip:
             grads, metrics["grad_norm"] = sgd.clip_by_global_norm(grads,
                                                                    clip)

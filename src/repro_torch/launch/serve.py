@@ -19,8 +19,10 @@ on the CPU) is printed.  Hybrid models are refused under it.  On
 the card every attention call goes through the hand-written flash
 forward kernel (the decode wave through its paged rows) and every
 RWKV-6 or Mamba-2 recurrence through its hand-written scan kernel.
-``--arch`` takes granite-8b (dense), rwkv6-7b (attention-free) and
-zamba2-1.2b (Mamba-2 with shared attention blocks).
+``--arch`` takes granite-8b, granite-20b and starcoder2-15b (dense),
+deepseek-moe-16b and grok-1-314b (MoE: every token routed alone, as the
+JAX engines' one-token decode steps route it), rwkv6-7b (attention-free)
+and zamba2-1.2b (Mamba-2 with shared attention blocks).
 
 Unlike the JAX launcher, which always shrinks the model, this one
 serves the full configuration unless ``--smoke`` is given.  It runs on
@@ -70,7 +72,9 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
     tokens, launches and transfers through it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
-                    help="granite-8b, rwkv6-7b or zamba2-1.2b")
+                    help="granite-8b, granite-20b, starcoder2-15b, "
+                         "deepseek-moe-16b, grok-1-314b, rwkv6-7b or "
+                         "zamba2-1.2b")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--smoke", action="store_true",

@@ -71,11 +71,19 @@ Data-P is ``--pipe 1``.  Refused with ``--data`` > 1: any mode but
 ``sync``, ``--execution mpmd``, ``--trace``, ``--ckpt-dir``, and a
 ``--batch`` that ``N·ticks`` does not divide.
 
+``--arch`` takes the dense granite-8b, granite-20b and starcoder2-15b
+and the MoE deepseek-moe-16b and grok-1-314b (and the paper's models);
+for an MoE model each step line adds ``aux``, the routers' load-balance
+loss included in ``loss`` (the stream tick's: over its valid stages'
+forwards; the IR rounds leave it out of the loss, as the JAX twin's do,
+and print none).  The SSM families serve only.
+
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
 at granite-8b's full vocabulary.
 
-Example (full-width granite-8b, 8 layers in 4 stages, on one H100):
+Example (full-width granite-8b, 8 layers in 4 stages, on one H100; the
+same for deepseek-moe-16b or granite-20b at --layers 4):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --layers 8 --pipe 4 --batch 8 --seq 512 --dtype bfloat16 \\
         --schedule 1f1b --data-kind uniform --steps 10 --log-every 1
@@ -125,6 +133,16 @@ def build(args):
     kw["param_dtype"] = "float32"
     kw["compute_dtype"] = args.dtype
     return cfg.replace(**kw)
+
+
+def _aux_field(metrics) -> dict:
+    """The step record's ``aux`` (an MoE model's load-balance loss, the
+    part of ``loss`` that the router adds), or nothing for the other
+    models and for the IR rounds, whose loss leaves it out as the JAX
+    twin's does."""
+    if "aux" not in metrics:
+        return {}
+    return {"aux": round(float(metrics["aux"]), 6)}
 
 
 def _not_ported(args) -> Optional[str]:
@@ -433,7 +451,8 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
                 rec = registry.log_step(
                     step=s + 1, loss=round(loss, 4),
                     tok_per_s=round(tokens / max(dt, 1e-9), 1),
-                    loss_valid=float(metrics.get("loss_valid", 1.0)))
+                    loss_valid=float(metrics.get("loss_valid", 1.0)),
+                    **_aux_field(metrics))
                 print(json.dumps(rec) if args.json else format_step(rec))
     except KeyboardInterrupt:
         interrupted = True
@@ -525,13 +544,17 @@ def _dp_replica(group, args, cfg, on_step) -> int:
                 on_step(s, state, metrics)
             if (s + 1) % args.log_every == 0 or s == args.steps - 1:
                 losses = group.all_gather_object(float(metrics["loss"]))
+                auxes = (group.all_gather_object(float(metrics["aux"]))
+                         if "aux" in metrics else None)
                 if lead:
                     dt = time.time() - t0
                     rec = registry.log_step(
                         step=s + 1,
                         loss=round(sum(losses) / len(losses), 4),
                         tok_per_s=round(tokens / max(dt, 1e-9), 1),
-                        loss_valid=1.0)
+                        loss_valid=1.0, **_aux_field(
+                            {} if auxes is None
+                            else {"aux": sum(auxes) / len(auxes)}))
                     print(json.dumps(rec) if args.json
                           else format_step(rec), flush=True)
     finally:

@@ -78,30 +78,57 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
     return shape[-2] if len(shape) >= 2 else max(1, shape[-1])
 
 
-def init_one(spec: ParamSpec, generator: torch.Generator,
-             default_dtype: str, device) -> torch.Tensor:
-    dtype = dtype_of(spec.dtype or default_dtype)
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+# a stacked leaf whose fp32 draw is larger than this is drawn one layer
+# at a time, each layer stored before the next is drawn, so that a
+# full-size model never holds a whole stack in fp32 (granite-20b's
+# stacked w1 is 31.4 GB in fp32)
+ROW_DRAW_BYTES = 1 << 30
+
+
+def _draw(spec: ParamSpec, shape, generator, device) -> torch.Tensor:
+    """One draw of ``spec``'s distribution at ``shape``, in fp32."""
     if spec.init == "uniform":
-        u = torch.rand(spec.shape, generator=generator, device=device)
-        return (u * (2 * spec.scale) - spec.scale).to(dtype)
+        u = torch.rand(shape, generator=generator, device=device)
+        return u.mul_(2 * spec.scale).sub_(spec.scale)
     std = spec.scale / math.sqrt(_fan_in(spec.shape))
-    x = torch.randn(spec.shape, generator=generator, device=device)
-    return (x * std).to(dtype)
+    return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+
+def init_one(spec: ParamSpec, generator: torch.Generator,
+             default_dtype: str, device,
+             store: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One leaf in the param dtype, then in ``store`` if given (the
+    serving cast).  A layer-stacked leaf larger than
+    :data:`ROW_DRAW_BYTES` in fp32 is drawn layer by layer from the
+    same generator, in order."""
+    dtype = dtype_of(spec.dtype or default_dtype)
+    out_dt = store or dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device).to(out_dt)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device).to(out_dt)
+    n = math.prod(spec.shape)
+    if spec.axes[0] != "layer" or 4 * n <= ROW_DRAW_BYTES:
+        return _draw(spec, spec.shape, generator, device).to(dtype).to(out_dt)
+    out = torch.empty(spec.shape, dtype=out_dt, device=device)
+    for i in range(spec.shape[0]):
+        out[i] = _draw(spec, spec.shape[1:], generator, device).to(dtype)
+    return out
 
 
 def init_params(specs, generator: torch.Generator,
                 default_dtype: str = "float32", device="cpu",
-                leaf_fn: Optional[Callable] = None):
+                leaf_fn: Optional[Callable] = None,
+                store: Optional[Callable] = None):
     """Materialise a spec tree, one leaf at a time in flattening order.
+    ``store(path)``, if given, names the dtype each leaf is kept in (None:
+    the param dtype), cast as it is drawn (the serving cast, so that a
+    full-size model never holds all its fp32 draws at once).
     ``leaf_fn(path, tensor)``, if given, is applied to each leaf as soon
-    as it is drawn (the serving cast, so that a full-size model never
-    holds all its fp32 draws at once)."""
+    as it is stored."""
     def one(path, spec):
-        x = init_one(spec, generator, default_dtype, device)
+        x = init_one(spec, generator, default_dtype, device,
+                     None if store is None else store(path))
         return leaf_fn(path, x) if leaf_fn is not None else x
     return tree_map(one, specs)
 

@@ -12,7 +12,9 @@ stage split is ever copied.  The decode cache follows JAX: for dense
 models ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}``; for rwkv6
 and mamba2 the per-layer recurrent state stacked over ``L``; hybrid
 models add ``{"shared": {"k", "v": [n_shared, ...]}}``.  The decode step
-and prefill fill it in place.  The SSM families serve only: their scan
+and prefill fill it in place.  MoE layers dispatch as the JAX twin's on
+the training half and route each token alone on the serving half
+(``models/moe.py``).  The SSM families serve only: their scan
 kernels have no backward, as in the JAX package.  ``cfg.remat`` is not
 ported: the streaming runtime recomputes each stage from its stashed
 input anyway.
@@ -153,6 +155,16 @@ def _n_layers(stage) -> int:
     return int(stage["layers"]["ln1"]["scale"].shape[0])
 
 
+def _weight_dtype(dtype: Optional[str]):
+    """``init_params``' ``store``: every weight in ``dtype`` (the fp32
+    leaves of ``layers.FP32_LEAVES`` and everything when ``dtype`` is
+    None keep the param dtype)."""
+    if dtype is None:
+        return None
+    dt = dtype_of(dtype)
+    return lambda path: dt if leaf_is_weight(path) else None
+
+
 def cast_for_compute(params, dtype: torch.dtype):
     """Cast every weight to the compute dtype once, leaving the leaves
     the forward reads in fp32 (``layers.FP32_LEAVES``) as they are: the
@@ -163,7 +175,7 @@ def cast_for_compute(params, dtype: torch.dtype):
 
 
 class Model:
-    """Functional model wrapper for one dense, rwkv6 or mamba2/hybrid
+    """Functional model wrapper for one dense, MoE, rwkv6 or mamba2/hybrid
     ``ArchConfig`` on one device (``cuda`` by default; raises there if no
     card is present)."""
 
@@ -227,13 +239,9 @@ class Model:
         ``dtype``, weights are stored in it as they are drawn (see
         :func:`cast_for_compute`); the fp32 leaves keep the param
         dtype."""
-        leaf_fn = None
-        if dtype is not None:
-            dt = dtype_of(dtype)
-            leaf_fn = (lambda path, a: a.to(dt) if leaf_is_weight(path)
-                       else a)
         params = init_params(self._flat_param_specs(), generator,
-                             self.cfg.param_dtype, self.device, leaf_fn)
+                             self.cfg.param_dtype, self.device,
+                             store=_weight_dtype(dtype))
         return {"outer": params["outer"],
                 "stages": split_flat_stages(params["stages"],
                                             self.stage_sizes)}
@@ -259,16 +267,14 @@ class Model:
                              f"{self.cfg.n_layers} layers")
         lo = np.cumsum((0,) + sizes)
         chunks = tuple(sorted(chunks))
-        dt = dtype_of(dtype) if dtype is not None else None
 
         def leaf_fn(path, a):
-            if dt is not None and leaf_is_weight(path):
-                a = a.to(dt)
             if path[0] == "stages":
                 return _Rows({q: a[lo[q]:lo[q + 1]].clone() for q in chunks})
             return a if keep_outer(path[1:]) else None
         flat = init_params(self._flat_param_specs(), generator,
-                           self.cfg.param_dtype, self.device, leaf_fn)
+                           self.cfg.param_dtype, self.device, leaf_fn,
+                           store=_weight_dtype(dtype))
         stages = tuple(
             {"layers": tree_map(lambda _, r, q=q: r[q],
                                 flat["stages"]["layers"])}
@@ -296,7 +302,8 @@ class Model:
         """One pipeline stage of a dense model: its blocks in order.  The
         layer count is read off the tree's leading axis, so uniform and
         ragged stages run the same code.  carry = (x [b, s, d], aux
-        scalar); these blocks add nothing to aux.  The SSM families have
+        scalar), to which each MoE block adds its load-balance loss, as
+        the JAX twin's ``_layer_body`` does.  The SSM families have
         no pipeline stages in the port: they serve only, and their
         whole-model forward is :meth:`_recurrent_layers`."""
         if self.cfg.ssm is not None:
@@ -307,7 +314,9 @@ class Model:
         x, aux = carry
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
-            x, _, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
+            x, a, _, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
+            if a is not None:
+                aux = aux + a
         return x, aux
 
     # ------------------------------------------------------- embed/head
@@ -340,9 +349,13 @@ class Model:
         return self.logits(params["outer"], x), aux
 
     def loss(self, params, batch):
+        return self.loss_and_aux(params, batch)[0]
+
+    def loss_and_aux(self, params, batch):
+        """(the loss, the MoE routers' aux loss it includes)."""
         logits, aux = self.forward(params, batch)
         return softmax_xent(logits, batch["targets"],
-                            self.cfg.vocab_size) + aux
+                            self.cfg.vocab_size) + aux, aux
 
     # --------------------------------------------------------- ragged stages
     def partition_stage_params(self, stages, sizes, *, n_chunks=None):
@@ -425,7 +438,10 @@ class Model:
 
     def decode_step(self, params, cache, token, pos: int):
         """token [b, 1] int64, pos a Python int -> (logits [b, 1, V'],
-        cache).  The cache is updated in place and returned."""
+        cache).  The cache is updated in place and returned.  MoE layers
+        route each row's token alone (``moe.moe_apply_tokens``); the JAX
+        twin routes the b tokens of one call together, and its engines
+        call it with b = 1."""
         cfg = self.cfg
         outer = params["outer"]
         x = embed_apply(cfg, outer["embed"], token)
@@ -434,8 +450,8 @@ class Model:
             return self.logits(outer, x), cache
         ck, cv = cache["layers"]["k"], cache["layers"]["v"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
-            x, _, _ = block_apply(cfg, lp, x,
-                                  cache={"k": ck[i], "v": cv[i]}, pos=pos)
+            x, _, _, _ = block_apply(cfg, lp, x,
+                                     cache={"k": ck[i], "v": cv[i]}, pos=pos)
         return self.logits(outer, x), cache
 
     def prefill(self, params, batch, max_seq: int):
@@ -446,7 +462,9 @@ class Model:
         whole prompt through one scan-kernel call and the cache holds
         the state after the prompt (and, for hybrid models, the shared
         blocks' keys and values), what JAX's ``SimpleEngine`` gets by
-        stepping ``decode_step`` over the prompt."""
+        stepping ``decode_step`` over the prompt.  For the same reason an
+        MoE layer routes each prompt token alone, with nothing dropped
+        (``moe.moe_apply_tokens``)."""
         outer = params["outer"]
         x = self.embed(outer, batch)
         s = x.shape[1]
@@ -456,7 +474,7 @@ class Model:
             return self.logits(outer, x), cache
         ck, cv = cache["layers"]["k"], cache["layers"]["v"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
-            x, new_c, _ = block_apply(self.cfg, lp, x, cache={})
+            x, _, new_c, _ = block_apply(self.cfg, lp, x, cache={})
             ck[i, :, :s] = new_c["k"].to(ck.dtype)
             cv[i, :, :s] = new_c["v"].to(cv.dtype)
         return self.logits(outer, x), cache
@@ -491,19 +509,20 @@ class Model:
         rows; rwkv6 layers gather the rows' states from their pages, run
         the scan's decode kernel at b = R and write the states back.
         The JAX twin (``_decode_chunk`` over ``stage_decode``) vmaps a
-        scalar-position decode over the requests."""
+        scalar-position decode over the requests, so an MoE layer here
+        routes each row's token alone (``moe.moe_apply_tokens``)."""
         self._check_pageable("stage_decode")
         bufs = chunk_cache["layers"]
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
             if self.cfg.ssm is None:
-                x, _, _ = block_apply(
+                x, _, _, _ = block_apply(
                     self.cfg, lp, x, cache={"k": bufs["k"][i],
                                             "v": bufs["v"][i]},
                     pos=pos, pages=pages)
                 continue
             st = {k: buf[i][pages] for k, buf in bufs.items()}
-            x, _, _ = block_apply(self.cfg, lp, x, state=st)
+            x, _, _, _ = block_apply(self.cfg, lp, x, state=st)
             for k, buf in bufs.items():
                 buf[i][pages] = st[k]
         return x
@@ -523,14 +542,14 @@ class Model:
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
             if self.cfg.ssm is None:
-                x, kv, _ = block_apply(self.cfg, lp, x, cache={})
+                x, _, kv, _ = block_apply(self.cfg, lp, x, cache={})
                 bufs["k"][i, page, :n] = kv["k"][0].to(bufs["k"].dtype)
                 bufs["v"][i, page, :n] = kv["v"][0].to(bufs["v"].dtype)
                 continue
             st = {k: buf[i][page:page + 1] for k, buf in bufs.items()}
             for a in st.values():
                 a.zero_()                      # rwkv6's init state
-            x, _, _ = block_apply(self.cfg, lp, x, state=st)
+            x, _, _, _ = block_apply(self.cfg, lp, x, state=st)
         return x
 
     def _recurrent_layers(self, stages, x, cache=None, *,
@@ -552,7 +571,7 @@ class Model:
                 lp = tree_map(lambda _, a, i=i: a[i], stage["layers"])
                 st = (None if cache is None else
                       {k: buf[g] for k, buf in cache["layers"].items()})
-                x, _, _ = block_apply(cfg, lp, x, state=st)
+                x, _, _, _ = block_apply(cfg, lp, x, state=st)
                 g += 1
                 if not self._fires_shared(i):
                     continue

@@ -1,0 +1,186 @@
+"""Mixture-of-Experts layer (twin of ``repro/models/moe.py``): top-k
+routing, capacity-bounded scatter dispatch, shared experts (DeepSeekMoE)
+and the Switch-style load-balance aux loss.
+
+Training (:func:`moe_apply`) dispatches as the JAX twin does, grouped
+GShard-style: the T = b·s tokens split into ``DISPATCH_GROUPS`` groups
+when T divides by it and each group keeps at least one token per expert
+(else one group), each group routing alone with capacity ``min(int(cf ·
+Tg · k / E) + 1, Tg)``.  Slots go by a cumulative count over the group's
+(token, choice) pairs, token-major then choice; a pair past its
+expert's capacity goes to the overflow slot ``cap`` and is dropped.
+
+Serving (:func:`moe_apply_tokens`) routes every token alone, as the JAX
+engines do: both step ``decode_step`` one token per call, so the JAX
+layer sees T = 1 and capacity 1 and drops nothing.  The port's serving
+paths batch tokens (a prompt in one causal call, a decode wave of R
+requests in one call), where a shared capacity would drop tokens the JAX
+engines never drop; so they dispatch at capacity T, at which no expert
+can overflow (a token picks an expert at most once) and each token gets
+exactly its own top-k experts' sum.
+
+The layer is four steps, each its own function so that a profile can
+time them apart: :func:`route` (router product, softmax, top-k, the aux
+loss and each pair's slot), :func:`dispatch` (an ``index_add`` of the
+kept tokens into the ``[G, E, cap + 1, d]`` buffer), the expert
+products (:func:`expert_ffn`, batched matmuls over the expert axis, the
+overflow slot included: it holds zeros and gives zeros), and
+:func:`combine` (a gather of each pair's output, weighted by its gate).
+The JAX package computes all of it outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import ParamSpec
+
+# groups used for local dispatch (the JAX twin aligns them with the data
+# axis of its production mesh); 1 when T % groups != 0 or a group would
+# hold fewer tokens than there are experts
+DISPATCH_GROUPS = 16
+
+
+def moe_specs(cfg):
+    mo, d, ff = cfg.moe, cfg.d_model, cfg.d_ff
+    E = mo.num_experts
+    mats = (("wg", "w1", "w2") if cfg.mlp_gated else ("w1", "w2"))
+    specs: Dict = {
+        "router": ParamSpec((d, E), ("embed", "expert"), "normal", 0.1),
+    }
+    for m in mats:
+        shp = (E, ff, d) if m == "w2" else (E, d, ff)
+        axes = ("expert", "mlp", "embed") if m == "w2" \
+            else ("expert", "embed", "mlp")
+        specs[m] = ParamSpec(shp, axes)
+    if mo.num_shared:
+        for m in mats:
+            shp = (mo.num_shared, ff, d) if m == "w2" \
+                else (mo.num_shared, d, ff)
+            axes = (None, "mlp", "embed") if m == "w2" \
+                else (None, "embed", "mlp")
+            specs["shared_" + m] = ParamSpec(shp, axes)
+    return specs
+
+
+def expert_ffn(cfg, w, h):
+    """h: [..., E, C, d] -> the same through each expert's FFN (gated
+    SiLU, or tanh-GELU when ``cfg.mlp_gated`` is off)."""
+    dt = h.dtype
+    if cfg.mlp_gated:
+        a = F.silu(torch.einsum("...ecd,edf->...ecf", h, w["wg"].to(dt)))
+        z = a * torch.einsum("...ecd,edf->...ecf", h, w["w1"].to(dt))
+    else:
+        z = F.gelu(torch.einsum("...ecd,edf->...ecf", h, w["w1"].to(dt)),
+                   approximate="tanh")
+    return torch.einsum("...ecf,efd->...ecd", z, w["w2"].to(dt))
+
+
+def dispatch_groups(cfg, T: int) -> int:
+    """The JAX twin's group count for T tokens."""
+    E = cfg.moe.num_experts
+    return (DISPATCH_GROUPS if T % DISPATCH_GROUPS == 0
+            and T // DISPATCH_GROUPS >= E else 1)
+
+
+def capacity(cfg, Tg: int) -> int:
+    """Slots per expert in a group of Tg tokens."""
+    mo = cfg.moe
+    return min(int(mo.capacity_factor * Tg * mo.top_k / mo.num_experts) + 1,
+               Tg)
+
+
+class Routing(NamedTuple):
+    """One call's routing: per (group, token-major pair) its flat slot in
+    the ``[G, E, cap + 1]`` buffer (the overflow slot when dropped), its
+    gate times whether it was kept, and the aux loss."""
+    slot: torch.Tensor          # [G, Tg k] int64
+    weight: torch.Tensor        # [G, Tg k] in the compute dtype
+    keep: torch.Tensor          # [G, Tg k] bool
+    aux: torch.Tensor           # 0-d fp32
+    cap: int
+
+
+def route(cfg, p, xg, cap: int) -> Routing:
+    """xg [G, Tg, d]: router logits in fp32, softmax, top-k (renormalised
+    among the chosen when the config has shared experts), the aux loss
+    over all groups, and each pair's slot at capacity ``cap``."""
+    mo = cfg.moe
+    E, k = mo.num_experts, mo.top_k
+    G, Tg, _ = xg.shape
+    logits = (xg @ p["router"].to(xg.dtype)).float()            # [G,Tg,E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                    # [G,Tg,k]
+    if mo.num_shared:  # deepseek: renormalise among the selected
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    me = probs.mean(dim=(0, 1))                                 # [E]
+    ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))
+    aux = mo.aux_loss_coef * E * torch.sum(me * ce)
+
+    e_flat = idx.reshape(G, Tg * k)
+    onehot = F.one_hot(e_flat, E)                               # [G,Tgk,E]
+    pos_in_e = (onehot * (onehot.cumsum(1) - 1)).sum(-1)
+    keep = pos_in_e < cap
+    dest_c = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, cap))
+    grp = torch.arange(G, device=xg.device)[:, None]
+    slot = (grp * E + e_flat) * (cap + 1) + dest_c
+    weight = gate.reshape(G, Tg * k).to(xg.dtype) * keep.to(xg.dtype)
+    return Routing(slot, weight, keep, aux, cap)
+
+
+def dispatch(cfg, xg, r: Routing):
+    """The kept pairs' tokens into their slots: [G, E, cap + 1, d]
+    (dropped pairs add zeros to their expert's overflow slot, which so
+    stays zero, and the experts map zero to zero: the JAX twin's zero
+    row appended after the experts)."""
+    G, Tg, d = xg.shape
+    k = cfg.moe.top_k
+    src = xg.repeat_interleave(k, dim=1)                        # [G,Tgk,d]
+    src = torch.where(r.keep[..., None], src, torch.zeros_like(src))
+    buf = xg.new_zeros((G * cfg.moe.num_experts * (r.cap + 1), d))
+    buf = buf.index_add(0, r.slot.reshape(-1), src.reshape(-1, d))
+    return buf.view(G, cfg.moe.num_experts, r.cap + 1, d)
+
+
+def combine(cfg, out_buf, r: Routing, Tg: int):
+    """out_buf [G, E, cap + 1, d] (the experts' outputs) -> [G, Tg, d]:
+    each token's gate-weighted sum over its kept choices."""
+    G, d = out_buf.shape[0], out_buf.shape[-1]
+    k = cfg.moe.top_k
+    got = out_buf.reshape(-1, d)[r.slot.reshape(-1)].view(G, Tg * k, d)
+    return (got * r.weight[..., None]).view(G, Tg, k, d).sum(2)
+
+
+def _apply(cfg, p, x, G: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    mo = cfg.moe
+    b, s, d = x.shape
+    T = b * s
+    Tg = T // G
+    xg = x.reshape(G, Tg, d)
+    r = route(cfg, p, xg, cap)
+    out = combine(cfg, expert_ffn(cfg, p, dispatch(cfg, xg, r)), r, Tg)
+    out = out.reshape(T, d)
+    if mo.num_shared:
+        sh = {m[len("shared_"):]: p[m] for m in p if m.startswith("shared_")}
+        hs = x.reshape(1, T, d).expand(mo.num_shared, T, d)
+        out = out + expert_ffn(cfg, sh, hs).sum(0)
+    return out.reshape(b, s, d), r.aux
+
+
+def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [b, s, d] -> (out [b, s, d], aux_loss 0-d fp32): the training
+    dispatch, grouped and capacity-bounded as the JAX twin's."""
+    T = x.shape[0] * x.shape[1]
+    G = dispatch_groups(cfg, T)
+    return _apply(cfg, p, x, G, capacity(cfg, T // G))
+
+
+def moe_apply_tokens(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [b, s, d] -> (out, aux): every token routed as if it came
+    alone, what the JAX engines' one-token ``decode_step`` gives it (see
+    the module docstring): one group at capacity T, so nothing drops.
+    The serving callers discard the aux."""
+    T = x.shape[0] * x.shape[1]
+    return _apply(cfg, p, x, 1, T)

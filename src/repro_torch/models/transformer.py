@@ -1,18 +1,19 @@
-"""Transformer block assembly (twin of the dense, RWKV-6 and Mamba-2
-branches of ``repro/models/transformer.py``).
+"""Transformer block assembly (twin of the dense, MoE, RWKV-6 and
+Mamba-2 branches of ``repro/models/transformer.py``).
 
-A *block* = one layer: for dense models pre-norm attention and MLP, each
-with a residual; for rwkv6 time-mix and channel-mix; for mamba2 (the
-zamba2 backbone) a norm, the Mamba-2 mixer and a residual.  zamba2's
-shared attention block (attention + MLP, one per pipeline stage) is
-:func:`shared_block_apply`.  The MoE and cross-attention branches come
-in later slices.
+A *block* = one layer: for dense and MoE models pre-norm attention and
+MLP (or MoE), each with a residual; for rwkv6 time-mix and channel-mix;
+for mamba2 (the zamba2 backbone) a norm, the Mamba-2 mixer and a
+residual.  zamba2's shared attention block (attention + MLP, one per
+pipeline stage) is :func:`shared_block_apply`.  MLA and cross-attention
+come in later slices.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_specs, norm_apply,
                                        norm_specs)
@@ -35,7 +36,7 @@ def check_ported(cfg) -> None:
             f"the JAX package does not have), and its dimensions would "
             f"build dense attention blocks, another model")
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("mla", cfg.mla is not None),
         ("enc-dec", cfg.is_encdec), ("frontend", cfg.frontend != "none"),
         ("ssm kind " + str(getattr(cfg.ssm, "kind", "")),
          cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba2")),
@@ -44,8 +45,8 @@ def check_ported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet; "
-            f"the port runs dense, rwkv6 and mamba2/hybrid decoder-only "
-            f"models")
+            f"the port runs dense, MoE, rwkv6 and mamba2/hybrid "
+            f"decoder-only models")
 
 
 def block_specs(cfg) -> Dict[str, Any]:
@@ -60,12 +61,16 @@ def block_specs(cfg) -> Dict[str, Any]:
     if cfg.ssm is not None:
         # zamba2-style mamba block: norm + mamba mixer + residual (no MLP)
         return {"ln1": norm_specs(cfg), "mamba": ssm_mod.mamba2_specs(cfg)}
-    return {
+    specs: Dict[str, Any] = {
         "ln1": norm_specs(cfg),
         "attn": attn.gqa_specs(cfg),
         "ln2": norm_specs(cfg),
-        "mlp": mlp_specs(cfg),
     }
+    if cfg.moe is not None:
+        specs["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def shared_block_specs(cfg) -> Dict[str, Any]:
@@ -81,14 +86,21 @@ def shared_block_specs(cfg) -> Dict[str, Any]:
 def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
                 cache: Optional[Dict] = None, pos=None, pages=None,
                 state: Optional[Dict] = None):
-    """Returns (x, new_cache, new_state).  The JAX twin also returns an
-    auxiliary loss, which these blocks leave at zero.  Dense blocks use
+    """Returns (x, aux, new_cache, new_state), the JAX twin's tuple.
+    ``aux`` is an MoE block's load-balance loss (0-d fp32) and None for
+    the blocks without a router, where the JAX twin returns a zero: so
+    the dense and SSM paths add no kernel for it.  Dense blocks use
     ``cache`` (and return no state); with ``pages`` (and ``pos`` an
     int32 tensor, one position per row) theirs is the pipelined
     engine's decode wave over a paged buffer
     (``attention.gqa_decode_wave``).  rwkv6 and mamba2 blocks use
-    ``state``, update it in place and return its leaves (and no
-    cache)."""
+    ``state``, update it in place and return its leaves (and no cache).
+
+    A call with a cache, pages or a state serves; there an MoE block
+    routes each token alone (``moe.moe_apply_tokens``), as the JAX
+    engines' one-token decode steps do.  A call with none of them is a
+    training or reference forward and dispatches grouped, with
+    capacity (``moe.moe_apply``)."""
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
         h, st_tm = ssm_mod.rwkv6_tm_apply(
             cfg, p["tm"], norm_apply(cfg, p["ln1"], x), state)
@@ -97,20 +109,27 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
             cfg, p["cm"], norm_apply(cfg, p["ln2"], x), state)
         x = x + h
         new_state = {**st_tm, **st_cm} if state is not None else None
-        return x, None, new_state
+        return x, None, None, new_state
 
     if cfg.ssm is not None:
         h, new_state = ssm_mod.mamba2_apply(
             cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), state)
-        return x + h, None, new_state
+        return x + h, None, None, new_state
 
     h, new_cache = attn.gqa_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x),
         pos_offset=pos_offset, causal=causal, cache=cache, pos=pos,
         pages=pages)
     x = x + h
-    x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
-    return x, new_cache, None
+    xn = norm_apply(cfg, p["ln2"], x)
+    aux = None
+    if "moe" in p:
+        serving = cache is not None or pages is not None
+        apply = moe_mod.moe_apply_tokens if serving else moe_mod.moe_apply
+        h, aux = apply(cfg, p["moe"], xn)
+    else:
+        h = mlp_apply(cfg, p["mlp"], xn)
+    return x + h, aux, new_cache, None
 
 
 def shared_block_apply(cfg, p, x, *, pos_offset: int = 0,

@@ -188,6 +188,8 @@ class MetricsRegistry:
 
 
 def format_step(rec: Dict[str, Any]) -> str:
-    """Human rendering of a :meth:`MetricsRegistry.log_step` record."""
-    return (f"step {rec['step']:5d}  loss {rec['loss']:.4f}  "
+    """Human rendering of a :meth:`MetricsRegistry.log_step` record
+    (with an MoE model's aux loss when the record has one)."""
+    aux = f"  aux {rec['aux']:.4f}" if "aux" in rec else ""
+    return (f"step {rec['step']:5d}  loss {rec['loss']:.4f}{aux}  "
             f"tok/s {rec['tok_per_s']}")

@@ -118,7 +118,7 @@ def _timed_layer(cfg, batch: int, seq: int, *, device="cuda",
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(
         block_specs(cfg), gen, cfg.param_dtype, dev,
-        lambda path, a: a.to(cdt) if leaf_is_weight(path) else a)
+        store=lambda path: cdt if leaf_is_weight(path) else None)
     x = torch.zeros((batch, seq, cfg.d_model), dtype=cdt, device=dev)
 
     def f():

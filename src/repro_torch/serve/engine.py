@@ -580,7 +580,8 @@ class SimpleEngine:
     and runs one prefill and one decode, as the JAX engine's exclude
     compilation; on the card every timed region ends in a synchronise.
     Each request's ``serve_request`` event carries ``ttft_ms``, the wall
-    of its prefill and first token (its time to first token).
+    of its prefill and first token (its time to first token); the gauge
+    ``serve/max_abs_logit`` holds the largest |logit| the run read.
 
     ``n_prefill`` / ``n_decode`` count the model calls made, warm-up
     included (each runs every layer's attention or scan once, and each
@@ -641,6 +642,7 @@ class SimpleEngine:
         results: Dict[int, tuple] = {}
         with torch.inference_mode():
             bad = torch.zeros((), dtype=torch.long, device=self.device)
+            top = torch.zeros((), dtype=torch.float32, device=self.device)
             for req in sorted(requests, key=lambda q: (q.arrival, q.rid)):
                 if not admissible(req, self.splan):
                     results[req.rid] = ()
@@ -649,6 +651,7 @@ class SimpleEngine:
                 logits, cache = self._prefill(req.prompt)
                 row = logits[0, -1, :vocab]
                 bad += (~torch.isfinite(row)).sum()
+                top = torch.maximum(top, row.abs().max().float())
                 toks = [int(torch.argmax(row))]
                 self._sync()
                 ttft_ms = (time.time() - t0) * 1e3
@@ -660,6 +663,7 @@ class SimpleEngine:
                     logits, cache = self._decode(cache, toks[-1], pos)
                     row = logits[0, -1, :vocab]
                     bad += (~torch.isfinite(row)).sum()
+                    top = torch.maximum(top, row.abs().max().float())
                     toks.append(int(torch.argmax(row)))
                     pos += 1
                     self._sync()
@@ -672,6 +676,7 @@ class SimpleEngine:
                                        gen=req.gen_len, ttft_ms=ttft_ms)
         if self.registry is not None:
             self.registry.counter("serve/nonfinite_logits").inc(int(bad))
+            self.registry.gauge("serve/max_abs_logit").set(float(top))
             self.registry.gauge("serve/prefill_calls").set(self.n_prefill)
             self.registry.gauge("serve/decode_calls").set(self.n_decode)
         return results

@@ -287,8 +287,10 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
-# b, sq, sk, H, KV, d, q_offset, kv_len, causal: G in {1, 2, 4}, sq G
-# below, at and past 16 and 64, kv_len < sk, q_offset > 0
+# b, sq, sk, H, KV, d, q_offset, kv_len, causal: G in {1, 2, 4, 12, 48},
+# sq G below, at and past 16 and 64, kv_len < sk, q_offset > 0; at G 12
+# and 48 (starcoder2-15b, granite-20b) a 16- or 64-row block boundary
+# falls inside one query's heads
 EMU_CASES = [
     (1, 1, 40, 4, 1, 16, 20, 21, False),      # G 4 decode: 4 rows
     (2, 4, 4, 4, 1, 64, 0, 4, True),          # G 4: exactly 16 rows
@@ -299,6 +301,11 @@ EMU_CASES = [
     (1, 16, 100, 4, 1, 64, 80, 96, True),     # G 4: 64 rows, offset 80
     (1, 70, 70, 2, 2, 128, 0, 70, True),      # G 1: 70 rows, 2 key tiles
     (1, 65, 65, 2, 2, 16, 0, 65, True),       # row 64's own key opens a tile
+    (1, 1, 64, 48, 1, 16, 63, 64, False),     # G 48 decode: 48 of 64 rows
+    (1, 1, 70, 48, 4, 16, 40, 41, False),     # G 12 decode: 12 of 16 rows
+    (1, 12, 12, 48, 4, 16, 0, 12, True),      # G 12 prefill: 144 rows
+    (2, 3, 75, 48, 1, 16, 70, 73, True),      # G 48: 144 rows, offset 70
+    (1, 6, 6, 12, 1, 32, 0, 6, True),         # G 12: 72 rows
 ]
 
 
@@ -486,7 +493,7 @@ def test_emulated_dkv_writes_each_key_once_and_zeros_past_kv_len(case):
     assert bool((dv[:, kv_len:] == 0).all())
 
 
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 12, 48])
 @pytest.mark.parametrize("q_offset", [0, 5, 37, 130])
 def test_dkv_causal_start_tile_covers_every_row_that_sees_the_block(
         G, q_offset):
@@ -514,6 +521,8 @@ def test_dkv_causal_start_tile_covers_every_row_that_sees_the_block(
 # share): the decode wave's shapes, lengths across and at the 64-key tile
 PAGED_CASES = [
     (1, 4, 1, 16, [1], [0]),
+    (3, 48, 1, 16, [64, 1, 30], [0, 5, 2]),   # G 48 (granite-20b)
+    (2, 48, 4, 32, [17, 64], [4, 5]),         # G 12 (starcoder2-15b)
     (3, 8, 2, 64, [17, 1, 64], [2, 5, 5]),
     (8, 32, 8, 128, [1, 17, 64, 40, 3, 64, 1, 1], [0, 1, 2, 3, 4, 5, 5, 5]),
 ]
@@ -551,6 +560,9 @@ def test_emulated_paged_fwd_matches_plain_version(case):
     (5, 32, 8, 64),       # n = 5: 20 rows, four warps
     (12, 32, 32, 16),     # zamba2 prefill n = 12: 12 rows
     (512, 32, 8, 64),     # training: 2048 rows
+    (1, 48, 1, 64),       # granite-20b decode: 48 rows, four warps
+    (1, 48, 4, 16),       # starcoder2-15b decode: 12 rows, one warp
+    (12, 48, 1, 64),      # granite-20b prefill n = 12: 576 rows
 ])
 def test_block_rows_follow_the_packed_row_count(sq, H, KV, want):
     assert _block_rows(sq * (H // KV)) == want

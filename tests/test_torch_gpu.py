@@ -512,6 +512,87 @@ def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
                 rtol=tol or 1e-4, atol=tol or 1e-5, err_msg=key)
 
 
+# the MoE and dense code models at the smoke size in fp32, the code models
+# at their published head counts (G = 48 and 12 on the FMA kernels)
+NEW_ARCHS = {"deepseek-moe-16b": None, "grok-1-314b": None,
+             "granite-20b": (48, 1), "starcoder2-15b": (48, 4)}
+
+
+def _arch_smoke_cfg(arch):
+    cfg = smoke_config(get_config(arch)).replace(n_layers=4,
+                                                 compute_dtype="float32")
+    if NEW_ARCHS[arch] is not None:
+        H, KV = NEW_ARCHS[arch]
+        cfg = cfg.replace(n_heads=H, n_kv_heads=KV, head_dim=16)
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(NEW_ARCHS))
+def test_new_archs_on_card_match_cpu(card, arch):
+    """Prefill and three decode steps (logits and KV cache, 1e-4) and
+    SimpleEngine's tokens, card against CPU; one flash_fwd a layer a
+    call on the card."""
+    cfg = _arch_smoke_cfg(arch)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _on(p_cpu, card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, 16)
+        l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.to(card)}, 16)
+        _close(l_g, l_c, MODEL_TOL)
+        for pos in range(9, 12):
+            tok = toks[:, pos - 9:pos - 8]
+            d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, pos)
+            d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.to(card), pos)
+            _close(d_g, d_c, MODEL_TOL)
+            _close(c_g["layers"]["k"], c_c["layers"]["k"], MODEL_TOL)
+    assert ops.launch_counts()["flash_fwd"] == cfg.n_layers * 4
+    splan = serve_plan(cfg, n_stages=1, n_slots=1, prompt_budget=8,
+                       page_seq=32)
+    trace = poisson_trace(6, rate=1.5, seed=0, prompt_lens=(2, 8),
+                          vocab=cfg.vocab_size)
+    assert SimpleEngine(gpu, p_gpu, splan).run(trace) == \
+        SimpleEngine(cpu, p_cpu, splan).run(trace)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b"])
+def test_moe_ticks_on_card_match_cpu(card, arch):
+    """2(S-1)+3 SpecTrain ticks on 4 stages of an MoE smoke model in
+    fp32, card against CPU: losses and aux to rtol 1e-5, every params
+    and momentum leaf to rtol 1e-4 / atol 1e-5."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    cfg = _arch_smoke_cfg(arch).replace(
+        mesh_plan=get_config("granite-8b").mesh_plan)
+    S = 4
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2 * (S - 1) + 3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    out = {}
+    for model, params in ((cpu, p_cpu), (gpu, _on(p_cpu, card))):
+        state = ps.make_state(model, params, batches[0], mode="spectrain")
+        step = ps.make_train_step(model, mode="spectrain", lr=0.05)
+        mets = [step(state, b)[1] for b in batches]
+        out[model.device.type] = (state, [
+            (float(m["loss"]), float(m["aux"])) for m in mets])
+    (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    for key in ("params", "momentum"):
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       c.float().numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
+
+
 # ---------------------------------------------------------------------------
 # the recurrences: rwkv6_scan and mamba2_scan against their plain versions
 

@@ -29,15 +29,17 @@ MODEL_TOL = 1e-4
 
 
 def port_cfg(jcfg):
-    """The port's ArchConfig with every field of a JAX one (dense, rwkv6
-    or mamba2/hybrid)."""
-    assert jcfg.moe is None and jcfg.mla is None
+    """The port's ArchConfig with every field of a JAX one (dense, MoE,
+    rwkv6 or mamba2/hybrid)."""
+    assert jcfg.mla is None
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(jcfg)}
     kw["mesh_plan"] = tconfigs.MeshPlan(
         **dataclasses.asdict(jcfg.mesh_plan))
     if jcfg.ssm is not None:
         kw["ssm"] = tconfigs.SSMConfig(**dataclasses.asdict(jcfg.ssm))
+    if jcfg.moe is not None:
+        kw["moe"] = tconfigs.MoEConfig(**dataclasses.asdict(jcfg.moe))
     return tconfigs.ArchConfig(**kw)
 
 
@@ -66,7 +68,7 @@ def test_granite_config_matches_jax(smoke):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("grok-1-314b")
+        tconfigs.get_config("pixtral-12b")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

@@ -235,7 +235,8 @@ def test_partition_equal_jax():
 
 
 def test_profiler_equal_jax():
-    for name in ("granite-8b", "rwkv6-7b", "zamba2-1.2b"):
+    for name in ("granite-8b", "rwkv6-7b", "zamba2-1.2b", "granite-20b",
+                 "starcoder2-15b", "deepseek-moe-16b", "grok-1-314b"):
         for jcfg, tcfg in ((jget_config(name), tget_config(name)),):
             for b, s in ((1, 32), (8, 512)):
                 _same_profile(

@@ -454,8 +454,8 @@ def test_rwkv6_time_and_channel_mix(rwkv, s, with_state):
     _close_tree(nt, nj, LAYER_TOL)
     # the whole block, whose state is updated in place
     xj, _, _, nj = jtr.block_apply(jc, pj, jnp.asarray(x), state=sj)
-    xt, cache, nt = ttr.block_apply(tc, pt, _t(x), state=st)
-    assert cache is None
+    xt, aux, cache, nt = ttr.block_apply(tc, pt, _t(x), state=st)
+    assert aux is None and cache is None
     _close(xt, xj, LAYER_TOL)
     _close_tree(nt, nj, LAYER_TOL)
     if with_state:
@@ -491,7 +491,7 @@ def test_mamba2_apply(zamba, s, with_state):
                st["conv_x"][:, s:], 0)
     # the whole block, whose state is updated in place
     xj, _, _, nj = jtr.block_apply(jc, pj, jnp.asarray(x), state=sj)
-    xt, _, nt = ttr.block_apply(tc, pt, _t(x), state=st)
+    xt, _, _, nt = ttr.block_apply(tc, pt, _t(x), state=st)
     _close(xt, xj, LAYER_TOL)
     _close_tree(nt, nj, LAYER_TOL)
     if with_state:
