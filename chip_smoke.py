@@ -311,6 +311,25 @@ four phases:
      (routing, dispatch, expert GEMMs, gather, shared experts) and
      whole (forward, forward + backward).
 
+Multi-head latent attention (minicpm3-4b: 40 heads at G = 1, q.k width
+64 + 32, v width 64, tied embeddings) adds one phase:
+
+ 24. (after phase 3's backward checks) the forward, the paged wave, dq
+     and dk/dv at the width pair (96, 64) against their plain versions
+     (2e-5 fp32 on the FMA kernels, 2e-2 bf16 on the tensor cores):
+     decode ``[1, 1, 40, 96|64]`` over 64 keys, prefill n = 12, the
+     wave (R 8, ragged, identity pages), the tick's ``[8, 512, 40,
+     96|64]`` and bf16 edges; every wrapper raising ``ValueError`` on
+     a pair with no kernel, launching nothing; (after phase 22)
+     ``repro_torch.launch.serve.main`` on full-depth minicpm3-4b (62
+     layers, bf16) through SimpleEngine, the pipelined engine and
+     ``--execution mpmd``, checked as phases 5, 13 and 17 check theirs
+     (exact launches, MPMD tokens equal to the scan backend's), one
+     decode step profiled; (after phase 23) ``launch.train.main`` on 8
+     of its 62 layers in 4 stages (689,377,280 parameters), phase 7's
+     checks; and (in phase 8) the four kernels timed at these shapes
+     beside their bounds, plain versions and SDPA.
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -587,13 +606,15 @@ def _tree_to(tree, device):
 
 
 class Case:
-    """One flash forward call: q [b, sq, H, d]; k, v [b, sk, KV, d] with
-    the first ``kv_len`` keys visible, queries at ``q_offset + i``."""
+    """One flash forward call: q [b, sq, H, d]; k [b, sk, KV, d], v
+    [b, sk, KV, dv] (dv = d but for multi-head latent attention) with the
+    first ``kv_len`` keys visible, queries at ``q_offset + i``."""
 
     def __init__(self, name, b, sq, sk, H, KV, d, dtype, causal,
-                 q_offset=0, kv_len=None):
+                 q_offset=0, kv_len=None, dv=None):
         self.name, self.b, self.sq, self.sk = name, b, sq, sk
         self.H, self.KV, self.d, self.dtype = H, KV, d, dtype
+        self.dv = d if dv is None else dv
         self.causal, self.q_offset = causal, q_offset
         self.kv_len = sk if kv_len is None else kv_len
 
@@ -603,7 +624,7 @@ class Case:
         mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dt)
         return (mk(self.b, self.sq, self.H, self.d),
                 mk(self.b, self.sk, self.KV, self.d),
-                mk(self.b, self.sk, self.KV, self.d))
+                mk(self.b, self.sk, self.KV, self.dv))
 
     def kw(self):
         return dict(causal=self.causal, q_offset=self.q_offset,
@@ -618,13 +639,14 @@ class Case:
 
     def bound(self):
         """(least ms, what bounds it): inputs read once, outputs written
-        once, over HBM; QK^T and PV FLOPs over the peak for the type."""
+        once, over HBM; QK^T (2 d) and PV (2 dv) FLOPs a pair over the
+        peak for the type."""
         el = 2 if self.dtype == "bfloat16" else 4
-        nbytes = el * (self.b * self.sq * self.H * self.d          # q
-                       + 2 * self.b * self.kv_len * self.KV * self.d  # k,v
-                       + self.b * self.sq * self.H * self.d)       # o
+        w = self.d + self.dv
+        nbytes = el * (self.b * self.sq * self.H * w               # q, o
+                       + self.b * self.kv_len * self.KV * w)       # k, v
         nbytes += 4 * self.b * self.H * self.sq                    # lse
-        flops = 4 * self.b * self.H * self.d * self.pairs()
+        flops = 2 * self.b * self.H * w * self.pairs()
         t_b = nbytes / HBM_BPS * 1e3
         t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -767,7 +789,8 @@ def mma_ptxas(log: str) -> dict:
                 if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
                     rest = sym.split(k, 1)[1]
                     args = re.findall(r"Li(\d+)E", rest)
-                    if rest.startswith("I"):    # a type argument first
+                    # a type argument first (ILi.. is an int argument)
+                    if rest.startswith("I") and not rest.startswith("IL"):
                         args.insert(0, "bf16" if "bfloat16" in rest
                                     else "fp32")
                     name = f"{k}<{', '.join(args)}>"
@@ -796,16 +819,15 @@ def build_kernels(build, r6, m2, *mods) -> None:
         for kernel, props in mma_ptxas(str(info["log"])).items():
             print(f"  {name}: {kernel}: {props}")
     # the kernels' shared memory is dynamic, so ptxas does not print it
-    import ctypes
-    fwd = build.library("flash_fwd").repro_flash_fwd_smem_bytes
-    bwd = build.library("flash_bwd").repro_flash_bwd_smem_bytes
-    fwd.restype = bwd.restype = ctypes.c_longlong
-    for d in (64, 128):
-        print(f"  dynamic shared memory per block at head_dim {d}: "
-              f"flash_fwd fp32 {fwd(0, d)} B, bf16 mma 4 warps {fwd(1, d)} "
-              f"B, 1 warp {fwd(2, d)} B; flash_bwd_dq fp32 {bwd(0, d)} B, "
-              f"bf16 mma {bwd(2, d)} B; flash_bwd_dkv fp32 {bwd(1, d)} B, "
-              f"bf16 mma {bwd(3, d)} B; fused_update none")
+    from repro_torch.kernels.flash_attention import smem_bytes
+    for dk, dv in ((64, 64), (128, 128), (96, 64)):
+        sm = lambda kernel: smem_bytes(kernel, dk, dv)
+        print(f"  dynamic shared memory per block at widths ({dk}, {dv}): "
+              f"flash_fwd fp32 {sm('fwd')} B, bf16 mma 4 warps "
+              f"{sm('fwd_mma')} B, 1 warp {sm('fwd_mma_1warp')} B; "
+              f"flash_bwd_dq fp32 {sm('dq')} B, bf16 mma {sm('dq_mma')} B; "
+              f"flash_bwd_dkv fp32 {sm('dkv')} B, bf16 mma "
+              f"{sm('dkv_mma')} B; fused_update none")
     import torch
     for dt in (torch.bfloat16, torch.float32):
         print(f"  dynamic shared memory per block at 64 wide, {dt}: "
@@ -1165,28 +1187,30 @@ def timings(torch, fa, ref, errs) -> list:
                         TRAIN_SEQ, TRAIN_SEQ, *heads, "bfloat16", True), 20)]
     print(f"  SDPA backends enabled (torch.backends.cuda): "
           f"{sdpa_flags(torch)}")
-    rows = []
-    for case, iters in cases:
-        q, k, v = case.tensors(torch, seed=7)
-        kw = case.kw()
-        ms, wall = time_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw),
-                           iters)
-        plain_ms, _ = time_ms(
-            torch, lambda: ref.flash_fwd_ref(q, k, v, **kw), iters)
-        sdpa = sdpa_fn(torch, case, q, k, v)
-        lib_ms, _ = time_ms(torch, sdpa, iters)
-        lib_kernels = library_kernels(torch, sdpa)
-        bound_ms, bound_by = case.bound()
-        row = {"shape": case.name, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms, "library_kernels": lib_kernels,
-               "max_abs_err": errs[case.name], "wall_ms_per_call": wall}
-        rows.append(row)
-        print(f"  {case.name:<28} kernel {ms:.4f} ms (wall {wall:.4f} ms "
-              f"per call)  bound {bound_ms:.5f} ms ({bound_by})  plain "
-              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
-              f"({ms / lib_ms:.2f}x sdpa; sdpa ran {lib_kernels})")
-    return rows
+    return [fwd_row(torch, fa, ref, case, iters, errs[case.name])
+            for case, iters in cases]
+
+
+def fwd_row(torch, fa, ref, case: Case, iters: int, err: float) -> dict:
+    """One forward shape: the kernel, its plain version and SDPA (CUDA
+    events, after warm-up), the bound."""
+    q, k, v = case.tensors(torch, seed=7)
+    kw = case.kw()
+    ms, wall = time_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), iters)
+    plain_ms, _ = time_ms(
+        torch, lambda: ref.flash_fwd_ref(q, k, v, **kw), iters)
+    sdpa = sdpa_fn(torch, case, q, k, v)
+    lib_ms, _ = time_ms(torch, sdpa, iters)
+    lib_kernels = library_kernels(torch, sdpa)
+    bound_ms, bound_by = case.bound()
+    print(f"  {case.name:<28} kernel {ms:.4f} ms (wall {wall:.4f} ms "
+          f"per call)  bound {bound_ms:.5f} ms ({bound_by})  plain "
+          f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
+          f"({ms / lib_ms:.2f}x sdpa; sdpa ran {lib_kernels})")
+    return {"shape": case.name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library_kernels": lib_kernels,
+            "max_abs_err": err, "wall_ms_per_call": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1203,18 +1227,20 @@ class BwdCase(Case):
     def bound(self, which: str):
         """(least ms, what bounds it) for one of the two kernels: inputs
         (q, k, v, do, lse, dl) read once and outputs (dq, or dk and dv)
-        written once over HBM; 6d (dq) or 8d (dk/dv) FLOPs per unmasked
-        (query, key) pair and head over the peak for the type."""
+        written once over HBM; 2 (2d + dv) (dq: S, dP, dS K) or 4 (d + dv)
+        (dk/dv: S, dP, P^T dO, dS^T Q) FLOPs per unmasked (query, key)
+        pair and head over the peak for the type (6d and 8d at dv = d)."""
         el = 2 if self.dtype == "bfloat16" else 4
-        q_el = self.b * self.sq * self.H * self.d
-        kv_el = self.b * self.kv_len * self.KV * self.d
-        nbytes = el * (2 * q_el + 2 * kv_el) + 8 * self.b * self.H * self.sq
+        d, dv = self.d, self.dv
+        rows = self.b * self.sq * self.H
+        keys = self.b * self.kv_len * self.KV
+        nbytes = el * (rows + keys) * (d + dv) + 8 * self.b * self.H * self.sq
         if which == "dq":
-            nbytes += el * q_el
-            flops = 6 * self.b * self.H * self.d * self.pairs()
+            nbytes += el * rows * d
+            flops = 2 * (2 * d + dv) * self.b * self.H * self.pairs()
         else:
-            nbytes += el * 2 * kv_el
-            flops = 8 * self.b * self.H * self.d * self.pairs()
+            nbytes += el * keys * (d + dv)
+            flops = 4 * (d + dv) * self.b * self.H * self.pairs()
         t_b = nbytes / HBM_BPS * 1e3
         t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -1912,12 +1938,13 @@ WAVE_STEP_FACTOR = 4.0
 
 class PagedCase:
     """One paged flash forward call (the decode wave): q [R, 1, H, d]
-    against pages [n_pages + 1, page_seq, KV, d], row r at length
+    against pages [n_pages + 1, page_seq, KV, d | dv], row r at length
     ``lens[r]`` on page ``pages[r]``."""
 
     def __init__(self, name, H, KV, d, dtype, lens, pages, n_pages=8,
-                 page_seq=64):
+                 page_seq=64, dv=None):
         self.name, self.H, self.KV, self.d = name, H, KV, d
+        self.dv = d if dv is None else dv
         self.dtype, self.lens, self.pages = dtype, list(lens), list(pages)
         self.R, self.n_pages, self.page_seq = len(lens), n_pages, page_seq
 
@@ -1928,7 +1955,7 @@ class PagedCase:
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
         return (mk(self.R, 1, self.H, self.d),
                 mk(self.n_pages + 1, self.page_seq, self.KV, self.d),
-                mk(self.n_pages + 1, self.page_seq, self.KV, self.d),
+                mk(self.n_pages + 1, self.page_seq, self.KV, self.dv),
                 i32(self.pages), i32(self.lens))
 
     def bound(self):
@@ -1939,10 +1966,11 @@ class PagedCase:
         keys = {}
         for p, n in zip(self.pages, self.lens):
             keys[p] = max(keys.get(p, 0), n)
-        nbytes = el * (2 * self.R * self.H * self.d
-                       + 2 * sum(keys.values()) * self.KV * self.d)
+        w = self.d + self.dv
+        nbytes = el * (self.R * self.H * w
+                       + sum(keys.values()) * self.KV * w)
         nbytes += 4 * self.R * self.H
-        flops = 4 * self.H * self.d * sum(self.lens)
+        flops = 2 * self.H * w * sum(self.lens)
         t_b = nbytes / HBM_BPS * 1e3
         t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -1978,32 +2006,36 @@ def paged_checks(torch, fa, ref) -> dict:
     tensor-core kernel), one launch a call of the dtype's variant."""
     phase("flash_fwd paged rows (the decode wave) against the plain "
           "version on the card")
-    errs = {}
-    for i, case in enumerate(paged_cases()):
-        args = case.tensors(torch, seed=300 + i)
-        before = (fa.launches, fa.launches_mma)
-        o, lse = fa.flash_fwd_paged(*args)
-        torch.cuda.synchronize()
-        mma = int(case.dtype == "bfloat16")
-        check((fa.launches, fa.launches_mma) ==
-              (before[0] + 1, before[1] + mma),
-              f"{case.name}: not one launch of the "
-              f"{'tensor-core' if mma else 'FMA'} kernel")
-        o_r, lse_r = ref.flash_fwd_paged_ref(*args)
-        tol = TOL[case.dtype]
-        e = {}
-        for got, want, nm in ((o.float(), o_r.float(), "o"),
-                              (lse, lse_r, "lse")):
-            check(bool(torch.isfinite(got).all()),
-                  f"{case.name}: {nm} not finite")
-            e[nm] = float((got - want).abs().max())
-            check(torch.allclose(got, want, atol=tol, rtol=tol),
-                  f"{case.name}: {nm} max |d| {e[nm]:.3e} beyond {tol}")
-        errs[case.name] = e["o"]
-        print(f"  {case.name:<30} lens {case.lens} pages {case.pages}: "
-              f"max|d o| {e['o']:.3e}  max|d lse| {e['lse']:.3e}  (tol "
-              f"{tol:g})")
-    return errs
+    return {case.name: paged_compare(torch, fa, ref, case, seed=300 + i)
+            for i, case in enumerate(paged_cases())}
+
+
+def paged_compare(torch, fa, ref, case: PagedCase, seed=0) -> float:
+    """One paged call against the plain version on the same card inputs,
+    one launch of the dtype's variant; returns max |d o|."""
+    args = case.tensors(torch, seed=seed)
+    before = (fa.launches, fa.launches_mma)
+    o, lse = fa.flash_fwd_paged(*args)
+    torch.cuda.synchronize()
+    mma = int(case.dtype == "bfloat16")
+    check((fa.launches, fa.launches_mma) ==
+          (before[0] + 1, before[1] + mma),
+          f"{case.name}: not one launch of the "
+          f"{'tensor-core' if mma else 'FMA'} kernel")
+    o_r, lse_r = ref.flash_fwd_paged_ref(*args)
+    tol = TOL[case.dtype]
+    e = {}
+    for got, want, nm in ((o.float(), o_r.float(), "o"),
+                          (lse, lse_r, "lse")):
+        check(bool(torch.isfinite(got).all()),
+              f"{case.name}: {nm} not finite")
+        e[nm] = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=tol, rtol=tol),
+              f"{case.name}: {nm} max |d| {e[nm]:.3e} beyond {tol}")
+    print(f"  {case.name:<30} lens {case.lens} pages {case.pages}: "
+          f"max|d o| {e['o']:.3e}  max|d lse| {e['lse']:.3e}  (tol "
+          f"{tol:g})")
+    return e["o"]
 
 
 def pipelined_check(torch) -> None:
@@ -4351,14 +4383,14 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
     return out
 
 
-def mpmd_serve(torch, ops, pipelined: dict) -> dict:
+def mpmd_serve(torch, ops, pipelined: dict, archs=PIPE_ARCHS) -> dict:
     """``repro_torch.launch.serve.main --execution mpmd`` (4 ranks on the
-    card) on full granite-8b and rwkv6-7b, held to phase 13's scan run
-    (module docstring, phase 17)."""
+    card) on full granite-8b and rwkv6-7b (or ``archs``), held to phase
+    13's scan run (module docstring, phase 17)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     out = {}
-    for arch in PIPE_ARCHS:
+    for arch in archs:
         phase(f"mpmd_serve: repro_torch.launch.serve.main --execution "
               f"mpmd, full {arch}, bf16, {PIPE_PLAN['n_stages']} ranks on "
               f"the card")
@@ -4521,6 +4553,175 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
         del ws, vs, gs, whats, params, opt
     rows.append({"name": "fused_update", **fu_rows[0], "shapes": fu_rows})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (phase 24): minicpm3-4b, its 40 heads at
+# G = 1 with q.k width 64 + 32 and v width 64
+
+MLA_ARCH = "minicpm3-4b"
+MLA_HEADS = (40, 40, 96)            # heads, KV heads (G = 1), q.k width
+MLA_DV = 64                         # v width
+MLA_TRAIN_LAYERS = 8                # of 62, in 4 stages (689,377,280 params)
+# width pairs the kernels are not built for: each must raise on the card
+MLA_REFUSED_PAIRS = ((96, 96), (64, 96), (128, 64))
+
+
+def mla_cases(kind: str) -> list:
+    """minicpm3-4b's attention calls at (96, 64), fp32 and bf16:
+    ``"fwd"`` decode over 64 keys and prefill n = 12 (serving), the
+    tick's [8, 512] causal (training); ``"bwd"`` prefill n = 12 and the
+    training shape; then edges in bf16: decode at kv_len 1 (one row of
+    the one-warp block), 65 queries (row 64 opens a block), kv_len 77 of
+    100 without a mask, an offset causal block."""
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        if kind == "fwd":
+            cases.append(Case(f"MLA decode kv_len=64 {dt}", 1, 1, 64,
+                              *MLA_HEADS, dt, False, 63, 64, dv=MLA_DV))
+        cases.append(Case(f"MLA prefill n=12 {dt}", 1, 12, 12, *MLA_HEADS,
+                          dt, True, dv=MLA_DV))
+        cases.append(Case(f"MLA train b8 512 causal {dt}", TRAIN_BATCH,
+                          TRAIN_SEQ, TRAIN_SEQ, *MLA_HEADS, dt, True,
+                          dv=MLA_DV))
+    for name, b, sq, sk, H, off, kv_len, causal in (
+            ("decode kv_len 1", 1, 1, 64, 40, 0, 1, False),
+            ("65 queries", 2, 65, 65, 8, 0, 65, True),
+            ("kv_len 77 of 100", 1, 40, 100, 4, 0, 77, False),
+            ("offset 29 causal", 1, 21, 50, 8, 29, 50, True)):
+        cases.append(Case(f"MLA edge {name} bfloat16", b, sq, sk, H, H, 96,
+                          "bfloat16", causal, off, kv_len, dv=MLA_DV))
+    if kind == "bwd":
+        cases = [BwdCase(c.name, c.b, c.sq, c.sk, c.H, c.KV, c.d, c.dtype,
+                         c.causal, c.q_offset, c.kv_len, dv=c.dv)
+                 for c in cases]
+    return cases
+
+
+def mla_wave_cases() -> list:
+    """The MLA decode wave's call: R = 8 rows of 40 heads at the waves'
+    ragged lengths, each on its own gathered page (identity pages)."""
+    return [PagedCase(f"MLA wave R=8 ragged {dt}", *MLA_HEADS, dt,
+                      WAVE_LENS, range(8), n_pages=7, dv=MLA_DV)
+            for dt in ("float32", "bfloat16")]
+
+
+def mla_kernel_checks(torch, fa, ref) -> dict:
+    """Phase 24's kernel checks: the forward, the paged wave, dq and dk/dv
+    at (96, 64) against their plain versions at phases 3 and 8's
+    tolerances, one launch of the dtype's variant each; then every
+    wrapper raises on a width pair that has no kernel, launching
+    nothing."""
+    phase("phase 24: the flash kernels at MLA's widths (q.k 96, v 64) "
+          "against their plain versions on the card")
+    errs = {"fwd": {}, "paged": {}, "bwd": {}}
+    for i, case in enumerate(mla_cases("fwd")):
+        e_o, e_l = compare(torch, fa, ref, case, seed=500 + i)
+        errs["fwd"][case.name] = e_o
+        print(f"  {case.name:<44} max|d o| {e_o:.3e}  max|d lse| "
+              f"{e_l:.3e}  (tol {TOL[case.dtype]:g})")
+    for i, case in enumerate(mla_wave_cases()):
+        errs["paged"][case.name] = paged_compare(torch, fa, ref, case,
+                                                 seed=520 + i)
+    for i, case in enumerate(mla_cases("bwd")):
+        e = compare_bwd(torch, fa, ref, case, seed=540 + i)
+        errs["bwd"][case.name] = e
+        print(f"  {case.name:<44} max|d dq| {e['dq']:.3e}  max|d dk,dv| "
+              f"{e['dkv']:.3e}  (tol {BWD_TOL[case.dtype]})")
+    counts = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    for dk, dv in MLA_REFUSED_PAIRS:
+        q = torch.zeros(1, 3, 2, dk, device="cuda", dtype=torch.bfloat16)
+        k = torch.zeros(1, 5, 2, dk, device="cuda", dtype=torch.bfloat16)
+        v = torch.zeros(1, 5, 2, dv, device="cuda", dtype=torch.bfloat16)
+        o = torch.zeros(1, 3, 2, dv, device="cuda", dtype=torch.bfloat16)
+        lse = torch.zeros(1, 2, 3, device="cuda")
+        one = torch.ones(1, dtype=torch.int32, device="cuda")
+        for what, call in (
+                ("flash_fwd", lambda: fa.flash_fwd(q, k, v, causal=True)),
+                ("flash_fwd_paged", lambda: fa.flash_fwd_paged(
+                    q[:, :1], k, v, one - 1, one)),
+                ("flash_bwd", lambda: fa.flash_bwd(q, k, v, o, lse, o,
+                                                   causal=True))):
+            try:
+                call()
+            except ValueError as exc:
+                check(f"(q.k {dk}, v {dv})" in str(exc),
+                      f"{what} at ({dk}, {dv}) raised another error: {exc}")
+            else:
+                raise SmokeFailure(f"{what} at ({dk}, {dv}) did not raise")
+        check(fa.smem_bytes("fwd_mma", dk, dv) == -1,
+              f"the forward library has a kernel at ({dk}, {dv})")
+    torch.cuda.synchronize()
+    check((fa.launches, fa.launches_dq, fa.launches_dkv) == counts,
+          "a refused width pair launched a kernel")
+    print(f"  width pairs {MLA_REFUSED_PAIRS}: flash_fwd, flash_fwd_paged "
+          f"and flash_bwd each raise ValueError naming the pair, nothing "
+          f"launched; the kernels take {fa.WIDTH_PAIRS}")
+    return errs
+
+
+def mla_serving(torch, ops) -> dict:
+    """Phase 24's serving: ``repro_torch.launch.serve.main`` on full-depth
+    minicpm3-4b (62 layers, bf16, seed 0) through SimpleEngine (as phase
+    5: exact launches, finite logits; one decode step under the
+    profiler) and the pipelined engine (as phase 13's first run: exact
+    launches a round; then run() again after warm-up for tok/s, the same
+    tokens); MPMD follows in :func:`mpmd_serve`."""
+    from repro_torch.configs import get_config
+    L = get_config(MLA_ARCH).n_layers
+    out = {"simple": main_path(torch, ops, MLA_ARCH, L)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["simple"]["profile"] = decode_profile(torch, MLA_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"pipelined serving: repro_torch.launch.serve.main --engine "
+          f"pipelined, full {MLA_ARCH}, bf16")
+    r = _pipelined_run(torch, ops, MLA_ARCH)
+    eng, results = r["engine"], r["results"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(r["trace"])
+    wall = time.perf_counter() - t0
+    check(again == results, "a second pipelined run of the trace emitted "
+          "other tokens than the first")
+    run_tok_s = sum(len(t) for t in again.values()) / wall
+    print(f"  pipelined, run()'s wall after warm-up: {run_tok_s:.2f} tok/s "
+          f"({wall:.3f} s; the same tokens again)")
+    out["pipelined"] = {
+        "launches": r["counts"], "variants": r["variants"], "run": r["run"],
+        "peak_bytes": r["peak"], "tok_per_s": r["tok_per_s"],
+        "layers": r["L"], "rounds": r["rounds_run"], "results": results,
+        "run_tok_per_s": run_tok_s}
+    del r, eng, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_timings(torch, fa, ref, errs) -> dict:
+    """Phase 24's timings (CUDA events, after warm-up, bf16): the forward
+    at minicpm3-4b's decode, prefill and training shapes, the wave, and
+    dq and dk/dv at the training shape, each beside its bound, its plain
+    version and SDPA (which takes a v of another width)."""
+    phase("phase 24: timings of the kernels at MLA's widths (CUDA events, "
+          "after warm-up)")
+    fwd = [fwd_row(torch, fa, ref, case, iters, errs["fwd"][case.name])
+           for case, iters in (
+               (Case("MLA decode kv_len=64 bfloat16", 1, 1, 64, *MLA_HEADS,
+                     "bfloat16", False, 63, 64, dv=MLA_DV), 500),
+               (Case("MLA prefill n=12 bfloat16", 1, 12, 12, *MLA_HEADS,
+                     "bfloat16", True, dv=MLA_DV), 500),
+               (Case("MLA train b8 512 causal bfloat16", TRAIN_BATCH,
+                     TRAIN_SEQ, TRAIN_SEQ, *MLA_HEADS, "bfloat16", True,
+                     dv=MLA_DV), 20))]
+    fwd.append(_wave_row(torch, fa, ref, errs["paged"],
+                         mla_wave_cases()[1]))
+    bwd = bwd_timing(torch, fa, ref, BwdCase(
+        "MLA train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
+        TRAIN_SEQ, *MLA_HEADS, "bfloat16", True, dv=MLA_DV), errs["bwd"])
+    return {"flash_fwd": fwd, "flash_bwd_dq": [bwd[0]],
+            "flash_bwd_dkv": [bwd[1]]}
 
 
 # ---------------------------------------------------------------------------
@@ -5073,6 +5274,7 @@ def run() -> int:
         errs = kernel_checks(torch, fa, ref)
         paged_errs = paged_checks(torch, fa, ref)
         bwd_errs = bwd_checks(torch, fa, ref)
+        mla_errs = mla_kernel_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
         scan_errs = scan_checks(torch, ops, ref)
         ops.reset_launch_counts()
@@ -5101,6 +5303,10 @@ def run() -> int:
             torch.cuda.empty_cache()
         mpmd_srv = mpmd_serve(torch, ops, pipelined)
         new_srv = new_serving(torch, ops)
+        mla_srv = mla_serving(torch, ops)
+        mla_srv["mpmd"] = mpmd_serve(torch, ops,
+                                     {MLA_ARCH: mla_srv["pipelined"]},
+                                     (MLA_ARCH,))[MLA_ARCH]
         train = train_main_path(torch, ops)
         new_train = {}
         for arch in NEW_TRAIN:
@@ -5108,6 +5314,9 @@ def run() -> int:
             torch.cuda.empty_cache()
             new_train[arch] = train_main_path(torch, ops, arch,
                                               NEW_TRAIN_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mla_train = train_main_path(torch, ops, MLA_ARCH, MLA_TRAIN_LAYERS)
         split = moe_split(torch)
         ir_runs = ir_schedules(torch, ops, ref)
         gc.collect()
@@ -5122,6 +5331,7 @@ def run() -> int:
         rows = timings(torch, fa, ref, errs)
         rows.extend(wave_timing(torch, fa, ref, paged_errs))
         train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
+        mla_rows = mla_timings(torch, fa, ref, mla_errs)
         scan_rows = scan_timings(torch, ops, ref, scan_errs)
     except Exception:   # every phase's failure ends the run non-zero
         traceback.print_exc()
@@ -5242,6 +5452,22 @@ def run() -> int:
                         f"replicas)"] = r["launches"][k["name"]]
         if k["name"] == "fused_update":
             k["shapes"].extend(dp["update_rows"])
+    # minicpm3-4b (multi-head latent attention): rows 1-3 at (96, 64)
+    for k in kernels:
+        if k["name"] not in mla_rows:
+            continue
+        k["shapes"].extend(mla_rows[k["name"]])
+        k["launches_by_path"][f"train {MLA_ARCH} ({MLA_TRAIN_LAYERS} "
+                              f"layers, widths 96 / 64)"] = \
+            mla_train["launches"][k["name"]]
+        if k["name"] == "flash_fwd":
+            for engine in ("simple", "pipelined"):
+                r = mla_srv[engine]
+                k["launches_by_path"][
+                    f"serve {engine} {MLA_ARCH} ({r['layers']} layers, "
+                    f"widths 96 / 64)"] = r["launches"]["flash_fwd"]
+            k["launches_by_path"][f"serve pipelined mpmd {MLA_ARCH} (sum "
+                                  f"over ranks)"] = mla_srv["mpmd"]["launches"]
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
@@ -5414,6 +5640,34 @@ def run() -> int:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in split["ms"].items())
           + f"; forward {split['fwd_ms']:.4f} ms, forward + backward "
           f"{split['fwd_bwd_ms']:.4f} ms")
+    simple, pipe, mpmd = (mla_srv[k] for k in ("simple", "pipelined",
+                                                "mpmd"))
+    prof = simple["profile"]
+    print(f"{MLA_ARCH} serving (62 layers, bf16): SimpleEngine "
+          f"{simple['run']['tok_per_s']:.2f} tok/s over the launcher's wall, "
+          f"p50 {simple['run']['token_ms_p50']:.3f} ms/token, p99 "
+          f"{simple['run']['token_ms_p99']:.3f}; decode step "
+          f"{prof['wall_ms']:.3f} ms wall, {prof['busy_ms']:.3f} ms busy "
+          f"({100 * prof['idle_share']:.1f}% idle), "
+          f"{prof['kernels_per_step']:.0f} kernels, flash_fwd "
+          f"{prof['kernel_ms']['flash_fwd']:.4f} ms; pipelined "
+          f"{pipe['run_tok_per_s']:.2f} tok/s over run() after warm-up "
+          f"({pipe['tok_per_s']:.2f} over the rounds, {pipe['rounds']} "
+          f"rounds); MPMD {mpmd['tok_per_s']:.2f} tok/s, tokens equal "
+          f"{mpmd['equal'][0]}/{mpmd['equal'][1]}; peaks "
+          f"{simple['peak_bytes'] / 2**30:.2f} / "
+          f"{pipe['peak_bytes'] / 2**30:.2f} GiB")
+    print(f"{MLA_ARCH} training tick ({MLA_TRAIN_LAYERS} layers, 4 stages): "
+          f"{mla_train['wall_ms']:.3f} ms wall, "
+          f"{mla_train['tok_per_s']:.1f} tokens/s, device busy "
+          f"{mla_train['busy_ms']:.3f} ms, peak "
+          f"{mla_train['peak_bytes'] / 2**30:.2f} GiB; last loss "
+          f"{mla_train['losses'][-1]:.4f}")
+    for name, rows_ in mla_rows.items():
+        for row in rows_:
+            print(f"{name} {row['shape']}: {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

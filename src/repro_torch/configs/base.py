@@ -222,7 +222,7 @@ class ArchConfig:
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 # the architectures the JAX package knows that the port does not serve yet
-_NOT_PORTED = ("whisper-base", "pixtral-12b", "minicpm3-4b")
+_NOT_PORTED = ("whisper-base", "pixtral-12b")
 
 
 # the same architectures' configs, read only for their cost (parameter
@@ -252,7 +252,7 @@ def register_cost_only(name: str):
 
 def arch_config(name: str) -> ArchConfig:
     """Any architecture's config, for cost arithmetic only: a ported one
-    (as :func:`get_config` gives it) or one of the unported three, from
+    (as :func:`get_config` gives it) or one of the unported two, from
     which no model is built (``models.transformer.check_ported``
     refuses them)."""
     if name in _COST_ONLY:

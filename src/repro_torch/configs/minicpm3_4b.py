@@ -3,14 +3,13 @@
 62L, d_model=2560, 40H (kv=40 latent-compressed), d_ff=6400, vocab=73448.
 [hf:openbmb/MiniCPM3-4B]
 
-The port's copy of ``repro/configs/minicpm3_4b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
+The port's copy of ``repro/configs/minicpm3_4b.py``: q.k width 64 + 32,
+v width 64, tied embeddings.
 """
-from repro_torch.configs.base import (ArchConfig, MeshPlan, MLAConfig,
-                                      register_cost_only)
+from repro_torch.configs.base import ArchConfig, MeshPlan, MLAConfig, register
 
 
-@register_cost_only("minicpm3-4b")
+@register("minicpm3-4b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="minicpm3-4b", family="dense", source="hf:openbmb/MiniCPM3-4B",

@@ -16,11 +16,14 @@
 //     dv = sum_{G query heads, queries} p do
 //
 // Layouts are the model side's, read in place through strides, as in
-// flash_fwd.cu: q and do [b, sq, H, d], k and v [b, sk, KV, d] (last dim
-// contiguous); lse and dl contiguous [b, H, sq] fp32.  dq is written
-// contiguous [b, sq, H, d] in q's type, dk and dv contiguous [b, sk, KV, d]
-// in k's type, exact zeros for keys at positions >= kv_len.  Query head h
-// reads KV head h / G (G = H / KV), query row i sits at position
+// flash_fwd.cu: q [b, sq, H, DK], do [b, sq, H, DV], k [b, sk, KV, DK] and
+// v [b, sk, KV, DV] (last dim contiguous); lse and dl contiguous [b, H, sq]
+// fp32.  dq is written contiguous [b, sq, H, DK] in q's type, dk and dv
+// contiguous [b, sk, KV, DK] and [b, sk, KV, DV] in k's type, exact zeros
+// for keys at positions >= kv_len.  DK, the q.k width, sizes S = Q K^T,
+// dQ and dK; DV, the v width, sizes dP = dO V^T and dV; the pairs are
+// flash_fwd.cu's (the equal 16, 32, 64, 128 and MLA's (96, 64)).  Query
+// head h reads KV head h / G (G = H / KV), query row i sits at position
 // q_offset + i, keys at positions >= kv_len are masked and causal masks
 // kpos > qpos.  Two differences from the Pallas kernels:
 //
@@ -39,7 +42,7 @@
 //   tensor cores through mma.sync m16n8k16 (flash_mma.cuh), with the
 //   forward's packed rows: packed row r of KV head kvh is query r / G of
 //   head kvh G + r % G, and lse and dl are gathered per packed row.
-//   dq:   flash_bwd_dq_mma_kernel<D>, the forward's layout of work
+//   dq:   flash_bwd_dq_mma_kernel<DK, DV>, the forward's layout of work
 //         (flash_fwd.cu): one block per (64 packed rows, KV head, batch
 //         row); K and V tiles of 64 keys in a 2-stage cp.async ring; a
 //         causal block stops at key q_offset + (last row) / G.  Per tile
@@ -51,7 +54,7 @@
 //         in shared memory).  Q and dO stay in shared memory and are read
 //         per k-step, which keeps the registers to dQ (64 a thread at d
 //         128), S and dP (32 each).
-//   dkv:  flash_bwd_dkv_mma_kernel<D>, the same design transposed: one
+//   dkv:  flash_bwd_dkv_mma_kernel<DK, DV>, the same design transposed: one
 //         block per (64 keys, KV head, batch row), key blocks
 //         slowest in a flat grid so the longest causal walks start first;
 //         each warp owns 16 keys as the M dimension.  K and V are loaded
@@ -147,31 +150,34 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     }
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dq_smem_bytes() {
-    // Q, dO [BQ][D+1]; K, V [BK][D+1]; dS [BQ][BK+1]; lse, dl [BQ]
-    return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) +
+    // Q [BQ][DK+1], dO [BQ][DV+1]; K [BK][DK+1], V [BK][DV+1];
+    // dS [BQ][BK+1]; lse, dl [BQ]
+    return sizeof(float) * ((BQ + BK) * (DK + 1) + (BQ + BK) * (DV + 1) +
                             BQ * (BK + 1) + 2 * BQ);
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dkv_smem_bytes() {
-    // K, V [BK][D+1]; Q, dO [BQ][D+1]; P^T, dS^T [BK][BQ+1]; lse, dl [BQ]
-    return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
+    // K [BK][DK+1], V [BK][DV+1]; Q [BQ][DK+1], dO [BQ][DV+1];
+    // P^T, dS^T [BK][BQ+1]; lse, dl [BQ]
+    return sizeof(float) * ((BK + BQ) * (DK + 1) + (BK + BQ) * (DV + 1) +
                             2 * BK * (BQ + 1) + 2 * BQ);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
-    constexpr int S = D + 1;    // padded row stride: column reads of the
-    constexpr int PS = BK + 1;  // tiles stay free of bank conflicts
-    constexpr int NC = D / 16;  // dq columns per thread
+    constexpr int SK = DK + 1;  // padded row strides: column reads of the
+    constexpr int SV = DV + 1;  // tiles stay free of bank conflicts
+    constexpr int PS = BK + 1;
+    constexpr int NC = DK / 16; // dq columns per thread
     extern __shared__ float smem[];
     float* Qs = smem;
-    float* dOs = Qs + BQ * S;
-    float* Ks = dOs + BQ * S;
-    float* Vs = Ks + BK * S;
-    float* Ds = Vs + BK * S;
+    float* dOs = Qs + BQ * SK;
+    float* Ks = dOs + BQ * SV;
+    float* Vs = Ks + BK * SK;
+    float* Ds = Vs + BK * SV;
     float* lse_s = Ds + BQ * PS;
     float* dl_s = lse_s + BQ;
 
@@ -188,8 +194,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
     const long long row_base = (static_cast<long long>(bi) * p.H + h) * p.sq;
 
-    load_tile<T, D, S>(Qs, qg, p.q_ss, q0, BQ, p.sq);
-    load_tile<T, D, S>(dOs, og, p.o_ss, q0, BQ, p.sq);
+    load_tile<T, DK, SK>(Qs, qg, p.q_ss, q0, BQ, p.sq);
+    load_tile<T, DV, SV>(dOs, og, p.o_ss, q0, BQ, p.sq);
     for (int i = tid; i < BQ; i += NT) {
         const bool ok = q0 + i < p.sq;
         lse_s[i] = ok ? p.lse[row_base + q0 + i] : 0.f;
@@ -210,8 +216,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
 
     for (int k0 = 0; k0 < k_end; k0 += BK) {
         __syncthreads();   // the previous tile's readers are done
-        load_tile<T, D, S>(Ks, kg, p.k_ss, k0, BK, p.kv_len);
-        load_tile<T, D, S>(Vs, vg, p.v_ss, k0, BK, p.kv_len);
+        load_tile<T, DK, SK>(Ks, kg, p.k_ss, k0, BK, p.kv_len);
+        load_tile<T, DV, SV>(Vs, vg, p.v_ss, k0, BK, p.kv_len);
         __syncthreads();
 
         float s[4][4], dp[4][4];
@@ -220,25 +226,30 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-        for (int c = 0; c < D; ++c) {
-            float qv[4], ov[4], kv[4], vv[4];
+        for (int c = 0; c < DK; ++c) {
+            float qv[4], kv[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                qv[i] = Qs[(ty * 4 + i) * S + c];
-                ov[i] = dOs[(ty * 4 + i) * S + c];
-            }
+            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * SK + c];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                kv[j] = Ks[(tx + 16 * j) * S + c];
-                vv[j] = Vs[(tx + 16 * j) * S + c];
-            }
+            for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * SK + c];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < 4; ++j)
                     s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        }
+#pragma unroll 4
+        for (int c = 0; c < DV; ++c) {
+            float ov[4], vv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) ov[i] = dOs[(ty * 4 + i) * SV + c];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * SV + c];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
                     dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-                }
         }
 
 #pragma unroll
@@ -265,7 +276,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
             for (int i = 0; i < 4; ++i) dsv[i] = Ds[(ty * 4 + i) * PS + kk];
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
-                const float kc = Ks[kk * S + tx + 16 * c];
+                const float kc = Ks[kk * SK + tx + 16 * c];
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
                     acc[i][c] = fmaf(dsv[i], kc, acc[i][c]);
@@ -278,23 +289,25 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
         const int qi = q0 + ty * 4 + i;
         if (qi >= p.sq) continue;
         T* dst = static_cast<T*>(p.dq) +
-                 ((static_cast<long long>(bi) * p.sq + qi) * p.H + h) * D;
+                 ((static_cast<long long>(bi) * p.sq + qi) * p.H + h) * DK;
 #pragma unroll
         for (int c = 0; c < NC; ++c) store(dst + tx + 16 * c, acc[i][c]);
     }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
-    constexpr int S = D + 1;
+    constexpr int SK = DK + 1;
+    constexpr int SV = DV + 1;
     constexpr int PS = BQ + 1;
-    constexpr int NC = D / 16;
+    constexpr int NCK = DK / 16;    // dk columns per thread
+    constexpr int NCV = DV / 16;    // dv columns per thread
     extern __shared__ float smem[];
     float* Ks = smem;
-    float* Vs = Ks + BK * S;
-    float* Qs = Vs + BK * S;
-    float* dOs = Qs + BQ * S;
-    float* Pt = dOs + BQ * S;
+    float* Vs = Ks + BK * SK;
+    float* Qs = Vs + BK * SV;
+    float* dOs = Qs + BQ * SK;
+    float* Pt = dOs + BQ * SV;
     float* Dt = Pt + BK * PS;
     float* lse_s = Dt + BK * PS;
     float* dl_s = lse_s + BQ;
@@ -309,14 +322,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
     const T* kg = static_cast<const T*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
     const T* vg = static_cast<const T*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
 
-    load_tile<T, D, S>(Ks, kg, p.k_ss, k0, BK, p.kv_len);
-    load_tile<T, D, S>(Vs, vg, p.v_ss, k0, BK, p.kv_len);
+    load_tile<T, DK, SK>(Ks, kg, p.k_ss, k0, BK, p.kv_len);
+    load_tile<T, DV, SV>(Vs, vg, p.v_ss, k0, BK, p.kv_len);
 
-    float dk[4][NC], dv[4][NC];
+    float dk[4][NCK], dv[4][NCV];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+        for (int c = 0; c < NCK; ++c) dk[i][c] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NCV; ++c) dv[i][c] = 0.f;
+    }
 
     // the first query tile whose rows can see this block's first key
     int q_begin = 0;
@@ -332,8 +348,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
             (static_cast<long long>(bi) * p.H + h) * p.sq;
         for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
             __syncthreads();   // the previous tile's readers are done
-            load_tile<T, D, S>(Qs, qg, p.q_ss, q0, BQ, p.sq);
-            load_tile<T, D, S>(dOs, og, p.o_ss, q0, BQ, p.sq);
+            load_tile<T, DK, SK>(Qs, qg, p.q_ss, q0, BQ, p.sq);
+            load_tile<T, DV, SV>(dOs, og, p.o_ss, q0, BQ, p.sq);
             for (int i = tid; i < BQ; i += NT) {
                 const bool ok = q0 + i < p.sq;
                 lse_s[i] = ok ? p.lse[row_base + q0 + i] : 0.f;
@@ -347,25 +363,31 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
 #pragma unroll
                 for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-            for (int c = 0; c < D; ++c) {
-                float kv[4], vv[4], qv[4], ov[4];
+            for (int c = 0; c < DK; ++c) {
+                float kv[4], qv[4];
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    kv[i] = Ks[(ty * 4 + i) * S + c];
-                    vv[i] = Vs[(ty * 4 + i) * S + c];
-                }
+                for (int i = 0; i < 4; ++i) kv[i] = Ks[(ty * 4 + i) * SK + c];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    qv[j] = Qs[(tx + 16 * j) * S + c];
-                    ov[j] = dOs[(tx + 16 * j) * S + c];
-                }
+                for (int j = 0; j < 4; ++j) qv[j] = Qs[(tx + 16 * j) * SK + c];
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
+                    for (int j = 0; j < 4; ++j)
                         s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            }
+#pragma unroll 4
+            for (int c = 0; c < DV; ++c) {
+                float vv[4], ov[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) vv[i] = Vs[(ty * 4 + i) * SV + c];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    ov[j] = dOs[(tx + 16 * j) * SV + c];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
                         dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-                    }
             }
 
 #pragma unroll
@@ -396,14 +418,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
                     dsv[i] = Dt[(ty * 4 + i) * PS + jj];
                 }
 #pragma unroll
-                for (int c = 0; c < NC; ++c) {
-                    const float oc = dOs[jj * S + tx + 16 * c];
-                    const float qc = Qs[jj * S + tx + 16 * c];
+                for (int c = 0; c < NCV; ++c) {
+                    const float oc = dOs[jj * SV + tx + 16 * c];
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) {
+                    for (int i = 0; i < 4; ++i)
                         dv[i][c] = fmaf(pv[i], oc, dv[i][c]);
+                }
+#pragma unroll
+                for (int c = 0; c < NCK; ++c) {
+                    const float qc = Qs[jj * SK + tx + 16 * c];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
                         dk[i][c] = fmaf(dsv[i], qc, dk[i][c]);
-                    }
                 }
             }
         }
@@ -413,42 +439,44 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
     for (int i = 0; i < 4; ++i) {
         const int kj = k0 + ty * 4 + i;
         if (kj >= p.sk) continue;
-        const long long off =
-            ((static_cast<long long>(bi) * p.sk + kj) * p.KV + kvh) * D;
-        T* dkp = static_cast<T*>(p.dk) + off;
-        T* dvp = static_cast<T*>(p.dv) + off;
+        const long long row =
+            (static_cast<long long>(bi) * p.sk + kj) * p.KV + kvh;
+        T* dkp = static_cast<T*>(p.dk) + row * DK;
+        T* dvp = static_cast<T*>(p.dv) + row * DV;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            store(dkp + tx + 16 * c, dk[i][c]);
-            store(dvp + tx + 16 * c, dv[i][c]);
-        }
+        for (int c = 0; c < NCK; ++c) store(dkp + tx + 16 * c, dk[i][c]);
+#pragma unroll
+        for (int c = 0; c < NCV; ++c) store(dvp + tx + 16 * c, dv[i][c]);
     }
 }
 
 // ---------------------------------------------------------------------------
 // dq, bf16: tensor cores, packed GQA rows, cp.async 2-stage ring
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dq_mma_smem_bytes() {
-    // Q, dO [64][D + 8]; K, V [2 stages][64][D + 8]; all bf16
-    return 2 * flash_mma::tile_bytes<D>(BQ) +
-           4 * flash_mma::tile_bytes<D>(BK);
+    // Q [64][DK + 8], dO [64][DV + 8]; K [2 stages][64][DK + 8], V [2
+    // stages][64][DV + 8]; all bf16
+    return flash_mma::tile_bytes<DK>(BQ) + flash_mma::tile_bytes<DV>(BQ) +
+           2 * flash_mma::tile_bytes<DK>(BK) +
+           2 * flash_mma::tile_bytes<DV>(BK);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
     using namespace flash_mma;
     constexpr int NTH = 128;            // 4 warps of 16 packed rows
     constexpr int BM = BQ;              // packed rows per block
-    constexpr int RS = row_stride<D>();
+    constexpr int RSK = row_stride<DK>();
+    constexpr int RSV = row_stride<DV>();
     constexpr int KT = BK / 8;          // key n-tiles of S and dP
-    constexpr int DT = D / 8;           // d n-tiles of dQ
+    constexpr int DT = DK / 8;          // q.k-width n-tiles of dQ
     constexpr float LOG2E = 1.4426950408889634f;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* dOs = Qs + BM * RS;
-    bf16* Ks = dOs + BM * RS;           // [2][BK][RS]
-    bf16* Vs = Ks + 2 * BK * RS;        // [2][BK][RS]
+    bf16* dOs = Qs + BM * RSK;
+    bf16* Ks = dOs + BM * RSV;          // [2][BK][RSK]
+    bf16* Vs = Ks + 2 * BK * RSK;       // [2][BK][RSV]
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -499,10 +527,10 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
         }
     }
 
-    load_packed<D, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
-    load_packed<D, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows, tid);
-    load_rows<D, NTH, BK>(Ks, kg, p.k_ss, 0, p.kv_len, tid);
-    load_rows<D, NTH, BK>(Vs, vg, p.v_ss, 0, p.kv_len, tid);
+    load_packed<DK, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
+    load_packed<DV, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows, tid);
+    load_rows<DK, NTH, BK>(Ks, kg, p.k_ss, 0, p.kv_len, tid);
+    load_rows<DV, NTH, BK>(Vs, vg, p.v_ss, 0, p.kv_len, tid);
     cp_async_commit();
 
     float acc[DT][4];
@@ -514,35 +542,43 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
         const int k0 = it * BK;
         if (it + 1 < n_tiles) {
             const int st = (it + 1) & 1;
-            load_rows<D, NTH, BK>(Ks + st * BK * RS, kg, p.k_ss, k0 + BK,
-                              p.kv_len, tid);
-            load_rows<D, NTH, BK>(Vs + st * BK * RS, vg, p.v_ss, k0 + BK,
-                              p.kv_len, tid);
+            load_rows<DK, NTH, BK>(Ks + st * BK * RSK, kg, p.k_ss, k0 + BK,
+                                   p.kv_len, tid);
+            load_rows<DV, NTH, BK>(Vs + st * BK * RSV, vg, p.v_ss, k0 + BK,
+                                   p.kv_len, tid);
         }
         cp_async_commit();
         cp_async_wait<1>();
         __syncthreads();
 
         if (active && k0 < w_end) {
-            const bf16* Kt = Ks + (it & 1) * BK * RS;
-            const bf16* Vt = Vs + (it & 1) * BK * RS;
+            const bf16* Kt = Ks + (it & 1) * BK * RSK;
+            const bf16* Vt = Vs + (it & 1) * BK * RSV;
             float s[KT][4], dp[KT][4];
 #pragma unroll
             for (int j = 0; j < KT; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                uint32_t a[4], ao[4];
-                load_a<D>(a, Qs, 16 * warp, 16 * kk, lane);
-                load_a<D>(ao, dOs, 16 * warp, 16 * kk, lane);
+            for (int kk = 0; kk < DK / 16; ++kk) {     // S = Q K^T
+                uint32_t a[4];
+                load_a<DK>(a, Qs, 16 * warp, 16 * kk, lane);
 #pragma unroll
                 for (int np = 0; np < KT / 2; ++np) {
                     uint32_t b[4];
-                    load_b_nk<D>(b, Kt, 16 * np, 16 * kk, lane);
+                    load_b_nk<DK>(b, Kt, 16 * np, 16 * kk, lane);
                     mma_bf16(s[2 * np], a, b[0], b[1]);
                     mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-                    load_b_nk<D>(b, Vt, 16 * np, 16 * kk, lane);
+                }
+            }
+#pragma unroll
+            for (int kk = 0; kk < DV / 16; ++kk) {     // dP = dO V^T
+                uint32_t ao[4];
+                load_a<DV>(ao, dOs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < KT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_nk<DV>(b, Vt, 16 * np, 16 * kk, lane);
                     mma_bf16(dp[2 * np], ao, b[0], b[1]);
                     mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
                 }
@@ -576,7 +612,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
 #pragma unroll
                 for (int np = 0; np < DT / 2; ++np) {
                     uint32_t b[4];
-                    load_b_kn<D>(b, Kt, 16 * kk, 16 * np, lane);
+                    load_b_kn<DK>(b, Kt, 16 * kk, 16 * np, lane);
                     mma_bf16(acc[2 * np], a, b[0], b[1]);
                     mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
                 }
@@ -592,7 +628,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
         if (!row_ok[h]) continue;
         bf16* dst = static_cast<bf16*>(p.dq) +
                     ((static_cast<long long>(bi) * p.sq + row / G) * p.H +
-                     kvh * G + row % G) * D;
+                     kvh * G + row % G) * DK;
 #pragma unroll
         for (int j = 0; j < DT; ++j)
             *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t) =
@@ -600,16 +636,16 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(Params p) {
     }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_dq_mma(const Params& p, cudaStream_t stream) {
-    const size_t smem = dq_mma_smem_bytes<D>();
+    const size_t smem = dq_mma_smem_bytes<DK, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_mma_kernel<D>,
+        flash_bwd_dq_mma_kernel<DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rows = p.sq * (p.H / p.KV);
     const dim3 grid((rows + BQ - 1) / BQ, p.KV, p.b);
-    flash_bwd_dq_mma_kernel<D><<<grid, 128, smem, stream>>>(p);
+    flash_bwd_dq_mma_kernel<DK, DV><<<grid, 128, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -617,15 +653,18 @@ int launch_dq_mma(const Params& p, cudaStream_t stream) {
 // dk/dv, bf16: tensor cores, keys per warp, packed GQA query rows in a
 // cp.async 2-stage ring
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dkv_mma_smem_bytes() {
-    // K, V [16 DKV_WARPS][D + 8] bf16; Q, dO [2 stages][64][D + 8] bf16;
-    // lse, dl [2 stages][64] fp32
-    return 2 * flash_mma::tile_bytes<D>(16 * DKV_WARPS) +
-           4 * flash_mma::tile_bytes<D>(BQ) + 4 * BQ * sizeof(float);
+    // K [16 DKV_WARPS][DK + 8], V [16 DKV_WARPS][DV + 8] bf16; Q [2
+    // stages][64][DK + 8], dO [2 stages][64][DV + 8] bf16; lse, dl [2
+    // stages][64] fp32
+    return flash_mma::tile_bytes<DK>(16 * DKV_WARPS) +
+           flash_mma::tile_bytes<DV>(16 * DKV_WARPS) +
+           2 * flash_mma::tile_bytes<DK>(BQ) +
+           2 * flash_mma::tile_bytes<DV>(BQ) + 4 * BQ * sizeof(float);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(32 * DKV_WARPS)
 flash_bwd_dkv_mma_kernel(Params p) {
     using namespace flash_mma;
@@ -633,16 +672,18 @@ flash_bwd_dkv_mma_kernel(Params p) {
     constexpr int KB = 16 * DKV_WARPS;  // keys per block, 16 per warp
     constexpr int RC = DKV_CHUNK;
     constexpr int BM = BQ;              // packed rows per ring tile
-    constexpr int RS = row_stride<D>();
+    constexpr int RSK = row_stride<DK>();
+    constexpr int RSV = row_stride<DV>();
     constexpr int CT = RC / 8;          // row n-tiles of S^T and dP^T
-    constexpr int DT = D / 8;           // d n-tiles of dK and dV
+    constexpr int DTK = DK / 8;         // q.k-width n-tiles of dK
+    constexpr int DTV = DV / 8;         // v-width n-tiles of dV
     constexpr float LOG2E = 1.4426950408889634f;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Vs = Ks + KB * RS;
-    bf16* Qs = Vs + KB * RS;            // [2][BM][RS]
-    bf16* dOs = Qs + 2 * BM * RS;       // [2][BM][RS]
-    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BM * RS);  // [2][BM]
+    bf16* Vs = Ks + KB * RSK;
+    bf16* Qs = Vs + KB * RSV;           // [2][BM][RSK]
+    bf16* dOs = Qs + 2 * BM * RSK;      // [2][BM][RSV]
+    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BM * RSV); // [2][BM]
     float* dl_s = lse_s + 2 * BM;                                // [2][BM]
 
     const int tid = threadIdx.x;
@@ -683,29 +724,33 @@ flash_bwd_dkv_mma_kernel(Params p) {
     // its dK and dV are zeros, and no copy is left in flight at exit)
     if (n_tiles > 0) {
         const int r0 = t_begin * BM;
-        load_rows<D, NTH, KB>(Ks, kg, p.k_ss, k0, p.kv_len, tid);
-        load_rows<D, NTH, KB>(Vs, vg, p.v_ss, k0, p.kv_len, tid);
-        load_packed<D, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
-        load_packed<D, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows, tid);
+        load_rows<DK, NTH, KB>(Ks, kg, p.k_ss, k0, p.kv_len, tid);
+        load_rows<DV, NTH, KB>(Vs, vg, p.v_ss, k0, p.kv_len, tid);
+        load_packed<DK, NTH, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows,
+                                 tid);
+        load_packed<DV, NTH, BM>(dOs, og, p.o_ss, p.o_sh, G, r0, n_rows,
+                                 tid);
         load_packed_f32<NTH, BM>(lse_s, lseg, p.sq, G, r0, n_rows, tid);
         load_packed_f32<NTH, BM>(dl_s, dlg, p.sq, G, r0, n_rows, tid);
     }
     cp_async_commit();
 
-    float dk[DT][4], dv[DT][4];
+    float dk[DTK][4], dv[DTV][4];
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
+    for (int j = 0; j < DTK; ++j)
+        dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int j = 0; j < DTV; ++j)
+        dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
 
     for (int it = 0; it < n_tiles; ++it) {
         const int r0 = (t_begin + it) * BM;
         if (it + 1 < n_tiles) {
             const int st = (it + 1) & 1;
-            load_packed<D, NTH, BM>(Qs + st * BM * RS, qg, p.q_ss, p.q_sh,
-                                    G, r0 + BM, n_rows, tid);
-            load_packed<D, NTH, BM>(dOs + st * BM * RS, og, p.o_ss, p.o_sh,
-                                    G, r0 + BM, n_rows, tid);
+            load_packed<DK, NTH, BM>(Qs + st * BM * RSK, qg, p.q_ss,
+                                     p.q_sh, G, r0 + BM, n_rows, tid);
+            load_packed<DV, NTH, BM>(dOs + st * BM * RSV, og, p.o_ss,
+                                     p.o_sh, G, r0 + BM, n_rows, tid);
             load_packed_f32<NTH, BM>(lse_s + st * BM, lseg, p.sq, G,
                                      r0 + BM, n_rows, tid);
             load_packed_f32<NTH, BM>(dl_s + st * BM, dlg, p.sq, G, r0 + BM,
@@ -715,8 +760,8 @@ flash_bwd_dkv_mma_kernel(Params p) {
         cp_async_wait<1>();
         __syncthreads();
 
-        const bf16* Qt = Qs + (it & 1) * BM * RS;
-        const bf16* dOt = dOs + (it & 1) * BM * RS;
+        const bf16* Qt = Qs + (it & 1) * BM * RSK;
+        const bf16* dOt = dOs + (it & 1) * BM * RSV;
         const float* lse_t = lse_s + (it & 1) * BM;
         const float* dl_t = dl_s + (it & 1) * BM;
 #pragma unroll
@@ -736,17 +781,25 @@ flash_bwd_dkv_mma_kernel(Params p) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                uint32_t a[4], av[4];
-                load_a<D>(a, Ks, 16 * warp, 16 * kk, lane);
-                load_a<D>(av, Vs, 16 * warp, 16 * kk, lane);
+            for (int kk = 0; kk < DK / 16; ++kk) {     // S^T = K Q^T
+                uint32_t a[4];
+                load_a<DK>(a, Ks, 16 * warp, 16 * kk, lane);
 #pragma unroll
                 for (int np = 0; np < CT / 2; ++np) {
                     uint32_t b[4];
-                    load_b_nk<D>(b, Qt, c0 + 16 * np, 16 * kk, lane);
+                    load_b_nk<DK>(b, Qt, c0 + 16 * np, 16 * kk, lane);
                     mma_bf16(s[2 * np], a, b[0], b[1]);
                     mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-                    load_b_nk<D>(b, dOt, c0 + 16 * np, 16 * kk, lane);
+                }
+            }
+#pragma unroll
+            for (int kk = 0; kk < DV / 16; ++kk) {     // dP^T = V dO^T
+                uint32_t av[4];
+                load_a<DV>(av, Vs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < CT / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_nk<DV>(b, dOt, c0 + 16 * np, 16 * kk, lane);
                     mma_bf16(dp[2 * np], av, b[0], b[1]);
                     mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
                 }
@@ -791,12 +844,16 @@ flash_bwd_dkv_mma_kernel(Params p) {
                 ad[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
                 ad[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
 #pragma unroll
-                for (int np = 0; np < DT / 2; ++np) {
+                for (int np = 0; np < DTV / 2; ++np) {
                     uint32_t b[4];
-                    load_b_kn<D>(b, dOt, c0 + 16 * kk, 16 * np, lane);
+                    load_b_kn<DV>(b, dOt, c0 + 16 * kk, 16 * np, lane);
                     mma_bf16(dv[2 * np], ap, b[0], b[1]);
                     mma_bf16(dv[2 * np + 1], ap, b[2], b[3]);
-                    load_b_kn<D>(b, Qt, c0 + 16 * kk, 16 * np, lane);
+                }
+#pragma unroll
+                for (int np = 0; np < DTK / 2; ++np) {
+                    uint32_t b[4];
+                    load_b_kn<DK>(b, Qt, c0 + 16 * kk, 16 * np, lane);
                     mma_bf16(dk[2 * np], ad, b[0], b[1]);
                     mma_bf16(dk[2 * np + 1], ad, b[2], b[3]);
                 }
@@ -811,32 +868,33 @@ flash_bwd_dkv_mma_kernel(Params p) {
     for (int h = 0; h < 2; ++h) {
         const int key = kw0 + g + 8 * h;
         if (key >= p.sk) continue;
-        const long long off =
-            ((static_cast<long long>(bi) * p.sk + key) * p.KV + kvh) * D;
-        bf16* dkp = static_cast<bf16*>(p.dk) + off;
-        bf16* dvp = static_cast<bf16*>(p.dv) + off;
+        const long long row =
+            (static_cast<long long>(bi) * p.sk + key) * p.KV + kvh;
+        bf16* dkp = static_cast<bf16*>(p.dk) + row * DK;
+        bf16* dvp = static_cast<bf16*>(p.dv) + row * DV;
 #pragma unroll
-        for (int j = 0; j < DT; ++j) {
+        for (int j = 0; j < DTK; ++j)
             *reinterpret_cast<uint32_t*>(dkp + 8 * j + 2 * t) =
                 pack_bf16(dk[j][2 * h], dk[j][2 * h + 1]);
+#pragma unroll
+        for (int j = 0; j < DTV; ++j)
             *reinterpret_cast<uint32_t*>(dvp + 8 * j + 2 * t) =
                 pack_bf16(dv[j][2 * h], dv[j][2 * h + 1]);
-        }
     }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_dkv_mma(const Params& p, cudaStream_t stream) {
-    const size_t smem = dkv_mma_smem_bytes<D>();
+    const size_t smem = dkv_mma_smem_bytes<DK, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_mma_kernel<D>,
+        flash_bwd_dkv_mma_kernel<DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     constexpr int KB = 16 * DKV_WARPS;
     const long long blocks =
         static_cast<long long>((p.sk + KB - 1) / KB) * p.KV * p.b;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    flash_bwd_dkv_mma_kernel<D>
+    flash_bwd_dkv_mma_kernel<DK, DV>
         <<<static_cast<unsigned>(blocks), 32 * DKV_WARPS, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
@@ -844,56 +902,62 @@ int launch_dkv_mma(const Params& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // dq (fp32) and dk/dv: the PR 12 kernels' launchers
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_dq(const Params& p, cudaStream_t stream) {
-    const size_t smem = dq_smem_bytes<D>();
+    const size_t smem = dq_smem_bytes<DK, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
+        flash_bwd_dq_kernel<T, DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.sq + BQ - 1) / BQ, p.H, p.b);
-    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dq_kernel<T, DK, DV><<<grid, NT, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_dkv(const Params& p, cudaStream_t stream) {
-    const size_t smem = dkv_smem_bytes<D>();
+    const size_t smem = dkv_smem_bytes<DK, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
+        flash_bwd_dkv_kernel<T, DK, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.sk + BK - 1) / BK, p.KV, p.b);
-    flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_bwd_dkv_kernel<T, DK, DV><<<grid, NT, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
 // which: 0 = dq, 1 = dk/dv (fp32 only); 2 = dq, 3 = dk/dv (bf16 only)
-template <int D>
+template <int DK, int DV>
 int launch_which(const Params& p, int which, int dtype,
                  cudaStream_t stream) {
-    if (dtype == 0 && which == 0) return launch_dq<float, D>(p, stream);
-    if (dtype == 0 && which == 1) return launch_dkv<float, D>(p, stream);
-    if (dtype == 1 && which == 2) return launch_dq_mma<D>(p, stream);
-    if (dtype == 1 && which == 3)
-        return launch_dkv_mma<D>(p, stream);
+    if (dtype == 0 && which == 0) return launch_dq<float, DK, DV>(p, stream);
+    if (dtype == 0 && which == 1)
+        return launch_dkv<float, DK, DV>(p, stream);
+    if (dtype == 1 && which == 2) return launch_dq_mma<DK, DV>(p, stream);
+    if (dtype == 1 && which == 3) return launch_dkv_mma<DK, DV>(p, stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_dim(const Params& p, int head_dim, int which, int dtype,
-               cudaStream_t stream) {
-    switch (head_dim) {
-        case 16: return launch_which<16>(p, which, dtype, stream);
-        case 32: return launch_which<32>(p, which, dtype, stream);
-        case 64: return launch_which<64>(p, which, dtype, stream);
-        case 128: return launch_which<128>(p, which, dtype, stream);
+// the instantiated (q.k width, v width) pairs, flash_fwd.cu's; any other
+// is refused
+int launch_dims(const Params& p, int dk, int dv, int which, int dtype,
+                cudaStream_t stream) {
+    if (dk == 96 && dv == 64)
+        return launch_which<96, 64>(p, which, dtype, stream);
+    if (dk != dv) return static_cast<int>(cudaErrorInvalidValue);
+    switch (dk) {
+        case 16: return launch_which<16, 16>(p, which, dtype, stream);
+        case 32: return launch_which<32, 32>(p, which, dtype, stream);
+        case 64: return launch_which<64, 64>(p, which, dtype, stream);
+        case 128: return launch_which<128, 128>(p, which, dtype, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* dl, void* dq,
-        void* dk, void* dv, int dtype, int head_dim, int b, int sq, int sk,
+        void* dk, void* dv, int dtype, int dkw, int dvw, int b, int sq,
+        int sk,
         int H, int KV, long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh, long long v_sb,
         long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -930,39 +994,46 @@ int run(int which, const void* q, const void* k, const void* v,
     p.q_offset = q_offset;
     p.kv_len = kv_len;
     p.scale = scale;
-    return launch_dim(p, head_dim, which, dtype,
-                      static_cast<cudaStream_t>(stream));
+    return launch_dims(p, dkw, dvw, which, dtype,
+                       static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+namespace {
+
+template <int DK, int DV>
+long long pair_smem_bytes(int which) {
+    switch (which) {
+        case 0: return dq_smem_bytes<DK, DV>();
+        case 1: return dkv_smem_bytes<DK, DV>();
+        case 2: return dq_mma_smem_bytes<DK, DV>();
+        case 3: return dkv_mma_smem_bytes<DK, DV>();
+        default: return -1;
+    }
 }
 
 }  // namespace
 
 // Dynamic shared memory of one block (which: 0 = dq fp32, 1 = dk/dv fp32,
-// 2 = dq bf16, 3 = dk/dv bf16), or -1 for a kernel or head_dim it does
-// not have.
-extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
-    switch (head_dim * 4 + which) {
-        case 16 * 4 + 0: return dq_smem_bytes<16>();
-        case 32 * 4 + 0: return dq_smem_bytes<32>();
-        case 64 * 4 + 0: return dq_smem_bytes<64>();
-        case 128 * 4 + 0: return dq_smem_bytes<128>();
-        case 16 * 4 + 1: return dkv_smem_bytes<16>();
-        case 32 * 4 + 1: return dkv_smem_bytes<32>();
-        case 64 * 4 + 1: return dkv_smem_bytes<64>();
-        case 128 * 4 + 1: return dkv_smem_bytes<128>();
-        case 16 * 4 + 2: return dq_mma_smem_bytes<16>();
-        case 32 * 4 + 2: return dq_mma_smem_bytes<32>();
-        case 64 * 4 + 2: return dq_mma_smem_bytes<64>();
-        case 128 * 4 + 2: return dq_mma_smem_bytes<128>();
-        case 16 * 4 + 3: return dkv_mma_smem_bytes<16>();
-        case 32 * 4 + 3: return dkv_mma_smem_bytes<32>();
-        case 64 * 4 + 3: return dkv_mma_smem_bytes<64>();
-        case 128 * 4 + 3: return dkv_mma_smem_bytes<128>();
+// 2 = dq bf16, 3 = dk/dv bf16), or -1 for a kernel or a (q.k width, v
+// width) pair it does not have.
+extern "C" long long repro_flash_bwd_smem_bytes(int which, int dk, int dv) {
+    if (dk == 96 && dv == 64) return pair_smem_bytes<96, 64>(which);
+    if (dk != dv) return -1;
+    switch (dk) {
+        case 16: return pair_smem_bytes<16, 16>(which);
+        case 32: return pair_smem_bytes<32, 32>(which);
+        case 64: return pair_smem_bytes<64, 64>(which);
+        case 128: return pair_smem_bytes<128, 128>(which);
         default: return -1;
     }
 }
 
-// dtype: 0 = fp32, 1 = bf16.  Strides are in elements: q, do [b, sq, H, d]
-// and k, v [b, sk, KV, d] by (batch, position, head).  Each returns a
+// dtype: 0 = fp32, 1 = bf16; dk, dv the q.k and v widths (an
+// instantiated pair, else cudaErrorInvalidValue).  Strides are in
+// elements: q, do [b, sq, H, ·] and k, v [b, sk, KV, ·] by (batch,
+// position, head).  Each returns a
 // cudaError_t (0 on success); the launch is asynchronous on ``stream``.
 // repro_flash_bwd_dq and repro_flash_bwd_dkv take fp32;
 // repro_flash_bwd_dq_mma and repro_flash_bwd_dkv_mma take bf16 whose data
@@ -970,7 +1041,7 @@ extern "C" long long repro_flash_bwd_smem_bytes(int which, int head_dim) {
 // another dtype.
 extern "C" int repro_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dl, void* dq, int dtype, int head_dim,
+    const void* lse, const void* dl, void* dq, int dtype, int dk, int dv,
     int b, int sq, int sk, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -978,7 +1049,7 @@ extern "C" int repro_flash_bwd_dq(
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
     return run(0, q, k, v, dout, lse, dl, dq, nullptr, nullptr, dtype,
-               head_dim, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
+               dk, dv, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset,
                kv_len, scale, stream);
 }
@@ -986,13 +1057,13 @@ extern "C" int repro_flash_bwd_dq(
 extern "C" int repro_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dl, void* dk, void* dv, int dtype,
-    int head_dim, int b, int sq, int sk, int H, int KV,
+    int dkw, int dvw, int b, int sq, int sk, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
-    return run(1, q, k, v, dout, lse, dl, nullptr, dk, dv, dtype, head_dim,
+    return run(1, q, k, v, dout, lse, dl, nullptr, dk, dv, dtype, dkw, dvw,
                b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, kv_len, scale,
                stream);
@@ -1000,7 +1071,7 @@ extern "C" int repro_flash_bwd_dkv(
 
 extern "C" int repro_flash_bwd_dq_mma(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dl, void* dq, int dtype, int head_dim,
+    const void* lse, const void* dl, void* dq, int dtype, int dk, int dv,
     int b, int sq, int sk, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -1008,7 +1079,7 @@ extern "C" int repro_flash_bwd_dq_mma(
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
     return run(2, q, k, v, dout, lse, dl, dq, nullptr, nullptr, dtype,
-               head_dim, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
+               dk, dv, b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss,
                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset,
                kv_len, scale, stream);
 }
@@ -1016,13 +1087,13 @@ extern "C" int repro_flash_bwd_dq_mma(
 extern "C" int repro_flash_bwd_dkv_mma(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dl, void* dk, void* dv, int dtype,
-    int head_dim, int b, int sq, int sk, int H, int KV,
+    int dkw, int dvw, int b, int sq, int sk, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int q_offset, int kv_len, float scale, void* stream) {
-    return run(3, q, k, v, dout, lse, dl, nullptr, dk, dv, dtype, head_dim,
+    return run(3, q, k, v, dout, lse, dl, nullptr, dk, dv, dtype, dkw, dvw,
                b, sq, sk, H, KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, kv_len, scale,
                stream);

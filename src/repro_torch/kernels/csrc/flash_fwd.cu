@@ -21,14 +21,21 @@
 //     by bi.
 //
 // Layouts are the model side's, read in place through strides: q is
-// [b, sq, H, d], k and v [b, sk, KV, d] (or one layer's slice of the KV
-// cache).  The last dimension must be contiguous.  o is written contiguous
-// [b, sq, H, d] in the input type, lse contiguous [b, H, sq] in fp32.
+// [b, sq, H, DK], k [b, sk, KV, DK] and v [b, sk, KV, DV] (or one layer's
+// slice of the KV cache).  The last dimension must be contiguous.  o is
+// written contiguous [b, sq, H, DV] in the input type, lse contiguous
+// [b, H, sq] in fp32.
+//
+// Two widths: DK, the q.k width (the S = Q K^T products, the Q and K
+// tiles), and DV, the v width (the P V products, O, the V tiles).  The
+// instantiated pairs are the equal ones (16, 32, 64, 128) and (96, 64),
+// multi-head latent attention's (MiniCPM3, DeepSeek-V2: 64 nope + 32 rope
+// dims for q.k, 64 for v).  The scale is the caller's (1/sqrt(DK)).
 //
 // Which kernel serves which type:
 //
-//   flash_fwd_mma_kernel<D, NW> (bf16, every main path: serving casts the
-//   weights to bf16, training computes in bf16).  Tensor cores through
+//   flash_fwd_mma_kernel<DK, DV, NW> (bf16, every main path: serving casts
+//   the weights to bf16, training computes in bf16).  Tensor cores through
 //   mma.sync m16n8k16 (flash_mma.cuh).  A block owns one KV head of one
 //   batch row and 16 NW rows packed by GQA group, query-major: packed row
 //   r is query r / G of head kvh G + r % G, so one K/V tile in shared
@@ -43,14 +50,15 @@
 //   kv_len): tile j + 1 loads while tile j computes.  The epilogue divides
 //   by max(l, 1e-30) and writes o in bf16; lse comes from the unrounded
 //   fp32 sums.  NW = 4 (64 rows) in general; NW = 1 (16 rows) when sq G
-//   <= 16, which covers granite decode (4 rows), zamba2 decode (1 row)
-//   and short prefill, so no warp of a decode block idles.  (The other
+//   <= 16, which covers granite decode (4 rows), zamba2 decode (1 row),
+//   MLA decode (G = 1: one row of the 16) and short prefill, so no warp
+//   of a decode block idles.  (The other
 //   choice, four warps splitting the keys and merging (m, l, O) through
 //   shared memory, splits a single tile at the serving paths' kv_len <=
 //   64 and adds a merge; a one-warp block does the same work with none.)
 //
-//   flash_fwd_kernel<float, D> (fp32: the CPU-parity checks on the card,
-//   held to 2e-5, which TF32 tensor cores would not meet).  The PR 11
+//   flash_fwd_kernel<float, DK, DV> (fp32: the CPU-parity checks on the
+//   card, held to 2e-5, which TF32 tensor cores would not meet).  The first
 //   design: one block of 256 threads per (64 query rows, query head, batch
 //   row) walks the key tiles staged in shared memory as fp32; thread (ty,
 //   tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3, keys tx + 16 j and
@@ -110,24 +118,24 @@ __device__ __forceinline__ long long row_page(const Params& p, int bi) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
-    // Q [BQ][D+1], K [BK][D+1], V [BK][D], P [BQ][BK+1], all fp32
+    // Q [BQ][DK+1], K [BK][DK+1], V [BK][DV], P [BQ][BK+1], all fp32
     return sizeof(float) *
-           (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+           (BQ * (DK + 1) + BK * (DK + 1) + BK * DV + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
-    constexpr int QS = D + 1;   // padded strides keep the column reads of
-    constexpr int KS = D + 1;   // Q, K and P free of bank conflicts
+    constexpr int QS = DK + 1;  // padded strides keep the column reads of
+    constexpr int KS = DK + 1;  // Q, K and P free of bank conflicts
     constexpr int PS = BK + 1;
-    constexpr int NC = D / 16;  // output columns per thread
+    constexpr int NC = DV / 16; // output columns per thread
     extern __shared__ float smem[];
     float* Qs = smem;
     float* Ks = Qs + BQ * QS;
     float* Vs = Ks + BK * KS;
-    float* Ps = Vs + BK * D;
+    float* Ps = Vs + BK * DV;
 
     const int tid = threadIdx.x;
     const int tx = tid & 15;
@@ -142,8 +150,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     const T* kg = static_cast<const T*>(p.k) + pg * p.k_sb + kvh * p.k_sh;
     const T* vg = static_cast<const T*>(p.v) + pg * p.v_sb + kvh * p.v_sh;
 
-    for (int i = tid; i < BQ * D; i += NT) {
-        const int r = i / D, c = i % D;
+    for (int i = tid; i < BQ * DK; i += NT) {
+        const int r = i / DK, c = i % DK;
         const int qi = q0 + r;
         Qs[r * QS + c] = qi < p.sq ? to_f32(qg[qi * p.q_ss + c]) : 0.f;
     }
@@ -165,12 +173,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 
     for (int k0 = 0; k0 < k_end; k0 += BK) {
         __syncthreads();   // the previous tile's readers are done
-        for (int i = tid; i < BK * D; i += NT) {
-            const int r = i / D, c = i % D;
+        for (int i = tid; i < BK * DK; i += NT) {
+            const int r = i / DK, c = i % DK;
             const int kj = k0 + r;
-            const bool ok = kj < kv_len;
-            Ks[r * KS + c] = ok ? to_f32(kg[kj * p.k_ss + c]) : 0.f;
-            Vs[r * D + c] = ok ? to_f32(vg[kj * p.v_ss + c]) : 0.f;
+            Ks[r * KS + c] = kj < kv_len ? to_f32(kg[kj * p.k_ss + c]) : 0.f;
+        }
+        for (int i = tid; i < BK * DV; i += NT) {
+            const int r = i / DV, c = i % DV;
+            const int kj = k0 + r;
+            Vs[r * DV + c] = kj < kv_len ? to_f32(vg[kj * p.v_ss + c]) : 0.f;
         }
         __syncthreads();
 
@@ -180,7 +191,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-        for (int c = 0; c < D; ++c) {
+        for (int c = 0; c < DK; ++c) {
             float qv[4], kv[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * QS + c];
@@ -233,7 +244,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
             for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PS + kk];
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
-                const float vv = Vs[kk * D + tx + 16 * c];
+                const float vv = Vs[kk * DV + tx + 16 * c];
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
                     acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
@@ -247,7 +258,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
         if (qi >= p.sq) continue;
         const float lsum = fmaxf(l[i], 1e-30f);
         T* og = static_cast<T*>(p.o) +
-                ((static_cast<long long>(bi) * p.sq + qi) * p.H + h) * D;
+                ((static_cast<long long>(bi) * p.sq + qi) * p.H + h) * DV;
 #pragma unroll
         for (int c = 0; c < NC; ++c) store(og + tx + 16 * c, acc[i][c] / lsum);
         if (tx == 0)
@@ -259,26 +270,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores, packed GQA rows, cp.async 2-stage ring
 
-template <int D, int NW>
+template <int DK, int DV, int NW>
 constexpr size_t mma_smem_bytes() {
-    // Q [16 NW][D + 8]; K, V [2 stages][64][D + 8]; all bf16
-    return flash_mma::tile_bytes<D>(16 * NW) +
-           4 * flash_mma::tile_bytes<D>(BK);
+    // Q [16 NW][DK + 8]; K [2 stages][64][DK + 8]; V [2 stages][64][DV + 8];
+    // all bf16
+    return flash_mma::tile_bytes<DK>(16 * NW) +
+           2 * flash_mma::tile_bytes<DK>(BK) +
+           2 * flash_mma::tile_bytes<DV>(BK);
 }
 
-template <int D, int NW>
+template <int DK, int DV, int NW>
 __global__ void __launch_bounds__(32 * NW)
 flash_fwd_mma_kernel(Params p) {
     using namespace flash_mma;
     constexpr int NT = 32 * NW;
     constexpr int BM = 16 * NW;         // packed rows per block
-    constexpr int RS = row_stride<D>();
+    constexpr int RSK = row_stride<DK>();
+    constexpr int RSV = row_stride<DV>();
     constexpr int KT = BK / 8;          // key n-tiles of S
-    constexpr int DT = D / 8;           // d n-tiles of O
+    constexpr int DT = DV / 8;          // v-width n-tiles of O
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Ks = Qs + BM * RS;            // [2][BK][RS]
-    bf16* Vs = Ks + 2 * BK * RS;        // [2][BK][RS]
+    bf16* Ks = Qs + BM * RSK;           // [2][BK][RSK]
+    bf16* Vs = Ks + 2 * BK * RSK;       // [2][BK][RSV]
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -315,9 +329,9 @@ flash_fwd_mma_kernel(Params p) {
                          p.q_offset + (w0 + g + 8) / G};
     const float sl2 = p.scale * 1.4426950408889634f;   // scale log2(e)
 
-    load_packed<D, NT, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
-    load_rows<D, NT, BK>(Ks, kg, p.k_ss, 0, kv_len, tid);
-    load_rows<D, NT, BK>(Vs, vg, p.v_ss, 0, kv_len, tid);
+    load_packed<DK, NT, BM>(Qs, qg, p.q_ss, p.q_sh, G, r0, n_rows, tid);
+    load_rows<DK, NT, BK>(Ks, kg, p.k_ss, 0, kv_len, tid);
+    load_rows<DV, NT, BK>(Vs, vg, p.v_ss, 0, kv_len, tid);
     cp_async_commit();
 
     float o[DT][4];
@@ -331,30 +345,30 @@ flash_fwd_mma_kernel(Params p) {
         const int k0 = it * BK;
         if (it + 1 < n_tiles) {         // the next tile into the other stage
             const int st = (it + 1) & 1;
-            load_rows<D, NT, BK>(Ks + st * BK * RS, kg, p.k_ss, k0 + BK,
-                                 kv_len, tid);
-            load_rows<D, NT, BK>(Vs + st * BK * RS, vg, p.v_ss, k0 + BK,
-                                 kv_len, tid);
+            load_rows<DK, NT, BK>(Ks + st * BK * RSK, kg, p.k_ss, k0 + BK,
+                                  kv_len, tid);
+            load_rows<DV, NT, BK>(Vs + st * BK * RSV, vg, p.v_ss, k0 + BK,
+                                  kv_len, tid);
         }
         cp_async_commit();              // (an empty group on the last tile)
         cp_async_wait<1>();             // this tile (and Q) have landed
         __syncthreads();
 
         if (active && k0 < w_end) {
-            const bf16* Kt = Ks + (it & 1) * BK * RS;
-            const bf16* Vt = Vs + (it & 1) * BK * RS;
+            const bf16* Kt = Ks + (it & 1) * BK * RSK;
+            const bf16* Vt = Vs + (it & 1) * BK * RSV;
             float s[KT][4];
 #pragma unroll
             for (int j = 0; j < KT; ++j)
                 s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
+            for (int kk = 0; kk < DK / 16; ++kk) {
                 uint32_t a[4];
-                load_a<D>(a, Qs, 16 * warp, 16 * kk, lane);
+                load_a<DK>(a, Qs, 16 * warp, 16 * kk, lane);
 #pragma unroll
                 for (int np = 0; np < KT / 2; ++np) {
                     uint32_t b[4];
-                    load_b_nk<D>(b, Kt, 16 * np, 16 * kk, lane);
+                    load_b_nk<DK>(b, Kt, 16 * np, 16 * kk, lane);
                     mma_bf16(s[2 * np], a, b[0], b[1]);
                     mma_bf16(s[2 * np + 1], a, b[2], b[3]);
                 }
@@ -409,7 +423,7 @@ flash_fwd_mma_kernel(Params p) {
 #pragma unroll
                 for (int np = 0; np < DT / 2; ++np) {
                     uint32_t b[4];
-                    load_b_kn<D>(b, Vt, 16 * kk, 16 * np, lane);
+                    load_b_kn<DV>(b, Vt, 16 * kk, 16 * np, lane);
                     mma_bf16(o[2 * np], a, b[0], b[1]);
                     mma_bf16(o[2 * np + 1], a, b[2], b[3]);
                 }
@@ -428,7 +442,7 @@ flash_fwd_mma_kernel(Params p) {
         const int head = kvh * G + row % G;
         const float inv = 1.f / lsum;
         bf16* og = static_cast<bf16*>(p.o) +
-                   ((static_cast<long long>(bi) * p.sq + i) * p.H + head) * D;
+                   ((static_cast<long long>(bi) * p.sq + i) * p.H + head) * DV;
 #pragma unroll
         for (int j = 0; j < DT; ++j)
             *reinterpret_cast<uint32_t*>(og + 8 * j + 2 * t) =
@@ -439,58 +453,63 @@ flash_fwd_mma_kernel(Params p) {
     }
 }
 
-template <int D, int NW>
+template <int DK, int DV, int NW>
 int launch_mma(const Params& p, cudaStream_t stream) {
-    const size_t smem = mma_smem_bytes<D, NW>();
+    const size_t smem = mma_smem_bytes<DK, DV, NW>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D, NW>,
+        flash_fwd_mma_kernel<DK, DV, NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int rows = p.sq * (p.H / p.KV);
     const dim3 grid((rows + 16 * NW - 1) / (16 * NW), p.KV, p.b);
-    flash_fwd_mma_kernel<D, NW><<<grid, 32 * NW, smem, stream>>>(p);
+    flash_fwd_mma_kernel<DK, DV, NW><<<grid, 32 * NW, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
 // one warp per block when all of a KV head's packed rows fit in 16
-template <int D>
+template <int DK, int DV>
 int launch_mma_rows(const Params& p, cudaStream_t stream) {
-    return p.sq * (p.H / p.KV) <= 16 ? launch_mma<D, 1>(p, stream)
-                                     : launch_mma<D, 4>(p, stream);
+    return p.sq * (p.H / p.KV) <= 16 ? launch_mma<DK, DV, 1>(p, stream)
+                                     : launch_mma<DK, DV, 4>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
 // fp32: the PR 11 kernel on the FMA pipes
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-    const size_t smem = smem_bytes<D>();
+    const size_t smem = smem_bytes<DK, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_fwd_kernel<T, DK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.sq + BQ - 1) / BQ, p.H, p.b);
-    flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+    flash_fwd_kernel<T, DK, DV><<<grid, NT, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dim(const Params& p, int head_dim, bool mma,
-               cudaStream_t stream) {
-    switch (head_dim) {
-        case 16: return mma ? launch_mma_rows<16>(p, stream)
-                            : launch<float, 16>(p, stream);
-        case 32: return mma ? launch_mma_rows<32>(p, stream)
-                            : launch<float, 32>(p, stream);
-        case 64: return mma ? launch_mma_rows<64>(p, stream)
-                            : launch<float, 64>(p, stream);
-        case 128: return mma ? launch_mma_rows<128>(p, stream)
-                             : launch<float, 128>(p, stream);
+template <int DK, int DV>
+int launch_pair(const Params& p, bool mma, cudaStream_t stream) {
+    return mma ? launch_mma_rows<DK, DV>(p, stream)
+               : launch<float, DK, DV>(p, stream);
+}
+
+// the instantiated (q.k width, v width) pairs; any other is refused
+int launch_dims(const Params& p, int dk, int dv, bool mma,
+                cudaStream_t stream) {
+    if (dk == 96 && dv == 64) return launch_pair<96, 64>(p, mma, stream);
+    if (dk != dv) return static_cast<int>(cudaErrorInvalidValue);
+    switch (dk) {
+        case 16: return launch_pair<16, 16>(p, mma, stream);
+        case 32: return launch_pair<32, 32>(p, mma, stream);
+        case 64: return launch_pair<64, 64>(p, mma, stream);
+        case 128: return launch_pair<128, 128>(p, mma, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 int run(bool mma, const void* q, const void* k, const void* v, void* o,
-        void* lse, int head_dim, int b, int sq, int H, int KV,
+        void* lse, int dk, int dv, int b, int sq, int H, int KV,
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh,
@@ -521,28 +540,38 @@ int run(bool mma, const void* q, const void* k, const void* v, void* o,
     p.scale = scale;
     p.kv_lens = kv_lens;
     p.pages = pages;
-    return launch_dim(p, head_dim, mma, static_cast<cudaStream_t>(stream));
+    return launch_dims(p, dk, dv, mma, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, or -1 for a variant or head_dim it
-// does not have.  variant: 0 = fp32 FMA kernel, 1 = bf16 mma kernel with
-// 4 warps (64 packed rows), 2 = bf16 mma kernel with 1 warp (16 rows).
-extern "C" long long repro_flash_fwd_smem_bytes(int variant, int head_dim) {
-    switch (head_dim * 4 + variant) {
-        case 16 * 4 + 0: return smem_bytes<16>();
-        case 32 * 4 + 0: return smem_bytes<32>();
-        case 64 * 4 + 0: return smem_bytes<64>();
-        case 128 * 4 + 0: return smem_bytes<128>();
-        case 16 * 4 + 1: return mma_smem_bytes<16, 4>();
-        case 32 * 4 + 1: return mma_smem_bytes<32, 4>();
-        case 64 * 4 + 1: return mma_smem_bytes<64, 4>();
-        case 128 * 4 + 1: return mma_smem_bytes<128, 4>();
-        case 16 * 4 + 2: return mma_smem_bytes<16, 1>();
-        case 32 * 4 + 2: return mma_smem_bytes<32, 1>();
-        case 64 * 4 + 2: return mma_smem_bytes<64, 1>();
-        case 128 * 4 + 2: return mma_smem_bytes<128, 1>();
+namespace {
+
+template <int DK, int DV>
+long long pair_smem_bytes(int variant) {
+    switch (variant) {
+        case 0: return smem_bytes<DK, DV>();
+        case 1: return mma_smem_bytes<DK, DV, 4>();
+        case 2: return mma_smem_bytes<DK, DV, 1>();
+        default: return -1;
+    }
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block, or -1 for a variant or a (q.k
+// width, v width) pair it does not have.  variant: 0 = fp32 FMA kernel,
+// 1 = bf16 mma kernel with 4 warps (64 packed rows), 2 = bf16 mma kernel
+// with 1 warp (16 rows).
+extern "C" long long repro_flash_fwd_smem_bytes(int variant, int dk,
+                                                int dv) {
+    if (dk == 96 && dv == 64) return pair_smem_bytes<96, 64>(variant);
+    if (dk != dv) return -1;
+    switch (dk) {
+        case 16: return pair_smem_bytes<16, 16>(variant);
+        case 32: return pair_smem_bytes<32, 32>(variant);
+        case 64: return pair_smem_bytes<64, 64>(variant);
+        case 128: return pair_smem_bytes<128, 128>(variant);
         default: return -1;
     }
 }
@@ -551,34 +580,35 @@ extern "C" long long repro_flash_fwd_smem_bytes(int variant, int head_dim) {
 // on ``stream`` and does not synchronise.  Strides are in elements.
 // repro_flash_fwd takes fp32 tensors (dtype 0), repro_flash_fwd_mma bf16
 // (dtype 1) whose data pointers and strides are multiples of 16 bytes
-// (cp.async); either refuses another dtype.  kv_lens and pages are null,
+// (cp.async); either refuses another dtype and an uninstantiated (dk, dv)
+// pair (launch_dims).  kv_lens and pages are null,
 // or int32 device arrays of b entries (a key count in [1, sk] and a page
 // of k and v for each batch row; the caller checks the ranges), which
 // then replace kv_len and the row's own batch index.
 extern "C" int repro_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int dtype, int head_dim, int b, int sq, int H, int KV,
+    int dtype, int dk, int dv, int b, int sq, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     int causal, int q_offset, int kv_len, float scale, const int* kv_lens,
     const int* pages, void* stream) {
     if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return run(false, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
+    return run(false, q, k, v, o, lse, dk, dv, b, sq, H, KV, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
                kv_len, scale, kv_lens, pages, stream);
 }
 
 extern "C" int repro_flash_fwd_mma(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int dtype, int head_dim, int b, int sq, int H, int KV,
+    int dtype, int dk, int dv, int b, int sq, int H, int KV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     int causal, int q_offset, int kv_len, float scale, const int* kv_lens,
     const int* pages, void* stream) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return run(true, q, k, v, o, lse, head_dim, b, sq, H, KV, q_sb, q_ss,
+    return run(true, q, k, v, o, lse, dk, dv, b, sq, H, KV, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset,
                kv_len, scale, kv_lens, pages, stream);
 }

@@ -24,11 +24,14 @@
 // the A fragment of the next product (FlashAttention-2's register reuse).
 //
 // Shared-memory layout: a tile of rows x D bf16 is stored row-major with
-// a row stride of D + 8 elements (16 bytes of padding per row).  ldmatrix
-// reads eight 16-byte rows per 8 x 8 matrix; with the padding, row r
-// starts 4 banks after row r - 1 (mod 32), so the eight rows fall in
-// eight distinct 4-bank groups at every D in {16, 32, 64, 128}: no bank
-// conflict, and no swizzle arithmetic on the addresses.
+// a row stride of D + 8 elements (16 bytes of padding per row), D / 2 + 4
+// banks, an odd multiple of 4 for every D that is a multiple of 16.
+// ldmatrix reads eight 16-byte rows per 8 x 8 matrix; with that stride the
+// eight rows fall in eight distinct 4-bank groups at every D in {16, 32,
+// 64, 96, 128}: no bank conflict, and no swizzle arithmetic on the
+// addresses.  Each helper takes its tile's width D: the kernels pass the
+// q.k width DK for Q and K tiles and the v width DV for V and dO tiles,
+// which differ for multi-head latent attention (96 and 64).
 #pragma once
 
 #include <cuda_runtime.h>

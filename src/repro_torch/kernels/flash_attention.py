@@ -13,6 +13,12 @@ batch row its own key count and its own page of a paged KV buffer, read
 from device memory, so one launch serves the pipelined engine's whole
 decode wave.
 
+q and k share one width DK (the q.k products) and v has its own, DV (o
+and do take v's): the kernels are instantiated for the pairs in
+:data:`WIDTH_PAIRS`, the equal widths of the GQA models and multi-head
+latent attention's (96, 64).  On the card any other pair raises
+``ValueError`` naming it; on the CPU the plain versions take any widths.
+
 Each kernel is chosen by dtype, not as a fallback:
 
 * bf16 (every main path) goes to the tensor-core kernels
@@ -47,7 +53,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (flash_bwd_ref, flash_dl, flash_fwd_ref,
                                      flash_fwd_paged_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the (q.k width, v width) pairs the kernels are instantiated for: equal
+# widths, and multi-head latent attention's 64 + 32 rope dims over 64
+WIDTH_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (96, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_YZ_MAX = 65535
 
@@ -65,11 +73,11 @@ CP_ASYNC_BYTES = 16
 _c = ctypes.c_int
 _ll = ctypes.c_longlong
 _p = ctypes.c_void_p
-_ARGTYPES = ([_p] * 5 + [_c] * 6 + [_ll] * 9
+_ARGTYPES = ([_p] * 5 + [_c] * 7 + [_ll] * 9
              + [_c, _c, _c, ctypes.c_float, _p, _p, _p])
 
 
-_BWD_ARGTYPES = ([_p] * 7 + [_c] * 7 + [_ll] * 12
+_BWD_ARGTYPES = ([_p] * 7 + [_c] * 8 + [_ll] * 12
                  + [_c, _c, _c, ctypes.c_float, _p])
 
 
@@ -105,15 +113,47 @@ def load() -> None:
     _bwd_lib()
 
 
+# the kernels' names in the shared-memory queries of the two libraries:
+# (library, its kernel argument)
+_SMEM_KERNELS = {"fwd": ("flash_fwd", 0), "fwd_mma": ("flash_fwd", 1),
+                 "fwd_mma_1warp": ("flash_fwd", 2), "dq": ("flash_bwd", 0),
+                 "dkv": ("flash_bwd", 1), "dq_mma": ("flash_bwd", 2),
+                 "dkv_mma": ("flash_bwd", 3)}
+
+
+def smem_bytes(kernel: str, dk: int, dv: int) -> int:
+    """Dynamic shared memory of one block of ``kernel`` (a key of
+    ``_SMEM_KERNELS``: the fp32 forward, the bf16 forward with 4 warps or
+    1, and the fp32 and bf16 dq and dk/dv) at the widths (dk, dv), or -1
+    for a pair the kernels are not instantiated for.  Builds the library
+    at first use."""
+    name, which = _SMEM_KERNELS[kernel]
+    fn = getattr(build.library(name), f"repro_{name}_smem_bytes")
+    fn.argtypes = [_c, _c, _c]
+    fn.restype = ctypes.c_longlong
+    return int(fn(which, dk, dv))
+
+
+def check_widths(dk: int, dv: int) -> None:
+    """Raise ``ValueError`` naming the pair unless the kernels are
+    instantiated for q.k width ``dk`` and v width ``dv``."""
+    if (dk, dv) not in WIDTH_PAIRS:
+        raise ValueError(f"head_dim pair (q.k {dk}, v {dv}) has no kernel: "
+                         f"the kernels take {WIDTH_PAIRS}")
+
+
 def _check(q, k, v, q_offset: int, kv_len: int, *,
            paged: bool = False) -> None:
     """Shapes, dtypes and devices of a flash call; with ``paged`` k and v
-    are a page buffer, whose page count need not equal q's batch."""
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q and k must be 4-D [b, s, heads, d], got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
-    if v.shape != k.shape:
-        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    are a page buffer, whose page count need not equal q's batch.  The
+    width pair is checked on the card only (:func:`check_widths`)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-D [b, s, heads, d], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)} "
+                         f"but for the width")
     b, sq, H, d = q.shape
     bk, sk, KV, dk = k.shape
     if (bk != b and not paged) or dk != d:
@@ -121,8 +161,8 @@ def _check(q, k, v, q_offset: int, kv_len: int, *,
                          f"disagree on batch or head_dim")
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if q.device.type == "cuda":
+        check_widths(d, v.shape[-1])
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of "
                         f"{tuple(_DTYPES)}, got {q.dtype}, {k.dtype}, "
@@ -162,8 +202,9 @@ def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
 def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
               kv_len: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: [b, sq, H, d]; k, v: [b, sk, KV, d] -> (o [b, sq, H, d] in q's
-    dtype, lse [b, H, sq] fp32).  See ``flash_fwd_ref`` for the masks."""
+    """q: [b, sq, H, dk]; k: [b, sk, KV, dk]; v: [b, sk, KV, dv] -> (o
+    [b, sq, H, dv] in q's dtype, lse [b, H, sq] fp32), scale 1/sqrt(dk).
+    See ``flash_fwd_ref`` for the masks."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
@@ -179,11 +220,11 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
 def flash_fwd_paged(q, k_pages, v_pages, pages, kv_lens, *,
                     ranges_checked: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode wave's attention: q [R, 1, H, d]; k_pages, v_pages
-    [n_pages + 1, page_seq, KV, d], one layer's paged KV buffer; pages
-    and kv_lens int32 [R] on q's device.  Row r attends, without a
+    """The decode wave's attention: q [R, 1, H, dk]; k_pages, v_pages
+    [n_pages + 1, page_seq, KV, dk | dv], one layer's paged KV buffer;
+    pages and kv_lens int32 [R] on q's device.  Row r attends, without a
     causal mask, to the first ``kv_lens[r]`` keys of page ``pages[r]``.
-    Rows may share a page.  Returns (o [R, 1, H, d] in q's dtype, lse
+    Rows may share a page.  Returns (o [R, 1, H, dv] in q's dtype, lse
     [R, H, 1] fp32).  One kernel launch for all R rows, counted under
     ``flash_fwd``; forward only.  Raises unless every page lies in
     ``[0, n_pages]`` and every length in ``[1, page_seq]``: a check that
@@ -228,19 +269,19 @@ def _launch_fwd(q, k, v, *, causal: bool, q_offset: int, kv_len: int,
             raise ValueError(f"{name} needs a contiguous last dim and "
                              f"non-negative strides, got {t.stride()}")
     b, sq, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[-1]
     if b > _GRID_YZ_MAX or H > _GRID_YZ_MAX:
         raise ValueError(f"batch {b} or heads {H} exceed the launch grid")
     mma = q.dtype == torch.bfloat16
     if mma:
         check_cp_async_alignment(q=q, k=k, v=v)
-    o = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, sq, H, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
     fn = _lib()[mma]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _DTYPES[q.dtype], d, b, sq, H, KV,
+                 lse.data_ptr(), _DTYPES[q.dtype], d, dv, b, sq, H, KV,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(bool(causal)), q_offset, kv_len,
                  1.0 / math.sqrt(d),
@@ -257,18 +298,20 @@ def _launch_fwd(q, k, v, *, causal: bool, q_offset: int, kv_len: int,
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
               kv_len: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of :func:`flash_fwd`: q, o, do [b, sq, H, d]; k, v
-    [b, sk, KV, d]; lse [b, H, sq] fp32 from the forward -> (dq in q's
-    dtype, dk and dv in k's dtype).  Two kernels: dq, then dk/dv.  See
+    """Gradients of :func:`flash_fwd`: q [b, sq, H, dk], o and do [b, sq,
+    H, dv]; k [b, sk, KV, dk], v [b, sk, KV, dv]; lse [b, H, sq] fp32 from
+    the forward -> (dq in q's dtype, dk and dv in k's dtype).  Two
+    kernels: dq, then dk/dv.  See
     ``flash_bwd_ref`` for the formulas; dk and dv are exact zeros for keys
     at positions >= ``kv_len``."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
     b, sq, H, d = q.shape
-    if o.shape != q.shape or do.shape != q.shape:
+    o_shape = (b, sq, H, v.shape[-1])
+    if o.shape != o_shape or do.shape != o_shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
-                         f"must match q {tuple(q.shape)}")
+                         f"must be {o_shape}: q's rows at v's width")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"o and do must be {q.dtype}, got {o.dtype}, "
                         f"{do.dtype}")
@@ -315,14 +358,14 @@ def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
     :func:`flash_bwd` checks and counts; ``chip_smoke.py`` times each
     alone."""
     b, sq, H, d = q.shape
-    sk, KV = k.shape[1], k.shape[2]
+    sk, KV, d_v = k.shape[1], k.shape[2], v.shape[-1]
     dl = flash_dl(o, do)
     dq = torch.empty((b, sq, H, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, KV, d_v), dtype=k.dtype, device=q.device)
     mma = q.dtype == torch.bfloat16
     fn_dq, fn_dkv = (fns[mma] for fns in _bwd_lib())
-    tail = (_DTYPES[q.dtype], d, b, sq, sk, H, KV, *q.stride()[:3],
+    tail = (_DTYPES[q.dtype], d, d_v, b, sq, sk, H, KV, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(d))
     ins = (q, k, v, do, lse, dl)     # the closures keep them alive

@@ -113,22 +113,23 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True, *, q_offset: int = 0,
                     kv_len: Optional[int] = None):
-    """q: [b, sq, H, d]; k, v: [b, sk, KV, d] (H % KV == 0).
-    Returns o: [b, sq, H, d].  Query row i sits at position
-    ``q_offset + i``; keys at positions >= ``kv_len`` are masked.
-    Differentiable in q, k and v through the flash backward."""
+    """q: [b, sq, H, dk]; k: [b, sk, KV, dk]; v: [b, sk, KV, dv] (H % KV
+    == 0; the card takes the width pairs of ``flash_attention.
+    WIDTH_PAIRS``).  Returns o: [b, sq, H, dv].  Query row i sits at
+    position ``q_offset + i``; keys at positions >= ``kv_len`` are
+    masked.  Differentiable in q, k and v through the flash backward."""
     return _FlashAttention.apply(q, k, v, causal, q_offset, kv_len)
 
 
 def flash_attention_paged(q, k_pages, v_pages, pages, kv_lens, *,
                           ranges_checked: bool = False):
-    """The pipelined engine's decode wave: q [R, 1, H, d] against one
+    """The pipelined engine's decode wave: q [R, 1, H, dk] against one
     layer's paged KV buffer k_pages, v_pages [n_pages + 1, page_seq, KV,
-    d]; row r sees the first ``kv_lens[r]`` keys of page ``pages[r]``
-    (int32 [R] tensors on q's device).  Returns o [R, 1, H, d].  One
-    kernel launch for all rows, counted under ``flash_fwd``; forward
-    only (serving).  See ``flash_attention.flash_fwd_paged``, also for
-    ``ranges_checked``."""
+    dk | dv]; row r sees the first ``kv_lens[r]`` keys of page
+    ``pages[r]`` (int32 [R] tensors on q's device).  Returns o [R, 1, H,
+    dv].  One kernel launch for all rows, counted under ``flash_fwd``;
+    forward only (serving).  See ``flash_attention.flash_fwd_paged``,
+    also for ``ranges_checked``."""
     o, _ = _timed("flash_fwd", fa.flash_fwd_paged, q, k_pages, v_pages,
                   pages, kv_lens, ranges_checked=ranges_checked)
     return o

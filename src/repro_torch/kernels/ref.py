@@ -45,12 +45,15 @@ def flash_fwd_ref(q, k, v, *, causal: bool, q_offset: int = 0,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the flash forward kernel computes, in the model-side layout.
 
-    q: [b, sq, H, d]; k, v: [b, sk, KV, d] with H % KV == 0, query head
-    ``h`` reading KV head ``h // (H // KV)``.  Query row ``i`` sits at
-    position ``q_offset + i``; keys at positions ``>= kv_len`` are
-    masked, and ``causal`` also masks keys after the query's position.
+    q: [b, sq, H, dk]; k: [b, sk, KV, dk]; v: [b, sk, KV, dv] with
+    H % KV == 0, query head ``h`` reading KV head ``h // (H // KV)``; any
+    widths (the kernels take the pairs of
+    ``flash_attention.WIDTH_PAIRS``), scale ``1 / sqrt(dk)``.  Query row
+    ``i`` sits at position ``q_offset + i``; keys at positions
+    ``>= kv_len`` are masked, and ``causal`` also masks keys after the
+    query's position.
     The softmax runs in fp32 with the Pallas kernel's -1e30 mask and
-    ``max(l, 1e-30)`` guard.  Returns ``o`` [b, sq, H, d] in q's dtype
+    ``max(l, 1e-30)`` guard.  Returns ``o`` [b, sq, H, dv] in q's dtype
     and the fp32 log-sum-exp ``lse`` [b, H, sq]."""
     sq, sk = q.shape[1], k.shape[1]
     kv_len = sk if kv_len is None else kv_len
@@ -65,11 +68,11 @@ def flash_fwd_ref(q, k, v, *, causal: bool, q_offset: int = 0,
 def flash_fwd_paged_ref(q, k_pages, v_pages, pages, kv_lens
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the flash forward kernel computes on paged rows (the decode
-    wave): q [R, 1, H, d]; k_pages, v_pages [n_pages + 1, page_seq, KV,
-    d]; pages, kv_lens int [R].  Row r attends, without a causal mask, to
+    wave): q [R, 1, H, dk]; k_pages, v_pages [n_pages + 1, page_seq, KV,
+    dk | dv]; pages, kv_lens int [R].  Row r attends, without a causal mask, to
     the first ``kv_lens[r]`` keys of page ``pages[r]``: the pages are
     gathered and :func:`flash_fwd_ref`'s arithmetic runs with each row's
-    own length.  Returns (o [R, 1, H, d], lse [R, H, 1] fp32)."""
+    own length.  Returns (o [R, 1, H, dv], lse [R, H, 1] fp32)."""
     pages, kv_lens = pages.long(), kv_lens.long()
     k, v = k_pages[pages], v_pages[pages]
     kpos = torch.arange(k.shape[1], device=q.device)
@@ -78,8 +81,8 @@ def flash_fwd_paged_ref(q, k_pages, v_pages, pages, kv_lens
 
 
 def _masked_attention(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The flash forward's arithmetic: q [b, sq, H, d] against k, v
-    [b, sk, KV, d] (query head h reads KV head h // (H // KV)) where
+    """The flash forward's arithmetic: q [b, sq, H, dk] against k, v
+    [b, sk, KV, dk | dv] (query head h reads KV head h // (H // KV)) where
     ``mask`` (broadcast to [b, KV, G, sq, sk]) is true; fp32 softmax
     with the -1e30 mask value and the max(l, 1e-30) guard."""
     b, sq, H, d = q.shape
@@ -95,11 +98,11 @@ def _masked_attention(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     o = o / lsum.permute(0, 3, 1, 2)[..., None]
     lse = (m + torch.log(lsum)).reshape(b, H, sq)
-    return o.reshape(b, sq, H, d).to(q.dtype), lse
+    return o.reshape(b, sq, H, v.shape[-1]).to(q.dtype), lse
 
 
 def flash_dl(o, do) -> torch.Tensor:
-    """dl = rowsum(o * do) in fp32, [b, sq, H, d] -> [b, H, sq]: the term
+    """dl = rowsum(o * do) in fp32, [b, sq, H, dv] -> [b, H, sq]: the term
     the flash backward subtracts from do.v.  Computed in plain torch
     before the backward kernels run, as the JAX package computes it
     outside its Pallas kernels."""
@@ -111,10 +114,10 @@ def flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What the flash backward kernels compute, in the model-side layout.
 
-    q, o, do: [b, sq, H, d]; k, v: [b, sk, KV, d]; lse: [b, H, sq] fp32
-    from the forward.  The masks are :func:`flash_fwd_ref`'s.  Written
-    out as the Pallas kernels' formulas (not autograd of the forward),
-    all in fp32:
+    q: [b, sq, H, dk]; o, do: [b, sq, H, dv]; k: [b, sk, KV, dk]; v:
+    [b, sk, KV, dv]; lse: [b, H, sq] fp32 from the forward; any widths.
+    The masks are :func:`flash_fwd_ref`'s.  Written out as the Pallas
+    kernels' formulas (not autograd of the forward), all in fp32:
 
         dl = rowsum(o * do)
         p  = where(mask, exp(s * scale - lse), 0)
@@ -129,7 +132,7 @@ def flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
     kv_len = sk if kv_len is None else kv_len
     scale = 1.0 / math.sqrt(d)
     qf = q.float().reshape(b, sq, KV, G, d)
-    dof = do.float().reshape(b, sq, KV, G, d)
+    dof = do.float().reshape(b, sq, KV, G, v.shape[-1])
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
     kpos = torch.arange(sk, device=q.device)

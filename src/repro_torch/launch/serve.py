@@ -20,9 +20,12 @@ the card every attention call goes through the hand-written flash
 forward kernel (the decode wave through its paged rows) and every
 RWKV-6 or Mamba-2 recurrence through its hand-written scan kernel.
 ``--arch`` takes granite-8b, granite-20b and starcoder2-15b (dense),
-deepseek-moe-16b and grok-1-314b (MoE: every token routed alone, as the
-JAX engines' one-token decode steps route it), rwkv6-7b (attention-free)
-and zamba2-1.2b (Mamba-2 with shared attention blocks).
+minicpm3-4b (dense with multi-head latent attention: the caches hold
+latents, expanded per call; the flash kernels at q.k width 96 and v
+width 64), deepseek-moe-16b and grok-1-314b (MoE: every token routed
+alone, as the JAX engines' one-token decode steps route it), rwkv6-7b
+(attention-free) and zamba2-1.2b (Mamba-2 with shared attention
+blocks).
 
 Unlike the JAX launcher, which always shrinks the model, this one
 serves the full configuration unless ``--smoke`` is given.  It runs on
@@ -73,8 +76,8 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
                     help="granite-8b, granite-20b, starcoder2-15b, "
-                         "deepseek-moe-16b, grok-1-314b, rwkv6-7b or "
-                         "zamba2-1.2b")
+                         "minicpm3-4b, deepseek-moe-16b, grok-1-314b, "
+                         "rwkv6-7b or zamba2-1.2b")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--smoke", action="store_true",

@@ -71,8 +71,10 @@ Data-P is ``--pipe 1``.  Refused with ``--data`` > 1: any mode but
 ``sync``, ``--execution mpmd``, ``--trace``, ``--ckpt-dir``, and a
 ``--batch`` that ``N·ticks`` does not divide.
 
-``--arch`` takes the dense granite-8b, granite-20b and starcoder2-15b
-and the MoE deepseek-moe-16b and grok-1-314b (and the paper's models);
+``--arch`` takes the dense granite-8b, granite-20b and starcoder2-15b,
+minicpm3-4b (multi-head latent attention, tied embeddings: ``embed/tok``
+takes the head's and the embedding's gradient), the MoE
+deepseek-moe-16b and grok-1-314b (and the paper's models);
 for an MoE model each step line adds ``aux``, the routers' load-balance
 loss included in ``loss`` (the stream tick's: over its valid stages'
 forwards; the IR rounds leave it out of the loss, as the JAX twin's do,
@@ -83,7 +85,8 @@ builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
 at granite-8b's full vocabulary.
 
 Example (full-width granite-8b, 8 layers in 4 stages, on one H100; the
-same for deepseek-moe-16b or granite-20b at --layers 4):
+same for minicpm3-4b at --layers 8, deepseek-moe-16b or granite-20b at
+--layers 4):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --layers 8 --pipe 4 --batch 8 --seq 512 --dtype bfloat16 \\
         --schedule 1f1b --data-kind uniform --steps 10 --log-every 1

@@ -9,7 +9,9 @@ are ``[L_k, ...]`` (hybrid models add one ``shared`` attention block per
 stage).  Both halves walk the layers through views of those stacks
 (autograd accumulates each layer's gradient into its slice), so no
 stage split is ever copied.  The decode cache follows JAX: for dense
-models ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}``; for rwkv6
+models ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}`` (MLA models
+``{"layers": {"c_kv": [L, b, max_seq, kv_lora_rank], "k_rope": [L, b,
+max_seq, rope]}}``, the raw latents); for rwkv6
 and mamba2 the per-layer recurrent state stacked over ``L``; hybrid
 models add ``{"shared": {"k", "v": [n_shared, ...]}}``.  The decode step
 and prefill fill it in place.  MoE layers dispatch as the JAX twin's on
@@ -175,9 +177,9 @@ def cast_for_compute(params, dtype: torch.dtype):
 
 
 class Model:
-    """Functional model wrapper for one dense, MoE, rwkv6 or mamba2/hybrid
-    ``ArchConfig`` on one device (``cuda`` by default; raises there if no
-    card is present)."""
+    """Functional model wrapper for one dense (GQA or MLA), MoE, rwkv6 or
+    mamba2/hybrid ``ArchConfig`` on one device (``cuda`` by default;
+    raises there if no card is present)."""
 
     def __init__(self, cfg, device="cuda"):
         check_ported(cfg)
@@ -422,7 +424,7 @@ class Model:
         if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
             one = ssm_mod.rwkv6_init_state(cfg, batch, dt, self.device)
             return {"layers": stack(one, cfg.n_layers)}
-        kv = attn_mod.gqa_init_cache(cfg, batch, max_seq, dt, self.device)
+        kv = attn_mod.attn_init_cache(cfg, batch, max_seq, dt, self.device)
         if cfg.ssm is None:
             return {"layers": stack(kv, cfg.n_layers)}
         one = ssm_mod.mamba2_init_state(cfg, batch, dt, self.device)
@@ -448,23 +450,24 @@ class Model:
         if cfg.ssm is not None:
             x = self._recurrent_layers(params["stages"], x, cache, pos=pos)
             return self.logits(outer, x), cache
-        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        bufs = cache["layers"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
-            x, _, _, _ = block_apply(cfg, lp, x,
-                                     cache={"k": ck[i], "v": cv[i]}, pos=pos)
+            x, _, _, _ = block_apply(
+                cfg, lp, x, cache={k: buf[i] for k, buf in bufs.items()},
+                pos=pos)
         return self.logits(outer, x), cache
 
     def prefill(self, params, batch, max_seq: int):
         """Whole-prompt causal forward building a decode cache:
         batch {"tokens": [b, s]} -> (logits [b, s, V'], cache).  For
         dense models the cache's first s positions hold the prompt's
-        keys and values.  For rwkv6 and mamba2 every layer runs the
-        whole prompt through one scan-kernel call and the cache holds
-        the state after the prompt (and, for hybrid models, the shared
-        blocks' keys and values), what JAX's ``SimpleEngine`` gets by
-        stepping ``decode_step`` over the prompt.  For the same reason an
-        MoE layer routes each prompt token alone, with nothing dropped
-        (``moe.moe_apply_tokens``)."""
+        keys and values (MLA: its latents).  For rwkv6 and mamba2 every
+        layer runs the whole prompt through one scan-kernel call and the
+        cache holds the state after the prompt (and, for hybrid models,
+        the shared blocks' keys and values), what JAX's ``SimpleEngine``
+        gets by stepping ``decode_step`` over the prompt.  For the same
+        reason an MoE layer routes each prompt token alone, with nothing
+        dropped (``moe.moe_apply_tokens``)."""
         outer = params["outer"]
         x = self.embed(outer, batch)
         s = x.shape[1]
@@ -472,11 +475,11 @@ class Model:
         if self.cfg.ssm is not None:
             x = self._recurrent_layers(params["stages"], x, cache)
             return self.logits(outer, x), cache
-        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+        bufs = cache["layers"]
         for i, lp in enumerate(self.iter_layers(params["stages"])):
             x, _, new_c, _ = block_apply(self.cfg, lp, x, cache={})
-            ck[i, :, :s] = new_c["k"].to(ck.dtype)
-            cv[i, :, :s] = new_c["v"].to(cv.dtype)
+            for k, a in new_c.items():
+                bufs[k][i, :, :s] = a.to(bufs[k].dtype)
         return self.logits(outer, x), cache
 
     # ------------------------------------------------------ pipelined serve
@@ -497,29 +500,34 @@ class Model:
         this is :meth:`embed`."""
         return embed_apply(self.cfg, outer["embed"], tokens)
 
-    def stage_decode(self, stage_params, chunk_cache, x, pos, pages):
+    def stage_decode(self, stage_params, chunk_cache, x, pos, pages,
+                     wave_len: Optional[int] = None):
         """One chunk of the decode wave over R requests: x [R, 1, d];
         pos and pages int32 [R] on the model's device (idle rows on the
         trash page at position 0), pages in ``[0, n_pages]`` and pos in
         ``[0, page_seq)``, which the caller checks on the host (the
         paged kernel call does not); ``chunk_cache`` the chunk's paged
         cache (``serve.engine.chunk_page_caches``), updated in place.
-        Returns y [R, 1, d].  Dense layers write each row's key and value at
-        (page, pos) and attend through one paged kernel call for all
-        rows; rwkv6 layers gather the rows' states from their pages, run
-        the scan's decode kernel at b = R and write the states back.
-        The JAX twin (``_decode_chunk`` over ``stage_decode``) vmaps a
-        scalar-position decode over the requests, so an MoE layer here
-        routes each row's token alone (``moe.moe_apply_tokens``)."""
+        Returns y [R, 1, d].  Dense layers write each row's key and value
+        at (page, pos) and attend through one paged kernel call for all
+        rows; MLA layers write each row's latents there, gather the rows'
+        pages up to ``wave_len`` positions (``max(pos) + 1``, known on the
+        host; None: the whole page), expand them and attend in one paged
+        kernel call on the gathered rows; rwkv6 layers gather the rows'
+        states from their pages, run the scan's decode kernel at b = R
+        and write the states back.  The JAX twin (``_decode_chunk`` over
+        ``stage_decode``) vmaps a scalar-position decode over the
+        requests, so an MoE layer here routes each row's token alone
+        (``moe.moe_apply_tokens``)."""
         self._check_pageable("stage_decode")
         bufs = chunk_cache["layers"]
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
             if self.cfg.ssm is None:
                 x, _, _, _ = block_apply(
-                    self.cfg, lp, x, cache={"k": bufs["k"][i],
-                                            "v": bufs["v"][i]},
-                    pos=pos, pages=pages)
+                    self.cfg, lp, x,
+                    cache={k: buf[i] for k, buf in bufs.items()}, pos=pos,
+                    pages=pages, wave_len=wave_len)
                 continue
             st = {k: buf[i][pages] for k, buf in bufs.items()}
             x, _, _, _ = block_apply(self.cfg, lp, x, state=st)
@@ -531,8 +539,9 @@ class Model:
         """One chunk of a prefill lane: x_seq [1, n, d], the lane's n
         valid prompt tokens, in one causal call per layer from a fresh
         state, written into page ``page`` of ``chunk_cache`` (dense:
-        positions [0, n), later ones masked by the wave's per-row
-        lengths; rwkv6: the state after the prompt).  Returns y_seq
+        keys and values, MLA: latents, at positions [0, n), later ones
+        masked by the wave's per-row lengths; rwkv6: the state after the
+        prompt).  Returns y_seq
         [1, n, d].  The JAX twin scans its stage_decode over the padded
         prompt from a fresh init page."""
         self._check_pageable("stage_prefill")
@@ -543,8 +552,8 @@ class Model:
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
             if self.cfg.ssm is None:
                 x, _, kv, _ = block_apply(self.cfg, lp, x, cache={})
-                bufs["k"][i, page, :n] = kv["k"][0].to(bufs["k"].dtype)
-                bufs["v"][i, page, :n] = kv["v"][0].to(bufs["v"].dtype)
+                for k, a in kv.items():
+                    bufs[k][i, page, :n] = a[0].to(bufs[k].dtype)
                 continue
             st = {k: buf[i][page:page + 1] for k, buf in bufs.items()}
             for a in st.values():

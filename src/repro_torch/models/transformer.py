@@ -1,12 +1,14 @@
 """Transformer block assembly (twin of the dense, MoE, RWKV-6 and
 Mamba-2 branches of ``repro/models/transformer.py``).
 
-A *block* = one layer: for dense and MoE models pre-norm attention and
-MLP (or MoE), each with a residual; for rwkv6 time-mix and channel-mix;
-for mamba2 (the zamba2 backbone) a norm, the Mamba-2 mixer and a
-residual.  zamba2's shared attention block (attention + MLP, one per
-pipeline stage) is :func:`shared_block_apply`.  MLA and cross-attention
-come in later slices.
+A *block* = one layer: for dense and MoE models pre-norm attention (GQA,
+or MLA when the config has ``mla``: ``attention.attn_apply`` dispatches)
+and MLP (or MoE), each with a residual; for rwkv6 time-mix and
+channel-mix; for mamba2 (the zamba2 backbone) a norm, the Mamba-2 mixer
+and a residual.  zamba2's shared attention block (attention + MLP, one
+per pipeline stage) is :func:`shared_block_apply`.  Encoder-decoder
+models (cross-attention) and the audio / vision frontends are not
+ported.
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ def check_ported(cfg) -> None:
             f"the JAX package does not have), and its dimensions would "
             f"build dense attention blocks, another model")
     missing = [name for name, on in (
-        ("mla", cfg.mla is not None),
         ("enc-dec", cfg.is_encdec), ("frontend", cfg.frontend != "none"),
         ("ssm kind " + str(getattr(cfg.ssm, "kind", "")),
          cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba2")),
@@ -45,8 +46,8 @@ def check_ported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet; "
-            f"the port runs dense, MoE, rwkv6 and mamba2/hybrid "
-            f"decoder-only models")
+            f"the port runs dense (GQA or MLA), MoE, rwkv6 and "
+            f"mamba2/hybrid decoder-only models")
 
 
 def block_specs(cfg) -> Dict[str, Any]:
@@ -63,7 +64,7 @@ def block_specs(cfg) -> Dict[str, Any]:
         return {"ln1": norm_specs(cfg), "mamba": ssm_mod.mamba2_specs(cfg)}
     specs: Dict[str, Any] = {
         "ln1": norm_specs(cfg),
-        "attn": attn.gqa_specs(cfg),
+        "attn": attn.attn_specs(cfg),
         "ln2": norm_specs(cfg),
     }
     if cfg.moe is not None:
@@ -77,7 +78,7 @@ def shared_block_specs(cfg) -> Dict[str, Any]:
     """zamba2 shared attention block: full attention + MLP."""
     return {
         "ln1": norm_specs(cfg),
-        "attn": attn.gqa_specs(cfg),
+        "attn": attn.attn_specs(cfg),
         "ln2": norm_specs(cfg),
         "mlp": mlp_specs(cfg),
     }
@@ -85,7 +86,8 @@ def shared_block_specs(cfg) -> Dict[str, Any]:
 
 def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
                 cache: Optional[Dict] = None, pos=None, pages=None,
-                state: Optional[Dict] = None):
+                state: Optional[Dict] = None,
+                wave_len: Optional[int] = None):
     """Returns (x, aux, new_cache, new_state), the JAX twin's tuple.
     ``aux`` is an MoE block's load-balance loss (0-d fp32) and None for
     the blocks without a router, where the JAX twin returns a zero: so
@@ -93,8 +95,10 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     ``cache`` (and return no state); with ``pages`` (and ``pos`` an
     int32 tensor, one position per row) theirs is the pipelined
     engine's decode wave over a paged buffer
-    (``attention.gqa_decode_wave``).  rwkv6 and mamba2 blocks use
-    ``state``, update it in place and return its leaves (and no cache).
+    (``attention.gqa_decode_wave``, or ``mla_decode_wave``, which
+    expands the rows' latents up to ``wave_len`` positions).  rwkv6 and
+    mamba2 blocks use ``state``, update it in place and return its
+    leaves (and no cache).
 
     A call with a cache, pages or a state serves; there an MoE block
     routes each token alone (``moe.moe_apply_tokens``), as the JAX
@@ -116,10 +120,10 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
             cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), state)
         return x + h, None, None, new_state
 
-    h, new_cache = attn.gqa_apply(
+    h, new_cache = attn.attn_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x),
         pos_offset=pos_offset, causal=causal, cache=cache, pos=pos,
-        pages=pages)
+        pages=pages, wave_len=wave_len)
     x = x + h
     xn = norm_apply(cfg, p["ln2"], x)
     aux = None
@@ -135,9 +139,9 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
 def shared_block_apply(cfg, p, x, *, pos_offset: int = 0,
                        cache: Optional[Dict] = None,
                        pos: Optional[int] = None):
-    """Returns (x, new_cache): causal GQA attention (through the flash
+    """Returns (x, new_cache): causal attention (through the flash
     kernel) and the MLP, each with a pre-norm residual."""
-    h, new_cache = attn.gqa_apply(cfg, p["attn"],
+    h, new_cache = attn.attn_apply(cfg, p["attn"],
                                   norm_apply(cfg, p["ln1"], x),
                                   pos_offset=pos_offset, causal=True,
                                   cache=cache, pos=pos)

@@ -64,7 +64,8 @@ def chunk_page_caches(model, sizes: Sequence[int], n_pages: int,
     ``Model.init_cache`` over its ``sizes[q]`` layers with the batch axis
     as the page axis (``n_pages + 1`` pages, the last the trash page),
     so each layer's slice is a batch of pages for the kernels: dense
-    ``{"layers": {"k", "v": [L_q, n_pages + 1, page_seq, KV, hd]}}``,
+    ``{"layers": {"k", "v": [L_q, n_pages + 1, page_seq, KV, hd]}}`` (MLA
+    ``{"c_kv": [..., page_seq, rank], "k_rope": [..., page_seq, rope]}``),
     rwkv6 ``{"layers": {"x_tm", "x_cm": [L_q, n_pages + 1, d], "S":
     [L_q, n_pages + 1, H, hd, hd]}}``.  (The JAX twin puts the page axis
     first, ``[n_pages + 1, L_q, 1, ...]``, and also returns fresh init
@@ -220,6 +221,7 @@ class ServeEngine:
                 [batch["dec_tokens"], batch["dec_pos"], batch["dec_pages"],
                  live.astype(np.int32)])).to(dev)
             toks, pos, pages = dec[0].long(), dec[1], dec[2]
+            wave_len = int(batch["dec_pos"].max()) + 1
         dec_pool: List[Optional[torch.Tensor]] = [None] * table.n_dec_slots
         pf_pool: List[Optional[torch.Tensor]] = [None] * table.n_pf_slots
         R = len(live)
@@ -236,7 +238,8 @@ class ServeEngine:
                                            pos[:, None])
                 else:
                     x, dec_pool[a] = dec_pool[a], None
-                y = model.stage_decode(chunks[q], caches[q], x, pos, pages)
+                y = model.stage_decode(chunks[q], caches[q], x, pos, pages,
+                                       wave_len)
                 if q < C - 1:
                     dec_pool[b] = y
                     continue
@@ -297,6 +300,7 @@ class ServeEngine:
                 [batch["dec_tokens"], batch["dec_pos"], batch["dec_pages"],
                  live.astype(np.int32)])).to(dev)
             toks, pos, pages = dec[0].long(), dec[1], dec[2]
+            wave_len = int(batch["dec_pos"].max()) + 1
         dec_pool: List[Optional[torch.Tensor]] = [None] * st.n_dec_slots
         pf_pool: List[Optional[torch.Tensor]] = [None] * st.n_pf_slots
         nxt = torch.zeros(R + F + 1, dtype=torch.long, device=dev)
@@ -313,7 +317,7 @@ class ServeEngine:
                     else:
                         x, dec_pool[a] = dec_pool[a], None
                     y = model.stage_decode(chunks[q], caches[q], x, pos,
-                                           pages)
+                                           pages, wave_len)
                     if q < C - 1:
                         sends.append((y, g.next, rsh.TAG_FWD))
                     else:

@@ -453,7 +453,7 @@ def test_cost_only_configs_equal_jax_and_stay_refused():
         assert (t.param_count(), t.active_param_count()) == \
             (j.param_count(), j.active_param_count())
         assert t.name == j.name and t.n_layers == j.n_layers
-    for name in ("whisper-base", "pixtral-12b", "minicpm3-4b"):
+    for name in ("whisper-base", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(name)
         with pytest.raises(NotImplementedError, match="cost only"):

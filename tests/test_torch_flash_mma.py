@@ -107,10 +107,10 @@ def emulate_fwd(q, k, v, *, causal, q_offset=0, kv_len=None, round_p=True):
     """flash_fwd_mma_kernel's algorithm: returns (o in q's dtype, lse
     fp32, writes [b, sq, H]: how often each (query, head) was written)."""
     b, sq, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[-1]
     kv_len = k.shape[1] if kv_len is None else kv_len
     sl2 = LOG2E / math.sqrt(d)
-    o = torch.zeros(b, sq, H, d)
+    o = torch.zeros(b, sq, H, dv)
     lse = torch.zeros(b, H, sq)
     writes = torch.zeros(b, sq, H, dtype=torch.int64)
     for bi, kvh, rows, qi, heads, k_end in _blocks(
@@ -119,7 +119,7 @@ def emulate_fwd(q, k, v, *, causal, q_offset=0, kv_len=None, round_p=True):
         qpos = q_offset + qi
         m = torch.full((len(rows),), NEG)
         l = torch.zeros(len(rows))
-        acc = torch.zeros(len(rows), d)
+        acc = torch.zeros(len(rows), dv)
         for k0 in range(0, k_end, BK):
             kt, vt = _tile(k, bi, kvh, k0, kv_len), _tile(v, bi, kvh, k0,
                                                           kv_len)
@@ -192,14 +192,14 @@ def emulate_dkv(q, k, v, o, lse, do, *, causal, q_offset=0, kv_len=None,
     writes [b, sk, KV]: how often each (key, KV head) was written).  The
     outputs start as NaN, so a key that is never written shows."""
     b, sq, H, d = q.shape
-    sk, KV = k.shape[1], k.shape[2]
+    sk, KV, d_v = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
     n_rows = sq * G
     kv_len = sk if kv_len is None else kv_len
     scale = 1.0 / math.sqrt(d)
     dl = ref.flash_dl(o, do)
     dk = torch.full((b, sk, KV, d), float("nan"))
-    dv = torch.full((b, sk, KV, d), float("nan"))
+    dv = torch.full((b, sk, KV, d_v), float("nan"))
     writes = torch.zeros(b, sk, KV, dtype=torch.int64)
     rnd = (lambda x: x.to(torch.bfloat16).float()) if round_pds else (
         lambda x: x)
@@ -215,9 +215,9 @@ def emulate_dkv(q, k, v, o, lse, do, *, causal, q_offset=0, kv_len=None,
                 t_begin = _dkv_start_tile(k0, q_offset, G, causal)
                 n_tiles = max(0, n_row_tiles - t_begin) if k0 < kv_len else 0
                 for kw0 in range(k0, k0 + DKV_KB, 16):
-                    acc_k, acc_v = torch.zeros(16, d), torch.zeros(16, d)
+                    acc_k, acc_v = torch.zeros(16, d), torch.zeros(16, d_v)
                     kt = torch.zeros(16, d)
-                    vt = torch.zeros(16, d)
+                    vt = torch.zeros(16, d_v)
                     n = max(0, min(16, kv_len - kw0))
                     kt[:n] = k[bi, kw0:kw0 + n, kvh].float()
                     vt[:n] = v[bi, kw0:kw0 + n, kvh].float()
@@ -271,10 +271,10 @@ def emulate_fwd_paged(q, k_pages, v_pages, pages, kv_lens, round_p=True):
     return tuple(torch.cat(t) for t in zip(*outs))
 
 
-def _qkv(seed, b, sq, sk, H, KV, d):
+def _qkv(seed, b, sq, sk, H, KV, d, dv=None):
     rng = np.random.default_rng(seed)
     mk = lambda *s: rng.standard_normal(s, dtype=np.float32)
-    return mk(b, sq, H, d), mk(b, sk, KV, d), mk(b, sk, KV, d)
+    return mk(b, sq, H, d), mk(b, sk, KV, d), mk(b, sk, KV, dv or d)
 
 
 def _t(*arrays, dtype=torch.float32):
@@ -491,6 +491,100 @@ def test_emulated_dkv_writes_each_key_once_and_zeros_past_kv_len(case):
     assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
     assert bool((dk[:, kv_len:] == 0).all())
     assert bool((dv[:, kv_len:] == 0).all())
+
+
+# multi-head latent attention's split widths (q.k 96, v 64) at G = 1
+# (KV = H): b, sq, sk, H, dk, dv, q_offset, kv_len, causal: prefill and
+# training (causal), a decode row and a ragged kv_len (not causal), 16-
+# and 64-row blocks, two key tiles
+SPLIT_CASES = [
+    (1, 12, 12, 2, 96, 64, 0, 12, True),      # prefill: 12 of 16 rows
+    (2, 70, 70, 2, 96, 64, 0, 70, True),      # 70 rows, 2 key tiles
+    (1, 1, 90, 3, 96, 64, 80, 81, False),     # decode: 1 of 16 rows
+    (1, 40, 100, 2, 96, 64, 0, 77, False),    # kv_len 77 of 100
+]
+
+
+def _split(case, seed):
+    b, sq, sk, H, dk, dv, off, kv_len, causal = case
+    q, k, v = _qkv(seed, b, sq, sk, H, H, dk, dv)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (b, sq, H, dv), dtype=np.float32)
+    return _t(q, k, v, do), dict(causal=causal, q_offset=off,
+                                 kv_len=kv_len)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_emulated_kernels_at_split_widths_match_plain_versions(case):
+    """Forward, dq and dk/dv at (96, 64): the algorithm without rounding
+    at 2e-5, with P, dS, P^T and dS^T rounded to bf16 at 2e-2, each
+    output written exactly once, dk and dv at their own widths."""
+    (q, k, v, do), kw = _split(case, 11)
+    o_r, lse_r = ref.flash_fwd_ref(q, k, v, **kw)
+    dq_r, dk_r, dv_r = ref.flash_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+    assert (o_r.shape[-1], dq_r.shape[-1], dk_r.shape[-1],
+            dv_r.shape[-1]) == (64, 96, 96, 64)
+    o, lse, writes = emulate_fwd(q, k, v, round_p=False, **kw)
+    assert bool((writes == 1).all())
+    _close(o, o_r, F32_TOL)
+    _close(lse, lse_r, F32_TOL)
+    o, lse, _ = emulate_fwd(q, k, v, **kw)
+    _close(o, o_r, BF16_TOL)
+    _close(lse, lse_r, F32_TOL)
+    for round_ds, tol in ((False, F32_TOL), (True, BF16_TOL)):
+        dq, writes = emulate_dq(q, k, v, o_r, lse_r, do, round_ds=round_ds,
+                                **kw)
+        assert bool((writes == 1).all())
+        _close(dq, dq_r, tol)
+        dk, dv, writes = emulate_dkv(q, k, v, o_r, lse_r, do,
+                                     round_pds=round_ds, **kw)
+        assert bool((writes == 1).all())
+        _close(dk, dk_r, tol)
+        _close(dv, dv_r, tol)
+        assert bool((dk[:, kw["kv_len"]:] == 0).all())
+        assert bool((dv[:, kw["kv_len"]:] == 0).all())
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_emulated_split_widths_in_bf16_match_the_cpu_path(case):
+    """bf16 inputs at (96, 64), as the training and serving paths call
+    the kernels: the emulation against the port's CPU path on the same
+    bf16 values."""
+    (q, k, v, do), kw = _split(case, 12)
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    o, lse, _ = emulate_fwd(qb, kb, vb, **kw)
+    o_w, lse_w = fa.flash_fwd(qb, kb, vb, **kw)
+    assert o.dtype == torch.bfloat16 and o.shape == o_w.shape
+    _close(o.float(), o_w.float(), BF16_TOL)
+    _close(lse, lse_w, F32_TOL)
+    dq_w, dk_w, dv_w = fa.flash_bwd(qb, kb, vb, o_w, lse_w, dob, **kw)
+    dq, _ = emulate_dq(qb, kb, vb, o_w, lse_w, dob, **kw)
+    dk, dv, _ = emulate_dkv(qb, kb, vb, o_w, lse_w, dob, **kw)
+    for got, want in ((dq, dq_w), (dk, dk_w), (dv, dv_w)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _close(got.float(), want.float(), BF16_TOL)
+
+
+def test_emulated_paged_wave_at_split_widths():
+    """The MLA decode wave's call: R = 4 rows at their own lengths on
+    identity pages (each row's gathered, expanded keys) at (96, 64)."""
+    rng = np.random.default_rng(13)
+    lens = [1, 17, 40, 64]
+    q = torch.from_numpy(rng.standard_normal((4, 1, 2, 96),
+                                             dtype=np.float32))
+    kp = torch.from_numpy(rng.standard_normal((4, 64, 2, 96),
+                                              dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal((4, 64, 2, 64),
+                                              dtype=np.float32))
+    pages = torch.arange(4, dtype=torch.int32)
+    kv_lens = torch.tensor(lens, dtype=torch.int32)
+    o_r, lse_r = ref.flash_fwd_paged_ref(q, kp, vp, pages, kv_lens)
+    o, lse, _ = emulate_fwd_paged(q, kp, vp, pages, kv_lens, round_p=False)
+    assert o.shape == (4, 1, 2, 64)
+    _close(o, o_r, F32_TOL)
+    _close(lse, lse_r, F32_TOL)
+    o, _, _ = emulate_fwd_paged(q, kp, vp, pages, kv_lens)
+    _close(o, o_r, BF16_TOL)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 12, 48])

@@ -19,6 +19,8 @@ largest error was 5.6e-6, NVIDIA H100 80GB HBM3); the simulator on the
 card against the CPU at the CPU parity tests' rtol 1e-5 / atol 1e-6;
 resume bit for bit; IR rounds of every round schedule as the training
 ticks;
+the attention kernels at multi-head latent attention's widths (q.k 96,
+v 64) as at equal widths;
 for the two scans 2e-5 on fp32 outputs (every step is fp32 on both
 sides, in another summation order) and 2e-2 on the bf16 rwkv6 y (one
 bf16 rounding of an fp32 value); 1e-4 for fp32 model logits and
@@ -289,6 +291,199 @@ def test_dkv_mma_writes_every_key_and_repeats_bitwise(card, case):
         assert bool(torch.isfinite(t).all())
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+# multi-head latent attention's widths, q.k 96 (64 nope + 32 rope) and v
+# 64, at G = 1 (KV = H): minicpm3-4b's decode over 64 keys and prefill
+# (40 heads), the training layout at fewer heads, a ragged kv_len, fp32
+SPLIT_CASES = [
+    # b, sq, sk, H, q_offset, kv_len, causal, dtype
+    (1, 1, 64, 40, 63, 64, False, torch.bfloat16),
+    (1, 12, 12, 40, 0, 12, True, torch.bfloat16),
+    (2, 128, 128, 8, 0, 128, True, torch.bfloat16),
+    (1, 70, 100, 4, 0, 77, False, torch.bfloat16),
+    (2, 65, 65, 4, 0, 65, True, torch.float32),
+    (1, 1, 90, 4, 80, 81, False, torch.float32),
+]
+
+
+def _split_qkv(seed, b, sq, sk, H, dt):
+    return (_randn(seed, b, sq, H, 96, dtype=dt),
+            _randn(seed + 1, b, sk, H, 96, dtype=dt),
+            _randn(seed + 2, b, sk, H, 64, dtype=dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_width_kernels_match_plain(card, case):
+    """The forward, dq and dk/dv kernels at (96, 64) against their plain
+    versions: one launch each, of the dtype's variant; o and dv 64 wide,
+    dq and dk 96; dk and dv exactly zero past kv_len."""
+    b, sq, sk, H, off, kv_len, causal, dt = case
+    q, k, v = _split_qkv(30, b, sq, sk, H, dt)
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    mma = int(dt == torch.bfloat16)
+    ops.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    do = _randn(33, *o.shape, dtype=dt)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_fwd"] == 1
+    assert (ops.launch_counts()["flash_bwd_dq"],
+            ops.launch_counts()["flash_bwd_dkv"]) == (1, 1)
+    assert ops.variant_counts()["flash_fwd_mma"] == mma
+    assert ops.variant_counts()["flash_bwd_dkv_mma"] == mma
+    assert o.shape == (b, sq, H, 64) and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    o_r, lse_r = ref.flash_fwd_ref(q, k, v, **kw)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    _close(o, o_r, tol)
+    _close(lse, lse_r, tol)
+    assert bool((dk[:, kv_len:] == 0).all())
+    assert bool((dv[:, kv_len:] == 0).all())
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    btol, rtol = BWD_F32_TOL if dt == torch.float32 else (BF16_TOL, None)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dt and got.shape == w.shape
+        _close(got, w, btol, rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_split_width_paged_wave_matches_plain(card, dt):
+    """The MLA decode wave's call: R = 8 rows of minicpm3-4b's 40 heads at
+    ragged lengths, each on its own gathered page (identity pages)."""
+    lens = (64, 40, 17, 1, 64, 9, 33, 2)
+    q = _randn(40, 8, 1, 40, 96, dtype=dt)
+    kp = _randn(41, 8, 64, 40, 96, dtype=dt)
+    vp = _randn(42, 8, 64, 40, 64, dtype=dt)
+    pages = torch.arange(8, dtype=torch.int32, device=card)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = fa.launches
+    o, lse = fa.flash_fwd_paged(q, kp, vp, pages, kv_lens)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and o.shape == (8, 1, 40, 64)
+    o_r, lse_r = ref.flash_fwd_paged_ref(q, kp, vp, pages, kv_lens)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    _close(o, o_r, tol)
+    _close(lse, lse_r, tol)
+
+
+@pytest.mark.gpu
+def test_uninstantiated_width_pair_raises_on_card(card):
+    """A (q.k, v) width pair the kernels are not built for raises
+    ``ValueError`` naming it, from every wrapper, and launches nothing;
+    the libraries' shared-memory tables agree with ``WIDTH_PAIRS``."""
+    ops.reset_launch_counts()
+    for dk, dv in ((96, 96), (64, 96), (24, 16), (128, 64)):
+        q = torch.zeros(1, 3, 2, dk, device=card)
+        k = torch.zeros(1, 5, 2, dk, device=card)
+        v = torch.zeros(1, 5, 2, dv, device=card)
+        pat = rf"head_dim pair \(q\.k {dk}, v {dv}\)"
+        with pytest.raises(ValueError, match=pat):
+            fa.flash_fwd(q, k, v, causal=True)
+        o = torch.zeros(1, 3, 2, dv, device=card)
+        with pytest.raises(ValueError, match=pat):
+            fa.flash_bwd(q, k, v, o, torch.zeros(1, 2, 3, device=card), o,
+                         causal=True)
+        i32 = torch.zeros(1, dtype=torch.int32, device=card)
+        with pytest.raises(ValueError, match=pat):
+            fa.flash_fwd_paged(q[:, :1], k, v, i32, i32 + 1)
+        for kernel in ("fwd", "fwd_mma", "dq_mma", "dkv_mma"):
+            assert fa.smem_bytes(kernel, dk, dv) == -1
+    assert ops.launch_counts()["flash_fwd"] == 0
+    assert ops.launch_counts()["flash_bwd_dq"] == 0
+    for dk, dv in fa.WIDTH_PAIRS:
+        for kernel in ("fwd", "fwd_mma", "fwd_mma_1warp", "dq", "dkv",
+                       "dq_mma", "dkv_mma"):
+            assert 0 < fa.smem_bytes(kernel, dk, dv) <= 227 * 1024
+
+
+def _mla_cfg(**kw):
+    """A narrow MLA model at the card's widths: 4 heads, d_model 256, q.k
+    64 + 32, v 64, fp32."""
+    from repro_torch.configs import MLAConfig
+    return smoke_config(get_config("minicpm3-4b")).replace(
+        n_layers=4, d_model=256, n_heads=4, n_kv_heads=4,
+        compute_dtype="float32",
+        mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=64,
+                      qk_rope_head_dim=32, v_head_dim=64), **kw)
+
+
+@pytest.mark.gpu
+def test_mla_model_on_card_matches_cpu(card):
+    """Prefill and three decode steps (logits and the latent cache, 1e-4),
+    SimpleEngine's and the pipelined engine's tokens (2 stages), card
+    against CPU; one flash_fwd a layer a call on the card."""
+    from repro_torch.serve import ServeEngine
+    cfg = _mla_cfg()
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _on(p_cpu, card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        l_c, c_c = cpu.prefill(p_cpu, {"tokens": toks}, 16)
+        l_g, c_g = gpu.prefill(p_gpu, {"tokens": toks.to(card)}, 16)
+        _close(l_g, l_c, MODEL_TOL)
+        for pos in range(9, 12):
+            tok = toks[:, pos - 9:pos - 8]
+            d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, pos)
+            d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.to(card), pos)
+            _close(d_g, d_c, MODEL_TOL)
+            for key in ("c_kv", "k_rope"):
+                _close(c_g["layers"][key], c_c["layers"][key], MODEL_TOL)
+    assert ops.launch_counts()["flash_fwd"] == cfg.n_layers * 4
+    assert ops.variant_counts()["flash_fwd_mma"] == 0
+    trace = poisson_trace(6, rate=1.5, seed=0, prompt_lens=(2, 8),
+                          vocab=cfg.vocab_size)
+    splan = serve_plan(cfg, n_stages=1, n_slots=1, prompt_budget=8,
+                       page_seq=32)
+    assert SimpleEngine(gpu, p_gpu, splan).run(trace) == \
+        SimpleEngine(cpu, p_cpu, splan).run(trace)
+    splan = serve_plan(cfg, n_stages=2, n_slots=3, max_prefill=2,
+                       prompt_budget=8, page_seq=32)
+    assert ServeEngine(gpu, p_gpu, splan).run(trace) == \
+        ServeEngine(cpu, p_cpu, splan).run(trace)
+
+
+@pytest.mark.gpu
+def test_mla_ticks_on_card_match_cpu(card):
+    """2(S-1)+3 SpecTrain ticks on 4 stages of the narrow MLA model (tied
+    embedding) in fp32, card against CPU: losses to rtol 1e-5, every
+    params and momentum leaf to rtol 1e-4 / atol 1e-5; 2L flash_fwd, L of
+    each backward kernel and S + 1 fused_update a tick."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    cfg = _mla_cfg(mesh_plan=get_config("granite-8b").mesh_plan)
+    S = 4
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2 * (S - 1) + 3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    out = {}
+    ops.reset_launch_counts()
+    for model, params in ((cpu, p_cpu), (gpu, _on(p_cpu, card))):
+        state = ps.make_state(model, params, batches[0], mode="spectrain")
+        step = ps.make_train_step(model, mode="spectrain", lr=0.05)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        out[model.device.type] = (state, losses)
+    n, L = len(batches), cfg.n_layers
+    assert ops.launch_counts() == {
+        "flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+        "flash_bwd_dkv": L * n, "fused_update": (S + 1) * n,
+        "rwkv6_scan": 0, "mamba2_scan": 0}
+    (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    for key in ("params", "momentum"):
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       c.float().numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
 
 
 def _attention_grads_f64(q, k, v, do):

@@ -158,9 +158,11 @@ def test_wrapper_cpu_path_never_counts():
     dict(kv_len=9), dict(q_offset=-1), dict(mixed=True), dict(vshape=True),
 ])
 def test_wrapper_rejects(bad):
+    # d: q's width against k's 16 (the CPU path takes any width pair, the
+    # card only the instantiated ones: tests/test_torch_gpu.py)
     d = bad.get("d", 16)
     q = torch.zeros(1, 2, 4, d, dtype=bad.get("dtype", torch.float32))
-    k = torch.zeros(1, 8, bad.get("kv", 2), d, dtype=q.dtype)
+    k = torch.zeros(1, 8, bad.get("kv", 2), 16, dtype=q.dtype)
     v = k[:, :4] if bad.get("vshape") else k.clone()
     if bad.get("mixed"):
         v = v.to(torch.bfloat16)

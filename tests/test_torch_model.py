@@ -29,13 +29,14 @@ MODEL_TOL = 1e-4
 
 
 def port_cfg(jcfg):
-    """The port's ArchConfig with every field of a JAX one (dense, MoE,
-    rwkv6 or mamba2/hybrid)."""
-    assert jcfg.mla is None
+    """The port's ArchConfig with every field of a JAX one (dense with GQA
+    or MLA, MoE, rwkv6 or mamba2/hybrid)."""
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(jcfg)}
     kw["mesh_plan"] = tconfigs.MeshPlan(
         **dataclasses.asdict(jcfg.mesh_plan))
+    if jcfg.mla is not None:
+        kw["mla"] = tconfigs.MLAConfig(**dataclasses.asdict(jcfg.mla))
     if jcfg.ssm is not None:
         kw["ssm"] = tconfigs.SSMConfig(**dataclasses.asdict(jcfg.ssm))
     if jcfg.moe is not None:

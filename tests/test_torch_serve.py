@@ -196,7 +196,7 @@ def test_launcher_refuses_unported_paths():
         tlaunch.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
                       "--engine", "pipelined"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--arch", "minicpm3-4b", "--smoke", "--device",
+        tlaunch.main(["--arch", "whisper-base", "--smoke", "--device",
                       "cpu"])
 
 
