@@ -134,8 +134,9 @@ The paper's evaluation adds three phases:
 The pipelined engine adds one phase:
 
  13. (after phase 6) ``repro_torch.launch.serve.main --engine
-     pipelined`` on full-width, full-depth granite-8b and rwkv6-7b (pipe
-     4, 8 slots and pages, 2 prefill lanes, bf16) over one Poisson
+     pipelined`` on full-width granite-8b and rwkv6-7b at half depth
+     (18 and 16 layers, ``PIPE_DEPTH``; pipe 4, 8 slots and pages, 2
+     prefill lanes, bf16) over one Poisson
      trace of 24 requests (rate 2.0, prompts 2-12, generation 8-24),
      then ``SimpleEngine`` with the same weights on the same trace:
      every admissible request gets its tokens, live rows' logits
@@ -201,8 +202,8 @@ sharing the one card over gloo through pinned host buffers:
      device busy time and kernels in one profiled round, its peak memory
      and its time in the transport;
  17. (``mpmd_serve``, after phase 13) ``repro_torch.launch.serve.main
-     --execution mpmd`` on full granite-8b and rwkv6-7b with phase 13's
-     flags and trace: every request's tokens against the scan backend's
+     --execution mpmd`` on granite-8b and rwkv6-7b with phase 13's
+     depth, flags and trace: every request's tokens against the scan backend's
      from phase 13 (the first difference printed if any), the ranks'
      launches summing to phase 13's run without its warm-up round,
      tok/s over ``run()`` after warm-up and a steady round's wall.
@@ -321,14 +322,41 @@ Multi-head latent attention (minicpm3-4b: 40 heads at G = 1, q.k width
      wave (R 8, ragged, identity pages), the tick's ``[8, 512, 40,
      96|64]`` and bf16 edges; every wrapper raising ``ValueError`` on
      a pair with no kernel, launching nothing; (after phase 22)
-     ``repro_torch.launch.serve.main`` on full-depth minicpm3-4b (62
-     layers, bf16) through SimpleEngine, the pipelined engine and
-     ``--execution mpmd``, checked as phases 5, 13 and 17 check theirs
+     ``repro_torch.launch.serve.main`` on minicpm3-4b (bf16) through
+     SimpleEngine at full depth (62 layers), the pipelined engine and
+     ``--execution mpmd`` at 31, checked as phases 5, 13 and 17 check theirs
      (exact launches, MPMD tokens equal to the scan backend's), one
      decode step profiled; (after phase 23) ``launch.train.main`` on 8
      of its 62 layers in 4 stages (689,377,280 parameters), phase 7's
      checks; and (in phase 8) the four kernels timed at these shapes
      beside their bounds, plain versions and SDPA.
+
+The encoder-decoder models (whisper-base, 1500 audio frames; the
+paper's transformer-paper, 20 source tokens; 6 + 6 layers, d 512, 8
+heads of 64) and the vision frontend (pixtral-12b: 40 layers, d 5120,
+32 heads over 8 of 128, 256 patches) add one phase:
+
+ 25. (after phase 24's kernel checks) the forward, dq and dk/dv against
+     their plain versions (2e-5 fp32 on the FMA kernels, 2e-2 bf16 on
+     the tensor cores) at whisper's causal encoder (``[2, 1500, 8,
+     64]``, a ragged last key tile), its cross-attention (448 text
+     positions against 1500 frames, no mask), its decode step's cross
+     call (one query against 1500), transformer-paper's (64 against
+     20) and pixtral's prefill of 256 patches and 8 tokens; (after
+     phase 21) both enc-dec models at full width in fp32: ``encode``,
+     ``encdec_prefill_cache`` and 32 decode steps held to ``forward``'s
+     logits (2e-3, JAX's test), one ``loss`` -> backward -> SGD step on
+     the card against the CPU at b = 2 with exact launches; (after
+     phase 24's serving) ``repro_torch.launch.serve.main`` on whisper-
+     base (SimpleEngine, 24 requests, one decode step profiled) and on
+     full pixtral-12b through SimpleEngine (a decode step profiled) and
+     the pipelined engine, checked as phases 5 and 13 check theirs;
+     (after phase 24's training) pixtral's forward with 256 patches at
+     2 of its layers, card against CPU in fp32, and
+     ``launch.train.main`` on 4 of its 40 layers in 4 stages, phase 7's
+     checks; and (in phase 8) the forward at these shapes and dq and
+     dk/dv at whisper's cross and encoder shapes timed beside their
+     bounds, plain versions and SDPA.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -937,14 +965,17 @@ def fma_only(ops) -> None:
 def per_call_launches(arch: str, layers: int = 0) -> dict:
     """Kernel launches one prefill or decode call of full ``arch`` (or
     ``layers`` of it) makes: one flash forward per attention layer (MoE
-    included), one scan per rwkv6 / mamba2 layer, and one flash forward
-    per shared-block call of a hybrid model (after every full
+    included; two per enc-dec decoder layer, its self- and
+    cross-attention), one scan per rwkv6 / mamba2 layer, and one flash
+    forward per shared-block call of a hybrid model (after every full
     ``shared_attn_every`` segment of each stage)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import uniform_stage_sizes
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(n_layers=layers)
+    if cfg.is_encdec:
+        return {"flash_fwd": 2 * cfg.n_layers}
     if cfg.ssm is None:
         return {"flash_fwd": cfg.n_layers}
     if cfg.ssm.kind == "rwkv6":
@@ -956,11 +987,12 @@ def per_call_launches(arch: str, layers: int = 0) -> dict:
 
 
 def main_path(torch, ops, arch: str, n_layers: int, *, layers: int = 0,
-              logit_cap: float = 0.0) -> dict:
+              logit_cap: float = 0.0, requests: int = 8) -> dict:
     """``repro_torch.launch.serve.main --engine simple`` on full
-    ``arch`` (or ``layers`` of its ``n_layers``): every admissible
-    request served, finite logits (and every logit within ``logit_cap``
-    when it is set), exactly the path's launches."""
+    ``arch`` (or ``layers`` of its ``n_layers``) over ``requests``
+    requests: every admissible request served, finite logits (and every
+    logit within ``logit_cap`` when it is set), exactly the path's
+    launches."""
     depth = f"{layers} of {n_layers} layers" if layers else "full"
     phase(f"main path: repro_torch.launch.serve.main, {depth} {arch}, "
           f"bf16")
@@ -974,7 +1006,7 @@ def main_path(torch, ops, arch: str, n_layers: int, *, layers: int = 0,
     if layers:
         cfg = cfg.replace(n_layers=layers)
     per_call = per_call_launches(arch, layers)
-    args = dict(requests=8, rate=1.5, prompt_lens=(2, 12),
+    args = dict(requests=requests, rate=1.5, prompt_lens=(2, 12),
                 gen_lens=(1, 8), prompt_budget=16, page_seq=64, seed=0)
     trace = poisson_trace(args["requests"], rate=args["rate"],
                           seed=args["seed"], prompt_lens=args["prompt_lens"],
@@ -1920,6 +1952,11 @@ PIPE_PLAN = dict(n_stages=4, n_slots=8, max_prefill=2, prompt_budget=16,
                  n_pages=8, page_seq=64)
 PIPE_TRACE = dict(n_requests=24, rate=2.0, seed=0, prompt_lens=(2, 12),
                   gen_lens=(8, 24))
+# the depth of the pipelined and MPMD serving runs of phases 13, 17 and
+# 24 (0: full): half of granite-8b's 36, rwkv6-7b's 32 and minicpm3-4b's
+# 62 layers, which keeps the whole script inside its time with phase 25
+# (their rounds are host-bound, so their walls scale with the layers)
+PIPE_DEPTH = {"granite-8b": 18, "rwkv6-7b": 16, "minicpm3-4b": 31}
 PIPE_ARGV = ["--engine", "pipelined", "--pipe", "4", "--slots", "8",
              "--pages", "8", "--max-prefill", "2", "--prompt-budget", "16",
              "--page-seq", "64", "--requests", "24", "--rate", "2.0",
@@ -2207,9 +2244,22 @@ def wave_against_steps(torch, eng, simple) -> dict:
     return out
 
 
+def _depth_argv(arch: str) -> list:
+    """``--layers`` for ``arch``'s pipelined and MPMD serving runs
+    (``PIPE_DEPTH``), or nothing at full depth."""
+    n = PIPE_DEPTH.get(arch, 0)
+    return ["--layers", str(n)] if n else []
+
+
+def _depth(arch: str) -> str:
+    from repro_torch.configs import get_config
+    n = PIPE_DEPTH.get(arch, 0)
+    return f"{n} of {get_config(arch).n_layers} layers" if n else "full"
+
+
 def _pipelined_run(torch, ops, arch: str) -> dict:
-    """``repro_torch.launch.serve.main --engine pipelined`` on full
-    ``arch`` with ``PIPE_ARGV`` over ``PIPE_TRACE``:
+    """``repro_torch.launch.serve.main --engine pipelined`` on ``arch``
+    (at ``PIPE_DEPTH``) with ``PIPE_ARGV`` over ``PIPE_TRACE``:
     every admissible request gets its tokens, no non-finite logit in a
     live row, the request trace verifies, and every round launches
     exactly L ``flash_fwd`` (or ``rwkv6_scan``) for its wave and L a
@@ -2222,6 +2272,8 @@ def _pipelined_run(torch, ops, arch: str) -> dict:
     from repro_torch.planner import verify as pv
     from repro_torch.serve import admissible, poisson_trace
     cfg = get_config(arch)
+    if PIPE_DEPTH.get(arch):
+        cfg = cfg.replace(n_layers=PIPE_DEPTH[arch])
     L = cfg.n_layers
     name = "flash_fwd" if cfg.ssm is None else "rwkv6_scan"
     tr = dict(PIPE_TRACE)
@@ -2267,7 +2319,7 @@ def _pipelined_run(torch, ops, arch: str) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
-            rc = serve.main(["--arch", arch, *PIPE_ARGV,
+            rc = serve.main(["--arch", arch, *PIPE_ARGV, *_depth_argv(arch),
                              "--metrics-out", str(out)])
             torch.cuda.synchronize()
             counts = ops.launch_counts()
@@ -2351,7 +2403,7 @@ def pipelined_path(torch, ops, arch: str) -> dict:
     the same weights on the same trace; a steady decode round profiled;
     the page writes and the rwkv6 state gather/scatter timed alone."""
     phase(f"pipelined serving: repro_torch.launch.serve.main --engine "
-          f"pipelined, full {arch}, bf16")
+          f"pipelined, {_depth(arch)} {arch}, bf16")
     from repro_torch.obs import MetricsRegistry
     from repro_torch.planner import serve_plan
     from repro_torch.serve import SimpleEngine
@@ -4385,24 +4437,25 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
 
 def mpmd_serve(torch, ops, pipelined: dict, archs=PIPE_ARCHS) -> dict:
     """``repro_torch.launch.serve.main --execution mpmd`` (4 ranks on the
-    card) on full granite-8b and rwkv6-7b (or ``archs``), held to phase
-    13's scan run (module docstring, phase 17)."""
+    card) on granite-8b and rwkv6-7b (or ``archs``) at ``PIPE_DEPTH``,
+    held to phase 13's scan run (module docstring, phase 17)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     out = {}
     for arch in archs:
         phase(f"mpmd_serve: repro_torch.launch.serve.main --execution "
-              f"mpmd, full {arch}, bf16, {PIPE_PLAN['n_stages']} ranks on "
+              f"mpmd, {_depth(arch)} {arch}, bf16, {PIPE_PLAN['n_stages']} "
+              f"ranks on "
               f"the card")
         scan = pipelined[arch]
-        L = get_config(arch).n_layers
+        L = PIPE_DEPTH.get(arch) or get_config(arch).n_layers
         name = "flash_fwd" if get_config(arch).ssm is None else "rwkv6_scan"
         gc.collect()
         torch.cuda.empty_cache()
         reps = []
         t0 = time.perf_counter()
-        rc = serve.main(["--arch", arch, *PIPE_ARGV, "--execution", "mpmd"],
-                        ranks_out=reps)
+        rc = serve.main(["--arch", arch, *PIPE_ARGV, *_depth_argv(arch),
+                         "--execution", "mpmd"], ranks_out=reps)
         run_s = time.perf_counter() - t0
         check(rc == 0, f"{arch}: serve.main --execution mpmd returned {rc}")
         got, want = reps[0]["results"], scan["results"]
@@ -4465,7 +4518,7 @@ def bwd_timing(torch, fa, ref, case, bwd_errs) -> list:
         torch, lambda: ref.flash_bwd_ref(q, k, v, o, lse, do, **kw), 5)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=case.causal,
                                         enable_gqa=True)
     dot = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
@@ -4661,10 +4714,11 @@ def mla_kernel_checks(torch, fa, ref) -> dict:
 
 
 def mla_serving(torch, ops) -> dict:
-    """Phase 24's serving: ``repro_torch.launch.serve.main`` on full-depth
-    minicpm3-4b (62 layers, bf16, seed 0) through SimpleEngine (as phase
-    5: exact launches, finite logits; one decode step under the
-    profiler) and the pipelined engine (as phase 13's first run: exact
+    """Phase 24's serving: ``repro_torch.launch.serve.main`` on
+    minicpm3-4b (bf16, seed 0) through SimpleEngine at full depth (62
+    layers; as phase 5: exact launches, finite logits; one decode step
+    under the profiler) and the pipelined engine at ``PIPE_DEPTH`` (as
+    phase 13's first run: exact
     launches a round; then run() again after warm-up for tok/s, the same
     tokens); MPMD follows in :func:`mpmd_serve`."""
     from repro_torch.configs import get_config
@@ -4676,7 +4730,7 @@ def mla_serving(torch, ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     phase(f"pipelined serving: repro_torch.launch.serve.main --engine "
-          f"pipelined, full {MLA_ARCH}, bf16")
+          f"pipelined, {_depth(MLA_ARCH)} {MLA_ARCH}, bf16")
     r = _pipelined_run(torch, ops, MLA_ARCH)
     eng, results = r["engine"], r["results"]
     torch.cuda.synchronize()
@@ -4722,6 +4776,312 @@ def mla_timings(torch, fa, ref, errs) -> dict:
         TRAIN_SEQ, *MLA_HEADS, "bfloat16", True, dv=MLA_DV), errs["bwd"])
     return {"flash_fwd": fwd, "flash_bwd_dq": [bwd[0]],
             "flash_bwd_dkv": [bwd[1]]}
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder and the vision frontend (phase 25): whisper-base and the
+# paper's transformer-paper (6 + 6 layers, d 512, 8 heads of 64), and
+# pixtral-12b (40 layers, d 5120, 32 heads over 8 of 128, 256 patches)
+
+ENCDEC_ARCHS = ("whisper-base", "transformer-paper")
+ENCDEC_HEADS = (8, 8, 64)           # heads, KV heads, head_dim
+WHISPER_FRAMES = 1500               # the encoder's fixed context
+WHISPER_TEXT = 448                  # whisper's text context
+PAPER_SRC, PAPER_TGT = 20, 64       # IMDb inputs cut to 20 words
+ENCDEC_DECODE_STEPS = 32            # decode steps held to forward's logits
+ENCDEC_DECODE_TOL = 2e-3            # JAX's test_decode_matches_forward's
+ENCDEC_LR = 0.05
+ENCDEC_SERVE_REQUESTS = 24
+VLM_ARCH = "pixtral-12b"
+VLM_HEADS = (32, 8, 128)
+VLM_PATCHES = 256
+VLM_FWD_LAYERS = 2                  # full width, card against the CPU
+VLM_FWD_TOL = 1e-4                  # of max |logit|, fp32, TF32 off
+VLM_TRAIN_LAYERS = 4                # of 40, in 4 stages
+
+
+def encdec_cases(kind: str) -> list:
+    """Phase 25's attention calls, fp32 and bf16: whisper's encoder
+    self-attention (causal over 1500 frames: 23 64-key tiles and 28
+    keys), its decoder's cross-attention (448 text positions against
+    1500 frames, no mask) and its decode step's cross call (one query
+    against 1500); transformer-paper's cross-attention (64 target
+    positions against its 20-token source); ``"fwd"`` adds pixtral-12b's
+    prefill of 256 patches and 8 text tokens (264 rows, causal)."""
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases += [
+            Case(f"whisper encoder self 1500 causal {dt}", 2,
+                 WHISPER_FRAMES, WHISPER_FRAMES, *ENCDEC_HEADS, dt, True),
+            Case(f"whisper cross 448 x 1500 {dt}", 2, WHISPER_TEXT,
+                 WHISPER_FRAMES, *ENCDEC_HEADS, dt, False),
+            Case(f"transformer-paper cross 64 x 20 {dt}", 2, PAPER_TGT,
+                 PAPER_SRC, *ENCDEC_HEADS, dt, False)]
+        if kind == "fwd":
+            cases += [
+                Case(f"whisper decode cross 1 x 1500 {dt}", 1, 1,
+                     WHISPER_FRAMES, *ENCDEC_HEADS, dt, False),
+                Case(f"pixtral prefill 264 (256 patches) {dt}", 1, 264,
+                     264, *VLM_HEADS, dt, True)]
+    if kind == "bwd":
+        cases = [BwdCase(c.name, c.b, c.sq, c.sk, c.H, c.KV, c.d, c.dtype,
+                         c.causal, c.q_offset, c.kv_len) for c in cases]
+    return cases
+
+
+def encdec_kernel_checks(torch, fa, ref) -> dict:
+    """Phase 25's kernel checks: the forward, dq and dk/dv at the enc-dec
+    and pixtral shapes against their plain versions at phase 3's
+    tolerances, one launch of the dtype's variant each."""
+    phase("phase 25: the flash kernels at the enc-dec shapes (cross-"
+          "attention, sq != sk, no mask; 1500 keys) against their plain "
+          "versions on the card")
+    errs = {"fwd": {}, "bwd": {}}
+    for i, case in enumerate(encdec_cases("fwd")):
+        e_o, e_l = compare(torch, fa, ref, case, seed=600 + i)
+        errs["fwd"][case.name] = e_o
+        print(f"  {case.name:<44} max|d o| {e_o:.3e}  max|d lse| "
+              f"{e_l:.3e}  (tol {TOL[case.dtype]:g})")
+    for i, case in enumerate(encdec_cases("bwd")):
+        e = compare_bwd(torch, fa, ref, case, seed=640 + i)
+        errs["bwd"][case.name] = e
+        print(f"  {case.name:<44} max|d dq| {e['dq']:.3e}  max|d dk,dv| "
+              f"{e['dkv']:.3e}  (tol {BWD_TOL[case.dtype]})")
+    return errs
+
+
+def _encdec_batch(torch, cfg, b: int, seed: int) -> dict:
+    """Full-width inputs on the card: whisper's 1500 frames and 448 text
+    tokens, transformer-paper's 20 source and 64 target tokens."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T = WHISPER_TEXT if cfg.frontend == "audio" else PAPER_TGT
+    tok = lambda n: torch.randint(0, cfg.vocab_size, (b, n), generator=g,
+                                  device="cuda")
+    out = {"tokens": tok(T), "targets": tok(T)}
+    if cfg.frontend == "audio":
+        out["frames"] = torch.randn(b, WHISPER_FRAMES, cfg.d_model,
+                                    generator=g, device="cuda")
+    else:
+        out["src_tokens"] = tok(PAPER_SRC)
+    return out
+
+
+def encdec_model_check(torch, ops) -> dict:
+    """Phase 25's model checks on whisper-base and transformer-paper at
+    full width (6 + 6 layers, d 512), fp32, TF32 off, random weights
+    from seed 0 (FMA attention kernels): ``encode`` and
+    ``encdec_prefill_cache``, then decode steps whose logits are held to
+    ``forward``'s at each position on the card (JAX's
+    test_decode_matches_forward, 2e-3); one ``loss`` -> backward -> SGD
+    step (``optim.sgd``: one ``fused_update``) on the card against the
+    same on the CPU at b = 2 (the loss to rel 1e-5, the stepped params
+    to rtol 1e-4 / atol 1e-5, each momentum leaf, 0.1 of the gradient,
+    within 1e-3 of its largest magnitude), with the launches exact
+    (enc L + 2 dec L flash forwards and as many of each backward
+    kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import sgd
+    out = {}
+    for arch in ENCDEC_ARCHS:
+        cfg = get_config(arch).replace(compute_dtype="float32")
+        phase(f"phase 25: {arch} full width ({cfg.n_enc_layers} + "
+              f"{cfg.n_layers} layers, d {cfg.d_model}) on the card: "
+              f"decode against forward, one SGD step against the CPU, fp32")
+        gpu = Model(cfg)
+        params = gpu.init(torch.Generator(device="cuda").manual_seed(0))
+        batch = _encdec_batch(torch, cfg, 2, seed=1)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            enc = gpu.encode(params, batch)
+            cache = gpu.encdec_prefill_cache(params, batch,
+                                             ENCDEC_DECODE_STEPS)
+            full, _ = gpu.forward(params, batch)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            check(bool(torch.isfinite(full).all()), f"{arch}: non-finite "
+                  f"logits")
+            check(tuple(cache["cross"]["k"].shape) == (
+                cfg.n_layers, 2, enc.shape[1], cfg.n_kv_heads, cfg.hd),
+                f"{arch}: cross cache {tuple(cache['cross']['k'].shape)}")
+            errs = []
+            for t in range(ENCDEC_DECODE_STEPS):
+                lg, cache = gpu.decode_step(
+                    params, cache, batch["tokens"][:, t:t + 1], t)
+                errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+        err = max(errs)
+        print(f"  encode {tuple(enc.shape)}, forward {tuple(full.shape)} "
+              f"({fwd_s:.2f} s with the cross cache); {ENCDEC_DECODE_STEPS}"
+              f" decode steps against forward's logits: max |d| {err:.3e} "
+              f"(tol {ENCDEC_DECODE_TOL:g})")
+        check(err <= ENCDEC_DECODE_TOL, f"{arch}: decode differs from "
+              f"forward by {err}")
+        del cache, full, enc
+        # one loss -> backward -> SGD step, card against the CPU
+        cpu = Model(cfg, device="cpu")
+        runs = {}
+        for name, model, p, b in (
+                ("gpu", gpu, params, batch),
+                ("cpu", cpu, _tree_to(params, "cpu"), _tree_to(batch,
+                                                               "cpu"))):
+            leaves = tree_map(lambda _, a: a.detach().clone()
+                              .requires_grad_(), p)
+            c0 = ops.launch_counts()
+            t0 = time.perf_counter()
+            loss = model.loss(leaves, b)
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+            it = iter(grads)
+            g_tree = tree_map(lambda _, a: next(it), leaves)
+            state = sgd.init(leaves)
+            new = tree_map(lambda _, a: a.detach(), leaves)
+            sgd.update(new, state, g_tree, lr=ENCDEC_LR)
+            if name == "gpu":
+                torch.cuda.synchronize()
+            runs[name] = {"loss": float(loss.detach()), "params": new,
+                          "v": state.v, "s": time.perf_counter() - t0,
+                          "launches": {k: v - c0[k] for k, v in
+                                       ops.launch_counts().items()}}
+        L2 = cfg.n_enc_layers + 2 * cfg.n_layers
+        want = {"flash_fwd": L2, "flash_bwd_dq": L2, "flash_bwd_dkv": L2,
+                "fused_update": 1, "rwkv6_scan": 0, "mamba2_scan": 0}
+        g, c = runs["gpu"], runs["cpu"]
+        check(g["launches"] == want, f"{arch}: the step launched "
+              f"{g['launches']}, expected {want}")
+        rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        check(rel <= 1e-5, f"{arch}: loss {g['loss']} vs {c['loss']}")
+        worst_p = worst_v = 0.0
+        for a, b in zip(tree_leaves(g["params"]), tree_leaves(c["params"])):
+            a = a.cpu()
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+                  f"{arch}: a stepped param differs by "
+                  f"{float((a - b).abs().max())}")
+            worst_p = max(worst_p, float((a - b).abs().max()))
+        for a, b in zip(tree_leaves(g["v"]), tree_leaves(c["v"])):
+            e = float((a.cpu() - b).abs().max())
+            scale = float(b.abs().max())
+            check(e <= 1e-3 * scale, f"{arch}: a momentum leaf differs by "
+                  f"{e:.3e}, beyond 1e-3 of its max {scale:.3e}")
+            worst_v = max(worst_v, e / max(scale, 1e-30))
+        print(f"  one SGD step at b 2 ({tuple(batch['tokens'].shape)} "
+              f"tokens): loss {g['loss']:.6f} (CPU {c['loss']:.6f}, rel "
+              f"{rel:.2e}); stepped params max |d| {worst_p:.3e}; momentum "
+              f"worst |d| / max {worst_v:.2e}; card {g['s']:.2f} s, CPU "
+              f"{c['s']:.2f} s; launches {g['launches']}")
+        out[arch] = {"decode_err": err, "loss": g["loss"], "loss_rel": rel,
+                     "param_err": worst_p, "mom_rel": worst_v,
+                     "launches": g["launches"]}
+        del gpu, cpu, params, runs, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def encdec_serving(torch, ops) -> dict:
+    """``repro_torch.launch.serve.main`` on full whisper-base (SimpleEngine,
+    the launcher's choice for enc-dec; bf16, seed 0) on 24 requests, as
+    phase 5 checks its runs (2 L flash forwards a call: the decoder's
+    self- and cross-attention), and one decode step profiled."""
+    from repro_torch.configs import get_config
+    arch = ENCDEC_ARCHS[0]
+    out = main_path(torch, ops, arch, get_config(arch).n_layers,
+                    requests=ENCDEC_SERVE_REQUESTS)
+    out["profile"] = decode_profile(torch, arch)
+    return out
+
+
+def vlm_forward_check(torch) -> dict:
+    """pixtral-12b at full width, ``VLM_FWD_LAYERS`` of its 40 layers,
+    fp32: ``forward`` with 256 patches over the first of 264 positions on
+    the card against the CPU (within ``VLM_FWD_TOL`` of the largest
+    |logit|); the patches move every position's logits."""
+    phase(f"phase 25: {VLM_ARCH} full width, {VLM_FWD_LAYERS} layers, "
+          f"forward with {VLM_PATCHES} patches, card against the CPU, fp32")
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(VLM_ARCH)
+    cfg = cfg.replace(n_layers=VLM_FWD_LAYERS, compute_dtype="float32",
+                      mesh_plan=dataclasses.replace(cfg.mesh_plan, pipe=1))
+    gpu = Model(cfg)
+    params = gpu.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s = VLM_PATCHES + 8
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                                     device="cuda"),
+             "patches": torch.randn(1, VLM_PATCHES, cfg.d_model,
+                                    generator=g, device="cuda")}
+    with torch.inference_mode():
+        l_g, _ = gpu.forward(params, batch)
+        text, _ = gpu.forward(params, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        moved = float((l_g - text).abs().amax(dim=(0, 2)).min())
+        del text
+        cpu = Model(cfg, device="cpu")
+        p_cpu = _tree_to(params, "cpu")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        l_c, _ = cpu.forward(p_cpu, _tree_to(batch, "cpu"))
+        cpu_s = time.perf_counter() - t0
+    err = float((l_g.cpu() - l_c).abs().max())
+    scale = float(l_c.abs().max())
+    print(f"  logits {tuple(l_g.shape)}: card against CPU max |d| "
+          f"{err:.3e}, {err / scale:.2e} of max |logit| {scale:.3f} (tol "
+          f"{VLM_FWD_TOL:g}); the patches move every position by >= "
+          f"{moved:.3e}; CPU forward {cpu_s:.1f} s")
+    check(err <= VLM_FWD_TOL * scale, f"{VLM_ARCH}: the card's logits "
+          f"differ from the CPU's by {err}")
+    check(moved > 0, f"{VLM_ARCH}: the patches left a position unchanged")
+    del gpu, cpu, p_cpu, l_g, l_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"err": err, "rel": err / scale, "moved": moved}
+
+
+def vlm_serving(torch, ops) -> dict:
+    """pixtral-12b at full depth (40 layers, bf16, seed 0) through
+    ``repro_torch.launch.serve.main``: SimpleEngine (as phase 5 checks
+    its runs, one decode step profiled) and the pipelined engine (as
+    phase 13's first run: exact launches a round)."""
+    from repro_torch.configs import get_config
+    out = {"simple": main_path(torch, ops, VLM_ARCH,
+                               get_config(VLM_ARCH).n_layers)}
+    out["simple"]["profile"] = decode_profile(torch, VLM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"pipelined serving: repro_torch.launch.serve.main --engine "
+          f"pipelined, full {VLM_ARCH}, bf16")
+    r = _pipelined_run(torch, ops, VLM_ARCH)
+    out["pipelined"] = {
+        "launches": r["counts"], "variants": r["variants"], "run": r["run"],
+        "peak_bytes": r["peak"], "tok_per_s": r["tok_per_s"],
+        "layers": r["L"], "rounds": r["rounds_run"]}
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_timings(torch, fa, ref, errs) -> dict:
+    """Phase 25's timings (CUDA events, after warm-up, bf16): the forward
+    at the enc-dec and pixtral shapes, dq and dk/dv at whisper's cross
+    shape and its 1500-frame encoder, each beside its bound, its plain
+    version and SDPA (no mask for cross-attention, causal for the
+    encoder; ``enable_gqa`` where G > 1)."""
+    phase("phase 25: timings of the kernels at the enc-dec shapes (CUDA "
+          "events, after warm-up)")
+    fwd = [fwd_row(torch, fa, ref, case, 20 if case.sq > 64 else 500,
+                   errs["fwd"][case.name])
+           for case in encdec_cases("fwd") if case.dtype == "bfloat16"]
+    dq, dkv = [], []
+    for case in encdec_cases("bwd"):
+        if case.dtype != "bfloat16" or case.sq == PAPER_TGT:
+            continue
+        rows = bwd_timing(torch, fa, ref, case, errs["bwd"])
+        dq.append(rows[0])
+        dkv.append(rows[1])
+    return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
 
 # ---------------------------------------------------------------------------
@@ -5275,6 +5635,7 @@ def run() -> int:
         paged_errs = paged_checks(torch, fa, ref)
         bwd_errs = bwd_checks(torch, fa, ref)
         mla_errs = mla_kernel_checks(torch, fa, ref)
+        encdec_errs = encdec_kernel_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
         scan_errs = scan_checks(torch, ops, ref)
         ops.reset_launch_counts()
@@ -5283,6 +5644,7 @@ def run() -> int:
         pipelined_check(torch)
         train_check(torch)
         new_model_check(torch)
+        encdec_chk = encdec_model_check(torch, ops)
         ir_check(torch)
         fma_only(ops)
         simulator_check(torch, ops)
@@ -5307,6 +5669,8 @@ def run() -> int:
         mla_srv["mpmd"] = mpmd_serve(torch, ops,
                                      {MLA_ARCH: mla_srv["pipelined"]},
                                      (MLA_ARCH,))[MLA_ARCH]
+        encdec_srv = encdec_serving(torch, ops)
+        vlm_srv = vlm_serving(torch, ops)
         train = train_main_path(torch, ops)
         new_train = {}
         for arch in NEW_TRAIN:
@@ -5317,6 +5681,8 @@ def run() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mla_train = train_main_path(torch, ops, MLA_ARCH, MLA_TRAIN_LAYERS)
+        vlm_fwd = vlm_forward_check(torch)
+        vlm_train = train_main_path(torch, ops, VLM_ARCH, VLM_TRAIN_LAYERS)
         split = moe_split(torch)
         ir_runs = ir_schedules(torch, ops, ref)
         gc.collect()
@@ -5332,6 +5698,7 @@ def run() -> int:
         rows.extend(wave_timing(torch, fa, ref, paged_errs))
         train_rows = train_timings(torch, fa, ref, ops, bwd_errs)
         mla_rows = mla_timings(torch, fa, ref, mla_errs)
+        encdec_rows = encdec_timings(torch, fa, ref, encdec_errs)
         scan_rows = scan_timings(torch, ops, ref, scan_errs)
     except Exception:   # every phase's failure ends the run non-zero
         traceback.print_exc()
@@ -5347,7 +5714,7 @@ def run() -> int:
         "launches_by_path": {
             "serve": main["launches"]["flash_fwd"],
             "serve zamba2-1.2b": ssm["zamba2-1.2b"]["launches"]["flash_fwd"],
-            "serve pipelined granite-8b":
+            f"serve pipelined granite-8b ({_depth('granite-8b')})":
                 pipelined["granite-8b"]["launches"]["flash_fwd"],
             "train": train["launches"]["flash_fwd"]},
         "variant_by_path": {
@@ -5424,7 +5791,8 @@ def run() -> int:
                 label: [w[k["name"]] for w in r["per_rank"]]
                 for label, r in mpmd_runs.items()}
         if k["name"] == "flash_fwd":
-            k["launches_by_path"]["serve pipelined mpmd granite-8b"] = \
+            k["launches_by_path"][f"serve pipelined mpmd granite-8b "
+                                  f"({_depth('granite-8b')})"] = \
                 mpmd_srv["granite-8b"]["launches"]
             k["launches_per_rank_serve_mpmd"] = \
                 mpmd_srv["granite-8b"]["per_rank"]
@@ -5468,6 +5836,28 @@ def run() -> int:
                     f"widths 96 / 64)"] = r["launches"]["flash_fwd"]
             k["launches_by_path"][f"serve pipelined mpmd {MLA_ARCH} (sum "
                                   f"over ranks)"] = mla_srv["mpmd"]["launches"]
+    # phase 25: the enc-dec models and pixtral-12b
+    for k in kernels:
+        if k["name"] in encdec_rows:
+            k["shapes"].extend(encdec_rows[k["name"]])
+        if k["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "fused_update"):
+            k["launches_by_path"][f"train {VLM_ARCH} ({VLM_TRAIN_LAYERS} "
+                                  f"layers)"] = \
+                vlm_train["launches"][k["name"]]
+            for arch, r in encdec_chk.items():
+                k["launches_by_path"][
+                    f"{arch} loss + SGD step (fp32, full width, b 2)"] = \
+                    r["launches"][k["name"]]
+        if k["name"] == "flash_fwd":
+            k["launches_by_path"][
+                f"serve simple {ENCDEC_ARCHS[0]} (self + cross a layer)"] = \
+                encdec_srv["launches"]["flash_fwd"]
+            for engine in ("simple", "pipelined"):
+                k["launches_by_path"][
+                    f"serve {engine} {VLM_ARCH} "
+                    f"({vlm_srv[engine]['layers']} layers)"] = \
+                    vlm_srv[engine]["launches"]["flash_fwd"]
     for kind, arch in (("rwkv6", "rwkv6-7b"), ("mamba2", "zamba2-1.2b")):
         name = f"{kind}_scan"
         top = scan_rows[kind][0]        # the decode step: the common call
@@ -5486,9 +5876,10 @@ def run() -> int:
             "launches": ssm[arch]["launches"][name],
             **({"launches_by_path": {
                 "serve": ssm[arch]["launches"][name],
-                "serve pipelined rwkv6-7b":
+                f"serve pipelined rwkv6-7b ({_depth('rwkv6-7b')})":
                     pipelined["rwkv6-7b"]["launches"][name],
-                "serve pipelined mpmd rwkv6-7b (sum over ranks)":
+                f"serve pipelined mpmd rwkv6-7b ({_depth('rwkv6-7b')}, sum "
+                f"over ranks)":
                     mpmd_srv["rwkv6-7b"]["launches"]},
                 "launches_per_rank_serve_mpmd":
                     mpmd_srv["rwkv6-7b"]["per_rank"]}
@@ -5529,7 +5920,8 @@ def run() -> int:
     for arch, rec in pipelined.items():
         run = rec["run"]
         wv = rec["wave_vs_steps"]["logits"]
-        print(f"{arch} pipelined serving (pipe 4, 8 slots, 24 requests): "
+        print(f"{arch} pipelined serving ({rec['layers']} layers, pipe 4, "
+              f"8 slots, 24 requests): "
               f"{rec['run_tok_per_s']:.2f} tok/s against SimpleEngine's "
               f"{rec['simple_tok_per_s']:.2f}, both over run()'s wall "
               f"after warm-up "
@@ -5643,14 +6035,15 @@ def run() -> int:
     simple, pipe, mpmd = (mla_srv[k] for k in ("simple", "pipelined",
                                                 "mpmd"))
     prof = simple["profile"]
-    print(f"{MLA_ARCH} serving (62 layers, bf16): SimpleEngine "
+    print(f"{MLA_ARCH} serving (bf16): SimpleEngine at 62 layers "
           f"{simple['run']['tok_per_s']:.2f} tok/s over the launcher's wall, "
           f"p50 {simple['run']['token_ms_p50']:.3f} ms/token, p99 "
           f"{simple['run']['token_ms_p99']:.3f}; decode step "
           f"{prof['wall_ms']:.3f} ms wall, {prof['busy_ms']:.3f} ms busy "
           f"({100 * prof['idle_share']:.1f}% idle), "
           f"{prof['kernels_per_step']:.0f} kernels, flash_fwd "
-          f"{prof['kernel_ms']['flash_fwd']:.4f} ms; pipelined "
+          f"{prof['kernel_ms']['flash_fwd']:.4f} ms; pipelined at "
+          f"{pipe['layers']} layers "
           f"{pipe['run_tok_per_s']:.2f} tok/s over run() after warm-up "
           f"({pipe['tok_per_s']:.2f} over the rounds, {pipe['rounds']} "
           f"rounds); MPMD {mpmd['tok_per_s']:.2f} tok/s, tokens equal "
@@ -5664,6 +6057,39 @@ def run() -> int:
           f"{mla_train['peak_bytes'] / 2**30:.2f} GiB; last loss "
           f"{mla_train['losses'][-1]:.4f}")
     for name, rows_ in mla_rows.items():
+        for row in rows_:
+            print(f"{name} {row['shape']}: {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}")
+    for arch, r in encdec_chk.items():
+        print(f"{arch} (full width, fp32): decode against forward max |d| "
+              f"{r['decode_err']:.3e}; one SGD step card vs CPU: loss rel "
+              f"{r['loss_rel']:.2e}, params {r['param_err']:.3e}, momentum "
+              f"{r['mom_rel']:.2e} of max")
+    prof = encdec_srv["profile"]
+    print(f"{ENCDEC_ARCHS[0]} serving (SimpleEngine, {ENCDEC_SERVE_REQUESTS} "
+          f"requests, bf16): {encdec_srv['run']['tok_per_s']:.2f} tok/s over "
+          f"the launcher's wall, p50 {encdec_srv['run']['token_ms_p50']:.3f} "
+          f"ms/token; decode step {prof['wall_ms']:.3f} ms wall, "
+          f"{prof['busy_ms']:.3f} ms busy ({100 * prof['idle_share']:.1f}% "
+          f"idle), {prof['kernels_per_step']:.0f} kernels")
+    simple, pipe = vlm_srv["simple"], vlm_srv["pipelined"]
+    prof = simple["profile"]
+    print(f"{VLM_ARCH} serving (40 layers, bf16): SimpleEngine "
+          f"{simple['run']['tok_per_s']:.2f} tok/s over the launcher's wall; "
+          f"decode step {prof['wall_ms']:.3f} ms wall, {prof['busy_ms']:.3f} "
+          f"ms busy ({100 * prof['idle_share']:.1f}% idle), "
+          f"{prof['kernels_per_step']:.0f} kernels; pipelined "
+          f"{pipe['tok_per_s']:.2f} tok/s over the rounds ({pipe['rounds']} "
+          f"rounds); forward with {VLM_PATCHES} patches card vs CPU "
+          f"{vlm_fwd['rel']:.2e} of max |logit|")
+    print(f"{VLM_ARCH} training tick ({VLM_TRAIN_LAYERS} layers, 4 stages): "
+          f"{vlm_train['wall_ms']:.3f} ms wall, "
+          f"{vlm_train['tok_per_s']:.1f} tokens/s, device busy "
+          f"{vlm_train['busy_ms']:.3f} ms, peak "
+          f"{vlm_train['peak_bytes'] / 2**30:.2f} GiB; last loss "
+          f"{vlm_train['losses'][-1]:.4f}")
+    for name, rows_ in encdec_rows.items():
         for row in rows_:
             print(f"{name} {row['shape']}: {row['ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "

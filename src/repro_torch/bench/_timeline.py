@@ -111,8 +111,7 @@ def paper_models() -> List[ModelCost]:
 
 def lm_models() -> List[ModelCost]:
     """Our ten assigned archs as cost models (seq 4096 training shape),
-    read through ``configs.arch_config`` (three are cost-only in the
-    port)."""
+    read through ``configs.arch_config``."""
     from repro_torch.configs import arch_config, list_archs
     out = []
     for name in list_archs():

@@ -3,17 +3,15 @@ from repro_torch.configs.base import (  # noqa: F401
     get_config, list_archs, register, smoke_config,
 )
 
-# import the ported arch modules so the registry is always populated
+# import the arch modules so the registry is always populated
 from repro_torch.configs import deepseek_moe_16b  # noqa: F401
 from repro_torch.configs import granite_8b  # noqa: F401
 from repro_torch.configs import granite_20b  # noqa: F401
 from repro_torch.configs import grok_1_314b  # noqa: F401
 from repro_torch.configs import minicpm3_4b  # noqa: F401
 from repro_torch.configs import paper_models  # noqa: F401
+from repro_torch.configs import pixtral_12b  # noqa: F401
 from repro_torch.configs import rwkv6_7b  # noqa: F401
 from repro_torch.configs import starcoder2_15b  # noqa: F401
-from repro_torch.configs import zamba2_1_2b  # noqa: F401
-
-# the unported architectures, read for their cost only (arch_config)
-from repro_torch.configs import pixtral_12b  # noqa: F401
 from repro_torch.configs import whisper_base  # noqa: F401
+from repro_torch.configs import zamba2_1_2b  # noqa: F401

@@ -2,10 +2,10 @@
 
 The port's own copy of the JAX package's ``configs/base.py``: the same
 frozen ``ArchConfig`` and sub-configs, field for field, so a config
-built here describes the same model as its twin.  Only the
-architectures the port serves are registered; asking for another one
-raises ``NotImplementedError``.  The other three are copied too, read
-for their cost only through :func:`arch_config`.
+built here describes the same model as its twin.  Every architecture
+of the JAX package is registered; ``models.transformer.check_ported``
+refuses the one whose reference model does not exist
+(``residual-lstm-paper``).
 """
 from __future__ import annotations
 
@@ -221,14 +221,6 @@ class ArchConfig:
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
-# the architectures the JAX package knows that the port does not serve yet
-_NOT_PORTED = ("whisper-base", "pixtral-12b")
-
-
-# the same architectures' configs, read only for their cost (parameter
-# counts: the figure twins in ``repro_torch.bench``), never built
-_COST_ONLY: Dict[str, Callable[[], ArchConfig]] = {}
-
 
 def register(name: str):
     def deco(fn):
@@ -237,26 +229,9 @@ def register(name: str):
     return deco
 
 
-def register_cost_only(name: str):
-    """Register a config that :func:`arch_config` reads for its cost and
-    :func:`get_config` keeps refusing."""
-    if name not in _NOT_PORTED:
-        raise ValueError(f"{name!r} is not one of the unported "
-                         f"architectures {_NOT_PORTED}")
-
-    def deco(fn):
-        _COST_ONLY[name] = fn
-        return fn
-    return deco
-
-
 def arch_config(name: str) -> ArchConfig:
-    """Any architecture's config, for cost arithmetic only: a ported one
-    (as :func:`get_config` gives it) or one of the unported two, from
-    which no model is built (``models.transformer.check_ported``
-    refuses them)."""
-    if name in _COST_ONLY:
-        return _COST_ONLY[name]()
+    """Any architecture's config, for cost arithmetic (the figure twins
+    in ``repro_torch.bench``): :func:`get_config`."""
     return get_config(name)
 
 
@@ -269,18 +244,9 @@ def list_archs() -> Tuple[str, ...]:
     )
 
 
-def cost_only(name: str) -> bool:
-    """Whether ``name`` is read for its cost only (not ported)."""
-    return name in _COST_ONLY
-
-
 def get_config(name: str) -> ArchConfig:
     if name in _REGISTRY:
         return _REGISTRY[name]()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet; the port "
-            f"serves {sorted(_REGISTRY)}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 

@@ -3,13 +3,12 @@
 40L, d_model=5120, 32H (GQA kv=8, head_dim=128), d_ff=14336, vocab=131072.
 [hf:mistralai/Pixtral-12B-2409]
 
-The port's copy of ``repro/configs/pixtral_12b.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
+The port's copy of ``repro/configs/pixtral_12b.py``.
 """
-from repro_torch.configs.base import ArchConfig, MeshPlan, register_cost_only
+from repro_torch.configs.base import ArchConfig, MeshPlan, register
 
 
-@register_cost_only("pixtral-12b")
+@register("pixtral-12b")
 def config() -> ArchConfig:
     return ArchConfig(
         name="pixtral-12b", family="vlm",

@@ -3,13 +3,12 @@
 6L encoder + 6L decoder, d_model=512, 8H (kv=8), d_ff=2048, vocab=51865.
 [arXiv:2212.04356]
 
-The port's copy of ``repro/configs/whisper_base.py``, read for its cost only
-(``configs.arch_config``): the port does not serve or train it yet.
+The port's copy of ``repro/configs/whisper_base.py``.
 """
-from repro_torch.configs.base import ArchConfig, MeshPlan, register_cost_only
+from repro_torch.configs.base import ArchConfig, MeshPlan, register
 
 
-@register_cost_only("whisper-base")
+@register("whisper-base")
 def config() -> ArchConfig:
     return ArchConfig(
         name="whisper-base", family="audio", source="arXiv:2212.04356",

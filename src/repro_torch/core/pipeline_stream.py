@@ -151,10 +151,21 @@ def _partition_sizes(model, plan, n: int, unit: str) -> Tuple[int, ...]:
     return sizes
 
 
+def _batch_dtype(leaf) -> torch.dtype:
+    """int64 for an integer batch leaf (tokens, targets), float32 for a
+    floating one (a vision model's ``patches``)."""
+    if isinstance(leaf, torch.Tensor):
+        floating = leaf.is_floating_point()
+    else:
+        floating = np.issubdtype(np.asarray(leaf).dtype, np.floating)
+    return torch.float32 if floating else torch.int64
+
+
 def device_batch(batch, device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays or tensors as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-                v, torch.Tensor) else v).to(device, torch.int64)
+    """A batch of numpy arrays or tensors as tensors on ``device``, each
+    in :func:`_batch_dtype`."""
+    return {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v)).to(device, _batch_dtype(v))
             for k, v in batch.items()}
 
 
@@ -234,7 +245,7 @@ def make_state(model, params, batch, *, mode: str = "spectrain",
         "bwd_buf": torch.zeros(act, dtype=cdt, device=dev),
         "stash_x": torch.zeros((S, R) + act[1:], dtype=cdt, device=dev),
         "batch_ring": {k: torch.zeros((R, mb) + tuple(np.shape(v)[1:]),
-                                      dtype=torch.int64, device=dev)
+                                      dtype=_batch_dtype(v), device=dev)
                        for k, v in batch.items()},
     })
     if mode == "pipedream":
@@ -379,11 +390,13 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             gX.append(gx)
 
         # ---------- embed backward --------------------------------------
-        old_tokens = ring["tokens"][(t - bwd_lag[0]) % R]
+        # the old batch's inputs (a vision batch's patches too: the
+        # positions they overwrite take no embedding gradient)
+        old = {k: r[(t - bwd_lag[0]) % R] for k, r in ring.items()
+               if k != "targets"}
         with torch.enable_grad():
             tok = outer["embed"]["tok"].detach().requires_grad_()
-            emb = model.embed({"embed": {"tok": tok}},
-                              {"tokens": old_tokens})
+            emb = model.embed({"embed": {"tok": tok}}, old)
             (g_tok,) = torch.autograd.grad(emb, [tok], gX[0] * valid_b[0])
         g_outer["embed"]["tok"] = g_outer["embed"]["tok"] + g_tok
 
@@ -697,8 +710,7 @@ class _Round:
                   first: bool) -> None:
         with torch.enable_grad():
             tok = self.outer_w(s)["embed"]["tok"].detach().requires_grad_()
-            emb = self.model.embed({"embed": {"tok": tok}},
-                                   {"tokens": self.mb(m)["tokens"]})
+            emb = self.model.embed({"embed": {"tok": tok}}, self.mb(m))
             (g,) = torch.autograd.grad(emb, [tok], gx)
         self.g_tok = self._acc(None if self.g_tok is None else
                                [self.g_tok], [g], first)[0]

@@ -8,8 +8,9 @@ schedule IR's serve table over ``--pipe`` stages (all on one device)
 with ``--pages`` KV pages of ``--page-seq`` positions.  ``--engine
 simple`` serves each request on its own through the whole-model
 ``SimpleEngine``: prefill in one causal call, then token by token.
-``--engine auto`` (the default) picks simple for hybrid models, whose
-decode state the stage split cannot page, and pipelined otherwise.
+``--engine auto`` (the default) picks simple for hybrid and
+encoder-decoder models, whose decode state the stage split cannot page,
+and pipelined otherwise.
 ``--execution mpmd`` runs the pipelined engine stage-locally: one
 process per stage (``launch/mesh.py``), rank 0 owning the batcher and
 printing the summary, every rank a ``# rank`` line with its waves,
@@ -23,9 +24,13 @@ RWKV-6 or Mamba-2 recurrence through its hand-written scan kernel.
 minicpm3-4b (dense with multi-head latent attention: the caches hold
 latents, expanded per call; the flash kernels at q.k width 96 and v
 width 64), deepseek-moe-16b and grok-1-314b (MoE: every token routed
-alone, as the JAX engines' one-token decode steps route it), rwkv6-7b
-(attention-free) and zamba2-1.2b (Mamba-2 with shared attention
-blocks).
+alone, as the JAX engines' one-token decode steps route it),
+pixtral-12b (dense, its vision frontend unused by text prompts),
+rwkv6-7b (attention-free),
+zamba2-1.2b (Mamba-2 with shared attention blocks), and the
+encoder-decoder whisper-base and transformer-paper (the decoder with
+cross-attention over a zero cross cache, as the JAX SimpleEngine serves
+them: the encoder never runs).
 
 Unlike the JAX launcher, which always shrinks the model, this one
 serves the full configuration unless ``--smoke`` is given.  It runs on
@@ -76,8 +81,9 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
                     help="granite-8b, granite-20b, starcoder2-15b, "
-                         "minicpm3-4b, deepseek-moe-16b, grok-1-314b, "
-                         "rwkv6-7b or zamba2-1.2b")
+                         "minicpm3-4b, pixtral-12b, deepseek-moe-16b, "
+                         "grok-1-314b, rwkv6-7b, zamba2-1.2b, whisper-base "
+                         "or transformer-paper")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--smoke", action="store_true",
@@ -87,7 +93,7 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
                     help="'pipelined' runs rounds through the schedule "
                          "IR; 'simple' serves each request through the "
                          "whole-model decode_step; 'auto' picks "
-                         "pipelined except for hybrid archs")
+                         "pipelined except for hybrid and enc-dec archs")
     ap.add_argument("--pipe", type=int, default=2,
                     help="pipeline stages the serving rounds fold over "
                          "(pipelined engine)")
@@ -134,15 +140,16 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
             cfg = smoke_config(cfg)
         if args.layers:
             cfg = cfg.replace(n_layers=args.layers)
-        hybrid = cfg.ssm is not None and cfg.ssm.shared_attn_every > 0
+        unpaged = cfg.is_encdec or (cfg.ssm is not None
+                                    and cfg.ssm.shared_attn_every > 0)
         engine_kind = args.engine
         if engine_kind == "auto":
-            engine_kind = "simple" if hybrid else "pipelined"
+            engine_kind = "simple" if unpaged else "pipelined"
         if engine_kind == "pipelined":
-            if hybrid:
+            if unpaged:
                 raise SystemExit(
-                    f"--engine pipelined cannot serve {cfg.name}: hybrid "
-                    f"decode state is not per-layer pageable; use "
+                    f"--engine pipelined cannot serve {cfg.name}: hybrid/"
+                    f"enc-dec decode state is not per-layer pageable; use "
                     f"--engine simple (or auto)")
             # the weights come split as the plan's stages (no regrouping)
             cfg = cfg.replace(mesh_plan=dataclasses.replace(
@@ -152,7 +159,8 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
                 f"unsupported combination: --execution mpmd with the "
                 f"simple engine ({cfg.name}) — stage-local execution runs "
                 f"the pipelined engine's serve streams, which cannot page "
-                f"a hybrid model's decode state; supported alternative: "
+                f"a hybrid or enc-dec model's decode state; supported "
+                f"alternative: "
                 f"--execution spmd, or --engine pipelined for a dense or "
                 f"rwkv6 --arch")
         if engine_kind == "pipelined":

@@ -71,14 +71,17 @@ Data-P is ``--pipe 1``.  Refused with ``--data`` > 1: any mode but
 ``sync``, ``--execution mpmd``, ``--trace``, ``--ckpt-dir``, and a
 ``--batch`` that ``N·ticks`` does not divide.
 
-``--arch`` takes the dense granite-8b, granite-20b and starcoder2-15b,
+``--arch`` takes the dense granite-8b, granite-20b, starcoder2-15b and
+pixtral-12b (its text backbone: the data has no patches),
 minicpm3-4b (multi-head latent attention, tied embeddings: ``embed/tok``
 takes the head's and the embedding's gradient), the MoE
-deepseek-moe-16b and grok-1-314b (and the paper's models);
+deepseek-moe-16b and grok-1-314b (and the paper's decoder-only configs);
 for an MoE model each step line adds ``aux``, the routers' load-balance
 loss included in ``loss`` (the stream tick's: over its valid stages'
 forwards; the IR rounds leave it out of the loss, as the JAX twin's do,
-and print none).  The SSM families serve only.
+and print none).  The SSM families serve only; the encoder-decoder
+whisper-base and transformer-paper are refused (no frames or source
+tokens in the data, no pipeline stages: ``Model.loss`` trains them).
 
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
@@ -373,6 +376,14 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     rc = runtime_config_from_args(args, ticks_per_step=max(args.ticks, 1))
 
     cfg = build(args)
+    if cfg.is_encdec:
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder model, which this launcher "
+            f"cannot train: its data yields tokens and targets only (no "
+            f"frames or source tokens), and the pipeline runtimes take "
+            f"per-stage trees, which the {{'enc', 'dec'}} stacks are not "
+            f"(the JAX launcher cannot either); train it through "
+            f"Model.loss and optim.sgd")
     model = Model(cfg, device=args.device)
     S = model.n_stages
     pplan, ir_round = run_plan(args, cfg, model.device)

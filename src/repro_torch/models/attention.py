@@ -1,10 +1,12 @@
-"""Grouped-query attention and multi-head latent attention (MLA; twin of
-``repro/models/attention.py``, whose cross-attention the port does not
-run: enc-dec models are refused).
+"""Grouped-query attention, its cross-attention form, and multi-head
+latent attention (MLA; twin of ``repro/models/attention.py``).
 
 Every attention call goes through ``kernels.ops.flash_attention``: the
-whole-sequence causal call (training and prefill) and the single-token
-decode step against the KV cache; the pipelined engine's decode wave
+whole-sequence causal call (training and prefill), the single-token
+decode step against the KV cache, and cross-attention (an enc-dec
+decoder's queries against keys and values projected from the encoder's
+output, or read from the decode cache's cross K/V: no rope, no causal
+mask, sq and sk apart); the pipelined engine's decode wave
 goes through ``kernels.ops.flash_attention_paged``, one call for all
 its requests.  The whole-sequence call is the
 training path: it writes nothing in place, so autograd runs through it
@@ -77,13 +79,14 @@ def _attend(cfg, q, k, v, *, causal: bool, q_pos, k_len: int,
 
 
 def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
-              cache: Optional[Cache] = None, pos=None, pages=None
-              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+              cache: Optional[Cache] = None, pos=None, pages=None,
+              kv_input=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: [b,s,d].  If ``cache`` holds ``k``/``v`` and s == 1, this is a
     decode step at position ``pos`` (a Python int).  An empty ``cache``
     dict asks for the new keys and values back (prefill).  With
     ``pages`` it is the pipelined engine's decode wave
-    (:func:`gqa_decode_wave`).
+    (:func:`gqa_decode_wave`).  With ``kv_input`` [b, sk, d] it is
+    cross-attention (:func:`cross_attend`).
 
     The decode step writes the new key and value into ``cache`` in
     place, where the JAX twin returns an updated copy: the cache is one
@@ -91,6 +94,8 @@ def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     would move the whole buffer."""
     if pages is not None:
         return gqa_decode_wave(cfg, p, x, cache, pos, pages)
+    if kv_input is not None:
+        return cross_attend(cfg, p, x, cross_kv(cfg, p, kv_input)), None
     dt = x.dtype
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -119,6 +124,32 @@ def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     new_cache = {"k": k, "v": v} if cache is not None else None
     out = ops.flash_attention(q, k, v, causal, q_offset=q_offset)
     return out.reshape(b, s, H * hd) @ p["wo"].to(dt), new_cache
+
+
+def cross_kv(cfg, p, src) -> Cache:
+    """Cross-attention's keys and values from the encoder's output src
+    [b, sk, d]: ``{"k", "v": [b, sk, KV, hd]}``, no rope (the JAX twin
+    ropes neither side when ``kv_input`` is given); what
+    ``Model.encdec_prefill_cache`` stores per decoder layer."""
+    dt = src.dtype
+    b, sk, _ = src.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": (src @ p["wk"].to(dt)).view(b, sk, KV, hd),
+            "v": (src @ p["wv"].to(dt)).view(b, sk, KV, hd)}
+
+
+def cross_attend(cfg, p, x, kv: Cache) -> torch.Tensor:
+    """Cross-attention of x [b, sq, d] against ``kv`` (:func:`cross_kv`,
+    or a layer's cross K/V from the decode cache): no rope and no mask,
+    every query sees every key (sq and sk apart), one flash call.  The
+    JAX twin's decode step attends over every cached cross key the
+    same way (``model.py::_decode_encdec``, no length mask)."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"].to(dt)).view(b, s, H, hd)
+    out = ops.flash_attention(q, kv["k"].to(dt), kv["v"].to(dt), False)
+    return out.reshape(b, s, H * hd) @ p["wo"].to(dt)
 
 
 def gqa_decode_wave(cfg, p, x, cache: Cache, pos, pages

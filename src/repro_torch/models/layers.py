@@ -235,6 +235,28 @@ def unembed_apply(cfg, p, x):
     return logits
 
 
+def sinusoid_at(pos, d: int) -> torch.Tensor:
+    """The sinusoidal position encoding in fp32 at the positions ``pos``
+    (an integer tensor of any shape) -> [*pos.shape, d]: even dims
+    sin(pos / 10000^(i/d)), odd dims the cos of the same angle."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos.float()[..., None] / torch.pow(10000.0, dim / d)
+    pe = torch.zeros(tuple(pos.shape) + (d,), dtype=torch.float32,
+                     device=pos.device)
+    pe[..., 0::2] = torch.sin(angle)
+    pe[..., 1::2] = torch.cos(angle)
+    return pe
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int = 0,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """[seq, d]: :func:`sinusoid_at` positions ``offset .. offset + seq
+    - 1``, cast to ``dtype`` (the JAX twin's table, which its callers add
+    after ``embed_apply``'s sqrt(d) scale)."""
+    pos = torch.arange(offset, offset + seq, device=device)
+    return sinusoid_at(pos, d).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # losses
 

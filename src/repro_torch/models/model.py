@@ -14,7 +14,18 @@ models ``{"layers": {"k", "v": [L, b, max_seq, KV, hd]}}`` (MLA models
 max_seq, rope]}}``, the raw latents); for rwkv6
 and mamba2 the per-layer recurrent state stacked over ``L``; hybrid
 models add ``{"shared": {"k", "v": [n_shared, ...]}}``.  The decode step
-and prefill fill it in place.  MoE layers dispatch as the JAX twin's on
+and prefill fill it in place.
+
+Encoder-decoder models (whisper-base, the paper's transformer-paper)
+keep the JAX twin's tree: ``params["stages"]`` is ``{"enc": [n_enc,
+...], "dec": [L, ...]}`` (no pipeline stages; the decoder layers add
+cross-attention), the outer tree adds ``ln_f_enc``.  :meth:`Model.encode`
+runs the encoder over audio frames or source tokens, :meth:`Model.
+encdec_prefill_cache` projects its output into each decoder layer's
+cross K/V, and their cache is ``{"self": {"k", "v": [L, b, max_seq, KV,
+hd]}, "cross": {"k", "v": [L, b, frames, KV, hd]}}``.  The vision
+frontend (pixtral-12b) writes ``batch["patches"]`` over the first
+positions of the embedded tokens.  MoE layers dispatch as the JAX twin's on
 the training half and route each token alone on the serving half
 (``models/moe.py``).  The SSM families serve only: their scan
 kernels have no backward, as in the JAX package.  ``cfg.remat`` is not
@@ -23,7 +34,8 @@ input anyway.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -36,13 +48,16 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_specs,
                                        init_params, leaf_is_weight,
-                                       norm_apply, norm_specs, softmax_xent,
+                                       norm_apply, norm_specs, sinusoid_at,
+                                       sinusoidal_pos, softmax_xent,
                                        stack_specs, tree_leaves, tree_map,
                                        unembed_apply)
 from repro_torch.models.transformer import (block_apply, block_specs,
                                             check_ported,
                                             shared_block_apply,
                                             shared_block_specs)
+
+WHISPER_ENC_FRAMES = 1500  # fixed encoder context for decode shapes
 
 
 def uniform_stage_sizes(n_layers: int, n_stages: int) -> Tuple[int, ...]:
@@ -157,6 +172,13 @@ def _n_layers(stage) -> int:
     return int(stage["layers"]["ln1"]["scale"].shape[0])
 
 
+def layer_views(layers) -> Iterator[Dict[str, Any]]:
+    """Each layer's parameter tree of a stacked ``[L, ...]`` tree, in
+    order, as views."""
+    for i in range(int(layers["ln1"]["scale"].shape[0])):
+        yield tree_map(lambda _, a, i=i: a[i], layers)
+
+
 def _weight_dtype(dtype: Optional[str]):
     """``init_params``' ``store``: every weight in ``dtype`` (the fp32
     leaves of ``layers.FP32_LEAVES`` and everything when ``dtype`` is
@@ -177,9 +199,9 @@ def cast_for_compute(params, dtype: torch.dtype):
 
 
 class Model:
-    """Functional model wrapper for one dense (GQA or MLA), MoE, rwkv6 or
-    mamba2/hybrid ``ArchConfig`` on one device (``cuda`` by default;
-    raises there if no card is present)."""
+    """Functional model wrapper for one dense (GQA or MLA), MoE, rwkv6,
+    mamba2/hybrid or encoder-decoder ``ArchConfig`` on one device
+    (``cuda`` by default; raises there if no card is present)."""
 
     def __init__(self, cfg, device="cuda"):
         check_ported(cfg)
@@ -187,7 +209,7 @@ class Model:
         self.device = resolve_device(device)
         plan = cfg.mesh_plan
         self.n_stages = (plan.pipe if plan.pipe_role == "stage"
-                         and plan.pipe > 1 else 1)
+                         and plan.pipe > 1 and not cfg.is_encdec else 1)
         self.stage_sizes = uniform_stage_sizes(cfg.n_layers, self.n_stages)
         self.hybrid = (cfg.ssm is not None
                        and cfg.ssm.shared_attn_every > 0)
@@ -204,13 +226,23 @@ class Model:
 
     # ------------------------------------------------------------------ specs
     def _outer_specs(self) -> Dict[str, Any]:
-        return {"embed": embed_specs(self.cfg), "ln_f": norm_specs(self.cfg)}
+        outer = {"embed": embed_specs(self.cfg), "ln_f": norm_specs(self.cfg)}
+        if self.cfg.is_encdec:
+            outer["ln_f_enc"] = norm_specs(self.cfg)
+        return outer
 
     def param_specs(self) -> Dict[str, Any]:
         """Specs in the canonical layout (the JAX model's
         ``param_specs``): the ragged per-stage tuple, ``layers`` leaves
         ``[L_k, ...]``, one ``shared`` block per stage for hybrid
-        models."""
+        models; for enc-dec models the ``{"enc", "dec"}`` stacks."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return {"outer": self._outer_specs(), "stages": {
+                "enc": stack_specs(block_specs(cfg), cfg.n_enc_layers,
+                                   "layer"),
+                "dec": stack_specs(block_specs(cfg, cross=True),
+                                   cfg.n_layers, "layer")}}
         stages = []
         for n in self.stage_sizes:
             tree: Dict[str, Any] = {
@@ -226,7 +258,10 @@ class Model:
 
     def _flat_param_specs(self) -> Dict[str, Any]:
         """All layers in one ``[n_layers, ...]`` stack (hybrid shared
-        blocks ``[S, ...]``), split per stage by :meth:`init`."""
+        blocks ``[S, ...]``), split per stage by :meth:`init` (enc-dec
+        models: :meth:`param_specs`, which has no stages)."""
+        if self.cfg.is_encdec:
+            return self.param_specs()
         stages = {"layers": stack_specs(block_specs(self.cfg),
                                         self.cfg.n_layers, "layer")}
         if self.hybrid:
@@ -244,6 +279,8 @@ class Model:
         params = init_params(self._flat_param_specs(), generator,
                              self.cfg.param_dtype, self.device,
                              store=_weight_dtype(dtype))
+        if self.cfg.is_encdec:
+            return params
         return {"outer": params["outer"],
                 "stages": split_flat_stages(params["stages"],
                                             self.stage_sizes)}
@@ -258,11 +295,11 @@ class Model:
         and the outer leaves whose path ``keep_outer`` accepts are kept,
         each draw freed before the next.  Returns ``{"outer": the kept
         leaves, "stages": one tree per chunk, {} where not kept}``.
-        Hybrid shared blocks are not covered."""
-        if self.hybrid:
+        Hybrid shared blocks and enc-dec trees are not covered."""
+        if self.hybrid or self.cfg.is_encdec:
             raise NotImplementedError(
-                "init_part keeps layer rows; hybrid shared blocks have no "
-                "flat layer order")
+                "init_part keeps layer rows; hybrid shared blocks and "
+                "enc-dec stacks have no flat layer order of stages")
         sizes = tuple(int(n) for n in sizes)
         if sum(sizes) != self.cfg.n_layers:
             raise ValueError(f"partition sizes {sizes} do not cover "
@@ -290,8 +327,7 @@ class Model:
     def iter_layers(self, stages) -> Iterator[Dict[str, Any]]:
         """Each layer's parameter tree, in flat order, as views."""
         for stage in stages:
-            for i in range(_n_layers(stage)):
-                yield tree_map(lambda _, a, i=i: a[i], stage["layers"])
+            yield from layer_views(stage["layers"])
 
     def _fires_shared(self, i: int) -> bool:
         """Whether a stage's shared block runs after its local layer
@@ -313,6 +349,7 @@ class Model:
                 f"{self.cfg.name}: pipeline stages of the SSM families are "
                 f"not ported to PyTorch (they serve only; their scan "
                 f"kernels have no backward)")
+        self._check_staged("stage_apply")
         x, aux = carry
         for i in range(_n_layers(stage_params)):
             lp = tree_map(lambda _, a, i=i: a[i], stage_params["layers"])
@@ -321,9 +358,31 @@ class Model:
                 aux = aux + a
         return x, aux
 
+    def _check_staged(self, what: str) -> None:
+        if self.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{what}: {self.cfg.name} is an encoder-decoder model, whose "
+                f"{{'enc', 'dec'}} stacks are not pipeline stages (as in the "
+                f"JAX package); train it through Model.loss")
+
     # ------------------------------------------------------- embed/head
     def embed(self, outer, batch):
-        return embed_apply(self.cfg, outer["embed"], batch["tokens"])
+        """Token embeddings [b, s, d] in the compute dtype; the vision
+        frontend's ``batch["patches"]`` [b, P, d] replace the first P
+        positions (the JAX twin's ``dynamic_update_slice`` at 0), and a
+        sinusoidal model adds its table.  Enc-dec models embed in
+        :meth:`forward`."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            raise RuntimeError("use forward() for enc-dec")
+        x = embed_apply(cfg, outer["embed"], batch["tokens"])
+        if cfg.frontend == "vision" and "patches" in batch:
+            patches = batch["patches"].to(x.dtype)
+            x = torch.cat([patches, x[:, patches.shape[1]:]], 1)
+        if cfg.pos_embed == "sinusoidal":
+            x = x + sinusoidal_pos(x.shape[1], cfg.d_model, dtype=x.dtype,
+                                   device=x.device)
+        return x
 
     def head_loss(self, outer, x, targets):
         return softmax_xent(self.logits(outer, x), targets,
@@ -336,6 +395,8 @@ class Model:
     # -------------------------------------------------- reference fwd
     def hidden(self, params, batch):
         """Final hidden states (pre-head).  Returns (x, aux_loss)."""
+        if self.cfg.is_encdec:
+            return self._hidden_encdec(params, batch)
         x = self.embed(params["outer"], batch)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.ssm is not None:
@@ -349,6 +410,59 @@ class Model:
         """Full (non-pipelined) forward.  Returns (logits, aux_loss)."""
         x, aux = self.hidden(params, batch)
         return self.logits(params["outer"], x), aux
+
+    def encode(self, params, batch):
+        """The encoder stack -> enc_out [b, frames, d] (enc-dec models):
+        ``batch["frames"]`` for the audio frontend, ``batch["src_tokens"]``
+        through the shared embedding otherwise, plus the sinusoidal
+        table, every encoder layer and ``ln_f_enc``.  The encoder's
+        self-attention is causal, as the JAX twin's (its ``_layer_body``
+        keeps ``block_apply``'s default; ROADMAP §C)."""
+        cfg = self.cfg
+        outer, stages = params["outer"], params["stages"]
+        dt = dtype_of(cfg.compute_dtype)
+        if cfg.frontend == "audio":
+            x = batch["frames"].to(dt)
+        else:
+            x = embed_apply(cfg, outer["embed"], batch["src_tokens"])
+        x = x + sinusoidal_pos(x.shape[1], cfg.d_model, dtype=dt,
+                               device=x.device)
+        for lp in layer_views(stages["enc"]):
+            x, _, _, _ = block_apply(cfg, lp, x)
+        return norm_apply(cfg, outer["ln_f_enc"], x)
+
+    def encdec_prefill_cache(self, params, batch, max_seq: int):
+        """Run the encoder and project its output into every decoder
+        layer's cross keys and values: ``{"self": zeros [L, b, max_seq,
+        KV, hd], "cross": {"k", "v": [L, b, frames, KV, hd]}}``."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch)
+        b = enc_out.shape[0]
+        kvs = [attn_mod.cross_kv(cfg, lp["xattn"], enc_out)
+               for lp in layer_views(params["stages"]["dec"])]
+        z = torch.zeros((cfg.n_layers, b, max_seq, cfg.n_kv_heads, cfg.hd),
+                        dtype=enc_out.dtype, device=enc_out.device)
+        return {"self": {"k": z, "v": z.clone()},
+                "cross": {k: torch.stack([kv[k] for kv in kvs])
+                          for k in ("k", "v")}}
+
+    def _embed_decoder(self, outer, tokens, pos: int = 0):
+        """The decoder's input: token embeddings plus the sinusoidal
+        table at positions ``pos ..``."""
+        cfg = self.cfg
+        x = embed_apply(cfg, outer["embed"], tokens)
+        return x + sinusoidal_pos(x.shape[1], cfg.d_model, pos,
+                                  dtype=x.dtype, device=x.device)
+
+    def _hidden_encdec(self, params, batch):
+        enc_out = self.encode(params, batch)
+        x = self._embed_decoder(params["outer"], batch["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in layer_views(params["stages"]["dec"]):
+            x, a, _, _ = block_apply(self.cfg, lp, x, enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def loss(self, params, batch):
         return self.loss_and_aux(params, batch)[0]
@@ -377,6 +491,7 @@ class Model:
         says.  The JAX twin also asks that ``n_chunks`` fold onto the
         model's devices, which one card does not need.  Hybrid shared
         blocks are not ported (the SSM families serve only)."""
+        self._check_staged("partition_stage_params")
         ragged_in = isinstance(stages, (tuple, list))
         if any("shared" in t for t in (stages if ragged_in else [stages])):
             raise NotImplementedError(
@@ -421,6 +536,13 @@ class Model:
         stack = lambda one, n: {
             k: torch.zeros((n,) + tuple(a.shape), dtype=a.dtype,
                            device=self.device) for k, a in one.items()}
+        if cfg.is_encdec:
+            # the cross cache at the fixed encoder context, all zeros
+            # until encdec_prefill_cache fills it (JAX's init_cache)
+            return {n: stack(attn_mod.gqa_init_cache(
+                cfg, batch, e, dt, self.device), cfg.n_layers)
+                for n, e in (("self", max_seq),
+                             ("cross", WHISPER_ENC_FRAMES))}
         if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
             one = ssm_mod.rwkv6_init_state(cfg, batch, dt, self.device)
             return {"layers": stack(one, cfg.n_layers)}
@@ -446,7 +568,12 @@ class Model:
         call it with b = 1."""
         cfg = self.cfg
         outer = params["outer"]
-        x = embed_apply(cfg, outer["embed"], token)
+        if cfg.pos_embed == "sinusoidal":
+            x = self._embed_decoder(outer, token, pos)
+        else:
+            x = embed_apply(cfg, outer["embed"], token)
+        if cfg.is_encdec:
+            return self._decode_encdec(params, cache, x, pos)
         if cfg.ssm is not None:
             x = self._recurrent_layers(params["stages"], x, cache, pos=pos)
             return self.logits(outer, x), cache
@@ -456,6 +583,18 @@ class Model:
                 cfg, lp, x, cache={k: buf[i] for k, buf in bufs.items()},
                 pos=pos)
         return self.logits(outer, x), cache
+
+    def _decode_encdec(self, params, cache, x, pos: int):
+        """Each decoder layer: a self-attention decode step into the
+        self cache, then one cross-attention flash call of x's query
+        against the layer's cached cross K/V over every key, unmasked
+        (the JAX twin's ``_decode_encdec``), then the MLP."""
+        sc, xc = cache["self"], cache["cross"]
+        for i, lp in enumerate(layer_views(params["stages"]["dec"])):
+            x, _, _, _ = block_apply(
+                self.cfg, lp, x, cache={"k": sc["k"][i], "v": sc["v"][i]},
+                pos=pos, cross_kv={"k": xc["k"][i], "v": xc["v"][i]})
+        return self.logits(params["outer"], x), cache
 
     def prefill(self, params, batch, max_seq: int):
         """Whole-prompt causal forward building a decode cache:
@@ -467,8 +606,18 @@ class Model:
         the shared blocks' keys and values), what JAX's ``SimpleEngine``
         gets by stepping ``decode_step`` over the prompt.  For the same
         reason an MoE layer routes each prompt token alone, with nothing
-        dropped (``moe.moe_apply_tokens``)."""
+        dropped (``moe.moe_apply_tokens``).
+
+        For enc-dec models the decoder runs the prompt causally against
+        :meth:`init_cache`'s zero cross cache, whose cross term adds
+        exactly 0, and the cache keeps it: what the JAX ``SimpleEngine``
+        gets by stepping ``decode_step`` over the prompt from
+        ``init_cache``, which never runs the encoder (ROADMAP §C); an
+        encoded input goes through :meth:`encdec_prefill_cache` and
+        :meth:`decode_step` instead."""
         outer = params["outer"]
+        if self.cfg.is_encdec:
+            return self._prefill_encdec(params, batch["tokens"], max_seq)
         x = self.embed(outer, batch)
         s = x.shape[1]
         cache = self.init_cache(x.shape[0], max_seq)
@@ -482,23 +631,39 @@ class Model:
                 bufs[k][i, :, :s] = a.to(bufs[k].dtype)
         return self.logits(outer, x), cache
 
+    def _prefill_encdec(self, params, tokens, max_seq: int):
+        cache = self.init_cache(tokens.shape[0], max_seq)
+        sc, xc = cache["self"], cache["cross"]
+        x = self._embed_decoder(params["outer"], tokens)
+        s = x.shape[1]
+        for i, lp in enumerate(layer_views(params["stages"]["dec"])):
+            x, _, kv, _ = block_apply(
+                self.cfg, lp, x, cache={},
+                cross_kv={"k": xc["k"][i], "v": xc["v"][i]})
+            for k, a in kv.items():
+                sc[k][i, :, :s] = a.to(sc[k].dtype)
+        return self.logits(params["outer"], x), cache
+
     # ------------------------------------------------------ pipelined serve
     def _check_pageable(self, what: str) -> None:
-        if self.hybrid:
+        if self.hybrid or self.cfg.is_encdec:
+            kind = "encoder-decoder" if self.cfg.is_encdec else "hybrid"
             raise NotImplementedError(
-                f"{what} does not support hybrid models ({self.cfg.name}): "
-                f"their decode state is not a per-layer scan (tied shared "
-                f"blocks); serve them with launch/serve.py's whole-model "
-                f"SimpleEngine")
+                f"{what} does not support {kind} models ({self.cfg.name}): "
+                f"their decode state is not a per-layer scan (cross-"
+                f"attention / tied shared blocks); serve them with "
+                f"launch/serve.py's whole-model SimpleEngine")
 
     def decode_embed(self, outer, tokens, pos):
         """Embed decode tokens at per-row positions: ``tokens`` [b, s],
-        ``pos`` broadcastable to it (the decode wave's [R, 1], a prefill
-        lane's [1, n]).  The JAX twin adds a sinusoidal term here for
-        ``pos_embed="sinusoidal"``, which the port does not serve
-        (``transformer.check_ported``); rope is applied in attention, so
-        this is :meth:`embed`."""
-        return embed_apply(self.cfg, outer["embed"], tokens)
+        ``pos`` an integer tensor broadcastable to it (the decode wave's
+        [R, 1], a prefill lane's [1, n]), with the sinusoidal term at
+        those positions for ``pos_embed="sinusoidal"`` (elementwise
+        :meth:`decode_step`'s); rope is applied in attention."""
+        x = embed_apply(self.cfg, outer["embed"], tokens)
+        if self.cfg.pos_embed == "sinusoidal":
+            x = x + sinusoid_at(pos, self.cfg.d_model).to(x.dtype)
+        return x
 
     def stage_decode(self, stage_params, chunk_cache, x, pos, pages,
                      wave_len: Optional[int] = None):
@@ -605,8 +770,9 @@ def from_jax_params(tree, cfg, *, device="cuda"):
     """The JAX package's parameter tree, as nested dicts of numpy arrays
     (``{"outer": ..., "stages": (per-stage {"layers": ...(, "shared":
     ...)}, ...)}``, a leading layer axis on every ``layers`` leaf, one
-    shared block per stage for hybrid models), as the port's parameters
-    on ``device``, leaf for leaf in the same dtypes."""
+    shared block per stage for hybrid models; ``{"enc", "dec"}`` stacks
+    for enc-dec models), as the port's parameters on ``device``, leaf
+    for leaf in the same dtypes."""
     dev = resolve_device(device)
     check_ported(cfg)
 
@@ -619,6 +785,10 @@ def from_jax_params(tree, cfg, *, device="cuda"):
         return t.to(dev)
 
     stages = tree["stages"]
+    if cfg.is_encdec:
+        return {"outer": tree_map(leaf, tree["outer"]),
+                "stages": tree_map(leaf, {k: stages[k]
+                                          for k in ("enc", "dec")})}
     if not isinstance(stages, (tuple, list)):
         raise ValueError("expected the ragged per-stage tuple layout")
     keep = ("layers", "shared")
@@ -626,3 +796,73 @@ def from_jax_params(tree, cfg, *, device="cuda"):
             "stages": tuple(tree_map(leaf, {k: s[k] for k in keep if k in s})
                             for s in stages)}
 
+
+
+# ===========================================================================
+# cache logical axes and dry-run input shapes (the JAX twin's, read by the
+# data rules: ``runtime.sharding.cache_specs`` / ``batch_specs``)
+# ===========================================================================
+
+
+class ShapeDtype(NamedTuple):
+    """A model input's shape and dtype, allocated nowhere (the JAX
+    twin's ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def cache_axes(model: Model):
+    """Logical-axis tree mirroring :meth:`Model.init_cache`'s."""
+    cfg = model.cfg
+    gqa_ax = {"k": ("layer", "act_batch", "act_kvseq", "kv", "head_dim"),
+              "v": ("layer", "act_batch", "act_kvseq", "kv", "head_dim")}
+    if cfg.is_encdec:
+        return {"self": gqa_ax, "cross": gqa_ax}
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return {"layers": {
+            "x_tm": ("layer", "act_batch", "heads"),
+            "x_cm": ("layer", "act_batch", "heads"),
+            "S": ("layer", "act_batch", "heads", "head_dim", "head_dim"),
+        }}
+    if cfg.ssm is not None:
+        ax = {"layers": {
+            "conv_x": ("layer", "act_batch", None, "ssm"),
+            "conv_bc": ("layer", "act_batch", None, None),
+            "S": ("layer", "act_batch", "heads", "head_dim", "state"),
+        }}
+        if model.hybrid:
+            ax["shared"] = gqa_ax
+        return ax
+    if cfg.mla is not None:
+        return {"layers": {
+            "c_kv": ("layer", "act_batch", "act_kvseq", None),
+            "k_rope": ("layer", "act_batch", "act_kvseq", None),
+        }}
+    return {"layers": gqa_ax}
+
+
+def input_specs(cfg, shape) -> Dict[str, Any]:
+    """Stand-ins for every model input of a cell: ``shape`` has
+    ``seq_len``, ``global_batch`` and ``kind`` (train | prefill |
+    decode).  Tokens are int64, the port's index dtype (the JAX twin's
+    are int32); a decode cell's cache is :meth:`Model.init_cache`'s tree
+    of shapes, drawn on the meta device (nothing allocated)."""
+    B, S = shape.global_batch, shape.seq_len
+    cdt = dtype_of(cfg.compute_dtype)
+    tok = lambda *s: ShapeDtype(s, torch.int64)
+    if shape.kind in ("train", "prefill"):
+        batch: Dict[str, Any] = {"tokens": tok(B, S)}
+        if shape.kind == "train":
+            batch["targets"] = tok(B, S)
+        if cfg.frontend == "audio":
+            batch["frames"] = ShapeDtype((B, S, cfg.d_model), cdt)
+        if cfg.frontend == "vision":
+            batch["patches"] = ShapeDtype(
+                (B, cfg.frontend_patches, cfg.d_model), cdt)
+        return {"batch": batch}
+    model = Model(cfg, device="cpu")
+    model.device = torch.device("meta")
+    cache = tree_map(lambda _, a: ShapeDtype(tuple(a.shape), a.dtype),
+                     model.init_cache(B, S))
+    return {"cache": cache, "token": tok(B, 1),
+            "pos": ShapeDtype((), torch.int64)}

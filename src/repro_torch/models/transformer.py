@@ -1,14 +1,12 @@
-"""Transformer block assembly (twin of the dense, MoE, RWKV-6 and
-Mamba-2 branches of ``repro/models/transformer.py``).
+"""Transformer block assembly (twin of ``repro/models/transformer.py``).
 
 A *block* = one layer: for dense and MoE models pre-norm attention (GQA,
 or MLA when the config has ``mla``: ``attention.attn_apply`` dispatches)
-and MLP (or MoE), each with a residual; for rwkv6 time-mix and
-channel-mix; for mamba2 (the zamba2 backbone) a norm, the Mamba-2 mixer
-and a residual.  zamba2's shared attention block (attention + MLP, one
-per pipeline stage) is :func:`shared_block_apply`.  Encoder-decoder
-models (cross-attention) and the audio / vision frontends are not
-ported.
+and MLP (or MoE), each with a residual; an enc-dec decoder block adds a
+pre-norm cross-attention residual between the two (``lnx``, ``xattn``);
+for rwkv6 time-mix and channel-mix; for mamba2 (the zamba2 backbone) a
+norm, the Mamba-2 mixer and a residual.  zamba2's shared attention block
+(attention + MLP, one per pipeline stage) is :func:`shared_block_apply`.
 """
 from __future__ import annotations
 
@@ -22,14 +20,8 @@ from repro_torch.models.layers import (mlp_apply, mlp_specs, norm_apply,
 
 
 def check_ported(cfg) -> None:
-    """Raise for the families whose blocks are not ported yet, and for
-    the recurrent family, whose reference model does not exist."""
-    from repro_torch.configs.base import cost_only
-    if cost_only(cfg.name):
-        raise NotImplementedError(
-            f"{cfg.name}: this config is read for its cost only "
-            f"(configs.arch_config); serving or training it is not ported "
-            f"to PyTorch yet")
+    """Raise for the recurrent family, whose reference model does not
+    exist."""
     if cfg.family == "rnn":
         raise NotImplementedError(
             f"{cfg.name}: family 'rnn' is not ported to PyTorch: its "
@@ -37,20 +29,11 @@ def check_ported(cfg) -> None:
             f"repro/configs/paper_models.py, names models/rnn.py, which "
             f"the JAX package does not have), and its dimensions would "
             f"build dense attention blocks, another model")
-    missing = [name for name, on in (
-        ("enc-dec", cfg.is_encdec), ("frontend", cfg.frontend != "none"),
-        ("ssm kind " + str(getattr(cfg.ssm, "kind", "")),
-         cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba2")),
-        ("pos_embed=" + cfg.pos_embed,
-         cfg.pos_embed not in ("rope", "none"))) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet; "
-            f"the port runs dense (GQA or MLA), MoE, rwkv6 and "
-            f"mamba2/hybrid decoder-only models")
 
 
-def block_specs(cfg) -> Dict[str, Any]:
+def block_specs(cfg, cross: bool = False) -> Dict[str, Any]:
+    """One layer's specs; ``cross``: an enc-dec decoder layer's, with
+    cross-attention (``lnx``, ``xattn``)."""
     check_ported(cfg)
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
         return {
@@ -67,6 +50,9 @@ def block_specs(cfg) -> Dict[str, Any]:
         "attn": attn.attn_specs(cfg),
         "ln2": norm_specs(cfg),
     }
+    if cross:
+        specs["lnx"] = norm_specs(cfg)
+        specs["xattn"] = attn.gqa_specs(cfg)
     if cfg.moe is not None:
         specs["moe"] = moe_mod.moe_specs(cfg)
     else:
@@ -87,7 +73,8 @@ def shared_block_specs(cfg) -> Dict[str, Any]:
 def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
                 cache: Optional[Dict] = None, pos=None, pages=None,
                 state: Optional[Dict] = None,
-                wave_len: Optional[int] = None):
+                wave_len: Optional[int] = None, enc_out=None,
+                cross_kv: Optional[Dict] = None):
     """Returns (x, aux, new_cache, new_state), the JAX twin's tuple.
     ``aux`` is an MoE block's load-balance loss (0-d fp32) and None for
     the blocks without a router, where the JAX twin returns a zero: so
@@ -98,7 +85,10 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     (``attention.gqa_decode_wave``, or ``mla_decode_wave``, which
     expands the rows' latents up to ``wave_len`` positions).  rwkv6 and
     mamba2 blocks use ``state``, update it in place and return its
-    leaves (and no cache).
+    leaves (and no cache).  An enc-dec decoder block (one with
+    ``xattn``) attends to the encoder's output ``enc_out`` [b, sk, d],
+    or, serving, to its layer's cached cross keys and values
+    ``cross_kv`` (``{"k", "v": [b, sk, KV, hd]}``).
 
     A call with a cache, pages or a state serves; there an MoE block
     routes each token alone (``moe.moe_apply_tokens``), as the JAX
@@ -125,6 +115,17 @@ def block_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
         pos_offset=pos_offset, causal=causal, cache=cache, pos=pos,
         pages=pages, wave_len=wave_len)
     x = x + h
+    if "xattn" in p:
+        xq = norm_apply(cfg, p["lnx"], x)
+        if cross_kv is not None:
+            h = attn.cross_attend(cfg, p["xattn"], xq, cross_kv)
+        else:
+            if enc_out is None:
+                raise ValueError("a decoder block needs enc_out or "
+                                 "cross_kv")
+            h, _ = attn.gqa_apply(cfg, p["xattn"], xq, causal=False,
+                                  kv_input=enc_out)
+        x = x + h
     xn = norm_apply(cfg, p["ln2"], x)
     aux = None
     if "moe" in p:

@@ -591,6 +591,44 @@ def momentum_rules(cfg, rules: Dict[str, AxisVal],
     return r
 
 
+def cache_specs(cfg, cache_sds: Any, mesh, rules: Dict[str, AxisVal]):
+    """Decode caches (``models.model.input_specs``' cache tree: dicts of
+    leaves with ``.shape``, [L, b, s, kv, hd] / states [L, b, h, ...]) ->
+    spec tuples.  The JAX twin's heuristic: dim 0 (layers) unsharded;
+    dim 1 over the batch axes when they divide it, else the cache length
+    (dim 2) over ``data`` (long context at a tiny batch); the last
+    divisible heads-like dim from the end over ``tensor``."""
+    sizes = axis_sizes(mesh)
+    d_sz = sizes.get("data", 1)
+    t_sz = sizes.get("tensor", 1)
+    bt = rules.get("act_batch") or ("data",)
+    bt = (bt,) if isinstance(bt, str) else tuple(bt)
+
+    def leaf(sds) -> Tuple[AxisVal, ...]:
+        shp = tuple(sds.shape)
+        spec: List[AxisVal] = [None] * len(shp)
+        if len(shp) >= 2:
+            bprod = int(np.prod([sizes[n] for n in bt if n in sizes]))
+            if shp[1] % bprod == 0 and bprod > 1:
+                spec[1] = bt[0] if len(bt) == 1 else bt
+            elif len(shp) >= 3 and shp[2] % d_sz == 0:
+                spec[2] = "data"   # shard seq/cache length instead
+        for i in range(len(shp) - 1, 1, -1):
+            if spec[i] is None and shp[i] % t_sz == 0 and t_sz > 1 and \
+                    shp[i] >= t_sz:
+                spec[i] = "tensor"
+                break
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        return leaf(tree)
+    return walk(cache_sds)
+
+
 def batch_specs(cfg, batch_sds: Any, mesh, rules: Dict[str, AxisVal]):
     """Specs for a data batch: leading dim batch, second seq."""
     sizes = axis_sizes(mesh)

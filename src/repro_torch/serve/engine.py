@@ -29,8 +29,8 @@ along the layer axis.
 
 :class:`SimpleEngine` serves each request on its own through the whole
 model: the reference the pipelined engine is tested against, and the
-engine for hybrid models, whose decode state the stage split cannot
-page.
+engine for hybrid and encoder-decoder models, whose decode state the
+stage split cannot page.
 """
 from __future__ import annotations
 
@@ -573,7 +573,10 @@ class ServeEngine:
 class SimpleEngine:
     """Each request prefills and decodes on its own through the whole
     model, with the JAX twin's admission and greedy argmax over the
-    first ``vocab_size`` logits, so the two emit the same tokens.
+    first ``vocab_size`` logits, so the two emit the same tokens.  The
+    engine for hybrid and encoder-decoder models (an enc-dec model's
+    decoder attends to a zero cross cache, as the JAX engine's does:
+    ``Model.prefill``).
 
     Prefill is one causal :meth:`Model.prefill` over the request's prompt
     into a fresh cache (for rwkv6 and mamba2 one scan-kernel call per

@@ -30,6 +30,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import sgd
 from repro_torch.runtime import checkpoint as tck
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 
 def _bits(a) -> np.ndarray:

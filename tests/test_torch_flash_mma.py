@@ -57,6 +57,7 @@ from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as r6
+from test_torch_threads import one_thread  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

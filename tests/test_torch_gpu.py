@@ -20,7 +20,9 @@ card against the CPU at the CPU parity tests' rtol 1e-5 / atol 1e-6;
 resume bit for bit; IR rounds of every round schedule as the training
 ticks;
 the attention kernels at multi-head latent attention's widths (q.k 96,
-v 64) as at equal widths;
+v 64) as at equal widths, and at the enc-dec shapes (cross-attention
+with sq != sk, 1500 keys) likewise; the enc-dec and pixtral smoke
+models as the other models (gradients at the training tolerance);
 for the two scans 2e-5 on fp32 outputs (every step is fp32 on both
 sides, in another summation order) and 2e-2 on the bf16 rwkv6 y (one
 bf16 rounding of an fp32 value); 1e-4 for fp32 model logits and
@@ -1560,3 +1562,165 @@ def test_data_replicas_on_card_match_cpu(card):
                                    atol=1e-5)
     for a, b in zip(c0["leaves"], got["cpu"][0]["leaves"]):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# enc-dec and the vision frontend: cross-attention (no causal mask, sq and
+# sk apart) at whisper-base's shapes (8 heads of 64, 448 text positions
+# against 1500 frames; its decode step's one query), the encoder's causal
+# self-attention over 1500 keys (23 * 64 + 28: a ragged last key tile),
+# and transformer-paper's 20-token source under longer targets
+
+ENCDEC_CASES = [(*case, dt) for dt in (torch.float32, torch.bfloat16)
+                for case in [
+    # b, sq, sk, H, KV, d, q_offset, kv_len, causal
+    (2, 448, 1500, 8, 8, 64, 0, 1500, False),
+    (2, 1, 1500, 8, 8, 64, 0, 1500, False),
+    (1, 1500, 1500, 8, 8, 64, 0, 1500, True),
+    (2, 64, 20, 8, 8, 64, 0, 20, False),
+]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ENCDEC_CASES)
+def test_encdec_attention_kernels_match_plain(card, case):
+    """The forward, dq and dk/dv at the enc-dec shapes against their
+    plain versions, one launch each of the dtype's variant."""
+    b, sq, sk, H, KV, d, off, kv_len, causal, dt = case
+    q, k, v = _qkv(30, b, sq, sk, H, KV, d, dt)
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    mma = int(dt == torch.bfloat16)
+    before = (fa.launches, fa.launches_mma)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_mma) == (before[0] + 1,
+                                              before[1] + mma)
+    o_r, lse_r = ref.flash_fwd_ref(q, k, v, **kw)
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    _close(o, o_r, tol)
+    _close(lse, lse_r, tol)
+    do = _randn(31, *o.shape, dtype=dt)
+    before = (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma,
+              fa.launches_dkv_mma)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv, fa.launches_dq_mma,
+            fa.launches_dkv_mma) == (before[0] + 1, before[1] + 1,
+                                     before[2] + mma, before[3] + mma)
+    want = ref.flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    tol, rtol = BWD_F32_TOL if dt == torch.float32 else (BF16_TOL, None)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        _close(g, w, tol, rtol)
+
+
+def _encdec_cfg(arch):
+    return smoke_config(get_config(arch)).replace(
+        n_layers=3, compute_dtype="float32")
+
+
+def _encdec_batch(cfg, b=2, s=9, frames=40, src=7, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g),
+           "targets": torch.randint(0, cfg.vocab_size, (b, s),
+                                    generator=g)}
+    if cfg.frontend == "audio":
+        out["frames"] = torch.randn(b, frames, cfg.d_model, generator=g)
+    else:
+        out["src_tokens"] = torch.randint(0, cfg.vocab_size, (b, src),
+                                          generator=g)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-base", "transformer-paper"])
+def test_encdec_model_on_card_matches_cpu(card, arch):
+    """Smoke-size enc-dec models in fp32, card against CPU: forward logits
+    and the loss's gradients (cross-attention through the flash backward
+    kernels), decode steps from ``encdec_prefill_cache`` (1e-4; each also
+    held to the card's forward at its position), SimpleEngine's tokens;
+    no tensor-core launch."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    cfg = _encdec_cfg(arch)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _on(p_cpu, card)
+    batch = _encdec_batch(cfg)
+    b_gpu = {k: v.to(card) for k, v in batch.items()}
+    ops.reset_launch_counts()
+    grads = {}
+    for name, model, params, bt in (("cpu", cpu, p_cpu, batch),
+                                    ("gpu", gpu, p_gpu, b_gpu)):
+        leaves = tree_map(lambda _, a: a.detach().clone().requires_grad_(),
+                          params)
+        loss = model.loss(leaves, bt)
+        grads[name] = (float(loss.detach()), torch.autograd.grad(
+            loss, tree_leaves(leaves)))
+    assert abs(grads["gpu"][0] - grads["cpu"][0]) <= 1e-4 * abs(
+        grads["cpu"][0])
+    for g, c in zip(grads["gpu"][1], grads["cpu"][1]):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    with torch.inference_mode():
+        full_c, _ = cpu.forward(p_cpu, batch)
+        full_g, _ = gpu.forward(p_gpu, b_gpu)
+        _close(full_g, full_c, MODEL_TOL)
+        c_c = cpu.encdec_prefill_cache(p_cpu, batch, 16)
+        c_g = gpu.encdec_prefill_cache(p_gpu, b_gpu, 16)
+        for t in range(batch["tokens"].shape[1]):
+            tok = batch["tokens"][:, t:t + 1]
+            d_c, c_c = cpu.decode_step(p_cpu, c_c, tok, t)
+            d_g, c_g = gpu.decode_step(p_gpu, c_g, tok.to(card), t)
+            _close(d_g, d_c, MODEL_TOL)
+            _close(d_g[:, 0], full_g[:, t], MODEL_TOL)
+    assert ops.launch_counts()["flash_bwd_dkv"] > 0
+    assert not any(v for k, v in ops.variant_counts().items()
+                   if k.endswith("_mma"))
+    trace = poisson_trace(5, rate=1.5, seed=0, prompt_lens=(2, 8),
+                          vocab=cfg.vocab_size)
+    splan = serve_plan(cfg, n_stages=1, n_slots=1, prompt_budget=8,
+                       page_seq=32, validate=False)
+    assert SimpleEngine(gpu, p_gpu, splan).run(trace) == \
+        SimpleEngine(cpu, p_cpu, splan).run(trace)
+
+
+@pytest.mark.gpu
+def test_pixtral_patches_and_ticks_on_card_match_cpu(card):
+    """Smoke pixtral-12b (4 patches) in fp32, card against CPU: forward
+    logits with patches (1e-4), and 2(S-1)+3 SpecTrain ticks on 4 stages
+    whose batches carry patches (losses rtol 1e-5, every params and
+    momentum leaf rtol 1e-4 / atol 1e-5)."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    cfg = smoke_config(get_config("pixtral-12b")).replace(
+        n_layers=4, frontend_patches=4, compute_dtype="float32",
+        mesh_plan=get_config("granite-8b").mesh_plan)
+    S = 4
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2 * (S - 1) + 3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:],
+                        "patches": rng.standard_normal(
+                            (4, 4, cfg.d_model)).astype(np.float32)})
+    b0 = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    with torch.inference_mode():
+        l_c, _ = cpu.forward(p_cpu, b0)
+        l_g, _ = gpu.forward(_on(p_cpu, card),
+                             {k: v.to(card) for k, v in b0.items()})
+    _close(l_g, l_c, MODEL_TOL)
+    out = {}
+    for model, params in ((cpu, p_cpu), (gpu, _on(p_cpu, card))):
+        state = ps.make_state(model, params, batches[0], mode="spectrain")
+        step = ps.make_train_step(model, mode="spectrain", lr=0.05)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        out[model.device.type] = (state, losses)
+    (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    for key in ("params", "momentum"):
+        for g, c in zip(tree_leaves(s_g[key]), tree_leaves(s_c[key])):
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       c.float().numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=key)

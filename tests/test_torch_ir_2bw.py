@@ -5,6 +5,7 @@ import pytest
 
 from repro_torch.core import pipeline_stream as tps
 from test_torch_ir_train import _check, _run, case_ids, check_round
+from test_torch_threads import one_thread  # noqa: F401
 
 CASES = [
     ("2bw", 2, 4, 1, "vanilla", 4, 2, None),

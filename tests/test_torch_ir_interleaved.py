@@ -4,6 +4,7 @@ port's IR interpreter against the JAX package's (see
 import pytest
 
 from test_torch_ir_train import case_ids, check_round
+from test_torch_threads import one_thread  # noqa: F401
 
 CASES = [
     ("interleaved", 2, 4, 2, "spectrain", 4, 2, None),

@@ -15,6 +15,7 @@ from repro_torch.models.layers import tree_map
 from repro_torch.obs import PipelineTracer
 from repro_torch.planner import plan as tplan
 from test_torch_train import LR, _batches, _pair
+from test_torch_threads import one_thread  # noqa: F401
 
 
 def _fresh(tree):

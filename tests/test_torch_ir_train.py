@@ -29,6 +29,7 @@ from repro_torch.planner import plan as tplan
 from repro_torch.planner import synthetic_profile as tsynthetic
 from test_torch_train import (LOSS_RTOL, LR, _batches, _close_trees,
                               _pair)
+from test_torch_threads import one_thread  # noqa: F401
 
 ROUNDS = 3
 

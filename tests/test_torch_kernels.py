@@ -29,6 +29,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import attention as tattn
+from test_torch_threads import one_thread  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

@@ -26,6 +26,7 @@ from repro_torch.models import layers as tl
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import sgd as tsgd
 from test_torch_train import _pair as _stream_pair
+from test_torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-5

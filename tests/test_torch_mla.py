@@ -51,6 +51,7 @@ from repro_torch.planner import serve_plan
 from repro_torch.serve import Request, ServeEngine, SimpleEngine
 from test_torch_model import port_cfg
 from test_torch_train import _batches, _close_trees
+from test_torch_threads import one_thread  # noqa: F401
 
 ATTN_TOL, MODEL_TOL = 2e-5, 1e-4
 LOSS_RTOL = 1e-5

@@ -23,6 +23,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import Model, from_jax_params
 from repro_torch.models import layers as tl
 from repro_torch.models import model as tmodel
+from test_torch_threads import one_thread  # noqa: F401
 
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-4
@@ -69,7 +70,7 @@ def test_granite_config_matches_jax(smoke):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfigs.get_config("pixtral-12b")
+        Model(tconfigs.get_config("residual-lstm-paper"), device="cpu")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

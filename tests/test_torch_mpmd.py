@@ -49,6 +49,7 @@ from repro_torch.planner import synthetic_profile as tsynthetic
 from repro_torch.runtime import checkpoint as tckpt
 from repro_torch.runtime import elastic
 from repro_torch.runtime import sharding as rsh
+from test_torch_threads import one_thread  # noqa: F401
 
 LR = 0.05
 ROUNDS = 3

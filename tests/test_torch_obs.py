@@ -42,6 +42,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.obs import trace as ttrace
 from repro_torch.planner import plan as tplan
 from repro_torch.planner import synthetic_profile as tsynthetic
+from test_torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-12
 COSTS = [1.0 + 0.5 * (i % 3) + (2.0 if i == 0 else 0.0) for i in range(8)]
@@ -50,17 +51,6 @@ ROUND_CASES = [("gpipe", 2, 1, 4), ("1f1b", 2, 1, 4), ("1f1b", 3, 1, 3),
                ("2bw", 2, 1, 2), ("2bw", 3, 1, 4),
                ("interleaved", 2, 2, 4), ("interleaved", 2, 2, 2)]
 ROUND_IDS = [f"{s}-S{S}-v{v}-M{M}" for s, S, v, M in ROUND_CASES]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small rounds: under a busy
-    machine (several test workers) a thread pool waiting on its peers
-    costs more than the arithmetic; the values are the same."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class FakeClock:

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import pipeline_stream as tps
 from repro_torch.launch.mesh import run_stage_ranks
 from repro_torch.models.layers import tree_map
+from test_torch_threads import one_thread  # noqa: F401
 
 LR, M, ROUNDS = 0.05, 4, 2
 

@@ -19,6 +19,7 @@ from repro_torch.core import spectrain as tst
 from repro_torch.data import pipeline as tdata
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import sgd as tsgd
+from test_torch_threads import one_thread  # noqa: F401
 
 UPD_TOL = 1e-6
 NORM_TOL = 1e-5

@@ -29,6 +29,7 @@ from repro_torch.planner import profiler as tpf
 from repro_torch.planner import schedule_ir as tir
 from repro_torch.planner import verify as tpv
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 EMITTERS = tuple(jir.EMITTERS)
 COSTS = [1.0 + 0.5 * (i % 3) + (2.0 if i == 0 else 0.0) for i in range(9)]

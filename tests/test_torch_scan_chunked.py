@@ -49,6 +49,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_scan as r6
 from test_torch_ssm import _jax_mamba_ref, _mamba_inputs, _rwkv_inputs
 from test_torch_ssm import _t, _tr
+from test_torch_threads import one_thread  # noqa: F401
 
 CHUNK_TOL = 2e-5
 PALLAS_ATOL, PALLAS_RTOL = 5e-3, 1e-3

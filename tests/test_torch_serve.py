@@ -30,6 +30,7 @@ from repro_torch.planner import synthetic_profile as tsynthetic
 from repro_torch.serve import (Request, SimpleEngine, admissible,
                                poisson_trace)
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 PLAN_KW = dict(n_slots=4, max_prefill=2, prompt_budget=8, page_seq=32,
                n_layers=4)
@@ -195,9 +196,9 @@ def test_launcher_refuses_unported_paths():
     with pytest.raises(SystemExit, match="not per-layer pageable"):
         tlaunch.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
                       "--engine", "pipelined"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(SystemExit, match="not per-layer pageable"):
         tlaunch.main(["--arch", "whisper-base", "--smoke", "--device",
-                      "cpu"])
+                      "cpu", "--engine", "pipelined"])
 
 
 # (h) no quiet fallback to the CPU

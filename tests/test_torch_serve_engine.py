@@ -44,6 +44,7 @@ from repro_torch.planner import verify as pv
 from repro_torch.serve import (Request, ServeEngine, SimpleEngine,
                                chunk_page_caches, poisson_trace)
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 PLAN_KW = dict(n_slots=4, max_prefill=2, prompt_budget=8, page_seq=32,
                n_layers=4)

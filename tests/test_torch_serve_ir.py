@@ -19,6 +19,7 @@ from repro_torch.planner import schedule_ir as sir
 from repro_torch.planner import serve_plan
 from repro_torch.planner import verify as pv
 from repro_torch.serve import ContinuousBatcher, Request, poisson_trace
+from test_torch_threads import one_thread  # noqa: F401
 
 GRID = [(S, F) for S in (1, 2, 3, 4) for F in (0, 1, 2, 3)]
 

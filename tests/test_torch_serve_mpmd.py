@@ -27,6 +27,7 @@ from repro_torch.models import Model
 from repro_torch.models.layers import tree_map
 from repro_torch.planner import serve_plan
 from repro_torch.serve import ServeEngine
+from test_torch_threads import one_thread  # noqa: F401
 
 PLAN_KW = dict(n_slots=4, max_prefill=2, prompt_budget=8, page_seq=32,
                n_layers=4)

@@ -28,6 +28,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import sgd
 from repro_torch.planner import plan as tplan
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 STEPS = 10

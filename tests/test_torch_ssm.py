@@ -53,6 +53,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.planner import serve_plan
 from repro_torch.serve import SimpleEngine, poisson_trace
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 SCAN_TOL = 1e-5
 PALLAS_ATOL, PALLAS_RTOL = 5e-3, 1e-3

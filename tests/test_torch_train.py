@@ -30,6 +30,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.planner import plan as tplan
 from repro_torch.planner import synthetic_profile as tsynthetic
 from test_torch_model import port_cfg
+from test_torch_threads import one_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-5
