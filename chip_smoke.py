@@ -13,7 +13,7 @@ the JAX package, and in phases:
   1. prints the card (nvidia-smi's name and power limit, torch's name
      and device count);
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
-     csrc`` (one nvcc per source, all five at once), with ptxas's
+     csrc`` (one nvcc per source, all seven at once), with ptxas's
      registers and shared memory, and for the three bf16 tensor-core
      kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
      ``flash_bwd_dkv_mma_kernel``) and the scans' decode, scores and
@@ -358,6 +358,35 @@ heads of 64) and the vision frontend (pixtral-12b: 40 layers, d 5120,
      dk/dv at whisper's cross and encoder shapes timed beside their
      bounds, plain versions and SDPA.
 
+Training the SSM families (rwkv6-7b; zamba2-1.2b, Mamba-2 with a tied
+shared attention block a stage) adds one phase, with the scans'
+backward kernels (``csrc/rwkv6_scan_bwd.cu``, ``csrc/mamba2_scan_bwd.cu``):
+
+ 26. (after phase 3's scan checks) each backward kernel against its
+     plain version (the backward formulas) and against autograd of the
+     plain forward, every output elementwise within 1e-5 (fp32 inputs)
+     or 2e-2 (bf16) of its largest magnitude, at the training shape
+     ``[8, 512, 64, 64]`` (rwkv6-7b's 64 heads of 64; zamba2's 64 heads,
+     p 64, n 64, one B/C group) and s = 1, 12, 63 at full width, fp32
+     and bf16, the other head sizes and mamba2 with g > 1, decays from
+     exact 0 to 1, nonzero S0 and dS_T; every call twice, bit-equal; one
+     call through ``ops`` under autograd, the kernel's gradient bit for
+     bit; (after phase 4's training check) the smoke-size stream tick
+     (2(S-1)+3 ticks) and a 1f1b round of both families, card against
+     CPU in fp32 (``ssm_train_check``: rwkv6 held tick by tick and to
+     its own sensitivity, zamba2's stages each firing the shared block);
+     (after phase 25's training) ``launch.train.main`` on rwkv6-7b at 8
+     of 32 layers in 4 stages and zamba2-1.2b at all 38 in 2 (each
+     stage's shared block fires once), bf16, 8 x 512, 10 spectrain
+     ticks: finite losses valid from tick S-1, exact launches a tick (2L
+     scans, all chunked, L backward, S+1 updates; zamba2's 4 flash
+     forwards and 2 of each backward kernel, all tensor-core), one tick
+     profiled, wall, busy, tokens/s and peak; rwkv6-7b on 1f1b, 4
+     rounds of 8 microbatches (128 scans, 64 backward, 5 updates a
+     round); and (in phase 8) both backward kernels timed at the
+     training shape beside their bounds and plain versions (no PyTorch
+     call computes either).
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -573,8 +602,10 @@ class StepProfile:
     on the next step, up to step ``last``; an excess fails at once.
     ``steps`` lists every profiled step, for the wall to leave out."""
 
-    def __init__(self, what: str, want: dict, first: int, last: int):
+    def __init__(self, what: str, want: dict, first: int, last: int,
+                 symbols=None):
         self.what, self.want, self.first, self.last = what, want, first, last
+        self.symbols = KERNEL_SYMBOL if symbols is None else symbols
         self.prof, self.kern, self.at, self.steps = None, None, None, []
 
     def hook(self, s: int) -> None:
@@ -589,7 +620,7 @@ class StepProfile:
             kern, self.prof = device_kernels(self.prof), None
             self.steps.append(s)
             seen = {n: sum(e.count for e in kern
-                           if KERNEL_SYMBOL[n] in e.key) for n in self.want}
+                           if self.symbols[n] in e.key) for n in self.want}
             check(all(seen[n] <= self.want[n] for n in self.want),
                   f"{self.what}: the profiled step {s} shows {seen} "
                   f"kernels, expected {self.want}")
@@ -813,7 +844,8 @@ def mma_ptxas(log: str) -> dict:
                       "flash_bwd_dkv_mma_kernel", "wkv_decode_kernel",
                       "wkv_scores_kernel", "wkv_chunk_kernel",
                       "ssd_decode_kernel", "ssd_scores_kernel",
-                      "ssd_chunk_kernel"):
+                      "ssd_chunk_kernel", "wkv_bwd_kernel",
+                      "ssd_bwd_kernel"):
                 if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
                     rest = sym.split(k, 1)[1]
                     args = re.findall(r"Li(\d+)E", rest)
@@ -865,6 +897,9 @@ def build_kernels(build, r6, m2, *mods) -> None:
               f"ssd_scores_kernel {m2.chunk_smem_bytes(dt, 64, True)} B; "
               f"the scans' decode and stepwise kernels: static only (ptxas "
               f"lines above)")
+    print(f"  dynamic shared memory per block of the scans' backward: "
+          f"wkv_bwd_kernel hd 64 {r6.bwd_smem_bytes(64)} B, ssd_bwd_kernel "
+          f"p 64 n 64 {m2.bwd_smem_bytes(64, 64)} B")
 
 
 def kernel_checks(torch, fa, ref) -> dict:
@@ -4944,7 +4979,8 @@ def encdec_model_check(torch, ops) -> dict:
                                        ops.launch_counts().items()}}
         L2 = cfg.n_enc_layers + 2 * cfg.n_layers
         want = {"flash_fwd": L2, "flash_bwd_dq": L2, "flash_bwd_dkv": L2,
-                "fused_update": 1, "rwkv6_scan": 0, "mamba2_scan": 0}
+                "fused_update": 1, "rwkv6_scan": 0, "mamba2_scan": 0,
+                "rwkv6_scan_bwd": 0, "mamba2_scan_bwd": 0}
         g, c = runs["gpu"], runs["cpu"]
         check(g["launches"] == want, f"{arch}: the step launched "
               f"{g['launches']}, expected {want}")
@@ -5499,6 +5535,597 @@ def bench_scripts(torch) -> None:
         print(f"  ({mod.__name__}: {time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# training the SSM families (phase 26): the scans' backward kernels, the
+# smoke-size tick and round card against CPU, rwkv6-7b and zamba2-1.2b
+# through launch.train.main
+
+# of each output's largest magnitude: fp32 inputs, bf16 inputs
+SCAN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the full-width ticks: arch -> (layers, stages); rwkv6-7b at 8 of its 32
+# layers (>= 16 B a parameter of fp32 state), zamba2-1.2b whole on its
+# mesh plan's 2 stages (19 layers a stage: the shared block fires once in
+# each; at 4 stages of 9-10 layers it would fire in none)
+SSM_TRAIN = {"rwkv6-7b": (8, 4), "zamba2-1.2b": (38, 2)}
+SSM_ROUNDS = 4                     # rwkv6-7b's 1f1b rounds
+SSM_TRAIN_LR = 0.02
+# the kernels of the training path, as the profiler names them: the
+# chunked forward (s = 512), the backward walk, the bf16 attention
+TRAIN_SYMBOL = dict(KERNEL_SYMBOL, rwkv6_scan="wkv_chunk_kernel",
+                    mamba2_scan="ssd_chunk_kernel",
+                    rwkv6_scan_bwd="wkv_bwd_kernel",
+                    mamba2_scan_bwd="ssd_bwd_kernel")
+SCAN_BWD_SYMBOLS = {"rwkv6": "wkv_bwd_kernel + wkv_bwd_du_kernel",
+                    "mamba2": "ssd_bwd_kernel + ssd_bwd_group_kernel"}
+
+
+class ScanBwdCase:
+    """One backward call in the model layout: the forward's inputs with
+    decays uniform in [0, 1], 5% of them exactly 0 and 5% exactly 1, a
+    nonzero S0, and the cotangents dy (y's dtype: r's for rwkv6, fp32 for
+    mamba2) and a nonzero dS_T.  mamba2's B and C are strided views of one
+    projection, as the model has them."""
+
+    def __init__(self, kind, name, b, s, h, d, dtype, n=None, g=1):
+        self.kind, self.name, self.b, self.s, self.h = kind, name, b, s, h
+        self.d, self.n, self.g, self.dtype = d, n or d, g, dtype
+
+    def tensors(self, torch, seed=0):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        dt = getattr(torch, self.dtype)
+        mk = lambda *sh, sc=1.0, d=torch.float32: (torch.randn(
+            *sh, generator=gen, device="cuda") * sc).to(d)
+
+        def decays(*sh):
+            u = torch.rand(*sh, generator=gen, device="cuda")
+            c = torch.rand(*sh, generator=gen, device="cuda")
+            return u.masked_fill(c < 0.05, 0.0).masked_fill(c > 0.95, 1.0)
+        b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
+        if self.kind == "rwkv6":
+            return (mk(b, s, h, d, d=dt), mk(b, s, h, d, sc=0.3, d=dt),
+                    mk(b, s, h, d, d=dt), decays(b, s, h, d),
+                    mk(h, d, sc=0.3), mk(b, h, d, d, sc=0.3),
+                    mk(b, s, h, d, d=dt), mk(b, h, d, d, sc=0.3))
+        delta = torch.nn.functional.softplus(mk(b, s, h))
+        bc = mk(b, s, 2 * self.g * n, sc=0.5, d=dt)
+        B, C = (t.reshape(b, s, self.g, n) for t in bc.chunk(2, -1))
+        return (mk(b, s, h, d, d=dt), delta, decays(b, s, h), B, C,
+                mk(b, h, d, n, sc=0.3), mk(b, s, h, d),
+                mk(b, h, d, n, sc=0.3))
+
+    def kernel(self, mods, args):
+        r6, m2 = mods
+        return (r6.rwkv6_scan_bwd if self.kind == "rwkv6"
+                else m2.mamba2_scan_bwd)(*args)
+
+    def plain(self, torch, ref, args):
+        """The plain backward (kernel layout) on the same inputs, back in
+        the model layout and the kernel's output dtypes."""
+        tr = lambda t: t.transpose(1, 2)
+        if self.kind == "rwkv6":
+            r, k, v, w, u, S0, dy, dS_T = args
+            dr, dk, dv, dw, du, dS0 = ref.rwkv6_bwd_ref(
+                tr(r), tr(k), tr(v), tr(w), u, S0, tr(dy), dS_T)
+            return (tr(dr).to(r.dtype), tr(dk).to(r.dtype),
+                    tr(dv).to(r.dtype), tr(dw), du, dS0)
+        x, delta, decay, B, C, S0, dy, dS_T = args
+        b, s, h, _ = x.shape
+        rep, n = h // self.g, self.n
+        per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+        dx, ddt, ddecay, dBh, dCh, dS0 = ref.mamba2_bwd_ref(
+            tr(x), tr(delta), tr(decay), per_head(B), per_head(C), S0,
+            tr(dy), dS_T)
+        group = lambda t: tr(t.reshape(b, self.g, rep, s, n).sum(2))
+        return (tr(dx).to(x.dtype), tr(ddt), tr(ddecay),
+                group(dBh).to(B.dtype), group(dCh).to(B.dtype), dS0)
+
+    def autograd(self, torch, ref, args):
+        """torch.autograd of the plain forward (kernel layout), in the
+        model layout: the gradient the formulas must equal."""
+        tr = lambda t: t.transpose(1, 2)
+        leaves = [a.detach().clone().requires_grad_() for a in args[:6]]
+        dy, dS_T = args[6], args[7]
+        with torch.enable_grad():
+            if self.kind == "rwkv6":
+                r, k, v, w, u, S0 = leaves
+                y, sT = ref.rwkv6_ref(tr(r), tr(k), tr(v), tr(w), u, S0)
+            else:
+                x, delta, decay, B, C, S0 = leaves
+                rep = self.h // self.g
+                per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+                y, sT = ref.mamba2_ref(tr(x), tr(delta), tr(decay),
+                                       per_head(B), per_head(C), S0)
+            return torch.autograd.grad((tr(y), sT), leaves,
+                                       (dy.to(y.dtype), dS_T))
+
+    def bound(self):
+        """(least ms, what bounds it): bytes, every input read once and
+        every gradient written once, over HBM; and the backward's fp32
+        operations over the fp32 peak outside the tensor cores, per step
+        and state entry 14: the state recomputed (3), the cotangent's
+        update (rwkv6: w G + r dy, 3; mamba2: + dy C and x decay, 3) and
+        four products summed (rwkv6: dr, dk, dv, dw; mamba2: dC, G B,
+        dB, ddecay)."""
+        el = 2 if self.dtype == "bfloat16" else 4
+        b, s, h, d, n, g = self.b, self.s, self.h, self.d, self.n, self.g
+        if self.kind == "rwkv6":
+            nbytes = (2 * el * 4 * b * s * h * d     # r, k, v, dy; dr..dv
+                      - el * b * s * h * d           # (3 grads, not 4)
+                      + 2 * 4 * b * s * h * d        # w in, dw out
+                      + 2 * 4 * h * d                # u, du
+                      + 3 * 4 * b * h * d * d)       # S0, dS_T, dS0
+        else:
+            nbytes = (2 * el * b * s * h * d         # x, dx
+                      + 4 * b * s * h * d            # dy (fp32)
+                      + 4 * 4 * b * s * h            # dt, decay, and grads
+                      + 4 * el * b * s * g * n       # B, C, dB, dC
+                      + 3 * 4 * b * h * d * n)       # S0, dS_T, dS0
+        flops = 14 * b * s * h * d * n
+        t_b = nbytes / HBM_BPS * 1e3
+        t_f = flops / PEAK_FLOPS["float32"] * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def scan_bwd_cases(kind: str) -> list:
+    """The training shape [8, 512, 64, 64] (rwkv6-7b's 64 heads of 64;
+    zamba2-1.2b's 64 heads, p 64, n 64, g 1) and the short steps s = 1,
+    12, 63 at full width, in fp32 and bf16; the other head sizes; mamba2
+    with g > 1."""
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cases.append(ScanBwdCase(kind, f"train b8 s=512 {dt}", 8, 512, 64,
+                                 64, dt))
+        for s in (1, 12, 63):
+            cases.append(ScanBwdCase(kind, f"b2 s={s} {dt}", 2, s, 64, 64,
+                                     dt))
+    if kind == "rwkv6":
+        cases += [ScanBwdCase(kind, "hd32 b2 h4 s=20 float32", 2, 20, 4, 32,
+                              "float32"),
+                  ScanBwdCase(kind, "hd16 b1 h2 s=9 bfloat16", 1, 9, 2, 16,
+                              "bfloat16")]
+    else:
+        cases += [ScanBwdCase(kind, "g=4 b2 h16 p32 n16 s=37 float32", 2,
+                              37, 16, 32, "float32", n=16, g=4),
+                  ScanBwdCase(kind, "g=2 b1 h8 p16 n64 s=20 bfloat16", 1,
+                              20, 8, 16, "bfloat16", n=64, g=2)]
+    return cases
+
+
+def _rel_max(torch, got, want) -> float:
+    """max |got - want| over max |want| (fp32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def scan_bwd_checks(torch, ops, ref, r6, m2) -> dict:
+    """Both scans' backward kernels against their plain versions (the
+    formulas) and against autograd of the plain forward, elementwise
+    within SCAN_BWD_TOL of each output's largest magnitude; every call
+    run twice on the same inputs, bit-equal; one call of each through
+    ``ops`` under autograd, whose gradients are the kernel's bit for
+    bit.  Returns {(kind, case): worst relative error}."""
+    errs = {}
+    for kind in ("rwkv6", "mamba2"):
+        phase(f"phase 26: {kind}_scan backward against its plain version "
+              f"and autograd on the card")
+        names = (("dr", "dk", "dv", "dw", "du", "dS0") if kind == "rwkv6"
+                 else ("dx", "ddt", "ddecay", "dB", "dC", "dS0"))
+        for i, case in enumerate(scan_bwd_cases(kind)):
+            args = case.tensors(torch, seed=900 + i)
+            c0 = ops.launch_counts()[f"{kind}_scan_bwd"]
+            got = case.kernel((r6, m2), args)
+            again = case.kernel((r6, m2), args)
+            torch.cuda.synchronize()
+            check(ops.launch_counts()[f"{kind}_scan_bwd"] == c0 + 2,
+                  f"{kind} {case.name}: not one launch a call")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(same, f"{kind} {case.name}: two runs on the same inputs "
+                  f"differ")
+            del again
+            tol = SCAN_BWD_TOL[case.dtype]
+            e, a = {}, {}
+            for what, want in (("plain", case.plain(torch, ref, args)),
+                               ("autograd", case.autograd(torch, ref,
+                                                          args))):
+                for nm, g, w in zip(names, got, want):
+                    check(g.shape == w.shape and g.dtype == w.dtype,
+                          f"{kind} {case.name}: {nm} {tuple(g.shape)} "
+                          f"{g.dtype} against {what} {tuple(w.shape)} "
+                          f"{w.dtype}")
+                    check(bool(torch.isfinite(g.float()).all()),
+                          f"{kind} {case.name}: {nm} not finite")
+                    err = _rel_max(torch, g, w)
+                    check(err <= tol, f"{kind} {case.name}: {nm} {err:.3e} "
+                          f"of its max from the {what} backward (tol {tol})")
+                    e[(what, nm)] = err
+                    a[(what, nm)] = float((g.float() - w.float()).abs()
+                                          .max())
+                del want
+            errs[(kind, case.name)] = {"rel": max(e.values()),
+                                       "abs": max(a.values())}
+            by = {w: max(v for (x, _), v in e.items() if x == w)
+                  for w in ("plain", "autograd")}
+            worst = max(e, key=e.get)
+            zeros = int((args[3 if kind == "rwkv6" else 2] == 0).sum())
+            print(f"  {case.name:<32} plain {by['plain']:.2e}  autograd "
+                  f"{by['autograd']:.2e} of max (worst {worst[1]} vs "
+                  f"{worst[0]}); two runs bit-equal; {zeros} exact-zero "
+                  f"decays")
+            if case.s == 63 and case.dtype == "float32":
+                # the same call under autograd through ops: the forward on
+                # the scan kernel, the gradient the backward kernel's
+                leaves = [a.detach().clone().requires_grad_()
+                          for a in args[:6]]
+                scan = (ops.rwkv6_scan if kind == "rwkv6"
+                        else ops.mamba2_scan)
+                y, sT = scan(*leaves)
+                grads = torch.autograd.grad((y, sT), leaves,
+                                            (args[6], args[7]))
+                check(all(torch.equal(a, b) for a, b in zip(grads, got)),
+                      f"{kind} {case.name}: the gradient through ops "
+                      f"differs from the kernel's")
+                print(f"  {'':<32} through ops under autograd: the "
+                      f"kernel's gradient, bit for bit")
+            del got, args
+            gc.collect()
+            torch.cuda.empty_cache()
+    return errs
+
+
+def scan_bwd_timings(torch, r6, m2, ref, errs) -> dict:
+    """Each backward kernel at the training shape, bf16 (the ticks'
+    call: b 8, s 512, 64 heads, 64 wide): device ms, the plain
+    backward's ms, the bound.  No PyTorch call computes either."""
+    phase("phase 26: timings of the scans' backward kernels (CUDA events, "
+          "after warm-up)")
+    rows = {}
+    for kind in ("rwkv6", "mamba2"):
+        case = ScanBwdCase(kind, "train b8 s=512 bfloat16", 8, 512, 64, 64,
+                           "bfloat16")
+        args = case.tensors(torch, seed=7)
+        ms, wall = time_ms(torch, lambda: case.kernel((r6, m2), args), 20)
+        plain_ms, _ = time_ms(torch, lambda: case.plain(torch, ref, args),
+                              2)
+        bound_ms, bound_by = case.bound()
+        width = "hd 64" if kind == "rwkv6" else "p 64, n 64, g 1"
+        rows[kind] = {
+            "shape": f"{case.name}, h 64, {width}",
+            "kernel": SCAN_BWD_SYMBOLS[kind], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": errs[(kind, "train b8 s=512 bfloat16")]["abs"],
+            "max_rel_err": errs[(kind, "train b8 s=512 bfloat16")]["rel"],
+            "wall_ms_per_call": wall}
+        print(f"  {kind}_scan_bwd {case.name} {rows[kind]['kernel']}: "
+              f"{ms:.4f} ms (wall {wall:.4f} ms per call)  bound "
+              f"{bound_ms:.5f} ms ({bound_by})  plain {plain_ms:.4f} ms  "
+              f"library: none")
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _copy_state(dst, src):
+    """Write the state ``src`` (any device) over ``dst`` in place: every
+    tensor copied, every number set."""
+    import torch
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_state(dst[k], v)
+        elif isinstance(v, tuple):
+            for d, x in zip(dst[k], v):
+                _copy_state(d, x)
+        elif isinstance(v, torch.Tensor):
+            dst[k].copy_(v)
+        else:
+            dst[k] = v
+
+
+def _clone_state(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_state(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+# the relative size of the weight perturbation whose effect on the CPU's
+# own tick measures how far two correct runs of the smoke rwkv6 may part
+NOISE_REL = 1e-7
+NOISE_FACTOR = 4.0
+
+
+def _perturb(torch, trees, seed: int) -> None:
+    """Multiply every leaf of ``trees`` by (1 + NOISE_REL N(0, 1)) in
+    place, the draws from ``seed``."""
+    from repro_torch.models.layers import tree_leaves
+    gen = torch.Generator().manual_seed(seed)
+    for tree in trees:
+        for leaf in tree_leaves(tree):
+            leaf.mul_(1 + NOISE_REL * torch.randn(leaf.shape,
+                                                  generator=gen))
+
+
+def ssm_train_check(torch) -> dict:
+    """The SSM families' training on the card (kernels) against the CPU
+    (plain versions), smoke size, fp32, lr 0.02: 2(S-1)+3 spectrain ticks
+    and one 1f1b round (S microbatches), on rwkv6 at 4 stages of one
+    layer and zamba2 at 2 stages of 2 (its shared block, every 2 layers,
+    fires in each stage); losses within rtol 1e-4, every params,
+    momentum and prediction leaf within rtol 1e-4 / atol 1e-5.  zamba2's
+    ticks run on, each side on its own state.
+
+    rwkv6's ticks each start from the CPU's state (the card's is
+    overwritten before each), and a leaf that misses that tolerance
+    passes if its distance from the CPU's is within NOISE_FACTOR of the
+    distance the CPU's own tick moves when the weights it starts from are
+    perturbed by NOISE_REL relative (the round likewise).  The smoke
+    rwkv6 is that ill-conditioned at ticks 5-7, when stages 1 and 0 take
+    their first gradients: a 1e-7 perturbation moves the momentum of
+    ``embed/tok`` by 1.9e-4 in one tick on the CPU alone (the
+    group norm of the first token's rank-one WKV output, whose scale
+    can nearly cancel), so no run, however exact, holds 1e-5 there."""
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.planner import plan as make_plan
+    out = {}
+    for arch in SSM_ARCHS:
+        full = get_config(arch)
+        cfg = smoke_config(full).replace(n_layers=4,
+                                         compute_dtype="float32",
+                                         mesh_plan=full.mesh_plan)
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        S = cpu.n_stages
+        n = 2 * (S - 1) + 3
+        resync = cfg.ssm.kind == "rwkv6"
+        phase(f"phase 26: {arch} training on the card against the CPU, "
+              f"smoke size, fp32: {n} spectrain ticks"
+              + (" (each from the CPU's state)" if resync else "")
+              + f" and a 1f1b round on {S} stages")
+        if cpu.hybrid:
+            k = cfg.ssm.shared_attn_every
+            check(all(m // k >= 1 for m in cpu.stage_sizes),
+                  f"{arch}: a stage fires no shared block")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        batches = []
+        for _ in range(n):
+            t = rng.integers(0, cfg.vocab_size, size=(4, 17))
+            batches.append({"tokens": t[:, :-1].astype(np.int32),
+                            "targets": t[:, 1:].astype(np.int32)})
+        states = {dev: ps.make_state(model, _tree_to(p_cpu, dev),
+                                     batches[0], mode="spectrain")
+                  for dev, model in (("cpu", cpu), ("cuda", gpu))}
+        steps = {dev: ps.make_train_step(model, mode="spectrain",
+                                         lr=SSM_TRAIN_LR)
+                 for dev, model in (("cpu", cpu), ("cuda", gpu))}
+        rec = {"loss": 0.0, "abs": 0.0, "noise": 0, "ratio": 0.0}
+
+        def compare(st_g, st_c, what, st_n=None):
+            for key in ("params", "momentum", "pred"):
+                if key not in st_c:
+                    continue
+                noise = ([None] * len(tree_leaves(st_c[key])) if st_n is None
+                         else tree_leaves(st_n[key]))
+                for g, c, z in zip(tree_leaves(st_g[key]),
+                                   tree_leaves(st_c[key]), noise):
+                    g = g.cpu()
+                    d = float((g - c).abs().max())
+                    rec["abs"] = max(rec["abs"], d)
+                    if torch.allclose(g, c, rtol=1e-4, atol=1e-5):
+                        continue
+                    floor = (0.0 if z is None else
+                             float((z - c).abs().max()))
+                    check(d <= NOISE_FACTOR * floor,
+                          f"{arch} {what}: a {key} leaf differs by {d:.3e}"
+                          f" (the CPU's own tick moves {floor:.3e} under a "
+                          f"{NOISE_REL:g} perturbation)")
+                    rec["noise"] += 1
+                    rec["ratio"] = max(rec["ratio"], d / floor)
+        for t, b in enumerate(batches):
+            noisy = None
+            if resync:
+                if t:
+                    _copy_state(states["cuda"], states["cpu"])
+                noisy = _clone_state(states["cpu"])
+                _perturb(torch, [noisy["params"]] + (
+                    [noisy["pred"]] if "pred" in noisy else []), seed=t)
+                steps["cpu"](noisy, b)
+            l_c = float(steps["cpu"](states["cpu"], b)[1]["loss"])
+            l_g = float(steps["cuda"](states["cuda"], b)[1]["loss"])
+            rec["loss"] = max(rec["loss"],
+                              abs(l_g - l_c) / max(abs(l_c), 1e-12))
+            if resync:
+                compare(states["cuda"], states["cpu"], f"tick {t}", noisy)
+        if not resync:
+            compare(states["cuda"], states["cpu"], f"{n} ticks")
+        pl = make_plan(cfg, n_stages=S, schedule="1f1b",
+                       n_microbatches=S, partitioner="uniform")
+        rounds = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu), ("noise", cpu)):
+            if dev == "noise" and not resync:
+                continue
+            params = _tree_to(p_cpu, "cuda" if dev == "cuda" else "cpu")
+            if dev == "noise":
+                _perturb(torch, [params], seed=n)
+            ir = ps.make_ir_state(model, params, plan=pl)
+            ir, met = ps.make_ir_train_step(model, plan=pl,
+                                            lr=SSM_TRAIN_LR)(ir, batches[0])
+            rounds[dev] = (ir, float(met["loss"]))
+        rec["loss"] = max(rec["loss"], abs(rounds["cuda"][1] - rounds[
+            "cpu"][1]) / abs(rounds["cpu"][1]))
+        compare(rounds["cuda"][0], rounds["cpu"][0], "1f1b round",
+                rounds.get("noise", (None,))[0])
+        check(rec["loss"] <= 1e-4,
+              f"{arch}: losses differ by rel {rec['loss']:.3e}")
+        print(f"  losses (ticks and the round) max rel |d| "
+              f"{rec['loss']:.3e} (tol 1e-4); params, momentum and "
+              f"prediction max |d| {rec['abs']:.3e}; leaves past rtol 1e-4 "
+              f"/ atol 1e-5: {rec['noise']}"
+              + (f", each within {rec['ratio']:.2f}x the CPU's own move "
+                 f"under a {NOISE_REL:g} weight perturbation (allowed "
+                 f"{NOISE_FACTOR:g}x)" if rec["noise"] else ""))
+        out[arch] = dict(rec, resync=resync)
+    return out
+
+
+def ssm_train_launches(arch: str, L: int, S: int, M: int = 0) -> tuple:
+    """(launches, tensor-core and chunked variant launches) of one tick
+    (``M`` = 0) or one round of ``M`` microbatches of full-width ``arch``
+    at ``L`` layers in ``S`` stages: each layer's scan runs in the
+    forward and again in the backward's recompute (the chunked kernels
+    at s = 512) and its backward once; a hybrid stage's shared block
+    (after every full segment) makes two flash forwards and one of each
+    backward kernel; S + 1 fused updates a tick, C + 1 a round."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import uniform_stage_sizes
+    cfg = get_config(arch)
+    kind = "rwkv6" if cfg.ssm.kind == "rwkv6" else "mamba2"
+    m = max(M, 1)
+    want = {f"{kind}_scan": 2 * L * m, f"{kind}_scan_bwd": L * m,
+            "fused_update": S + 1}
+    var = {f"{kind}_scan_chunk": 2 * L * m}
+    if cfg.ssm.shared_attn_every:
+        F = sum(n // cfg.ssm.shared_attn_every
+                for n in uniform_stage_sizes(L, S)) * m
+        want.update(flash_fwd=2 * F, flash_bwd_dq=F, flash_bwd_dkv=F)
+        var.update(flash_fwd_mma=2 * F, flash_bwd_dq_mma=F,
+                   flash_bwd_dkv_mma=F)
+    return want, var
+
+
+def ssm_train_path(torch, ops, arch: str, schedule: str = "stream") -> dict:
+    """``repro_torch.launch.train.main`` on full-width ``arch``
+    (SSM_TRAIN's depth and stages), bf16, batch 8 x 512 uniform tokens,
+    spectrain: TRAIN_STEPS ticks of the stream schedule or SSM_ROUNDS
+    rounds of a round schedule.  Finite losses (ticks: valid from tick
+    S-1, stage 0 unchanged until tick 2(S-1)), exact launches every tick
+    or round (``ssm_train_launches``), one profiled tick or round showing
+    the same kernels, the wall, busy, tokens/s and peak."""
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_leaves
+    L, S = SSM_TRAIN[arch]
+    rounds = schedule != "stream"
+    steps = SSM_ROUNDS if rounds else TRAIN_STEPS
+    M = IR_ROUND if rounds else 0
+    what = (f"{SSM_ROUNDS} {schedule} rounds of {M} microbatches"
+            if rounds else f"{steps} ticks")
+    phase(f"phase 26: repro_torch.launch.train.main, {arch} full width, "
+          f"{L} layers in {S} stages, bf16, spectrain, {what}")
+    argv = ["--arch", arch, "--layers", str(L), "--pipe", str(S),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--dtype", "bfloat16", "--mode", "spectrain", "--schedule",
+            schedule, "--data-kind", "uniform", "--lr", str(SSM_TRAIN_LR),
+            "--steps", str(steps), "--log-every", "1"]
+    want, want_var = ssm_train_launches(arch, L, S, M)
+    sp = StepProfile(f"{arch} {schedule}", want, steps - 3, steps - 1,
+                     symbols=TRAIN_SYMBOL)
+    rec = {"counts": [], "variants": [], "valid": [], "loss": [], "t": [],
+           "t_end": [], "stage0": []}
+    snap = {}
+
+    def on_step(s, state, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["counts"].append(dict(ops.launch_counts()))
+        rec["variants"].append(dict(ops.variant_counts()))
+        rec["valid"].append(metrics["loss_valid"])
+        rec["loss"].append(float(metrics["loss"]))
+        stage0 = tree_leaves(state["params"]["stages"][0])
+        if s == 0:
+            snap["stage0"] = [t.clone() for t in stage0]
+        rec["stage0"].append(all(torch.equal(a, b) for a, b in
+                                 zip(stage0, snap["stage0"])))
+        sp.hook(s)
+        rec["t_end"].append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv, on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    snap.clear()
+    text = buf.getvalue()
+    print("  " + "\n  ".join(x for x in text.strip().splitlines()
+                             if x.startswith("#")))
+    check(rc == 0, f"train.main returned {rc}")
+    check(len(rec["loss"]) == steps, "not every step ran")
+    m = re.search(r"params=([\d,]+)", text)
+    n_params = int(m.group(1).replace(",", "")) if m else 0
+    prev = {k: 0 for k in want}
+    prev_v = {k: 0 for k in want_var}
+    for s, (counts, var) in enumerate(zip(rec["counts"], rec["variants"])):
+        got = {k: counts[k] - prev[k] for k in want}
+        check(got == want, f"step {s} launched {got}, expected {want}")
+        got_v = {k: var[k] - prev_v[k] for k in want_var}
+        check(got_v == want_var, f"step {s} launched variants {got_v}, "
+              f"expected {want_var}")
+        prev, prev_v = counts, var
+    check(total == {k: want.get(k, 0) * steps for k in total},
+          f"the run launched {total}")
+    check(all(math.isfinite(x) for x in rec["loss"]),
+          f"non-finite loss {rec['loss']}")
+    if rounds:
+        check(rec["valid"] == [1.0] * steps, f"loss_valid {rec['valid']}")
+    else:
+        check(rec["valid"] == [float(s >= S - 1) for s in range(steps)],
+              f"loss_valid per tick {rec['valid']}")
+        check(rec["stage0"] == [s < 2 * (S - 1) for s in range(steps)],
+              f"stage 0 unchanged per tick {rec['stage0']} (expected "
+              f"until tick {2 * (S - 1)})")
+    steady = sorted(rec["t"][i] - rec["t_end"][i - 1]
+                    for i in range(1, steps) if i not in sp.steps)
+    wall_ms = steady[len(steady) // 2] * 1e3
+    tok_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
+    kern = sp.result()
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    by = {}
+    for name in want:
+        hits = [e for e in kern if TRAIN_SYMBOL[name] in e.key]
+        n_hit = sum(e.count for e in hits)
+        check(n_hit == want[name], f"the profiled step shows {n_hit} "
+              f"{name} kernels, expected {want[name]}")
+        by[name] = sum(e.self_device_time_total for e in hits) / 1e3
+    unit = "round" if rounds else "tick"
+    print(f"  {n_params:,} parameters; losses "
+          f"{[round(x, 4) for x in rec['loss']]}")
+    print(f"  per {unit}: {want} launches, variants {want_var} (exact on "
+          f"every {unit})")
+    print(f"  {unit} wall (median of steps 1..{steps - 1} but the "
+          f"profiled {sp.steps}): {wall_ms:.3f} ms ({tok_per_s:.1f} "
+          f"tokens/s); profiled step {sp.at}: device busy {busy_ms:.3f} ms "
+          f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), "
+          f"{sum(e.count for e in kern)} kernels; peak "
+          f"{peak / 2**30:.2f} GiB; run {run_s:.1f} s")
+    print(f"  device ms by kind: {kernel_kinds(kern)}")
+    for name, ms in by.items():
+        print(f"  {name}: {want[name]} kernels, {ms:.4f} ms "
+              f"({100 * ms / busy_ms:.1f}% of device busy)")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms "
+              f"{e.count:5d}x  {e.key[:72]}")
+    return {"arch": arch, "schedule": schedule, "layers": L, "stages": S,
+            "n_params": n_params, "launches": total, "per_step": want,
+            "variants_per_step": want_var, "wall_ms": wall_ms,
+            "tok_per_s": tok_per_s, "busy_ms": busy_ms, "kernel_ms": by,
+            "peak_bytes": peak, "losses": rec["loss"], "run_s": run_s}
+
+
 def _torch_or_none():
     """torch with a card and the repository's ``src/`` on the path, or
     None (the reason printed)."""
@@ -5638,11 +6265,13 @@ def run() -> int:
         encdec_errs = encdec_kernel_checks(torch, fa, ref)
         fused_checks(torch, ops, ref)
         scan_errs = scan_checks(torch, ops, ref)
+        scan_bwd_errs = scan_bwd_checks(torch, ops, ref, r6, m2)
         ops.reset_launch_counts()
         model_check(torch)
         ssm_model_check(torch)
         pipelined_check(torch)
         train_check(torch)
+        ssm_chk = ssm_train_check(torch)
         new_model_check(torch)
         encdec_chk = encdec_model_check(torch, ops)
         ir_check(torch)
@@ -5683,6 +6312,14 @@ def run() -> int:
         mla_train = train_main_path(torch, ops, MLA_ARCH, MLA_TRAIN_LAYERS)
         vlm_fwd = vlm_forward_check(torch)
         vlm_train = train_main_path(torch, ops, VLM_ARCH, VLM_TRAIN_LAYERS)
+        ssm_train = {}
+        for arch in SSM_ARCHS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            ssm_train[arch] = ssm_train_path(torch, ops, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ssm_rounds = ssm_train_path(torch, ops, "rwkv6-7b", "1f1b")
         split = moe_split(torch)
         ir_runs = ir_schedules(torch, ops, ref)
         gc.collect()
@@ -5700,6 +6337,7 @@ def run() -> int:
         mla_rows = mla_timings(torch, fa, ref, mla_errs)
         encdec_rows = encdec_timings(torch, fa, ref, encdec_errs)
         scan_rows = scan_timings(torch, ops, ref, scan_errs)
+        scan_bwd_rows = scan_bwd_timings(torch, r6, m2, ref, scan_bwd_errs)
     except Exception:   # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5899,6 +6537,48 @@ def run() -> int:
                                            if row["variant"] == "chunk"
                                            else "serving"))
                          for row in scan_rows[kind]]})
+    # phase 26: the SSM families' training (ticks and rwkv6's 1f1b rounds)
+    tick_path = {arch: f"train {arch} ({r['layers']} layers, "
+                       f"{r['stages']} stages)"
+                 for arch, r in ssm_train.items()}
+    rounds_path = (f"train rwkv6-7b 1f1b rounds ({ssm_rounds['layers']} "
+                   f"layers)")
+    for k in kernels:
+        name = k["name"]
+        for arch, r in ssm_train.items():
+            if r["launches"].get(name):
+                k.setdefault("launches_by_path", {})[tick_path[arch]] = \
+                    r["launches"][name]
+        if ssm_rounds["launches"].get(name):
+            k.setdefault("launches_by_path", {})[rounds_path] = \
+                ssm_rounds["launches"][name]
+    for kind, arch, line in (("rwkv6", "rwkv6-7b", 64),
+                             ("mamba2", "zamba2-1.2b", 300)):
+        name = f"{kind}_scan_bwd"
+        row = scan_bwd_rows[kind]
+        r = ssm_train[arch]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/models/ssm.py:{line}",
+            "replaces_note": "no Pallas body: XLA differentiates this "
+                             "lax.scan, through which the JAX package "
+                             "trains the family",
+            "launches": r["launches"][name],
+            "launches_per_tick": r["per_step"][name],
+            "launches_by_path": {tick_path[arch]: r["launches"][name],
+                                 **({rounds_path:
+                                     ssm_rounds["launches"][name]}
+                                    if kind == "rwkv6" else {})},
+            "max_abs_err": row["max_abs_err"],
+            "max_rel_err_of_max": max(v["rel"] for (kd, _), v in
+                                      scan_bwd_errs.items() if kd == kind),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the "
+                       "recurrence's gradient",
+            "shape": row["shape"], "kernel": row["kernel"]})
     for arch, rec in ssm.items():
         lp = rec["long_prompt"]
         print(f"{arch} long prompts: time to first token "
@@ -6094,6 +6774,27 @@ def run() -> int:
             print(f"{name} {row['shape']}: {row['ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
                   f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}")
+    for r in list(ssm_train.values()) + [ssm_rounds]:
+        unit = "tick" if r["schedule"] == "stream" else f"{r['schedule']} round"
+        bwd = sum(ms for n, ms in r["kernel_ms"].items()
+                  if n.endswith("_scan_bwd"))
+        print(f"{r['arch']} training {unit} ({r['layers']} layers, "
+              f"{r['stages']} stages, {r['n_params']:,} parameters): "
+              f"{r['wall_ms']:.3f} ms wall, {r['tok_per_s']:.1f} tokens/s, "
+              f"device busy {r['busy_ms']:.3f} ms, the scans' backward "
+              f"{bwd:.3f} ms ({100 * bwd / r['busy_ms']:.1f}% of busy), peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; last loss "
+              f"{r['losses'][-1]:.4f}")
+    for arch, r in ssm_chk.items():
+        print(f"{arch} smoke training card vs CPU: losses rel "
+              f"{r['loss']:.2e}, params, momentum and prediction max |d| "
+              f"{r['abs']:.2e}, {r['noise']} leaves held to the CPU's own "
+              f"move under a {NOISE_REL:g} perturbation (worst "
+              f"{r['ratio']:.2f}x)")
+    for kind, row in scan_bwd_rows.items():
+        print(f"{kind}_scan_bwd {row['shape']}: {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.4f}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

@@ -25,6 +25,13 @@ This is routing by shape, not a fallback: each variant is exact and
 each raises on what it does not take.  On CUDA tensors
 :func:`mamba2_scan` launches its variant or raises; on CPU tensors it
 computes :func:`repro_torch.kernels.ref.mamba2_ref`.
+
+:func:`mamba2_scan_bwd` is the recurrence's backward (the training
+path's): ``ssd_bwd_kernel`` in ``csrc/mamba2_scan_bwd.cu`` on CUDA
+tensors, one block a (batch row, head), deterministic, then
+``ssd_bwd_group_kernel`` (dB and dC summed over each group's heads; the
+pair counts as one launch); :func:`repro_torch.kernels.ref.
+mamba2_bwd_ref` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_cp_async_alignment
-from repro_torch.kernels.ref import mamba2_ref
-from repro_torch.kernels.rwkv6_scan import CHUNK_MIN_S, variant
+from repro_torch.kernels.ref import mamba2_bwd_ref, mamba2_ref
+from repro_torch.kernels.rwkv6_scan import BWD_TILE, CHUNK_MIN_S, variant
 
 HEAD_DIMS = (16, 32, 64)         # for p and for n
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +55,8 @@ _VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 launches = 0
 launches_decode = 0
 launches_chunk = 0
+# backward kernel launches since the last reset (the CPU path never counts)
+launches_bwd = 0
 
 _p = ctypes.c_void_p
 _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 7
@@ -55,6 +64,8 @@ _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 7
 # one (batch row, head, chunk) record of the chunked kernel's scores: the
 # [64 x 64] score matrix, A_i and T_j dt_j
 _RECORD = 64 * 64 + 2 * 64
+_BWD_ARGTYPES = ([_p] * 17 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] * 18 + [_p])
 
 
 def _lib():
@@ -75,8 +86,25 @@ def chunk_smem_bytes(dtype: torch.dtype, n: int, scores: bool = False
     return int(fn(_DTYPES[dtype], n, int(scores)))
 
 
+def _bwd_lib():
+    fn = build.library("mamba2_scan_bwd").repro_mamba2_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(p: int, n: int) -> int:
+    """Dynamic shared memory of one ``ssd_bwd_kernel`` block."""
+    fn = build.library("mamba2_scan_bwd").repro_mamba2_scan_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return int(fn(p, n))
+
+
 def load() -> None:
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load the forward kernels' library (the
+    backward's builds at its first call)."""
     _lib()
 
 
@@ -178,3 +206,80 @@ def mamba2_scan(x, dt, decay, B, C, S0, out=None
     launches_decode += kind == "decode"
     launches_chunk += kind == "chunk"
     return y, sT
+
+
+def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
+    """The backward of :func:`mamba2_scan` from its inputs and the
+    cotangents dy [b, s, h, p] (fp32, as y) and dS_T [b, h, p, n] (fp32)
+    -> (dx [b, s, h, p] in x's dtype, ddt, ddecay [b, s, h] fp32, dB, dC
+    [b, s, g, n] in B's dtype (each group's the sum over its heads), dS0
+    [b, h, p, n] fp32): the gradient of the recurrence,
+    ``mamba2_bwd_ref``'s formulas.  The kernel recomputes the forward
+    states from S0 (checkpoints every ``BWD_TILE`` steps in a scratch the
+    wrapper allocates, b h ceil(s / 8) p n fp32) and sums across state
+    entries and heads in a fixed order, so two calls on the same inputs
+    give the same bits."""
+    _check(x, dt, decay, B, C, S0)
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"dy must be fp32 {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dS_T.shape != S0.shape or dS_T.dtype != torch.float32:
+        raise ValueError(f"dS_T must be fp32 {tuple(S0.shape)}, got "
+                         f"{tuple(dS_T.shape)} {dS_T.dtype}")
+    if len({t.device for t in (x, dy, dS_T)}) != 1:
+        raise ValueError("x, dy, dS_T on different devices")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.device.type == "cpu":
+        rep = h // g
+        tr = lambda t: t.transpose(1, 2)
+        per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+        dx, ddt, ddecay, dBh, dCh, dS0 = mamba2_bwd_ref(
+            tr(x), tr(dt), tr(decay), per_head(B), per_head(C), S0,
+            tr(dy), dS_T)
+        group = lambda t: tr(t.reshape(b, g, rep, s, n).sum(2)).to(B.dtype)
+        return (tr(dx).to(x.dtype), tr(ddt), tr(ddecay), group(dBh),
+                group(dCh), dS0)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_scan_bwd runs on cuda or cpu, not "
+                         f"{x.device}")
+    for name, t in (("x", x), ("dt", dt), ("decay", decay), ("B", B),
+                    ("C", C), ("dy", dy)):
+        if min(t.stride()) < 0 or (t.dim() == 4 and t.stride(-1) != 1):
+            raise ValueError(f"{name} needs a contiguous last dim and "
+                             f"non-negative strides, got {t.stride()}")
+    for name, t in (("S0", S0), ("dS_T", dS_T)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} exceeds the launch grid")
+    dev = x.device
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt, ddecay = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    dB, dC = (torch.empty((b, s, g, n), dtype=B.dtype, device=dev)
+              for _ in range(2))
+    dS0 = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    n_tiles = -(-s // BWD_TILE)
+    ckpt = torch.empty(b * h * n_tiles * p * n, dtype=torch.float32,
+                       device=dev)
+    dB_part, dC_part = (torch.empty(b * s * h * n, dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), decay.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), S0.data_ptr(), dy.data_ptr(),
+                 dS_T.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                 ddecay.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dS0.data_ptr(), ckpt.data_ptr(), dB_part.data_ptr(),
+                 dC_part.data_ptr(), _DTYPES[x.dtype], p, n, b, s, h, g,
+                 *x.stride()[:3], *dt.stride(), *decay.stride(),
+                 *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_scan_bwd launch failed: CUDA error "
+                           f"{err}")
+    global launches_bwd
+    launches_bwd += 1
+    return dx, ddt, ddecay, dB, dC, dS0

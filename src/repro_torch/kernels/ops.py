@@ -6,9 +6,12 @@ on CPU tensors (``kernels/ref.py``).  :func:`flash_attention` is
 differentiable, as the JAX twin's ``custom_vjp`` is: its backward is the
 flash backward (two kernels on the card, ``flash_bwd_ref`` on the CPU),
 never autograd of the plain forward.  The two recurrences
-(:func:`rwkv6_scan`, :func:`mamba2_scan`) serve inference and prefill
-only, as in the JAX package, which has no backward kernel for them: they
-raise where autograd would need one.
+(:func:`rwkv6_scan`, :func:`mamba2_scan`) are differentiable too: their
+forward is the scan kernels, their backward a backward kernel of each
+on the card (``rwkv6_bwd_ref`` / ``mamba2_bwd_ref`` on the CPU), the
+gradient XLA takes of the JAX package's jnp scans, which train its SSM
+families (its Pallas scans have no backward).  Their in-place state
+path (``out=``) serves only and raises under autograd.
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_dq,
             "flash_bwd_dkv": fa.launches_dkv, "fused_update": fu.launches,
-            "rwkv6_scan": r6.launches, "mamba2_scan": m2.launches}
+            "rwkv6_scan": r6.launches, "mamba2_scan": m2.launches,
+            "rwkv6_scan_bwd": r6.launches_bwd,
+            "mamba2_scan_bwd": m2.launches_bwd}
 
 
 def variant_counts() -> Dict[str, int]:
@@ -84,6 +89,7 @@ def reset_launch_counts() -> None:
     fu.launches = r6.launches = m2.launches = 0
     r6.launches_decode = r6.launches_chunk = 0
     m2.launches_decode = m2.launches_chunk = 0
+    r6.launches_bwd = m2.launches_bwd = 0
 
 
 # ---------------------------------------------------------------------------
@@ -149,22 +155,63 @@ def fused_update(ws, vs, gs, *, lr: float, gamma: float, s: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
-# recurrences (inference/prefill path; no backward kernel exists)
+# recurrences
 
 
-def _no_grad(name: str, *ts) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name} has no backward: training the SSM families is not "
-            f"ported (the JAX package trains them through its jnp scans)")
+class _RWKV6Scan(torch.autograd.Function):
+    """Forward ``r6.rwkv6_scan`` (saving its inputs), backward
+    ``r6.rwkv6_scan_bwd``, which recomputes the states from S0."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        y, sT = _timed("rwkv6_scan", r6.rwkv6_scan, r, k, v, w, u, S0)
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        return _timed("rwkv6_scan_bwd", r6.rwkv6_scan_bwd,
+                      *ctx.saved_tensors, dy.contiguous(), dsT.contiguous())
+
+
+class _Mamba2Scan(torch.autograd.Function):
+    """Forward ``m2.mamba2_scan`` (saving its inputs), backward
+    ``m2.mamba2_scan_bwd``, which recomputes the states from S0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, decay, B, C, S0):
+        y, sT = _timed("mamba2_scan", m2.mamba2_scan, x, dt, decay, B, C,
+                       S0)
+        ctx.save_for_backward(x, dt, decay, B, C, S0)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        return _timed("mamba2_scan_bwd", m2.mamba2_scan_bwd,
+                      *ctx.saved_tensors, dy.contiguous(), dsT.contiguous())
+
+
+def _differentiable(name: str, out, *ts) -> bool:
+    """Whether autograd records this call; the in-place ``out`` serves
+    only and raises when it would."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)):
+        return False
+    if out is not None:
+        raise ValueError(
+            f"{name}: out= writes the state in place for serving; a call "
+            f"that autograd records takes out=None (the training path's "
+            f"state=None)")
+    return True
 
 
 def rwkv6_scan(r, k, v, w, u, S0, out=None):
     """Model-side layout: r, k, v, w [b, s, h, hd]; u [h, hd]; S0
     [b, h, hd, hd] fp32 -> (y [b, s, h, hd] in r's dtype, S_T fp32),
     S_T written into ``out`` if given (``out=S0`` updates the state in
-    place).  See ``kernels/rwkv6_scan.py``."""
-    _no_grad("rwkv6_scan", r, k, v, w, u, S0)
+    place).  Differentiable in every input (not with ``out``).  See
+    ``kernels/rwkv6_scan.py``."""
+    if _differentiable("rwkv6_scan", out, r, k, v, w, u, S0):
+        return _RWKV6Scan.apply(r, k, v, w, u, S0)
     return _timed("rwkv6_scan", r6.rwkv6_scan, r, k, v, w, u, S0, out)
 
 
@@ -172,8 +219,10 @@ def mamba2_scan(x, dt, decay, B, C, S0, out=None):
     """Model-side layouts: x [b, s, h, p]; dt, decay [b, s, h]; B, C
     [b, s, g, n] (the group of head i is i // (h // g), read in place);
     S0 [b, h, p, n] fp32 -> (y [b, s, h, p] fp32, S_T fp32), S_T written
-    into ``out`` if given (``out=S0`` updates the state in place).  See
+    into ``out`` if given (``out=S0`` updates the state in place).
+    Differentiable in every input (not with ``out``).  See
     ``kernels/mamba2_scan.py``."""
-    _no_grad("mamba2_scan", x, dt, decay, B, C, S0)
+    if _differentiable("mamba2_scan", out, x, dt, decay, B, C, S0):
+        return _Mamba2Scan.apply(x, dt, decay, B, C, S0)
     return _timed("mamba2_scan", m2.mamba2_scan, x, dt, decay, B, C, S0,
                   out)

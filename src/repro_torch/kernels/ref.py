@@ -200,6 +200,92 @@ def mamba2_ref(x, dt, decay, B, C, S0) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(ys, dim=2), S
 
 
+def rwkv6_bwd_ref(r, k, v, w, u, S0, dy, dS_T):
+    """The backward of :func:`rwkv6_ref`, one step at a time in reverse.
+
+    The formulas the backward kernel computes (not autograd of the
+    forward), all in fp32, in :func:`rwkv6_ref`'s kernel layout (dy
+    [b, h, s, hd], dS_T [b, h, hd, hd]).  The states S_{t-1} come from a
+    forward pass (never from dividing by w_t, which may be 0).  With G
+    the cotangent of S_t, from G = dS_T:
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+        dk_t = u o r_t (v_t . dy_t) + G v_t
+        dv_t = (sum_i u_i r_ti k_ti) dy_t + G^T k_t
+        dw_t = rowsum(G o S_{t-1})
+        du  += r_t o k_t (v_t . dy_t)          (summed over b and t)
+        G   <- diag(w_t) G + r_t dy_t^T
+
+    Returns (dr, dk, dv, dw [b, h, s, hd], du [h, hd], dS0 = G) in fp32."""
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    u = u.float()
+    S = S0.float()
+    prev = []                                   # S_{t-1} for every t
+    for t in range(r.shape[2]):
+        prev.append(S)
+        S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, :]
+    G = dS_T.float()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(r[:, :, 0])
+    for t in reversed(range(r.shape[2])):
+        rt, kt, vt, wt, dyt = (a[:, :, t] for a in (r, k, v, w, dy))
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, :, t] = (torch.einsum("bhij,bhj->bhi", prev[t], dyt)
+                       + u * kt * vdy)
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", G, vt) + u * rt * vdy
+        dv[:, :, t] = (torch.einsum("bhij,bhi->bhj", G, kt)
+                       + (u * rt * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, :, t] = (G * prev[t]).sum(-1)
+        du = du + rt * kt * vdy
+        G = wt[..., :, None] * G + rt[..., :, None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), G
+
+
+def mamba2_bwd_ref(x, dt, decay, B, C, S0, dy, dS_T):
+    """The backward of :func:`mamba2_ref`, one step at a time in reverse.
+
+    The formulas the backward kernel computes (not autograd of the
+    forward), all in fp32, in :func:`mamba2_ref`'s kernel layout (B, C
+    one per head; dy [b, h, s, p], dS_T [b, h, p, n]).  The states come
+    from a forward pass (never from dividing by decay_t, which may be
+    0).  With G the cotangent of S_t, from G = dS_T:
+
+        G       <- G + dy_t C_t^T
+        dC_t     = S_t^T dy_t
+        dx_t     = dt_t G B_t
+        ddt_t    = x_t . (G B_t)
+        dB_t     = G^T (dt_t x_t)
+        ddecay_t = sum(G o S_{t-1})
+        G       <- decay_t G
+
+    Returns (dx [b, h, s, p], ddt, ddecay [b, h, s], dB, dC [b, h, s, n]
+    per head, dS0 = G) in fp32."""
+    x, dt, decay, B, C, dy = (t.float() for t in (x, dt, decay, B, C, dy))
+    S = S0.float()
+    states = [S]                                # S_t, t = -1 .. s-1
+    for t in range(x.shape[2]):
+        S = S * decay[:, :, t, None, None] + (
+            (dt[:, :, t, None] * x[:, :, t])[..., :, None]
+            * B[:, :, t, None, :])
+        states.append(S)
+    G = dS_T.float()
+    dx = torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    ddt, ddecay = torch.empty_like(dt), torch.empty_like(decay)
+    for t in reversed(range(x.shape[2])):
+        xt, Bt, Ct, dyt = (a[:, :, t] for a in (x, B, C, dy))
+        G = G + dyt[..., :, None] * Ct[..., None, :]
+        dC[:, :, t] = torch.einsum("bhpn,bhp->bhn", states[t + 1], dyt)
+        gb = torch.einsum("bhpn,bhn->bhp", G, Bt)
+        dx[:, :, t] = dt[:, :, t, None] * gb
+        ddt[:, :, t] = (xt * gb).sum(-1)
+        dB[:, :, t] = torch.einsum("bhpn,bhp->bhn", G,
+                                   dt[:, :, t, None] * xt)
+        ddecay[:, :, t] = (G * states[t]).sum((-2, -1))
+        G = decay[:, :, t, None, None] * G
+    return dx, ddt, ddecay, dB, dC, G
+
+
 # ---------------------------------------------------------------------------
 # fused momentum update + SpecTrain prediction
 

@@ -24,6 +24,13 @@ This is routing by shape, not a fallback: each variant is exact and
 each raises on what it does not take.  On CUDA tensors
 :func:`rwkv6_scan` launches its variant or raises; on CPU tensors it
 computes :func:`repro_torch.kernels.ref.rwkv6_ref`.
+
+:func:`rwkv6_scan_bwd` is the recurrence's backward (the training
+path's): ``wkv_bwd_kernel`` in ``csrc/rwkv6_scan_bwd.cu`` on CUDA
+tensors, one block a (batch row, head), deterministic, then
+``wkv_bwd_du_kernel`` (du's sum over the batch rows; the pair counts as
+one launch); :func:`repro_torch.kernels.ref.rwkv6_bwd_ref` on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_cp_async_alignment
-from repro_torch.kernels.ref import rwkv6_ref
+from repro_torch.kernels.ref import rwkv6_bwd_ref, rwkv6_ref
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,12 +55,18 @@ _VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 launches = 0
 launches_decode = 0
 launches_chunk = 0
+# backward kernel launches since the last reset (the CPU path never counts)
+launches_bwd = 0
 
 _p = ctypes.c_void_p
 _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [_p])
 # diagonal scores of one (batch row, head, chunk) for the chunked kernel
 _SCORES_PER_CHUNK = 4 * 16 * 16
+_BWD_ARGTYPES = ([_p] * 16 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 15 + [_p])
+# steps per checkpoint of the backward kernel's forward walk
+BWD_TILE = 8
 
 
 def variant(s: int) -> str:
@@ -82,8 +95,25 @@ def chunk_smem_bytes(dtype: torch.dtype, hd: int, scores: bool = False
     return int(fn(_DTYPES[dtype], hd, int(scores)))
 
 
+def _bwd_lib():
+    fn = build.library("rwkv6_scan_bwd").repro_rwkv6_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one ``wkv_bwd_kernel`` block."""
+    fn = build.library("rwkv6_scan_bwd").repro_rwkv6_scan_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(hd))
+
+
 def load() -> None:
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load the forward kernels' library (the
+    backward's builds at its first call)."""
     _lib()
 
 
@@ -175,3 +205,69 @@ def rwkv6_scan(r, k, v, w, u, S0, out=None
     launches_decode += kind == "decode"
     launches_chunk += kind == "chunk"
     return y, sT
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, S0, dy, dS_T):
+    """The backward of :func:`rwkv6_scan` from its inputs and the
+    cotangents dy [b, s, h, hd] (r's dtype) and dS_T [b, h, hd, hd]
+    (fp32) -> (dr, dk, dv [b, s, h, hd] in r's dtype, dw [b, s, h, hd]
+    fp32, du [h, hd] fp32, dS0 [b, h, hd, hd] fp32): the gradient of the
+    recurrence, ``rwkv6_bwd_ref``'s formulas.  The kernel recomputes the
+    forward states from S0 (checkpoints every ``BWD_TILE`` steps in a
+    scratch the wrapper allocates, b h ceil(s / 8) hd^2 fp32) and sums
+    across state entries in a fixed order, so two calls on the same
+    inputs give the same bits."""
+    _check(r, k, v, w, u, S0)
+    if dy.shape != r.shape or dy.dtype != r.dtype:
+        raise ValueError(f"dy must be {tuple(r.shape)} {r.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dS_T.shape != S0.shape or dS_T.dtype != torch.float32:
+        raise ValueError(f"dS_T must be fp32 {tuple(S0.shape)}, got "
+                         f"{tuple(dS_T.shape)} {dS_T.dtype}")
+    if len({t.device for t in (r, dy, dS_T)}) != 1:
+        raise ValueError("r, dy, dS_T on different devices")
+    if r.device.type == "cpu":
+        tr = lambda t: t.transpose(1, 2)
+        dr, dk, dv, dw, du, dS0 = rwkv6_bwd_ref(
+            tr(r), tr(k), tr(v), tr(w), u, S0, tr(dy), dS_T)
+        return (tr(dr).to(r.dtype), tr(dk).to(r.dtype), tr(dv).to(r.dtype),
+                tr(dw), du, dS0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_bwd runs on cuda or cpu, not "
+                         f"{r.device}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        if t.stride(-1) != 1 or min(t.stride()) < 0:
+            raise ValueError(f"{name} needs a contiguous last dim and "
+                             f"non-negative strides, got {t.stride()}")
+    for name, t in (("u", u), ("S0", S0), ("dS_T", dS_T)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, s, h, hd = r.shape
+    if b > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} exceeds the launch grid")
+    dev = r.device
+    dr, dk, dv = (torch.empty((b, s, h, hd), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dw = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
+    du = torch.empty((h, hd), dtype=torch.float32, device=dev)
+    dS0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    n_tiles = -(-s // BWD_TILE)
+    ckpt = torch.empty(b * h * n_tiles * hd * hd, dtype=torch.float32,
+                       device=dev)
+    du_part = torch.empty(b * h * hd, dtype=torch.float32, device=dev)
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), S0.data_ptr(), dy.data_ptr(),
+                 dS_T.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+                 dS0.data_ptr(), ckpt.data_ptr(), du_part.data_ptr(),
+                 _DTYPES[r.dtype], hd, b, s, h,
+                 *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *w.stride()[:3], *dy.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd launch failed: CUDA error {err}")
+    global launches_bwd
+    launches_bwd += 1
+    return dr, dk, dv, dw, du, dS0

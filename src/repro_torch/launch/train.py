@@ -79,17 +79,23 @@ deepseek-moe-16b and grok-1-314b (and the paper's decoder-only configs);
 for an MoE model each step line adds ``aux``, the routers' load-balance
 loss included in ``loss`` (the stream tick's: over its valid stages'
 forwards; the IR rounds leave it out of the loss, as the JAX twin's do,
-and print none).  The SSM families serve only; the encoder-decoder
-whisper-base and transformer-paper are refused (no frames or source
-tokens in the data, no pipeline stages: ``Model.loss`` trains them).
+and print none), and the SSM families: rwkv6-7b (RWKV-6) and the
+zamba2-1.2b hybrid (Mamba-2 with a tied shared attention block a
+stage), their scans differentiable through the backward kernels, on the
+stream tick, the round schedules (interleaved refused for zamba2, whose
+shared blocks are tied per device, as in the JAX launcher), ``--mode
+sync`` and, for rwkv6-7b only, ``--execution mpmd``.  The
+encoder-decoder whisper-base and transformer-paper are refused (no
+frames or source tokens in the data, no pipeline stages: ``Model.loss``
+trains them).
 
 ``--data-kind uniform`` draws i.i.d. tokens; the default ``bigram``
 builds ``[V, V]`` float64 tables, fine at smoke size but 19.3 GB each
 at granite-8b's full vocabulary.
 
 Example (full-width granite-8b, 8 layers in 4 stages, on one H100; the
-same for minicpm3-4b at --layers 8, deepseek-moe-16b or granite-20b at
---layers 4):
+same for minicpm3-4b or rwkv6-7b at --layers 8, deepseek-moe-16b or
+granite-20b at --layers 4, zamba2-1.2b at its 38 layers in --pipe 2):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --layers 8 --pipe 4 --batch 8 --seq 512 --dtype bfloat16 \\
         --schedule 1f1b --data-kind uniform --steps 10 --log-every 1
@@ -186,6 +192,29 @@ def _mpmd_refusal(args) -> Optional[str]:
             "the global norm's canonical-order reduction is not "
             "bit-reproducible on the packed stage layout",
             "--execution spmd with --clip, or --execution mpmd without it"))
+    return None
+
+
+def _hybrid_refusal(args, model, execution: str) -> Optional[str]:
+    """A hybrid model's gates, in the three-part form: its shared block
+    is tied per stage, so no virtual stages and no stage-local layout
+    (the JAX package refuses both)."""
+    if not model.hybrid:
+        return None
+    U = pipeline_stream._unsupported
+    if args.virtual_stages > 1:
+        return str(U(
+            f"--virtual-stages {args.virtual_stages} with the hybrid "
+            f"{model.cfg.name}",
+            "its shared block is tied across a device's chunks and "
+            "independent chunk updates would fork it",
+            "--schedule gpipe, 1f1b, 2bw or stream"))
+    if execution == "mpmd":
+        return str(U(
+            f"--execution mpmd with the hybrid {model.cfg.name}",
+            "per-stage 'shared' blocks have no flat layer order to pack "
+            "into the [v, S, Lmax] stage-local layout",
+            "--execution spmd"))
     return None
 
 
@@ -385,6 +414,9 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
             f"(the JAX launcher cannot either); train it through "
             f"Model.loss and optim.sgd")
     model = Model(cfg, device=args.device)
+    why = _hybrid_refusal(args, model, rc.execution)
+    if why:
+        raise SystemExit(why)
     S = model.n_stages
     pplan, ir_round = run_plan(args, cfg, model.device)
     _print_plan(pplan, ir_round)

@@ -27,10 +27,12 @@ hd]}, "cross": {"k", "v": [L, b, frames, KV, hd]}}``.  The vision
 frontend (pixtral-12b) writes ``batch["patches"]`` over the first
 positions of the embedded tokens.  MoE layers dispatch as the JAX twin's on
 the training half and route each token alone on the serving half
-(``models/moe.py``).  The SSM families serve only: their scan
-kernels have no backward, as in the JAX package.  ``cfg.remat`` is not
-ported: the streaming runtime recomputes each stage from its stashed
-input anyway.
+(``models/moe.py``).  The SSM families (rwkv6, mamba2 and the zamba2
+hybrid, whose stages apply their tied ``shared`` block after every
+full segment) train through the same stages, their scans
+differentiable through the scan kernels' backward.  ``cfg.remat`` is
+not ported: the streaming runtime recomputes each stage from its
+stashed input anyway.
 """
 from __future__ import annotations
 
@@ -337,18 +339,13 @@ class Model:
         return self.hybrid and (i + 1) % self.cfg.ssm.shared_attn_every == 0
 
     def stage_apply(self, stage_params, carry, *, pos_offset: int = 0):
-        """One pipeline stage of a dense model: its blocks in order.  The
-        layer count is read off the tree's leading axis, so uniform and
-        ragged stages run the same code.  carry = (x [b, s, d], aux
-        scalar), to which each MoE block adds its load-balance loss, as
-        the JAX twin's ``_layer_body`` does.  The SSM families have
-        no pipeline stages in the port: they serve only, and their
-        whole-model forward is :meth:`_recurrent_layers`."""
-        if self.cfg.ssm is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: pipeline stages of the SSM families are "
-                f"not ported to PyTorch (they serve only; their scan "
-                f"kernels have no backward)")
+        """One pipeline stage: its blocks in order, and for a hybrid
+        model its tied ``shared`` block after every full
+        ``shared_attn_every`` segment (:meth:`_fires_shared`, the JAX
+        twin's rule).  The layer count is read off the tree's leading
+        axis, so uniform and ragged stages run the same code.  carry =
+        (x [b, s, d], aux scalar), to which each MoE block adds its
+        load-balance loss, as the JAX twin's ``_layer_body`` does."""
         self._check_staged("stage_apply")
         x, aux = carry
         for i in range(_n_layers(stage_params)):
@@ -356,6 +353,9 @@ class Model:
             x, a, _, _ = block_apply(self.cfg, lp, x, pos_offset=pos_offset)
             if a is not None:
                 aux = aux + a
+            if self._fires_shared(i):
+                x, _ = shared_block_apply(self.cfg, stage_params["shared"],
+                                          x, pos_offset=pos_offset)
         return x, aux
 
     def _check_staged(self, what: str) -> None:
@@ -398,10 +398,7 @@ class Model:
         if self.cfg.is_encdec:
             return self._hidden_encdec(params, batch)
         x = self.embed(params["outer"], batch)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.cfg.ssm is not None:
-            return self._recurrent_layers(params["stages"], x), zero
-        carry = (x, zero)
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
         for sp in params["stages"]:
             carry = self.stage_apply(sp, carry)
         return carry
@@ -489,13 +486,18 @@ class Model:
         :meth:`device_chunk_params`), and the pipelined engine splits
         them into its plan's stages whatever ``cfg.mesh_plan.pipe``
         says.  The JAX twin also asks that ``n_chunks`` fold onto the
-        model's devices, which one card does not need.  Hybrid shared
-        blocks are not ported (the SSM families serve only)."""
+        model's devices, which one card does not need.
+
+        Hybrid models keep one tied ``shared`` block per stage: it stays
+        with its stage index (a ragged input passes its trees' blocks
+        through, a stacked one slices its ``[S, ...]`` stack), so the
+        trees cannot be regrouped into another count, and virtual stages
+        (``n_chunks`` above the stage count) are refused: sibling chunks
+        would hold copies of a device's block that their updates fork,
+        as the JAX twin refuses."""
         self._check_staged("partition_stage_params")
         ragged_in = isinstance(stages, (tuple, list))
-        if any("shared" in t for t in (stages if ragged_in else [stages])):
-            raise NotImplementedError(
-                "hybrid shared blocks are not ported to PyTorch yet")
+        has_shared = "shared" in (stages[0] if ragged_in else stages)
         sizes = tuple(int(n) for n in sizes)
         if sum(sizes) != self.cfg.n_layers:
             raise ValueError(f"partition sizes {sizes} do not cover "
@@ -504,17 +506,51 @@ class Model:
         if len(sizes) != want:
             raise ValueError(f"{len(sizes)} partition stages for "
                              f"{want} (chunk-)stages")
+        if want > self.n_stages and has_shared:
+            raise ValueError(
+                f"virtual stages ({want} chunks on {self.n_stages} "
+                f"devices) are unsupported for hybrid models: the "
+                f"per-device shared block is tied across a device's "
+                f"chunks and independent chunk updates would fork it")
         if min(sizes) < 1:
             raise ValueError(f"empty stage in partition sizes {sizes}")
+        if ragged_in and has_shared and len(stages) != want:
+            raise ValueError(
+                f"cannot repartition {len(stages)} hybrid stage trees "
+                f"into {want}: shared blocks are tied per stage")
         if not ragged_in:
             # stacked [S, Lps, ...] leaves: the flat order is S-major
             flat = tree_map(lambda _, a: a.reshape((-1,) + a.shape[2:]),
                             stages["layers"])
-            return split_flat_stages({"layers": flat}, sizes)
-        if tuple(_n_layers(t) for t in stages) == sizes:
+            out = split_flat_stages({"layers": flat}, sizes)
+        elif tuple(_n_layers(t) for t in stages) == sizes:
             return tuple(stages)
-        return split_flat_stages({"layers": flat_stage_layers(stages)},
-                                 sizes)
+        else:
+            out = split_flat_stages({"layers": flat_stage_layers(stages)},
+                                    sizes)
+        if has_shared:
+            out = tuple(
+                {**t, "shared": (stages[k]["shared"] if ragged_in else
+                                 tree_map(lambda _, a, k=k: a[k],
+                                          stages["shared"]))}
+                for k, t in enumerate(out))
+        return out
+
+    def stack_stage_params(self, stage_trees):
+        """Inverse of :meth:`partition_stage_params` for uniform sizes:
+        per-stage trees back to the legacy stacked ``{"layers": [S, Lps,
+        ...](, "shared": [S, ...])}`` layout (copies; equal layer counts
+        only)."""
+        sizes = {_n_layers(t) for t in stage_trees}
+        if len(sizes) != 1:
+            raise ValueError(f"cannot stack ragged stages (sizes "
+                             f"{sorted(sizes)}); uniform only")
+        keys = ("layers", "shared") if "shared" in stage_trees[0] else \
+            ("layers",)
+        return {key: tree_map(
+            lambda path, _, key=key: torch.stack(
+                [_at(t[key], path) for t in stage_trees]),
+            stage_trees[0][key]) for key in keys}
 
     def device_chunk_params(self, chunk_trees, n_devices=None):
         """Group chunk-stage trees by hosting device: device ``d`` hosts
@@ -726,31 +762,26 @@ class Model:
             x, _, _, _ = block_apply(self.cfg, lp, x, state=st)
         return x
 
-    def _recurrent_layers(self, stages, x, cache=None, *,
+    def _recurrent_layers(self, stages, x, cache, *,
                           pos: Optional[int] = None):
         """Every layer of an rwkv6 or mamba2/hybrid model over x
         [b, s, d], each shared block after every full segment of its
-        stage (:meth:`_fires_shared`, on the tree's actual partition).
-        Without ``cache`` this is the stateless whole-sequence forward.
-        With it, each block reads its state from the cache and writes
-        the new one over it in place.  With ``pos`` (a Python int,
-        s == 1) this is a decode step and each shared block attends to
-        its KV slot's first pos + 1 positions; without, a prefill from
-        position 0 whose shared blocks run causally and fill their
-        slots' first s positions."""
+        stage (:meth:`_fires_shared`, on the tree's actual partition);
+        each block reads its state from ``cache`` and writes the new one
+        over it in place.  With ``pos`` (a Python int, s == 1) this is a
+        decode step and each shared block attends to its KV slot's first
+        pos + 1 positions; without, a prefill from position 0 whose
+        shared blocks run causally and fill their slots' first s
+        positions.  (The stateless forward is :meth:`stage_apply`'s.)"""
         cfg = self.cfg
         g = slot = 0
         for stage in stages:
             for i in range(_n_layers(stage)):
                 lp = tree_map(lambda _, a, i=i: a[i], stage["layers"])
-                st = (None if cache is None else
-                      {k: buf[g] for k, buf in cache["layers"].items()})
+                st = {k: buf[g] for k, buf in cache["layers"].items()}
                 x, _, _, _ = block_apply(cfg, lp, x, state=st)
                 g += 1
                 if not self._fires_shared(i):
-                    continue
-                if cache is None:
-                    x, _ = shared_block_apply(cfg, stage["shared"], x)
                     continue
                 sk, sv = cache["shared"]["k"][slot], cache["shared"]["v"][slot]
                 if pos is None:

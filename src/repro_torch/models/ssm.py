@@ -6,11 +6,13 @@ recurrent state; with a state they write the state after the sequence
 into it in place (it views one layer's slot of the model's cache, as a
 KV cache does in ``attention.gqa_apply``) and return its leaves, so one
 call serves a prompt (prefill) and a one-token decode step alike.
-The recurrence itself goes through ``kernels.ops.rwkv6_scan`` /
-``kernels.ops.mamba2_scan``: the hand-written kernel on the card, the
-sequential plain version on the CPU, for every sequence length.  The
-JAX package's chunked XLA forms (``USE_CHUNKED``) are a training-side
-switch and are not ported.
+Without a state (training and the reference forward) they start from
+zeros and are differentiable.  The recurrence itself goes through
+``kernels.ops.rwkv6_scan`` / ``kernels.ops.mamba2_scan``: the
+hand-written kernels on the card (forward, and under autograd the
+backward kernel), the sequential plain versions on the CPU, for every
+sequence length.  The JAX package's chunked XLA forms (``USE_CHUNKED``,
+off by default) are not ported.
 """
 from __future__ import annotations
 
@@ -102,7 +104,8 @@ def rwkv6_tm_apply(cfg, p, x, state: Optional[State] = None
     S0 = (state["S"] if state is not None
           else torch.zeros((b, H, hd, hd), dtype=torch.float32,
                            device=x.device))
-    y, _ = ops.rwkv6_scan(r, k, v, wh, u, S0, out=S0)     # y in dt
+    y, _ = ops.rwkv6_scan(r, k, v, wh, u, S0,
+                          out=None if state is None else S0)   # y in dt
     y = groupnorm_heads(y.reshape(b, s, d), p["gn_scale"], p["gn_bias"], H)
     out = (y * g) @ p["wo"].to(dt)
     if state is None:
@@ -225,7 +228,8 @@ def mamba2_apply(cfg, p, x, state: Optional[State] = None
     S0 = (state["S"] if state is not None
           else torch.zeros((b, nh, hd, s.d_state), dtype=torch.float32,
                            device=x.device))
-    y, _ = ops.mamba2_scan(xh, delta, decay, B, C, S0, out=S0)  # y fp32
+    y, _ = ops.mamba2_scan(xh, delta, decay, B, C, S0,
+                           out=None if state is None else S0)  # y fp32
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, sl, d_in).to(dt_)
 

@@ -29,8 +29,9 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch.models.layers import tree_leaves, tree_map
-from repro_torch.models.model import (flat_stage_layers, pack_chunk_params,
-                                      split_flat_stages, uniform_stage_sizes,
+from repro_torch.models.model import (_at, flat_stage_layers,
+                                      pack_chunk_params, split_flat_stages,
+                                      uniform_stage_sizes,
                                       unpack_chunk_params)
 from repro_torch.runtime import sharding as rsh
 
@@ -97,20 +98,32 @@ def restack_stages(stages: Any, new_pipe: int) -> Any:
     return tree_map(leaf, stages)
 
 
+def _shared_blocks(stages: Any) -> Optional[Any]:
+    """The per-stage tied ``shared`` blocks of hybrid stage params as one
+    ``[S, ...]`` stack (ragged trees are stacked, which copies), or None
+    for a model without them."""
+    if isinstance(stages, (tuple, list)):
+        if "shared" not in stages[0]:
+            return None
+        trees = [t["shared"] for t in stages]
+        return tree_map(lambda path, _: torch.stack(
+            [_at(t, path) for t in trees]), trees[0])
+    return stages.get("shared")
+
+
 def reshard_params(params: Dict[str, Any], *, new_pipe: int,
                    sizes: Optional[Sequence[int]] = None,
                    old_pipe: Optional[int] = None) -> Dict[str, Any]:
     """Stage params (ragged or legacy stacked) -> the ragged trees of a
     new split ``sizes`` (default: the uniform split over ``new_pipe``),
     flat layer order kept (views of one flat copy).  The only hard error
-    is an empty stage.  Hybrid shared blocks are not ported."""
+    is an empty stage.  Hybrid models' per-stage shared blocks are tiled
+    over the new stage count and cut to it, as the JAX twin does: stage
+    k of the new split takes old block ``k % S_old``."""
     del old_pipe
     out = dict(params)
     raw = params["stages"]
     if isinstance(raw, (tuple, list)):
-        if any("shared" in t for t in raw):
-            raise NotImplementedError(
-                "hybrid shared blocks are not ported to PyTorch yet")
         flat = flat_stage_layers(raw)
     else:
         flat = tree_map(lambda _, a: a.reshape((-1,) + tuple(a.shape[2:])),
@@ -121,7 +134,14 @@ def reshard_params(params: Dict[str, Any], *, new_pipe: int,
     if sum(sizes) != L or min(sizes) < 1:
         raise ValueError(f"sizes {sizes} do not tile {L} layers "
                          f"(empty stages are not executable)")
-    out["stages"] = split_flat_stages({"layers": flat}, sizes)
+    flat_stages = {"layers": flat}
+    shared = _shared_blocks(raw)
+    if shared is not None:
+        def tile(_, a):
+            reps = -(-len(sizes) // a.shape[0])
+            return a.repeat((reps,) + (1,) * (a.dim() - 1))[:len(sizes)]
+        flat_stages["shared"] = tree_map(tile, shared)
+    out["stages"] = split_flat_stages(flat_stages, sizes)
     return out
 
 

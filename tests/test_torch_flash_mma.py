@@ -720,7 +720,7 @@ def test_variant_counters_stay_zero_on_cpu():
                                     "mamba2_scan_chunk": 0}
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_update",
-        "rwkv6_scan", "mamba2_scan"}
+        "rwkv6_scan", "mamba2_scan", "rwkv6_scan_bwd", "mamba2_scan_bwd"}
     assert not any(ops.launch_counts().values())
 
 

@@ -478,7 +478,8 @@ def test_mla_ticks_on_card_match_cpu(card):
     assert ops.launch_counts() == {
         "flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
         "flash_bwd_dkv": L * n, "fused_update": (S + 1) * n,
-        "rwkv6_scan": 0, "mamba2_scan": 0}
+        "rwkv6_scan": 0, "mamba2_scan": 0,
+        "rwkv6_scan_bwd": 0, "mamba2_scan_bwd": 0}
     (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
     for key in ("params", "momentum"):
@@ -696,7 +697,8 @@ def test_training_ticks_on_card_match_cpu(card, mode, fused_predict,
     assert ops.launch_counts() == {
         "flash_fwd": 2 * cfg.n_layers * n, "flash_bwd_dq": cfg.n_layers * n,
         "flash_bwd_dkv": cfg.n_layers * n, "fused_update": (S + 1) * n,
-        "rwkv6_scan": 0, "mamba2_scan": 0}
+        "rwkv6_scan": 0, "mamba2_scan": 0,
+        "rwkv6_scan_bwd": 0, "mamba2_scan_bwd": 0}
     (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
     tol = 2e-2 if bwd_dtype else None
     np.testing.assert_allclose(l_g, l_c, rtol=tol or 1e-5)
@@ -1305,7 +1307,8 @@ def test_ir_rounds_on_card_match_cpu(card, schedule, mode, v, backend):
     assert ops.launch_counts() == {
         "flash_fwd": 2 * L * M * n, "flash_bwd_dq": L * M * n,
         "flash_bwd_dkv": L * M * n, "fused_update": (C + 1) * n,
-        "rwkv6_scan": 0, "mamba2_scan": 0}
+        "rwkv6_scan": 0, "mamba2_scan": 0,
+        "rwkv6_scan_bwd": 0, "mamba2_scan_bwd": 0}
     (s_c, l_c), (s_g, l_g) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
     keys = ["params", "momentum"] + (["stash"] if "stash" in s_c else [])
@@ -1724,3 +1727,215 @@ def test_pixtral_patches_and_ticks_on_card_match_cpu(card):
             np.testing.assert_allclose(g.float().cpu().numpy(),
                                        c.float().numpy(), rtol=1e-4,
                                        atol=1e-5, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# training the SSM families: the scans' backward kernels and the ticks
+
+SCAN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # of the max
+
+
+def _scan_bwd_inputs(kind, seed, b, s, h, d, dtype, n=None, g=1):
+    """Model layout on the card: decays uniform in [0, 1] with exact zeros
+    and ones, nonzero S0 and dS_T; mamba2's B, C views of one tensor."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh, sc=1.0, dt=torch.float32: torch.from_numpy(
+        (rng.standard_normal(sh) * sc).astype(np.float32)).to("cuda", dt)
+    n = n or d
+
+    def decays(*sh):
+        a = rng.uniform(0.0, 1.0, sh).astype(np.float32)
+        a.flat[::13] = 0.0
+        a.flat[5::17] = 1.0
+        return torch.from_numpy(a).to("cuda")
+    if kind == "rwkv6":
+        return (mk(b, s, h, d, dt=dtype), mk(b, s, h, d, sc=0.3, dt=dtype),
+                mk(b, s, h, d, dt=dtype), decays(b, s, h, d),
+                mk(h, d, sc=0.3), mk(b, h, d, d, sc=0.3),
+                mk(b, s, h, d, dt=dtype), mk(b, h, d, d, sc=0.3))
+    bc = mk(b, s, 2 * g * n, sc=0.5, dt=dtype)
+    B, C = (t.reshape(b, s, g, n) for t in bc.chunk(2, -1))
+    return (mk(b, s, h, d, dt=dtype), torch.nn.functional.softplus(
+        mk(b, s, h)), decays(b, s, h), B, C, mk(b, h, d, n, sc=0.3),
+        mk(b, s, h, d), mk(b, h, d, n, sc=0.3))
+
+
+def _scan_bwd_plain(kind, args):
+    """The wrapper's CPU branch (the plain backward) on the card's
+    tensors, in the model layout and the kernel's output dtypes."""
+    tr = lambda t: t.transpose(1, 2)
+    if kind == "rwkv6":
+        r, k, v, w, u, S0, dy, dS_T = args
+        out = ref.rwkv6_bwd_ref(tr(r), tr(k), tr(v), tr(w), u, S0, tr(dy),
+                                dS_T)
+        return tuple(tr(t).to(r.dtype) for t in out[:3]) + (
+            tr(out[3]),) + out[4:]
+    x, dt, decay, B, C, S0, dy, dS_T = args
+    b, s, h, _ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    per_head = lambda t: tr(t.repeat_interleave(rep, dim=2))
+    dx, ddt, dde, dB, dC, dS0 = ref.mamba2_bwd_ref(
+        tr(x), tr(dt), tr(decay), per_head(B), per_head(C), S0, tr(dy),
+        dS_T)
+    grp = lambda t: tr(t.reshape(b, g, rep, s, n).sum(2)).to(B.dtype)
+    return (tr(dx).to(x.dtype), tr(ddt), tr(dde), grp(dB), grp(dC), dS0)
+
+
+SCAN_BWD_CASES = [
+    # kind, b, s, h, d, n, g
+    ("rwkv6", 2, 1, 8, 64, None, 1), ("rwkv6", 2, 12, 8, 64, None, 1),
+    ("rwkv6", 2, 63, 8, 64, None, 1), ("rwkv6", 1, 130, 4, 32, None, 1),
+    ("rwkv6", 1, 9, 2, 16, None, 1), ("mamba2", 2, 1, 8, 64, 64, 1),
+    ("mamba2", 2, 12, 8, 64, 64, 1), ("mamba2", 2, 63, 8, 64, 64, 1),
+    ("mamba2", 2, 37, 16, 32, 16, 4), ("mamba2", 1, 20, 8, 16, 64, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SCAN_BWD_CASES,
+                         ids=[f"{c[0]}-b{c[1]}-s{c[2]}-h{c[3]}-d{c[4]}"
+                              f"-g{c[6]}" for c in SCAN_BWD_CASES])
+def test_scan_bwd_kernels_match_plain(card, case, dtype):
+    """Each backward kernel against its plain version, every output within
+    1e-5 (fp32 inputs) or 2e-2 (bf16) of its largest magnitude, two runs
+    on the same inputs bit-equal, one launch a call."""
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    kind, b, s, h, d, n, g = case
+    args = _scan_bwd_inputs(kind, 7, b, s, h, d, dtype, n, g)
+    fn = r6.rwkv6_scan_bwd if kind == "rwkv6" else m2.mamba2_scan_bwd
+    c0 = ops.launch_counts()[f"{kind}_scan_bwd"]
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[f"{kind}_scan_bwd"] == c0 + 2
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+    for a, w in zip(got, _scan_bwd_plain(kind, args)):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        scale = float(w.float().abs().max())
+        _close(a, w, SCAN_BWD_TOL[dtype] * scale, rtol=0.0)
+
+
+@pytest.mark.gpu
+def test_scans_differentiate_through_the_backward_kernels(card):
+    """Under autograd the scans' gradients are the backward kernels', bit
+    for bit, and the serving in-place path raises."""
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    for kind, scan, bwd in (("rwkv6", ops.rwkv6_scan, r6.rwkv6_scan_bwd),
+                            ("mamba2", ops.mamba2_scan, m2.mamba2_scan_bwd)):
+        args = _scan_bwd_inputs(kind, 3, 2, 70, 4, 64, torch.float32)
+        leaves = [a.clone().requires_grad_() for a in args[:6]]
+        y, sT = scan(*leaves)
+        grads = torch.autograd.grad((y, sT), leaves, args[6:])
+        for a, w in zip(grads, bwd(*args)):
+            assert torch.equal(a, w)
+        with pytest.raises(ValueError, match="serving"):
+            scan(*leaves, out=args[5].clone())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_ssm_ticks_on_card_match_cpu(card, arch):
+    """2(S-1)+3 spectrain ticks and one 1f1b round of the smoke SSM model
+    (rwkv6: 4 stages; zamba2: 2 stages of 2 layers, each firing its
+    shared block), fp32, lr 0.02: card against CPU, losses within rtol
+    1e-4, params, momentum and prediction within rtol 1e-4 / atol 1e-5.
+    rwkv6's ticks each start from the CPU's state, and a leaf past that
+    tolerance passes within 4x the distance the CPU's own tick (and
+    round) moves under a 1e-7 relative perturbation of its weights
+    (chip_smoke.py's ``ssm_train_check`` says why); zamba2's run on."""
+    from repro_torch.core import pipeline_stream as ps
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.planner import plan as make_plan
+    full = get_config(arch)
+    cfg = smoke_config(full).replace(n_layers=4, compute_dtype="float32",
+                                     mesh_plan=full.mesh_plan)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    S = cpu.n_stages
+    resync = arch == "rwkv6-7b"
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2 * (S - 1) + 3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+
+    def close(st_g, st_c, st_n=None):
+        for key in ("params", "momentum", "pred"):
+            if key not in st_c:
+                continue
+            noise = (tree_leaves(st_n[key]) if st_n is not None
+                     else [None] * len(tree_leaves(st_c[key])))
+            for g, c, z in zip(tree_leaves(st_g[key]),
+                               tree_leaves(st_c[key]), noise):
+                g = g.float().cpu()
+                if torch.allclose(g, c, rtol=1e-4, atol=1e-5):
+                    continue
+                assert z is not None, key
+                floor = float((z - c).abs().max())
+                assert float((g - c).abs().max()) <= 4 * floor, key
+
+    def perturbed(tree, seed):
+        gen = torch.Generator().manual_seed(seed)
+        out = _clone_tree(tree)
+        for leaf in tree_leaves(out):
+            leaf.mul_(1 + 1e-7 * torch.randn(leaf.shape, generator=gen))
+        return out
+    sides = (("cpu", cpu, lambda: _clone_tree(p_cpu)),
+             ("card", gpu, lambda: _on(p_cpu, card)))
+    st = {n: ps.make_state(m, fresh(), batches[0], mode="spectrain")
+          for n, m, fresh in sides}
+    step = {n: ps.make_train_step(m, mode="spectrain", lr=0.02)
+            for n, m, _ in sides}
+    for t, b in enumerate(batches):
+        noisy = None
+        if resync:
+            if t:
+                _copy_into(st["card"], st["cpu"])
+            noisy = dict(_clone_tree(st["cpu"]))
+            noisy["params"] = perturbed(st["cpu"]["params"], t)
+            noisy["pred"] = perturbed(st["cpu"]["pred"], t + 100)
+            step["cpu"](noisy, b)
+        l_c = float(step["cpu"](st["cpu"], b)[1]["loss"])
+        l_g = float(step["card"](st["card"], b)[1]["loss"])
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+        if resync:
+            close(st["card"], st["cpu"], noisy)
+    close(st["card"], st["cpu"])
+    pl = make_plan(cfg, n_stages=S, schedule="1f1b", n_microbatches=S,
+                   partitioner="uniform")
+    out = {}
+    for n, m, fresh in sides + (("noise", cpu,
+                                 lambda: perturbed(p_cpu, 99)),):
+        ir = ps.make_ir_state(m, fresh(), plan=pl)
+        ir, met = ps.make_ir_train_step(m, plan=pl, lr=0.02)(ir, batches[0])
+        out[n] = (ir, float(met["loss"]))
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=1e-4)
+    close(out["card"][0], out["cpu"][0],
+          out["noise"][0] if resync else None)
+
+
+def _copy_into(dst, src):
+    """``src``'s state written over ``dst`` in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        elif isinstance(v, tuple):
+            for d, x in zip(dst[k], v):
+                _copy_into(d, x)
+        elif isinstance(v, torch.Tensor):
+            dst[k].copy_(v)
+        else:
+            dst[k] = v
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree

@@ -151,7 +151,9 @@ def test_wrapper_cpu_path_never_counts():
                      lr=0.1, gamma=0.9)
     assert ops.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                    "flash_bwd_dkv": 0, "fused_update": 0,
-                                   "rwkv6_scan": 0, "mamba2_scan": 0}
+                                   "rwkv6_scan": 0, "mamba2_scan": 0,
+                                   "rwkv6_scan_bwd": 0,
+                                   "mamba2_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", [

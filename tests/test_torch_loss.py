@@ -142,9 +142,16 @@ def test_partition_stage_params():
         tm.partition_stage_params(stages, (3, 3, 3))
     with pytest.raises(ValueError, match="empty"):
         tm.partition_stage_params(stages, (0, 3, 4))
-    with pytest.raises(NotImplementedError, match="shared"):
-        tm.partition_stage_params(
-            tuple({**s, "shared": {}} for s in stages), (3, 2, 2))
+    # hybrid trees: each stage keeps its tied shared block through a
+    # repartition (JAX's rule), and virtual stages are refused
+    hybrid = tuple({**s, "shared": {"x": torch.full((2,), float(k))}}
+                   for k, s in enumerate(stages))
+    again = tm.partition_stage_params(hybrid, (1, 3, 3))
+    assert [float(t["shared"]["x"][0]) for t in again] == [0.0, 1.0, 2.0]
+    _close_trees([t["layers"] for t in again],
+                 [t["layers"] for t in want], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="shared"):
+        tm.partition_stage_params(hybrid, (1,) * 7, n_chunks=7)
 
 
 def test_partition_stacked_and_chunked_like_jax():

@@ -43,7 +43,9 @@ from repro.planner import serve_plan as jserve_plan
 from repro.serve import SimpleEngine as JSimpleEngine
 from repro.serve import poisson_trace as jpoisson_trace
 from repro_torch import configs as tconfigs
+from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import Model, from_jax_params
 from repro_torch.models import layers as tl
@@ -359,19 +361,29 @@ def test_scans_write_state_in_place(kind):
     _close(S0, sT, 0)
 
 
-def test_scans_have_no_backward():
-    """No backward kernel exists (nor in the JAX package): asking
-    autograd for one raises instead of treating the scan as constant."""
-    args = [_t(a) for a in _rwkv_inputs(8, 1, 3, 2, 16)]
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.rwkv6_scan(*args)
-    with torch.no_grad():
-        ops.rwkv6_scan(*args)
-    margs = [_t(a) for a in _mamba_inputs(8, 1, 3, 2, 16, 16, 1)]
-    margs[1].requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.mamba2_scan(*margs)
+def test_scans_differentiate_through_their_backward():
+    """Under autograd each scan's gradient is its backward wrapper's (the
+    plain backward on the CPU, the backward kernel on the card), equal
+    bit for bit; the in-place state path (``out=``) serves only and
+    raises there, and still runs without autograd."""
+    cases = ((ops.rwkv6_scan, r6.rwkv6_scan_bwd,
+              [_t(a) for a in _rwkv_inputs(8, 1, 3, 2, 16)]),
+             (ops.mamba2_scan, m2.mamba2_scan_bwd,
+              [_t(a) for a in _mamba_inputs(8, 1, 3, 2, 16, 16, 1)]))
+    rng = np.random.default_rng(0)
+    for scan, bwd, args in cases:
+        leaves = [a.clone().requires_grad_() for a in args]
+        y, sT = scan(*leaves)
+        dy = _t(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+        dsT = _t(rng.standard_normal(tuple(sT.shape)).astype(np.float32))
+        got = torch.autograd.grad((y, sT), leaves, (dy, dsT))
+        for g, w in zip(got, bwd(*args, dy, dsT)):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="serving"):
+            scan(*leaves[:-1], leaves[-1], out=args[-1].clone())
+        with torch.no_grad():
+            S0 = args[-1].clone()
+            scan(*args[:-1], S0, out=S0)
 
 
 # ---------------------------------------------------------------------------
@@ -641,22 +653,47 @@ def test_shared_slots_match_jax(n_layers, pipe):
     assert want[0] == max(1, fires)
 
 
-def test_ssm_stages_are_not_ported(models):
-    """The SSM families have no pipeline stages in the port (they serve
-    only); their forward is the one serving layer walk."""
-    _, _, tm, tp = models
-    x = torch.zeros((1, 2, tm.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="serve only"):
-        tm.stage_apply(tp["stages"][0], (x, torch.zeros(())))
+def test_ssm_stages_match_jax(models):
+    """Each pipeline stage of the SSM families (zamba2: its shared block
+    after every full segment) against JAX's ``stage_apply``, chained
+    through the stages, and the stages' chain is the model's forward."""
+    jm, jp, tm, tp = models
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, tm.cfg.d_model)).astype(np.float32)
+    jx, tx = jnp.asarray(x), _t(x)
+    zero = torch.zeros(())
+    for js, ts in zip(jp["stages"], tp["stages"]):
+        jx, _ = jm.stage_apply(js, (jx, jnp.zeros((), jnp.float32)))
+        tx, aux = tm.stage_apply(ts, (tx, zero))
+        assert float(aux) == 0.0
+        _close(tx, jx, MODEL_TOL)
+    toks = rng.integers(0, tm.cfg.vocab_size, (2, 5))
+    h, _ = tm.hidden(tp, {"tokens": torch.from_numpy(toks)})
+    want, _ = jm.hidden(jp, {"tokens": jnp.asarray(toks)})
+    _close(h, want, MODEL_TOL)
 
 
-def test_ssm_training_raises(rwkv):
-    """Training the SSM families is not ported (no backward kernel)."""
-    _, _, tm, tp = rwkv
+def test_ssm_training_grads_match_jax(rwkv):
+    """The loss of an SSM model is differentiable (the scans through
+    their backward) and its gradient is ``jax.grad`` of JAX's loss,
+    within 1e-4 of each leaf's largest magnitude (rwkv6's decay chain,
+    ``tests/test_torch_ssm_train.py``)."""
+    jm, jp, tm, tp = rwkv
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, tm.cfg.vocab_size, (2, 7))
+    tgts = rng.integers(0, tm.cfg.vocab_size, (2, 7))
+    want = jax.grad(jm.loss)(jp, {"tokens": jnp.asarray(toks),
+                                  "targets": jnp.asarray(tgts)})
     params = tl.tree_map(lambda _, a: a.clone().requires_grad_(), tp)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tm.loss(params, {"tokens": toks, "targets": toks})
+    loss = tm.loss(params, {"tokens": torch.from_numpy(toks),
+                            "targets": torch.from_numpy(tgts)})
+    got = torch.autograd.grad(loss, tl.tree_leaves(params))
+    wl = jax.tree.leaves(want)
+    assert len(got) == len(wl)
+    for g, w in zip(got, wl):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=MODEL_TOL,
+                                   atol=MODEL_TOL * np.abs(w).max())
 
 
 # ---------------------------------------------------------------------------
