@@ -16,9 +16,9 @@ the JAX package, and in phases:
      csrc`` (one nvcc per source, all seven at once), with ptxas's
      registers and shared memory, and for the three bf16 tensor-core
      kernels (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
-     ``flash_bwd_dkv_mma_kernel``) and the scans' decode, scores and
-     chunked kernels their registers, spills and static and dynamic
-     shared memory;
+     ``flash_bwd_dkv_mma_kernel``), the scans' decode, scores and
+     chunked kernels and the scans' backward (stepwise and chunked)
+     their registers, spills and static and dynamic shared memory;
   3. holds each kernel against its plain PyTorch version on the card
      (TF32 off for the plain versions): the flash forward at the serving
      paths' decode and prefill shapes (granite-8b's attention, head_dim
@@ -360,18 +360,22 @@ heads of 64) and the vision frontend (pixtral-12b: 40 layers, d 5120,
 
 Training the SSM families (rwkv6-7b; zamba2-1.2b, Mamba-2 with a tied
 shared attention block a stage) adds one phase, with the scans'
-backward kernels (``csrc/rwkv6_scan_bwd.cu``, ``csrc/mamba2_scan_bwd.cu``):
+backward kernels (``csrc/rwkv6_scan_bwd.cu``, ``csrc/mamba2_scan_bwd.cu``:
+the stepwise kernels at s < 64, the chunked tensor-core ones at s >= 64):
 
- 26. (after phase 3's scan checks) each backward kernel against its
-     plain version (the backward formulas) and against autograd of the
-     plain forward, every output elementwise within 1e-5 (fp32 inputs)
-     or 2e-2 (bf16) of its largest magnitude, at the training shape
-     ``[8, 512, 64, 64]`` (rwkv6-7b's 64 heads of 64; zamba2's 64 heads,
-     p 64, n 64, one B/C group) and s = 1, 12, 63 at full width, fp32
-     and bf16, the other head sizes and mamba2 with g > 1, decays from
-     exact 0 to 1, nonzero S0 and dS_T; every call twice, bit-equal; one
-     call through ``ops`` under autograd, the kernel's gradient bit for
-     bit; (after phase 4's training check) the smoke-size stream tick
+ 26. (after phase 3's scan checks) each backward against its plain
+     version (the backward formulas) and against autograd of the plain
+     forward, every output elementwise within 1e-5 (fp32 inputs) or
+     2e-2 (bf16) of its largest magnitude, at full width (rwkv6-7b's 64
+     heads of 64; zamba2's 64 heads, p 64, n 64, one B/C group) at the
+     training tick's ``[8, 512]``, the rounds' ``[1, 512]``, s = 64, 100
+     (a partial last chunk) and 2048 on the chunked kernels and s = 1,
+     12, 63 on the stepwise ones, fp32 and bf16, the other head sizes
+     and mamba2 with g > 1 on both, decays from exact 0 to 1, nonzero S0
+     and dS_T; every call twice, bit-equal, on its variant (counted);
+     every call again through ``ops`` under autograd, the kernel's
+     gradient bit for bit; (after phase 4's training check) the
+     smoke-size stream tick
      (2(S-1)+3 ticks) and a 1f1b round of both families, card against
      CPU in fp32 (``ssm_train_check``: rwkv6 held tick by tick and to
      its own sensitivity, zamba2's stages each firing the shared block);
@@ -379,13 +383,14 @@ backward kernels (``csrc/rwkv6_scan_bwd.cu``, ``csrc/mamba2_scan_bwd.cu``):
      of 32 layers in 4 stages and zamba2-1.2b at all 38 in 2 (each
      stage's shared block fires once), bf16, 8 x 512, 10 spectrain
      ticks: finite losses valid from tick S-1, exact launches a tick (2L
-     scans, all chunked, L backward, S+1 updates; zamba2's 4 flash
-     forwards and 2 of each backward kernel, all tensor-core), one tick
-     profiled, wall, busy, tokens/s and peak; rwkv6-7b on 1f1b, 4
-     rounds of 8 microbatches (128 scans, 64 backward, 5 updates a
-     round); and (in phase 8) both backward kernels timed at the
-     training shape beside their bounds and plain versions (no PyTorch
-     call computes either).
+     scans, all chunked, L backward, all chunked, S+1 updates; zamba2's
+     4 flash forwards and 2 of each backward kernel, all tensor-core),
+     one tick profiled (each backward's three kernels counted and
+     timed), wall, busy, tokens/s and peak; rwkv6-7b on 1f1b, 4 rounds
+     of 8 microbatches (128 scans, 64 backward, 5 updates a round); and
+     (in phase 8) both backward timed at the tick's ``[8, 512]`` and the
+     rounds' ``[1, 512]`` beside their bounds and plain versions (no
+     PyTorch call computes either).
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -845,7 +850,9 @@ def mma_ptxas(log: str) -> dict:
                       "wkv_scores_kernel", "wkv_chunk_kernel",
                       "ssd_decode_kernel", "ssd_scores_kernel",
                       "ssd_chunk_kernel", "wkv_bwd_kernel",
-                      "ssd_bwd_kernel"):
+                      "ssd_bwd_kernel", "wkv_bwd_states_kernel",
+                      "wkv_bwd_chunk_kernel", "ssd_bwd_states_kernel",
+                      "ssd_bwd_chunk_kernel"):
                 if k in sym:      # _Z..<k>ILi128ELi4EE.. -> k<128, 4>
                     rest = sym.split(k, 1)[1]
                     args = re.findall(r"Li(\d+)E", rest)
@@ -899,7 +906,12 @@ def build_kernels(build, r6, m2, *mods) -> None:
               f"lines above)")
     print(f"  dynamic shared memory per block of the scans' backward: "
           f"wkv_bwd_kernel hd 64 {r6.bwd_smem_bytes(64)} B, ssd_bwd_kernel "
-          f"p 64 n 64 {m2.bwd_smem_bytes(64, 64)} B")
+          f"p 64 n 64 {m2.bwd_smem_bytes(64, 64)} B; the chunked "
+          f"wkv_bwd_chunk_kernel bf16 / fp32 "
+          f"{r6.bwd_smem_bytes(64, torch.bfloat16)} / "
+          f"{r6.bwd_smem_bytes(64, torch.float32)} B, ssd_bwd_chunk_kernel "
+          f"{m2.bwd_smem_bytes(64, 64, torch.bfloat16)} / "
+          f"{m2.bwd_smem_bytes(64, 64, torch.float32)} B")
 
 
 def kernel_checks(torch, fa, ref) -> dict:
@@ -5550,13 +5562,21 @@ SSM_TRAIN = {"rwkv6-7b": (8, 4), "zamba2-1.2b": (38, 2)}
 SSM_ROUNDS = 4                     # rwkv6-7b's 1f1b rounds
 SSM_TRAIN_LR = 0.02
 # the kernels of the training path, as the profiler names them: the
-# chunked forward (s = 512), the backward walk, the bf16 attention
+# chunked forward (s = 512), the chunked backward's gradient kernel, the
+# bf16 attention
 TRAIN_SYMBOL = dict(KERNEL_SYMBOL, rwkv6_scan="wkv_chunk_kernel",
                     mamba2_scan="ssd_chunk_kernel",
-                    rwkv6_scan_bwd="wkv_bwd_kernel",
-                    mamba2_scan_bwd="ssd_bwd_kernel")
-SCAN_BWD_SYMBOLS = {"rwkv6": "wkv_bwd_kernel + wkv_bwd_du_kernel",
-                    "mamba2": "ssd_bwd_kernel + ssd_bwd_group_kernel"}
+                    rwkv6_scan_bwd="wkv_bwd_chunk_kernel",
+                    mamba2_scan_bwd="ssd_bwd_chunk_kernel")
+# the three kernels of one chunked backward call (s >= 64): the walk over
+# the chunks, every chunk's gradients, the sum over heads / batch rows
+SCAN_BWD_PARTS = {
+    "rwkv6_scan_bwd": ("wkv_bwd_states_kernel", "wkv_bwd_chunk_kernel",
+                       "wkv_bwd_du_kernel"),
+    "mamba2_scan_bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
+                        "ssd_bwd_group_kernel")}
+SCAN_BWD_SYMBOLS = {k[:-len("_scan_bwd")]: " + ".join(v)
+                    for k, v in SCAN_BWD_PARTS.items()}
 
 
 class ScanBwdCase:
@@ -5638,14 +5658,22 @@ class ScanBwdCase:
             return torch.autograd.grad((tr(y), sT), leaves,
                                        (dy.to(y.dtype), dS_T))
 
+    def variant(self) -> str:
+        return "chunk" if self.s >= 64 else "step"
+
     def bound(self):
-        """(least ms, what bounds it): bytes, every input read once and
-        every gradient written once, over HBM; and the backward's fp32
-        operations over the fp32 peak outside the tensor cores, per step
-        and state entry 14: the state recomputed (3), the cotangent's
+        """(least ms, what bounds it): the larger of the bytes, every input
+        read once and every gradient written once, over HBM, and the
+        operations over their peak.  s < 64 (the stepwise kernels): the
+        fp32 operations over the fp32 peak outside the tensor cores, per
+        step and state entry 14: the state recomputed (3), the cotangent's
         update (rwkv6: w G + r dy, 3; mamba2: + dy C and x decay, 3) and
-        four products summed (rwkv6: dr, dk, dv, dw; mamba2: dC, G B,
-        dB, ddecay)."""
+        four products summed (rwkv6: dr, dk, dv, dw; mamba2: dC, G B, dB,
+        ddecay).  s >= 64 (the chunked kernels): the chunked form's
+        tensor-core products over the TF32 peak, each product counted
+        once, as the forward's bound counts them (not once per 3xTF32
+        pass: the passes are the kernels' cost, not the function's), the
+        triangular ones at the triangle (chunked_ops)."""
         el = 2 if self.dtype == "bfloat16" else 4
         b, s, h, d, n, g = self.b, self.s, self.h, self.d, self.n, self.g
         if self.kind == "rwkv6":
@@ -5660,34 +5688,80 @@ class ScanBwdCase:
                       + 4 * 4 * b * s * h            # dt, decay, and grads
                       + 4 * el * b * s * g * n       # B, C, dB, dC
                       + 3 * 4 * b * h * d * n)       # S0, dS_T, dS0
-        flops = 14 * b * s * h * d * n
         t_b = nbytes / HBM_BPS * 1e3
-        t_f = flops / PEAK_FLOPS["float32"] * 1e3
+        if self.variant() == "step":
+            t_f = 14 * b * s * h * d * n / PEAK_FLOPS["float32"] * 1e3
+        else:
+            t_f = self.chunked_ops() / PEAK_FLOPS["tf32"] * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    def chunked_ops(self, passes: bool = False) -> float:
+        """Tensor-core FLOPs of the chunked backward (2 a multiply-add;
+        with ``passes``, times each product's mma passes, 1 to 3 as
+        3xTF32 splits its fp32-derived operands, bf16 operands being
+        exact): per (batch row, head, chunk of Q = 64),
+        with tri = Q (Q + 1) / 2.  mamba2: the walk's two [p x n] updates
+        over Q steps; C B^T, dy x^T, (C B^T o L)^T dy, N B, N^T C over the
+        triangle; B G^T, dy S, x G in full.  rwkv6 (sub-chunks of 16):
+        the walk's 2 x 4 [d x d] updates over 16 steps; the chunk's 3
+        states and 3 cotangents; per sub-chunk dy S^T, v G^T, (k o K) G
+        ([16 x d x d]), dy v^T and A^T dy ([16 x 16 x d], A at its
+        triangle of 136)."""
+        ex = self.dtype == "bfloat16"
+        pa = ((lambda a, b: 1 + (not a) + (not b)) if passes
+              else (lambda a, b: 1))                # mma passes
+        b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
+        Q = 64
+        tri = Q * (Q + 1) // 2
+        if self.kind == "mamba2":
+            mac = (2 * d * n * Q * pa(False, ex)
+                   + tri * n * pa(ex, ex) + tri * d * pa(False, ex)
+                   + tri * d * pa(False, False)
+                   + 2 * tri * n * pa(False, ex)
+                   + Q * n * d * (pa(ex, False) + pa(False, False)
+                                  + pa(ex, False)))
+        else:
+            sub = 16 * d * d
+            mac = (8 * sub * pa(False, ex) + 6 * sub * pa(False, ex)
+                   + 4 * (2 * sub * pa(ex, False) + sub * pa(False, False)
+                          + 16 * 16 * d * pa(ex, ex)
+                          + 136 * d * pa(False, ex)))
+        return 2.0 * mac * b * h * -(-s // Q)
 
 
 def scan_bwd_cases(kind: str) -> list:
-    """The training shape [8, 512, 64, 64] (rwkv6-7b's 64 heads of 64;
-    zamba2-1.2b's 64 heads, p 64, n 64, g 1) and the short steps s = 1,
-    12, 63 at full width, in fp32 and bf16; the other head sizes; mamba2
-    with g > 1."""
+    """At full width (rwkv6-7b's 64 heads of 64; zamba2-1.2b's 64 heads,
+    p 64, n 64, g 1), in fp32 and bf16: the training tick's shape [8, 512]
+    and the rounds' [1, 512], s = 64, 100 (a partial last chunk) and 2048
+    on the chunked kernels, s = 1, 12, 63 on the stepwise ones; the other
+    head sizes and mamba2 with g > 1, on both."""
     cases = []
     for dt in ("float32", "bfloat16"):
-        cases.append(ScanBwdCase(kind, f"train b8 s=512 {dt}", 8, 512, 64,
-                                 64, dt))
-        for s in (1, 12, 63):
+        cases += [ScanBwdCase(kind, f"train b8 s=512 {dt}", 8, 512, 64, 64,
+                              dt),
+                  ScanBwdCase(kind, f"b1 s=512 {dt}", 1, 512, 64, 64, dt),
+                  ScanBwdCase(kind, f"b1 s=2048 {dt}", 1, 2048, 64, 64, dt)]
+        for s in (1, 12, 63, 64, 100):
             cases.append(ScanBwdCase(kind, f"b2 s={s} {dt}", 2, s, 64, 64,
                                      dt))
     if kind == "rwkv6":
         cases += [ScanBwdCase(kind, "hd32 b2 h4 s=20 float32", 2, 20, 4, 32,
                               "float32"),
                   ScanBwdCase(kind, "hd16 b1 h2 s=9 bfloat16", 1, 9, 2, 16,
+                              "bfloat16"),
+                  ScanBwdCase(kind, "hd32 b1 h4 s=130 float32", 1, 130, 4,
+                              32, "float32"),
+                  ScanBwdCase(kind, "hd16 b2 h2 s=70 bfloat16", 2, 70, 2, 16,
                               "bfloat16")]
     else:
         cases += [ScanBwdCase(kind, "g=4 b2 h16 p32 n16 s=37 float32", 2,
                               37, 16, 32, "float32", n=16, g=4),
                   ScanBwdCase(kind, "g=2 b1 h8 p16 n64 s=20 bfloat16", 1,
-                              20, 8, 16, "bfloat16", n=64, g=2)]
+                              20, 8, 16, "bfloat16", n=64, g=2),
+                  ScanBwdCase(kind, "g=4 b2 h16 p32 n16 s=100 float32", 2,
+                              100, 16, 32, "float32", n=16, g=4),
+                  ScanBwdCase(kind, "g=2 b1 h8 p16 n64 s=130 bfloat16", 1,
+                              130, 8, 16, "bfloat16", n=64, g=2)]
     return cases
 
 
@@ -5702,9 +5776,11 @@ def scan_bwd_checks(torch, ops, ref, r6, m2) -> dict:
     """Both scans' backward kernels against their plain versions (the
     formulas) and against autograd of the plain forward, elementwise
     within SCAN_BWD_TOL of each output's largest magnitude; every call
-    run twice on the same inputs, bit-equal; one call of each through
-    ``ops`` under autograd, whose gradients are the kernel's bit for
-    bit.  Returns {(kind, case): worst relative error}."""
+    run twice on the same inputs, bit-equal, on its variant (the chunked
+    kernels at s >= 64, counted under ``{kind}_scan_bwd_chunk``); every
+    call again through ``ops`` under autograd, whose gradients are the
+    kernel's bit for bit.  Returns {(kind, case): worst relative
+    error}."""
     errs = {}
     for kind in ("rwkv6", "mamba2"):
         phase(f"phase 26: {kind}_scan backward against its plain version "
@@ -5714,11 +5790,16 @@ def scan_bwd_checks(torch, ops, ref, r6, m2) -> dict:
         for i, case in enumerate(scan_bwd_cases(kind)):
             args = case.tensors(torch, seed=900 + i)
             c0 = ops.launch_counts()[f"{kind}_scan_bwd"]
+            v0 = ops.variant_counts()[f"{kind}_scan_bwd_chunk"]
             got = case.kernel((r6, m2), args)
             again = case.kernel((r6, m2), args)
             torch.cuda.synchronize()
             check(ops.launch_counts()[f"{kind}_scan_bwd"] == c0 + 2,
                   f"{kind} {case.name}: not one launch a call")
+            chunked = ops.variant_counts()[f"{kind}_scan_bwd_chunk"] - v0
+            check(chunked == (2 if case.variant() == "chunk" else 0),
+                  f"{kind} {case.name}: {chunked} of 2 calls on the chunked "
+                  f"backward (s = {case.s})")
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             check(same, f"{kind} {case.name}: two runs on the same inputs "
                   f"differ")
@@ -5748,25 +5829,20 @@ def scan_bwd_checks(torch, ops, ref, r6, m2) -> dict:
                   for w in ("plain", "autograd")}
             worst = max(e, key=e.get)
             zeros = int((args[3 if kind == "rwkv6" else 2] == 0).sum())
-            print(f"  {case.name:<32} plain {by['plain']:.2e}  autograd "
-                  f"{by['autograd']:.2e} of max (worst {worst[1]} vs "
-                  f"{worst[0]}); two runs bit-equal; {zeros} exact-zero "
-                  f"decays")
-            if case.s == 63 and case.dtype == "float32":
-                # the same call under autograd through ops: the forward on
-                # the scan kernel, the gradient the backward kernel's
-                leaves = [a.detach().clone().requires_grad_()
-                          for a in args[:6]]
-                scan = (ops.rwkv6_scan if kind == "rwkv6"
-                        else ops.mamba2_scan)
-                y, sT = scan(*leaves)
-                grads = torch.autograd.grad((y, sT), leaves,
-                                            (args[6], args[7]))
-                check(all(torch.equal(a, b) for a, b in zip(grads, got)),
-                      f"{kind} {case.name}: the gradient through ops "
-                      f"differs from the kernel's")
-                print(f"  {'':<32} through ops under autograd: the "
-                      f"kernel's gradient, bit for bit")
+            # the same call under autograd through ops: the forward on the
+            # scan kernel, the gradient the backward kernel's
+            leaves = [a.detach().clone().requires_grad_() for a in args[:6]]
+            scan = ops.rwkv6_scan if kind == "rwkv6" else ops.mamba2_scan
+            y, sT = scan(*leaves)
+            grads = torch.autograd.grad((y, sT), leaves, (args[6], args[7]))
+            check(all(torch.equal(a, b) for a, b in zip(grads, got)),
+                  f"{kind} {case.name}: the gradient through ops differs "
+                  f"from the kernel's")
+            del y, sT, grads, leaves
+            print(f"  {case.name:<32} {case.variant():<5} plain "
+                  f"{by['plain']:.2e}  autograd {by['autograd']:.2e} of max "
+                  f"(worst {worst[1]} vs {worst[0]}); two runs and ops "
+                  f"under autograd bit-equal; {zeros} exact-zero decays")
             del got, args
             gc.collect()
             torch.cuda.empty_cache()
@@ -5774,36 +5850,50 @@ def scan_bwd_checks(torch, ops, ref, r6, m2) -> dict:
 
 
 def scan_bwd_timings(torch, r6, m2, ref, errs) -> dict:
-    """Each backward kernel at the training shape, bf16 (the ticks'
-    call: b 8, s 512, 64 heads, 64 wide): device ms, the plain
-    backward's ms, the bound.  No PyTorch call computes either."""
+    """Each backward at the training tick's call (bf16, b 8, s 512, 64
+    heads, 64 wide) and the 1f1b rounds' (b 1), both on the chunked
+    kernels: device ms, the plain backward's ms, the bound.  No PyTorch
+    call computes either."""
     phase("phase 26: timings of the scans' backward kernels (CUDA events, "
           "after warm-up)")
     rows = {}
     for kind in ("rwkv6", "mamba2"):
-        case = ScanBwdCase(kind, "train b8 s=512 bfloat16", 8, 512, 64, 64,
-                           "bfloat16")
-        args = case.tensors(torch, seed=7)
-        ms, wall = time_ms(torch, lambda: case.kernel((r6, m2), args), 20)
-        plain_ms, _ = time_ms(torch, lambda: case.plain(torch, ref, args),
-                              2)
-        bound_ms, bound_by = case.bound()
         width = "hd 64" if kind == "rwkv6" else "p 64, n 64, g 1"
-        rows[kind] = {
-            "shape": f"{case.name}, h 64, {width}",
-            "kernel": SCAN_BWD_SYMBOLS[kind], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "max_abs_err": errs[(kind, "train b8 s=512 bfloat16")]["abs"],
-            "max_rel_err": errs[(kind, "train b8 s=512 bfloat16")]["rel"],
-            "wall_ms_per_call": wall}
-        print(f"  {kind}_scan_bwd {case.name} {rows[kind]['kernel']}: "
-              f"{ms:.4f} ms (wall {wall:.4f} ms per call)  bound "
-              f"{bound_ms:.5f} ms ({bound_by})  plain {plain_ms:.4f} ms  "
-              f"library: none")
-        del args
-        gc.collect()
-        torch.cuda.empty_cache()
+        for b in (8, 1):
+            name = ("train b8 s=512 bfloat16" if b == 8
+                    else "b1 s=512 bfloat16")
+            case = ScanBwdCase(kind, name, b, 512, 64, 64, "bfloat16")
+            args = case.tensors(torch, seed=7)
+            ms, wall = time_ms(torch, lambda: case.kernel((r6, m2), args),
+                               20)
+            plain_ms, _ = time_ms(torch,
+                                  lambda: case.plain(torch, ref, args), 2)
+            bound_ms, bound_by = case.bound()
+            row = {"shape": f"[{b}, 512, 64, 64] bf16, {width}",
+                   "kernel": SCAN_BWD_SYMBOLS[kind], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None,
+                   "tensor_core_gflop": case.chunked_ops() / 1e9,
+                   "tensor_core_pass_gflop":
+                       case.chunked_ops(passes=True) / 1e9,
+                   "max_abs_err": errs[(kind, name)]["abs"],
+                   "max_rel_err": errs[(kind, name)]["rel"],
+                   "wall_ms_per_call": wall}
+            if b == 8:
+                rows[kind] = row
+            else:
+                rows[kind]["b1"] = row
+            print(f"  {kind}_scan_bwd {row['shape']} {row['kernel']}: "
+                  f"{ms:.4f} ms (wall {wall:.4f} ms per call)  bound "
+                  f"{bound_ms:.5f} ms ({bound_by}; tensor-core "
+                  f"{row['tensor_core_gflop']:.2f} GFLOP at TF32 peak "
+                  f"{case.chunked_ops() / PEAK_FLOPS['tf32'] * 1e3:.5f} ms, "
+                  f"{row['tensor_core_pass_gflop']:.2f} GFLOP counting each "
+                  f"3xTF32 pass)  "
+                  f"plain {plain_ms:.4f} ms  library: none")
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -5980,7 +6070,8 @@ def ssm_train_launches(arch: str, L: int, S: int, M: int = 0) -> tuple:
     (``M`` = 0) or one round of ``M`` microbatches of full-width ``arch``
     at ``L`` layers in ``S`` stages: each layer's scan runs in the
     forward and again in the backward's recompute (the chunked kernels
-    at s = 512) and its backward once; a hybrid stage's shared block
+    at s = 512) and its backward once (the chunked backward); a hybrid
+    stage's shared block
     (after every full segment) makes two flash forwards and one of each
     backward kernel; S + 1 fused updates a tick, C + 1 a round."""
     from repro_torch.configs import get_config
@@ -5990,7 +6081,7 @@ def ssm_train_launches(arch: str, L: int, S: int, M: int = 0) -> tuple:
     m = max(M, 1)
     want = {f"{kind}_scan": 2 * L * m, f"{kind}_scan_bwd": L * m,
             "fused_update": S + 1}
-    var = {f"{kind}_scan_chunk": 2 * L * m}
+    var = {f"{kind}_scan_chunk": 2 * L * m, f"{kind}_scan_bwd_chunk": L * m}
     if cfg.ssm.shared_attn_every:
         F = sum(n // cfg.ssm.shared_attn_every
                 for n in uniform_stage_sizes(L, S)) * m
@@ -6093,13 +6184,22 @@ def ssm_train_path(torch, ops, arch: str, schedule: str = "stream") -> dict:
     tok_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
     kern = sp.result()
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    by = {}
+    by, parts = {}, {}
     for name in want:
         hits = [e for e in kern if TRAIN_SYMBOL[name] in e.key]
         n_hit = sum(e.count for e in hits)
         check(n_hit == want[name], f"the profiled step shows {n_hit} "
               f"{name} kernels, expected {want[name]}")
         by[name] = sum(e.self_device_time_total for e in hits) / 1e3
+        if name in SCAN_BWD_PARTS:      # the walk and the sum too
+            for part in SCAN_BWD_PARTS[name]:
+                ph = [e for e in kern if part in e.key]
+                check(sum(e.count for e in ph) == want[name],
+                      f"the profiled step shows {sum(e.count for e in ph)} "
+                      f"{part} kernels, expected {want[name]}")
+                parts[part] = sum(e.self_device_time_total
+                                  for e in ph) / 1e3
+            by[name] = sum(parts[x] for x in SCAN_BWD_PARTS[name])
     unit = "round" if rounds else "tick"
     print(f"  {n_params:,} parameters; losses "
           f"{[round(x, 4) for x in rec['loss']]}")
@@ -6113,8 +6213,11 @@ def ssm_train_path(torch, ops, arch: str, schedule: str = "stream") -> dict:
           f"{peak / 2**30:.2f} GiB; run {run_s:.1f} s")
     print(f"  device ms by kind: {kernel_kinds(kern)}")
     for name, ms in by.items():
-        print(f"  {name}: {want[name]} kernels, {ms:.4f} ms "
-              f"({100 * ms / busy_ms:.1f}% of device busy)")
+        print(f"  {name}: {want[name]} calls, {ms:.4f} ms "
+              f"({100 * ms / busy_ms:.1f}% of device busy)"
+              + (" = " + " + ".join(f"{x} {parts[x]:.4f}"
+                                    for x in SCAN_BWD_PARTS[name])
+                 if name in SCAN_BWD_PARTS else ""))
     kern.sort(key=lambda e: -e.self_device_time_total)
     for e in kern[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms "
@@ -6123,7 +6226,8 @@ def ssm_train_path(torch, ops, arch: str, schedule: str = "stream") -> dict:
             "n_params": n_params, "launches": total, "per_step": want,
             "variants_per_step": want_var, "wall_ms": wall_ms,
             "tok_per_s": tok_per_s, "busy_ms": busy_ms, "kernel_ms": by,
-            "peak_bytes": peak, "losses": rec["loss"], "run_s": run_s}
+            "bwd_parts_ms": parts, "peak_bytes": peak, "losses": rec["loss"],
+            "run_s": run_s}
 
 
 def _torch_or_none():
@@ -6578,7 +6682,14 @@ def run() -> int:
             "library_ms": None,
             "library": "none: no single PyTorch call computes the "
                        "recurrence's gradient",
-            "shape": row["shape"], "kernel": row["kernel"]})
+            "shape": row["shape"], "kernel": row["kernel"],
+            "variant": "chunked (s >= 64): "
+                       f"{r['variants_per_step'][name + '_chunk']} a tick",
+            "tensor_core_gflop": row["tensor_core_gflop"],
+            "tensor_core_pass_gflop": row["tensor_core_pass_gflop"],
+            "at_b1": {k: row["b1"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "tensor_core_gflop")}})
     for arch, rec in ssm.items():
         lp = rec["long_prompt"]
         print(f"{arch} long prompts: time to first token "
@@ -6792,9 +6903,10 @@ def run() -> int:
               f"move under a {NOISE_REL:g} perturbation (worst "
               f"{r['ratio']:.2f}x)")
     for kind, row in scan_bwd_rows.items():
-        print(f"{kind}_scan_bwd {row['shape']}: {row['ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
-              f"{row['plain_ms']:.4f}")
+        for rw in (row, row["b1"]):
+            print(f"{kind}_scan_bwd {rw['shape']}: {rw['ms']:.4f} ms, bound "
+                  f"{rw['bound_ms']:.5f} ({rw['bound_by']}), plain "
+                  f"{rw['plain_ms']:.4f}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

@@ -17,29 +17,50 @@
 //   ddecay_t  = sum(G o S_{t-1})
 //   G        <- decay_t G,               dS0 = G at the end,
 //
-// and dB, dC of a B/C group are the sums over its heads.
+// and dB, dC of a B/C group are the sums over its heads.  The wrapper
+// (kernels/mamba2_scan.py) picks one of two variants by s; each is exact
+// at any decay in [0, 1] (S_{t-1} is never rebuilt by dividing by decay_t,
+// which may be 0) and deterministic (no float atomics: fixed orders for
+// every sum, each head's dB and dC into an fp32 partial [b, s, h, n] that
+// ssd_bwd_group_kernel adds over the group's heads in head order).
 //
-// Every state entry (p, n) evolves on its own, forward (S_pn <- decay
-// S_pn + dt x_p B_n) and backward; only the sums cross entries: G B_t
-// over a row's n (dx, and through it ddt), dB and dC over a column's p,
-// ddecay over all, then dB and dC over the group's heads (all 64 at
-// zamba2's one group).  One block owns one (batch row, head): 64 x 64
-// entries on 512 threads, each thread one p row and 8 neighbouring n
-// columns.  Row sums are shuffles over the row's 8 lanes; column sums
-// shuffle over the 4 rows of a warp and meet in shared memory, where the
-// warps' partials are added in warp order after each tile; the per-step
-// scalars (ddt, ddecay) add the rows in order.  Each head's dB and dC
-// go to an fp32 partial [b, s, h, n], which ssd_bwd_group_kernel adds
-// over the group's heads in head order.  No float atomics: the result is
-// the same bits on every run.
+// * ssd_bwd_kernel, s < 64: the steps in reverse.  One block owns one
+//   (batch row, head): 64 x 64 state entries on 512 threads, each thread
+//   one p row and 8 neighbouring n columns; row sums are shuffles over a
+//   row's 8 lanes, column sums shuffles over the 4 rows of a warp added in
+//   warp order in shared memory.  It walks forward from S0 once, storing
+//   the state at the start of every tile of TS = 8 steps (a scratch of b
+//   h ceil(s / 8) p n fp32), then the tiles in reverse, recomputing each
+//   tile's 8 states from its first.  Bound by one step's latency times s.
 //
-// S_{t-1} is never rebuilt by dividing by decay_t (which may be 0).  The
-// kernel walks forward from S0 once and stores the state at the start
-// of every tile of TS = 8 steps into a scratch (b h ceil(s / 8) p n
-// fp32); walking the tiles in reverse it reloads a tile's first state,
-// recomputes the tile's 8 states into registers and takes the 8 backward
-// steps from them.  A tile's inputs are staged in shared memory, the
-// next tile's loads in flight (in registers) while this one is computed.
+// * ssd_bwd_states_kernel + ssd_bwd_chunk_kernel, s >= 64 (the training
+//   path's s = 512): chunks of Q = 64 steps, the forward's chunked form
+//   (mamba2_scan.cu) differentiated.  With S the state before a chunk, G
+//   the cotangent of the state after it, steps local to the chunk and
+//   L_ij = prod_{j<m<=i} a_m, A_i = prod_{m<=i} a_m, T_j = prod_{j<m<Q}
+//   a_m (products, never quotients; a masked step past s has decay 1):
+//
+//     dx    = diag(dt) (((C B^T) o L)^T dy + diag(T) B G^T),
+//     ddt_j = x_j . (row j of that bracket)
+//     dC    = diag(A) dy S + ((dy x^T) o L o dt) B
+//     dB    = ((dy x^T) o L o dt)^T C + diag(T dt) x G
+//     G    <- A_63 G + dy^T diag(A) C           (the chunk before's)
+//
+//   ssd_bwd_states_kernel walks the chunks, one block per (direction,
+//   head, batch row), forward for S (S <- A_63 S + (x o T dt)^T B) and in
+//   reverse for G, on mma.sync, into a scratch of 2 b h ceil(s / 64) p n
+//   fp32 (134 MB at the tick, against 537 MB of stepwise checkpoints);
+//   ssd_bwd_chunk_kernel then forms every chunk's gradients at once, a
+//   block per (chunk, head, batch row): 4,096 blocks at the tick, 512 at
+//   b 1.  ddecay_t = <G_t, S_{t-1}> takes no quotient either: split at t,
+//   ddecay_t = A_{t-1} R_t + Z_t + T_t (A_{t-1} <G, S> + F_t), with u_i =
+//   C_i . S^T dy_i, R_t = sum_{i>=t} L_it u_i, v_j = dt_j x_j . G B_j,
+//   F_t = sum_{j<t} L_{t-1,j} v_j and Z_t = sum_{i>=t} L_it P_i(t), P_i(t)
+//   = sum_{j<t} L_{t-1,j} dt_j (dy_i . x_j)(C_i . B_j) a recurrence along
+//   row i (a blocked scan over 8 threads, the carries by products).
+//   Every product runs on mma.sync m16n8k8 TF32 with each fp32-derived
+//   operand split in two (3xTF32, scan_mma.cuh: fp32 accuracy; bf16 x, B,
+//   C are exact in TF32).
 //
 // Layouts: x (fp32 or bf16) [b, s, h, p], dt and decay (fp32) [b, s, h],
 // B and C (x's type) [b, s, g, n] (head i reads group i / (h / g); they
@@ -51,14 +72,21 @@
 // product and sum is fp32.
 //
 // What bounds it on an H100: at zamba2-1.2b's training shape (b 8, s 512,
-// 64 heads, p 64, n 64) the arithmetic is ~15 fp32 operations per state
-// entry and step (16 GFLOP, 0.24 ms at 67 TFLOP/s) against ~0.2 GB of
-// inputs and outputs, so the fp32 pipes bound it; the shuffles of the
-// column sums and the sequential walk (two passes, one block per head)
-// are what this simple design adds on top.
+// 64 heads, p 64, n 64, bf16) its inputs and outputs are 0.16 GB (0.049
+// ms), the chunked form's tensor-core products 16.2 GFLOP, each counted
+// once (0.033 ms at 495 TFLOP/s), so the bytes bound it.  The mma passes
+// as 3xTF32 runs them come to 34.5 GFLOP (0.070 ms), above the bytes:
+// the split operands cost the kernel more than the function needs.  What
+// the design adds on top: one 154 KB block an SM for the gradient kernel
+// (its 16 warps' fragment loads from shared memory and the mma chains,
+// reckoned from a clock64 profile of its phases), a walk of 8 dependent
+// chunk steps a block for the boundaries, and the boundaries' round trip
+// through the scratch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "scan_mma.cuh"
 
 namespace {
 
@@ -367,15 +395,566 @@ __global__ void __launch_bounds__(256) ssd_bwd_group_kernel(Params p) {
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// s >= 64: the chunked form on the tensor cores
+
+namespace sm = scan_mma;
+
+constexpr int CH = 64;              // steps per chunk
+constexpr int WALK_THREADS = 256;
+constexpr int CK_THREADS = 512;
+constexpr int CK_WARPS = CK_THREADS / 32;
+
+// row padding of a shared tile of T (16-byte rows, banks spread)
+template <typename T>
+constexpr int pad_of() { return sizeof(T) == 2 ? 8 : 4; }
+
+// dynamic shared memory of ssd_bwd_states_kernel<T, P, N>, byte offsets:
+// a two-stage ring of a chunk's B (or C), x (or dy), dt and decay rows;
+// the factors; the state (or cotangent)
 template <typename T, int P, int N>
-int launch(const Params& p, cudaStream_t stream) {
-    constexpr int bytes = Smem<P, N>::BYTES;
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_bwd_kernel<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ssd_bwd_kernel<T, P, N><<<dim3(p.h, p.b), Shape<P, N>::NT, bytes,
-                              stream>>>(p);
+struct WalkSmem {
+    static constexpr int LDT = N + pad_of<T>();        // B, C rows (T)
+    static constexpr int LDX = P + pad_of<T>();        // x rows (T)
+    static constexpr int LDY = P + 4;                  // dy rows (fp32)
+    static constexpr int LDS = N + 4;                  // state rows
+    static constexpr int SZ_X = CH * LDX * sizeof(T), SZ_Y = CH * LDY * 4;
+    static constexpr int OFF_X = CH * LDT * sizeof(T);
+    static constexpr int OFF_Y = OFF_X;         // x (forward) or dy (reverse)
+    static constexpr int OFF_D = OFF_X + (SZ_X > SZ_Y ? SZ_X : SZ_Y);
+    static constexpr int STAGE = OFF_D + 2 * CH * 4;            // dt, decay
+    static constexpr int OFF_F = 2 * STAGE;                     // CH + 4
+    static constexpr int OFF_S = OFF_F + (CH + 4) * 4;
+    static constexpr int BYTES = OFF_S + P * LDS * 4;
+};
+
+// The walk over the chunks (s >= 64), a block per (direction, head, batch
+// row), the whole [p x n] state:
+//
+//   forward:  S <- A_63 S + (x o T dt)^T B,   storing S before each chunk
+//   reverse:  G <- A_63 G + (dy o A)^T C,     storing G after each chunk
+//
+// (G from dS_T, the chunks in reverse; dS0 = G at the end), with A_i =
+// prod_{m<=i} a_m and T_j = prod_{j<m<64} a_m by a scan of products over
+// the chunk's decays (a masked step past s has decay 1), the product on
+// mma.sync (3xTF32) over the chunk's 64 steps, and the next chunk's tiles
+// loading (a two-stage cp.async ring) while this one is computed.  The
+// boundaries go to the scratch: S [b, h, chunk, p, n] then G likewise.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(WALK_THREADS)
+ssd_bwd_states_kernel(Params p) {
+    using L = WalkSmem<T, P, N>;
+    constexpr int NT = WALK_THREADS;
+    constexpr int NB = P * N >= 2048 ? P * N / 1024 : 1;     // 8 jobs
+    constexpr bool EX = sizeof(T) == 2;     // bf16 x, B, C: exact in TF32
+    constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte copy
+    constexpr int LDT = L::LDT, LDX = L::LDX, LDY = L::LDY, LDS = L::LDS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* fac = reinterpret_cast<float*>(smem + L::OFF_F);
+    float* st = reinterpret_cast<float*>(smem + L::OFF_S);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool rev = blockIdx.x == 1;
+    const int h = blockIdx.y, bi = blockIdx.z;
+    const int grp = h / (p.h / p.g);
+    const int nch = (p.s + CH - 1) / CH;
+    const T* X = static_cast<const T*>(p.x) + bi * p.x_sb + h * p.x_sh;
+    const float* DY = p.dy + bi * p.y_sb + h * p.y_sh;
+    const T* BC = rev
+        ? static_cast<const T*>(p.C) + bi * p.C_sb + grp * p.C_sg
+        : static_cast<const T*>(p.B) + bi * p.B_sb + grp * p.B_sg;
+    const long long bc_ss = rev ? p.C_ss : p.B_ss;
+    const float* DT = p.dt + bi * p.dt_sb + h * p.dt_sh;
+    const float* DE = p.decay + bi * p.de_sb + h * p.de_sh;
+    const long long head = static_cast<long long>(bi) * p.h + h;
+    const long long plane = static_cast<long long>(P) * N;
+    float* buf = p.ckpt + (rev ? static_cast<long long>(p.b) * p.h * nch
+                                     * plane : 0)
+                 + head * nch * plane;
+    const float* init = (rev ? p.dsT : p.s0) + head * plane;
+
+    // step c of the walk's chunk (forward c, reverse nch - 1 - c): its
+    // B (C), the block's x (dy) columns, dt and decay into ring stage sg;
+    // rows past s zero-filled
+    auto issue = [&](int c, int sg) {
+        const int t0 = (rev ? nch - 1 - c : c) * CH;
+        const int nv = min(CH, p.s - t0);
+        unsigned char* base = smem + sg * L::STAGE;
+        T* bc = reinterpret_cast<T*>(base);
+        constexpr int BROW = N / EPC;
+        for (int e = tid; e < CH * BROW; e += NT) {
+            const int t = e / BROW, cc = (e % BROW) * EPC;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async16(bc + t * LDT + cc, BC + tt * bc_ss + cc, in);
+        }
+        if (rev) {
+            float* ys = reinterpret_cast<float*>(base + L::OFF_Y);
+            constexpr int YROW = P / 4;
+            for (int e = tid; e < CH * YROW; e += NT) {
+                const int t = e / YROW, cc = (e % YROW) * 4;
+                const bool in = t < nv;
+                const long long tt = in ? t0 + t : 0;
+                sm::cp_async16(ys + t * LDY + cc, DY + tt * p.y_ss + cc, in);
+            }
+        } else {
+            T* xs = reinterpret_cast<T*>(base + L::OFF_X);
+            constexpr int XROW = P / EPC;
+            for (int e = tid; e < CH * XROW; e += NT) {
+                const int t = e / XROW, cc = (e % XROW) * EPC;
+                const bool in = t < nv;
+                const long long tt = in ? t0 + t : 0;
+                sm::cp_async16(xs + t * LDX + cc, X + tt * p.x_ss + cc, in);
+            }
+        }
+        float* dts = reinterpret_cast<float*>(base + L::OFF_D);
+        for (int e = tid; e < 2 * CH; e += NT) {
+            const int t = e % CH;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async4(dts + e, e < CH ? DT + tt * p.dt_ss
+                                          : DE + tt * p.de_ss, in);
+        }
+        sm::cp_async_commit();
+    };
+
+    for (int e = tid; e < P * N; e += NT)
+        st[(e / N) * LDS + e % N] = init[e];
+    issue(0, 0);
+    for (int c = 0; c < nch; ++c) {
+        const int cur = c & 1;
+        const int ch = rev ? nch - 1 - c : c;
+        const int nv = min(CH, p.s - ch * CH);
+        sm::cp_async_wait<0>();
+        __syncthreads();        // this chunk's tiles; the last update written
+        if (c + 1 < nch) issue(c + 1, cur ^ 1);
+        const unsigned char* base = smem + cur * L::STAGE;
+        const T* bc = reinterpret_cast<const T*>(base);
+        const T* xs = reinterpret_cast<const T*>(base + L::OFF_X);
+        const float* ys = reinterpret_cast<const float*>(base + L::OFF_Y);
+        const float* dts = reinterpret_cast<const float*>(base + L::OFF_D);
+        // the rows at this chunk's boundary: S before it, G after it
+        float* dst = buf + static_cast<long long>(ch) * plane;
+        for (int e = tid; e < P * N; e += NT)
+            dst[e] = st[(e / N) * LDS + e % N];
+        // forward: fac_j = T_j dt_j, fac[CH] = A_63; reverse: fac_i = A_i
+        const float a = tid < nv ? dts[CH + tid] : 1.f;
+        if (rev) {
+            const float f = sm::scan_prod64<false>(a, fac + CH + 2);
+            if (tid < CH) fac[tid] = f;
+        } else {
+            // prod_{m>=j} a_m, then T_j = the next one's (1 past the end)
+            const float sf = sm::scan_prod64<true>(a, fac + CH + 2);
+            if (tid < CH) {
+                const float nx = __shfl_down_sync(0xffffffffu, sf, 1);
+                const float tj = lane < 31 ? nx : tid < 32 ? fac[CH + 3] : 1.f;
+                fac[tid] = tj * dts[tid];
+                if (tid == 0) fac[CH] = sf;
+            }
+        }
+        __syncthreads();
+        const float total = rev ? fac[CH - 1] : fac[CH];
+        sm::warp_jobs<P, N, NB, NT / 32>(warp, [&](int r0, int c0) {
+            float acc[NB][4];
+            sm::acc_set(acc, r0, c0, [&](int r, int cc) {
+                return total * st[r * LDS + cc];
+            });
+            auto b = [&](int k, int cc) {
+                return sm::to_f32(bc[k * LDT + cc]);
+            };
+            if (rev)
+                sm::warp_mma<false, EX, NB>(
+                    acc, r0, c0, 0, CH,
+                    [&](int r, int k) { return ys[k * LDY + r] * fac[k]; }, b);
+            else
+                sm::warp_mma<false, EX, NB>(
+                    acc, r0, c0, 0, CH,
+                    [&](int r, int k) {
+                        return sm::to_f32(xs[k * LDX + r]) * fac[k];
+                    }, b);
+            __syncwarp();
+            sm::acc_each(acc, r0, c0, [&](int r, int cc, float v) {
+                st[r * LDS + cc] = v;
+            });
+        });
+    }
+    __syncthreads();
+    if (rev) {
+        float* d0 = p.ds0 + head * plane;
+        for (int e = tid; e < P * N; e += NT)
+            d0[e] = st[(e / N) * LDS + e % N];
+    }
+}
+
+// dynamic shared memory of ssd_bwd_chunk_kernel<T, P, N>, byte offsets
+template <typename T, int P, int N>
+struct ChunkSmem {
+    static constexpr int LDX = P + pad_of<T>();        // x rows (T)
+    static constexpr int LDT = N + pad_of<T>();        // B, C rows (T)
+    static constexpr int LDY = P + 4;                  // dy rows (fp32)
+    static constexpr int LDS = N + 4;                  // S, G rows
+    static constexpr int LDL = CH + 5;                 // L rows
+    static constexpr int LDM = CH + 4;                 // M, N, W rows
+    static constexpr int OFF_B = CH * LDX * sizeof(T);
+    static constexpr int OFF_C = OFF_B + CH * LDT * sizeof(T);
+    static constexpr int OFF_Y = OFF_C + CH * LDT * sizeof(T);
+    static constexpr int OFF_S = OFF_Y + CH * LDY * 4;
+    static constexpr int OFF_G = OFF_S + P * LDS * 4;
+    static constexpr int OFF_L = OFF_G + P * LDS * 4;
+    static constexpr int OFF_M = OFF_L + CH * LDL * 4;
+    static constexpr int OFF_N = OFF_M + CH * LDM * 4;
+    static constexpr int OFF_W = OFF_N + CH * LDM * 4;
+    // dt, decay, A, T, u, v; [v, ddt, u][column group < 4] partial rows;
+    // the warps' parts of <G, S>
+    static constexpr int OFF_V = OFF_W + CH * LDM * 4;
+    static constexpr int BYTES = OFF_V + (18 * CH + CK_WARPS) * 4;
+    static_assert(BYTES <= 232448, "one block's shared memory");
+};
+
+// Every chunk's gradients at once (s >= 64), a block per (chunk, head,
+// batch row), from S (the state before the chunk) and G (the cotangent
+// of the state after it) that ssd_bwd_states_kernel stored.  Steps local
+// to the chunk, L_ij = prod_{j<m<=i} a_m (running products along each
+// row, as ssd_scores_kernel forms them), A_i = L_i0 a_0, T_j = prod_{j<
+// m<64} a_m:
+//
+//   M = (C B^T) o L,  N = (dy x^T) o L o dt_j,  W = (dy x^T) o (C B^T) o
+//   dt_j (j < i)
+//   dx_j  = dt_j (T_j G B_j + sum_{i>=j} M_ij dy_i),  ddt_j = x_j . (..)
+//   dC    = diag(A) dy S + N B,   dB = diag(T dt) x G + N^T C
+//   ddecay_t = A_{t-1} R_t + Z_t + T_t (A_{t-1} <G, S> + F_t)
+//
+// with u_i = C_i . (S^T dy_i), R_t = sum_{i>=t} L_it u_i, v_j = dt_j x_j
+// . G B_j, F_t = sum_{j<t} L_{t-1,j} v_j, and Z_t = sum_{i>=t} L_it
+// P_i(t), P_i(t) = sum_{j<t} L_{t-1,j} W_ij: <G_t, S_{t-1}> split into
+// terms whose factors are products of the decays on either side of t (no
+// quotient of decays).  Every product is on mma.sync (3xTF32; the warps
+// share each [64 x 64] output in 16 tiles); P_i(t), a recurrence along
+// row i, is a blocked scan over 8 threads a row (each block of 8 steps
+// from 0, the carries in by products of the decays between), and R, F, Z
+// sums over 8 threads a step, on the CUDA cores.  dB and dC go to the
+// per-head fp32 partials, which ssd_bwd_group_kernel adds in head order.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(CK_THREADS, 1)
+ssd_bwd_chunk_kernel(Params p) {
+    using L = ChunkSmem<T, P, N>;
+    constexpr int NT = CK_THREADS, NW = CK_WARPS;
+    constexpr bool EX = sizeof(T) == 2;     // bf16 x, B, C: exact in TF32
+    constexpr int EPC = 16 / sizeof(T);
+    constexpr int LDX = L::LDX, LDT = L::LDT, LDY = L::LDY, LDS = L::LDS,
+                  LDL = L::LDL, LDM = L::LDM;
+    constexpr int NBC = CH / 32;                    // [64 x 64]: 4 x 4 jobs
+    constexpr int NBP = P >= 32 ? P / 32 : 1;       // [64 x P]: 4 x GP jobs
+    constexpr int NBN = N >= 32 ? N / 32 : 1;
+    constexpr int GP = P / (8 * NBP), GN = N / (8 * NBN);
+    constexpr int TPR = NT / CH, BL = CH / TPR;     // the tail's threads
+    static_assert(NW == 16 && GP <= 4 && GN <= 4 && TPR <= 32, "split");
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* xs = reinterpret_cast<T*>(smem);
+    T* bs = reinterpret_cast<T*>(smem + L::OFF_B);
+    T* cs = reinterpret_cast<T*>(smem + L::OFF_C);
+    float* ys = reinterpret_cast<float*>(smem + L::OFF_Y);
+    float* Ss = reinterpret_cast<float*>(smem + L::OFF_S);
+    float* Gs = reinterpret_cast<float*>(smem + L::OFF_G);
+    float* Lm = reinterpret_cast<float*>(smem + L::OFF_L);
+    float* Mm = reinterpret_cast<float*>(smem + L::OFF_M);
+    float* Nm = reinterpret_cast<float*>(smem + L::OFF_N);
+    float* Wm = reinterpret_cast<float*>(smem + L::OFF_W);
+    float* dts = reinterpret_cast<float*>(smem + L::OFF_V);
+    float* as = dts + CH;
+    float* Ai = as + CH;
+    float* Tj = Ai + CH;
+    float* uv = Tj + CH;
+    float* vv = uv + CH;
+    float* part = vv + CH;          // [v, ddt, u][column group][CH]
+    float* gsp = part + 12 * CH;    // [NW]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int ch = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+    const int t0 = ch * CH;
+    const int nv = min(CH, p.s - t0);
+    const int nch = gridDim.x;
+    const int grp = h / (p.h / p.g);
+    const T* X = static_cast<const T*>(p.x) + bi * p.x_sb + h * p.x_sh;
+    const T* Bp = static_cast<const T*>(p.B) + bi * p.B_sb + grp * p.B_sg;
+    const T* Cp = static_cast<const T*>(p.C) + bi * p.C_sb + grp * p.C_sg;
+    const float* DY = p.dy + bi * p.y_sb + h * p.y_sh;
+    const float* DT = p.dt + bi * p.dt_sb + h * p.dt_sh;
+    const float* DE = p.decay + bi * p.de_sb + h * p.de_sh;
+    const long long head = static_cast<long long>(bi) * p.h + h;
+    const long long plane = static_cast<long long>(P) * N;
+    const float* Sb = p.ckpt + (head * nch + ch) * plane;
+    const float* Gb = Sb + static_cast<long long>(p.b) * p.h * nch * plane;
+
+    // the chunk's x, B, C, dy (rows past s zero-filled), dt, decay, and S, G
+    {
+        constexpr int XROW = P / EPC, BROW = N / EPC, YROW = P / 4,
+                      SROW = N / 4;
+        for (int e = tid; e < CH * XROW; e += NT) {
+            const int t = e / XROW, c = (e % XROW) * EPC;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async16(xs + t * LDX + c, X + tt * p.x_ss + c, in);
+        }
+        for (int e = tid; e < CH * BROW; e += NT) {
+            const int t = e / BROW, c = (e % BROW) * EPC;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async16(bs + t * LDT + c, Bp + tt * p.B_ss + c, in);
+            sm::cp_async16(cs + t * LDT + c, Cp + tt * p.C_ss + c, in);
+        }
+        for (int e = tid; e < CH * YROW; e += NT) {
+            const int t = e / YROW, c = (e % YROW) * 4;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async16(ys + t * LDY + c, DY + tt * p.y_ss + c, in);
+        }
+        for (int e = tid; e < P * SROW; e += NT) {
+            const int r = e / SROW, c = (e % SROW) * 4;
+            sm::cp_async16(Ss + r * LDS + c, Sb + r * N + c, true);
+            sm::cp_async16(Gs + r * LDS + c, Gb + r * N + c, true);
+        }
+        for (int e = tid; e < 2 * CH; e += NT) {
+            const int t = e % CH;
+            const bool in = t < nv;
+            const long long tt = in ? t0 + t : 0;
+            sm::cp_async4(dts + e, e < CH ? DT + tt * p.dt_ss
+                                          : DE + tt * p.de_ss, in);
+        }
+        sm::cp_async_commit();
+        sm::cp_async_wait<0>();
+        __syncthreads();
+    }
+    auto am = [&](int m) { return m < nv ? as[m] : 1.f; };
+
+    // L by running products along each row, A_i; T_j
+    if (tid < CH) {
+        const int i = tid;
+        float f = 1.f;
+        Lm[i * LDL + i] = 1.f;
+        for (int j = i - 1; j >= 0; --j) {
+            f *= am(j + 1);
+            Lm[i * LDL + j] = f;
+        }
+        Ai[i] = f * am(0);
+    } else if (tid < 2 * CH) {
+        const int j = tid - CH;
+        float f = 1.f;
+        for (int m = CH - 1; m > j; --m) f *= am(m);
+        Tj[j] = f;
+    }
+    __syncthreads();
+
+    // C B^T and dy x^T on the tiles with j <= i, then M, N and W
+    sm::warp_jobs<CH, CH, NBC, NW>(warp, [&](int r0, int c0) {
+        if (c0 > r0 + 15) return;           // above the diagonal
+        float cb[NBC][4] = {}, dx[NBC][4] = {};
+        sm::warp_mma<EX, EX, NBC>(
+            cb, r0, c0, 0, N,
+            [&](int i, int k) { return sm::to_f32(cs[i * LDT + k]); },
+            [&](int k, int j) { return sm::to_f32(bs[j * LDT + k]); });
+        sm::warp_mma<false, EX, NBC>(
+            dx, r0, c0, 0, P, [&](int i, int k) { return ys[i * LDY + k]; },
+            [&](int k, int j) { return sm::to_f32(xs[j * LDX + k]); });
+        const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+        for (int nb = 0; nb < NBC; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int i = r0 + g + 8 * (e >> 1);
+                const int j = c0 + 8 * nb + 2 * tq + (e & 1);
+                const float l = j <= i ? Lm[i * LDL + j] : 0.f;
+                Mm[i * LDM + j] = cb[nb][e] * l;
+                Nm[i * LDM + j] = dx[nb][e] * l * dts[j];
+                Wm[i * LDM + j] = j < i ? dx[nb][e] * cb[nb][e] * dts[j]
+                                        : 0.f;
+            }
+    });
+    __syncthreads();
+
+    // dx and ddt (rows j): the bracket T_j G B_j + sum_{i>=j} M_ij dy_i,
+    // and v_j = dt_j x_j . G B_j on the way
+    T* DX = static_cast<T*>(p.dx) + (static_cast<long long>(bi) * p.s + t0)
+            * p.h * P + static_cast<long long>(h) * P;
+    const long long o_ss = static_cast<long long>(p.h) * P;
+    sm::warp_jobs<CH, P, NBP, NW>(warp, [&](int r0, int c0) {
+        const int cg = c0 / (8 * NBP);
+        float acc[NBP][4] = {};
+        sm::warp_mma<EX, false, NBP>(
+            acc, r0, c0, 0, N,
+            [&](int j, int k) { return sm::to_f32(bs[j * LDT + k]); },
+            [&](int k, int q) { return Gs[q * LDS + k]; });
+        auto xf = [&](int j, int q) { return sm::to_f32(xs[j * LDX + q]); };
+        sm::row_sums(acc, r0, c0, xf, part + cg * CH);
+        sm::acc_each(acc, r0, c0, [&](int j, int, float& x) { x *= Tj[j]; });
+        sm::warp_mma<false, false, NBP>(
+            acc, r0, c0, r0, CH, [&](int j, int i) { return Mm[i * LDM + j]; },
+            [&](int i, int q) { return ys[i * LDY + q]; });
+        sm::row_sums(acc, r0, c0, xf, part + (4 + cg) * CH);
+        sm::acc_each(acc, r0, c0, [&](int j, int q, float x) {
+            if (j < nv) store(DX + j * o_ss + q, dts[j] * x);
+        });
+    });
+    // dC (rows i) = A_i dy_i S + N B, u_i = C_i . dy_i S on the way; dB
+    // (rows j) = T_j dt_j x_j G + N^T C: into the head's partials
+    float* dCp = p.dC_part + ((static_cast<long long>(bi) * p.s + t0) * p.h
+                              + h) * N;
+    float* dBp = p.dB_part + ((static_cast<long long>(bi) * p.s + t0) * p.h
+                              + h) * N;
+    const long long n_ss = static_cast<long long>(p.h) * N;
+    sm::warp_jobs<CH, N, NBN, NW>(warp, [&](int r0, int c0) {
+        const int cg = c0 / (8 * NBN);
+        float acc[NBN][4] = {};
+        sm::warp_mma<false, false, NBN>(
+            acc, r0, c0, 0, P, [&](int i, int k) { return ys[i * LDY + k]; },
+            [&](int k, int n) { return Ss[k * LDS + n]; });
+        sm::row_sums(acc, r0, c0, [&](int i, int n) {
+            return sm::to_f32(cs[i * LDT + n]);
+        }, part + (8 + cg) * CH);
+        sm::acc_each(acc, r0, c0, [&](int i, int, float& x) { x *= Ai[i]; });
+        sm::warp_mma<false, EX, NBN>(
+            acc, r0, c0, 0, r0 + 16,
+            [&](int i, int j) { return Nm[i * LDM + j]; },
+            [&](int j, int n) { return sm::to_f32(bs[j * LDT + n]); });
+        sm::acc_each(acc, r0, c0, [&](int i, int n, float x) {
+            if (i < nv) dCp[i * n_ss + n] = x;
+        });
+        float acc2[NBN][4] = {};
+        sm::warp_mma<EX, false, NBN>(
+            acc2, r0, c0, 0, P,
+            [&](int j, int k) { return sm::to_f32(xs[j * LDX + k]); },
+            [&](int k, int n) { return Gs[k * LDS + n]; });
+        sm::acc_each(acc2, r0, c0, [&](int j, int, float& x) {
+            x *= Tj[j] * dts[j];
+        });
+        sm::warp_mma<false, EX, NBN>(
+            acc2, r0, c0, r0, CH,
+            [&](int j, int i) { return Nm[i * LDM + j]; },
+            [&](int i, int n) { return sm::to_f32(cs[i * LDT + n]); });
+        sm::acc_each(acc2, r0, c0, [&](int j, int n, float x) {
+            if (j < nv) dBp[j * n_ss + n] = x;
+        });
+    });
+    __syncthreads();
+
+    // the rows' sums; the warps' parts of <G, S>; P_i(t) along each row i
+    // (into W's place as L_it P_i(t)): thread q of row i's TPR takes the
+    // steps [q BL, q BL + BL), first from 0, then from its carry
+    if (tid < CH) {
+        const int j = tid;
+        float v = 0.f, d = 0.f, u = 0.f;
+        for (int g = 0; g < GP; ++g) {
+            v += part[g * CH + j];
+            d += part[(4 + g) * CH + j];
+        }
+        for (int g = 0; g < GN; ++g) u += part[(8 + g) * CH + j];
+        vv[j] = dts[j] * v;
+        uv[j] = u;
+        if (j < nv)
+            p.ddt[(static_cast<long long>(bi) * p.s + t0 + j) * p.h + h] = d;
+    }
+    {
+        float acc = 0.f;
+        for (int e = tid; e < P * N; e += NT)
+            acc = fmaf(Gs[(e / N) * LDS + e % N], Ss[(e / N) * LDS + e % N],
+                       acc);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (lane == 0) gsp[warp] = acc;
+    }
+    {
+        const int i = tid / TPR, q = tid % TPR, tb = q * BL;
+        float loc = 0.f, dp = 1.f;
+#pragma unroll
+        for (int m = 0; m < BL; ++m) {
+            loc = fmaf(am(tb + m), loc, Wm[i * LDM + tb + m]);
+            dp *= am(tb + m);
+        }
+        // the carry into block q: the blocks before it, by products
+        float pr = 0.f;
+        const int first = lane - q;
+#pragma unroll
+        for (int q2 = 0; q2 + 1 < TPR; ++q2) {
+            const float e = __shfl_sync(0xffffffffu, loc, first + q2);
+            const float dd = __shfl_sync(0xffffffffu, dp, first + q2);
+            if (q2 < q) pr = fmaf(dd, pr, e);
+        }
+#pragma unroll
+        for (int m = 0; m < BL; ++m) {
+            const int t = tb + m;
+            if (t <= i) {
+                const float w = Wm[i * LDM + t];
+                Wm[i * LDM + t] = Lm[i * LDL + t] * pr;
+                pr = fmaf(am(t), pr, w);
+            }
+        }
+    }
+    __syncthreads();
+    // per step t (TPR threads, their sums added in a fixed order): Z_t the
+    // column sum of L o P, R_t = sum_{i>=t} L_it u_i, F_t = sum_{j<t}
+    // L_{t-1,j} v_j; ddecay_t from them and <G, S>
+    {
+        const int t = tid / TPR, q = tid % TPR;
+        float z = 0.f, r = 0.f, f = 0.f;
+        for (int i = t + q; i < CH; i += TPR) {
+            z += Wm[i * LDM + t];
+            r = fmaf(Lm[i * LDL + t], uv[i], r);
+        }
+        for (int j = q; j < t; j += TPR)
+            f = fmaf(Lm[(t - 1) * LDL + j], vv[j], f);
+#pragma unroll
+        for (int off = 1; off < TPR; off <<= 1) {
+            z += __shfl_xor_sync(0xffffffffu, z, off);
+            r += __shfl_xor_sync(0xffffffffu, r, off);
+            f += __shfl_xor_sync(0xffffffffu, f, off);
+        }
+        if (q == 0 && t < nv) {
+            float gs = 0.f;
+            for (int w = 0; w < NW; ++w) gs += gsp[w];
+            const float ap = t ? Ai[t - 1] : 1.f;
+            p.ddecay[(static_cast<long long>(bi) * p.s + t0 + t) * p.h + h] =
+                fmaf(ap, r, z) + Tj[t] * fmaf(ap, gs, f);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+enum Variant { STEP = 0, CHUNK = 1 };
+
+template <typename T, int P, int N>
+int launch(const Params& p, int variant, cudaStream_t stream) {
+    cudaError_t e;
+    if (variant == STEP) {
+        constexpr int bytes = Smem<P, N>::BYTES;
+        e = cudaFuncSetAttribute(ssd_bwd_kernel<T, P, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ssd_bwd_kernel<T, P, N><<<dim3(p.h, p.b), Shape<P, N>::NT, bytes,
+                                  stream>>>(p);
+    } else if (variant == CHUNK) {
+        // the boundaries, then every chunk's gradients
+        constexpr int wbytes = WalkSmem<T, P, N>::BYTES;
+        constexpr int cbytes = ChunkSmem<T, P, N>::BYTES;
+        e = cudaFuncSetAttribute(ssd_bwd_states_kernel<T, P, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 wbytes);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(
+                ssd_bwd_chunk_kernel<T, P, N>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, cbytes);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ssd_bwd_states_kernel<T, P, N><<<dim3(2, p.h, p.b), WALK_THREADS,
+                                         wbytes, stream>>>(p);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ssd_bwd_chunk_kernel<T, P, N><<<dim3((p.s + CH - 1) / CH, p.h, p.b),
+                                        CK_THREADS, cbytes, stream>>>(p);
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     ssd_bwd_group_kernel<T, N><<<dim3(p.s, p.b), 256, 0, stream>>>(p);
@@ -383,21 +962,22 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 template <typename T, int P>
-int launch_n(const Params& p, int n, cudaStream_t stream) {
+int launch_n(const Params& p, int n, int variant, cudaStream_t stream) {
     switch (n) {
-        case 16: return launch<T, P, 16>(p, stream);
-        case 32: return launch<T, P, 32>(p, stream);
-        case 64: return launch<T, P, 64>(p, stream);
+        case 16: return launch<T, P, 16>(p, variant, stream);
+        case 32: return launch<T, P, 32>(p, variant, stream);
+        case 64: return launch<T, P, 64>(p, variant, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 template <typename T>
-int launch_dims(const Params& p, int hp, int n, cudaStream_t stream) {
+int launch_dims(const Params& p, int hp, int n, int variant,
+                cudaStream_t stream) {
     switch (hp) {
-        case 16: return launch_n<T, 16>(p, n, stream);
-        case 32: return launch_n<T, 32>(p, n, stream);
-        case 64: return launch_n<T, 64>(p, n, stream);
+        case 16: return launch_n<T, 16>(p, n, variant, stream);
+        case 32: return launch_n<T, 32>(p, n, variant, stream);
+        case 64: return launch_n<T, 64>(p, n, variant, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -412,21 +992,46 @@ long long smem_n(int n) {
     }
 }
 
+template <typename T, int P>
+long long chunk_smem_n(int n) {
+    switch (n) {
+        case 16: return ChunkSmem<T, P, 16>::BYTES;
+        case 32: return ChunkSmem<T, P, 32>::BYTES;
+        case 64: return ChunkSmem<T, P, 64>::BYTES;
+        default: return -1;
+    }
+}
+
+template <typename T>
+long long chunk_smem(int hp, int n) {
+    switch (hp) {
+        case 16: return chunk_smem_n<T, 16>(n);
+        case 32: return chunk_smem_n<T, 32>(n);
+        case 64: return chunk_smem_n<T, 64>(n);
+        default: return -1;
+    }
+}
+
 }  // namespace
 
-// The backward of repro_mamba2_scan.  dtype (of x, B, C, dx, dB, dC):
-// 0 = fp32, 1 = bf16; dy is fp32.  Strides are in elements: (batch,
-// seq, head) for x, dt, decay and dy, (batch, seq, group) for B and C.  ckpt: a 16-byte aligned fp32 scratch of
-// b h ceil(s / 8) p n elements; dB_part, dC_part: fp32 scratch of
-// b s h n each.  Returns a cudaError_t (0 on success); the two launches
-// (the walk, then the groups' sums over their heads) are asynchronous
-// on ``stream``.
+// The backward of repro_mamba2_scan.  variant: 0 = stepwise
+// (ssd_bwd_kernel; ckpt an fp32 scratch of b h ceil(s / 8) p n elements),
+// 1 = chunked, s >= 64 (ssd_bwd_states_kernel then ssd_bwd_chunk_kernel;
+// ckpt an fp32 scratch of 2 b h ceil(s / 64) p n elements, the chunks'
+// boundary states and cotangents; x, B, C, dy and their batch, sequence
+// and head/group strides 16-byte aligned); either then
+// ssd_bwd_group_kernel.  dtype (of x, B, C, dx, dB, dC): 0 = fp32, 1 =
+// bf16; dy is fp32.  Strides are in elements: (batch, seq, head) for x,
+// dt, decay and dy, (batch, seq, group) for B and C.  ckpt is 16-byte
+// aligned; dB_part, dC_part: fp32 scratch of b s h n each.  Returns a
+// cudaError_t (0 on success); the launches are asynchronous on
+// ``stream``.
 extern "C" int repro_mamba2_scan_bwd(
-    const void* x, const void* dt, const void* decay, const void* B,
-    const void* C, const void* s0, const void* dy, const void* dsT,
-    void* dx, void* ddt, void* ddecay, void* dB, void* dC, void* ds0,
-    void* ckpt, void* dB_part, void* dC_part, int dtype, int hp, int n,
-    int b, int s, int h, int g,
+    int variant, const void* x, const void* dt, const void* decay,
+    const void* B, const void* C, const void* s0, const void* dy,
+    const void* dsT, void* dx, void* ddt, void* ddecay, void* dB, void* dC,
+    void* ds0, void* ckpt, void* dB_part, void* dC_part, int dtype, int hp,
+    int n, int b, int s, int h, int g,
     long long x_sb, long long x_ss, long long x_sh,
     long long dt_sb, long long dt_ss, long long dt_sh,
     long long de_sb, long long de_ss, long long de_sh,
@@ -474,10 +1079,11 @@ extern "C" int repro_mamba2_scan_bwd(
     p.y_ss = y_ss;
     p.y_sh = y_sh;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (b < 1 || s < 1 || h < 1 || g < 1 || h % g)
+    if (b < 1 || s < 1 || h < 1 || g < 1 || h % g ||
+        (variant == CHUNK && s < CH))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == 0) return launch_dims<float>(p, hp, n, st);
-    if (dtype == 1) return launch_dims<__nv_bfloat16>(p, hp, n, st);
+    if (dtype == 0) return launch_dims<float>(p, hp, n, variant, st);
+    if (dtype == 1) return launch_dims<__nv_bfloat16>(p, hp, n, variant, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -490,4 +1096,12 @@ extern "C" long long repro_mamba2_scan_bwd_smem_bytes(int hp, int n) {
         case 64: return smem_n<64>(n);
         default: return -1;
     }
+}
+
+// Dynamic shared memory of one ssd_bwd_chunk_kernel block (dtype as
+// above), in bytes, or -1 for sizes it does not take.
+extern "C" long long repro_mamba2_scan_bwd_chunk_smem_bytes(int dtype, int hp,
+                                                            int n) {
+    return dtype == 0 ? chunk_smem<float>(hp, n)
+                      : chunk_smem<__nv_bfloat16>(hp, n);
 }

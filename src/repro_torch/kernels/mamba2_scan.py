@@ -27,11 +27,21 @@ each raises on what it does not take.  On CUDA tensors
 computes :func:`repro_torch.kernels.ref.mamba2_ref`.
 
 :func:`mamba2_scan_bwd` is the recurrence's backward (the training
-path's): ``ssd_bwd_kernel`` in ``csrc/mamba2_scan_bwd.cu`` on CUDA
-tensors, one block a (batch row, head), deterministic, then
-``ssd_bwd_group_kernel`` (dB and dC summed over each group's heads; the
-pair counts as one launch); :func:`repro_torch.kernels.ref.
-mamba2_bwd_ref` on CPU tensors.
+path's), in ``csrc/mamba2_scan_bwd.cu`` on CUDA tensors, routed by s as
+:func:`repro_torch.kernels.rwkv6_scan.bwd_variant` says:
+
+  * s < ``CHUNK_MIN_S``: ``ssd_bwd_kernel``, the steps in reverse, one
+    block a (batch row, head);
+  * s >= ``CHUNK_MIN_S``: ``ssd_bwd_states_kernel`` (the chunks'
+    boundary states and cotangents, a short walk over chunks of 64)
+    then ``ssd_bwd_chunk_kernel`` (every chunk's gradients at once, a
+    block per (chunk, head, batch row), the products on the tensor
+    cores, 3xTF32 ``mma.sync``);
+
+either then ``ssd_bwd_group_kernel`` (dB and dC summed over each group's
+heads in head order), all deterministic and counting as one launch (and
+one of ``launches_bwd_chunk`` for the chunked variant);
+:func:`repro_torch.kernels.ref.mamba2_bwd_ref` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_cp_async_alignment
 from repro_torch.kernels.ref import mamba2_bwd_ref, mamba2_ref
-from repro_torch.kernels.rwkv6_scan import BWD_TILE, CHUNK_MIN_S, variant
+from repro_torch.kernels.rwkv6_scan import BWD_TILE, CHUNK_MIN_S, \
+    bwd_variant, variant
 
 HEAD_DIMS = (16, 32, 64)         # for p and for n
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,8 +66,10 @@ _VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 launches = 0
 launches_decode = 0
 launches_chunk = 0
-# backward kernel launches since the last reset (the CPU path never counts)
+# backward kernel launches since the last reset (the CPU path never counts):
+# all variants, and of them the chunked kernels'
 launches_bwd = 0
+launches_bwd_chunk = 0
 
 _p = ctypes.c_void_p
 _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 7
@@ -64,8 +77,9 @@ _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 7
 # one (batch row, head, chunk) record of the chunked kernel's scores: the
 # [64 x 64] score matrix, A_i and T_j dt_j
 _RECORD = 64 * 64 + 2 * 64
-_BWD_ARGTYPES = ([_p] * 17 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_int] + [_p] * 17 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 18 + [_p])
+_BWD_VARIANTS = {"step": 0, "chunk": 1}
 
 
 def _lib():
@@ -94,12 +108,19 @@ def _bwd_lib():
     return fn
 
 
-def bwd_smem_bytes(p: int, n: int) -> int:
-    """Dynamic shared memory of one ``ssd_bwd_kernel`` block."""
-    fn = build.library("mamba2_scan_bwd").repro_mamba2_scan_bwd_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 2
+def bwd_smem_bytes(p: int, n: int, dtype: torch.dtype = None) -> int:
+    """Dynamic shared memory of one ``ssd_bwd_kernel`` block, or with
+    ``dtype`` of one ``ssd_bwd_chunk_kernel`` block."""
+    lib = build.library("mamba2_scan_bwd")
+    if dtype is None:
+        fn = lib.repro_mamba2_scan_bwd_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
+        return int(fn(p, n))
+    fn = lib.repro_mamba2_scan_bwd_chunk_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return int(fn(p, n))
+    return int(fn(_DTYPES[dtype], p, n))
 
 
 def load() -> None:
@@ -214,11 +235,12 @@ def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
     -> (dx [b, s, h, p] in x's dtype, ddt, ddecay [b, s, h] fp32, dB, dC
     [b, s, g, n] in B's dtype (each group's the sum over its heads), dS0
     [b, h, p, n] fp32): the gradient of the recurrence,
-    ``mamba2_bwd_ref``'s formulas.  The kernel recomputes the forward
-    states from S0 (checkpoints every ``BWD_TILE`` steps in a scratch the
-    wrapper allocates, b h ceil(s / 8) p n fp32) and sums across state
-    entries and heads in a fixed order, so two calls on the same inputs
-    give the same bits."""
+    ``mamba2_bwd_ref``'s formulas.  The kernels recompute the forward
+    states from S0 into a scratch the wrapper allocates (s < 64: every
+    ``BWD_TILE`` steps, b h ceil(s / 8) p n fp32; s >= 64: each chunk's
+    boundary state and cotangent, 2 b h ceil(s / 64) p n fp32) and sum
+    across state entries and heads in a fixed order, so two calls on the
+    same inputs give the same bits."""
     _check(x, dt, decay, B, C, S0)
     if dy.shape != x.shape or dy.dtype != torch.float32:
         raise ValueError(f"dy must be fp32 {tuple(x.shape)}, got "
@@ -243,6 +265,12 @@ def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_scan_bwd runs on cuda or cpu, not "
                          f"{x.device}")
+    return _launch_bwd(x, dt, decay, B, C, S0, dy, dS_T)
+
+
+def _launch_bwd(x, dt, decay, B, C, S0, dy, dS_T):
+    """Launches the backward variant of s once and counts it; the
+    arguments are checked by :func:`mamba2_scan_bwd`."""
     for name, t in (("x", x), ("dt", dt), ("decay", decay), ("B", B),
                     ("C", C), ("dy", dy)):
         if min(t.stride()) < 0 or (t.dim() == 4 and t.stride(-1) != 1):
@@ -251,8 +279,16 @@ def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
     for name, t in (("S0", S0), ("dS_T", dS_T)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b > _GRID_YZ_MAX:
-        raise ValueError(f"batch {b} exceeds the launch grid")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if b > _GRID_YZ_MAX or h > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
+    kind = bwd_variant(s)
+    if kind == "chunk":                 # 16-byte cp.async tiles
+        check_cp_async_alignment(x=x, B=B, C=C, dy=dy)
+        scratch = 2 * b * h * -(-s // CHUNK_MIN_S) * p * n
+    else:
+        scratch = b * h * -(-s // BWD_TILE) * p * n
     dev = x.device
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddt, ddecay = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
@@ -260,26 +296,26 @@ def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
     dB, dC = (torch.empty((b, s, g, n), dtype=B.dtype, device=dev)
               for _ in range(2))
     dS0 = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    n_tiles = -(-s // BWD_TILE)
-    ckpt = torch.empty(b * h * n_tiles * p * n, dtype=torch.float32,
-                       device=dev)
+    ckpt = torch.empty(scratch, dtype=torch.float32, device=dev)
     dB_part, dC_part = (torch.empty(b * s * h * n, dtype=torch.float32,
                                     device=dev) for _ in range(2))
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), decay.data_ptr(),
-                 B.data_ptr(), C.data_ptr(), S0.data_ptr(), dy.data_ptr(),
-                 dS_T.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-                 ddecay.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                 dS0.data_ptr(), ckpt.data_ptr(), dB_part.data_ptr(),
-                 dC_part.data_ptr(), _DTYPES[x.dtype], p, n, b, s, h, g,
+        err = fn(_BWD_VARIANTS[kind], x.data_ptr(), dt.data_ptr(),
+                 decay.data_ptr(), B.data_ptr(), C.data_ptr(),
+                 S0.data_ptr(), dy.data_ptr(), dS_T.data_ptr(),
+                 dx.data_ptr(), ddt.data_ptr(), ddecay.data_ptr(),
+                 dB.data_ptr(), dC.data_ptr(), dS0.data_ptr(),
+                 ckpt.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+                 _DTYPES[x.dtype], p, n, b, s, h, g,
                  *x.stride()[:3], *dt.stride(), *decay.stride(),
                  *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
                  stream)
     if err != 0:
-        raise RuntimeError(f"mamba2_scan_bwd launch failed: CUDA error "
-                           f"{err}")
-    global launches_bwd
+        raise RuntimeError(f"mamba2_scan_bwd ({kind}) launch failed: CUDA "
+                           f"error {err}")
+    global launches_bwd, launches_bwd_chunk
     launches_bwd += 1
+    launches_bwd_chunk += kind == "chunk"
     return dx, ddt, ddecay, dB, dC, dS0

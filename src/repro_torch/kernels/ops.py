@@ -73,14 +73,18 @@ def variant_counts() -> Dict[str, int]:
     its :func:`launch_counts` total: the bf16 tensor-core kernels of
     ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the rest went
     to the fp32 FMA kernels), and the scans' decode (s = 1) and chunked
-    (s >= 64) kernels (the rest went to the stepwise ones)."""
+    (s >= 64) kernels (the rest went to the stepwise ones), and the
+    scans' chunked backward kernels (s >= 64; the rest went to the
+    stepwise backward)."""
     return {"flash_fwd_mma": fa.launches_mma,
             "flash_bwd_dq_mma": fa.launches_dq_mma,
             "flash_bwd_dkv_mma": fa.launches_dkv_mma,
             "rwkv6_scan_decode": r6.launches_decode,
             "rwkv6_scan_chunk": r6.launches_chunk,
             "mamba2_scan_decode": m2.launches_decode,
-            "mamba2_scan_chunk": m2.launches_chunk}
+            "mamba2_scan_chunk": m2.launches_chunk,
+            "rwkv6_scan_bwd_chunk": r6.launches_bwd_chunk,
+            "mamba2_scan_bwd_chunk": m2.launches_bwd_chunk}
 
 
 def reset_launch_counts() -> None:
@@ -90,6 +94,7 @@ def reset_launch_counts() -> None:
     r6.launches_decode = r6.launches_chunk = 0
     m2.launches_decode = m2.launches_chunk = 0
     r6.launches_bwd = m2.launches_bwd = 0
+    r6.launches_bwd_chunk = m2.launches_bwd_chunk = 0
 
 
 # ---------------------------------------------------------------------------

@@ -26,11 +26,22 @@ each raises on what it does not take.  On CUDA tensors
 computes :func:`repro_torch.kernels.ref.rwkv6_ref`.
 
 :func:`rwkv6_scan_bwd` is the recurrence's backward (the training
-path's): ``wkv_bwd_kernel`` in ``csrc/rwkv6_scan_bwd.cu`` on CUDA
-tensors, one block a (batch row, head), deterministic, then
-``wkv_bwd_du_kernel`` (du's sum over the batch rows; the pair counts as
-one launch); :func:`repro_torch.kernels.ref.rwkv6_bwd_ref` on CPU
-tensors.
+path's), in ``csrc/rwkv6_scan_bwd.cu`` on CUDA tensors, routed by s
+(:func:`bwd_variant`):
+
+  * s < ``CHUNK_MIN_S``: ``wkv_bwd_kernel``, the steps in reverse, one
+    block a (batch row, head);
+  * s >= ``CHUNK_MIN_S``: ``wkv_bwd_states_kernel`` (the chunks'
+    boundary states and cotangents, a short walk over chunks of 64)
+    then ``wkv_bwd_chunk_kernel`` (every chunk's gradients at once, a
+    block per (chunk, head, batch row): sub-chunks of 16, the products
+    across them on the tensor cores, 3xTF32 ``mma.sync``, the pairs
+    inside one on the CUDA cores);
+
+either then ``wkv_bwd_du_kernel`` (du's sum over the batch rows and
+chunks in order), all deterministic and counting as one launch (and one
+of ``launches_bwd_chunk`` for the chunked variant);
+:func:`repro_torch.kernels.ref.rwkv6_bwd_ref` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -55,16 +66,19 @@ _VARIANTS = {"step": 0, "decode": 1, "chunk": 2}
 launches = 0
 launches_decode = 0
 launches_chunk = 0
-# backward kernel launches since the last reset (the CPU path never counts)
+# backward kernel launches since the last reset (the CPU path never counts):
+# all variants, and of them the chunked kernels'
 launches_bwd = 0
+launches_bwd_chunk = 0
 
 _p = ctypes.c_void_p
 _ARGTYPES = ([ctypes.c_int] + [_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [_p])
 # diagonal scores of one (batch row, head, chunk) for the chunked kernel
 _SCORES_PER_CHUNK = 4 * 16 * 16
-_BWD_ARGTYPES = ([_p] * 16 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_int] + [_p] * 16 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 15 + [_p])
+_BWD_VARIANTS = {"step": 0, "chunk": 1}
 # steps per checkpoint of the backward kernel's forward walk
 BWD_TILE = 8
 
@@ -74,6 +88,12 @@ def variant(s: int) -> str:
     (s = 1), ``"step"`` (2 <= s < CHUNK_MIN_S) or ``"chunk"``."""
     if s == 1:
         return "decode"
+    return "chunk" if s >= CHUNK_MIN_S else "step"
+
+
+def bwd_variant(s: int) -> str:
+    """The backward kernels a call of sequence length ``s`` launches:
+    ``"step"`` (s < CHUNK_MIN_S) or ``"chunk"`` (both scans)."""
     return "chunk" if s >= CHUNK_MIN_S else "step"
 
 
@@ -103,12 +123,19 @@ def _bwd_lib():
     return fn
 
 
-def bwd_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one ``wkv_bwd_kernel`` block."""
-    fn = build.library("rwkv6_scan_bwd").repro_rwkv6_scan_bwd_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+def bwd_smem_bytes(hd: int, dtype: torch.dtype = None) -> int:
+    """Dynamic shared memory of one ``wkv_bwd_kernel`` block, or with
+    ``dtype`` of one ``wkv_bwd_chunk_kernel`` block."""
+    lib = build.library("rwkv6_scan_bwd")
+    if dtype is None:
+        fn = lib.repro_rwkv6_scan_bwd_smem_bytes
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+        return int(fn(hd))
+    fn = lib.repro_rwkv6_scan_bwd_chunk_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
-    return int(fn(hd))
+    return int(fn(_DTYPES[dtype], hd))
 
 
 def load() -> None:
@@ -212,11 +239,12 @@ def rwkv6_scan_bwd(r, k, v, w, u, S0, dy, dS_T):
     cotangents dy [b, s, h, hd] (r's dtype) and dS_T [b, h, hd, hd]
     (fp32) -> (dr, dk, dv [b, s, h, hd] in r's dtype, dw [b, s, h, hd]
     fp32, du [h, hd] fp32, dS0 [b, h, hd, hd] fp32): the gradient of the
-    recurrence, ``rwkv6_bwd_ref``'s formulas.  The kernel recomputes the
-    forward states from S0 (checkpoints every ``BWD_TILE`` steps in a
-    scratch the wrapper allocates, b h ceil(s / 8) hd^2 fp32) and sums
-    across state entries in a fixed order, so two calls on the same
-    inputs give the same bits."""
+    recurrence, ``rwkv6_bwd_ref``'s formulas.  The kernels recompute the
+    forward states from S0 into a scratch the wrapper allocates (s < 64:
+    every ``BWD_TILE`` steps, b h ceil(s / 8) hd^2 fp32; s >= 64: each
+    chunk's boundary state and cotangent, 2 b h ceil(s / 64) hd^2 fp32)
+    and sum across state entries in a fixed order, so two calls on the
+    same inputs give the same bits."""
     _check(r, k, v, w, u, S0)
     if dy.shape != r.shape or dy.dtype != r.dtype:
         raise ValueError(f"dy must be {tuple(r.shape)} {r.dtype}, got "
@@ -235,6 +263,12 @@ def rwkv6_scan_bwd(r, k, v, w, u, S0, dy, dS_T):
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan_bwd runs on cuda or cpu, not "
                          f"{r.device}")
+    return _launch_bwd(r, k, v, w, u, S0, dy, dS_T)
+
+
+def _launch_bwd(r, k, v, w, u, S0, dy, dS_T):
+    """Launches the backward variant of s once and counts it; the
+    arguments are checked by :func:`rwkv6_scan_bwd`."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a contiguous last dim and "
@@ -243,31 +277,38 @@ def rwkv6_scan_bwd(r, k, v, w, u, S0, dy, dS_T):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     b, s, h, hd = r.shape
-    if b > _GRID_YZ_MAX:
-        raise ValueError(f"batch {b} exceeds the launch grid")
+    if b > _GRID_YZ_MAX or h > _GRID_YZ_MAX:
+        raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
+    kind = bwd_variant(s)
+    n_chunks = -(-s // CHUNK_MIN_S)
+    if kind == "chunk":                 # 16-byte cp.async tiles
+        check_cp_async_alignment(r=r, k=k, v=v, w=w, dy=dy)
+        scratch, parts = 2 * b * h * n_chunks * hd * hd, b * h * n_chunks
+    else:
+        scratch, parts = b * h * -(-s // BWD_TILE) * hd * hd, b * h
     dev = r.device
     dr, dk, dv = (torch.empty((b, s, h, hd), dtype=r.dtype, device=dev)
                   for _ in range(3))
     dw = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
     du = torch.empty((h, hd), dtype=torch.float32, device=dev)
     dS0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
-    n_tiles = -(-s // BWD_TILE)
-    ckpt = torch.empty(b * h * n_tiles * hd * hd, dtype=torch.float32,
-                       device=dev)
-    du_part = torch.empty(b * h * hd, dtype=torch.float32, device=dev)
+    ckpt = torch.empty(scratch, dtype=torch.float32, device=dev)
+    du_part = torch.empty(parts * hd, dtype=torch.float32, device=dev)
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), S0.data_ptr(), dy.data_ptr(),
-                 dS_T.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        err = fn(_BWD_VARIANTS[kind], r.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), w.data_ptr(), u.data_ptr(), S0.data_ptr(),
+                 dy.data_ptr(), dS_T.data_ptr(), dr.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
                  dS0.data_ptr(), ckpt.data_ptr(), du_part.data_ptr(),
                  _DTYPES[r.dtype], hd, b, s, h,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *w.stride()[:3], *dy.stride()[:3], stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan_bwd launch failed: CUDA error {err}")
-    global launches_bwd
+        raise RuntimeError(f"rwkv6_scan_bwd ({kind}) launch failed: CUDA "
+                           f"error {err}")
+    global launches_bwd, launches_bwd_chunk
     launches_bwd += 1
+    launches_bwd_chunk += kind == "chunk"
     return dr, dk, dv, dw, du, dS0

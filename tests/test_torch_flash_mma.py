@@ -717,7 +717,9 @@ def test_variant_counters_stay_zero_on_cpu():
                                     "rwkv6_scan_decode": 0,
                                     "rwkv6_scan_chunk": 0,
                                     "mamba2_scan_decode": 0,
-                                    "mamba2_scan_chunk": 0}
+                                    "mamba2_scan_chunk": 0,
+                                    "rwkv6_scan_bwd_chunk": 0,
+                                    "mamba2_scan_bwd_chunk": 0}
     assert set(ops.launch_counts()) == {
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_update",
         "rwkv6_scan", "mamba2_scan", "rwkv6_scan_bwd", "mamba2_scan_bwd"}
@@ -728,6 +730,7 @@ def test_reset_clears_the_variant_counters():
     fa.launches_mma, fa.launches_dq_mma, fa.launches_dkv_mma = 3, 2, 4
     r6.launches_decode, r6.launches_chunk = 5, 6
     m2.launches_decode, m2.launches_chunk = 7, 8
+    r6.launches_bwd_chunk, m2.launches_bwd_chunk = 9, 10
     ops.reset_launch_counts()
     assert ops.variant_counts() == {"flash_fwd_mma": 0,
                                     "flash_bwd_dq_mma": 0,
@@ -735,7 +738,9 @@ def test_reset_clears_the_variant_counters():
                                     "rwkv6_scan_decode": 0,
                                     "rwkv6_scan_chunk": 0,
                                     "mamba2_scan_decode": 0,
-                                    "mamba2_scan_chunk": 0}
+                                    "mamba2_scan_chunk": 0,
+                                    "rwkv6_scan_bwd_chunk": 0,
+                                    "mamba2_scan_bwd_chunk": 0}
 
 
 def test_jax_stays_on_cpu():

@@ -1783,12 +1783,17 @@ def _scan_bwd_plain(kind, args):
 
 
 SCAN_BWD_CASES = [
-    # kind, b, s, h, d, n, g
+    # kind, b, s, h, d, n, g; s >= 64 on the chunked kernels
     ("rwkv6", 2, 1, 8, 64, None, 1), ("rwkv6", 2, 12, 8, 64, None, 1),
     ("rwkv6", 2, 63, 8, 64, None, 1), ("rwkv6", 1, 130, 4, 32, None, 1),
     ("rwkv6", 1, 9, 2, 16, None, 1), ("mamba2", 2, 1, 8, 64, 64, 1),
     ("mamba2", 2, 12, 8, 64, 64, 1), ("mamba2", 2, 63, 8, 64, 64, 1),
     ("mamba2", 2, 37, 16, 32, 16, 4), ("mamba2", 1, 20, 8, 16, 64, 2),
+    ("rwkv6", 2, 64, 8, 64, None, 1), ("rwkv6", 2, 100, 8, 64, None, 1),
+    ("rwkv6", 1, 2048, 4, 64, None, 1), ("rwkv6", 1, 512, 64, 64, None, 1),
+    ("rwkv6", 2, 70, 2, 16, None, 1), ("mamba2", 2, 64, 8, 64, 64, 1),
+    ("mamba2", 2, 100, 16, 32, 16, 4), ("mamba2", 1, 2048, 4, 64, 64, 1),
+    ("mamba2", 1, 512, 64, 64, 64, 1), ("mamba2", 1, 130, 8, 16, 64, 2),
 ]
 
 
@@ -1801,22 +1806,46 @@ SCAN_BWD_CASES = [
 def test_scan_bwd_kernels_match_plain(card, case, dtype):
     """Each backward kernel against its plain version, every output within
     1e-5 (fp32 inputs) or 2e-2 (bf16) of its largest magnitude, two runs
-    on the same inputs bit-equal, one launch a call."""
+    on the same inputs bit-equal, one launch a call (of the chunked
+    variant at s >= 64)."""
     from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import rwkv6_scan as r6
     kind, b, s, h, d, n, g = case
     args = _scan_bwd_inputs(kind, 7, b, s, h, d, dtype, n, g)
     fn = r6.rwkv6_scan_bwd if kind == "rwkv6" else m2.mamba2_scan_bwd
     c0 = ops.launch_counts()[f"{kind}_scan_bwd"]
+    v0 = ops.variant_counts()[f"{kind}_scan_bwd_chunk"]
     got, again = fn(*args), fn(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()[f"{kind}_scan_bwd"] == c0 + 2
+    assert ops.variant_counts()[f"{kind}_scan_bwd_chunk"] == \
+        v0 + 2 * (s >= 64)
     for a, w in zip(got, again):
         assert torch.equal(a, w)
     for a, w in zip(got, _scan_bwd_plain(kind, args)):
         assert a.shape == w.shape and a.dtype == w.dtype
         scale = float(w.float().abs().max())
         _close(a, w, SCAN_BWD_TOL[dtype] * scale, rtol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rwkv6", "mamba2"])
+def test_scan_bwd_routes_by_length(card, kind):
+    """s < 64 takes the stepwise backward and s >= 64 the chunked one, each
+    call one launch, the chunked ones counted under their variant."""
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    fn = r6.rwkv6_scan_bwd if kind == "rwkv6" else m2.mamba2_scan_bwd
+    for s in (1, 2, 63, 64, 65, 127, 128):
+        args = _scan_bwd_inputs(kind, s, 1, s, 4, 32, torch.float32)
+        c0 = ops.launch_counts()[f"{kind}_scan_bwd"]
+        v0 = ops.variant_counts()[f"{kind}_scan_bwd_chunk"]
+        fn(*args)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[f"{kind}_scan_bwd"] == c0 + 1, s
+        assert ops.variant_counts()[f"{kind}_scan_bwd_chunk"] == \
+            v0 + (s >= 64), s
+        assert r6.bwd_variant(s) == ("chunk" if s >= 64 else "step")
 
 
 @pytest.mark.gpu
