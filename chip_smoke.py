@@ -392,6 +392,34 @@ the stepwise kernels at s < 64, the chunked tensor-core ones at s >= 64):
      rounds' ``[1, 512]`` beside their bounds and plain versions (no
      PyTorch call computes either).
 
+Cost accounting (the dry-run and its op counter) adds one phase:
+
+ 27. (``cost_accounting``, after phase 7) for the three training
+     configurations above (full-width granite-8b at 8 layers in 4
+     stages, rwkv6-7b at 8 in 4, zamba2-1.2b at 38 in 2; bf16, 8 x 512,
+     spectrain, one tick a step) the dry-run's ``build_cell`` on the
+     meta device, then the same tick built on the card by
+     ``dryrun.make_train_step`` from a random init, a tick of warm-up
+     and one tick under ``runtime.op_cost.CostCounter``: each kernel's
+     counted calls equal to the launch counters of that tick and to the
+     meta count; the FLOPs, bytes and transcendentals of the two counts
+     within 1e-3 of each other, every op that differs named; the counted
+     arguments + temporaries within 15% of ``max_memory_allocated``
+     (after ``reset_peak_memory_stats``); ``model_flops`` (6 N T), the
+     counted FLOPs, ``useful_flops_ratio``, the wall of 3 uncounted ticks
+     (CUDA events) and MFU (``model_flops`` over wall x 989 TFLOP/s),
+     beside the card's name and power limit.  Then the library modules on
+     the card: ``optim.adam`` (an update with weight decay, and predict)
+     on a full-width granite-8b stage tree, against the CPU within 1e-6
+     on the first 2^20 elements of every leaf;
+     ``optim.compression``'s ``topk_compress`` (3 steps of error
+     feedback: the kept magnitudes, sent + residual and the stats bit for
+     bit, kept positions apart only at ties with the k-th magnitude) and
+     ``int8_round`` (from given draws, bit for bit) against the CPU; and a ``runtime.fault_tolerance.RestartManager`` run of the
+     smoke granite (4 layers, pipe 2, fp32) crashed at tick 7 and
+     restored from its tick-5 checkpoint, bit-equal to the uninterrupted
+     run.
+
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, as does a machine without a card or a directory without the
@@ -426,6 +454,17 @@ TIMEOUT_S = 60
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def bound_of(flops, nbytes, peak: str):
+    """(least ms, what bounds it) of work a kernel module's ``cost()``
+    gives: the larger of its bytes over HBM_BPS and its FLOPs over the
+    peak ``PEAK_FLOPS[peak]`` of their type."""
+    t_b = nbytes / HBM_BPS * 1e3
+    t_f = flops / PEAK_FLOPS[peak] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 # the backward's (atol, rtol): tests/test_kernels.py::test_flash_bwd's in
 # fp32, the kernel tolerance in bf16
 BWD_TOL = {"float32": (2e-5, 1e-3), "bfloat16": (2e-2, 2e-2)}
@@ -696,24 +735,24 @@ class Case:
 
     def pairs(self) -> int:
         """(query, key) pairs the masks leave, i.e. the work needed."""
-        if not self.causal:
-            return self.sq * self.kv_len
-        return sum(min(self.kv_len, self.q_offset + i + 1)
-                   for i in range(self.sq))
+        from repro_torch.kernels import flash_attention as fa
+        return fa.pairs(self.sq, self.kv_len, self.causal, self.q_offset)
+
+    def cost(self, which: str):
+        """(FLOPs, bytes) of one ``which`` kernel call (``"fwd"``, ``"dq"``
+        or ``"dkv"``): ``flash_attention.cost``, the formula the cost
+        counter records."""
+        from repro_torch.kernels import flash_attention as fa
+        return fa.cost(which, self.b, self.sq, self.H, self.KV, self.d,
+                       self.dv, kv_len=self.kv_len, causal=self.causal,
+                       q_offset=self.q_offset,
+                       el=2 if self.dtype == "bfloat16" else 4)
 
     def bound(self):
         """(least ms, what bounds it): inputs read once, outputs written
         once, over HBM; QK^T (2 d) and PV (2 dv) FLOPs a pair over the
-        peak for the type."""
-        el = 2 if self.dtype == "bfloat16" else 4
-        w = self.d + self.dv
-        nbytes = el * (self.b * self.sq * self.H * w               # q, o
-                       + self.b * self.kv_len * self.KV * w)       # k, v
-        nbytes += 4 * self.b * self.H * self.sq                    # lse
-        flops = 2 * self.b * self.H * w * self.pairs()
-        t_b = nbytes / HBM_BPS * 1e3
-        t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        peak for the type (``flash_attention.cost("fwd", ...)``)."""
+        return bound_of(*self.cost("fwd"), self.dtype)
 
 
 def compare(torch, fa, ref, case: Case, seed=0):
@@ -1308,21 +1347,9 @@ class BwdCase(Case):
         (q, k, v, do, lse, dl) read once and outputs (dq, or dk and dv)
         written once over HBM; 2 (2d + dv) (dq: S, dP, dS K) or 4 (d + dv)
         (dk/dv: S, dP, P^T dO, dS^T Q) FLOPs per unmasked (query, key)
-        pair and head over the peak for the type (6d and 8d at dv = d)."""
-        el = 2 if self.dtype == "bfloat16" else 4
-        d, dv = self.d, self.dv
-        rows = self.b * self.sq * self.H
-        keys = self.b * self.kv_len * self.KV
-        nbytes = el * (rows + keys) * (d + dv) + 8 * self.b * self.H * self.sq
-        if which == "dq":
-            nbytes += el * rows * d
-            flops = 2 * (2 * d + dv) * self.b * self.H * self.pairs()
-        else:
-            nbytes += el * keys * (d + dv)
-            flops = 4 * (d + dv) * self.b * self.H * self.pairs()
-        t_b = nbytes / HBM_BPS * 1e3
-        t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        pair and head over the peak for the type (6d and 8d at dv = d):
+        ``flash_attention.cost(which, ...)``."""
+        return bound_of(*self.cost(which), self.dtype)
 
     def all_tensors(self, torch, fa, seed=0):
         q, k, v = self.tensors(torch, seed)
@@ -1599,12 +1626,24 @@ class ScanCase:
 
     def recurrence_ms(self) -> float:
         """The fp32 recurrence's operations over the fp32 peak outside the
-        tensor cores: per step and state element 3 for the update (two
-        products and a sum) and 2 for the read-out (a product and a sum);
-        rwkv6's bonus term folds to O(hd).  The operation bound of the
-        stepwise and decode kernels, which run the recurrence itself."""
-        flops = 5 * self.b * self.s * self.h * self.d * self.n
+        tensor cores (``rwkv6_scan.recurrence_flops``: per step and state
+        element 3 for the update and 2 for the read-out).  The operation
+        bound of the stepwise and decode kernels, which run the
+        recurrence itself."""
+        from repro_torch.kernels import rwkv6_scan as r6
+        flops = r6.recurrence_flops(self.b, self.s, self.h, self.d, self.n)
         return flops / PEAK_FLOPS["float32"] * 1e3
+
+    def cost(self):
+        """(FLOPs, bytes) of the call: its kernel module's ``cost()``, the
+        formula the cost counter records."""
+        from repro_torch.kernels import mamba2_scan as m2
+        from repro_torch.kernels import rwkv6_scan as r6
+        el = 2 if self.dtype == "bfloat16" else 4
+        if self.kind == "rwkv6":
+            return r6.cost(self.b, self.s, self.h, self.d, el=el)
+        return m2.cost(self.b, self.s, self.h, self.d, self.n, self.g,
+                       el=el)
 
     def bound(self):
         """(least ms, what bounds it), the larger of: bytes, every input
@@ -1617,26 +1656,10 @@ class ScanCase:
         (the diagonal scores times v); mamba2 per step and head 4 p n
         (C S^T, x^T B) + 128 p (the scores times x), and per step and B/C
         group 128 n (C B^T).  That form needs fewer operations than the
-        recurrence, so the recurrence's count is no floor for it."""
-        el = 2 if self.dtype == "bfloat16" else 4
-        b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
-        if self.kind == "rwkv6":
-            nbytes = (el * 4 * b * s * h * d        # r, k, v in; y out
-                      + 4 * b * s * h * d           # w
-                      + 4 * h * d                   # u
-                      + 2 * 4 * b * h * d * d)      # S0 in, S_T out
-            tc = b * s * h * (4 * d * d + 32 * d)
-        else:
-            nbytes = (el * b * s * h * d            # x
-                      + 4 * b * s * h * d           # y (fp32)
-                      + 2 * 4 * b * s * h           # dt, decay
-                      + el * 2 * b * s * self.g * n  # B, C
-                      + 2 * 4 * b * h * d * n)      # S0 in, S_T out
-            tc = b * s * (h * (4 * d * n + 128 * d) + self.g * 128 * n)
-        t_b = nbytes / HBM_BPS * 1e3
-        t_f = (tc / PEAK_FLOPS["tf32"] * 1e3 if self.variant() == "chunk"
-               else self.recurrence_ms())
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        recurrence, so the recurrence's count is no floor for it.  The
+        formulas are the kernel modules' ``cost()``."""
+        from repro_torch.kernels import rwkv6_scan as r6
+        return bound_of(*self.cost(), r6.flops_type(self.s))
 
 
 # the kernel function each scan variant launches, as the profiler names it
@@ -2045,19 +2068,12 @@ class PagedCase:
     def bound(self):
         """(least ms, what bounds it): q, each page's keys and values up
         to the longest length a row reads there (a page that rows share
-        read once), o and lse; QK^T and PV over the rows' lengths."""
-        el = 2 if self.dtype == "bfloat16" else 4
-        keys = {}
-        for p, n in zip(self.pages, self.lens):
-            keys[p] = max(keys.get(p, 0), n)
-        w = self.d + self.dv
-        nbytes = el * (self.R * self.H * w
-                       + sum(keys.values()) * self.KV * w)
-        nbytes += 4 * self.R * self.H
-        flops = 2 * self.H * w * sum(self.lens)
-        t_b = nbytes / HBM_BPS * 1e3
-        t_f = flops / PEAK_FLOPS[self.dtype] * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        read once), o and lse; QK^T and PV over the rows' lengths
+        (``flash_attention.paged_cost``)."""
+        from repro_torch.kernels import flash_attention as fa
+        return bound_of(*fa.paged_cost(
+            self.H, self.KV, self.d, self.dv, self.lens, self.pages,
+            el=2 if self.dtype == "bfloat16" else 4), self.dtype)
 
 
 def paged_cases() -> list:
@@ -4117,6 +4133,7 @@ def dp_update_timings(torch, ops, ref) -> list:
     momentum=γ, dampening=γ)`` on the same tensors, which computes the
     same function (v' = γv + (1−γ)g, w' = w − ηv') after its first step
     (before it, torch seeds the buffer with the raw gradient)."""
+    from repro_torch.kernels import fused_update as fu
     phase("dp_train: fused_update with no ŵ at the data-parallel update's "
           "group and a stage tree, against torch.optim.SGD(fused=True)")
     rows = []
@@ -4148,11 +4165,12 @@ def dp_update_timings(torch, ops, ref) -> list:
                               dampening=IR_FU_KW["gamma"], fused=True)
         opt.step()          # the seeding step: buffer = g
         lib_ms, _ = time_ms(torch, opt.step, 10)
-        nbytes = 4 * 5 * n          # w, v, g read; w', v' written
-        b_ms = nbytes / HBM_BPS * 1e3
+        # w, v, g read; w', v' written (fused_update.cost)
+        b_ms, b_by = bound_of(*fu.cost(n), "float32")
+        nbytes = fu.cost(n)[1]
         shape = f"{label}: {len(ws)} tensors, {n} elements, fp32 w/v/g"
         rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": "bytes",
+                     "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "max_abs_err": err})
         print(f"  fused_update   {shape} ({nbytes / 1e9:.2f} GB): one launch "
               f"against its plain version max |d| {err:.3e}; kernel "
@@ -4594,6 +4612,7 @@ def bwd_timing(torch, fa, ref, case, bwd_errs) -> list:
 
 
 def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
+    from repro_torch.kernels import fused_update as fu
     phase("timings of the training kernels (CUDA events, after warm-up)")
     rows = []
     by_shape = [bwd_timing(torch, fa, ref, BwdCase(
@@ -4637,12 +4656,13 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
                               dampening=FU_KW["gamma"], fused=True)
         lib_ms, _ = time_ms(torch, opt.step, 10)
         # w, v, g read; w', v' written; ŵ written where predicted
-        nbytes = 4 * (5 * n + n_pred)
-        b_ms = nbytes / HBM_BPS * 1e3
+        # (fused_update.cost)
+        b_ms, b_by = bound_of(*fu.cost(n, n_pred), "float32")
+        nbytes = fu.cost(n, n_pred)[1]
         shape = (f"{label}: {len(ws)} tensors, {n} elements, fp32 "
                  f"w/v/g/ŵ")
         fu_rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": "bytes",
+                        "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms, "max_abs_err": err})
         print(f"  fused_update   {shape} ({nbytes / 1e9:.2f} GB): one "
               f"launch against its plain version max |d| {err:.3e} (tol "
@@ -5513,12 +5533,12 @@ def paper_eval(torch, ops, fu, *, lr=EVAL_LR, steps=EVAL_STEPS,
                               momentum=upd_kw["gamma"],
                               dampening=upd_kw["gamma"], fused=True)
         lib_ms, _ = time_ms(torch, opt.step, 10)
-        b_ms = 4 * 5 * n / HBM_BPS * 1e3
+        b_ms, b_by = bound_of(*fu.cost(n), "float32")
         row = {"shape": f"{label}: {len(ws)} tensors, {n} elements, fp32 "
                         f"w/v/g, no ŵ, lr {upd_kw['lr']:g}, gamma "
                         f"{upd_kw['gamma']:g}",
                "ms": ms_, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": "bytes", "library_ms": lib_ms,
+               "bound_by": b_by, "library_ms": lib_ms,
                "max_abs_err": err}
         out["fu_rows"].append(row)
         print(f"  fused_update at {row['shape']}: one launch against its "
@@ -5673,60 +5693,29 @@ class ScanBwdCase:
         tensor-core products over the TF32 peak, each product counted
         once, as the forward's bound counts them (not once per 3xTF32
         pass: the passes are the kernels' cost, not the function's), the
-        triangular ones at the triangle (chunked_ops)."""
+        triangular ones at the triangle (chunked_ops).  The formulas are
+        the kernel modules' ``bwd_cost()``."""
+        from repro_torch.kernels import mamba2_scan as m2
+        from repro_torch.kernels import rwkv6_scan as r6
         el = 2 if self.dtype == "bfloat16" else 4
         b, s, h, d, n, g = self.b, self.s, self.h, self.d, self.n, self.g
-        if self.kind == "rwkv6":
-            nbytes = (2 * el * 4 * b * s * h * d     # r, k, v, dy; dr..dv
-                      - el * b * s * h * d           # (3 grads, not 4)
-                      + 2 * 4 * b * s * h * d        # w in, dw out
-                      + 2 * 4 * h * d                # u, du
-                      + 3 * 4 * b * h * d * d)       # S0, dS_T, dS0
-        else:
-            nbytes = (2 * el * b * s * h * d         # x, dx
-                      + 4 * b * s * h * d            # dy (fp32)
-                      + 4 * 4 * b * s * h            # dt, decay, and grads
-                      + 4 * el * b * s * g * n       # B, C, dB, dC
-                      + 3 * 4 * b * h * d * n)       # S0, dS_T, dS0
-        t_b = nbytes / HBM_BPS * 1e3
-        if self.variant() == "step":
-            t_f = 14 * b * s * h * d * n / PEAK_FLOPS["float32"] * 1e3
-        else:
-            t_f = self.chunked_ops() / PEAK_FLOPS["tf32"] * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        cost = (r6.bwd_cost(b, s, h, d, el=el) if self.kind == "rwkv6"
+                else m2.bwd_cost(b, s, h, d, n, g, el=el))
+        return bound_of(*cost, r6.flops_type(s))
 
     def chunked_ops(self, passes: bool = False) -> float:
         """Tensor-core FLOPs of the chunked backward (2 a multiply-add;
         with ``passes``, times each product's mma passes, 1 to 3 as
         3xTF32 splits its fp32-derived operands, bf16 operands being
-        exact): per (batch row, head, chunk of Q = 64),
-        with tri = Q (Q + 1) / 2.  mamba2: the walk's two [p x n] updates
-        over Q steps; C B^T, dy x^T, (C B^T o L)^T dy, N B, N^T C over the
-        triangle; B G^T, dy S, x G in full.  rwkv6 (sub-chunks of 16):
-        the walk's 2 x 4 [d x d] updates over 16 steps; the chunk's 3
-        states and 3 cotangents; per sub-chunk dy S^T, v G^T, (k o K) G
-        ([16 x d x d]), dy v^T and A^T dy ([16 x 16 x d], A at its
-        triangle of 136)."""
-        ex = self.dtype == "bfloat16"
-        pa = ((lambda a, b: 1 + (not a) + (not b)) if passes
-              else (lambda a, b: 1))                # mma passes
-        b, s, h, d, n = self.b, self.s, self.h, self.d, self.n
-        Q = 64
-        tri = Q * (Q + 1) // 2
+        exact): the kernel modules' ``bwd_chunk_flops``."""
+        from repro_torch.kernels import mamba2_scan as m2
+        from repro_torch.kernels import rwkv6_scan as r6
+        bf16 = self.dtype == "bfloat16"
         if self.kind == "mamba2":
-            mac = (2 * d * n * Q * pa(False, ex)
-                   + tri * n * pa(ex, ex) + tri * d * pa(False, ex)
-                   + tri * d * pa(False, False)
-                   + 2 * tri * n * pa(False, ex)
-                   + Q * n * d * (pa(ex, False) + pa(False, False)
-                                  + pa(ex, False)))
-        else:
-            sub = 16 * d * d
-            mac = (8 * sub * pa(False, ex) + 6 * sub * pa(False, ex)
-                   + 4 * (2 * sub * pa(ex, False) + sub * pa(False, False)
-                          + 16 * 16 * d * pa(ex, ex)
-                          + 136 * d * pa(False, ex)))
-        return 2.0 * mac * b * h * -(-s // Q)
+            return m2.bwd_chunk_flops(self.b, self.s, self.h, self.d,
+                                      self.n, bf16=bf16, passes=passes)
+        return r6.bwd_chunk_flops(self.b, self.s, self.h, self.d,
+                                  bf16=bf16, passes=passes)
 
 
 def scan_bwd_cases(kind: str) -> list:
@@ -6230,6 +6219,328 @@ def ssm_train_path(torch, ops, arch: str, schedule: str = "stream") -> dict:
             "run_s": run_s}
 
 
+# ---------------------------------------------------------------------------
+# the cost-accounting phase (phase 27): the dry-run's count of a training
+# tick on the meta device against the same tick counted on the card
+
+# the smoke run's three training configurations: (layers, stages), bf16,
+# TRAIN_BATCH x TRAIN_SEQ, spectrain, one tick a step
+COST_TICKS = {ARCH: (TRAIN_LAYERS, TRAIN_STAGES), "rwkv6-7b": (8, 4),
+              "zamba2-1.2b": (38, 2)}
+COST_WARMUP = 1             # ticks before the counted one
+COST_TIMED = 3              # uncounted ticks timed for the wall and MFU
+COST_MEM_TOL = 0.15         # counted peak against max_memory_allocated
+# the totals of the card's count may differ from the meta count's only by
+# the ops named in the phase's output, by at most this share
+COST_TOTAL_TOL = 1e-3
+ADAM_TOL = 1e-6
+# the CPU reference of the card's Adam step: this many leading elements
+# of each leaf (the update is elementwise; the whole tree on the CPU took
+# 45.5 s of the phase)
+ADAM_CPU_ELEMENTS = 1 << 20
+
+
+def _cost_tick(torch, ops, arch: str, L: int, S: int) -> dict:
+    """One configuration: the dry-run's ``build_cell`` on meta, then the
+    same tick built by ``dryrun.make_train_step`` on the card from the
+    launcher's random init, ``COST_WARMUP`` ticks, one tick under
+    ``CostCounter`` (launches and peak memory read around it), and
+    ``COST_TIMED`` uncounted ticks timed with CUDA events."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.runtime.op_cost import CostCounter, op_differences
+    shape = ShapeConfig("tick", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cell_kw = dict(pipe=S, layers=L, ticks=1, dtype="bfloat16")
+    t0 = time.perf_counter()
+    meta = dryrun.build_cell(arch, shape, by_op=True, **cell_kw)
+    meta_s = time.perf_counter() - t0
+    check(meta["status"] == "ok", f"{arch}: the meta count failed: {meta}")
+    cfg = dryrun.cell_config(arch, **{k: v for k, v in cell_kw.items()})
+    model = Model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    toks = lambda: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                 generator=gen, device="cuda")
+    batch = {"tokens": toks(), "targets": toks()}
+    state, step, batch = dryrun.make_train_step(
+        model, shape, ticks=1, params=params, batch=batch)
+    del params
+    for _ in range(COST_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CostCounter() as counter:
+        state, met = step(state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    card = counter.result()
+    mem = counter.memory(arguments=(state, batch), outputs=(state, met))
+    loss = float(met["loss"])
+    # the counted kernel calls against the launch counters and the meta
+    calls = {k: v["calls"] for k, v in card["kernels"].items()}
+    meta_calls = {k: v["calls"] for k, v in meta["kernels"].items()}
+    check(calls == launched == meta_calls,
+          f"{arch}: counted kernel calls {calls}, launches {launched}, "
+          f"meta {meta_calls}")
+    diffs = op_differences(card, {"by_op": meta["by_op"],
+                                  "kernels": meta["kernels"]})
+    totals = {}
+    for key, mkey in (("flops", "flops"), ("bytes", "bytes_raw"),
+                      ("transcendentals", "transcendentals")):
+        a, b = card[key], meta["cost"][mkey]
+        totals[key] = (a, b)
+        check(abs(a - b) <= COST_TOTAL_TOL * max(abs(b), 1.0),
+              f"{arch}: card {key} {a:.6e} against meta {b:.6e} beyond "
+              f"{COST_TOTAL_TOL:g} (ops apart: {diffs[:8]})")
+    counted_peak = mem["argument_bytes"] + mem["temp_bytes"]
+    gap = (counted_peak - peak) / peak
+    check(abs(gap) <= COST_MEM_TOL,
+          f"{arch}: counted arguments + temporaries {counted_peak / 2**30:.3f}"
+          f" GiB against max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"({100 * gap:+.1f}%) beyond {100 * COST_MEM_TOL:.0f}%")
+    # the uncounted ticks' wall
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(COST_TIMED):
+        state, met = step(state, batch)
+    ev1.record()
+    ev1.synchronize()
+    wall_ms = ev0.elapsed_time(ev1) / COST_TIMED
+    check(math.isfinite(loss) and math.isfinite(float(met["loss"])),
+          f"{arch}: non-finite loss")
+    mf = meta["model_flops"]
+    rec = {"arch": arch, "layers": L, "stages": S,
+           "n_params": cfg.param_count(), "model_flops": mf,
+           "counted_flops": card["flops"], "meta_flops": meta["cost"]["flops"],
+           "matmul_flops": card["matmul_flops"],
+           "kernel_flops": sum(v["flops"] for v in card["kernels"].values()),
+           "useful_flops_ratio": mf / card["flops"],
+           "meta_useful_flops_ratio": meta["useful_flops_ratio"],
+           "bytes": card["bytes"], "transcendentals": card["transcendentals"],
+           "calls": calls, "wall_ms": wall_ms,
+           "mfu": mf / (wall_ms / 1e3 * PEAK_FLOPS["bfloat16"]),
+           "peak_bytes": peak, "counted_peak_bytes": counted_peak,
+           "memory_allocated_before": before, "memory": mem,
+           "mem_gap": gap, "ops_apart": diffs, "meta_s": meta_s,
+           "counted_s": counted_s, "fits": meta["fits"], "totals": totals}
+    del state, step, batch, model, met, counter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _adam_card_check(torch) -> dict:
+    """``optim.adam`` update (one step, weight decay) and predict on one
+    full-width granite-8b stage tree (2 of 8 layers) on the card, against
+    the same step on the CPU over the first ``ADAM_CPU_ELEMENTS`` of
+    every leaf (the update is elementwise, so a leaf's leading elements
+    take the step they would take in the whole tree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import (init_params, stack_specs,
+                                           tree_leaves, tree_map)
+    from repro_torch.models.transformer import block_specs
+    from repro_torch.optim import adam
+    cfg = get_config(ARCH)
+    specs = {"layers": stack_specs(block_specs(cfg),
+                                   TRAIN_LAYERS // TRAIN_STAGES, "layer")}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    head = lambda _, t: t.reshape(-1)[:ADAM_CPU_ELEMENTS].cpu()
+    p_card = init_params(specs, gen, "float32", "cuda")
+    g = tree_map(lambda _, t: torch.randn(
+        t.shape, generator=gen, device="cuda") * 1e-3, p_card)
+    p_cpu, g_cpu = tree_map(head, p_card), tree_map(head, g)
+    p_card, st_card = adam.update(p_card, adam.init(p_card), g,
+                                  lr=1e-3, weight_decay=0.01)
+    p_cpu, st_cpu = adam.update(p_cpu, adam.init(p_cpu), g_cpu, lr=1e-3,
+                                weight_decay=0.01)
+    del g
+    pred_card = adam.predict(p_card, st_card, lr=1e-3, s=6)
+    pred_cpu = adam.predict(p_cpu, st_cpu, lr=1e-3, s=6)
+    worst, n = 0.0, sum(t.numel() for t in tree_leaves(p_card))
+    for a_tree, b_tree in ((p_card, p_cpu), (st_card.m, st_cpu.m),
+                           (st_card.v, st_cpu.v), (pred_card, pred_cpu)):
+        for a, b in zip(tree_leaves(tree_map(head, a_tree)),
+                        tree_leaves(b_tree)):
+            check(torch.allclose(a, b, atol=ADAM_TOL, rtol=ADAM_TOL),
+                  "adam: card against CPU beyond 1e-6")
+            worst = max(worst, float((a - b).abs().max()))
+    checked = sum(t.numel() for t in tree_leaves(p_cpu))
+    del p_card, st_card, pred_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"elements": n, "checked": checked, "max_abs": worst}
+
+
+def _compression_card_check(torch) -> dict:
+    """``topk_compress`` (3 steps of error feedback, frac 0.01) and the
+    int8 rounding from given draws on one full-width granite-8b layer's
+    q and output projections, card against CPU.  The int8 rounding bit
+    for bit; top-k bit for bit in what it keeps (the sorted magnitudes
+    sent), in sent + residual (the accumulated gradient) and in the
+    stats, the kept positions differing only where a magnitude ties
+    with the k-th largest (among ~10^8 fp32 normals such ties occur, and
+    the two devices' ``topk`` break them apart); each step starts both
+    sides from the CPU's residual."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import compression as comp
+    cfg = get_config(ARCH)
+    d = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shapes = {"wq": (d, d), "wo": (d, d)}
+    res = comp.topk_init({k: torch.empty(v) for k, v in shapes.items()})
+    n = ties = 0
+    for _ in range(3):
+        g = {k: torch.randn(v, generator=gen, device="cuda")
+             for k, v in shapes.items()}
+        sc, rc, stc = comp.topk_compress(
+            g, tree_map(lambda _, t: t.cuda(), res), frac=0.01)
+        g = tree_map(lambda _, t: t.cpu(), g)
+        sp, rp, stp = comp.topk_compress(g, res, frac=0.01)
+        check(stc == stp, f"topk stats {stc} != {stp}")
+        for k in shapes:
+            a_s, a_r = sc[k].cpu(), rc[k].cpu()
+            acc = sp[k] + rp[k]
+            check(torch.equal(a_s + a_r, acc), f"topk {k}: sent + "
+                  f"residual differs between card and CPU")
+            kept = lambda t: t[t != 0].abs().sort().values
+            check(torch.equal(kept(a_s), kept(sp[k])),
+                  f"topk {k}: the kept magnitudes differ")
+            apart = a_s != sp[k]
+            kth = kept(sp[k])[0]
+            check(bool((acc[apart].abs() == kth).all()),
+                  f"topk {k}: kept positions differ beyond ties with the "
+                  f"k-th magnitude")
+            ties += int(apart.sum())
+        res = rp
+        n = stc["total"]
+    rounds = 0
+    for k, v in shapes.items():
+        g = torch.randn(v, generator=gen, device="cuda")
+        u = torch.rand(v, generator=gen, device="cuda")
+        check(torch.equal(comp.int8_round(g, u).cpu(),
+                          comp.int8_round(g.cpu(), u.cpu())),
+              f"int8_round {k}: card != CPU")
+        rounds += g.numel()
+    return {"topk_elements": n, "int8_elements": rounds,
+            "tie_positions": ties}
+
+
+def _restart_card_check(torch) -> dict:
+    """A ``RestartManager`` run of the 4-layer smoke granite on 2 stages
+    (fp32, 12 ticks, a checkpoint every 3) crashed at tick 7 and
+    restored from tick 5, against the uninterrupted run: every leaf of
+    params, momentum and prediction bit for bit."""
+    from repro_torch.configs import MeshPlan, get_config, smoke_config
+    from repro_torch.core import pipeline_stream
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.runtime.fault_tolerance import RestartManager
+    cfg = smoke_config(get_config(ARCH)).replace(
+        n_layers=4, mesh_plan=MeshPlan(pipe=2, tensor=1,
+                                       num_microbatches=1),
+        param_dtype="float32", compute_dtype="float32")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 16, 4, seed=3))
+
+    def run(d, fail_at, reg=None):
+        m = Model(cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        st = pipeline_stream.make_state(m, m.init(gen), data.batch_at(0))
+        step = pipeline_stream.make_train_step(m, mode="spectrain",
+                                               lr=0.02)
+        st, _ = RestartManager(d, save_every=3, inject_failure_at=fail_at,
+                               registry=reg).run(st, step, data, 0, 12)
+        return [t.clone() for t in tree_leaves(
+            {k: st[k] for k in ("params", "momentum", "pred")})]
+
+    reg = MetricsRegistry()
+    with tempfile.TemporaryDirectory() as d:
+        want = run(f"{d}/a", None)
+        got = run(f"{d}/b", 7, reg)
+    same = sum(torch.equal(a, b) for a, b in zip(got, want))
+    check(same == len(want), f"restart: {len(want) - same} of {len(want)} "
+          f"leaves differ from the uninterrupted run")
+    restored = [e["step"] for e in reg.find("restore")]
+    check(restored == [5], f"restart restored {restored}, not [5]")
+    return {"leaves": len(want), "restored_from": restored[0]}
+
+
+def cost_accounting(torch, ops, info: dict) -> dict:
+    """Phase 27 (see the module docstring): the three training ticks
+    counted on meta and on the card; the library modules on the card."""
+    phase("phase 27 (cost_accounting): the dry-run's meta count of a "
+          "training tick against the same tick counted on the card; "
+          "Adam, compression and restart on the card")
+    t_phase = time.perf_counter()
+    ticks = {}
+    for arch, (L, S) in COST_TICKS.items():
+        t0 = time.perf_counter()
+        r = _cost_tick(torch, ops, arch, L, S)
+        r["seconds"] = time.perf_counter() - t0
+        ticks[arch] = r
+        print(f"  {arch} ({L} layers, {S} stages, {r['n_params']:,} "
+              f"parameters), one tick of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+              f"kernel calls counted = launched = meta {r['calls']}; "
+              f"flops card {r['counted_flops']:.6e} / meta "
+              f"{r['meta_flops']:.6e}, bytes "
+              f"{r['totals']['bytes'][0]:.6e} / "
+              f"{r['totals']['bytes'][1]:.6e}, transcendentals "
+              f"{r['totals']['transcendentals'][0]:.6e} / "
+              f"{r['totals']['transcendentals'][1]:.6e}; ops apart: "
+              f"{r['ops_apart'] or 'none'}")
+        print(f"    model_flops {r['model_flops']:.6e} (6 N T), counted "
+              f"{r['counted_flops']:.6e} (matrix {r['matmul_flops']:.6e}, "
+              f"kernels {r['kernel_flops']:.6e}), useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.4f}; uncounted tick "
+              f"{r['wall_ms']:.3f} ms (CUDA events, {COST_TIMED} ticks), "
+              f"MFU {100 * r['mfu']:.2f}% of 989 TFLOP/s bf16 on "
+              f"{info['smi']}")
+        print(f"    memory: counted arguments "
+              f"{r['memory']['argument_bytes'] / 2**30:.3f} GiB + "
+              f"temporaries {r['memory']['temp_bytes'] / 2**30:.3f} GiB = "
+              f"{r['counted_peak_bytes'] / 2**30:.3f} GiB against "
+              f"max_memory_allocated {r['peak_bytes'] / 2**30:.3f} GiB "
+              f"(gap {100 * r['mem_gap']:+.2f}%; allocated before the "
+              f"tick {r['memory_allocated_before'] / 2**30:.3f} GiB); "
+              f"meta count {r['meta_s']:.2f} s, counted tick "
+              f"{r['counted_s']:.2f} s, the configuration "
+              f"{r['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    adam = _adam_card_check(torch)
+    print(f"  adam update + predict on a full-width {ARCH} stage tree "
+          f"({adam['elements']:,} elements) on the card, against the CPU "
+          f"on {adam['checked']:,} of them: max |d| {adam['max_abs']:.3e} "
+          f"(tol {ADAM_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    comp = _compression_card_check(torch)
+    print(f"  topk_compress x3 ({comp['topk_elements']:,} elements, frac "
+          f"0.01): card equal to CPU in the kept magnitudes, sent + "
+          f"residual and stats ({comp['tie_positions']} positions apart, "
+          f"all ties with the k-th magnitude); int8_round "
+          f"({comp['int8_elements']:,} elements): bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rst = _restart_card_check(torch)
+    print(f"  RestartManager: crashed at tick 7, restored from tick "
+          f"{rst['restored_from']}: all {rst['leaves']} leaves bit-equal "
+          f"to the uninterrupted run; {time.perf_counter() - t0:.1f} s")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 27 took {took:.1f} s")
+    return {"ticks": ticks, "adam": adam, "compression": comp,
+            "restart": rst, "seconds": took}
+
+
 def _torch_or_none():
     """torch with a card and the repository's ``src/`` on the path, or
     None (the reason printed)."""
@@ -6405,6 +6716,9 @@ def run() -> int:
         encdec_srv = encdec_serving(torch, ops)
         vlm_srv = vlm_serving(torch, ops)
         train = train_main_path(torch, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        costs = cost_accounting(torch, ops, info)
         new_train = {}
         for arch in NEW_TRAIN:
             gc.collect()
@@ -6907,6 +7221,15 @@ def run() -> int:
             print(f"{kind}_scan_bwd {rw['shape']}: {rw['ms']:.4f} ms, bound "
                   f"{rw['bound_ms']:.5f} ({rw['bound_by']}), plain "
                   f"{rw['plain_ms']:.4f}")
+    for arch, r in costs["ticks"].items():
+        print(f"cost accounting {arch} tick ({r['layers']} layers, "
+              f"{r['stages']} stages): model_flops {r['model_flops']:.6e}, "
+              f"counted {r['counted_flops']:.6e}, useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.4f}, wall {r['wall_ms']:.3f} ms, "
+              f"MFU {100 * r['mfu']:.2f}%, counted peak "
+              f"{r['counted_peak_bytes'] / 2**30:.3f} GiB against "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB ({100 * r['mem_gap']:+.2f}%)"
+              f" on {info['smi']}")
     print(f"training tick: {train['wall_ms']:.3f} ms wall, "
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "

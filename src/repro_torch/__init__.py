@@ -14,7 +14,9 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` (the default) or
-    ``cpu``.  Raises if ``cuda`` is asked for and no card is present."""
+    ``cpu``; or ``meta``, which carries shapes and no data, for the
+    dry-run's cost accounting (``launch/dryrun.py``).  Raises if
+    ``cuda`` is asked for and no card is present."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -23,6 +25,7 @@ def resolve_device(device="cuda") -> torch.device:
                 "False; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"the port runs on cuda or cpu, not {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"the port runs on cuda or cpu (meta: shapes "
+                         f"only), not {dev}")
     return dev

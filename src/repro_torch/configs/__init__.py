@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, MeshPlan, MLAConfig, MoEConfig, SSMConfig, arch_config,
-    get_config, list_archs, register, smoke_config,
+    ArchConfig, MeshPlan, MLAConfig, MoEConfig, SSMConfig, ShapeConfig,
+    SHAPES, arch_config, get_config, list_archs, register, shape_applicable,
+    smoke_config,
 )
 
 # import the arch modules so the registry is always populated

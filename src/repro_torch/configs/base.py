@@ -217,6 +217,34 @@ class ArchConfig:
 
 
 # ---------------------------------------------------------------------------
+# input shapes (assigned to every LM arch): the dry-run's cells
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; returns (ok, reason-if-skipped)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: 500k dense decode skipped "
+                       "per brief (needs sub-quadratic attention)")
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # registry
 
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}

@@ -82,6 +82,22 @@ def predict_weights(params: Any, momentum: Any, lr, s) -> Any:
         params, momentum)
 
 
+def predict_weights_stacked(params: Any, momentum: Any, lr, s_per_stage
+                            ) -> Any:
+    """Per-stage prediction for stage-stacked params: every leaf of
+    ``params`` has a leading [n_stages] axis and ``s_per_stage`` is an int
+    vector [n_stages], broadcast along that axis (``s·η`` in fp32 as the
+    JAX twin forms it: s as fp32 times lr as fp32)."""
+    s = torch.as_tensor(s_per_stage, dtype=torch.float32)
+    lr = torch.tensor(float(lr), dtype=torch.float32)
+
+    def leaf(w, v):
+        sb = s.to(w.device).reshape((-1,) + (1,) * (w.dim() - 1))
+        return (w.float() - sb * lr.to(w.device) * v.float()).to(w.dtype)
+
+    return tree_zip_map(leaf, params, momentum)
+
+
 # ---------------------------------------------------------------------------
 # prediction-error metric (Fig. 8)
 

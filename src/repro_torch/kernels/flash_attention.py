@@ -39,7 +39,12 @@ On CUDA tensors :func:`flash_fwd`, :func:`flash_fwd_paged` and
 :func:`flash_bwd` launch their kernels or raise; on CPU tensors they
 compute :func:`repro_torch.kernels.ref.flash_fwd_ref`,
 :func:`repro_torch.kernels.ref.flash_fwd_paged_ref` and
-:func:`repro_torch.kernels.ref.flash_bwd_ref`.
+:func:`repro_torch.kernels.ref.flash_bwd_ref`.  On ``meta`` tensors
+(shapes only: the dry-run and the cost counter) they run the CUDA
+route's checks and allocations and stop short of the launch: nothing
+is launched or counted in :data:`launches`.  On ``cuda`` and ``meta``
+each call records :func:`cost` with an active
+``runtime.op_cost.CostCounter``; any other device raises.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (flash_bwd_ref, flash_dl, flash_fwd_ref,
                                      flash_fwd_paged_ref)
+from repro_torch.runtime.op_cost import active, record_kernel
 
 # the (q.k width, v width) pairs the kernels are instantiated for: equal
 # widths, and multi-head latent attention's 64 + 32 rope dims over 64
@@ -142,6 +148,59 @@ def check_widths(dk: int, dv: int) -> None:
                          f"the kernels take {WIDTH_PAIRS}")
 
 
+def pairs(sq: int, kv_len: int, causal: bool, q_offset: int = 0) -> int:
+    """(query, key) pairs the masks leave, i.e. the work a call needs:
+    row i sees keys [0, min(kv_len, q_offset + i + 1)) when causal, all
+    ``kv_len`` keys otherwise."""
+    if not causal:
+        return sq * kv_len
+    # the first c rows see q_offset + i + 1 <= kv_len keys, the rest
+    # kv_len
+    c = min(max(kv_len - q_offset, 0), sq)
+    return c * q_offset + c * (c + 1) // 2 + (sq - c) * kv_len
+
+
+def cost(which: str, b: int, sq: int, H: int, KV: int, d: int, dv: int, *,
+         kv_len: int, causal: bool, q_offset: int = 0, el: int = 2
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one kernel call, the work the function needs:
+    ``which`` is ``"fwd"``, ``"dq"`` or ``"dkv"``; q [b, sq, H, d], k
+    and v [b, kv_len (read), KV, d | dv], ``el`` bytes an element (2 for
+    bf16, 4 for fp32).  Bytes: every input read once and every output
+    written once (fwd: q, k, v in, o and the fp32 lse out; dq and dk/dv:
+    q, k, v, do, lse and dl in, dq or dk and dv out).  FLOPs a unmasked
+    (query, key) pair and head (:func:`pairs`): fwd 2 (d + dv) (QK^T and
+    PV); dq 2 (2d + dv) (S, dP, dS K); dk/dv 4 (d + dv) (S, dP, P^T dO,
+    dS^T Q)."""
+    w = d + dv
+    n = pairs(sq, kv_len, causal, q_offset)
+    rows, keys = b * sq * H, b * kv_len * KV
+    if which == "fwd":
+        nbytes = el * (rows * w + keys * w) + 4 * b * H * sq
+        return 2 * b * H * w * n, nbytes
+    nbytes = el * (rows + keys) * w + 8 * b * H * sq
+    if which == "dq":
+        return 2 * (2 * d + dv) * b * H * n, nbytes + el * rows * d
+    if which == "dkv":
+        return 4 * w * b * H * n, nbytes + el * keys * w
+    raise ValueError(f"unknown flash kernel {which!r}")
+
+
+def paged_cost(H: int, KV: int, d: int, dv: int, lens, pages, *,
+               el: int = 2) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one paged call (:func:`flash_fwd_paged`): q,
+    each page's keys and values up to the longest length a row reads
+    there (a page that rows share read once), o and lse; QK^T and PV
+    over the rows' lengths."""
+    keys: dict = {}
+    for p, n in zip(pages, lens):
+        keys[p] = max(keys.get(p, 0), n)
+    w = d + dv
+    R = len(lens)
+    nbytes = el * (R * H * w + sum(keys.values()) * KV * w) + 4 * R * H
+    return 2 * H * w * sum(lens), nbytes
+
+
 def _check(q, k, v, q_offset: int, kv_len: int, *,
            paged: bool = False) -> None:
     """Shapes, dtypes and devices of a flash call; with ``paged`` k and v
@@ -199,6 +258,15 @@ def check_cp_async_alignment(**tensors: torch.Tensor) -> None:
                     f"which the kernels' 16-byte cp.async copies need")
 
 
+def _check_device(name: str, t: torch.Tensor) -> None:
+    """The kernels run on ``cuda``; ``meta`` (shapes only) takes the
+    same route up to the launch; every other device but the CPU (whose
+    plain versions the callers run) raises."""
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, meta or cpu, not "
+                         f"{t.device}")
+
+
 def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
               kv_len: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,10 +279,14 @@ def flash_fwd(q, k, v, *, causal: bool, q_offset: int = 0,
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, q_offset=q_offset,
                              kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
-    return _launch_fwd(q, k, v, causal=causal, q_offset=q_offset,
-                       kv_len=kv_len)
+    _check_device("flash_fwd", q)
+    o, lse = _launch_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                         kv_len=kv_len)
+    b, sq, H, d = q.shape
+    record_kernel("flash_fwd", cost, "fwd", b, sq, H, k.shape[2], d,
+                  v.shape[-1], kv_len=kv_len, causal=causal,
+                  q_offset=q_offset, el=q.element_size())
+    return o, lse
 
 
 def flash_fwd_paged(q, k_pages, v_pages, pages, kv_lens, *,
@@ -251,19 +323,29 @@ def flash_fwd_paged(q, k_pages, v_pages, pages, kv_lens, *,
                          f"{pages.tolist()}, kv_lens {kv_lens.tolist()}")
     if q.device.type == "cpu":
         return flash_fwd_paged_ref(q, k_pages, v_pages, pages, kv_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd_paged runs on cuda or cpu, not "
-                         f"{q.device}")
+    _check_device("flash_fwd_paged", q)
     pages, kv_lens = pages.contiguous(), kv_lens.contiguous()
-    return _launch_fwd(q, k_pages, v_pages, causal=False, q_offset=0,
-                       kv_len=k_pages.shape[1], kv_lens=kv_lens,
-                       pages=pages)
+    out = _launch_fwd(q, k_pages, v_pages, causal=False, q_offset=0,
+                      kv_len=k_pages.shape[1], kv_lens=kv_lens,
+                      pages=pages)
+    if active() is not None:
+        # the work depends on the rows' lengths: read them (a sync) on
+        # the card; on meta, where they have no values, count every row
+        # at the full page on a page of its own
+        lens, pgs = ((kv_lens.tolist(), pages.tolist())
+                     if q.device.type == "cuda" else
+                     ([k_pages.shape[1]] * R, list(range(R))))
+        record_kernel("flash_fwd", paged_cost, q.shape[2],
+                      k_pages.shape[2], q.shape[-1], v_pages.shape[-1],
+                      lens, pgs, el=q.element_size())
+    return out
 
 
 def _launch_fwd(q, k, v, *, causal: bool, q_offset: int, kv_len: int,
                 kv_lens=None, pages=None):
-    """Launches the forward kernel of q's dtype once and counts it; the
-    arguments are checked by the callers."""
+    """Launches the forward kernel of q's dtype once and counts it (on
+    meta: allocates its outputs and launches nothing); the arguments are
+    checked by the callers."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a contiguous last dim and "
@@ -277,6 +359,8 @@ def _launch_fwd(q, k, v, *, causal: bool, q_offset: int, kv_len: int,
         check_cp_async_alignment(q=q, k=k, v=v)
     o = torch.empty((b, sq, H, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return o, lse
     fn = _lib()[mma]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -323,8 +407,7 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, o, lse, do, causal=causal,
                              q_offset=q_offset, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
+    _check_device("flash_bwd", q)
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a contiguous last dim and "
@@ -339,13 +422,19 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, q_offset: int = 0,
     launch_dq, launch_dkv, (dq, dk, dv) = _bwd_launchers(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
         kv_len=kv_len)
-    global launches_dq, launches_dkv, launches_dq_mma, launches_dkv_mma
-    launch_dq()
-    launches_dq += 1
-    launches_dq_mma += mma
-    launch_dkv()
-    launches_dkv += 1
-    launches_dkv_mma += mma
+    if q.device.type == "cuda":
+        global launches_dq, launches_dkv, launches_dq_mma, launches_dkv_mma
+        launch_dq()
+        launches_dq += 1
+        launches_dq_mma += mma
+        launch_dkv()
+        launches_dkv += 1
+        launches_dkv_mma += mma
+    for which in ("dq", "dkv"):
+        record_kernel(f"flash_bwd_{which}", cost, which, b, sq, H,
+                      k.shape[2], d, v.shape[-1], kv_len=kv_len,
+                      causal=causal, q_offset=q_offset,
+                      el=q.element_size())
     return dq, dk, dv
 
 
@@ -364,19 +453,19 @@ def _bwd_launchers(q, k, v, o, lse, do, *, causal: bool, q_offset: int,
     dk = torch.empty((b, sk, KV, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, KV, d_v), dtype=k.dtype, device=q.device)
     mma = q.dtype == torch.bfloat16
-    fn_dq, fn_dkv = (fns[mma] for fns in _bwd_lib())
     tail = (_DTYPES[q.dtype], d, d_v, b, sq, sk, H, KV, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(d))
     ins = (q, k, v, do, lse, dl)     # the closures keep them alive
 
-    def run(name, fn, outs):
+    def run(name, which, outs):
+        fn = _bwd_lib()[which][mma]
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(*(t.data_ptr() for t in ins + outs), *tail, stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
-    return (lambda: run("flash_bwd_dq", fn_dq, (dq,)),
-            lambda: run("flash_bwd_dkv", fn_dkv, (dk, dv)),
+    return (lambda: run("flash_bwd_dq", 0, (dq,)),
+            lambda: run("flash_bwd_dkv", 1, (dk, dv)),
             (dq, dk, dv))

@@ -12,19 +12,27 @@ place** in one launch: ``w`` and ``v`` are overwritten with ``w'`` and
 
 On CUDA tensors :func:`fused_update` launches the kernel or raises; on
 CPU tensors it computes :func:`repro_torch.kernels.ref.fused_update_ref`
-and copies the results into the same tensors.
+and copies the results into the same tensors.  On ``meta`` tensors
+(shapes only: the dry-run and the cost counter) it runs the CUDA
+route's checks and launches nothing (no launch is counted).  On
+``cuda`` and ``meta`` each group records :func:`cost` with an active
+``runtime.op_cost.CostCounter``; any other device raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import fused_update_ref
+from repro_torch.runtime.op_cost import record_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the most non-empty tensors one launch takes (the kernel's table;
+# ``repro_fused_update_max_tensors`` of the library, checked at load)
+MAX_TENSORS = 64
 
 # kernel launches since the last reset (the CPU path never counts)
 launches = 0
@@ -41,12 +49,35 @@ def _lib():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         lib.repro_fused_update_max_tensors.restype = ctypes.c_int
-    return fn, lib.repro_fused_update_max_tensors()
+        if lib.repro_fused_update_max_tensors() != MAX_TENSORS:
+            raise RuntimeError(
+                f"the fused_update library takes "
+                f"{lib.repro_fused_update_max_tensors()} tensors a launch, "
+                f"the wrapper expects {MAX_TENSORS}")
+    return fn
 
 
 def load() -> None:
     """Build (at first use) and load the kernel's library."""
     _lib()
+
+
+def cost(n: int, n_pred: int = 0, *, g_el: int = 4, what_el: int = 4
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one launch over ``n`` elements, ``n_pred`` of
+    them with a prediction: w and v read and w', v' written in fp32, g
+    read at ``g_el`` bytes and ŵ written at ``what_el``; 3 FLOPs for v'
+    (two products and a sum), 2 for w' and 2 for ŵ an element."""
+    return 5 * n + 2 * n_pred, 16 * n + g_el * n + what_el * n_pred
+
+
+def _pairs_cost(pairs) -> Tuple[int, int]:
+    """:func:`cost` of one launch over ``(w, v, g, ŵ)`` tuples."""
+    wh_el = next((wh.element_size() for *_, wh in pairs if wh is not None),
+                 4)
+    return cost(sum(w.numel() for w, *_ in pairs),
+                sum(w.numel() for w, *_, wh in pairs if wh is not None),
+                g_el=pairs[0][2].element_size(), what_el=wh_el)
 
 
 def _check(ws, vs, gs, whats) -> None:
@@ -104,21 +135,25 @@ def fused_update(ws: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
             if wh is not None:
                 wh.copy_(wh2)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"fused_update runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"fused_update runs on cuda, meta or cpu, not "
+                         f"{dev}")
     for i, t in enumerate(ws + vs + gs
                          + [wh for wh in whats if wh is not None]):
         if not t.is_contiguous():
             raise ValueError(f"fused_update needs contiguous tensors "
                              f"(argument {i} has strides {t.stride()})")
-    fn, max_n = _lib()
     pairs = [(w, v, g, wh) for w, v, g, wh in zip(ws, vs, gs, whats)
              if w.numel()]
-    if len(pairs) > max_n:
-        raise ValueError(f"fused_update takes at most {max_n} non-empty "
-                         f"tensors in one group, got {len(pairs)}")
+    if len(pairs) > MAX_TENSORS:
+        raise ValueError(f"fused_update takes at most {MAX_TENSORS} "
+                         f"non-empty tensors in one group, got {len(pairs)}")
     if not pairs:
         return
+    record_kernel("fused_update", _pairs_cost, pairs)
+    if dev.type == "meta":
+        return
+    fn = _lib()
     n = len(pairs)
     arr = lambda xs: (ctypes.c_void_p * n)(*xs)
     g_dt = _DTYPES[gs[0].dtype]

@@ -42,6 +42,12 @@ either then ``ssd_bwd_group_kernel`` (dB and dC summed over each group's
 heads in head order), all deterministic and counting as one launch (and
 one of ``launches_bwd_chunk`` for the chunked variant);
 :func:`repro_torch.kernels.ref.mamba2_bwd_ref` on CPU tensors.
+
+On ``meta`` tensors (shapes only: the dry-run and the cost counter)
+both functions run the CUDA route's checks and allocations, scratch
+included, and launch nothing (no launch is counted).  On ``cuda`` and
+``meta`` each call records :func:`cost` / :func:`bwd_cost` with an
+active ``runtime.op_cost.CostCounter``; any other device raises.
 """
 from __future__ import annotations
 
@@ -54,7 +60,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_cp_async_alignment
 from repro_torch.kernels.ref import mamba2_bwd_ref, mamba2_ref
 from repro_torch.kernels.rwkv6_scan import BWD_TILE, CHUNK_MIN_S, \
-    bwd_variant, variant
+    bwd_variant, flops_type, recurrence_flops, variant
+from repro_torch.runtime.op_cost import record_kernel
 
 HEAD_DIMS = (16, 32, 64)         # for p and for n
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,6 +87,68 @@ _RECORD = 64 * 64 + 2 * 64
 _BWD_ARGTYPES = ([ctypes.c_int] + [_p] * 17 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 18 + [_p])
 _BWD_VARIANTS = {"step": 0, "chunk": 1}
+
+
+def cost(b: int, s: int, h: int, p: int, n: int, g: int, *, el: int = 2
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one :func:`mamba2_scan` call, the work of the
+    variant it runs: bytes, every input read once and y and S_T written
+    once (x, B, C at ``el`` bytes; dt, decay, y and the states fp32);
+    FLOPs, for the decode and stepwise kernels the fp32 recurrence's
+    (``rwkv6_scan.recurrence_flops``), for the chunked kernels (s >= 64)
+    the chunked form's tensor-core products, each counted once, per step
+    and head 4 p n (C S^T, x^T B) + 128 p (the scores times x), and per
+    step and B/C group 128 n (C B^T).  ``rwkv6_scan.flops_type`` names
+    their type."""
+    nbytes = (el * b * s * h * p             # x
+              + 4 * b * s * h * p            # y (fp32)
+              + 2 * 4 * b * s * h            # dt, decay
+              + el * 2 * b * s * g * n       # B, C
+              + 2 * 4 * b * h * p * n)       # S0 in, S_T out
+    if variant(s) == "chunk":
+        return b * s * (h * (4 * p * n + 128 * p) + g * 128 * n), nbytes
+    return recurrence_flops(b, s, h, p, n), nbytes
+
+
+def bwd_chunk_flops(b: int, s: int, h: int, p: int, n: int, *,
+                    bf16: bool, passes: bool = False) -> float:
+    """Tensor-core FLOPs of the chunked backward (2 a multiply-add;
+    with ``passes``, times each product's mma passes, 1 to 3 as 3xTF32
+    splits its fp32-derived operands, bf16 operands being exact), per
+    (batch row, head, chunk of Q = 64), with tri = Q (Q + 1) / 2: the
+    walk's two [p x n] updates over Q steps; C B^T, dy x^T, (C B^T o
+    L)^T dy, N B, N^T C over the triangle; B G^T, dy S, x G in full."""
+    pa = ((lambda x, y: 1 + (not x) + (not y)) if passes
+          else (lambda x, y: 1))                # mma passes
+    ex = bf16
+    Q = CHUNK_MIN_S
+    tri = Q * (Q + 1) // 2
+    mac = (2 * p * n * Q * pa(False, ex)
+           + tri * n * pa(ex, ex) + tri * p * pa(False, ex)
+           + tri * p * pa(False, False)
+           + 2 * tri * n * pa(False, ex)
+           + Q * n * p * (pa(ex, False) + pa(False, False)
+                          + pa(ex, False)))
+    return 2.0 * mac * b * h * -(-s // Q)
+
+
+def bwd_cost(b: int, s: int, h: int, p: int, n: int, g: int, *,
+             el: int = 2) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one :func:`mamba2_scan_bwd` call: bytes, every
+    input read once and every gradient written once; FLOPs, s < 64 (the
+    stepwise kernels) the fp32 operations, per step and state entry 14:
+    the state recomputed (3), the cotangent's update (+ dy C and x
+    decay, 3) and four products summed (dC, G B, dB, ddecay); s >= 64
+    the chunked form's tensor-core products, each counted once
+    (:func:`bwd_chunk_flops`)."""
+    nbytes = (2 * el * b * s * h * p         # x, dx
+              + 4 * b * s * h * p            # dy (fp32)
+              + 4 * 4 * b * s * h            # dt, decay, and grads
+              + 4 * el * b * s * g * n       # B, C, dB, dC
+              + 3 * 4 * b * h * p * n)       # S0, dS_T, dS0
+    if bwd_variant(s) == "step":
+        return 14 * b * s * h * p * n, nbytes
+    return bwd_chunk_flops(b, s, h, p, n, bf16=el == 2), nbytes
 
 
 def _lib():
@@ -184,8 +253,9 @@ def mamba2_scan(x, dt, decay, B, C, S0, out=None
         y, sT = mamba2_ref(tr(x), tr(dt), tr(decay), per_head(B),
                            per_head(C), S0)
         return tr(y), sT if out is None else out.copy_(sT)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba2_scan runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mamba2_scan runs on cuda, meta or cpu, not "
+                         f"{x.device}")
     for name, t in (("x", x), ("dt", dt), ("decay", decay), ("B", B),
                     ("C", C)):
         if min(t.stride()) < 0 or (t.dim() == 4 and t.stride(-1) != 1):
@@ -209,6 +279,10 @@ def mamba2_scan(x, dt, decay, B, C, S0, out=None
         n_chunks = -(-s // CHUNK_MIN_S)
         scores = torch.empty(b * h * n_chunks * _RECORD,
                              dtype=torch.float32, device=x.device)
+    record_kernel("mamba2_scan", cost, b, s, h, p, n, g,
+                  el=x.element_size())
+    if x.device.type == "meta":
+        return y, sT
     scores_ptr = None if scores is None else scores.data_ptr()
     fn = _lib()
     with torch.cuda.device(x.device):
@@ -262,14 +336,15 @@ def mamba2_scan_bwd(x, dt, decay, B, C, S0, dy, dS_T):
         group = lambda t: tr(t.reshape(b, g, rep, s, n).sum(2)).to(B.dtype)
         return (tr(dx).to(x.dtype), tr(ddt), tr(ddecay), group(dBh),
                 group(dCh), dS0)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba2_scan_bwd runs on cuda or cpu, not "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mamba2_scan_bwd runs on cuda, meta or cpu, not "
                          f"{x.device}")
     return _launch_bwd(x, dt, decay, B, C, S0, dy, dS_T)
 
 
 def _launch_bwd(x, dt, decay, B, C, S0, dy, dS_T):
-    """Launches the backward variant of s once and counts it; the
+    """Launches the backward variant of s once and counts it (on meta:
+    allocates its outputs and scratch and launches nothing); the
     arguments are checked by :func:`mamba2_scan_bwd`."""
     for name, t in (("x", x), ("dt", dt), ("decay", decay), ("B", B),
                     ("C", C), ("dy", dy)):
@@ -299,6 +374,10 @@ def _launch_bwd(x, dt, decay, B, C, S0, dy, dS_T):
     ckpt = torch.empty(scratch, dtype=torch.float32, device=dev)
     dB_part, dC_part = (torch.empty(b * s * h * n, dtype=torch.float32,
                                     device=dev) for _ in range(2))
+    record_kernel("mamba2_scan_bwd", bwd_cost, b, s, h, p, n, g,
+                  el=x.element_size())
+    if dev.type == "meta":
+        return dx, ddt, ddecay, dB, dC, dS0
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

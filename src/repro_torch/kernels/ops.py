@@ -59,6 +59,14 @@ def _timed(name: str, fn, *args, **kw):
     return out
 
 
+# cost hook: with a ``runtime.op_cost.CostCounter`` active, every call of
+# these wrappers is recorded by the kernel module it reaches, with that
+# module's ``cost()``, where the kernel launches (cuda) or where its meta
+# route returns (meta): one record a launch, under the names of
+# :func:`launch_counts` (``op_cost.record_kernel``).  The CPU route runs
+# the plain version, whose ATen ops the counter sees instead.
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_dq,

@@ -42,6 +42,12 @@ either then ``wkv_bwd_du_kernel`` (du's sum over the batch rows and
 chunks in order), all deterministic and counting as one launch (and one
 of ``launches_bwd_chunk`` for the chunked variant);
 :func:`repro_torch.kernels.ref.rwkv6_bwd_ref` on CPU tensors.
+
+On ``meta`` tensors (shapes only: the dry-run and the cost counter)
+both functions run the CUDA route's checks and allocations, scratch
+included, and launch nothing (no launch is counted).  On ``cuda`` and
+``meta`` each call records :func:`cost` / :func:`bwd_cost` with an
+active ``runtime.op_cost.CostCounter``; any other device raises.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_cp_async_alignment
 from repro_torch.kernels.ref import rwkv6_bwd_ref, rwkv6_ref
+from repro_torch.runtime.op_cost import record_kernel
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,6 +102,83 @@ def bwd_variant(s: int) -> str:
     """The backward kernels a call of sequence length ``s`` launches:
     ``"step"`` (s < CHUNK_MIN_S) or ``"chunk"`` (both scans)."""
     return "chunk" if s >= CHUNK_MIN_S else "step"
+
+
+def recurrence_flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """FLOPs of a [p x n] recurrence run step by step (both scans), per
+    step and state element 3 for the update (two products and a sum) and
+    2 for the read-out (a product and a sum); rwkv6's bonus term folds to
+    O(hd).  The work of the decode and stepwise kernels, in fp32 outside
+    the tensor cores."""
+    return 5 * b * s * h * p * n
+
+
+def flops_type(s: int) -> str:
+    """The type of the operations :func:`cost` and :func:`bwd_cost`
+    count at sequence length ``s`` (the key of the card's peak rate):
+    ``"tf32"`` for the chunked kernels' tensor-core products, else
+    ``"float32"`` (both scans, forward and backward)."""
+    return "tf32" if s >= CHUNK_MIN_S else "float32"
+
+
+def cost(b: int, s: int, h: int, hd: int, *, el: int = 2
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one :func:`rwkv6_scan` call, the work of the
+    variant it runs: bytes, every input read once and y and S_T written
+    once (r, k, v and y at ``el`` bytes, w, u and the states fp32);
+    FLOPs, for the decode and stepwise kernels the fp32 recurrence's
+    (:func:`recurrence_flops`), for the chunked kernels (s >= 64) the
+    chunked form's tensor-core products, each counted once (not per
+    3xTF32 pass), per step and head 4 hd^2 (y and the state, sub-chunks
+    of 16) + 32 hd (the diagonal scores times v); that form needs fewer
+    operations than the recurrence, so the recurrence's count is no
+    floor for it.  :func:`flops_type` names their type."""
+    nbytes = (el * 4 * b * s * h * hd        # r, k, v in; y out
+              + 4 * b * s * h * hd           # w
+              + 4 * h * hd                   # u
+              + 2 * 4 * b * h * hd * hd)     # S0 in, S_T out
+    if variant(s) == "chunk":
+        return b * s * h * (4 * hd * hd + 32 * hd), nbytes
+    return recurrence_flops(b, s, h, hd, hd), nbytes
+
+
+def bwd_chunk_flops(b: int, s: int, h: int, hd: int, *, bf16: bool,
+                    passes: bool = False) -> float:
+    """Tensor-core FLOPs of the chunked backward (2 a multiply-add;
+    with ``passes``, times each product's mma passes, 1 to 3 as 3xTF32
+    splits its fp32-derived operands, bf16 operands being exact), per
+    (batch row, head, chunk of 64), sub-chunks of 16: the walk's 2 x 4
+    [hd x hd] updates over 16 steps; the chunk's 3 states and 3
+    cotangents; per sub-chunk dy S^T, v G^T, (k o K) G ([16 x hd x hd]),
+    dy v^T and A^T dy ([16 x 16 x hd], A at its triangle of 136)."""
+    pa = ((lambda x, y: 1 + (not x) + (not y)) if passes
+          else (lambda x, y: 1))                # mma passes
+    ex = bf16
+    sub = 16 * hd * hd
+    mac = (8 * sub * pa(False, ex) + 6 * sub * pa(False, ex)
+           + 4 * (2 * sub * pa(ex, False) + sub * pa(False, False)
+                  + 16 * 16 * hd * pa(ex, ex)
+                  + 136 * hd * pa(False, ex)))
+    return 2.0 * mac * b * h * -(-s // CHUNK_MIN_S)
+
+
+def bwd_cost(b: int, s: int, h: int, hd: int, *, el: int = 2
+             ) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one :func:`rwkv6_scan_bwd` call: bytes, every
+    input read once and every gradient written once; FLOPs, s < 64 (the
+    stepwise kernels) the fp32 operations, per step and state entry 14:
+    the state recomputed (3), the cotangent's update (w G + r dy, 3) and
+    four products summed (dr, dk, dv, dw); s >= 64 (the chunked kernels)
+    the chunked form's tensor-core products, each counted once
+    (:func:`bwd_chunk_flops`).  :func:`flops_type` names their type."""
+    nbytes = (2 * el * 4 * b * s * h * hd    # r, k, v, dy; dr..dv
+              - el * b * s * h * hd          # (3 grads, not 4)
+              + 2 * 4 * b * s * h * hd       # w in, dw out
+              + 2 * 4 * h * hd               # u, du
+              + 3 * 4 * b * h * hd * hd)     # S0, dS_T, dS0
+    if bwd_variant(s) == "step":
+        return 14 * b * s * h * hd * hd, nbytes
+    return bwd_chunk_flops(b, s, h, hd, bf16=el == 2), nbytes
 
 
 def _lib():
@@ -190,8 +274,9 @@ def rwkv6_scan(r, k, v, w, u, S0, out=None
         tr = lambda t: t.transpose(1, 2)
         y, sT = rwkv6_ref(tr(r), tr(k), tr(v), tr(w), u, S0)
         return tr(y).to(r.dtype), sT if out is None else out.copy_(sT)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rwkv6_scan runs on cuda, meta or cpu, not "
+                         f"{r.device}")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
             raise ValueError(f"{name} needs a contiguous last dim and "
@@ -214,6 +299,9 @@ def rwkv6_scan(r, k, v, w, u, S0, out=None
         n_chunks = -(-s // CHUNK_MIN_S)
         scores = torch.empty(b * h * n_chunks * _SCORES_PER_CHUNK,
                              dtype=torch.float32, device=r.device)
+    record_kernel("rwkv6_scan", cost, b, s, h, hd, el=r.element_size())
+    if r.device.type == "meta":
+        return y, sT
     scores_ptr = None if scores is None else scores.data_ptr()
     fn = _lib()
     with torch.cuda.device(r.device):
@@ -260,14 +348,15 @@ def rwkv6_scan_bwd(r, k, v, w, u, S0, dy, dS_T):
             tr(r), tr(k), tr(v), tr(w), u, S0, tr(dy), dS_T)
         return (tr(dr).to(r.dtype), tr(dk).to(r.dtype), tr(dv).to(r.dtype),
                 tr(dw), du, dS0)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan_bwd runs on cuda or cpu, not "
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rwkv6_scan_bwd runs on cuda, meta or cpu, not "
                          f"{r.device}")
     return _launch_bwd(r, k, v, w, u, S0, dy, dS_T)
 
 
 def _launch_bwd(r, k, v, w, u, S0, dy, dS_T):
-    """Launches the backward variant of s once and counts it; the
+    """Launches the backward variant of s once and counts it (on meta:
+    allocates its outputs and scratch and launches nothing); the
     arguments are checked by :func:`rwkv6_scan_bwd`."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
         if t.stride(-1) != 1 or min(t.stride()) < 0:
@@ -294,6 +383,10 @@ def _launch_bwd(r, k, v, w, u, S0, dy, dS_T):
     dS0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
     ckpt = torch.empty(scratch, dtype=torch.float32, device=dev)
     du_part = torch.empty(parts * hd, dtype=torch.float32, device=dev)
+    record_kernel("rwkv6_scan_bwd", bwd_cost, b, s, h, hd,
+                  el=r.element_size())
+    if dev.type == "meta":
+        return dr, dk, dv, dw, du, dS0
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -22,8 +22,10 @@ depths.  Unlike the JAX launcher, which always shrinks the model, this
 one trains the full configuration unless ``--smoke`` or the size flags
 cut it.  It runs on the card unless ``--device cpu`` is given; on a
 machine without a card, ``--device cuda`` (the default) fails.
-``--compress`` and ``--profile-method hlo`` are not ported yet and are
-refused.
+``--profile-method hlo`` counts one block on the meta device
+(``planner/profiler.py``); ``--compress`` is refused, since the JAX
+launcher parses it and reads it nowhere (``optim/compression.py`` is
+ported as a library).
 
 ``--trace PATH`` instruments the run with a ``PipelineTracer``
 (``repro_torch.obs``): one mark per compute event of a round schedule
@@ -158,10 +160,19 @@ def _aux_field(metrics) -> dict:
 
 
 def _not_ported(args) -> Optional[str]:
-    for flag, on in (("--compress", args.compress),
-                     ("--profile-method hlo", args.profile_method == "hlo")):
-        if on:
-            return f"{flag} is not ported to PyTorch yet"
+    """``--compress``: the JAX launcher parses it (``repro/launch/
+    train.py:103``) and reads it nowhere, so no run of the reference
+    compresses anything; refused here rather than accepted and ignored.
+    The compressors themselves are ported as a library
+    (``optim/compression.py``)."""
+    if args.compress:
+        return (f"--compress {args.compress} does nothing in the JAX "
+                f"launcher either: it parses the flag (repro/launch/"
+                f"train.py:103) and reads it nowhere, so no training run "
+                f"compresses its gradients; the compressors are ported as "
+                f"a library (repro_torch.optim.compression: topk_compress, "
+                f"int8_roundtrip) for a step that calls them; run without "
+                f"--compress")
     return None
 
 
@@ -298,7 +309,8 @@ def _print_plan(pplan, ir_round: bool) -> None:
                                               pplan.stage_costs_s)))
     print(f"# realized stages: {stage_desc}  "
           f"bottleneck={pplan.bottleneck_s:.2e}s "
-          f"(uniform would be {pplan.uniform_bottleneck_s:.2e}s)")
+          f"(uniform would be {pplan.uniform_bottleneck_s:.2e}s; profile "
+          f"{getattr(pplan.profile, 'method', None)})")
     if ir_round:
         print(f"# schedule {pplan.schedule}: "
               f"round={pplan.round_microbatches} microbatches, "
@@ -330,7 +342,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("auto", "hlo", "timed", "analytic"),
                     dest="profile_method",
                     help="per-layer cost acquisition for the planner "
-                         "('timed' runs one block on --device)")
+                         "('timed' runs one block on --device, 'hlo' "
+                         "counts one on the meta device)")
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--data", type=int, default=1,
                     help="the mesh's data axis: N replicas, one process "

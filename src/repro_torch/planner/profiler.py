@@ -12,11 +12,15 @@ Acquisition methods:
                    on the CPU with ``perf_counter``.  FLOPs are
                    back-filled analytically so the partitioner's compute
                    terms stay populated.
-  * ``"hlo"``    — the JAX twin's compiled-HLO counters
-                   (``runtime/hlo_cost.py``); not ported yet, raises.
-  * ``"auto"``   — the JAX twin tries ``"hlo"`` and falls back to
-                   ``"analytic"``; with no HLO counters here it takes
-                   ``"analytic"`` and records that as the method used.
+  * ``"hlo"``    — count one block's forward on the ``meta`` device
+                   under ``runtime/op_cost.CostCounter`` (the twin of the
+                   JAX package's compiled-HLO counters,
+                   ``runtime/hlo_cost.py``): the FLOPs the counter sees,
+                   the flash kernels' by their ``cost()``; nothing is
+                   allocated or run.
+  * ``"auto"``   — ``"hlo"``, falling back to ``"analytic"`` only if
+                   counting raises; the profile records the method that
+                   was used.
 
 All blocks of one config are identical, so one representative block is
 profiled and replicated ``n_layers`` times; ``ModelProfile.scaled``
@@ -143,6 +147,32 @@ def _timed_layer(cfg, batch: int, seq: int, *, device="cuda",
     return replace(_analytic_layer(cfg, batch, seq), time_s=dt)
 
 
+# ---------------------------------------------------------------------------
+# hlo: one representative block counted on the meta device
+
+
+def _hlo_layer(cfg, batch: int, seq: int) -> LayerProfile:
+    """The FLOPs of one block's forward at ``[batch, seq, d_model]``, its
+    weights in the param dtype (the JAX twin's ``_hlo_layer`` compiles
+    the same function), counted on ``meta``."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.transformer import block_apply, block_specs
+    from repro_torch.runtime.op_cost import CostCounter
+
+    meta = torch.device("meta")
+    params = tree_map(lambda _, sp: torch.empty(
+        sp.shape, dtype=dtype_of(sp.dtype or cfg.param_dtype), device=meta),
+        block_specs(cfg))
+    cdt = dtype_of(cfg.compute_dtype)
+    x = torch.empty((batch, seq, cfg.d_model), dtype=cdt, device=meta)
+    with torch.no_grad(), CostCounter() as counter:
+        block_apply(cfg, params, x)
+    pdt = dtype_of(cfg.param_dtype).itemsize
+    pbytes = sum(p.numel() for p in tree_leaves(params)) * pdt
+    return LayerProfile("block", float(counter.flops), float(pbytes),
+                        float(batch * seq * cfg.d_model * cdt.itemsize))
+
+
 METHODS = ("auto", "hlo", "timed", "analytic")
 
 
@@ -153,13 +183,17 @@ def profile_model(cfg, *, batch: int = 1, seq: int = 32,
     ``"cpu"`` is asked for); the other methods compute on the host."""
     if method not in METHODS:
         raise ValueError(f"unknown profile method {method!r}")
-    if method == "hlo":
-        raise NotImplementedError(
-            "profile method 'hlo' needs the compiled-cost counters of "
-            "runtime/hlo_cost.py, which are not ported to PyTorch yet; "
-            "use 'timed' or 'analytic'")
-    used = "analytic" if method == "auto" else method
-    if method == "timed":
+    used = method
+    if method in ("auto", "hlo"):
+        try:
+            layer = _hlo_layer(cfg, batch, seq)
+            used = "hlo"
+        except Exception:
+            if method == "hlo":
+                raise
+            layer = _analytic_layer(cfg, batch, seq)
+            used = "analytic"
+    elif method == "timed":
         layer = _timed_layer(cfg, batch, seq, device=device)
     else:
         layer = _analytic_layer(cfg, batch, seq)

@@ -1968,3 +1968,127 @@ def _clone_tree(tree):
     if isinstance(tree, tuple):
         return tuple(_clone_tree(v) for v in tree)
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+# ---------------------------------------------------------------------------
+# cost accounting: the kernels' meta route against their CUDA route
+
+
+def _routes_record(fn, card_args, meta_args):
+    """The kernel records a call makes under ``CostCounter`` on the card
+    and on meta, and the launches each made."""
+    from repro_torch.runtime.op_cost import CostCounter
+    recs = []
+    for args in (card_args, meta_args):
+        ops.reset_launch_counts()
+        with CostCounter() as c:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        recs.append((c.result()["kernels"], dict(ops.launch_counts()), out))
+    return recs
+
+
+def _to_meta(ts):
+    return [t.to("meta") if isinstance(t, torch.Tensor) else t for t in ts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(64, 64, True), (12, 40, False),
+                                          (1, 64, False)])
+def test_cost_meta_route_records_what_the_card_records(card, dtype, sq, sk,
+                                                       causal):
+    """The flash forward and backward (through ``ops``' autograd
+    function), both scans and their backward, and the fused update: the
+    meta route records each kernel's ``cost()`` exactly as the CUDA route
+    does, launching nothing, with outputs of the same shapes."""
+    q, k, v = _qkv(0, 2, sq, sk, 8, 2, 64, dtype)
+    kw = dict(causal=causal, q_offset=sk - sq if causal else 0)
+
+    def attn(q, k, v):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = ops.flash_attention(q, k, v, kw["causal"],
+                                q_offset=kw["q_offset"])
+        o.float().sum().backward()
+        return o
+    (ck, cl, co), (mk, ml, mo) = _routes_record(attn, (q, k, v),
+                                                _to_meta((q, k, v)))
+    assert ck == mk and set(ck) == {"flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"}
+    assert {n: c["calls"] for n, c in ck.items()} == \
+        {n: c for n, c in cl.items() if c}
+    assert all(c == 0 for c in ml.values()) and co.shape == mo.shape
+    # the scans at s = sq (decode, stepwise or chunked), forward and back
+    b, s, h = 2, sq, 4
+    r = [_randn(i, b, s, h, 64, dtype=dtype) for i in range(3)]
+    w = torch.rand(b, s, h, 64, device="cuda")
+    u, S0 = _randn(5, h, 64), _randn(6, b, h, 64, 64)
+
+    def scan(*a):
+        a = [t.detach().requires_grad_() if t.is_floating_point() else t
+             for t in a]
+        y, sT = ops.rwkv6_scan(*a)
+        (y.float().sum() + sT.sum()).backward()
+        return y
+    (ck, cl, _), (mk, ml, _) = _routes_record(
+        scan, (*r, w, u, S0), _to_meta((*r, w, u, S0)))
+    assert ck == mk and set(ck) == {"rwkv6_scan", "rwkv6_scan_bwd"}
+    assert all(c == 0 for c in ml.values())
+    x = _randn(7, b, s, 8, 32, dtype=dtype)
+    dt_, dec = torch.rand(b, s, 8, device="cuda"), torch.rand(b, s, 8,
+                                                               device="cuda")
+    B = _randn(8, b, s, 2, 64, dtype=dtype)
+    S0m = _randn(9, b, 8, 32, 64)
+
+    def ssd(*a):
+        a = [t.detach().requires_grad_() for t in a]
+        y, sT = ops.mamba2_scan(*a)
+        (y.sum() + sT.sum()).backward()
+        return y
+    (ck, _, _), (mk, ml, _) = _routes_record(
+        ssd, (x, dt_, dec, B, B, S0m), _to_meta((x, dt_, dec, B, B, S0m)))
+    assert ck == mk and set(ck) == {"mamba2_scan", "mamba2_scan_bwd"}
+    assert all(c == 0 for c in ml.values())
+    ws = [_randn(10, 33, 7), _randn(11, 5)]
+    upd = lambda *t: ops.fused_update(
+        list(t[:2]), [torch.zeros_like(x_) for x_ in t[:2]],
+        [x_.clone() for x_ in t[:2]], lr=0.1, gamma=0.9, s=2.0,
+        whats=[torch.empty_like(x_) for x_ in t[:2]])
+    (ck, cl, _), (mk, ml, _) = _routes_record(upd, ws, _to_meta(ws))
+    assert ck == mk == {"fused_update": {"calls": 1,
+                                         "flops": fu.cost(236, 236)[0],
+                                         "bytes": fu.cost(236, 236)[1]}}
+    assert cl["fused_update"] == 1 and ml["fused_update"] == 0
+
+
+@pytest.mark.gpu
+def test_cost_counted_tick_matches_launches_and_meta(card):
+    """One streaming SpecTrain tick of the smoke granite (4 layers, 2
+    stages, bf16) counted on the card: each kernel's counted calls equal
+    the launch counters and the dry-run's meta count of the same tick,
+    and the totals of the two counts agree op for op."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.op_cost import CostCounter, op_differences
+    shape = ShapeConfig("tick", 64, 8, "train")    # the smoke cell's
+    kw = dict(smoke=True, pipe=2, layers=4, ticks=1, dtype="bfloat16")
+    meta = dryrun.build_cell("granite-8b", shape, by_op=True, **kw)
+    cfg = dryrun.cell_config("granite-8b", **kw)
+    model = Model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = lambda: torch.randint(0, cfg.vocab_size, (8, 64), generator=gen,
+                                 device="cuda")
+    state, step, batch = dryrun.make_train_step(
+        model, shape, ticks=1,
+        params=model.init(gen), batch={"tokens": toks(), "targets": toks()})
+    state, _ = step(state, batch)
+    ops.reset_launch_counts()
+    with CostCounter() as c:
+        step(state, batch)
+    torch.cuda.synchronize()
+    got = c.result()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    assert {k: v["calls"] for k, v in got["kernels"].items()} == launched
+    assert launched == {k: v["calls"] for k, v in meta["kernels"].items()}
+    assert op_differences(got, {"by_op": meta["by_op"],
+                                "kernels": meta["kernels"]}) == []

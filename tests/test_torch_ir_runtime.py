@@ -152,11 +152,22 @@ def test_launcher_runs_each_schedule(argv, capsys):
     (["--schedule", "interleaved", "--virtual-stages", "2", "--batch",
       "3"], "no round size"),
     (["--schedule", "1f1b", "--execution", "mpmd", "--compress", "int8"],
-     "not ported"),
-    (["--profile-method", "hlo"], "not ported")])
+     "reads it nowhere")])
 def test_launcher_refusals(argv, why):
     with pytest.raises(SystemExit, match=why):
         ttrain.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_launcher_plans_with_the_hlo_profile(capsys):
+    """``--profile-method hlo`` counts one block on the meta device, plans
+    with it and records the method on the realized-stages line."""
+    assert ttrain.main(["--smoke", "--device", "cpu", "--steps", "1",
+                        "--pipe", "2", "--layers", "4", "--batch", "4",
+                        "--seq", "16", "--profile-method", "hlo"]) == 0
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines()
+                if x.startswith("# realized stages:"))
+    assert line.endswith("profile hlo)")
 
 
 @pytest.mark.parametrize("schedule,batch,pipe,v,ticks,want", [

@@ -279,18 +279,29 @@ def test_launcher_step_hook_and_data_kind(capsys):
                                   ["--schedule", "2bw"],
                                   ["--compress", "int8"]])
 def test_launcher_not_ported(argv, capsys):
-    """``--profile-method hlo`` and ``--compress`` are still refused (the
-    tracer's ``--trace`` runs: tests/test_torch_obs.py); the round
-    schedules, refused before the planner slice, now train: the plan
-    and the round are printed and every round's loss is finite."""
+    """``--compress`` is refused: the JAX launcher parses it and reads it
+    nowhere (the compressors are a library, ``optim/compression.py``;
+    the tracer's ``--trace`` runs: tests/test_torch_obs.py).
+    ``--profile-method hlo``, refused before the cost-accounting slice,
+    now plans from one block counted on the meta device, and trains.
+    The round schedules, refused before the planner slice, now train:
+    the plan and the round are printed and every round's loss is
+    finite."""
     base = ["--smoke", "--device", "cpu"]
-    if argv[0] != "--schedule":
-        with pytest.raises(SystemExit, match="not ported"):
+    if argv[0] == "--compress":
+        with pytest.raises(SystemExit, match="reads it nowhere"):
             ttrain.main(base + argv)
         return
     assert ttrain.main(base + argv + ["--steps", "2", "--log-every",
                                       "1", "--json"]) == 0
     out = capsys.readouterr().out
+    if argv[0] == "--profile-method":
+        assert "; profile hlo)" in out
+        recs = [json.loads(x) for x in out.splitlines()
+                if x.startswith("{")]
+        assert [r["step"] for r in recs] == [1, 2]
+        assert all(np.isfinite(r["loss"]) for r in recs)
+        return
     assert f"# plan[{argv[1]} x2 part=dp:(1, 1)" in out
     assert f"# schedule {argv[1]}: round=4 microbatches" in out
     recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]

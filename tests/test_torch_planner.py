@@ -7,7 +7,8 @@ analytic profile of a tiny granite and of the full granite-8b}, the
 ``plan()`` fields, the emitted ``Schedule`` events and metrics, the
 lowered ``EventTable`` and ``DeviceStreams``, the verifier's reports and
 the mutation harness's catch counts and failure names; plus partition,
-profiler (analytic; the timed method on the CPU), the verifier's CLI
+profiler (analytic; the timed method on the CPU; hlo, counted on the meta
+device, against JAX's compiled block), the verifier's CLI
 and its error cases.
 """
 import dataclasses
@@ -252,13 +253,101 @@ def test_profiler_equal_jax():
                                     method="analytic").scaled(scaled))
     with pytest.raises(ValueError):
         tpf.profile_model(tget_config("granite-8b"), method="guess")
-    with pytest.raises(NotImplementedError, match="hlo_cost"):
-        tpf.profile_model(tget_config("granite-8b"), method="hlo")
-    # "auto": the JAX twin's fallback of last resort, recorded as used
-    auto = tpf.profile_model(tget_config("granite-8b"), method="auto")
-    assert auto.method == "analytic"
-    _same_profile(auto, jpf.profile_model(jget_config("granite-8b"),
-                                          method="analytic"))
+    # "hlo" and "auto" (which takes "hlo" first): one block counted on
+    # the meta device, held to JAX's profile_model(method="hlo")
+    tiny = tiny_cfg("granite-8b", n_layers=9, pipe=2)
+    for method in ("hlo", "auto"):
+        _hlo_profile_against_jax(tiny, port_cfg(tiny), method, 4, 16)
+
+
+# the port's total against JAX's compiled block: the attention products
+# count the causal pairs (about half of JAX's masked s x s dots) and
+# eager ops are counted one by one where XLA fuses; 6% covers the tiny
+# block (5.2% apart), the full granite-8b block is 1.2% apart
+HLO_TOTAL_RTOL = 0.06
+
+
+def _jax_block_dots(jcfg, batch, seq):
+    """The dot FLOPs of JAX's compiled block (``profiler._hlo_layer``'s
+    function), summed with ``hlo_cost.parse_module`` and its 2·M·N·K
+    rule: (the projections' dots, the batched attention dots)."""
+    import re
+    import jax
+    from repro.runtime import hlo_cost
+    f, params, x = jpf._block_fn_and_args(jcfg, batch, seq)
+    text = jax.jit(f).lower(params, x).compile().as_text()
+    plain = batched = 0.0
+    for comp in hlo_cost.parse_module(text).values():
+        for ins in comp.instrs:
+            if ins.opcode != "dot":
+                continue
+            relems, _ = hlo_cost._shape_info(ins.rtype)
+            lhs = comp.table[hlo_cost._operands(ins.rest)[0]]
+            dims = [int(d) for d in
+                    hlo_cost._SHAPE_RE.search(lhs).group(2).split(",")]
+            cd = re.search(r"lhs_contracting_dims=\{([0-9,]*)\}", ins.rest)
+            k = int(np.prod([dims[int(i)] for i in cd.group(1).split(",")]))
+            if "lhs_batch_dims" in ins.rest:
+                batched += 2.0 * relems * k
+            else:
+                plain += 2.0 * relems * k
+    return plain, batched
+
+
+def _hlo_profile_against_jax(jcfg, tcfg, method, batch, seq):
+    """The port's ``hlo`` profile (``method`` "hlo" or "auto") against
+    JAX's: the method recorded, the bytes exactly, the counted matrix
+    FLOPs equal to JAX's dots (the projections' ``mm`` exactly, the flash
+    kernels' ``cost()`` exactly the batched attention dots at the causal
+    pairs' share), the total within ``HLO_TOTAL_RTOL``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import dtype_of, tree_map
+    from repro_torch.models.transformer import block_apply, block_specs
+    from repro_torch.runtime.op_cost import CostCounter
+    t = tpf.profile_model(tcfg, batch=batch, seq=seq, method=method)
+    j = jpf.profile_model(jcfg, batch=batch, seq=seq, method="hlo")
+    assert (t.method, j.method) == ("hlo", "hlo")
+    assert t.n_layers == j.n_layers == jcfg.n_layers
+    for a, b in zip(t.layers, j.layers):
+        assert (a.name, a.param_bytes, a.act_bytes, a.time_s) == \
+            (b.name, b.param_bytes, b.act_bytes, b.time_s)
+        assert a.flops == pytest.approx(b.flops, rel=HLO_TOTAL_RTOL)
+    meta = torch.device("meta")
+    params = tree_map(lambda _, sp: torch.empty(
+        sp.shape, dtype=dtype_of(sp.dtype or tcfg.param_dtype),
+        device=meta), block_specs(tcfg))
+    x = torch.empty((batch, seq, tcfg.d_model),
+                    dtype=dtype_of(tcfg.compute_dtype), device=meta)
+    with torch.no_grad(), CostCounter() as c:
+        block_apply(tcfg, params, x)
+    r = c.result()
+    plain, batched = _jax_block_dots(jcfg, batch, seq)
+    assert r["matmul_flops"] == plain
+    share = fa.pairs(seq, seq, True) / (seq * seq)
+    assert r["kernels"]["flash_fwd"]["flops"] == batched * share
+    assert r["flops"] == t.layers[0].flops
+
+
+def test_hlo_profile_of_full_granite_matches_jax():
+    """The planner tests' full-size configuration (granite-8b at 8 x
+    512): the counted block against JAX's compiled one."""
+    _hlo_profile_against_jax(jget_config("granite-8b"),
+                             tget_config("granite-8b"), "hlo", 8, 512)
+
+
+@pytest.mark.parametrize("schedule", ["stream", "1f1b"])
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_hlo_plans_have_jax_stage_sizes(schedule, S):
+    """``plan()`` with ``profile_method="hlo"`` splits the layers as the
+    JAX planner does, for the planner tests' two configurations."""
+    for label, jkw, tkw in _profiles()[1:]:
+        kw = dict(n_stages=S, schedule=schedule, partitioner="dp",
+                  profile_method="hlo")
+        j = japi.plan(**jkw, **kw)
+        t = tapi.plan(**tkw, **kw)
+        assert t.partition.sizes() == j.partition.sizes(), label
+        assert t.profile.method == j.profile.method == "hlo"
 
 
 def test_timed_profile_on_the_cpu():
