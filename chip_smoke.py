@@ -4,7 +4,7 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mpmd-only    # phases 15 (three runs) and 16
-    python3 chip_smoke.py --dp-only      # phase 19 alone
+    python3 chip_smoke.py --dp-only      # phases 19 and 28 alone
 
 Run from the root of the repository on a machine with one NVIDIA card
 (an H100 is what the numbers are for).  It imports nothing of JAX or of
@@ -116,7 +116,7 @@ The paper's evaluation adds three phases:
      snn-paper (32 FC layers of 2048, input 3072, 10 classes, 4 stages,
      140,597,258 parameters, 8 versions held), batch 128 of the
      synthetic teacher task, 600 steps each at lr 0.01, then spectrain's
-     first 300 steps again with Fig. 8's RMSEs at s = 1, 2, 3 (the
+     first 150 steps again with Fig. 8's RMSEs at s = 1, 2, 3 (the
      same losses, step for step): ms per step (the median
      of the steady steps), device busy and idle share under
      ``torch.profiler``, final loss, held-out loss and accuracy, peak
@@ -243,8 +243,8 @@ adds one phase:
      timed beside ``torch.optim.SGD(fused=True, momentum=γ,
      dampening=γ)``, the same function after its first step; then
      ``repro_torch.launch.train.main --mode sync --pipe 1`` on full-width
-     granite-8b, 8 layers, batch 8 x 512, bf16, seed 0, uniform data, 4
-     steps: once in this process (``--data 1``, the reference), then
+     granite-8b, 4 layers (phase 28's depth), batch 8 x 512, bf16, seed 0,
+     uniform data, 4 steps: once in this process (``--data 1``, the reference), then
      with ``--data 2`` (2 replicas sharing the card over gloo through
      pinned host buffers; NCCL with a card each) and, on a machine of 4
      cards, ``--data 4`` (on fewer cards its memory is reckoned from the
@@ -324,7 +324,8 @@ Multi-head latent attention (minicpm3-4b: 40 heads at G = 1, q.k width
      a pair with no kernel, launching nothing; (after phase 22)
      ``repro_torch.launch.serve.main`` on minicpm3-4b (bf16) through
      SimpleEngine at full depth (62 layers), the pipelined engine and
-     ``--execution mpmd`` at 31, checked as phases 5, 13 and 17 check theirs
+     ``--execution mpmd`` at 16, checked as phases 5,
+     13 and 17 check theirs
      (exact launches, MPMD tokens equal to the scan backend's), one
      decode step profiled; (after phase 23) ``launch.train.main`` on 8
      of its 62 layers in 4 stages (689,377,280 parameters), phase 7's
@@ -419,6 +420,24 @@ Cost accounting (the dry-run and its op counter) adds one phase:
      smoke granite (4 layers, pipe 2, fp32) crashed at tick 7 and
      restored from its tick-5 checkpoint, bit-equal to the uninterrupted
      run.
+
+The data axis under the pipelines (the JAX package's GSPMD hybrid) adds
+one phase:
+
+ 28. (``data_pipe``, after phase 19, whose sync ``--data 2`` run is now
+     at the same 4 layers) ``launch.train.main`` on full-width granite-8b
+     at 4 layers in 2 stages a replica, bf16, 8 x 512, 4 steps: the
+     spectrain tick and the 1f1b round (4 microbatches), each once in
+     one process and once with ``--data 2`` (the replicas share the card
+     over gloo-host; ``--data 4`` on the tick over NCCL where there are 4
+     cards): per replica and step the exact launches (8 / 4 / 4 / 3 a
+     tick, 32 / 16 / 16 / 3 a round, every attention launch on the
+     tensor cores), one gradient reduction a tick or a round of
+     ⌈4n / 256 MiB⌉ calls and 4n bytes and nothing else sent, the
+     replicas' params, momentum and ``pred`` bit-equal after every step,
+     the mean loss within bf16's unit roundoff (2^-8, relative) of the one
+     process's; the step wall, the reduction's host seconds and the idle
+     share.  The run ends with each phase's seconds.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -690,10 +709,27 @@ class StepProfile:
         return self.kern
 
 
+_PHASES = []       # (name, start) of every phase, for their seconds
+
+
 def phase(name: str) -> None:
-    at = ("" if _T0[0] is None
-          else f"  [{time.perf_counter() - _T0[0]:.1f} s]")
+    now = time.perf_counter()
+    _PHASES.append((name, now))
+    at = ("" if _T0[0] is None else f"  [{now - _T0[0]:.1f} s]")
     print(f"\n== {name}{at}", flush=True)
+
+
+def print_phase_seconds() -> None:
+    """Each phase's seconds, from its start to the next one's (the last
+    to now), the longest first, and the run's total."""
+    now = time.perf_counter()
+    ends = [t for _, t in _PHASES[1:]] + [now]
+    rows = sorted(((end - t, name) for (name, t), end in
+                   zip(_PHASES, ends)), reverse=True)
+    print("phase seconds, longest first: " + "; ".join(
+        f"{d:.1f} {name[:70]}" for d, name in rows))
+    if _T0[0] is not None:
+        print(f"run total {now - _T0[0]:.1f} s")
 
 
 def _tree_to(tree, device):
@@ -2026,7 +2062,7 @@ PIPE_TRACE = dict(n_requests=24, rate=2.0, seed=0, prompt_lens=(2, 12),
 # 24 (0: full): half of granite-8b's 36, rwkv6-7b's 32 and minicpm3-4b's
 # 62 layers, which keeps the whole script inside its time with phase 25
 # (their rounds are host-bound, so their walls scale with the layers)
-PIPE_DEPTH = {"granite-8b": 18, "rwkv6-7b": 16, "minicpm3-4b": 31}
+PIPE_DEPTH = {"granite-8b": 18, "rwkv6-7b": 16, "minicpm3-4b": 16}
 PIPE_ARGV = ["--engine", "pipelined", "--pipe", "4", "--slots", "8",
              "--pages", "8", "--max-prefill", "2", "--prompt-budget", "16",
              "--page-seq", "64", "--requests", "24", "--rate", "2.0",
@@ -3620,8 +3656,9 @@ TRACE_RUNS = [
     ("interleaved v2 spectrain", ["--schedule", "interleaved",
                                   "--virtual-stages", "2"], 2),
 ]
-# pairs of untraced and traced full-width rounds for the overhead
-TRACE_PAIRS = 10
+# pairs of untraced and traced full-width rounds for the overhead (10
+# before phase 28 took the time)
+TRACE_PAIRS = 6
 TRACE_ROUNDS_RE = re.compile(
     r"# trace rounds: (\d+) filed, (\d+) dropped, (\d+) events a round")
 TRACE_BUBBLE_RE = re.compile(
@@ -3966,9 +4003,12 @@ def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
 # the data-parallel baseline: the data axis as all-reducing replicas
 
 # the paper's Data-P: --pipe 1, one whole model a replica, the training
-# configuration's batch split over the replicas (B / N rows each)
+# configuration's batch split over the replicas (B / N rows each), at
+# phase 28's depth (two replicas of 8 layers share the card at ~2x the
+# gloo-host all-reduce, which bounds the step)
 DP_STEPS, DP_PROF_STEP = 4, 2
-DP_ARGV = ["--arch", ARCH, "--layers", str(TRAIN_LAYERS), "--pipe", "1",
+DATA_PIPE_LAYERS, DATA_PIPE_STAGES = 4, 2
+DP_ARGV = ["--arch", ARCH, "--layers", str(DATA_PIPE_LAYERS), "--pipe", "1",
            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype",
            "bfloat16", "--mode", "sync", "--data-kind", "uniform",
            "--seed", "0", "--steps", str(DP_STEPS), "--log-every", "1"]
@@ -4020,6 +4060,10 @@ class DpProbe:
             g.reset_counters()
         rec["loss"].append(float(metrics["loss"]))
         dg = leaf_digests(torch, state)
+        if "pred" in state:     # spectrain's next forward weights
+            dg.update({"pred/" + k.split("/", 1)[1]: v for k, v in
+                       leaf_digests(torch, {"params": state["pred"]}
+                                    ).items()})
         rec["digests"].append({k: v["d"] for k, v in dg.items()})
         if s == DP_STEPS - 1:
             kern = self.sp.result()
@@ -4039,17 +4083,17 @@ class DpProbe:
         rec["t_end"].append(time.perf_counter())
 
 
-def _dp_run(torch, n: int, want: dict, label: str) -> tuple:
-    """``train.main(DP_ARGV + --data n)`` with a :class:`DpProbe` in
-    every replica (in this process for n = 1); returns (the replicas'
-    records, the run's seconds)."""
+def _dp_run(torch, n: int, want: dict, label: str, argv=DP_ARGV) -> tuple:
+    """``train.main(argv + --data n)`` with a :class:`DpProbe` in every
+    replica (in this process for n = 1); returns (the replicas' records,
+    the run's seconds)."""
     from repro_torch.launch import train
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        rc = train.main(DP_ARGV + ["--data", str(n)],
+        rc = train.main(argv + ["--data", str(n)],
                         on_step=DpProbe(tmp, label, want))
         run_s = time.perf_counter() - t0
         check(rc == 0, f"{label}: train.main returned {rc}")
@@ -4493,11 +4537,193 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
     if mpmd_runs:
         r = mpmd_runs["1f1b spectrain"]
         out["mpmd_wall_ms"] = r["wall_ms"]
-        print(f"  against phase 16's MPMD 1f1b round on the same {L} layers "
-              f"and {TRAIN_BATCH * TRAIN_SEQ} tokens ({r['transport']}): "
-              f"{r['wall_ms']:.3f} ms")
+        print(f"  beside phase 16's MPMD 1f1b round on {TRAIN_LAYERS} "
+              f"layers and the same {TRAIN_BATCH * TRAIN_SEQ} tokens "
+              f"({r['transport']}): {r['wall_ms']:.3f} ms")
     out["pods"] = dp_pods(torch, ops)
     return out
+
+
+# phase 28: the data axis under the pipelines (the JAX package's GSPMD
+# hybrid): full-width granite-8b at DATA_PIPE_LAYERS layers in
+# DATA_PIPE_STAGES stages a replica (1,275 M parameters: two replicas'
+# fp32 state of >= 16 B a parameter share the card; two of 8 layers do
+# not fit), the training batch, DP_STEPS steps
+DATA_PIPE_ARGV = ["--arch", ARCH, "--layers", str(DATA_PIPE_LAYERS),
+                  "--pipe", str(DATA_PIPE_STAGES), "--batch",
+                  str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype",
+                  "bfloat16", "--data-kind", "uniform", "--seed", "0",
+                  "--steps", str(DP_STEPS), "--log-every", "1"]
+# (label, flags, microbatches a step): the streaming tick (one reduction
+# a tick) and a 1f1b round of 4 microbatches (one reduction a round)
+DATA_PIPE_RUNS = (("tick spectrain", ["--mode", "spectrain"], 1),
+                  ("1f1b spectrain", ["--schedule", "1f1b"], 4))
+# the replicas' mean loss against the one process on the whole batch:
+# bf16's unit roundoff (2^-8) of the loss, relative.  The two compute
+# the same function of the same tokens; their bf16 GEMMs round the
+# activations of 2,048 rows apart from those of 4,096, so a loss is
+# known to a bf16 ulp, no better
+DATA_PIPE_LOSS_RTOL = 2.0 ** -8
+
+
+def data_pipe_launches(L: int, S: int, M: int, stream: bool) -> dict:
+    """The exact launches a step of one replica (a tick, or a round of M
+    microbatches): every layer's forward twice (the backward recomputes
+    it), its two backward kernels once, one ``fused_update`` a stage
+    tree and one for the outer tree."""
+    k = 1 if stream else M
+    return {"flash_fwd": 2 * L * k, "flash_bwd_dq": L * k,
+            "flash_bwd_dkv": L * k, "fused_update": S + 1}
+
+
+def data_pipe(torch, ops) -> dict:
+    """Phase 28: ``repro_torch.launch.train.main --data N`` under the
+    streaming SpecTrain tick and the 1f1b round (see DATA_PIPE_ARGV),
+    each against the one-process run of the same flags on the same
+    tokens: per replica and step the exact launches (every attention
+    launch on the tensor cores), one gradient reduction a tick or a
+    round of ⌈4n / 256 MiB⌉ calls and 4n bytes (and no other traffic),
+    the replicas' params, momentum and ``pred`` bit-equal after every
+    step, the mean loss within DATA_PIPE_LOSS_RTOL of the one process's;
+    the step wall, the reduction's host seconds and the idle share.
+    ``--data 2`` always (sharing the card over gloo-host when there is
+    one), ``--data 4`` on the tick where there are 4 cards (NCCL; the
+    1f1b round's 4 microbatches of 2 rows do not split 4 ways)."""
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime import sharding as rsh
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    cfg = train.build(train.parse_args(DATA_PIPE_ARGV))
+    L, S = cfg.n_layers, DATA_PIPE_STAGES
+    n_params = sum(math.prod(sp.shape) for sp in tree_leaves(
+        Model(cfg, device="cpu").param_specs()))
+    buckets = -(-4 * n_params // rsh.BUCKET_BYTES)
+    out = {"n_params": n_params, "buckets": buckets, "runs": {}}
+    for label, flags, M in DATA_PIPE_RUNS:
+        argv = DATA_PIPE_ARGV + flags
+        stream = "--schedule" not in flags
+        want = data_pipe_launches(L, S, M, stream)
+        phase(f"phase 28 (data_pipe): the one-process reference, {label}, "
+              f"{ARCH} full width, {L} layers in {S} stages, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, {DP_STEPS} steps")
+        (one,), one_s = _dp_run(torch, 1, want, f"{label} one process",
+                                argv)
+        one_wall = _median(_steady(one))
+        print(f"  losses {[round(x, 6) for x in one['loss']]}; step wall "
+              f"{one_wall:.3f} ms, busy {one['busy_ms']:.3f} ms; peak "
+              f"{one['peak_bytes'] / 2**30:.2f} GiB; run {one_s:.1f} s")
+        sizes = (2, 4) if stream and cards >= 4 else (2,)
+        for n in sizes:
+            transport = rsh.choose_transport("cuda", n)
+            what = f"--data {n} {label}"
+            phase(f"phase 28 (data_pipe): repro_torch.launch.train.main "
+                  f"{' '.join(flags)} --data {n}, {ARCH} full width, {L} "
+                  f"layers in {S} stages a replica, batch {TRAIN_BATCH} x "
+                  f"{TRAIN_SEQ} ({TRAIN_BATCH // (n * M)} rows of each of "
+                  f"{M} microbatch{'es' if M > 1 else ''} a replica), bf16, "
+                  f"{DP_STEPS} steps, {transport}")
+            reps, run_s = _dp_run(torch, n, want, what, argv)
+            want_t = rsh.describe_transport(transport, n)
+            check(all(r["transport"] == want_t for r in reps),
+                  f"{what}: transport {reps[0]['transport']!r}, expected "
+                  f"{want_t!r}")
+            for rep in reps:
+                prev = {k: 0 for k in want}
+                for s_, c in enumerate(rep["counts"]):
+                    got = {k: c[k] - prev[k] for k in want}
+                    check(got == want, f"{what}: replica {rep['rank']} step "
+                          f"{s_} launched {got}, expected {want}")
+                    prev = c
+                check(rep["variants"][-1]["flash_fwd_mma"]
+                      == want["flash_fwd"] * DP_STEPS,
+                      f"{what}: replica {rep['rank']} ran flash_fwd off the "
+                      f"tensor cores")
+                for s_, x in enumerate(rep["xfer"]):
+                    check((x["n_reduce"], x["bytes_reduce"], x["n_stat"],
+                           x["n_sent"], x["n_ctl"])
+                          == (buckets, 4 * n_params, 0, 0, 0),
+                          f"{what}: replica {rep['rank']} step {s_} moved "
+                          f"{x}, expected one reduction of {buckets} calls "
+                          f"and {4 * n_params} B")
+                for s_ in range(DP_STEPS):
+                    check(rep["digests"][s_] == reps[0]["digests"][s_],
+                          f"{what}: replica {rep['rank']} differs from "
+                          f"replica 0 after step {s_}: " + str(sorted(
+                              k for k, v in rep["digests"][s_].items()
+                              if v != reps[0]["digests"][s_][k])[:3]))
+            losses = [sum(r["loss"][s_] for r in reps) / n
+                      for s_ in range(DP_STEPS)]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, one["loss"]))
+            check(rel <= DATA_PIPE_LOSS_RTOL,
+                  f"{what}: losses {losses} against the one process's "
+                  f"{one['loss']}: {rel:.3e} relative, beyond "
+                  f"{DATA_PIPE_LOSS_RTOL:.3e}")
+            excess = _sample_excess(reps[0]["samples"], one["samples"])
+            walls = _steady(reps[0])
+            check(bool(walls), f"{what}: no unprofiled steady step")
+            wall = _median(walls)
+            reduce_ms = [1e3 * _median(r["xfer"][i]["reduce_s"]
+                                       for i in range(1, DP_STEPS))
+                         for r in reps]
+            busy = [r["busy_ms"] for r in reps]
+            rec = {"n": n, "transport": reps[0]["transport"],
+                   "wall_ms": wall, "walls_ms": walls,
+                   "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall * 1e3,
+                   "busy_ms": busy, "idle": [1 - b / wall for b in busy],
+                   "n_kernels": [r["n_kernels"] for r in reps],
+                   "reduce_ms": reduce_ms, "losses": losses,
+                   "one_losses": one["loss"], "loss_rel": rel,
+                   "one_wall_ms": one_wall, "one_busy_ms": one["busy_ms"],
+                   "peak_bytes": [r["peak_bytes"] for r in reps],
+                   "run_s": run_s, "sample_excess": excess[0][0],
+                   "per_step": want,
+                   "launches": {k: n * v * DP_STEPS
+                                for k, v in want.items()}}
+            out["runs"][(label, n)] = rec
+            print(f"  transport: {rec['transport']}")
+            print(f"  launches a step, every replica: {want}, exact on every "
+                  f"step, every attention launch on the tensor cores; one "
+                  f"gradient reduction a {'tick' if stream else 'round'}: "
+                  f"{buckets} all_reduce calls and {4 * n_params:,} B per "
+                  f"replica (4 B x {n_params:,} parameters), nothing else "
+                  f"sent")
+            print(f"  replicas bit-equal after every step (params, momentum"
+                  f"{', pred' if stream else ''}: "
+                  f"{len(reps[0]['digests'][0])} leaves); losses "
+                  f"{[round(x, 6) for x in losses]} against the one "
+                  f"process's {[round(x, 6) for x in one['loss']]}: "
+                  f"{rel:.3e} relative (allowed {DATA_PIPE_LOSS_RTOL:.3e}); "
+                  f"leaf samples' largest excess over rtol 1e-4 "
+                  f"{excess[0][0]:.3e} ({excess[0][1]})")
+            print(f"  step wall (replica 0, median of the unprofiled steady "
+                  f"steps {[round(w, 3) for w in walls]}): {wall:.3f} ms, "
+                  f"{rec['tok_per_s']:.1f} tokens/s (one process "
+                  f"{one_wall:.3f} ms); reduction host "
+                  f"{[round(t, 1) for t in reduce_ms]} ms a step; busy "
+                  f"{[round(b, 3) for b in busy]} ms in {rec['n_kernels']} "
+                  f"kernels (profiled step {reps[0]['prof_step']}), idle "
+                  f"{[round(i, 4) for i in rec['idle']]}; peak "
+                  f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; "
+                  f"run {run_s:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 28: {out['seconds']:.1f} s")
+    return out
+
+
+def print_data_pipe(dpipe: dict) -> None:
+    """Phase 28's summary lines."""
+    for (label, n), r in dpipe["runs"].items():
+        print(f"data axis --data {n} {label} ({r['transport']}): "
+              f"{r['wall_ms']:.3f} ms a step (one process "
+              f"{r['one_wall_ms']:.3f}), reduction {r['reduce_ms']} ms, "
+              f"idle {[round(i, 4) for i in r['idle']]}; losses within "
+              f"{r['loss_rel']:.3e} of the one process's; replicas "
+              f"bit-equal every step")
 
 
 def mpmd_serve(torch, ops, pipelined: dict, archs=PIPE_ARCHS) -> dict:
@@ -5161,14 +5387,15 @@ EVAL_ARCH, EVAL_CLASSES = "snn-paper", 10       # CIFAR-10's classes
 # then falls: at 600 every scheme is well past the prior (sync ~1.76
 # against 2.30, held-out accuracy ~0.40 against a 0.11 majority share)
 EVAL_BATCH, EVAL_STEPS = 128, 600
-# spectrain's second run, with Fig. 8's RMSEs, follows the first 300 steps
-# of the same trajectory (its learning is checked on the first run)
-EVAL_RMSE_STEPS = 300
+# spectrain's second run, with Fig. 8's RMSEs, follows the first 150 steps
+# of the same trajectory (its learning is checked on the first run; 300
+# before phase 28 took the time)
+EVAL_RMSE_STEPS = 150
 EVAL_HELD = 4096                    # held-out teacher samples a scheme
 # staleness shows at 0.01: vanilla and pipedream end above sync,
 # spectrain near it; at 0.02 vanilla diverges, at 0.1 sync does too
 EVAL_LR = 0.01
-EVAL_PROFILED = (200, 203)          # steady steps under torch.profiler
+EVAL_PROFILED = (100, 103)          # steady steps under torch.profiler
 SIM_TOL = (1e-5, 1e-6)              # rtol, atol: the CPU parity tests'
 
 
@@ -6627,10 +6854,10 @@ def print_dp(dp: dict) -> None:
 
 
 def run_dp_only() -> int:
-    """``python3 chip_smoke.py --dp-only``: the card, the build and phase
-    19 alone, on the cards present (with a card each the replicas take
-    NCCL, and ``--data 4`` runs where there are 4).  Prints the Data-P
-    lines; no JSON."""
+    """``python3 chip_smoke.py --dp-only``: the card, the build, phase 19
+    and phase 28 alone, on the cards present (with a card each the
+    replicas take NCCL, and ``--data 4`` runs where there are 4).  Prints
+    the Data-P and data-axis lines; no JSON."""
     torch = _torch_or_none()
     if torch is None:
         return 2
@@ -6646,11 +6873,16 @@ def run_dp_only() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dp = dp_train(torch, ops, ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dpipe = data_pipe(torch, ops)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print_dp(dp)
+    print_data_pipe(dpipe)
+    print_phase_seconds()
     print(f"chip_smoke --dp-only: passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
     return 0
@@ -6747,6 +6979,9 @@ def run() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dp = dp_train(torch, ops, ref, mpmd_runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dpipe = data_pipe(torch, ops)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -6876,6 +7111,14 @@ def run() -> int:
                         f"replicas)"] = r["launches"][k["name"]]
         if k["name"] == "fused_update":
             k["shapes"].extend(dp["update_rows"])
+    # phase 28: the data axis under the tick and the 1f1b round
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "fused_update"):
+            for (label, n), r in dpipe["runs"].items():
+                k["launches_by_path"][
+                    f"train data axis --data {n} {label} ({DATA_PIPE_LAYERS}"
+                    f" layers, sum over replicas)"] = r["launches"][k["name"]]
     # minicpm3-4b (multi-head latent attention): rows 1-3 at (96, 64)
     for k in kernels:
         if k["name"] not in mla_rows:
@@ -7111,6 +7354,7 @@ def run() -> int:
           f"{[round(x, 3) for x in traced['stream']['probed_ms']]} ms; "
           f"{'; '.join(traced['bench'])}")
     print_dp(dp)
+    print_data_pipe(dpipe)
     for (arch, engine), r in new_srv.items():
         run = r["run"]
         print(f"{arch} serving ({engine}, {r['layers']} layers, bf16): "
@@ -7234,6 +7478,7 @@ def run() -> int:
           f"{train['tok_per_s']:.1f} tokens/s, device busy "
           f"{train['busy_ms']:.3f} ms, peak {train['peak_bytes'] / 2**30:.2f} "
           f"GiB")
+    print_phase_seconds()
     print(info["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,12 @@ step.  ``execution="mpmd"`` binds one rank of a stage group
 the serving engine are that rank's.  ``Runtime(..., tracer=)`` with
 ``RuntimeConfig(trace=True)`` instruments the training step for a
 ``repro_torch.obs.PipelineTracer`` (per-event marks in the round
-schedules, the step wall of the stream tick).
+schedules, the step wall of the stream tick).  ``Runtime(..., data=)``
+binds one data-parallel replica (a ``StageGroup`` of the replicas,
+kept apart from the MPMD stage ``group``): the tick or the round takes
+the global batch, runs the replica's block of each microbatch and
+averages the gradients over the replicas (``core/pipeline_stream.py``);
+SPMD only, as in the JAX twin.
 
 ``add_runtime_args`` / ``runtime_config_from_args`` are the argparse
 wiring the training launcher builds its config from.
@@ -120,7 +125,8 @@ class Runtime:
     request trace through it."""
 
     def __init__(self, plan, model, config: Optional[RuntimeConfig]
-                 = None, *, registry=None, group=None, tracer=None):
+                 = None, *, registry=None, group=None, tracer=None,
+                 data=None):
         from repro_torch.planner.api import PipelinePlan, ServePlan
         if not isinstance(plan, (PipelinePlan, ServePlan)):
             raise TypeError(
@@ -146,7 +152,16 @@ class Runtime:
                 f"execution='mpmd' runs IR round schedules "
                 f"({'/'.join(ps.IR_SCHEDULES)}); the plan's schedule is "
                 f"{plan.schedule!r}")
-        self.group = group
+        if data is not None and data.world > 1 and (
+                self.serving or self.config.execution == "mpmd"):
+            raise ValueError(str(ps._unsupported(
+                "a data axis (data=) with "
+                + ("serving" if self.serving else "execution='mpmd'"),
+                "data-parallel replicas run the SPMD training steps; mpmd "
+                "runs pure pipeline parallelism (data/tensor axes belong to "
+                "the SPMD path, as in the JAX twin)",
+                "execution='spmd' training with data=, or no data axis")))
+        self.group, self.data = group, data
         if not self.serving and self.config.schedule is not None \
                 and self.config.schedule != plan.schedule:
             raise ValueError(
@@ -180,7 +195,7 @@ class Runtime:
                                     group=self.group)
         return ps.make_state(self.model, params, batch, mode=c.mode,
                              ticks_per_step=c.ticks_per_step,
-                             plan=self.plan)
+                             plan=self.plan, data=self.data)
 
     def train_step(self, state, batch):
         """One training step (round or tick group), built on first
@@ -193,12 +208,12 @@ class Runtime:
                     self.model, plan=self.plan, mode=c.mode, lr=c.lr,
                     gamma=c.gamma, clip=c.clip, backend=c.backend,
                     execution=c.execution, group=self.group,
-                    tracer=self.tracer)
+                    tracer=self.tracer, data=self.data)
             else:
                 fn = ps.make_train_step(
                     self.model, mode=c.mode, lr=c.lr, gamma=c.gamma,
                     clip=c.clip, ticks_per_step=c.ticks_per_step,
-                    plan=self.plan)
+                    plan=self.plan, data=self.data)
             if self.tracer is not None:
                 fn = self.tracer.wrap_step(fn)
             self._step = fn

@@ -76,6 +76,21 @@ A ``repro_torch.obs.PipelineTracer`` passed as ``tracer=`` to
 :func:`make_ir_train_step` takes one mark per compute event of the round
 (under MPMD one per row of the rank's device stream); without one the
 round takes none.
+
+``data=`` (a ``runtime.sharding.StageGroup`` of data-parallel replicas,
+one process each, every one holding every stage) runs the tick or the
+round as one replica of the JAX twin's GSPMD hybrid: synchronous data
+parallelism across replicas, the pipeline's own schedule within each.
+The step takes the global batch and keeps the replica's block of every
+microbatch (``runtime.sharding.replica_rows``: each tick's or round
+microbatch's rows, never a block of the global batch, so every tick
+trains on the microbatch the one-process run would), its rings hold
+those rows, its MoE layers route as one replica of the whole
+microbatch (``models.moe.data_axis``), and the gradients are averaged
+over the replicas (``StageGroup.all_reduce_mean``, fp32) once a tick or
+once a round, before clipping and the update, so every replica runs
+the same update on the same bits.  ``loss`` and ``aux`` stay the
+replica's: their mean over the replicas is the whole microbatch's.
 """
 from __future__ import annotations
 
@@ -85,6 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import spectrain as st
+from repro_torch.models import moe
 from repro_torch.models.layers import dtype_of, tree_leaves, tree_map
 from repro_torch.models.model import cast_for_compute
 from repro_torch.optim import sgd
@@ -195,9 +211,40 @@ def _grads(out, leaves, cot, *, extra=()):
     return tree_map(lambda _, p: next(it), leaves), gs[len(flat):]
 
 
+def _replicas(data) -> int:
+    return 1 if data is None else data.world
+
+
+def _data_mean(data, grads):
+    """``grads`` averaged over the data replicas in place (a leaf in
+    another dtype than fp32, a ``bwd_dtype`` gradient, is widened first,
+    exactly); as it is without replicas."""
+    if _replicas(data) == 1:
+        return grads
+    grads = tree_map(lambda _, g: g if g.dtype == torch.float32
+                     else g.float(), grads)
+    return data.all_reduce_mean(grads)
+
+
+def _data_step(step, data, units: int) -> Callable:
+    """``step`` on the replica's rows of the global batch (its block of
+    each of the ``units`` forward units), with the MoE layers routing as
+    one replica of the whole microbatch; ``step`` itself without
+    replicas."""
+    if _replicas(data) == 1:
+        return step
+
+    def replica_step(state, batch):
+        batch = rsh.replica_rows(device_batch(batch, data.device), units,
+                                 data.rank, data.world)
+        with moe.data_axis(data):
+            return step(state, batch)
+    return replica_step
+
+
 def make_state(model, params, batch, *, mode: str = "spectrain",
                ticks_per_step: int = 1, fused_predict: bool = False,
-               plan=None) -> Dict[str, Any]:
+               plan=None, data=None) -> Dict[str, Any]:
     """Streaming train state: params + momentum + in-flight rings.
 
     ``params`` is the ragged canonical tree on the model's device, fp32;
@@ -208,7 +255,9 @@ def make_state(model, params, batch, *, mode: str = "spectrain",
     prediction in the compute dtype (see the module docstring).
     ``plan``: a stream ``PipelinePlan``, whose partition regroups the
     stage trees (a copy when its sizes differ from the model's split)
-    and whose IR-derived vectors size the rings."""
+    and whose IR-derived vectors size the rings.  ``data``: the replicas'
+    group, whose rank's rings hold its block of each tick's microbatch
+    (``batch`` stays the global batch)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     cfg = model.cfg
@@ -234,10 +283,12 @@ def make_state(model, params, batch, *, mode: str = "spectrain",
         }
     R = max(max(lag), max(gap)) + 1
     B, seq = (int(n) for n in np.shape(batch["tokens"])[:2])
-    if B % ticks_per_step:
+    N = _replicas(data)
+    if B % (ticks_per_step * N):
         raise ValueError(f"global batch {B} not divisible by "
-                         f"ticks_per_step={ticks_per_step}")
-    mb = B // ticks_per_step
+                         f"ticks_per_step={ticks_per_step} x {N} "
+                         f"replica(s)")
+    mb = B // (ticks_per_step * N)
     act = (S, mb, seq, cfg.d_model)
     state.update({
         "tick": 0,
@@ -268,7 +319,8 @@ def init_state(model, generator: torch.Generator, batch, *,
 def make_train_step(model, *, mode: str = "spectrain", lr: float,
                     gamma: float = 0.9, clip: Optional[float] = None,
                     ticks_per_step: int = 1,
-                    bwd_dtype: Optional[str] = None, plan=None) -> Callable:
+                    bwd_dtype: Optional[str] = None, plan=None,
+                    data=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, updating the
     state in place.  (The JAX twin's ``fused_predict`` is a ``make_state``
     option here: the step writes the prediction in whatever dtype the
@@ -284,7 +336,9 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
     over the stages whose input is valid (with several ticks per step,
     their mean; with one stage, the step's).  Each stage's backward
     takes its aux loss with cotangent ``valid_b[k]``, as the JAX twin's
-    does."""
+    does.  ``data``: the replicas' group (see the module docstring); the
+    state must come from ``make_state(..., data=)`` with the same
+    group, and ``metrics`` are the replica's."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     S = model.n_stages
@@ -305,6 +359,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             leaves = _leaves_like(state["params"])
             loss, aux = model.loss_and_aux(leaves, batch)
             grads, _ = _grads(loss, leaves, None)
+        grads = _data_mean(data, grads)
         if clip:
             grads, _ = sgd.clip_by_global_norm(grads, clip)
         sgd.update(state["params"], sgd.MomentumState(state["momentum"]),
@@ -316,7 +371,8 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
         return state, metrics
 
     if S == 1:
-        return step_degenerate
+        # the one stage forwards the whole batch at once
+        return _data_step(step_degenerate, data, 1)
 
     # ------------------------------------------------------------- S > 1
     def tick_fn(state: Dict[str, Any], batch):
@@ -400,7 +456,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             (g_tok,) = torch.autograd.grad(emb, [tok], gX[0] * valid_b[0])
         g_outer["embed"]["tok"] = g_outer["embed"]["tok"] + g_tok
 
-        grads = {"outer": g_outer, "stages": tuple(gW)}
+        grads = _data_mean(data, {"outer": g_outer, "stages": tuple(gW)})
         if clip:
             grads, _ = sgd.clip_by_global_norm(grads, clip)
 
@@ -456,7 +512,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             metrics["aux"] = sum(auxes) / T
         return state, metrics
 
-    return train_step
+    return _data_step(train_step, data, ticks_per_step)
 
 
 
@@ -745,7 +801,7 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
                        gamma: float = 0.9, clip: Optional[float] = None,
                        backend: str = "scan", tracer=None,
                        execution: Optional[str] = None,
-                       group=None) -> Callable:
+                       group=None, data=None) -> Callable:
     """Schedule-driven step, ``train_step(state, batch) -> (state,
     metrics)`` updating the state in place: one call executes one flush
     round (gpipe / 1f1b / interleaved) or one 2BW accumulation group of
@@ -771,9 +827,21 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
     its exchange); wrap the step in ``tracer.wrap_step`` to file the
     rounds.  ``embed`` is part of chunk 0's fwd event, ``head`` and
     ``embed_bwd`` part of the bwd event that calls them.  With
-    ``tracer=None`` the round takes no mark."""
+    ``tracer=None`` the round takes no mark.
+
+    ``data``: the replicas' group (see the module docstring): the step
+    keeps the replica's block of each of the round's microbatches and
+    averages the round's accumulated mean gradient over the replicas
+    once, before clipping and the update.  Refused under MPMD, as the
+    JAX twin refuses non-pipe mesh axes there."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+    if (execution or "spmd") == "mpmd" and _replicas(data) > 1:
+        raise _unsupported(
+            "execution='mpmd' with a data axis",
+            "mpmd runs pure pipeline parallelism; data/tensor axes belong "
+            "to the SPMD path (the JAX twin's _mpmd_mesh)",
+            "execution='spmd' with data=, or execution='mpmd' without it")
     if backend not in IR_BACKENDS:
         raise ValueError(
             f"unknown IR backend {backend!r}; known: {IR_BACKENDS}")
@@ -882,6 +950,7 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
         run_round(rnd)
         grads, loss = rnd.grads(params, M)
         del rnd
+        grads = _data_mean(data, grads)
         if clip:
             grads, _ = sgd.clip_by_global_norm(grads, clip)
         if two_buf:
@@ -897,7 +966,7 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
         state["step"] += 1
         return state, {"loss": loss, "loss_valid": 1.0}
 
-    return step
+    return _data_step(step, data, M)
 
 
 # ===========================================================================

@@ -9,9 +9,12 @@ global batch, in place through the fused update kernel — the semantics
 of data parallelism, which is why it is the staleness-free reference.
 
 Given a data group (``runtime.sharding.StageGroup`` of the data-parallel
-replicas), the step is one replica's: it runs on the replica's rows,
-averages the gradients over the replicas (``all_reduce_mean``) and then
-updates, so every replica runs the same update on the same bits.
+replicas), the step is one replica's: it runs on the replica's rows
+(``runtime.sharding.replica_rows`` of the global batch: its block of
+every microbatch, or of the whole batch at one stage), averages the gradients over the replicas
+(``all_reduce_mean``) and then updates, so every replica runs the same
+update on the same bits.  An MoE layer routes as one replica of the
+whole microbatch (``models.moe.data_axis``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core.pipeline_stream import (_grads, _leaves_like,
                                               device_batch)
+from repro_torch.models import moe
 from repro_torch.optim import sgd
 
 
@@ -76,14 +80,16 @@ def make_train_step(model, *, lr: float, gamma: float = 0.9,
     """Synchronous pipelined train step (params+momentum in state),
     updating the state in place.  ``group``: the data group of the
     replicas, whose mean gradient (after the backward, before clipping
-    and the update) the step applies; ``metrics["loss"]`` stays this
-    replica's loss (and, for MoE models, ``metrics["aux"]`` the aux loss
-    it includes)."""
+    and the update) the step applies; the batch is then this replica's
+    rows (see the module docstring), an MoE layer routes
+    as one replica of the whole microbatch, and ``metrics["loss"]`` stays
+    this replica's loss (and, for MoE models, ``metrics["aux"]`` the aux
+    loss it includes)."""
     M = num_microbatches or model.cfg.mesh_plan.num_microbatches
 
     def train_step(state: Dict[str, Any], batch):
         batch = device_batch(batch, model.device)
-        with torch.enable_grad():
+        with torch.enable_grad(), moe.data_axis(group):
             leaves = _leaves_like(state["params"])
             loss, aux = _loss_and_aux(model, leaves, batch, M)
             grads, _ = _grads(loss, leaves, None)

@@ -58,20 +58,31 @@ layout (``[v, S, Lmax, ...]`` stage leaves and ``chunk_sizes``); a
 resume restores it on rank 0 and scatters it back.
 
 ``--data N`` (default 1) is the mesh's data axis: N replicas, one
-process each (``launch/mesh.py``), the data-parallel baseline of the
-paper's comparison.  Each replica draws the whole model from ``--seed``
-(every parameter leaf must be replicated over ``data``:
+process each (``launch/mesh.py``), under every mode and schedule: the
+paper's Data-P baseline with ``--mode sync --pipe 1``, and with the
+streaming tick or the round schedules the JAX package's GSPMD hybrid
+(synchronous data parallelism across replicas, the pipeline's schedule
+within each).  The plan is made once, here, and handed to every
+replica.  Each replica holds every stage (drawn from ``--seed``; every
+parameter leaf must be replicated over ``data``:
 ``runtime.sharding.check_data_replicated``; a config with ``fsdp`` is
-refused), takes its block of ``B / N`` rows of every global batch
-(``batch_specs``' ``act_batch`` rule), runs ``--mode sync``'s step on it
-and averages the gradients over the replicas before the update
-(``StageGroup.all_reduce_mean``: NCCL with a card per replica, gloo
-through pinned host buffers when they share one, gloo on the CPU; the
-choice is printed).  Rank 0 prints the step lines, the loss the mean of
-the replicas'.  ``--pipe`` stays legal inside a replica; the paper's
-Data-P is ``--pipe 1``.  Refused with ``--data`` > 1: any mode but
-``sync``, ``--execution mpmd``, ``--trace``, ``--ckpt-dir``, and a
-``--batch`` that ``N·ticks`` does not divide.
+refused), takes its block of every microbatch's rows
+(``runtime.sharding.replica_rows``: a tick's or round microbatch's rows
+split N ways, the whole batch's at one stage), runs the mode's step on
+them and averages the gradients over the replicas before the update,
+once a step (sync), a tick or a round (``StageGroup.all_reduce_mean``:
+NCCL with a card per replica, gloo through pinned host buffers when
+they share one, gloo on the CPU; the choice is printed).  An MoE
+model's routing stays the whole microbatch's (``models.moe.data_axis``).
+Replica 0 prints the step lines (the loss the mean of the replicas'),
+writes the checkpoints in the one-process layout (the rings' rows
+gathered; every replica restores the whole state and keeps its rows)
+and, under ``--trace``, the trace with each step's reduction seconds.
+Refused with ``--data`` > 1 (three-part messages): ``--execution mpmd``
+(pure pipeline parallelism there, as in the JAX package), a ``--batch``
+that N times the microbatches (``--ticks``, or the round size) does not
+divide, and an MoE microbatch whose dispatch groups the replicas cannot
+split whole.
 
 ``--arch`` takes the dense granite-8b, granite-20b, starcoder2-15b and
 pixtral-12b (its text backbone: the data has no patches),
@@ -118,7 +129,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import pipeline_stream, pipeline_sync
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.data.pipeline import KINDS
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
 from repro_torch.models.layers import tree_leaves
 from repro_torch.obs import (MetricsRegistry, PipelineTracer, drift_report,
                              format_drift, format_step, probe_stage_costs,
@@ -229,6 +240,20 @@ def _hybrid_refusal(args, model, execution: str) -> Optional[str]:
     return None
 
 
+def _ir_round(args) -> bool:
+    return args.mode != "sync" and \
+        args.schedule in pipeline_stream.IR_SCHEDULES
+
+
+def _microbatches(args) -> int:
+    """The microbatches a step cuts the global batch into: the round
+    size for a round schedule, else ``--ticks``."""
+    if _ir_round(args):
+        return round_size(args.schedule, args.batch, args.pipe,
+                          args.virtual_stages, args.ticks)
+    return max(args.ticks, 1)
+
+
 def _data_refusal(args) -> Optional[str]:
     """The gates on ``--data N`` > 1, each in the three-part form."""
     N = args.data
@@ -237,41 +262,51 @@ def _data_refusal(args) -> Optional[str]:
     if N == 1:
         return None
     U = pipeline_stream._unsupported
-    if args.mode != "sync":
-        return str(U(
-            f"--data {N} with --mode {args.mode}",
-            "the data axis runs replicas of the synchronous step; the "
-            "streaming SpecTrain tick and the IR rounds on a data axis are "
-            "not ported",
-            f"--mode sync --data {N}, or --mode {args.mode} with --data 1"))
     if args.execution == "mpmd":
         return str(U(
             f"--data {N} with --execution mpmd",
-            "a replica runs its pipeline stages in its own process; "
-            "stage ranks inside data replicas are not ported",
+            "mpmd runs pure pipeline parallelism; data/tensor axes belong "
+            "to the SPMD path (the JAX package's _mpmd_mesh refuses every "
+            "non-pipe mesh axis of size > 1)",
             f"--execution spmd --data {N}, or --execution mpmd with "
             f"--data 1"))
-    if args.trace:
-        return str(U(
-            f"--data {N} with --trace",
-            "the tracer marks the streaming and IR runtimes, not the "
-            "synchronous replicas",
-            f"--data {N} without --trace, or --trace with --data 1"))
-    if args.ckpt_dir:
-        return str(U(
-            f"--data {N} with --ckpt-dir",
-            "checkpoints of the replicas (rank 0 writing, every replica "
-            "restoring) are not ported",
-            f"--data {N} without --ckpt-dir, or --ckpt-dir with --data 1"))
-    per = N * max(args.ticks, 1)
+    M = _microbatches(args)
+    per = N * M
     if args.batch % per:
+        if _ir_round(args):
+            combo = (f"--data {N} with --schedule {args.schedule} and "
+                     f"--batch {args.batch}")
+            unit = f"the round's {M} microbatches"
+        else:
+            combo = (f"--data {N} with --batch {args.batch} and --ticks "
+                     f"{args.ticks}")
+            unit = f"{M} microbatch{'es' if M > 1 else ''}"
         return str(U(
-            f"--data {N} with --batch {args.batch} and --ticks {args.ticks}",
-            f"each replica takes B / N rows and splits them into "
-            f"{max(args.ticks, 1)} microbatches, so N·ticks = {per} must "
-            f"divide --batch",
+            combo,
+            f"the step cuts the batch into {unit} and each replica takes "
+            f"B / ({N}·{M}) rows of every one, so {per} must divide "
+            f"--batch",
             f"a --batch that is a multiple of {per}"))
     return None
+
+
+def _forward_units(args, n_stages: int) -> int:
+    """The forward units a step cuts the global batch into, each split
+    over the data replicas (``runtime.sharding.replica_rows``): the
+    round's microbatches, the ticks, or the sync pipeline's
+    microbatches; the whole batch when one stage forwards it at once
+    (the tick and sync at ``--pipe 1``)."""
+    if n_stages == 1 and not _ir_round(args):
+        return 1
+    return _microbatches(args)
+
+
+def _moe_split_refusal(args, model) -> Optional[str]:
+    """An MoE model's gate on ``--data N`` > 1: the replicas must split
+    each forward's dispatch groups whole (``models.moe.split_refusal``)."""
+    units = _forward_units(args, model.n_stages)
+    return moe.split_refusal(model.cfg, args.batch // units, args.seq,
+                             args.data)
 
 
 def round_size(schedule: str, batch: int, pipe: int, v: int,
@@ -378,13 +413,10 @@ def run_plan(args, cfg, device):
     partition is executed, the runtimes regroup the stage weights by its
     layer ranges.  Returns ``(plan, ir_round)``."""
     schedule = "gpipe" if args.mode == "sync" else args.schedule
-    ir_round = schedule in pipeline_stream.IR_SCHEDULES and \
-        args.mode != "sync"
+    ir_round = _ir_round(args)
     plan_kw = {}
     if ir_round:
-        plan_kw["n_microbatches"] = round_size(
-            schedule, args.batch, args.pipe, args.virtual_stages,
-            args.ticks)
+        plan_kw["n_microbatches"] = _microbatches(args)
     pplan = make_plan(
         cfg, n_stages=Model(cfg, device="cpu").n_stages, schedule=schedule,
         virtual_stages=args.virtual_stages, partitioner=args.partitioner,
@@ -427,73 +459,130 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
             f"(the JAX launcher cannot either); train it through "
             f"Model.loss and optim.sgd")
     model = Model(cfg, device=args.device)
-    why = _hybrid_refusal(args, model, rc.execution)
+    why = _hybrid_refusal(args, model, rc.execution) or (
+        _moe_split_refusal(args, model) if args.data > 1 else None)
     if why:
         raise SystemExit(why)
-    S = model.n_stages
     pplan, ir_round = run_plan(args, cfg, model.device)
     _print_plan(pplan, ir_round)
     if args.data > 1:
         from repro_torch.launch.mesh import run_stage_ranks
-        _print_data_axis(cfg, model, args.data)
-        outs = run_stage_ranks(_dp_replica, args.data, args.device,
-                               args=(args, cfg, on_step))
+        _print_data_axis(args, cfg, model, ir_round)
+        outs = run_stage_ranks(_train, args.data, args.device,
+                               args=(args, cfg, pplan, ir_round, rc,
+                                     on_step))
         return max(outs)
     if rc.execution == "mpmd":
         from repro_torch.launch.mesh import run_stage_ranks
-        outs = run_stage_ranks(_mpmd_rank, S, args.device,
+        outs = run_stage_ranks(_mpmd_rank, model.n_stages, args.device,
                                args=(args, cfg, pplan, rc, on_step))
         return max(outs)
+    return _train(None, args, cfg, pplan, ir_round, rc, on_step)
+
+
+def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
+    """The training loop of one process (``group`` None) or of one
+    replica of ``--data N`` (``group``: the replicas' ``StageGroup``).
+    A replica draws the whole model from ``--seed`` as the one process
+    does, runs the mode's step on its rows of every global batch with
+    the gradients averaged over the replicas, and restarts its peak-
+    memory statistics once the state is built; replica 0 prints, logs,
+    traces and writes the checkpoints.  ``on_step(step_index, state,
+    metrics)`` runs in every process with its state (under ``--data`` it
+    must pickle); ``metrics["loss"]`` is the process's own."""
+    from repro_torch.runtime import sharding as rsh
+    n = 1 if group is None else group.world
+    lead = group is None or group.rank == 0
+    model = Model(cfg, device=args.device if group is None
+                  else group.device)
+    dev = model.device
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed, kind=args.data_kind))
-    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    units = _forward_units(args, model.n_stages)
+    tracer = None
+    if args.mode == "sync":
+        state = pipeline_sync.init_state(model, gen)
+        sync_step = pipeline_sync.make_train_step(
+            model, lr=args.lr, gamma=args.gamma,
+            num_microbatches=cfg.mesh_plan.num_microbatches,
+            clip=args.clip or None, group=group)
 
-    registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
+        def step_fn(state, batch):
+            if n > 1:
+                batch = rsh.replica_rows(batch, units, group.rank, n)
+            return sync_step(state, batch)
+    else:
+        if args.trace and lead:
+            tracer = PipelineTracer(pplan, device=dev)
+        rt = Runtime(pplan, model, rc, tracer=tracer, data=group)
+        state = rt.init_state(model.init(gen), data.batch_at(0))
+        if tracer is not None and not ir_round:
+            # the fused tick is not separable per stage: probe each
+            # stage's cost alone (PipeDream-style) for the per-device
+            # attribution in the trace and the drift report
+            tracer.set_probed(probe_stage_costs(
+                model, state["params"]["stages"],
+                mb=max(1, args.batch // (max(args.ticks, 1) * n)),
+                seq=args.seq))
+        step_fn = rt.train_step
+    if group is not None and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def save(s: int, background: bool = False):
+        if group is None:
+            return ckpt.save(args.ckpt_dir, state, s, background=background)
+        return ckpt.save_data(args.ckpt_dir, state, s, group,
+                              background=background)
+
+    start = 0
+    if args.resume == "auto" and args.ckpt_dir:
+        last = ckpt.latest_step(args.ckpt_dir)
+        if last is not None:
+            state, last = (ckpt.restore(args.ckpt_dir, state)
+                           if group is None else
+                           ckpt.restore_data(args.ckpt_dir, state, group,
+                                             step=last))
+            start = last + 1
+            if lead:
+                print(f"# resumed from step {last}")
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    if lead:
+        device_name = (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu")
+        print(f"# arch={cfg.name} params={n_params:,} mode={args.mode} "
+              f"pipe={model.n_stages} layers={cfg.n_layers} "
+              f"d_model={cfg.d_model} dtype={cfg.compute_dtype} "
+              f"device={device_name} "
+              f"opt_floor={data.optimal_loss():.4f}")
+    if group is not None:
+        if lead:
+            print(f"# data: {group.describe()}; transport="
+                  f"{group.transport}")
+        b = args.batch // (units * n)
+        print(f"# replica {group.rank}: device={dev} rows "
+              f"[{group.rank * b}:{(group.rank + 1) * b}) of each of "
+              f"{units} unit{'s' if units > 1 else ''} of "
+              f"{args.batch // units} rows; ready "
+              f"{time.perf_counter() - group.t0:.1f} s after joining",
+              flush=True)
+
+    registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
+                               if lead else None)
     bg_save = None
     interrupted = False
     # the last step run, and the last one saved: the final save writes
     # only a state no save has written, under its own step
     ran = saved = None
-    tracer = None
+    reduce_s = []     # each step's reduction seconds, under --trace
+    t0 = time.time()
+    tokens = 0
     try:
-        if args.mode == "sync":
-            state = pipeline_sync.init_state(model, gen)
-            step_fn = pipeline_sync.make_train_step(
-                model, lr=args.lr, gamma=args.gamma,
-                num_microbatches=cfg.mesh_plan.num_microbatches,
-                clip=args.clip or None)
-        else:
-            tracer = (PipelineTracer(pplan, device=model.device)
-                      if args.trace else None)
-            rt = Runtime(pplan, model, rc, tracer=tracer)
-            state = rt.init_state(model.init(gen), data.batch_at(0))
-            if tracer is not None and not ir_round:
-                # the fused tick is not separable per stage: probe each
-                # stage's cost alone (PipeDream-style) for the per-device
-                # attribution in the trace and the drift report
-                tracer.set_probed(probe_stage_costs(
-                    model, state["params"]["stages"],
-                    mb=max(1, args.batch // args.ticks), seq=args.seq))
-            step_fn = rt.train_step
-        start = 0
-        if args.resume == "auto" and args.ckpt_dir:
-            last = ckpt.latest_step(args.ckpt_dir)
-            if last is not None:
-                state, last = ckpt.restore(args.ckpt_dir, state)
-                start = last + 1
-                print(f"# resumed from step {last}")
-        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-        device_name = (torch.cuda.get_device_name(model.device)
-                       if model.device.type == "cuda" else "cpu")
-        print(f"# arch={cfg.name} params={n_params:,} mode={args.mode} "
-              f"pipe={S} layers={cfg.n_layers} d_model={cfg.d_model} "
-              f"dtype={cfg.compute_dtype} device={device_name} "
-              f"opt_floor={data.optimal_loss():.4f}")
-
-        t0 = time.time()
-        tokens = 0
         for s in range(start, args.steps):
+            r0 = None if group is None else group.reduce_s
             state, metrics = step_fn(state, data.batch_at(s))
+            if r0 is not None:
+                reduce_s.append(group.reduce_s - r0)
             ran = s
             tokens += args.batch * args.seq
             if on_step is not None:
@@ -501,18 +590,24 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
             if args.ckpt_dir and (s + 1) % args.save_every == 0:
                 if bg_save is not None:
                     bg_save.join()  # never two writers on the same dir
-                bg_save = ckpt.save(args.ckpt_dir, state, s,
-                                    background=True)
+                bg_save = save(s, background=True)
                 saved = s
             if (s + 1) % args.log_every == 0 or s == args.steps - 1:
-                loss = float(metrics["loss"])
-                dt = time.time() - t0
-                rec = registry.log_step(
-                    step=s + 1, loss=round(loss, 4),
-                    tok_per_s=round(tokens / max(dt, 1e-9), 1),
-                    loss_valid=float(metrics.get("loss_valid", 1.0)),
-                    **_aux_field(metrics))
-                print(json.dumps(rec) if args.json else format_step(rec))
+                vals = [float(metrics["loss"])] + (
+                    [float(metrics["aux"])] if "aux" in metrics else [])
+                if group is not None:   # the replicas' mean
+                    vals = [sum(v) / n for v in
+                            zip(*group.all_gather_object(vals))]
+                if lead:
+                    dt = time.time() - t0
+                    rec = registry.log_step(
+                        step=s + 1, loss=round(vals[0], 4),
+                        tok_per_s=round(tokens / max(dt, 1e-9), 1),
+                        loss_valid=float(metrics.get("loss_valid", 1.0)),
+                        **_aux_field({"aux": vals[1]} if len(vals) > 1
+                                     else {}))
+                    print(json.dumps(rec) if args.json else format_step(rec),
+                          flush=True)
     except KeyboardInterrupt:
         interrupted = True
         print("# interrupted -- metrics flushed")
@@ -521,14 +616,15 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
         if bg_save is not None:
             bg_save.join()
     if args.ckpt_dir and not interrupted and ran != saved:
-        ckpt.save(args.ckpt_dir, state, ran)
+        save(ran)
     if tracer is not None and tracer.n_steps():
-        _report_trace(args.trace, tracer)
+        _report_trace(args.trace, tracer, reduce_s if group else None)
     return 1 if interrupted else 0
 
 
-def _report_trace(path: str, tracer) -> None:
-    """Write the trace and print its summary and the drift report."""
+def _report_trace(path: str, tracer, reduce_s=None) -> None:
+    """Write the trace and print its summary and the drift report (and,
+    for a replica of ``--data``, each step's reduction seconds)."""
     write_trace(path, tracer)
     print(f"# trace written to {path} ({tracer.n_steps()} steps recorded)")
     if tracer.is_round:
@@ -536,14 +632,21 @@ def _report_trace(path: str, tracer) -> None:
               f"{tracer.dropped_rounds} dropped, {len(tracer.metas)} "
               f"events a round")
     print(format_drift(drift_report(tracer)), flush=True)
+    if reduce_s is not None:
+        print(f"# trace data reductions (replica 0, host s a step, in the "
+              f"step walls above): {[round(x, 6) for x in reduce_s]}",
+              flush=True)
 
 
-def _print_data_axis(cfg, model, n: int) -> None:
+def _print_data_axis(args, cfg, model, ir_round: bool) -> None:
     """Check that every parameter leaf is replicated over ``data`` (else
-    ``SystemExit`` with the three-part refusal) and print the data axis,
-    with ZeRO-1's momentum layout reckoned beside the replicated one the
+    ``SystemExit`` with the three-part refusal) and print the data axis:
+    the schedule the replicas run, the reductions a step and their bytes,
+    and ZeRO-1's momentum layout reckoned beside the replicated one the
     replicas run."""
+    import math
     from repro_torch.runtime import sharding as rsh
+    n = args.data
     mesh = rsh.data_mesh(n)
     axes, shapes = model.param_axes(), model.param_specs()
     try:
@@ -551,74 +654,29 @@ def _print_data_axis(cfg, model, n: int) -> None:
     except ValueError as e:
         raise SystemExit(str(e)) from None
     z = rsh.zero1_layout(cfg, axes, shapes, mesh)
-    print(f"# data axis: {n} replicas, one process each; {leaves} "
-          f"parameter leaves replicated over data; ZeRO-1 momentum "
-          f"(reckoned, not run): {z['sharded']} of {z['leaves']} leaves "
-          f"over data, {z['zero1_bytes'] / 2**30:.2f} GiB a replica "
-          f"against {z['replicated_bytes'] / 2**30:.2f} GiB replicated")
-
-
-def _dp_replica(group, args, cfg, on_step) -> int:
-    """One replica of ``--data N``: the whole model drawn from ``--seed``
-    (as the one-process run draws it), its rows of every global batch,
-    the synchronous step with the gradients averaged over the replicas.
-    Peak-memory statistics restart once the state is built.
-    ``on_step(step_index, state, metrics)`` runs on every replica with
-    its state (it must pickle); ``metrics["loss"]`` is the replica's."""
-    from repro_torch.runtime import sharding as rsh
-    dev = group.device
-    model = Model(cfg, device=dev)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
-                                  seed=args.seed, kind=args.data_kind))
-    mesh = rsh.data_mesh(group.world)
-    specs = rsh.batch_specs(cfg, data.batch_at(0), mesh,
-                            rsh.logical_rules(cfg, mesh))
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    state = pipeline_sync.init_state(model, gen)
-    step_fn = pipeline_sync.make_train_step(
-        model, lr=args.lr, gamma=args.gamma,
-        num_microbatches=cfg.mesh_plan.num_microbatches,
-        clip=args.clip or None, group=group)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    lead = group.rank == 0
-    rows = args.batch // group.world
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    if lead:
-        print(f"# data: {group.describe()}; transport={group.transport}")
-    print(f"# replica {group.rank}: device={dev} params={n_params:,} rows "
-          f"[{group.rank * rows}:{(group.rank + 1) * rows}) of "
-          f"{args.batch}; ready {time.perf_counter() - group.t0:.1f} s "
-          f"after joining", flush=True)
-    registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
-                               if lead else None)
-    t0, tokens = time.time(), 0
-    try:
-        for s in range(args.steps):
-            batch = rsh.local_rows(data.batch_at(s), specs, mesh,
-                                   group.rank)
-            state, metrics = step_fn(state, batch)
-            tokens += args.batch * args.seq
-            if on_step is not None:
-                on_step(s, state, metrics)
-            if (s + 1) % args.log_every == 0 or s == args.steps - 1:
-                losses = group.all_gather_object(float(metrics["loss"]))
-                auxes = (group.all_gather_object(float(metrics["aux"]))
-                         if "aux" in metrics else None)
-                if lead:
-                    dt = time.time() - t0
-                    rec = registry.log_step(
-                        step=s + 1,
-                        loss=round(sum(losses) / len(losses), 4),
-                        tok_per_s=round(tokens / max(dt, 1e-9), 1),
-                        loss_valid=1.0, **_aux_field(
-                            {} if auxes is None
-                            else {"aux": sum(auxes) / len(auxes)}))
-                    print(json.dumps(rec) if args.json
-                          else format_step(rec), flush=True)
-    finally:
-        registry.close()
-    return 0
+    n_params = sum(math.prod(sp.shape) for sp in tree_leaves(shapes))
+    # one reduction a sync step or round, one a tick
+    per = max(args.ticks, 1) if (args.mode != "sync" and not ir_round
+                                 and model.n_stages > 1) else 1
+    calls = -(-4 * n_params // rsh.BUCKET_BYTES)
+    if args.mode == "sync":
+        what, when = "the sync step", "once a step"
+    elif ir_round:
+        what = f"the {args.schedule} round ({args.mode})"
+        when = "once a round"
+    else:
+        what = f"the streaming tick ({args.mode})"
+        when = "once a tick" if model.n_stages > 1 else "once a step"
+    stat = (f"; an [{cfg.moe.num_experts}] fp32 expert-fraction mean a "
+            f"MoE layer a forward" if cfg.moe is not None else "")
+    print(f"# data axis: {n} replicas, one process each, every stage on "
+          f"each; {what}; gradients averaged {when}: {per} reduction(s) "
+          f"a step, each {calls} all_reduce call(s) of {4 * n_params:,} B "
+          f"in all{stat}; {leaves} parameter leaves "
+          f"replicated over data; ZeRO-1 momentum (reckoned, not run): "
+          f"{z['sharded']} of {z['leaves']} leaves over data, "
+          f"{z['zero1_bytes'] / 2**30:.2f} GiB a replica against "
+          f"{z['replicated_bytes'] / 2**30:.2f} GiB replicated")
 
 
 def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:

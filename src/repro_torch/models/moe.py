@@ -27,10 +27,23 @@ products (:func:`expert_ffn`, batched matmuls over the expert axis, the
 overflow slot included: it holds zeros and gives zeros), and
 :func:`combine` (a gather of each pair's output, weighted by its gate).
 The JAX package computes all of it outside any Pallas kernel.
+
+On a data axis (the replicas of a data-parallel run, each forwarding
+its block of every microbatch: ``runtime.sharding.replica_rows``),
+routing stays the whole microbatch's, as GSPMD keeps it for the JAX
+twin: inside :func:`data_axis`, a replica routes its ``G / N`` of the
+``G`` groups JAX forms over the whole microbatch (the group count and
+the capacity from the whole microbatch's ``T``), and the aux loss's
+expert fractions ``ce`` are averaged over the group (one ``[E]`` fp32
+``mean_stat`` a layer a forward; they carry no gradient).  ``me``
+stays the replica's, so the mean of the replicas' aux losses is JAX's
+and the gradients' all-reduce supplies its ``1 / N``.  A split that
+does not hold whole groups is refused (:func:`split_groups`).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import contextlib
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +54,9 @@ from repro_torch.models.layers import ParamSpec
 # axis of its production mesh); 1 when T % groups != 0 or a group would
 # hold fewer tokens than there are experts
 DISPATCH_GROUPS = 16
+
+# the data group the training routing spans (set by :func:`data_axis`)
+_DATA: List = [None]
 
 
 def moe_specs(cfg):
@@ -85,6 +101,62 @@ def dispatch_groups(cfg, T: int) -> int:
             and T // DISPATCH_GROUPS >= E else 1)
 
 
+def split_groups(cfg, tokens: int, n: int) -> Optional[int]:
+    """The dispatch groups each of ``n`` replicas routes when JAX routes
+    a forward of ``tokens`` tokens (the whole microbatch) in
+    :func:`dispatch_groups` groups: ``G / n``, or None when the replicas
+    cannot hold whole groups (``n`` does not divide ``G``; with ``G`` 1
+    one group spans the replicas)."""
+    G = dispatch_groups(cfg, tokens)
+    return G // n if G % n == 0 and G >= n else None
+
+
+def min_split_rows(cfg, seq: int, n: int) -> Optional[int]:
+    """The fewest microbatch rows of ``seq`` tokens that ``n`` replicas
+    split into whole dispatch groups (None when ``n`` divides no group
+    count: ``n`` must divide ``DISPATCH_GROUPS``)."""
+    if DISPATCH_GROUPS % n:
+        return None
+    rows = n
+    while split_groups(cfg, rows * seq, n) is None:
+        rows += n
+    return rows
+
+
+def split_refusal(cfg, rows: int, seq: int, n: int) -> Optional[str]:
+    """None when ``n`` replicas split microbatches of ``rows`` x ``seq``
+    tokens into whole dispatch groups, else the three-part refusal (the
+    combination, why, what runs instead)."""
+    if cfg.moe is None or n == 1 or split_groups(cfg, rows * seq, n):
+        return None
+    G = dispatch_groups(cfg, rows * seq)
+    fit = min_split_rows(cfg, seq, n)
+    return (f"unsupported combination: --data {n} with {cfg.name}'s routing "
+            f"of microbatches of {rows} x {seq} tokens — JAX routes a "
+            f"microbatch in {G} dispatch group(s) ({DISPATCH_GROUPS} when "
+            f"{DISPATCH_GROUPS} divides its tokens and each group holds at "
+            f"least {cfg.moe.num_experts} (the experts), else 1), sharded "
+            f"over data, so each replica must hold whole groups and {n} "
+            f"must divide {G}; supported alternative: "
+            + (f"microbatches of a multiple of {fit} rows at --seq {seq}"
+               if fit else f"a --data that divides {DISPATCH_GROUPS}")
+            + f", or --data 1")
+
+
+@contextlib.contextmanager
+def data_axis(group):
+    """Route every :func:`moe_apply` inside as one replica of ``group``
+    (a ``runtime.sharding.StageGroup`` of the data replicas, or None for
+    none): its groups of the whole microbatch, the expert fractions
+    averaged over the group (see the module docstring)."""
+    prev = _DATA[0]
+    _DATA[0] = group if group is not None and group.world > 1 else None
+    try:
+        yield
+    finally:
+        _DATA[0] = prev
+
+
 def capacity(cfg, Tg: int) -> int:
     """Slots per expert in a group of Tg tokens."""
     mo = cfg.moe
@@ -103,10 +175,12 @@ class Routing(NamedTuple):
     cap: int
 
 
-def route(cfg, p, xg, cap: int) -> Routing:
+def route(cfg, p, xg, cap: int, data=None) -> Routing:
     """xg [G, Tg, d]: router logits in fp32, softmax, top-k (renormalised
     among the chosen when the config has shared experts), the aux loss
-    over all groups, and each pair's slot at capacity ``cap``."""
+    over all groups, and each pair's slot at capacity ``cap``.  ``data``:
+    the replicas' group, over which the expert fractions ``ce`` are
+    averaged (``me`` stays this replica's)."""
     mo = cfg.moe
     E, k = mo.num_experts, mo.top_k
     G, Tg, _ = xg.shape
@@ -117,6 +191,8 @@ def route(cfg, p, xg, cap: int) -> Routing:
         gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
     me = probs.mean(dim=(0, 1))                                 # [E]
     ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))
+    if data is not None:
+        data.mean_stat(ce)
     aux = mo.aux_loss_coef * E * torch.sum(me * ce)
 
     e_flat = idx.reshape(G, Tg * k)
@@ -153,13 +229,14 @@ def combine(cfg, out_buf, r: Routing, Tg: int):
     return (got * r.weight[..., None]).view(G, Tg, k, d).sum(2)
 
 
-def _apply(cfg, p, x, G: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _apply(cfg, p, x, G: int, cap: int, data=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
     b, s, d = x.shape
     T = b * s
     Tg = T // G
     xg = x.reshape(G, Tg, d)
-    r = route(cfg, p, xg, cap)
+    r = route(cfg, p, xg, cap, data)
     out = combine(cfg, expert_ffn(cfg, p, dispatch(cfg, xg, r)), r, Tg)
     out = out.reshape(T, d)
     if mo.num_shared:
@@ -171,10 +248,18 @@ def _apply(cfg, p, x, G: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [b, s, d] -> (out [b, s, d], aux_loss 0-d fp32): the training
-    dispatch, grouped and capacity-bounded as the JAX twin's."""
-    T = x.shape[0] * x.shape[1]
+    dispatch, grouped and capacity-bounded as the JAX twin's; inside
+    :func:`data_axis`, as one replica's block of the whole microbatch
+    (raises the three-part ``NotImplementedError`` when the replicas
+    cannot hold whole groups)."""
+    data = _DATA[0]
+    n = 1 if data is None else data.world
+    b, s = x.shape[0], x.shape[1]
+    T = b * s * n                     # the whole microbatch's tokens
     G = dispatch_groups(cfg, T)
-    return _apply(cfg, p, x, G, capacity(cfg, T // G))
+    if split_groups(cfg, T, n) is None:
+        raise NotImplementedError(split_refusal(cfg, b * n, s, n))
+    return _apply(cfg, p, x, G // n, capacity(cfg, T // G), data)
 
 
 def moe_apply_tokens(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:

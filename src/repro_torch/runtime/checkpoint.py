@@ -35,6 +35,14 @@ re-slicing the template's range; in-flight rings and per-stage
 ``[v, S, Lmax, ...]`` layout with its ``chunk_sizes`` leaf, in both
 directions through the same flat layer order; ``chunk_sizes`` always
 restores from the template's own value).
+
+On a data axis (replicas of a data-parallel run, each holding the whole
+model and its block of every microbatch's rows) a checkpoint keeps the
+one-process layout: :func:`save_data` gathers the rings' rows over the
+replicas in rank order and replica 0 writes; :func:`restore_data` reads
+the whole state on every replica and keeps the replica's rows.  So a
+checkpoint written under any number of replicas restores under any
+other that splits its microbatches.
 """
 from __future__ import annotations
 
@@ -353,6 +361,55 @@ def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None
                     f"or differently-partitioned spelling to migrate from)")
             leaves[key] = _as_leaf(arr, leaf, key)
     return tree_map(lambda path, _: leaves[_key(path)], template), step
+
+
+# ----------------------------------------------------------- data axis
+# the stream state's rings and the axis of their rows (a replica holds
+# its block of every microbatch there); every other leaf is replicated
+RING_ROW_DIMS = {"fwd_buf": 1, "bwd_buf": 1, "stash_x": 2, "batch_ring": 1}
+
+
+def save_data(ckpt_dir: str, state: Any, step: int, group, *,
+              keep: int = 3, background: bool = False
+              ) -> "threading.Thread | None":
+    """Checkpoint a data replica's state in the one-process layout:
+    every replica calls it; the rings' rows gather to replica 0 in rank
+    order (``StageGroup.gather_rows``), which writes (on a background
+    thread with ``background``, returned there; None elsewhere).  Params,
+    momentum, ``pred`` and the weight stash are written as they are:
+    every replica holds the same bits."""
+    def whole(path, leaf):
+        d = RING_ROW_DIMS.get(path[0])
+        return leaf if d is None else group.gather_rows(leaf, d)
+    full = tree_map(whole, state)
+    if group.rank:
+        return None
+    return save(ckpt_dir, full, step, keep=keep, background=background)
+
+
+def restore_data(ckpt_dir: str, state: Any, group, *,
+                 step: Optional[int] = None) -> Tuple[Any, int]:
+    """Every replica: restore checkpoint ``step`` (default the newest) of
+    the one-process layout onto ``state``'s structure, keeping the
+    replica's block of the rings' rows.  Returns (state, step)."""
+    N, r = group.world, group.rank
+
+    def whole_like(path, leaf):
+        d = RING_ROW_DIMS.get(path[0])
+        if d is None:
+            return leaf
+        shape = list(leaf.shape)
+        shape[d] *= N
+        return torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+
+    def mine(path, leaf):
+        d = RING_ROW_DIMS.get(path[0])
+        if d is None:
+            return leaf
+        b = leaf.shape[d] // N
+        return leaf.narrow(d, r * b, b).clone()
+    full, step = restore(ckpt_dir, tree_map(whole_like, state), step=step)
+    return tree_map(mine, full), step
 
 
 # ------------------------------------------------------------------ mpmd

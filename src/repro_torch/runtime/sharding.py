@@ -42,10 +42,14 @@ The data axis (the data-parallel baseline):
 * the data axis executed as replicas: one process a replica, every
   replica holding the whole model (:func:`check_data_replicated` refuses
   a layout that shards a parameter over ``data``), taking its block of
-  every global batch (:func:`local_rows`, by ``batch_specs``'
+  every microbatch of a global batch (:func:`replica_rows`; with one
+  microbatch the block :func:`local_rows` cuts by ``batch_specs``'
   ``act_batch`` rule) and averaging its gradients with the others
   through :meth:`StageGroup.all_reduce_mean` (fixed-size fp32 buckets,
-  one ``all_reduce`` each, on the transport below).  The all-reduce runs
+  one ``all_reduce`` each, on the transport below) once a sync step, a
+  tick or a round; an MoE layer's expert fractions through
+  :meth:`StageGroup.mean_stat`; checkpoints gather the rings' rows to
+  rank 0 through :meth:`StageGroup.gather_rows`.  The all-reduce runs
   after the backward, not overlapped with it; ZeRO-1's momentum layout
   (:func:`momentum_rules`) is reckoned but momentum runs replicated; the
   tensor axis and the SPMD state shardings (``stream_state_shardings``
@@ -129,7 +133,8 @@ class StageGroup:
     copies and waits included; ``n_reduce`` / ``bytes_reduce`` the
     all-reduce calls of :meth:`all_reduce_mean` and the bytes they
     reduced, ``reduce_s`` its host wall (packing, the calls, the
-    division and unpacking)."""
+    division and unpacking); ``n_stat`` / ``bytes_stat`` the small
+    reductions of :meth:`mean_stat`."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  transport: str, cards: Optional[int] = None):
@@ -151,6 +156,7 @@ class StageGroup:
         self.transport_s = 0.0
         self.n_reduce = self.bytes_reduce = 0
         self.reduce_s = 0.0
+        self.n_stat = self.bytes_stat = 0
 
     def counters(self) -> Dict[str, float]:
         return {"n_sent": self.n_sent, "bytes_sent": self.bytes_sent,
@@ -159,7 +165,8 @@ class StageGroup:
                 "transport_s": self.transport_s,
                 "n_reduce": self.n_reduce,
                 "bytes_reduce": self.bytes_reduce,
-                "reduce_s": self.reduce_s}
+                "reduce_s": self.reduce_s,
+                "n_stat": self.n_stat, "bytes_stat": self.bytes_stat}
 
     def describe(self) -> str:
         return describe_transport(self.transport, self.world, self.cards)
@@ -315,6 +322,41 @@ class StageGroup:
             torch.cuda.synchronize(self.device)
         self.reduce_s += time.perf_counter() - t0
         return tree
+
+    def mean_stat(self, t: torch.Tensor) -> torch.Tensor:
+        """Replace the small fp32 tensor ``t`` (on this rank's device, no
+        gradient: an MoE layer's expert fractions) by its mean over the
+        group's ranks, in place, and return it: one ``all_reduce(SUM)``
+        on the transport, then the division, so every rank holds the same
+        bits.  Counted under ``n_stat`` / ``bytes_stat``, apart from the
+        gradients' reductions."""
+        if self.world == 1:
+            return t
+        if t.dtype != torch.float32 or t.device != self.device:
+            raise ValueError(f"mean_stat takes an fp32 tensor on "
+                             f"{self.device}, got {t.dtype} on {t.device}")
+        wire = t if self.transport == "nccl" else self._wire(t)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+        if wire is not t:
+            t.copy_(wire)
+        t.div_(self.world)
+        self.n_stat += 1
+        self.bytes_stat += t.numel() * 4
+        return t
+
+    def gather_rows(self, t: torch.Tensor, dim: int
+                    ) -> Optional[torch.Tensor]:
+        """Rank 0: every rank's ``t`` (one shape and dtype on every rank)
+        concatenated along ``dim`` in rank order; the other ranks send
+        theirs to rank 0 and get None.  Control messages."""
+        if self.world == 1:
+            return t
+        if self.rank:
+            self.exchange([(t, 0, TAG_CTL)], [])
+            return None
+        got = self.exchange([], [(tuple(t.shape), t.dtype, r, TAG_CTL)
+                                 for r in range(1, self.world)])
+        return torch.cat([t] + got, dim)
 
     def all_gather_object(self, obj) -> list:
         """Every rank's ``obj`` (small, picklable), in rank order."""
@@ -760,4 +802,30 @@ def local_rows(batch: Dict[str, Any], specs: Dict[str, tuple], mesh,
             sl[dim] = slice(idx * blk, (idx + 1) * blk)
             x = x[tuple(sl)]
         out[k] = x
+    return out
+
+
+def replica_rows(batch: Dict[str, Any], units: int, rank: int,
+                 world: int) -> Dict[str, Any]:
+    """Replica ``rank`` of ``world``'s rows of a global batch that runs
+    as ``units`` forward units (microbatches, ticks or a round's
+    microbatches) of ``B / units`` rows each, in order: :func:`local_rows`'
+    block of every unit (its rows sharded over ``data``), the units kept
+    in order.  Each forward on a replica then sees its block of the unit
+    the one-process run would forward: what GSPMD computes when every
+    unit's rows shard over ``data`` (an MoE layer's dispatch groups and
+    a microbatch's loss stay the whole unit's).  ``units`` 1 gives
+    :func:`local_rows`' block of the batch.  Leaves are numpy arrays or
+    tensors with the batch on their leading dim; raises ``ValueError``
+    when ``units · world`` does not divide it."""
+    mesh = data_mesh(world)
+    out = {}
+    for k, x in batch.items():
+        B, rest = int(x.shape[0]), tuple(x.shape[1:])
+        if B % units:
+            raise ValueError(f"batch leaf {k!r} of {B} rows does not split "
+                             f"into {units} units")
+        xs = x.reshape((units, B // units) + rest)
+        blk = local_rows({k: xs}, {k: (None, "data")}, mesh, rank)[k]
+        out[k] = blk.reshape((-1,) + rest)
     return out

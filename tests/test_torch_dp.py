@@ -259,11 +259,16 @@ def test_fsdp_is_refused_in_three_parts():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mode", "spectrain"], "--data 2 with --mode spectrain"),
+    (["--mode", "spectrain", "--schedule", "2bw", "--batch", "12"],
+     "--data 2 with --schedule 2bw and --batch 12"),
     (["--mode", "sync", "--execution", "mpmd"],
      "--data 2 with --execution mpmd"),
-    (["--mode", "sync", "--trace", "t.json"], "--data 2 with --trace"),
-    (["--mode", "sync", "--ckpt-dir", "ck"], "--data 2 with --ckpt-dir"),
+    (["--arch", "deepseek-moe-16b", "--mode", "sync", "--batch", "4",
+      "--seq", "8"],
+     "--data 2 with deepseek-moe-16b's routing of microbatches of 4 x 8 "
+     "tokens"),
+    (["--mode", "vanilla", "--batch", "8", "--ticks", "3"],
+     "--data 2 with --batch 8 and --ticks 3"),
     (["--mode", "sync", "--batch", "6", "--ticks", "2"],
      "--data 2 with --batch 6 and --ticks 2"),
 ])

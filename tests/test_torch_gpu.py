@@ -1567,6 +1567,67 @@ def test_data_replicas_on_card_match_cpu(card):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
+def _data_tick_rank(group, cfg, params, batches):
+    """One replica of the streaming spectrain tick on a data axis
+    (``make_state`` / ``make_train_step`` with ``data=``): the numpy
+    weights on its device, the global batches (the step keeps the
+    replica's rows), 4 ticks; its losses and its params, momentum and
+    prediction (numpy) back."""
+    from repro_torch.core import pipeline_stream as tps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(cfg, device=group.device)
+    p = tree_map(lambda _, a: torch.from_numpy(a).to(group.device), params)
+    state = tps.make_state(model, p, batches[0], mode="spectrain",
+                           data=group)
+    step = tps.make_train_step(model, mode="spectrain", lr=0.05,
+                               data=group)
+    losses = []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+    return {"losses": losses, "transport": group.transport,
+            "reduce": group.counters()["n_reduce"],
+            "leaves": [a.detach().cpu().numpy() for key in
+                       ("params", "momentum", "pred")
+                       for a in tree_leaves(state[key])]}
+
+
+@pytest.mark.gpu
+def test_data_tick_replicas_sharing_the_card_match_cpu(card):
+    """Two replicas of the streaming spectrain tick on a data axis (smoke
+    granite, 4 layers in 2 stages, fp32, 4 ticks), sharing the card
+    through pinned host buffers: bit-equal to each other, one reduction
+    a tick, and within the training tolerance of the same replicas on
+    the CPU over gloo, from the same numpy weights and batches."""
+    import dataclasses
+    from repro_torch.launch.mesh import run_stage_ranks
+    from repro_torch.models.layers import tree_map
+    cfg = _smoke_cfg()
+    cfg = cfg.replace(mesh_plan=dataclasses.replace(cfg.mesh_plan, pipe=2))
+    params = tree_map(lambda _, a: a.numpy(), Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(4):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    got = {dev: run_stage_ranks(_data_tick_rank, 2, dev, cards=1,
+                                args=(cfg, params, batches),
+                                timeout_s=300.0)
+           for dev in ("cuda", "cpu")}
+    c0, c1 = got["cuda"]
+    assert (c0["transport"], got["cpu"][0]["transport"]) == ("gloo-host",
+                                                             "gloo")
+    assert c0["reduce"] == c1["reduce"] == len(batches)
+    for a, b in zip(c0["leaves"], c1["leaves"]):
+        assert np.array_equal(a, b)
+    np.testing.assert_allclose(c0["losses"], got["cpu"][0]["losses"],
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(c0["leaves"], got["cpu"][0]["leaves"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # enc-dec and the vision frontend: cross-attention (no causal mask, sq and
 # sk apart) at whisper-base's shapes (8 heads of 64, 448 text positions
