@@ -4,7 +4,8 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mpmd-only    # phases 15 (three runs) and 16
-    python3 chip_smoke.py --dp-only      # phases 19 and 28 alone
+    python3 chip_smoke.py --dp-only      # phases 19, 28 and 29 alone
+    python3 chip_smoke.py --tensor-only  # phase 29 alone
 
 Run from the root of the repository on a machine with one NVIDIA card
 (an H100 is what the numbers are for).  It imports nothing of JAX or of
@@ -243,13 +244,17 @@ adds one phase:
      timed beside ``torch.optim.SGD(fused=True, momentum=γ,
      dampening=γ)``, the same function after its first step; then
      ``repro_torch.launch.train.main --mode sync --pipe 1`` on full-width
-     granite-8b, 4 layers (phase 28's depth), batch 8 x 512, bf16, seed 0,
-     uniform data, 4 steps: once in this process (``--data 1``, the reference), then
+     granite-8b, 2 layers, batch 8 x 512, bf16, seed 0, uniform data, 3
+     steps: once in this process (``--data 1``, the reference), then
      with ``--data 2`` (2 replicas sharing the card over gloo through
      pinned host buffers; NCCL with a card each) and, on a machine of 4
      cards, ``--data 4`` (on fewer cards its memory is reckoned from the
-     measured peak and printed, not run): every replica's params and
-     momentum bit-equal to replica 0's after every step (exact digests);
+     measured peak and printed, not run), both with ZeRO-1 momentum:
+     a reduce-scatter and an all-gather a step, their calls and bytes
+     exact, each replica holding its pieces' bytes of momentum; every
+     replica's params bit-equal to replica 0's and the replicas'
+     momentum pieces, their digests combined, the whole leaves', after
+     every step (exact digests);
      the replicas bit-equal to ``SyncPodDP`` run in this process on the
      same row blocks (the same GEMM shapes; at N > 2 the ring sums in
      another order, so within rtol 1e-4 / atol 1e-5 there); against the
@@ -426,18 +431,45 @@ one phase:
 
  28. (``data_pipe``, after phase 19, whose sync ``--data 2`` run is now
      at the same 4 layers) ``launch.train.main`` on full-width granite-8b
-     at 4 layers in 2 stages a replica, bf16, 8 x 512, 4 steps: the
+     at 2 layers in 2 stages a replica, bf16, 8 x 512, 3 steps: the
      spectrain tick and the 1f1b round (4 microbatches), each once in
      one process and once with ``--data 2`` (the replicas share the card
      over gloo-host; ``--data 4`` on the tick over NCCL where there are 4
      cards): per replica and step the exact launches (8 / 4 / 4 / 3 a
      tick, 32 / 16 / 16 / 3 a round, every attention launch on the
-     tensor cores), one gradient reduction a tick or a round of
-     ⌈4n / 256 MiB⌉ calls and 4n bytes and nothing else sent, the
-     replicas' params, momentum and ``pred`` bit-equal after every step,
-     the mean loss within bf16's unit roundoff (2^-8, relative) of the one
-     process's; the step wall, the reduction's host seconds and the idle
-     share.  The run ends with each phase's seconds.
+     tensor cores), ZeRO-1's traffic a tick or a round exact (a
+     reduce-scatter of the fp32 gradient, all-gathers of the weights
+     and, on the spectrain tick, of ŵ; ``runtime.sharding.
+     shard_buckets``) and nothing else sent, each replica's momentum its
+     pieces' bytes and its peak at least 80% of the momentum it no
+     longer holds below the one process's, the replicas' params and
+     ``pred`` bit-equal and their momentum pieces combining into whole
+     leaves after every step, the mean loss within bf16's unit roundoff
+     (2^-8, relative) of the one process's; the step wall, the
+     reduce-scatter's and the all-gathers' host seconds and the idle
+     share.  Before the runs, ``fused_update`` on ZeRO-1 pieces: a stage
+     tree cut at odd offsets into pieces that span leaves, one launch a
+     piece, max |d| 0 against the plain version.
+
+The tensor axis (Megatron-style heads, KV heads, MLP and vocabulary
+sharding) adds one phase, and phase 3 holds the attention kernels at a
+tensor rank's shapes (granite-8b's 16 of 32 heads over 4 of 8, granite-
+20b's 24 of 48 over its one KV head), fp32 and bf16, forward and
+backward:
+
+ 29. (``tensor_train``, after phase 28) ``launch.train.main --tensor 2``
+     on full-width granite-8b at 4 layers in 2 stages, bf16, 8 x 512,
+     spectrain, 3 ticks, the two tensor ranks sharing the card over
+     gloo-host: per rank and tick the exact launches (8 / 4 / 4 / 3, at
+     16 query heads over 4 KV heads), the tensor all-reduces exact (6L
+     + 3 of the activations, 3 of the loss's [8, 512] fp32 terms), the
+     ranks' losses equal and within 2^-8 of the one-process tick;
+     then an fp32 pair (2 layers, 4 x 256, TF32 off), one process and
+     ``--tensor 2``, losses within rtol 1e-4 / atol 1e-5; the tick's
+     wall, busy, idle share, peak and all-reduce seconds per rank; with
+     four cards also ``--tensor 4`` and ``--data 2 --tensor 2`` over
+     NCCL (launches exact, the tick's wall and collectives' seconds).
+     The run ends with each phase's seconds.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -561,6 +593,12 @@ WIDE_EDGES = [
 ]
 
 
+# the tensor axis's attention (phase 29's path at --tensor 2): granite-8b's
+# 32 / 8 heads become 16 / 4 a rank (G 4), granite-20b's 48 / 1 become 24
+# over its one replicated KV head (G 24)
+TP_GQA = (("TP2 G4", (16, 4, 128)), ("TP2 G24", (24, 1, 128)))
+
+
 def wide_cases(kind: str) -> list:
     """The G 12 and 48 calls of the code models' paths, fp32 and bf16:
     ``"fwd"`` decode over 64 keys and prefill n = 12 (serving), the tick's
@@ -584,12 +622,17 @@ def wide_cases(kind: str) -> list:
     for name, b, sq, sk, H, KV, d, causal, off, kv_len in WIDE_EDGES:
         cases.append(Case(f"edge {name} bfloat16", b, sq, sk, H, KV, d,
                           "bfloat16", causal, off, kv_len))
+    for tag, heads in TP_GQA:          # the training shapes a tensor rank
+        for dt in ("float32", "bfloat16"):
+            cases.append(Case(f"{tag} train b8 512 causal {dt}",
+                              TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *heads, dt,
+                              True))
     if kind == "bwd":
         cases = [BwdCase(c.name, c.b, c.sq, c.sk, c.H, c.KV, c.d, c.dtype,
                          c.causal, c.q_offset, c.kv_len) for c in cases]
-        for c in cases:      # G 48's sums of 576 rows and more a key
+        for c in cases:      # G 48's and G 24's sums of 288 rows or more
             c.dkv_normwise = (c.dtype == "bfloat16"
-                              and c.name.startswith("G48"))
+                              and c.name.startswith(("G48", "TP2 G24")))
     return cases
 
 
@@ -1339,6 +1382,10 @@ def timings(torch, fa, ref, errs) -> list:
                         "bfloat16", True), 500),
                   (Case(f"{tag} train b8 512 causal bfloat16", TRAIN_BATCH,
                         TRAIN_SEQ, TRAIN_SEQ, *heads, "bfloat16", True), 20)]
+    for tag, heads in TP_GQA:          # a tensor rank's (phase 29)
+        cases.append((Case(f"{tag} train b8 512 causal bfloat16",
+                           TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *heads,
+                           "bfloat16", True), 20))
     print(f"  SDPA backends enabled (torch.backends.cuda): "
           f"{sdpa_flags(torch)}")
     return [fwd_row(torch, fa, ref, case, iters, errs[case.name])
@@ -3390,30 +3437,91 @@ def leaf_digests(torch, state) -> dict:
     reduced on the card in chunks, wrapping alike on both sides), and a
     strided sample of 256 values in fp32 for a tolerance check where the
     bits differ.  Only the sums and the sample cross to the host."""
-    from repro_torch.models.layers import tree_map
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import sharding as rsh
     out = {}
 
-    def one(path, t):
+    def one(path, t, at=None):
+        """``at``: (offset, whole length) of a ZeRO-1 piece: the weights
+        and the sample's positions are the whole leaf's, and the sample
+        holds the [position, value] pairs that fall in the piece."""
         if not isinstance(t, torch.Tensor):
             return
         flat = t.detach().reshape(-1)
         ints = flat.view({4: torch.int32, 2: torch.int16}[t.element_size()])
-        s1 = s2 = None
+        off, n = (0, flat.numel()) if at is None else at
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
         for lo in range(0, flat.numel(), DIGEST_CHUNK):
             b = ints[lo:lo + DIGEST_CHUNK].to(torch.int64)
-            w = torch.arange(lo, lo + b.numel(), device=t.device,
+            w = torch.arange(off + lo, off + lo + b.numel(), device=t.device,
                              dtype=torch.int64) % DIGEST_PERIOD + 1
-            a1, a2 = b.sum(), (b * w).sum()
-            s1 = a1 if s1 is None else s1 + a1
-            s2 = a2 if s2 is None else s2 + a2
+            s1, s2 = s1 + b.sum(), s2 + (b * w).sum()
         idx = torch.arange(DIGEST_SAMPLE, device=t.device) * \
-            (flat.numel() - 1) // (DIGEST_SAMPLE - 1)
-        out["/".join(path)] = {"d": [int(s1), int(s2)],
-                               "sample": flat[idx].float().cpu().tolist()}
+            (n - 1) // (DIGEST_SAMPLE - 1)
+        if at is None:
+            out["/".join(path)] = {"d": [int(s1), int(s2)],
+                                   "sample": flat[idx].float().cpu().tolist()}
+            return
+        mine = [(int(i), int(i) - off) for i in idx.tolist()
+                if off <= i < off + flat.numel()]
+        vals = flat[[j for _, j in mine]].float().cpu().tolist() \
+            if mine else []
+        out["/".join(path)] = {"d": [int(s1), int(s2)], "piece": True,
+                               "at": [[i, v] for (i, _), v in
+                                      zip(mine, vals)]}
+    g = rsh.current_group()
     for name in ("params", "momentum", "stash"):
-        if name in state:
-            tree_map(lambda path, t: one((name,) + path, t), state[name])
+        if name not in state:
+            continue
+        like = (state["params"] if name == "momentum" else
+                state["stash"].get("params") if name == "stash" else None)
+        tree = state[name]
+        if name == "stash":
+            tree_map(lambda path, t: one(("stash",) + path, t),
+                     {"params": tree["params"]})
+            tree, like = {"momentum": tree["momentum"]}, {
+                "momentum": tree["params"]}
+        if like is not None and g is not None and g.data.world > 1 and \
+                sgd.is_shard(like, tree):
+            d = g.data
+            ats = [(rsh.shard_range(p.numel(), d.rank, d.world)[0],
+                    p.numel()) for p in tree_leaves(like)]
+            it = iter(ats)
+            prefix = (name,) if name != "stash" else ("stash",)
+            tree_map(lambda path, t: one(prefix + path, t, next(it)), tree)
+        else:
+            prefix = (name,) if name != "stash" else ("stash",)
+            tree_map(lambda path, t: one(prefix + path, t), tree)
     return out
+
+
+def _wrap64(x: int) -> int:
+    """``x`` as the card's int64 arithmetic wraps it."""
+    return (x + 2**63) % 2**64 - 2**63
+
+
+def merge_pieces(reps: list) -> int:
+    """ZeRO-1: every replica's record digests its own pieces of the
+    momentum (``leaf_digests``' ``piece`` entries); the pieces' sums add
+    up to the whole leaf's (mod 2^64) and their samples fill the whole
+    leaf's positions.  Replaces each record's entries by the whole
+    leaf's, in place; returns how many leaves were merged."""
+    keys = reps[0].get("pieces", [])
+    for s_ in range(len(reps[0]["digests"])):
+        for k in keys:
+            d = [_wrap64(sum(r["digests"][s_][k][i] for r in reps))
+                 for i in range(2)]
+            for r in reps:
+                r["digests"][s_][k] = d
+    for k in keys:
+        if "samples" not in reps[0]:
+            break
+        # the pieces lie in rank order, each one's positions in order
+        merged = [v for r in reps for _, v in r["samples"][k]]
+        for r in reps:
+            r["samples"][k] = merged
+    return len(keys)
 
 
 class MpmdProbe:
@@ -4003,12 +4111,14 @@ def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
 # the data-parallel baseline: the data axis as all-reducing replicas
 
 # the paper's Data-P: --pipe 1, one whole model a replica, the training
-# configuration's batch split over the replicas (B / N rows each), at
-# phase 28's depth (two replicas of 8 layers share the card at ~2x the
-# gloo-host all-reduce, which bounds the step)
-DP_STEPS, DP_PROF_STEP = 4, 2
-DATA_PIPE_LAYERS, DATA_PIPE_STAGES = 4, 2
-DP_ARGV = ["--arch", ARCH, "--layers", str(DATA_PIPE_LAYERS), "--pipe", "1",
+# configuration's batch split over the replicas (B / N rows each), at 2
+# layers (the gloo-host reduce-scatter and all-gather bound the step;
+# 4 layers, phase 28's depth, before phase 29 took the time); 3 steps,
+# the second profiled (4 and the third before phase 29)
+DP_STEPS, DP_PROF_STEP = 3, 1
+DP_LAYERS = 2
+DATA_PIPE_LAYERS, DATA_PIPE_STAGES = 2, 2
+DP_ARGV = ["--arch", ARCH, "--layers", str(DP_LAYERS), "--pipe", "1",
            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype",
            "bfloat16", "--mode", "sync", "--data-kind", "uniform",
            "--seed", "0", "--steps", str(DP_STEPS), "--log-every", "1"]
@@ -4058,6 +4168,12 @@ class DpProbe:
         if g is not None:
             rec["xfer"].append(g.counters())
             g.reset_counters()
+            if g.tensor is not None:    # the tensor axis's all-reduces
+                rec.setdefault("tp", []).append(g.tensor.counters())
+                g.tensor.reset_counters()
+            if g.data is not g:
+                rec.setdefault("dxfer", []).append(g.data.counters())
+                g.data.reset_counters()
         rec["loss"].append(float(metrics["loss"]))
         dg = leaf_digests(torch, state)
         if "pred" in state:     # spectrain's next forward weights
@@ -4065,6 +4181,10 @@ class DpProbe:
                        leaf_digests(torch, {"params": state["pred"]}
                                     ).items()})
         rec["digests"].append({k: v["d"] for k, v in dg.items()})
+        rec["pieces"] = sorted(k for k, v in dg.items() if v.get("piece"))
+        from repro_torch.models.layers import tree_leaves
+        rec["momentum_bytes"] = sum(
+            t.numel() * 4 for t in tree_leaves(state["momentum"]))
         if s == DP_STEPS - 1:
             kern = self.sp.result()
             rec["busy_ms"] = sum(e.self_device_time_total
@@ -4072,7 +4192,8 @@ class DpProbe:
             rec["n_kernels"] = sum(e.count for e in kern)
             rec["prof_step"] = self.sp.at
             rec["prof_steps"] = self.sp.steps
-            rec["samples"] = {k: v["sample"] for k, v in dg.items()}
+            rec["samples"] = {k: v["at"] if v.get("piece") else v["sample"]
+                              for k, v in dg.items()}
             rec["peak_bytes"] = torch.cuda.max_memory_allocated()
             with open(Path(self.out) / f"rank{rank}.json", "w") as f:
                 json.dump(rec, f)
@@ -4083,25 +4204,76 @@ class DpProbe:
         rec["t_end"].append(time.perf_counter())
 
 
-def _dp_run(torch, n: int, want: dict, label: str, argv=DP_ARGV) -> tuple:
-    """``train.main(argv + --data n)`` with a :class:`DpProbe` in every
-    replica (in this process for n = 1); returns (the replicas' records,
-    the run's seconds)."""
+class LossProbe:
+    """The ``on_step`` hook of a short run held by its losses alone (the
+    fp32 pair of phase 29, whose FMA attention kernels a profile of the
+    tensor-core ones would not count): each step's loss, to
+    ``<out>/rank<r>.json``."""
+
+    def __init__(self, out: str, steps: int):
+        self.out, self.steps, self.loss = out, steps, []
+
+    def __call__(self, s, state, metrics):
+        from repro_torch.runtime import sharding as rsh
+        g = rsh.current_group()
+        self.loss.append(float(metrics["loss"]))
+        if s == self.steps - 1:
+            rank = 0 if g is None else g.rank
+            with open(Path(self.out) / f"rank{rank}.json", "w") as f:
+                json.dump({"loss": self.loss}, f)
+
+
+def _loss_run(argv: list, ranks: int) -> list:
+    """``train.main(argv)`` with a :class:`LossProbe`: each rank's
+    losses."""
+    from repro_torch.launch import train
+    steps = int(argv[argv.index("--steps") + 1])
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = train.main(argv, on_step=LossProbe(tmp, steps))
+        check(rc == 0, f"{' '.join(argv)}: train.main returned {rc}")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                ["loss"] for r in range(ranks)]
+
+
+def _dp_run(torch, n: int, want: dict, label: str, argv=DP_ARGV, *,
+            tensor: int = 1) -> tuple:
+    """``train.main(argv + --data n [--tensor T])`` with a
+    :class:`DpProbe` in every rank (in this process for one rank);
+    returns (the ranks' records, ZeRO-1's momentum pieces merged into
+    whole-leaf digests and samples (``merge_pieces``) within each tensor
+    coordinate, the run's seconds)."""
     from repro_torch.launch import train
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    extra = ["--data", str(n)] + (["--tensor", str(tensor)]
+                                  if tensor > 1 else [])
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        rc = train.main(argv + ["--data", str(n)],
-                        on_step=DpProbe(tmp, label, want))
+        rc = train.main(argv + extra, on_step=DpProbe(tmp, label, want))
         run_s = time.perf_counter() - t0
         check(rc == 0, f"{label}: train.main returned {rc}")
         reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                for r in range(n)]
+                for r in range(n * tensor)]
+    for t in range(tensor):
+        merge_pieces(reps[t::tensor])
     gc.collect()
     torch.cuda.empty_cache()
     return reps, run_s
+
+
+def zero1_traffic(groups: list, n: int) -> tuple:
+    """ZeRO-1's calls and bytes for fp32 leaves of the sizes in each
+    list of ``groups`` (one reduce-scatter or all-gather pass a list)
+    over ``n`` replicas: (calls, bytes), each pass cut into buckets of
+    ``BUCKET_BYTES`` (``runtime.sharding.shard_buckets``)."""
+    from repro_torch.runtime import sharding as rsh
+    calls = nbytes = 0
+    for sizes in groups:
+        bks = rsh.shard_buckets(sizes, n, rsh.BUCKET_BYTES // 4)
+        calls += len(bks)
+        nbytes += 4 * n * sum(w for w, _ in bks)
+    return calls, nbytes
 
 
 def _steady(rec) -> list:
@@ -4110,6 +4282,13 @@ def _steady(rec) -> list:
     return sorted(1e3 * (rec["t"][i] - rec["t_end"][i - 1])
                   for i in range(1, DP_STEPS)
                   if i not in rec["prof_steps"])
+
+
+def _steady_xfer(rec, key: str, field: str) -> float:
+    """The median over the unprofiled steady steps of a record's counter
+    ``field`` in its list ``key`` (``xfer``, ``tp``), in ms."""
+    return 1e3 * _median(rec[key][i][field] for i in range(1, DP_STEPS)
+                         if i not in rec["prof_steps"])
 
 
 def _median(xs):
@@ -4382,7 +4561,8 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
           f"{one_wall:.3f} ms, {TRAIN_BATCH * TRAIN_SEQ / one_wall * 1e3:.1f}"
           f" tokens/s; busy {one['busy_ms']:.3f} ms; peak "
           f"{one['peak_bytes'] / 2**30:.2f} GiB; run {one_s:.1f} s")
-    buckets = -(-4 * n_params // rsh.BUCKET_BYTES)
+    sizes = [math.prod(sp.shape) for sp in tree_leaves(
+        Model(cfg, device="cpu").param_specs())]
     out["one"] = {"wall_ms": one_wall, "busy_ms": one["busy_ms"],
                   "peak_bytes": one["peak_bytes"], "losses": one["loss"]}
     runs = {}
@@ -4420,12 +4600,22 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
             check(rep["variants"][-1]["flash_fwd_mma"] == L * DP_STEPS,
                   f"--data {n}: replica {rep['rank']} ran flash_fwd off the "
                   f"tensor cores")
+            # ZeRO-1: one reduce-scatter of the fp32 gradient and one
+            # all-gather of the fp32 weights a step, bucketed alike
+            rs = zero1_traffic([sizes], n)
             for s_, x in enumerate(rep["xfer"]):
-                check((x["n_reduce"], x["bytes_reduce"], x["n_sent"],
-                       x["n_ctl"]) == (buckets, 4 * n_params, 0, 0),
-                      f"--data {n}: replica {rep['rank']} step {s_} reduced "
-                      f"{x}, expected {buckets} calls of {4 * n_params} B "
-                      f"in all")
+                check((x["n_reduce"], x["n_rs"], x["bytes_rs"], x["n_ag"],
+                       x["bytes_ag"], x["n_sent"], x["n_ctl"])
+                      == (0,) + rs + rs + (0, 0),
+                      f"--data {n}: replica {rep['rank']} step {s_} moved "
+                      f"{x}, expected a reduce-scatter and an all-gather of "
+                      f"{rs[0]} calls and {rs[1]} B each")
+            check(rep["momentum_bytes"] == 4 * sum(
+                rsh.shard_range(m, rep["rank"], n)[1]
+                - rsh.shard_range(m, rep["rank"], n)[0] for m in sizes),
+                  f"--data {n}: replica {rep['rank']} holds "
+                  f"{rep['momentum_bytes']} B of momentum, not its ZeRO-1 "
+                  f"pieces")
             for s_ in range(DP_STEPS):
                 check(rep["digests"][s_] == reps[0]["digests"][s_],
                       f"--data {n}: replica {rep['rank']} differs from "
@@ -4486,8 +4676,8 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
         walls = _steady(reps[0])
         check(bool(walls), f"--data {n}: no unprofiled steady step")
         wall = _median(walls)
-        reduce_ms = [1e3 * _median(r["xfer"][i]["reduce_s"]
-                                   for i in range(1, DP_STEPS)) for r in reps]
+        reduce_ms = [_steady_xfer(r, "xfer", "reduce_s")
+                     + _steady_xfer(r, "xfer", "gather_s") for r in reps]
         rec = {"n": n, "transport": reps[0]["transport"], "wall_ms": wall,
                "walls_ms": walls, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ
                / wall * 1e3, "busy_ms": [r["busy_ms"] for r in reps],
@@ -4500,10 +4690,13 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
         runs[n] = rec
         print(f"  transport: {rec['transport']}")
         print(f"  launches a step, every replica: {want}, exact on every "
-              f"step, every attention launch on the tensor cores; "
-              f"all-reduce {buckets} calls and {4 * n_params:,} B a step "
-              f"per replica (4 B x {n_params:,} parameters)")
-        print(f"  replicas bit-equal after every step (params and momentum, "
+              f"step, every attention launch on the tensor cores; ZeRO-1: "
+              f"a reduce-scatter of {rs[0]} calls and {rs[1]:,} B and an "
+              f"all-gather of as many a step per replica ({n_params:,} "
+              f"parameters); momentum held {reps[0]['momentum_bytes']:,} B "
+              f"a replica (whole: {4 * n_params:,} B)")
+        print(f"  replicas bit-equal after every step (params, and the "
+              f"momentum pieces combined into whole leaves, "
               f"{len(reps[0]['digests'][0])} leaves); losses "
               f"{[round(x, 6) for x in losses]} against the one process's "
               f"{[round(x, 6) for x in one['loss']]} (rtol 1e-4 / atol "
@@ -4516,7 +4709,7 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
               f"ms); per replica: busy "
               f"{[round(b, 3) for b in rec['busy_ms']]} ms in "
               f"{rec['n_kernels']} kernels (profiled step "
-              f"{reps[0]['prof_step']}), all-reduce host "
+              f"{reps[0]['prof_step']}), reduce-scatter + all-gather host "
               f"{[round(t, 1) for t in reduce_ms]} ms a step, peak "
               f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; run "
               f"{run_s:.1f} s")
@@ -4546,9 +4739,9 @@ def dp_train(torch, ops, ref, mpmd_runs=None) -> dict:
 
 # phase 28: the data axis under the pipelines (the JAX package's GSPMD
 # hybrid): full-width granite-8b at DATA_PIPE_LAYERS layers in
-# DATA_PIPE_STAGES stages a replica (1,275 M parameters: two replicas'
-# fp32 state of >= 16 B a parameter share the card; two of 8 layers do
-# not fit), the training batch, DP_STEPS steps
+# DATA_PIPE_STAGES stages a replica (840 M parameters; 4 layers before
+# phase 29 took the time: the gloo-host transport bounds every step),
+# the training batch, DP_STEPS steps
 DATA_PIPE_ARGV = ["--arch", ARCH, "--layers", str(DATA_PIPE_LAYERS),
                   "--pipe", str(DATA_PIPE_STAGES), "--batch",
                   str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dtype",
@@ -4556,6 +4749,11 @@ DATA_PIPE_ARGV = ["--arch", ARCH, "--layers", str(DATA_PIPE_LAYERS),
                   "--steps", str(DP_STEPS), "--log-every", "1"]
 # (label, flags, microbatches a step): the streaming tick (one reduction
 # a tick) and a 1f1b round of 4 microbatches (one reduction a round)
+# ZeRO-1 holds half the fp32 momentum a replica (2 B a parameter less):
+# each replica's peak must land at least this share of it below the
+# one-process run's, whose momentum is whole (the replicated layout's
+# peak; its replicas' peaks sat within 0.3 GiB of it)
+DATA_PIPE_PEAK_DROP = 0.8
 DATA_PIPE_RUNS = (("tick spectrain", ["--mode", "spectrain"], 1),
                   ("1f1b spectrain", ["--schedule", "1f1b"], 4))
 # the replicas' mean loss against the one process on the whole batch:
@@ -4564,6 +4762,63 @@ DATA_PIPE_RUNS = (("tick spectrain", ["--mode", "spectrain"], 1),
 # activations of 2,048 rows apart from those of 4,096, so a loss is
 # known to a bf16 ulp, no better
 DATA_PIPE_LOSS_RTOL = 2.0 ** -8
+
+
+def zero1_update_check(torch, ops) -> dict:
+    """``fused_update`` on ZeRO-1 pieces: a stage tree of full-width
+    granite-8b (2 layers, fp32 w / v / g, fp32 ŵ) cut at odd offsets
+    into views that end one leaf and start the next, as the replicas'
+    pieces would be if cut across leaves; one launch over the views
+    against the plain version on the same views, max |d| over w', v'
+    and ŵ, which must be 0 (the kernel reads and writes each element
+    alone)."""
+    from repro_torch.kernels import ref
+    phase("phase 28 (data_pipe): fused_update on ZeRO-1 pieces at odd "
+          "offsets spanning leaves, against its plain version")
+    specs = group_specs("stage", 2)
+    ws, vs, gs, whats = make_group(torch, specs, lambda path: True, seed=7)
+    n = sum(w.numel() for w in ws)
+    cuts = [0, n // 3 + 1, 2 * n // 3 + 3, n]      # odd interior offsets
+    pieces = []
+    for a, b in zip(cuts, cuts[1:]):
+        off, part = 0, []
+        for i, w in enumerate(ws):
+            lo, hi = max(a, off) - off, min(b, off + w.numel()) - off
+            if lo < hi:
+                part.append((i, lo, hi))
+            off += w.numel()
+        pieces.append(part)
+    views = [v for part in pieces for v in part]
+    span = sum(1 for part in pieces if len(part) > 1)
+    kw = dict(lr=0.01, gamma=0.9, s=2.0)
+    worst = 0.0
+    ops.reset_launch_counts()
+    for part in pieces:
+        pw, pv, pg, ph = ([t[i].view(-1)[lo:hi] for i, lo, hi in part]
+                          for t in (ws, vs, gs, whats))
+        want = [ref.fused_update_ref(w, v, g, what_dtype=h.dtype, **kw)
+                for w, v, g, h in zip(pw, pv, pg, ph)]
+        ops.fused_update(pw, pv, pg, whats=ph, **kw)
+        torch.cuda.synchronize()
+        for got, w3 in zip(zip(pw, pv, ph), want):
+            for x, y in zip(got, w3):
+                worst = max(worst, float((x.float() - y.float()).abs()
+                                         .max()))
+    launches = ops.launch_counts()["fused_update"]
+    check(worst == 0.0, f"fused_update on ZeRO-1 pieces: max |d| {worst}")
+    check(launches == len(cuts) - 1, f"fused_update on ZeRO-1 pieces: "
+          f"{launches} launches for {len(cuts) - 1} pieces")
+    out = {"elements": n, "pieces": len(cuts) - 1, "views": len(views),
+           "across_leaves": span, "max_abs_err": worst,
+           "offsets": cuts[1:-1]}
+    print(f"  {n:,} elements of {len(ws)} leaves cut at {cuts[1:-1]} into "
+          f"{len(cuts) - 1} pieces ({len(views)} views, {span} pieces "
+          f"spanning leaves), one launch a piece: max |d| "
+          f"{worst} against the plain version")
+    del ws, vs, gs, whats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def data_pipe_launches(L: int, S: int, M: int, stream: bool) -> dict:
@@ -4597,10 +4852,15 @@ def data_pipe(torch, ops) -> dict:
     cards = torch.cuda.device_count()
     cfg = train.build(train.parse_args(DATA_PIPE_ARGV))
     L, S = cfg.n_layers, DATA_PIPE_STAGES
-    n_params = sum(math.prod(sp.shape) for sp in tree_leaves(
-        Model(cfg, device="cpu").param_specs()))
-    buckets = -(-4 * n_params // rsh.BUCKET_BYTES)
-    out = {"n_params": n_params, "buckets": buckets, "runs": {}}
+    specs = Model(cfg, device="cpu").param_specs()
+    leaf_sizes = [math.prod(sp.shape) for sp in tree_leaves(specs)]
+    # spectrain's ŵ: embed.tok and every stage leaf (fp32: the launcher
+    # keeps no fused_predict)
+    pred_sizes = [math.prod(specs["outer"]["embed"]["tok"].shape)] + [
+        math.prod(sp.shape) for sp in tree_leaves(specs["stages"])]
+    n_params = sum(leaf_sizes)
+    out = {"n_params": n_params, "runs": {},
+           "fu_pieces": zero1_update_check(torch, ops)}
     for label, flags, M in DATA_PIPE_RUNS:
         argv = DATA_PIPE_ARGV + flags
         stream = "--schedule" not in flags
@@ -4640,13 +4900,34 @@ def data_pipe(torch, ops) -> dict:
                       == want["flash_fwd"] * DP_STEPS,
                       f"{what}: replica {rep['rank']} ran flash_fwd off the "
                       f"tensor cores")
+                # ZeRO-1: one reduce-scatter of the fp32 gradient, the
+                # fp32 weights' all-gather and, on the spectrain tick,
+                # ŵ's (the 1f1b round's reads lag 0: no prediction)
+                rs = zero1_traffic([leaf_sizes], n)
+                ag = zero1_traffic([leaf_sizes] + ([pred_sizes] if stream
+                                                   else []), n)
                 for s_, x in enumerate(rep["xfer"]):
-                    check((x["n_reduce"], x["bytes_reduce"], x["n_stat"],
+                    check((x["n_reduce"], x["n_rs"], x["bytes_rs"],
+                           x["n_ag"], x["bytes_ag"], x["n_stat"],
                            x["n_sent"], x["n_ctl"])
-                          == (buckets, 4 * n_params, 0, 0, 0),
+                          == (0,) + rs + ag + (0, 0, 0),
                           f"{what}: replica {rep['rank']} step {s_} moved "
-                          f"{x}, expected one reduction of {buckets} calls "
-                          f"and {4 * n_params} B")
+                          f"{x}, expected a reduce-scatter of {rs} and "
+                          f"all-gathers of {ag} (calls, B)")
+                held = 4 * sum(rsh.shard_range(m, rep["rank"], n)[1]
+                               - rsh.shard_range(m, rep["rank"], n)[0]
+                               for m in leaf_sizes)
+                check(rep["momentum_bytes"] == held,
+                      f"{what}: replica {rep['rank']} holds "
+                      f"{rep['momentum_bytes']} B of momentum, its ZeRO-1 "
+                      f"pieces are {held} B")
+                drop = DATA_PIPE_PEAK_DROP * (4 * n_params - held)
+                check(rep["peak_bytes"] <= one["peak_bytes"] - drop,
+                      f"{what}: replica {rep['rank']} peak "
+                      f"{rep['peak_bytes'] / 2**30:.2f} GiB, not "
+                      f"{drop / 2**30:.2f} GiB below the one process's "
+                      f"{one['peak_bytes'] / 2**30:.2f} GiB (whole "
+                      f"momentum)")
                 for s_ in range(DP_STEPS):
                     check(rep["digests"][s_] == reps[0]["digests"][s_],
                           f"{what}: replica {rep['rank']} differs from "
@@ -4665,16 +4946,18 @@ def data_pipe(torch, ops) -> dict:
             walls = _steady(reps[0])
             check(bool(walls), f"{what}: no unprofiled steady step")
             wall = _median(walls)
-            reduce_ms = [1e3 * _median(r["xfer"][i]["reduce_s"]
-                                       for i in range(1, DP_STEPS))
-                         for r in reps]
+            reduce_ms = [_steady_xfer(r, "xfer", "reduce_s") for r in reps]
+            gather_ms = [_steady_xfer(r, "xfer", "gather_s") for r in reps]
             busy = [r["busy_ms"] for r in reps]
             rec = {"n": n, "transport": reps[0]["transport"],
                    "wall_ms": wall, "walls_ms": walls,
                    "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall * 1e3,
                    "busy_ms": busy, "idle": [1 - b / wall for b in busy],
                    "n_kernels": [r["n_kernels"] for r in reps],
-                   "reduce_ms": reduce_ms, "losses": losses,
+                   "reduce_ms": reduce_ms, "gather_ms": gather_ms,
+                   "rs": rs, "ag": ag,
+                   "momentum_bytes": [r["momentum_bytes"] for r in reps],
+                   "losses": losses,
                    "one_losses": one["loss"], "loss_rel": rel,
                    "one_wall_ms": one_wall, "one_busy_ms": one["busy_ms"],
                    "peak_bytes": [r["peak_bytes"] for r in reps],
@@ -4685,13 +4968,15 @@ def data_pipe(torch, ops) -> dict:
             out["runs"][(label, n)] = rec
             print(f"  transport: {rec['transport']}")
             print(f"  launches a step, every replica: {want}, exact on every "
-                  f"step, every attention launch on the tensor cores; one "
-                  f"gradient reduction a {'tick' if stream else 'round'}: "
-                  f"{buckets} all_reduce calls and {4 * n_params:,} B per "
-                  f"replica (4 B x {n_params:,} parameters), nothing else "
-                  f"sent")
-            print(f"  replicas bit-equal after every step (params, momentum"
-                  f"{', pred' if stream else ''}: "
+                  f"step, every attention launch on the tensor cores; "
+                  f"ZeRO-1 once a {'tick' if stream else 'round'}: a "
+                  f"reduce-scatter of {rs[0]} calls and {rs[1]:,} B, "
+                  f"all-gathers of {ag[0]} calls and {ag[1]:,} B per "
+                  f"replica ({n_params:,} parameters), nothing else sent; "
+                  f"momentum held {rec['momentum_bytes']} B a replica "
+                  f"(whole {4 * n_params:,})")
+            print(f"  replicas bit-equal after every step (params, the "
+                  f"momentum pieces combined{', pred' if stream else ''}: "
                   f"{len(reps[0]['digests'][0])} leaves); losses "
                   f"{[round(x, 6) for x in losses]} against the one "
                   f"process's {[round(x, 6) for x in one['loss']]}: "
@@ -4701,13 +4986,15 @@ def data_pipe(torch, ops) -> dict:
             print(f"  step wall (replica 0, median of the unprofiled steady "
                   f"steps {[round(w, 3) for w in walls]}): {wall:.3f} ms, "
                   f"{rec['tok_per_s']:.1f} tokens/s (one process "
-                  f"{one_wall:.3f} ms); reduction host "
-                  f"{[round(t, 1) for t in reduce_ms]} ms a step; busy "
+                  f"{one_wall:.3f} ms); reduce-scatter host "
+                  f"{[round(t, 1) for t in reduce_ms]} ms, all-gathers "
+                  f"{[round(t, 1) for t in gather_ms]} ms a step; busy "
                   f"{[round(b, 3) for b in busy]} ms in {rec['n_kernels']} "
                   f"kernels (profiled step {reps[0]['prof_step']}), idle "
                   f"{[round(i, 4) for i in rec['idle']]}; peak "
-                  f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; "
-                  f"run {run_s:.1f} s")
+                  f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB "
+                  f"(one process, whole momentum: "
+                  f"{one['peak_bytes'] / 2**30:.2f} GiB); run {run_s:.1f} s")
             gc.collect()
             torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -4715,15 +5002,275 @@ def data_pipe(torch, ops) -> dict:
     return out
 
 
+# phase 29: the tensor axis, full-width granite-8b at 4 layers in 2
+# stages (1,275 M parameters), the training batch, spectrain, DP_STEPS
+# ticks,
+# two tensor ranks sharing the card over gloo-host; and a short fp32
+# pair (2 layers, 4 x 256) held to the one process at the CPU tests'
+# tolerance
+TENSOR_RANKS, TENSOR_LAYERS = 2, 4
+TENSOR_ARGV = ["--arch", ARCH, "--layers", str(TENSOR_LAYERS), "--pipe",
+               str(DATA_PIPE_STAGES), "--batch", str(TRAIN_BATCH), "--seq",
+               str(TRAIN_SEQ), "--dtype", "bfloat16", "--data-kind",
+               "uniform", "--seed", "0", "--steps", str(DP_STEPS),
+               "--log-every", "1", "--mode", "spectrain"]
+TENSOR_FP32_ARGV = ["--arch", ARCH, "--layers", "2", "--pipe", "2",
+                    "--batch", "4", "--seq", "256", "--dtype", "float32",
+                    "--data-kind", "uniform", "--seed", "0", "--steps",
+                    str(DP_STEPS), "--log-every", "1", "--mode",
+                    "spectrain"]
+# the bf16 tick against the one-process tick: each row-parallel output
+# (wo, w2: 2 a layer) and the embedding's lookup is rounded to bf16 on
+# each rank before the ranks' halves are added, an extra rounding of at
+# most 2^-8 relative an element that the loss, a mean over 4,096
+# tokens, carries far below; the data axis's bound
+TENSOR_LOSS_RTOL = 2.0 ** -8
+TENSOR_FP32_TOL = (1e-4, 1e-5)      # rtol, atol: the CPU tests'
+
+
+def tensor_all_reduces(L: int, rows: int, seq: int, d: int, el: int
+                       ) -> tuple:
+    """(calls, bytes) of one spectrain tick's tensor all-reduces a rank:
+    [rows, seq, d] activations in the compute dtype (``el`` bytes) for
+    the inject's embedding, each layer's two row-parallel outputs
+    forward and in the backward's recompute, each layer's two
+    column-parallel inputs' cotangents backward, the head's
+    column-parallel input's cotangent and the embedding backward's
+    lookup (6L + 3); fp32 [rows, seq] for the head's max, sum of
+    exponentials and gold logit (3).  granite-8b's KV heads shard, so
+    no K/V weight gradient is summed."""
+    big, small = 6 * L + 3, 3
+    return big + small, big * rows * seq * d * el + small * rows * seq * 4
+
+
+def tensor_train(torch, ops) -> dict:
+    """Phase 29: ``repro_torch.launch.train.main --tensor 2`` (see the
+    module docstring): the exact launches a tick per rank, the tensor
+    all-reduces a tick, the losses tick by tick against the one-process
+    tick of the same flags, the fp32 pair at the CPU tolerance, and the
+    tick's wall, busy, idle share, peak and transport seconds per
+    rank."""
+    from repro_torch.launch import train
+    from repro_torch.runtime import sharding as rsh
+    t_phase = time.perf_counter()
+    T = TENSOR_RANKS
+    cfg = train.build(train.parse_args(TENSOR_ARGV))
+    L, S = cfg.n_layers, DATA_PIPE_STAGES
+    want = data_pipe_launches(L, S, 1, True)
+    out = {}
+    phase(f"phase 29 (tensor_train): the one-process tick, {ARCH} full "
+          f"width, {L} layers in {S} stages, bf16, {DP_STEPS} ticks")
+    (one,), _ = _dp_run(torch, 1, want, "tensor one process", TENSOR_ARGV)
+    one_losses, one_wall = one["loss"], _median(_steady(one))
+    transport = rsh.choose_transport("cuda", T)
+    what = f"--tensor {T} tick spectrain"
+    phase(f"phase 29 (tensor_train): repro_torch.launch.train.main "
+          f"--tensor {T}, {ARCH} full width ({cfg.n_heads // T} of "
+          f"{cfg.n_heads} query heads, {cfg.n_kv_heads // T} of "
+          f"{cfg.n_kv_heads} KV heads, {cfg.d_ff // T} of {cfg.d_ff} MLP "
+          f"columns, {cfg.vocab_padded // T} vocabulary rows a rank), {L} "
+          f"layers in {S} stages, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, "
+          f"{DP_STEPS} ticks, {transport}")
+    reps, run_s = _dp_run(torch, 1, want, what, TENSOR_ARGV, tensor=T)
+    want_t = rsh.describe_transport(transport, T)
+    check(all(r["transport"] == want_t for r in reps),
+          f"{what}: transport {reps[0]['transport']!r}, expected "
+          f"{want_t!r}")
+    n_ar, b_ar = tensor_all_reduces(L, TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                                    2)
+    for rep in reps:
+        prev = {k: 0 for k in want}
+        for s_, c in enumerate(rep["counts"]):
+            got = {k: c[k] - prev[k] for k in want}
+            check(got == want, f"{what}: rank {rep['rank']} tick {s_} "
+                  f"launched {got}, expected {want}")
+            prev = c
+        check(rep["variants"][-1]["flash_fwd_mma"]
+              == want["flash_fwd"] * DP_STEPS,
+              f"{what}: rank {rep['rank']} ran flash_fwd off the tensor "
+              f"cores")
+        for s_, x in enumerate(rep["tp"]):
+            check((x["n_tp"], x["bytes_tp"]) == (n_ar, b_ar),
+                  f"{what}: rank {rep['rank']} tick {s_} ran "
+                  f"{x['n_tp']} tensor all-reduces of {x['bytes_tp']} B, "
+                  f"expected {n_ar} of {b_ar} B")
+        for x in rep["xfer"] + rep.get("dxfer", []):
+            check(x["n_reduce"] + x["n_rs"] + x["n_sent"] == 0,
+                  f"{what}: rank {rep['rank']} moved {x} over the data "
+                  f"axis, which has one replica")
+    check(reps[0]["loss"] == reps[1]["loss"],
+          f"{what}: the ranks' losses differ: {reps[0]['loss']} vs "
+          f"{reps[1]['loss']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(reps[0]["loss"],
+                                                 one_losses))
+    check(rel <= TENSOR_LOSS_RTOL,
+          f"{what}: losses {reps[0]['loss']} against the one process's "
+          f"{one_losses}: {rel:.3e} relative, beyond "
+          f"{TENSOR_LOSS_RTOL:.3e}")
+    walls = _steady(reps[0])
+    check(bool(walls), f"{what}: no unprofiled steady tick")
+    wall = _median(walls)
+    busy = [r["busy_ms"] for r in reps]
+    tp_ms = [_steady_xfer(r, "tp", "tp_s") for r in reps]
+    rec = {"wall_ms": wall, "walls_ms": walls, "one_wall_ms": one_wall,
+           "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall * 1e3,
+           "busy_ms": busy, "idle": [1 - b / wall for b in busy],
+           "n_kernels": [r["n_kernels"] for r in reps], "tp_ms": tp_ms,
+           "n_tp": n_ar, "bytes_tp": b_ar, "losses": reps[0]["loss"],
+           "one_losses": one_losses, "loss_rel": rel,
+           "peak_bytes": [r["peak_bytes"] for r in reps],
+           "transport": reps[0]["transport"], "per_tick": want,
+           "launches": {k: T * v * DP_STEPS for k, v in want.items()},
+           "run_s": run_s}
+    out["bf16"] = rec
+    print(f"  transport: {rec['transport']}")
+    print(f"  launches a tick, every rank: {want}, exact on every tick, "
+          f"every attention launch on the tensor cores at "
+          f"{cfg.n_heads // T} heads over {cfg.n_kv_heads // T}; {n_ar} "
+          f"tensor all-reduces a tick of {b_ar:,} B a rank (6L + 3 of "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.d_model}] bf16 and 3 of "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}] fp32), exact")
+    print(f"  losses {[round(x, 6) for x in rec['losses']]} (both ranks) "
+          f"against the one-process tick's "
+          f"{[round(x, 6) for x in one_losses]}: {rel:.3e} relative "
+          f"(allowed {TENSOR_LOSS_RTOL:.3e})")
+    print(f"  tick wall (rank 0, median of the unprofiled steady ticks "
+          f"{[round(w, 3) for w in walls]}): {wall:.3f} ms, "
+          f"{rec['tok_per_s']:.1f} tokens/s (one process {one_wall:.3f} "
+          f"ms); tensor all-reduce host {[round(t, 1) for t in tp_ms]} ms "
+          f"a tick; busy {[round(b, 3) for b in busy]} ms in "
+          f"{rec['n_kernels']} kernels (profiled tick "
+          f"{reps[0]['prof_step']}), idle "
+          f"{[round(i, 4) for i in rec['idle']]}; peak "
+          f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; run "
+          f"{run_s:.1f} s")
+    # the fp32 pair
+    cfg32 = train.build(train.parse_args(TENSOR_FP32_ARGV))
+    phase(f"phase 29 (tensor_train): the fp32 pair, {ARCH} full width, "
+          f"{cfg32.n_layers} layers in {S} stages, batch 4 x 256, fp32 "
+          f"(TF32 off), {DP_STEPS} ticks, one process and --tensor {T}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (one32,) = _loss_run(TENSOR_FP32_ARGV, 1)
+    tp32 = _loss_run(TENSOR_FP32_ARGV + ["--tensor", str(T)], T)
+    run32 = time.perf_counter() - t0
+    check(tp32[0] == tp32[1], f"fp32 --tensor {T}: the ranks' losses "
+          f"differ: {tp32}")
+    rtol, atol = TENSOR_FP32_TOL
+    for a, b in zip(tp32[0], one32):
+        check(abs(a - b) <= atol + rtol * abs(b),
+              f"fp32 --tensor {T}: losses {tp32[0]} against the one "
+              f"process's {one32} beyond rtol {rtol} / atol {atol}")
+    worst = max(abs(a - b) for a, b in zip(tp32[0], one32))
+    out["fp32"] = {"losses": tp32[0], "one": one32, "max_abs": worst,
+                   "run_s": run32}
+    print(f"  fp32: losses {[round(x, 7) for x in tp32[0]]} (both ranks) "
+          f"against the one process's {[round(x, 7) for x in one32]}: "
+          f"max |d| {worst:.3e} (rtol {rtol} / atol {atol}); the pair's "
+          f"runs {run32:.1f} s")
+    if torch.cuda.device_count() >= 4:
+        out["grid"] = tensor_grid(torch, want)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 29: {out['seconds']:.1f} s")
+    return out
+
+
+def tensor_grid(torch, want: dict) -> dict:
+    """Where there are four cards: ``--tensor 4`` and ``--data 2 --tensor
+    2`` over NCCL, a card a rank, phase 29's model and batch: each
+    rank's exact launches and losses, the tick's wall and the
+    collectives' host seconds (the tensor all-reduces, ZeRO-1's
+    reduce-scatter and all-gathers) and its peak.  No check beyond the
+    launches and the ranks' agreement depends on four cards."""
+    out = {}
+    for n, t in ((1, 4), (2, 2)):
+        what = f"--data {n} --tensor {t}"
+        phase(f"phase 29 (tensor_train): {what} over NCCL, {ARCH} full "
+              f"width, {TENSOR_LAYERS} layers in {DATA_PIPE_STAGES} stages, "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, {DP_STEPS} ticks")
+        reps, run_s = _dp_run(torch, n, want, what, TENSOR_ARGV, tensor=t)
+        for rep in reps:
+            prev = {k: 0 for k in want}
+            for s_, c in enumerate(rep["counts"]):
+                got = {k: c[k] - prev[k] for k in want}
+                check(got == want, f"{what}: rank {rep['rank']} tick {s_} "
+                      f"launched {got}, expected {want}")
+                prev = c
+        for d in range(n):          # a replica's tensor ranks agree
+            grp = reps[d * t:(d + 1) * t]
+            check(all(r["loss"] == grp[0]["loss"] for r in grp),
+                  f"{what}: replica {d}'s tensor ranks' losses differ")
+        wall = _median(_steady(reps[0]))
+        rec = {"wall_ms": wall, "run_s": run_s,
+               "tp_ms": [_steady_xfer(r, "tp", "tp_s") for r in reps],
+               "data_ms": [_steady_xfer(r, "dxfer", "reduce_s")
+                           + _steady_xfer(r, "dxfer", "gather_s")
+                           for r in reps],
+               "peak_bytes": [r["peak_bytes"] for r in reps],
+               "transport": reps[0]["transport"]}
+        out[(n, t)] = rec
+        print(f"  {what} ({rec['transport']}): tick wall {wall:.3f} ms; "
+              f"tensor all-reduce host {[round(x, 3) for x in rec['tp_ms']]}"
+              f" ms, ZeRO-1 host {[round(x, 3) for x in rec['data_ms']]} ms "
+              f"a tick; peak "
+              f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; "
+              f"run {run_s:.1f} s")
+    return out
+
+
+def run_tensor_only() -> int:
+    """``python3 chip_smoke.py --tensor-only``: the card, the build and
+    phase 29 alone (with four cards, its NCCL grid runs too)."""
+    torch = _torch_or_none()
+    if torch is None:
+        return 2
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    t_start = _T0[0] = time.perf_counter()
+    try:
+        info = card_info(torch)
+        build_kernels(build, r6, m2, fa, fu)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tens = tensor_train(torch, ops)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print_tensor(tens)
+    print_phase_seconds()
+    print(f"chip_smoke --tensor-only: passed in "
+          f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
+    return 0
+
+
+def print_tensor(tens: dict) -> None:
+    r = tens["bf16"]
+    print(f"tensor axis --tensor {TENSOR_RANKS} tick spectrain "
+          f"({r['transport']}): {r['wall_ms']:.3f} ms a tick (one process "
+          f"{r['one_wall_ms']:.3f}), {r['n_tp']} tensor all-reduces of "
+          f"{r['bytes_tp']:,} B a tick a rank in {r['tp_ms']} ms, idle "
+          f"{[round(i, 4) for i in r['idle']]}, peak "
+          f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB; losses "
+          f"within {r['loss_rel']:.3e} of the one process's; fp32 pair "
+          f"max |d| {tens['fp32']['max_abs']:.3e}")
+
+
 def print_data_pipe(dpipe: dict) -> None:
     """Phase 28's summary lines."""
     for (label, n), r in dpipe["runs"].items():
-        print(f"data axis --data {n} {label} ({r['transport']}): "
+        print(f"data axis --data {n} {label} ({r['transport']}, ZeRO-1): "
               f"{r['wall_ms']:.3f} ms a step (one process "
-              f"{r['one_wall_ms']:.3f}), reduction {r['reduce_ms']} ms, "
-              f"idle {[round(i, 4) for i in r['idle']]}; losses within "
-              f"{r['loss_rel']:.3e} of the one process's; replicas "
-              f"bit-equal every step")
+              f"{r['one_wall_ms']:.3f}), reduce-scatter {r['reduce_ms']} "
+              f"ms, all-gathers {r['gather_ms']} ms, idle "
+              f"{[round(i, 4) for i in r['idle']]}; peak "
+              f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB; "
+              f"losses within {r['loss_rel']:.3e} of the one process's; "
+              f"replicas bit-equal every step")
+    print(f"fused_update on ZeRO-1 pieces: {dpipe['fu_pieces']}")
 
 
 def mpmd_serve(torch, ops, pipelined: dict, archs=PIPE_ARCHS) -> dict:
@@ -4844,7 +5391,8 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
     by_shape = [bwd_timing(torch, fa, ref, BwdCase(
         "train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
         32, 8, 128, "bfloat16", True), bwd_errs)]
-    for tag, heads in WIDE_GQA:        # granite-20b's and starcoder2-15b's
+    # granite-20b's and starcoder2-15b's, and a tensor rank's (phase 29)
+    for tag, heads in WIDE_GQA + TP_GQA:
         by_shape.append(bwd_timing(torch, fa, ref, BwdCase(
             f"{tag} train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
             TRAIN_SEQ, *heads, "bfloat16", True), bwd_errs))
@@ -6876,12 +7424,16 @@ def run_dp_only() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dpipe = data_pipe(torch, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tens = tensor_train(torch, ops)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print_dp(dp)
     print_data_pipe(dpipe)
+    print_tensor(tens)
     print_phase_seconds()
     print(f"chip_smoke --dp-only: passed in "
           f"{time.perf_counter() - t_start:.1f}s on {info['smi']}")
@@ -6982,6 +7534,9 @@ def run() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dpipe = data_pipe(torch, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tens = tensor_train(torch, ops)
         evaluation = paper_eval(torch, ops, fu)
         bench_scripts(torch)
         rows = timings(torch, fa, ref, errs)
@@ -7119,6 +7674,11 @@ def run() -> int:
                 k["launches_by_path"][
                     f"train data axis --data {n} {label} ({DATA_PIPE_LAYERS}"
                     f" layers, sum over replicas)"] = r["launches"][k["name"]]
+            if k["name"] in tens["bf16"]["launches"]:
+                k["launches_by_path"][
+                    f"train tensor axis --tensor {TENSOR_RANKS} "
+                    f"({TENSOR_LAYERS} layers, sum over ranks)"] = \
+                    tens["bf16"]["launches"][k["name"]]
     # minicpm3-4b (multi-head latent attention): rows 1-3 at (96, 64)
     for k in kernels:
         if k["name"] not in mla_rows:
@@ -7355,6 +7915,7 @@ def run() -> int:
           f"{'; '.join(traced['bench'])}")
     print_dp(dp)
     print_data_pipe(dpipe)
+    print_tensor(tens)
     for (arch, engine), r in new_srv.items():
         run = r["run"]
         print(f"{arch} serving ({engine}, {r['layers']} layers, bf16): "
@@ -7488,4 +8049,6 @@ def run() -> int:
 
 if __name__ == "__main__":
     sys.exit(run_mpmd_only() if "--mpmd-only" in sys.argv[1:]
-             else run_dp_only() if "--dp-only" in sys.argv[1:] else run())
+             else run_dp_only() if "--dp-only" in sys.argv[1:]
+             else run_tensor_only() if "--tensor-only" in sys.argv[1:]
+             else run())

@@ -27,7 +27,8 @@ schedules, the step wall of the stream tick).  ``Runtime(..., data=)``
 binds one data-parallel replica (a ``StageGroup`` of the replicas,
 kept apart from the MPMD stage ``group``): the tick or the round takes
 the global batch, runs the replica's block of each microbatch and
-averages the gradients over the replicas (``core/pipeline_stream.py``);
+averages the gradients over the replicas (``core/pipeline_stream.py``),
+with ZeRO-1 momentum unless ``zero1=False`` (``optim/sgd.py``);
 SPMD only, as in the JAX twin.
 
 ``add_runtime_args`` / ``runtime_config_from_args`` are the argparse
@@ -126,7 +127,7 @@ class Runtime:
 
     def __init__(self, plan, model, config: Optional[RuntimeConfig]
                  = None, *, registry=None, group=None, tracer=None,
-                 data=None):
+                 data=None, tensor=None, zero1: bool = True):
         from repro_torch.planner.api import PipelinePlan, ServePlan
         if not isinstance(plan, (PipelinePlan, ServePlan)):
             raise TypeError(
@@ -152,16 +153,21 @@ class Runtime:
                 f"execution='mpmd' runs IR round schedules "
                 f"({'/'.join(ps.IR_SCHEDULES)}); the plan's schedule is "
                 f"{plan.schedule!r}")
-        if data is not None and data.world > 1 and (
-                self.serving or self.config.execution == "mpmd"):
+        for axis, g in (("data", data), ("tensor", tensor)):
+            if g is None or g.world == 1 or not (
+                    self.serving or self.config.execution == "mpmd"):
+                continue
             raise ValueError(str(ps._unsupported(
-                "a data axis (data=) with "
+                f"a {axis} axis ({axis}=) with "
                 + ("serving" if self.serving else "execution='mpmd'"),
-                "data-parallel replicas run the SPMD training steps; mpmd "
+                ("data-parallel replicas" if axis == "data" else
+                 "tensor ranks") + " run the SPMD training steps; mpmd "
                 "runs pure pipeline parallelism (data/tensor axes belong to "
                 "the SPMD path, as in the JAX twin)",
-                "execution='spmd' training with data=, or no data axis")))
-        self.group, self.data = group, data
+                f"execution='spmd' training with {axis}=, or no {axis} "
+                f"axis")))
+        self.group, self.data, self.zero1 = group, data, zero1
+        self.tensor = tensor
         if not self.serving and self.config.schedule is not None \
                 and self.config.schedule != plan.schedule:
             raise ValueError(
@@ -192,10 +198,12 @@ class Runtime:
             return ps.make_ir_state(self.model, params, batch,
                                     plan=self.plan, mode=c.mode,
                                     execution=c.execution, verify=c.verify,
-                                    group=self.group)
+                                    group=self.group, data=self.data,
+                                    zero1=self.zero1)
         return ps.make_state(self.model, params, batch, mode=c.mode,
                              ticks_per_step=c.ticks_per_step,
-                             plan=self.plan, data=self.data)
+                             plan=self.plan, data=self.data,
+                             zero1=self.zero1)
 
     def train_step(self, state, batch):
         """One training step (round or tick group), built on first
@@ -208,12 +216,12 @@ class Runtime:
                     self.model, plan=self.plan, mode=c.mode, lr=c.lr,
                     gamma=c.gamma, clip=c.clip, backend=c.backend,
                     execution=c.execution, group=self.group,
-                    tracer=self.tracer, data=self.data)
+                    tracer=self.tracer, data=self.data, tensor=self.tensor)
             else:
                 fn = ps.make_train_step(
                     self.model, mode=c.mode, lr=c.lr, gamma=c.gamma,
                     clip=c.clip, ticks_per_step=c.ticks_per_step,
-                    plan=self.plan, data=self.data)
+                    plan=self.plan, data=self.data, tensor=self.tensor)
             if self.tracer is not None:
                 fn = self.tracer.wrap_step(fn)
             self._step = fn

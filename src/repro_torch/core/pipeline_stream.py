@@ -91,6 +91,18 @@ over the replicas (``StageGroup.all_reduce_mean``, fp32) once a tick or
 once a round, before clipping and the update, so every replica runs
 the same update on the same bits.  ``loss`` and ``aux`` stay the
 replica's: their mean over the replicas is the whole microbatch's.
+With ZeRO-1 momentum (the default: ``make_state`` / ``make_ir_state``
+with ``zero1=True``) the average is a reduce-scatter, each replica
+updates its pieces and the weights are all-gathered
+(``optim.sgd.update_groups``); 2BW stashes the pieces, and spectrain's
+predicted reads in the rounds are predicted piece by piece and gathered.
+
+``tensor=`` (the rank's tensor group of a ``(data, tensor)`` grid)
+runs the step as one tensor rank: the state holds the rank's blocks of
+the leaves the JAX rules shard over ``tensor`` (``Model.init(...,
+tensor=)``), the layers run Megatron-style inside
+``models.tensor_axis.tensor_axis``, and the clip norm counts the
+replicated leaves once.  The rings stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -101,6 +113,7 @@ import torch
 
 from repro_torch.core import spectrain as st
 from repro_torch.models import moe
+from repro_torch.models import tensor_axis as tp
 from repro_torch.models.layers import dtype_of, tree_leaves, tree_map
 from repro_torch.models.model import cast_for_compute
 from repro_torch.optim import sgd
@@ -215,36 +228,45 @@ def _replicas(data) -> int:
     return 1 if data is None else data.world
 
 
-def _data_mean(data, grads):
-    """``grads`` averaged over the data replicas in place (a leaf in
-    another dtype than fp32, a ``bwd_dtype`` gradient, is widened first,
-    exactly); as it is without replicas."""
-    if _replicas(data) == 1:
-        return grads
-    grads = tree_map(lambda _, g: g if g.dtype == torch.float32
-                     else g.float(), grads)
-    return data.all_reduce_mean(grads)
-
-
-def _data_step(step, data, units: int) -> Callable:
+def _data_step(step, data, units: int, tensor=None) -> Callable:
     """``step`` on the replica's rows of the global batch (its block of
     each of the ``units`` forward units), with the MoE layers routing as
-    one replica of the whole microbatch; ``step`` itself without
-    replicas."""
-    if _replicas(data) == 1:
+    one replica of the whole microbatch, and, on a tensor axis, the
+    layers running as one rank of ``tensor`` (``models.tensor_axis``);
+    ``step`` itself without replicas or tensor ranks."""
+    if _replicas(data) == 1 and _replicas(tensor) == 1:
         return step
 
     def replica_step(state, batch):
-        batch = rsh.replica_rows(device_batch(batch, data.device), units,
-                                 data.rank, data.world)
-        with moe.data_axis(data):
+        if _replicas(data) > 1:
+            batch = rsh.replica_rows(device_batch(batch, data.device),
+                                     units, data.rank, data.world)
+        with moe.data_axis(data), tp.tensor_axis(tensor):
             return step(state, batch)
     return replica_step
 
 
+def _tensor_dims(model, tensor):
+    """The leaf dims the tensor group shards (checked), or None."""
+    if _replicas(tensor) == 1:
+        return None
+    why = rsh.tensor_refusal(model.cfg, tensor.world)
+    if why:
+        raise NotImplementedError(why)
+    return rsh.tensor_leaf_dims(model.cfg, model, tensor.world)
+
+
+def _momentum(params, data, zero1: bool):
+    """The state's momentum: whole fp32 zeros, or the replica's ZeRO-1
+    pieces with a data group of N > 1 and ``zero1``."""
+    if zero1 and _replicas(data) > 1:
+        return sgd.init_shard(params, data.rank, data.world)
+    return sgd.init(params).v
+
+
 def make_state(model, params, batch, *, mode: str = "spectrain",
                ticks_per_step: int = 1, fused_predict: bool = False,
-               plan=None, data=None) -> Dict[str, Any]:
+               plan=None, data=None, zero1: bool = True) -> Dict[str, Any]:
     """Streaming train state: params + momentum + in-flight rings.
 
     ``params`` is the ragged canonical tree on the model's device, fp32;
@@ -257,14 +279,16 @@ def make_state(model, params, batch, *, mode: str = "spectrain",
     stage trees (a copy when its sizes differ from the model's split)
     and whose IR-derived vectors size the rings.  ``data``: the replicas'
     group, whose rank's rings hold its block of each tick's microbatch
-    (``batch`` stays the global batch)."""
+    (``batch`` stays the global batch) and, with ``zero1`` (the JAX
+    package's default), whose momentum is the replica's ZeRO-1 pieces
+    (``optim.sgd.init_shard``)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     cfg = model.cfg
     S = model.n_stages
     dev = model.device
     if S == 1:
-        return {"params": params, "momentum": sgd.init(params).v,
+        return {"params": params, "momentum": _momentum(params, data, zero1),
                 "step": 0}
     _, lag, gap = _plan_vectors(S, plan)
     sizes = stage_sizes(model, plan)
@@ -272,7 +296,8 @@ def make_state(model, params, batch, *, mode: str = "spectrain",
               "stages": model.partition_stage_params(params["stages"],
                                                      sizes)}
     state: Dict[str, Any] = {"params": params,
-                             "momentum": sgd.init(params).v, "step": 0}
+                             "momentum": _momentum(params, data, zero1),
+                             "step": 0}
     cdt = dtype_of(cfg.compute_dtype)
     if mode == "spectrain":
         pdt = cdt if fused_predict else None
@@ -320,7 +345,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
                     gamma: float = 0.9, clip: Optional[float] = None,
                     ticks_per_step: int = 1,
                     bwd_dtype: Optional[str] = None, plan=None,
-                    data=None) -> Callable:
+                    data=None, tensor=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, updating the
     state in place.  (The JAX twin's ``fused_predict`` is a ``make_state``
     option here: the step writes the prediction in whatever dtype the
@@ -338,9 +363,12 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
     takes its aux loss with cotangent ``valid_b[k]``, as the JAX twin's
     does.  ``data``: the replicas' group (see the module docstring); the
     state must come from ``make_state(..., data=)`` with the same
-    group, and ``metrics`` are the replica's."""
+    group, and ``metrics`` are the replica's.  ``tensor``: the rank's
+    tensor group (see the module docstring); the state's leaves are the
+    rank's blocks (``Model.init(..., tensor=)``)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+    dims = _tensor_dims(model, tensor)
     S = model.n_stages
     s_fwd, bwd_lag, fb_gap = _plan_vectors(S, plan)
     if plan is not None:
@@ -359,11 +387,9 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             leaves = _leaves_like(state["params"])
             loss, aux = model.loss_and_aux(leaves, batch)
             grads, _ = _grads(loss, leaves, None)
-        grads = _data_mean(data, grads)
-        if clip:
-            grads, _ = sgd.clip_by_global_norm(grads, clip)
-        sgd.update(state["params"], sgd.MomentumState(state["momentum"]),
-                   grads, lr=lr, gamma=gamma)
+        sgd.update_groups([(state["params"], state["momentum"], grads, 0.0,
+                            None)], lr=lr, gamma=gamma, clip=clip,
+                          data=data, tensor=tensor, tensor_dims=dims)
         state["step"] += 1
         metrics = {"loss": loss.detach(), "loss_valid": 1.0}
         if model.cfg.moe is not None:
@@ -372,7 +398,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
 
     if S == 1:
         # the one stage forwards the whole batch at once
-        return _data_step(step_degenerate, data, 1)
+        return _data_step(step_degenerate, data, 1, tensor)
 
     # ------------------------------------------------------------- S > 1
     def tick_fn(state: Dict[str, Any], batch):
@@ -456,10 +482,6 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             (g_tok,) = torch.autograd.grad(emb, [tok], gX[0] * valid_b[0])
         g_outer["embed"]["tok"] = g_outer["embed"]["tok"] + g_tok
 
-        grads = _data_mean(data, {"outer": g_outer, "stages": tuple(gW)})
-        if clip:
-            grads, _ = sgd.clip_by_global_norm(grads, clip)
-
         # ---------- per-tick, per-stage update (in place) ---------------
         if mode == "pipedream":
             # the stash ring takes this tick's weights before the update
@@ -468,13 +490,16 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
                                 tree_leaves(stages[k])):
                     r[slot].copy_(p)
         pred = state.get("pred")
-        sgd.update(outer, sgd.MomentumState(mom["outer"]), grads["outer"],
-                   lr=lr, gamma=gamma, s=s_fwd[0],
-                   pred=None if pred is None else pred["outer"])
-        for k in range(S):
-            sgd.update(stages[k], sgd.MomentumState(mom["stages"][k]),
-                       grads["stages"][k], lr=lr, gamma=gamma, s=s_fwd[k],
-                       pred=None if pred is None else pred["stages"][k])
+        # the gradients averaged over the replicas (whole, or ZeRO-1's
+        # pieces), clipped, then one fused update a tree: outer, stages
+        sgd.update_groups(
+            [(outer, mom["outer"], g_outer, s_fwd[0],
+              None if pred is None else pred["outer"])]
+            + [(stages[k], mom["stages"][k], gW[k], s_fwd[k],
+                None if pred is None else pred["stages"][k])
+               for k in range(S)],
+            lr=lr, gamma=gamma, clip=clip, data=data, tensor=tensor,
+            tensor_dims=dims)
 
         # ---------- rotate in-flight buffers -----------------------------
         with torch.no_grad():
@@ -512,7 +537,7 @@ def make_train_step(model, *, mode: str = "spectrain", lr: float,
             metrics["aux"] = sum(auxes) / T
         return state, metrics
 
-    return _data_step(train_step, data, ticks_per_step)
+    return _data_step(train_step, data, ticks_per_step, tensor)
 
 
 
@@ -590,7 +615,8 @@ def _ir_plan_check(model, plan) -> Tuple[int, ...]:
 
 def make_ir_state(model, params, batch=None, *, plan,
                   mode: str = "spectrain", execution: Optional[str] = None,
-                  verify: bool = True, group=None) -> Dict[str, Any]:
+                  verify: bool = True, group=None, data=None,
+                  zero1: bool = True) -> Dict[str, Any]:
     """Train state for the IR interpreter: chunked params + momentum
     (+ the 2BW double buffer when the IR derives a stash depth of 2).
 
@@ -610,7 +636,10 @@ def make_ir_state(model, params, batch=None, *, plan,
     with ``{}`` for every chunk tree another rank holds and only the
     outer leaves this rank reads, on the group's device: copied out of
     a whole model (which the caller can then drop), or taken over when
-    ``params`` is already the rank's part (``Model.init_part``)."""
+    ``params`` is already the rank's part (``Model.init_part``).
+
+    ``data`` with ``zero1``: the replica's momentum (and 2BW's stashed
+    momentum) is its ZeRO-1 pieces (``optim.sgd.init_shard``)."""
     del batch
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -625,7 +654,8 @@ def make_ir_state(model, params, batch=None, *, plan,
                   "stages": model.partition_stage_params(
                       params["stages"], sizes, n_chunks=plan.n_chunks)}
     state: Dict[str, Any] = {"params": params,
-                             "momentum": sgd.init(params).v, "step": 0}
+                             "momentum": _momentum(params, data, zero1),
+                             "step": 0}
     if max(plan.w_stash_depth) > 1:
         # 2BW: reads are pinned one version back; the stash starts equal
         # to the params (version 0 reads version 0, the IR's warm-up)
@@ -663,9 +693,10 @@ class _Round:
     adds nothing, where the JAX twin adds its zeros."""
 
     def __init__(self, model, base_p, base_m, *, mode: str, lr: float,
-                 mbs: Dict[str, torch.Tensor], n_chunks: int):
+                 mbs: Dict[str, torch.Tensor], n_chunks: int, data=None):
         self.model, self.base_p, self.base_m = model, base_p, base_m
         self.mode, self.lr, self.mbs = mode, lr, mbs
+        self.data = data
         self.cdt = dtype_of(model.cfg.compute_dtype)
         self._w: Dict[Tuple[str, int], Any] = {}
         # per-leaf accumulators (None: no contribution yet)
@@ -678,9 +709,22 @@ class _Round:
         return {k: v[m] for k, v in self.mbs.items()}
 
     def _predicted(self, w, v, s: int):
-        if self.mode == "spectrain" and s > 0:
-            return st.predict_weights(w, v, self.lr, float(s))
-        return w
+        if self.mode != "spectrain" or s <= 0:
+            return w
+        if _replicas(self.data) > 1 and sgd.is_shard(w, v):
+            # ZeRO-1: each replica predicts its pieces (the same
+            # elementwise Eq. 4), then the pieces are gathered
+            r, N = self.data.rank, self.data.world
+            out = _clone(w)
+            flat = tree_leaves(out)
+            for o, p in zip(sgd.piece_views(flat, r, N),
+                            st.predict_weights(
+                                sgd.piece_views(tree_leaves(w), r, N),
+                                tree_leaves(v), self.lr, float(s))):
+                o.copy_(p)
+            self.data.all_gather(flat)
+            return out
+        return st.predict_weights(w, v, self.lr, float(s))
 
     def chunk_w(self, q: int, s: int):
         key = ("c%d" % q, s)
@@ -801,7 +845,7 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
                        gamma: float = 0.9, clip: Optional[float] = None,
                        backend: str = "scan", tracer=None,
                        execution: Optional[str] = None,
-                       group=None, data=None) -> Callable:
+                       group=None, data=None, tensor=None) -> Callable:
     """Schedule-driven step, ``train_step(state, batch) -> (state,
     metrics)`` updating the state in place: one call executes one flush
     round (gpipe / 1f1b / interleaved) or one 2BW accumulation group of
@@ -832,11 +876,13 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
     ``data``: the replicas' group (see the module docstring): the step
     keeps the replica's block of each of the round's microbatches and
     averages the round's accumulated mean gradient over the replicas
-    once, before clipping and the update.  Refused under MPMD, as the
-    JAX twin refuses non-pipe mesh axes there."""
+    once, before clipping and the update.  ``tensor``: the rank's tensor
+    group, as for :func:`make_train_step`.  Both refused under MPMD, as
+    the JAX twin refuses non-pipe mesh axes there."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if (execution or "spmd") == "mpmd" and _replicas(data) > 1:
+    if (execution or "spmd") == "mpmd" and (_replicas(data) > 1
+                                            or _replicas(tensor) > 1):
         raise _unsupported(
             "execution='mpmd' with a data axis",
             "mpmd runs pure pipeline parallelism; data/tensor axes belong "
@@ -863,6 +909,7 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
         return _make_mpmd_step(model, plan=plan, mode=mode, lr=lr,
                                gamma=gamma, group=group, tracer=tracer)
     _ir_plan_check(model, plan)
+    dims = _tensor_dims(model, tensor)
     prog = plan.round_program()
     C, M = plan.n_chunks, plan.round_microbatches
     two_buf = max(plan.w_stash_depth) > 1
@@ -946,27 +993,24 @@ def make_ir_train_step(model, *, plan, mode: str = "spectrain", lr: float,
         base = state["stash"] if two_buf else {"params": params,
                                                "momentum": mom}
         rnd = _Round(model, base["params"], base["momentum"], mode=mode,
-                     lr=lr, mbs=mbs, n_chunks=C)
+                     lr=lr, mbs=mbs, n_chunks=C, data=data)
         run_round(rnd)
         grads, loss = rnd.grads(params, M)
         del rnd
-        grads = _data_mean(data, grads)
-        if clip:
-            grads, _ = sgd.clip_by_global_norm(grads, clip)
         if two_buf:
             _stash_before_update(state)
-        # one fused update launch per stage group: the outer tree, then
-        # each chunk tree
-        sgd.update(params["outer"], sgd.MomentumState(mom["outer"]),
-                   grads["outer"], lr=lr, gamma=gamma)
-        for q in range(C):
-            sgd.update(params["stages"][q],
-                       sgd.MomentumState(mom["stages"][q]),
-                       grads["stages"][q], lr=lr, gamma=gamma)
+        # averaged over the replicas and clipped, then one fused update
+        # launch per stage group: the outer tree, then each chunk tree
+        sgd.update_groups(
+            [(params["outer"], mom["outer"], grads["outer"], 0.0, None)]
+            + [(params["stages"][q], mom["stages"][q], grads["stages"][q],
+                0.0, None) for q in range(C)],
+            lr=lr, gamma=gamma, clip=clip, data=data, tensor=tensor,
+            tensor_dims=dims)
         state["step"] += 1
         return state, {"loss": loss, "loss_valid": 1.0}
 
-    return _data_step(step, data, M)
+    return _data_step(step, data, M, tensor)
 
 
 # ===========================================================================

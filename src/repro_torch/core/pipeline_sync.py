@@ -13,7 +13,10 @@ replicas), the step is one replica's: it runs on the replica's rows
 (``runtime.sharding.replica_rows`` of the global batch: its block of
 every microbatch, or of the whole batch at one stage), averages the gradients over the replicas
 (``all_reduce_mean``) and then updates, so every replica runs the same
-update on the same bits.  An MoE layer routes as one replica of the
+update on the same bits; with ZeRO-1 momentum (the default of
+:func:`init_state` with ``data=``) it reduce-scatters the gradient,
+updates its pieces and all-gathers the weights
+(``optim.sgd.update_groups``).  An MoE layer routes as one replica of the
 whole microbatch (``models.moe.data_axis``).
 """
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.core.pipeline_stream import (_grads, _leaves_like,
                                               device_batch)
-from repro_torch.models import moe
+from repro_torch.models import moe, tensor_axis
 from repro_torch.optim import sgd
 
 
@@ -76,7 +79,8 @@ def _loss_and_aux(model, params, batch, num_microbatches: int):
 
 def make_train_step(model, *, lr: float, gamma: float = 0.9,
                     num_microbatches: Optional[int] = None,
-                    clip: Optional[float] = None, group=None) -> Callable:
+                    clip: Optional[float] = None, group=None,
+                    tensor=None) -> Callable:
     """Synchronous pipelined train step (params+momentum in state),
     updating the state in place.  ``group``: the data group of the
     replicas, whose mean gradient (after the backward, before clipping
@@ -84,31 +88,44 @@ def make_train_step(model, *, lr: float, gamma: float = 0.9,
     rows (see the module docstring), an MoE layer routes
     as one replica of the whole microbatch, and ``metrics["loss"]`` stays
     this replica's loss (and, for MoE models, ``metrics["aux"]`` the aux
-    loss it includes)."""
+    loss it includes).  ``tensor``: the rank's tensor group; the state's
+    leaves are its blocks (``Model.init(..., tensor=)``) and the layers
+    run as one rank of it (``models.tensor_axis``)."""
+    from repro_torch.core.pipeline_stream import _tensor_dims
     M = num_microbatches or model.cfg.mesh_plan.num_microbatches
+    dims = _tensor_dims(model, tensor)
 
     def train_step(state: Dict[str, Any], batch):
         batch = device_batch(batch, model.device)
-        with torch.enable_grad(), moe.data_axis(group):
+        with torch.enable_grad(), moe.data_axis(group), \
+                tensor_axis.tensor_axis(tensor):
             leaves = _leaves_like(state["params"])
             loss, aux = _loss_and_aux(model, leaves, batch, M)
             grads, _ = _grads(loss, leaves, None)
-        if group is not None:
-            group.all_reduce_mean(grads)
         metrics = {"loss": loss.detach()}
         if model.cfg.moe is not None:
             metrics["aux"] = aux.detach()
+        norm = sgd.update_groups(
+            [(state["params"], state["momentum"], grads, 0.0, None)],
+            lr=lr, gamma=gamma, clip=clip, data=group, tensor=tensor,
+            tensor_dims=dims)
         if clip:
-            grads, metrics["grad_norm"] = sgd.clip_by_global_norm(grads,
-                                                                   clip)
-        sgd.update(state["params"], sgd.MomentumState(state["momentum"]),
-                   grads, lr=lr, gamma=gamma)
+            metrics["grad_norm"] = norm
         state["step"] += 1
         return state, metrics
 
     return train_step
 
 
-def init_state(model, generator: torch.Generator) -> Dict[str, Any]:
-    params = model.init(generator)
-    return {"params": params, "momentum": sgd.init(params).v, "step": 0}
+def init_state(model, generator: torch.Generator, *, data=None,
+               zero1: bool = True, tensor=None) -> Dict[str, Any]:
+    """Params drawn from ``generator`` (with ``tensor=(rank, T)`` the
+    rank's blocks, ``Model.init``) and zero momentum: whole, or with a
+    data group of N > 1 and ``zero1`` the replica's ZeRO-1 pieces
+    (``optim.sgd.init_shard``)."""
+    params = model.init(generator, tensor=tensor)
+    if zero1 and data is not None and data.world > 1:
+        mom = sgd.init_shard(params, data.rank, data.world)
+    else:
+        mom = sgd.init(params).v
+    return {"params": params, "momentum": mom, "step": 0}

@@ -131,7 +131,18 @@ def main(argv=None, *, ranks_out: Optional[list] = None) -> int:
     ap.add_argument("--metrics-out", default="", dest="metrics_out",
                     help="append per-request events, latency histograms "
                          "and the summary record as JSONL to this path")
+    ap.add_argument("--tensor", type=int, default=1,
+                    help="the mesh's tensor axis: serving runs 1 (larger "
+                         "is refused)")
     args = ap.parse_args(argv)
+    if args.tensor != 1:
+        raise SystemExit(
+            f"unsupported combination: --tensor {args.tensor} with serving "
+            f"— the serving engines' decode caches and rounds are not split "
+            f"over tensor ranks (the JAX package's decode_rules and "
+            f"cache_specs over tensor are not ported to them); supported "
+            f"alternative: --tensor 1 (with --pipe), or training with "
+            f"python -m repro_torch.launch.train --tensor {args.tensor}")
 
     registry = MetricsRegistry(jsonl_path=args.metrics_out or None)
     try:

@@ -70,19 +70,36 @@ refused), takes its block of every microbatch's rows
 (``runtime.sharding.replica_rows``: a tick's or round microbatch's rows
 split N ways, the whole batch's at one stage), runs the mode's step on
 them and averages the gradients over the replicas before the update,
-once a step (sync), a tick or a round (``StageGroup.all_reduce_mean``:
-NCCL with a card per replica, gloo through pinned host buffers when
-they share one, gloo on the CPU; the choice is printed).  An MoE
-model's routing stays the whole microbatch's (``models.moe.data_axis``).
-Replica 0 prints the step lines (the loss the mean of the replicas'),
-writes the checkpoints in the one-process layout (the rings' rows
-gathered; every replica restores the whole state and keeps its rows)
-and, under ``--trace``, the trace with each step's reduction seconds.
+once a step (sync), a tick or a round, with ZeRO-1 momentum (the JAX
+package's default layout): each replica holds its piece of every
+momentum leaf, reduce-scatters the fp32 gradient, updates its pieces of
+the weights, momentum and ŵ and all-gathers the weights and ŵ
+(``StageGroup.reduce_scatter_mean`` / ``all_gather``: NCCL with a card
+per replica, gloo through pinned host buffers when they share one, gloo
+on the CPU; the choice is printed, and each rank prints the momentum
+bytes it holds).  An MoE model's routing stays the whole microbatch's
+(``models.moe.data_axis``).  Rank 0 prints the step lines (the loss the
+mean of the replicas'), writes the checkpoints in the one-process
+layout (the momentum gathered, the rings' rows gathered; every rank
+restores the whole state and keeps its pieces, blocks and rows) and,
+under ``--trace``, the trace with each step's reduction seconds.
 Refused with ``--data`` > 1 (three-part messages): ``--execution mpmd``
 (pure pipeline parallelism there, as in the JAX package), a ``--batch``
 that N times the microbatches (``--ticks``, or the round size) does not
 divide, and an MoE microbatch whose dispatch groups the replicas cannot
 split whole.
+
+``--tensor T`` (default 1) is the mesh's tensor axis, composable with
+``--data N``: N·T processes, rank ``d·T + t`` (tensor innermost, as in
+the JAX mesh).  The dense decoders (granite-8b, granite-20b,
+starcoder2-15b and the paper's decoder-only configs) shard as the JAX
+rules put ``heads``, ``kv``, ``mlp`` and ``vocab`` over ``tensor``
+(Megatron-style: column-parallel ``wq`` / ``wk`` / ``wv`` / ``wg`` /
+``w1`` and unembedding, row-parallel ``wo`` / ``w2``, a vocab-parallel
+embedding and loss; ``models.tensor_axis``); each rank draws the model
+from ``--seed`` as one process does and keeps its blocks.  Every mode
+and schedule runs (SPMD only).  Refused in three parts: MoE, MLA, the
+SSM families, enc-dec and the vision frontend, ``--execution mpmd``.
 
 ``--arch`` takes the dense granite-8b, granite-20b, starcoder2-15b and
 pixtral-12b (its text backbone: the data has no patches),
@@ -130,7 +147,7 @@ from repro_torch.core import pipeline_stream, pipeline_sync
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.data.pipeline import KINDS
 from repro_torch.models import Model, moe
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.obs import (MetricsRegistry, PipelineTracer, drift_report,
                              format_drift, format_step, probe_stage_costs,
                              write_trace)
@@ -153,7 +170,7 @@ def build(args):
     if args.vocab:
         kw["vocab_size"] = args.vocab
     kw["mesh_plan"] = dataclasses.replace(
-        cfg.mesh_plan, pipe=args.pipe, tensor=1,
+        cfg.mesh_plan, pipe=args.pipe, tensor=getattr(args, "tensor", 1),
         num_microbatches=args.ticks)
     kw["param_dtype"] = "float32"
     kw["compute_dtype"] = args.dtype
@@ -290,6 +307,27 @@ def _data_refusal(args) -> Optional[str]:
     return None
 
 
+def _tensor_refusal(args, cfg) -> Optional[str]:
+    """The gates on ``--tensor T`` > 1, each in the three-part form: the
+    model kinds whose layers the port does not split over tensor ranks
+    (``runtime.sharding.tensor_refusal``) and stage-local execution."""
+    T = args.tensor
+    if T < 1:
+        return f"--tensor {T}: the tensor axis needs at least one rank"
+    if T == 1:
+        return None
+    if args.execution == "mpmd":
+        return str(pipeline_stream._unsupported(
+            f"--tensor {T} with --execution mpmd",
+            "mpmd runs pure pipeline parallelism; data/tensor axes belong "
+            "to the SPMD path (the JAX package's _mpmd_mesh refuses every "
+            "non-pipe mesh axis of size > 1)",
+            f"--execution spmd --tensor {T}, or --execution mpmd with "
+            f"--tensor 1"))
+    from repro_torch.runtime import sharding as rsh
+    return rsh.tensor_refusal(cfg, T)
+
+
 def _forward_units(args, n_stages: int) -> int:
     """The forward units a step cuts the global batch into, each split
     over the data replicas (``runtime.sharding.replica_rows``): the
@@ -383,6 +421,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--data", type=int, default=1,
                     help="the mesh's data axis: N replicas, one process "
                          "each")
+    ap.add_argument("--tensor", type=int, default=1,
+                    help="the mesh's tensor axis: T ranks a replica, one "
+                         "process each (heads, KV heads, MLP and "
+                         "vocabulary sharded)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--data-kind", default="bigram", choices=KINDS,
@@ -450,6 +492,9 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
     rc = runtime_config_from_args(args, ticks_per_step=max(args.ticks, 1))
 
     cfg = build(args)
+    why = _tensor_refusal(args, cfg)
+    if why:
+        raise SystemExit(why)
     if cfg.is_encdec:
         raise SystemExit(
             f"{cfg.name} is an encoder-decoder model, which this launcher "
@@ -465,10 +510,10 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
         raise SystemExit(why)
     pplan, ir_round = run_plan(args, cfg, model.device)
     _print_plan(pplan, ir_round)
-    if args.data > 1:
+    if args.data > 1 or args.tensor > 1:
         from repro_torch.launch.mesh import run_stage_ranks
         _print_data_axis(args, cfg, model, ir_round)
-        outs = run_stage_ranks(_train, args.data, args.device,
+        outs = run_stage_ranks(_train, args.data * args.tensor, args.device,
                                args=(args, cfg, pplan, ir_round, rc,
                                      on_step))
         return max(outs)
@@ -481,17 +526,25 @@ def main(argv=None, *, on_step: Optional[Callable] = None) -> int:
 
 
 def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
-    """The training loop of one process (``group`` None) or of one
-    replica of ``--data N`` (``group``: the replicas' ``StageGroup``).
-    A replica draws the whole model from ``--seed`` as the one process
-    does, runs the mode's step on its rows of every global batch with
-    the gradients averaged over the replicas, and restarts its peak-
-    memory statistics once the state is built; replica 0 prints, logs,
-    traces and writes the checkpoints.  ``on_step(step_index, state,
-    metrics)`` runs in every process with its state (under ``--data`` it
-    must pickle); ``metrics["loss"]`` is the process's own."""
+    """The training loop of one process (``group`` None) or of one rank
+    of the ``(data, tensor)`` grid of ``--data N --tensor T`` (``group``:
+    the world's ``StageGroup``, made a grid here: ``group.data`` the
+    rank's replicas, ``group.tensor`` its tensor ranks).  A rank draws
+    the whole model from ``--seed`` as the one process does and keeps
+    its tensor blocks, runs the mode's step on its replica's rows of
+    every global batch with the gradients averaged over the replicas
+    (ZeRO-1: its piece of the momentum), and restarts its peak-memory
+    statistics once the state is built; rank 0 prints, logs, traces and
+    writes the checkpoints.  ``on_step(step_index, state, metrics)``
+    runs in every process with its state (under ``--data`` or
+    ``--tensor`` it must pickle); ``metrics["loss"]`` is the process's
+    own."""
     from repro_torch.runtime import sharding as rsh
-    n = 1 if group is None else group.world
+    dgrp = tgrp = None
+    if group is not None:
+        rsh.init_grid(group, args.data, args.tensor)
+        dgrp, tgrp = group.data, group.tensor
+    n = 1 if group is None else dgrp.world
     lead = group is None or group.rank == 0
     model = Model(cfg, device=args.device if group is None
                   else group.device)
@@ -500,23 +553,27 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
                                   seed=args.seed, kind=args.data_kind))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     units = _forward_units(args, model.n_stages)
+    tblock = None if tgrp is None else (tgrp.rank, tgrp.world)
     tracer = None
     if args.mode == "sync":
-        state = pipeline_sync.init_state(model, gen)
+        state = pipeline_sync.init_state(model, gen, data=dgrp,
+                                         tensor=tblock)
         sync_step = pipeline_sync.make_train_step(
             model, lr=args.lr, gamma=args.gamma,
             num_microbatches=cfg.mesh_plan.num_microbatches,
-            clip=args.clip or None, group=group)
+            clip=args.clip or None, group=dgrp, tensor=tgrp)
 
         def step_fn(state, batch):
             if n > 1:
-                batch = rsh.replica_rows(batch, units, group.rank, n)
+                batch = rsh.replica_rows(batch, units, dgrp.rank, n)
             return sync_step(state, batch)
     else:
         if args.trace and lead:
             tracer = PipelineTracer(pplan, device=dev)
-        rt = Runtime(pplan, model, rc, tracer=tracer, data=group)
-        state = rt.init_state(model.init(gen), data.batch_at(0))
+        rt = Runtime(pplan, model, rc, tracer=tracer, data=dgrp,
+                     tensor=tgrp)
+        state = rt.init_state(model.init(gen, tensor=tblock),
+                              data.batch_at(0))
         if tracer is not None and not ir_round:
             # the fused tick is not separable per stage: probe each
             # stage's cost alone (PipeDream-style) for the per-device
@@ -529,11 +586,15 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
     if group is not None and dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    dims = None if tgrp is None else rsh.tensor_leaf_dims(cfg, model,
+                                                          tgrp.world)
+
     def save(s: int, background: bool = False):
         if group is None:
             return ckpt.save(args.ckpt_dir, state, s, background=background)
-        return ckpt.save_data(args.ckpt_dir, state, s, group,
-                              background=background)
+        return ckpt.save_data(args.ckpt_dir, state, s, dgrp,
+                              background=background, tensor=tgrp,
+                              tensor_dims=dims)
 
     start = 0
     if args.resume == "auto" and args.ckpt_dir:
@@ -541,8 +602,9 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
         if last is not None:
             state, last = (ckpt.restore(args.ckpt_dir, state)
                            if group is None else
-                           ckpt.restore_data(args.ckpt_dir, state, group,
-                                             step=last))
+                           ckpt.restore_data(args.ckpt_dir, state, dgrp,
+                                             step=last, tensor=tgrp,
+                                             tensor_dims=dims))
             start = last + 1
             if lead:
                 print(f"# resumed from step {last}")
@@ -556,16 +618,22 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
               f"device={device_name} "
               f"opt_floor={data.optimal_loss():.4f}")
     if group is not None:
+        from repro_torch.optim import sgd
         if lead:
             print(f"# data: {group.describe()}; transport="
                   f"{group.transport}")
         b = args.batch // (units * n)
-        print(f"# replica {group.rank}: device={dev} rows "
-              f"[{group.rank * b}:{(group.rank + 1) * b}) of each of "
+        mom = sum(v.numel() * 4 for v in tree_leaves(state["momentum"]))
+        zero1 = n > 1 and sgd.is_shard(state["params"], state["momentum"])
+        where = (f"tensor rank {tgrp.rank} of replica {dgrp.rank}"
+                 if tgrp is not None else f"replica {dgrp.rank}")
+        print(f"# {where}: device={dev} rows "
+              f"[{dgrp.rank * b}:{(dgrp.rank + 1) * b}) of each of "
               f"{units} unit{'s' if units > 1 else ''} of "
-              f"{args.batch // units} rows; ready "
-              f"{time.perf_counter() - group.t0:.1f} s after joining",
-              flush=True)
+              f"{args.batch // units} rows; params {n_params:,}; momentum "
+              f"{mom:,} B held ({'its ZeRO-1 pieces' if zero1 else 'whole'}"
+              f"); ready {time.perf_counter() - group.t0:.1f} s after "
+              f"joining", flush=True)
 
     registry = MetricsRegistry(jsonl_path=(args.metrics_out or None)
                                if lead else None)
@@ -579,10 +647,10 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
     tokens = 0
     try:
         for s in range(start, args.steps):
-            r0 = None if group is None else group.reduce_s
+            r0 = None if group is None else dgrp.reduce_s + dgrp.gather_s
             state, metrics = step_fn(state, data.batch_at(s))
             if r0 is not None:
-                reduce_s.append(group.reduce_s - r0)
+                reduce_s.append(dgrp.reduce_s + dgrp.gather_s - r0)
             ran = s
             tokens += args.batch * args.seq
             if on_step is not None:
@@ -597,7 +665,7 @@ def _train(group, args, cfg, pplan, ir_round: bool, rc, on_step) -> int:
                     [float(metrics["aux"])] if "aux" in metrics else [])
                 if group is not None:   # the replicas' mean
                     vals = [sum(v) / n for v in
-                            zip(*group.all_gather_object(vals))]
+                            zip(*dgrp.all_gather_object(vals))]
                 if lead:
                     dt = time.time() - t0
                     rec = registry.log_step(
@@ -640,14 +708,15 @@ def _report_trace(path: str, tracer, reduce_s=None) -> None:
 
 def _print_data_axis(args, cfg, model, ir_round: bool) -> None:
     """Check that every parameter leaf is replicated over ``data`` (else
-    ``SystemExit`` with the three-part refusal) and print the data axis:
-    the schedule the replicas run, the reductions a step and their bytes,
-    and ZeRO-1's momentum layout reckoned beside the replicated one the
-    replicas run."""
+    ``SystemExit`` with the three-part refusal) and print the grid the
+    ranks run: the schedule, the data axis's reductions a step (ZeRO-1's
+    reduce-scatter of the gradient and all-gather of the weights over
+    the replicas; each rank prints the momentum bytes it holds) and the
+    tensor axis's sharded leaves."""
     import math
     from repro_torch.runtime import sharding as rsh
-    n = args.data
-    mesh = rsh.data_mesh(n)
+    n, T = args.data, args.tensor
+    mesh = rsh.data_mesh(n, T)
     axes, shapes = model.param_axes(), model.param_specs()
     try:
         leaves = rsh.check_data_replicated(cfg, axes, shapes, mesh)
@@ -658,7 +727,6 @@ def _print_data_axis(args, cfg, model, ir_round: bool) -> None:
     # one reduction a sync step or round, one a tick
     per = max(args.ticks, 1) if (args.mode != "sync" and not ir_round
                                  and model.n_stages > 1) else 1
-    calls = -(-4 * n_params // rsh.BUCKET_BYTES)
     if args.mode == "sync":
         what, when = "the sync step", "once a step"
     elif ir_round:
@@ -669,14 +737,27 @@ def _print_data_axis(args, cfg, model, ir_round: bool) -> None:
         when = "once a tick" if model.n_stages > 1 else "once a step"
     stat = (f"; an [{cfg.moe.num_experts}] fp32 expert-fraction mean a "
             f"MoE layer a forward" if cfg.moe is not None else "")
-    print(f"# data axis: {n} replicas, one process each, every stage on "
-          f"each; {what}; gradients averaged {when}: {per} reduction(s) "
-          f"a step, each {calls} all_reduce call(s) of {4 * n_params:,} B "
-          f"in all{stat}; {leaves} parameter leaves "
-          f"replicated over data; ZeRO-1 momentum (reckoned, not run): "
-          f"{z['sharded']} of {z['leaves']} leaves over data, "
-          f"{z['zero1_bytes'] / 2**30:.2f} GiB a replica against "
-          f"{z['replicated_bytes'] / 2**30:.2f} GiB replicated")
+    grid = f"{n} replica{'s' if n > 1 else ''}"
+    if T > 1:
+        dims = rsh.tensor_leaf_dims(cfg, model, T)
+        names: list = []
+        tree_map(lambda path, _: names.append(path[-1]), shapes)
+        split = sum(1 for name in names if name in dims)
+        grid += (f" x {T} tensor ranks ({n * T} processes; {split} of "
+                 f"{leaves} parameter leaves sharded over tensor: "
+                 f"{', '.join(sorted(dims))}; the rest replicated)")
+    line = (f"# grid: {grid}, every stage on each; {what}")
+    if n > 1:
+        line += (f"; gradients averaged {when}: {per} reduction(s) a step "
+                 f"of {4 * n_params // T:,} B a rank, ZeRO-1 "
+                 f"(reduce-scatter, the update on the replica's pieces, "
+                 f"all-gather of the weights{' and pred' if args.mode == 'spectrain' else ''}"
+                 f"){stat}; {leaves} parameter leaves replicated over data; "
+                 f"ZeRO-1 momentum over data: {z['sharded']} of "
+                 f"{z['leaves']} leaves, the rules' layout "
+                 f"{z['zero1_bytes']:,} B a rank against "
+                 f"{z['replicated_bytes']:,} B replicated")
+    print(line)
 
 
 def _mpmd_rank(group, args, cfg, pplan, rc, on_step) -> int:

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import tensor_axis as tp
 from repro_torch.models.layers import (ParamSpec, apply_rope, norm_apply,
                                        norm_specs, rope_freqs)
 
@@ -98,10 +99,26 @@ def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
         return cross_attend(cfg, p, x, cross_kv(cfg, p, kv_input)), None
     dt = x.dtype
     b, s, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    # the heads this rank holds: all of them, or on a tensor axis its
+    # block of query heads (models.tensor_axis) and of KV heads where
+    # the rules shard 'kv' too, else every KV head, of which its queries
+    # read those of their groups
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    blk = tp.rank_block(cfg.n_heads, H)
+    wk, wv = p["wk"], p["wv"]
+    if blk is not None:
+        x = tp.copy_in(x)
+        if KV == cfg.n_kv_heads:
+            # replicated K/V projections serve this rank's queries only:
+            # their gradient is the sum of the ranks' parts
+            wk, wv = tp.copy_in(wk), tp.copy_in(wv)
     q = (x @ p["wq"].to(dt)).view(b, s, H, hd)
-    k = (x @ p["wk"].to(dt)).view(b, s, KV, hd)
-    v = (x @ p["wv"].to(dt)).view(b, s, KV, hd)
+    k = (x @ wk.to(dt)).view(b, s, KV, hd)
+    v = (x @ wv.to(dt)).view(b, s, KV, hd)
+    if blk is not None and KV == cfg.n_kv_heads:
+        k, v = _rank_kv(cfg, blk, H, k, v)
+        KV = k.shape[2]
 
     decode = cache is not None and s == 1 and cache.get("k") is not None
     if decode and pos is None:
@@ -123,7 +140,26 @@ def gqa_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
 
     new_cache = {"k": k, "v": v} if cache is not None else None
     out = ops.flash_attention(q, k, v, causal, q_offset=q_offset)
-    return out.reshape(b, s, H * hd) @ p["wo"].to(dt), new_cache
+    y = out.reshape(b, s, H * hd) @ p["wo"].to(dt)
+    return (y if blk is None else tp.reduce_out(y)), new_cache
+
+
+def _rank_kv(cfg, blk: int, H: int, k, v):
+    """The KV heads that tensor rank ``blk``'s ``H`` query heads read,
+    of every KV head (a replicated ``kv``): query head h reads KV head
+    ``h // G``, G = n_heads / n_kv_heads."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if G % H == 0:          # the rank's heads sit in one group
+        j = blk * H // G
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    if H % G == 0:          # the rank's heads are whole groups
+        j = blk * H // G
+        return k[:, :, j:j + H // G], v[:, :, j:j + H // G]
+    raise NotImplementedError(
+        f"unsupported combination: {cfg.name} on a tensor axis of "
+        f"{cfg.n_heads // H} — its {H} query heads a rank split KV groups "
+        f"of {G}; supported alternative: a tensor size whose query-head "
+        f"block is whole KV groups or lies in one")
 
 
 def cross_kv(cfg, p, src) -> Cache:

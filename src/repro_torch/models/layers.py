@@ -16,6 +16,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tensor_axis as tp
+
 # ---------------------------------------------------------------------------
 # ParamSpec
 
@@ -200,13 +202,19 @@ def mlp_specs(cfg):
 
 
 def mlp_apply(cfg, p, x):
+    """The MLP; on a tensor axis (``models.tensor_axis``) with ``d_ff``
+    sharded, ``wg`` / ``w1`` column-parallel and ``w2`` row-parallel."""
     dt = x.dtype
+    split = tp.rank_block(cfg.d_ff, p["w1"].shape[-1]) is not None
+    if split:
+        x = tp.copy_in(x)
     if cfg.mlp_gated:
         h = F.silu(x @ p["wg"].to(dt)) * (x @ p["w1"].to(dt))
     else:
         # jax.nn.gelu defaults to the tanh form
         h = F.gelu(x @ p["w1"].to(dt), approximate="tanh")
-    return h @ p["w2"].to(dt)
+    y = h @ p["w2"].to(dt)
+    return tp.reduce_out(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -222,14 +230,33 @@ def embed_specs(cfg):
 
 
 def embed_apply(cfg, p, tokens):
-    # cast to the compute dtype first, then scale (as the JAX twin does)
-    emb = p["tok"][tokens].to(dtype_of(cfg.compute_dtype))
+    """Token embeddings, cast to the compute dtype first, then scaled (as
+    the JAX twin does).  With the vocabulary sharded over a tensor axis
+    the rank looks up the tokens its rows hold, zeros elsewhere, and the
+    ranks' lookups are summed: exact, one term is not zero."""
+    cdt = dtype_of(cfg.compute_dtype)
+    V = p["tok"].shape[0]
+    blk = tp.rank_block(cfg.vocab_padded, V)
+    if blk is None:
+        emb = p["tok"][tokens].to(cdt)
+    else:
+        local = tokens - blk * V
+        mine = (local >= 0) & (local < V)
+        emb = p["tok"][torch.where(mine, local, 0)].to(cdt)
+        emb = tp.reduce_out(torch.where(mine[..., None], emb,
+                                        torch.zeros((), dtype=cdt,
+                                                    device=emb.device)))
     return emb * math.sqrt(cfg.d_model)
 
 
 def unembed_apply(cfg, p, x):
-    w = (p["tok"].T if cfg.tie_embeddings else p["unembed"]).to(x.dtype)
-    logits = x @ w
+    """Logits; with the vocabulary sharded over a tensor axis the rank's
+    block of them (column-parallel: ``x`` enters through
+    ``tensor_axis.copy_in``)."""
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    if tp.rank_block(cfg.vocab_padded, w.shape[-1]) is not None:
+        x = tp.copy_in(x)
+    logits = x @ w.to(x.dtype)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -261,13 +288,29 @@ def sinusoidal_pos(seq: int, d: int, offset: int = 0,
 # losses
 
 
-def softmax_xent(logits, targets, vocab_size: int, z_loss: float = 0.0):
+def softmax_xent(logits, targets, vocab_size: int, z_loss: float = 0.0,
+                 vocab_padded: Optional[int] = None):
     """Mean token cross-entropy in fp32, the logsumexp taken over the
     *padded* vocabulary as the JAX twin takes it (targets are assumed
-    < ``vocab_size``)."""
+    < ``vocab_size``).  ``logits`` holding a tensor rank's block of the
+    ``vocab_padded`` columns (vocab-parallel): the max and the sum of
+    exponentials are reduced over the tensor group, and the gold logit
+    comes from the rank whose block holds it."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    V = lf.shape[-1]
+    blk = None if vocab_padded is None else tp.rank_block(vocab_padded, V)
+    if blk is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        m = tp.reduce_max(lf.amax(dim=-1))
+        lse = m + torch.log(tp.reduce_out(
+            torch.exp(lf - m[..., None]).sum(dim=-1)))
+        local = targets.long() - blk * V
+        mine = (local >= 0) & (local < V)
+        got = torch.gather(lf, -1, torch.where(mine, local, 0)[..., None])
+        gold = tp.reduce_out(torch.where(mine, got[..., 0],
+                                         torch.zeros_like(got[..., 0])))
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

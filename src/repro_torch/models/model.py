@@ -272,14 +272,29 @@ class Model:
         return {"outer": self._outer_specs(), "stages": stages}
 
     def init(self, generator: torch.Generator, *,
-             dtype: Optional[str] = None):
+             dtype: Optional[str] = None,
+             tensor: Optional[Tuple[int, int]] = None):
         """Random parameters drawn from ``generator`` (which must live on
         the model's device) with the JAX package's distributions.  With
         ``dtype``, weights are stored in it as they are drawn (see
         :func:`cast_for_compute`); the fp32 leaves keep the param
-        dtype."""
+        dtype.  ``tensor=(rank, T)``: the whole model is drawn leaf by
+        leaf as without it (the same values) and of each leaf the rules
+        shard over a tensor axis of T only the rank's block is kept
+        (``runtime.sharding.tensor_leaf_dims``), each draw freed before
+        the next."""
+        leaf_fn = None
+        if tensor is not None and tensor[1] > 1:
+            from repro_torch.runtime import sharding as rsh
+            t, T = tensor
+            dims = rsh.tensor_leaf_dims(self.cfg, self, T)
+
+            def leaf_fn(path, a):
+                d = dims.get(path[-1])
+                return a if d is None else \
+                    rsh.tensor_block(a, a.dim() + d, t, T).clone()
         params = init_params(self._flat_param_specs(), generator,
-                             self.cfg.param_dtype, self.device,
+                             self.cfg.param_dtype, self.device, leaf_fn,
                              store=_weight_dtype(dtype))
         if self.cfg.is_encdec:
             return params
@@ -386,7 +401,8 @@ class Model:
 
     def head_loss(self, outer, x, targets):
         return softmax_xent(self.logits(outer, x), targets,
-                            self.cfg.vocab_size)
+                            self.cfg.vocab_size,
+                            vocab_padded=self.cfg.vocab_padded)
 
     def logits(self, outer, x):
         x = norm_apply(self.cfg, outer["ln_f"], x)
@@ -467,8 +483,8 @@ class Model:
     def loss_and_aux(self, params, batch):
         """(the loss, the MoE routers' aux loss it includes)."""
         logits, aux = self.forward(params, batch)
-        return softmax_xent(logits, batch["targets"],
-                            self.cfg.vocab_size) + aux, aux
+        return softmax_xent(logits, batch["targets"], self.cfg.vocab_size,
+                            vocab_padded=self.cfg.vocab_padded) + aux, aux
 
     # --------------------------------------------------------- ragged stages
     def partition_stage_params(self, stages, sizes, *, n_chunks=None):

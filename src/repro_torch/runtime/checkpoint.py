@@ -369,30 +369,86 @@ def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None
 RING_ROW_DIMS = {"fwd_buf": 1, "bwd_buf": 1, "stash_x": 2, "batch_ring": 1}
 
 
+def _momenta(state) -> List[Tuple[Tuple[str, ...], Any, Any]]:
+    """The (path, params, momentum) of every momentum tree of a train
+    state: ``momentum``, and 2BW's ``stash/momentum``."""
+    out = [(("momentum",), state["params"], state["momentum"])]
+    if isinstance(state.get("stash"), dict) and "momentum" in state["stash"]:
+        out.append((("stash", "momentum"), state["stash"]["params"],
+                    state["stash"]["momentum"]))
+    return out
+
+
+def _with(state, path, value):
+    """``state`` with the sub-tree at ``path`` replaced (shallow copies)."""
+    out = dict(state)
+    if len(path) == 1:
+        out[path[0]] = value
+    else:
+        out[path[0]] = _with(state[path[0]], path[1:], value)
+    return out
+
+
+def whole_state(state: Any, group, *, tensor=None, tensor_dims=None):
+    """A grid rank's state with its ZeRO-1 momentum pieces gathered whole
+    over the data ``group`` (``optim.sgd.whole_momentum``) and its
+    tensor blocks over ``tensor`` by ``tensor_dims``
+    (``runtime.sharding.gather_tensor``), on every rank (collectives of
+    both groups); the rings keep the replica's rows."""
+    from repro_torch.optim import sgd
+    from repro_torch.runtime.sharding import gather_tensor
+    for path, params, mom in _momenta(state):
+        state = _with(state, path, sgd.whole_momentum(params, mom, group))
+    if tensor is not None and tensor.world > 1:
+        state = gather_tensor(state, tensor_dims, tensor)
+    return state
+
+
 def save_data(ckpt_dir: str, state: Any, step: int, group, *,
-              keep: int = 3, background: bool = False
-              ) -> "threading.Thread | None":
-    """Checkpoint a data replica's state in the one-process layout:
-    every replica calls it; the rings' rows gather to replica 0 in rank
-    order (``StageGroup.gather_rows``), which writes (on a background
-    thread with ``background``, returned there; None elsewhere).  Params,
-    momentum, ``pred`` and the weight stash are written as they are:
-    every replica holds the same bits."""
+              keep: int = 3, background: bool = False, tensor=None,
+              tensor_dims=None) -> "threading.Thread | None":
+    """Checkpoint a rank's state of a ``(data, tensor)`` grid in the
+    one-process layout: every rank calls it; ZeRO-1 momentum pieces are
+    gathered whole over the data ``group`` (``optim.sgd.whole_momentum``),
+    the tensor blocks over ``tensor`` by ``tensor_dims``
+    (``runtime.sharding.gather_tensor``), and the rings' rows to replica
+    0 in rank order (``StageGroup.gather_rows``); rank 0 of both writes
+    (on a background thread with ``background``, returned there; None
+    elsewhere).  What is left is written as it is: every replica holds
+    the same bits."""
+    state = whole_state(state, group, tensor=tensor,
+                        tensor_dims=tensor_dims)
+
     def whole(path, leaf):
         d = RING_ROW_DIMS.get(path[0])
         return leaf if d is None else group.gather_rows(leaf, d)
     full = tree_map(whole, state)
-    if group.rank:
+    if group.rank or (tensor is not None and tensor.rank):
         return None
     return save(ckpt_dir, full, step, keep=keep, background=background)
 
 
 def restore_data(ckpt_dir: str, state: Any, group, *,
-                 step: Optional[int] = None) -> Tuple[Any, int]:
-    """Every replica: restore checkpoint ``step`` (default the newest) of
-    the one-process layout onto ``state``'s structure, keeping the
-    replica's block of the rings' rows.  Returns (state, step)."""
+                 step: Optional[int] = None, tensor=None,
+                 tensor_dims=None) -> Tuple[Any, int]:
+    """Every rank of a ``(data, tensor)`` grid: restore checkpoint
+    ``step`` (default the newest) of the one-process layout onto
+    ``state``'s structure, keeping the replica's block of the rings'
+    rows, its tensor blocks (``tensor_dims``) and, where ``state`` holds
+    ZeRO-1 momentum pieces, the replica's pieces.  Returns (state,
+    step)."""
+    from repro_torch.optim import sgd
+    from repro_torch.runtime.sharding import gather_tensor, tensor_block
     N, r = group.world, group.rank
+    sharded = [(path, params) for path, params, mom in _momenta(state)
+               if N > 1 and sgd.is_shard(params, mom)]
+    for path, params in sharded:
+        state = _with(state, path, tree_map(
+            lambda _, p: torch.empty(p.shape, dtype=torch.float32,
+                                     device=p.device), params))
+    split = tensor is not None and tensor.world > 1
+    if split:       # whole shapes (the values are overwritten)
+        state = gather_tensor(state, tensor_dims, tensor)
 
     def whole_like(path, leaf):
         d = RING_ROW_DIMS.get(path[0])
@@ -409,7 +465,22 @@ def restore_data(ckpt_dir: str, state: Any, group, *,
         b = leaf.shape[d] // N
         return leaf.narrow(d, r * b, b).clone()
     full, step = restore(ckpt_dir, tree_map(whole_like, state), step=step)
-    return tree_map(mine, full), step
+    out = tree_map(mine, full)
+    if split:
+        def block(path, leaf):
+            d = tensor_dims.get(path[-1]) if path else None
+            if d is None or leaf.dim() < -d:
+                return leaf
+            return tensor_block(leaf, leaf.dim() + d, tensor.rank,
+                                tensor.world).clone()
+        out = tree_map(block, out)
+    for path, _ in sharded:
+        node, params = out, out["params"] if path[0] == "momentum" else \
+            out["stash"]["params"]
+        for k in path:
+            node = node[k]
+        out = _with(out, path, sgd.own_piece(params, node, r, N))
+    return out, step
 
 
 # ------------------------------------------------------------------ mpmd

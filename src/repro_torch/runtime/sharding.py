@@ -49,16 +49,31 @@ The data axis (the data-parallel baseline):
   one ``all_reduce`` each, on the transport below) once a sync step, a
   tick or a round; an MoE layer's expert fractions through
   :meth:`StageGroup.mean_stat`; checkpoints gather the rings' rows to
-  rank 0 through :meth:`StageGroup.gather_rows`.  The all-reduce runs
-  after the backward, not overlapped with it; ZeRO-1's momentum layout
-  (:func:`momentum_rules`) is reckoned but momentum runs replicated; the
-  tensor axis and the SPMD state shardings (``stream_state_shardings``
-  and the rest) are not ported.
+  rank 0 through :meth:`StageGroup.gather_rows`.  The reductions run
+  after the backward, not overlapped with it;
+* ZeRO-1 (the JAX package's default ``zero1=True``): each replica holds
+  its contiguous piece of every momentum leaf (:func:`shard_range`),
+  reduce-scatters the fp32 gradient (:meth:`StageGroup.
+  reduce_scatter_mean`), updates its pieces (``optim.sgd.update_groups``)
+  and all-gathers the weights and ŵ (:meth:`StageGroup.all_gather`), both
+  bucketed like the all-reduce (:func:`shard_buckets`);
+* the tensor axis of a ``(data, pipe=1, tensor)`` rank grid
+  (:func:`init_grid`: the data and the tensor groups as ``new_group``
+  sub-groups, tensor innermost): a rank holds its block of every leaf
+  ``spec_for_leaf(logical_rules)`` shards over ``tensor``
+  (:func:`tensor_leaf_dims`, :func:`tensor_block`, :func:`gather_tensor`);
+  the layers' activation all-reduces go through
+  :meth:`StageGroup.all_reduce_sum` (``models.tensor_axis``); the model
+  kinds whose layers are not split are refused
+  (:func:`tensor_refusal`).  The rings stay replicated over tensor (the
+  JAX package shards them on ``embed``), and the SPMD state shardings
+  (``stream_state_shardings`` and the rest) are not ported.
 """
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -133,11 +148,19 @@ class StageGroup:
     copies and waits included; ``n_reduce`` / ``bytes_reduce`` the
     all-reduce calls of :meth:`all_reduce_mean` and the bytes they
     reduced, ``reduce_s`` its host wall (packing, the calls, the
-    division and unpacking); ``n_stat`` / ``bytes_stat`` the small
-    reductions of :meth:`mean_stat`."""
+    division and unpacking) and :meth:`reduce_scatter_mean`'s;
+    ``n_rs`` / ``bytes_rs`` ZeRO-1's reduce-scatter calls and their
+    input bytes, ``n_ag`` / ``bytes_ag`` its all-gather calls and their
+    output bytes, ``gather_s`` their host wall; ``n_stat`` /
+    ``bytes_stat`` the small reductions of :meth:`mean_stat` and
+    :meth:`all_reduce_scalar`; ``n_tp`` / ``bytes_tp`` the tensor axis's
+    activation all-reduces (:meth:`all_reduce_sum`, and
+    :meth:`all_reduce_max`) and their bytes, ``tp_s`` their host
+    wall."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
-                 transport: str, cards: Optional[int] = None):
+                 transport: str, cards: Optional[int] = None, *,
+                 pg=None, ranks: Optional[Sequence[int]] = None):
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {transport!r}; known: "
                              f"{TRANSPORTS}")
@@ -145,8 +168,17 @@ class StageGroup:
         self.device, self.transport = device, transport
         self.next, self.prev = (rank + 1) % world, (rank - 1) % world
         self.cards = cards
+        # a sub-group of the process group (the data or the tensor group
+        # of a rank grid): its handle and the global rank of each member
+        self.pg = pg
+        self.ranks = tuple(range(world)) if ranks is None else tuple(ranks)
+        # the grid's groups, set on the world group by init_grid: the
+        # data group (self when the grid has no tensor axis) and the
+        # tensor group (None without one)
+        self.data: Optional["StageGroup"] = self
+        self.tensor: Optional["StageGroup"] = None
         self.t0 = time.perf_counter()   # when the rank began to join
-        self._bucket: Optional[torch.Tensor] = None
+        self._bufs: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -157,6 +189,11 @@ class StageGroup:
         self.n_reduce = self.bytes_reduce = 0
         self.reduce_s = 0.0
         self.n_stat = self.bytes_stat = 0
+        self.n_rs = self.bytes_rs = 0
+        self.n_ag = self.bytes_ag = 0
+        self.gather_s = 0.0
+        self.n_tp = self.bytes_tp = 0
+        self.tp_s = 0.0
 
     def counters(self) -> Dict[str, float]:
         return {"n_sent": self.n_sent, "bytes_sent": self.bytes_sent,
@@ -166,7 +203,12 @@ class StageGroup:
                 "n_reduce": self.n_reduce,
                 "bytes_reduce": self.bytes_reduce,
                 "reduce_s": self.reduce_s,
-                "n_stat": self.n_stat, "bytes_stat": self.bytes_stat}
+                "n_stat": self.n_stat, "bytes_stat": self.bytes_stat,
+                "n_rs": self.n_rs, "bytes_rs": self.bytes_rs,
+                "n_ag": self.n_ag, "bytes_ag": self.bytes_ag,
+                "gather_s": self.gather_s,
+                "n_tp": self.n_tp, "bytes_tp": self.bytes_tp,
+                "tp_s": self.tp_s}
 
     def describe(self) -> str:
         return describe_transport(self.transport, self.world, self.cards)
@@ -196,8 +238,8 @@ class StageGroup:
             for t, dst, tg in sends:
                 if tg != tag or dst == self.rank:
                     continue
-                ops.append(dist.P2POp(dist.isend, self._wire(t), dst,
-                                      tag=tag))
+                ops.append(dist.P2POp(dist.isend, self._wire(t),
+                                      self.ranks[dst], tag=tag))
                 if tag == TAG_CTL:
                     self.n_ctl += 1
                     self.bytes_ctl += t.numel() * t.element_size()
@@ -211,7 +253,8 @@ class StageGroup:
                     out[i] = own[tag].pop(0)
                     continue
                 buf = self._buffer(shape, dtype)
-                ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+                ops.append(dist.P2POp(dist.irecv, buf, self.ranks[src],
+                                      tag=tag))
                 landing.append((i, buf))
                 if tag != TAG_CTL:
                     self.n_recv += 1
@@ -253,9 +296,9 @@ class StageGroup:
     def barrier(self) -> None:
         if self.world > 1:
             if self.transport == "nccl":
-                dist.barrier(device_ids=[self.device.index])
+                dist.barrier(group=self.pg, device_ids=[self.device.index])
             else:
-                dist.barrier()
+                dist.barrier(group=self.pg)
 
     # ------------------------------------------------------ data axis
     def all_reduce_mean(self, tree, *, bucket_bytes: int = BUCKET_BYTES):
@@ -284,18 +327,14 @@ class StageGroup:
             return tree
         t0 = time.perf_counter()
         cap = max(1, int(bucket_bytes) // 4)
-        if self._bucket is None or self._bucket.numel() != cap:
-            self._bucket = (torch.empty(cap, pin_memory=True)
-                            if self.transport == "gloo-host" else
-                            torch.empty(cap, device=self.device))
-        buf = self._bucket
+        buf = self._buf("ar", torch.float32, cap)
         flats = [g.view(-1) for g in leaves]
         pieces: List[Tuple[torch.Tensor, int]] = []    # (slice, offset)
         fill = 0
 
         def flush():
             nonlocal fill, pieces
-            dist.all_reduce(buf[:fill], op=dist.ReduceOp.SUM)
+            dist.all_reduce(buf[:fill], op=dist.ReduceOp.SUM, group=self.pg)
             for part, off in pieces:
                 part.copy_(buf[off:off + part.numel()])
                 part.div_(self.world)
@@ -336,13 +375,203 @@ class StageGroup:
             raise ValueError(f"mean_stat takes an fp32 tensor on "
                              f"{self.device}, got {t.dtype} on {t.device}")
         wire = t if self.transport == "nccl" else self._wire(t)
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.pg)
         if wire is not t:
             t.copy_(wire)
         t.div_(self.world)
         self.n_stat += 1
         self.bytes_stat += t.numel() * 4
         return t
+
+    # ------------------------------------------- ZeRO-1 over the data axis
+    def _buf(self, kind: str, dtype: torch.dtype, n: int) -> torch.Tensor:
+        """A reusable flat buffer of at least ``n`` elements on the
+        transport's side (pinned host memory under gloo-host)."""
+        buf = self._bufs.get((kind, dtype))
+        if buf is None or buf.numel() < n:
+            buf = (torch.empty(n, dtype=dtype, pin_memory=True)
+                   if self.transport == "gloo-host" else
+                   torch.empty(n, dtype=dtype, device=self._wire_dev()))
+            self._bufs[(kind, dtype)] = buf
+        return buf
+
+    def _wire_dev(self) -> torch.device:
+        return self.device if self.transport == "nccl" else \
+            torch.device("cpu")
+
+    def _sync(self) -> None:
+        if self.transport == "nccl":
+            torch.cuda.synchronize(self.device)
+
+    def reduce_scatter_mean(self, leaves: Sequence[torch.Tensor], *,
+                            bucket_bytes: int = BUCKET_BYTES
+                            ) -> List[torch.Tensor]:
+        """ZeRO-1's gradient reduction: for every fp32 leaf (on this
+        rank's device) this rank's piece of its mean over the group,
+        written over the leaf's own piece (:func:`shard_range` of its
+        flat elements; a contiguous leaf is not copied) and returned as
+        a 1-D view, in ``leaves``' order; the rest of the leaf keeps the
+        rank's own values.  Each leaf's flat elements are cut into
+        ``world`` contiguous pieces; the pieces, padded to the leaf's
+        ``ceil(n / world)``, fill the rows of a ``[world, width]``
+        bucket (``bucket_bytes`` of input a call), reduced by one
+        ``reduce_scatter_tensor(SUM)`` that leaves row ``rank`` here,
+        then divided by the world size: the same sum and division as
+        :meth:`all_reduce_mean`, so a piece is bit-equal to the slice of
+        its result."""
+        for g in leaves:
+            if g.dtype != torch.float32 or g.device != self.device:
+                raise ValueError(
+                    f"reduce_scatter_mean takes fp32 leaves on "
+                    f"{self.device}, got {g.dtype} on {g.device}")
+        flats = [g.view(-1) if g.is_contiguous() else g.reshape(-1)
+                 for g in leaves]
+        out = [f[slice(*shard_range(f.numel(), self.rank, self.world))]
+               for f in flats]
+        if self.world == 1:
+            return out
+        t0 = time.perf_counter()
+        N, me = self.world, self.rank
+        for width, segs in shard_buckets([f.numel() for f in flats], N,
+                                         bucket_bytes // 4):
+            src = self._buf("rs_in", torch.float32, N * width)
+            rows = src[:N * width].view(N, width)
+            for i, j0, take, col in segs:
+                for r in range(N):
+                    lo, hi = shard_range(flats[i].numel(), r, N)
+                    valid = max(0, min(take, hi - lo - j0))
+                    if valid:
+                        rows[r, col:col + valid].copy_(
+                            flats[i][lo + j0:lo + j0 + valid])
+                    if valid < take:
+                        rows[r, col + valid:col + take].zero_()
+            dst = self._buf("rs_out", torch.float32, width)
+            _reduce_scatter(dst[:width], src[:N * width], self.pg)
+            for i, j0, take, col in segs:
+                lo, hi = shard_range(flats[i].numel(), me, N)
+                valid = max(0, min(take, hi - lo - j0))
+                if valid:
+                    part = out[i][j0:j0 + valid]
+                    part.copy_(dst[col:col + valid])
+                    part.div_(N)
+            self.n_rs += 1
+            self.bytes_rs += 4 * N * width
+        self._sync()
+        self.reduce_s += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, leaves: Sequence[torch.Tensor], *,
+                   bucket_bytes: int = BUCKET_BYTES) -> None:
+        """ZeRO-1's weight gather, in place: every rank holds its
+        :func:`shard_range` piece of each leaf (one dtype for all, on
+        this rank's device) up to date, and after the call every rank
+        holds every piece.  Bucketed as :meth:`reduce_scatter_mean`
+        (``bucket_bytes`` of output a call), one
+        ``all_gather_into_tensor`` a bucket."""
+        if self.world == 1 or not leaves:
+            return
+        dt = leaves[0].dtype
+        for g in leaves:
+            if g.dtype != dt or g.device != self.device:
+                raise ValueError(
+                    f"all_gather takes leaves of one dtype on "
+                    f"{self.device}, got {g.dtype} on {g.device}")
+        t0 = time.perf_counter()
+        N, me = self.world, self.rank
+        el = leaves[0].element_size()
+        flats = [g.view(-1) for g in leaves]
+        for width, segs in shard_buckets([f.numel() for f in flats], N,
+                                         bucket_bytes // el):
+            src = self._buf("ag_in", dt, width)
+            dst = self._buf("ag_out", dt, N * width)
+            for i, j0, take, col in segs:
+                lo, hi = shard_range(flats[i].numel(), me, N)
+                valid = max(0, min(take, hi - lo - j0))
+                if valid:
+                    src[col:col + valid].copy_(
+                        flats[i][lo + j0:lo + j0 + valid])
+            _all_gather(dst[:N * width], src[:width], self.pg)
+            rows = dst[:N * width].view(N, width)
+            for i, j0, take, col in segs:
+                for r in range(N):
+                    if r == me:
+                        continue
+                    lo, hi = shard_range(flats[i].numel(), r, N)
+                    valid = max(0, min(take, hi - lo - j0))
+                    if valid:
+                        flats[i][lo + j0:lo + j0 + valid].copy_(
+                            rows[r, col:col + valid])
+            self.n_ag += 1
+            self.bytes_ag += el * N * width
+        self._sync()
+        self.gather_s += time.perf_counter() - t0
+
+    def all_reduce_scalar(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of the 0-d fp32 tensor ``t`` over the group, in place
+        (the clip norm's square sums); counted under ``n_stat``."""
+        if self.world == 1:
+            return t
+        wire = t if self.transport == "nccl" else self._wire(t)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.pg)
+        if wire is not t:
+            t.copy_(wire)
+        self.n_stat += 1
+        self.bytes_stat += t.numel() * t.element_size()
+        return t
+
+    # -------------------------------------------------------- tensor axis
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor axis's activation reduction: ``t`` (any float dtype,
+        on this rank's device) summed over the group, returned as a new
+        tensor (``t`` is left as it is).  One ``all_reduce(SUM)``;
+        counted under ``n_tp`` / ``bytes_tp``, its host wall (copies
+        and, under nccl, the wait) under ``tp_s``."""
+        if self.world == 1:
+            return t
+        t0 = time.perf_counter()
+        if self.transport == "gloo-host":
+            wire = self._wire(t)
+            dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.pg)
+            out = wire.to(self.device)
+        else:
+            out = t.detach().contiguous().clone()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.pg)
+            self._sync()
+        self.n_tp += 1
+        self.bytes_tp += t.numel() * t.element_size()
+        self.tp_s += time.perf_counter() - t0
+        return out
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over the group, a new tensor (the
+        vocab-parallel loss's shift); counted as :meth:`all_reduce_sum`."""
+        if self.world == 1:
+            return t
+        t0 = time.perf_counter()
+        out = (self._wire(t) if self.transport == "gloo-host"
+               else t.detach().contiguous().clone())
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.pg)
+        out = out.to(self.device)
+        self._sync()
+        self.n_tp += 1
+        self.bytes_tp += t.numel() * t.element_size()
+        self.tp_s += time.perf_counter() - t0
+        return out
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` (one shape and dtype on every rank)
+        concatenated along ``dim`` in rank order, on every rank: a
+        tensor-sharded leaf made whole (checkpoints, tests).  Counted as
+        control traffic."""
+        if self.world == 1:
+            return t
+        wire = self._wire(t) if self.transport != "gloo" else \
+            t.detach().contiguous()
+        got = [torch.empty_like(wire) for _ in range(self.world)]
+        dist.all_gather(got, wire, group=self.pg)
+        self.n_ctl += 1
+        self.bytes_ctl += t.numel() * t.element_size()
+        return torch.cat([g.to(self.device) for g in got], dim)
 
     def gather_rows(self, t: torch.Tensor, dim: int
                     ) -> Optional[torch.Tensor]:
@@ -363,8 +592,57 @@ class StageGroup:
         if self.world == 1:
             return [obj]
         out = [None] * self.world
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.pg)
         return out
+
+
+# ------------------------------------------------------- ZeRO-1 pieces
+def shard_range(n: int, rank: int, world: int) -> Tuple[int, int]:
+    """Rank ``rank`` of ``world``'s contiguous piece ``[lo, hi)`` of a
+    leaf's ``n`` flat elements under ZeRO-1: ``floor(r·n / world)``
+    cuts, so the pieces differ in length by at most one element."""
+    return rank * n // world, (rank + 1) * n // world
+
+
+def shard_buckets(sizes: Sequence[int], world: int, cap: int
+                  ) -> List[Tuple[int, List[Tuple[int, int, int, int]]]]:
+    """The buckets of a reduce-scatter or all-gather over leaves of
+    ``sizes`` elements: each leaf contributes ``ceil(n / world)`` columns
+    (its pieces, padded) to a ``[world, width]`` matrix of at most
+    ``cap`` elements a bucket.  Returns ``[(width, [(leaf, j0, take,
+    col), ...]), ...]``: columns ``[j0, j0 + take)`` of the leaf's
+    pieces sit at ``[col, col + take)`` of the bucket's rows."""
+    cols = max(1, cap // world)
+    out: List[Tuple[int, List[Tuple[int, int, int, int]]]] = []
+    segs: List[Tuple[int, int, int, int]] = []
+    fill = 0
+    for i, n in enumerate(sizes):
+        P = -(-int(n) // world)
+        j0 = 0
+        while j0 < P:
+            take = min(P - j0, cols - fill)
+            segs.append((i, j0, take, fill))
+            fill += take
+            j0 += take
+            if fill == cols:
+                out.append((fill, segs))
+                segs, fill = [], 0
+    if fill:
+        out.append((fill, segs))
+    return out
+
+
+def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, pg) -> None:
+    with warnings.catch_warnings():     # renamed in newer releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM,
+                                   group=pg)
+
+
+def _all_gather(out: torch.Tensor, inp: torch.Tensor, pg) -> None:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, inp, group=pg)
 
 
 # ------------------------------------------------------------- the group
@@ -394,6 +672,43 @@ def init_stage_group(rank: int, world: int, device: str = "cuda", *,
     group.t0 = t0
     group.barrier()     # NCCL's first p2p batch must not be its first call
     _CURRENT[0] = group
+    return group
+
+
+def init_grid(group: StageGroup, data: int, tensor: int) -> StageGroup:
+    """Make ``group`` (the world of ``data · tensor`` ranks, rank
+    ``d·T + t``: tensor innermost, as in the JAX package's mesh) a rank
+    grid: ``group.data`` the ranks of its tensor coordinate (its data
+    replicas) and ``group.tensor`` those of its data coordinate, each a
+    :class:`StageGroup` on a ``dist.new_group`` sub-group (every rank
+    makes every sub-group, in one order).  With ``tensor`` 1 the data
+    group is ``group`` itself and there is no tensor group."""
+    D, T = int(data), int(tensor)
+    if D * T != group.world:
+        raise ValueError(f"a ({D}, {T}) grid needs {D * T} ranks, the group "
+                         f"has {group.world}")
+    if T == 1:
+        group.data, group.tensor = group, None
+        return group
+    backend = "nccl" if group.transport == "nccl" else "gloo"
+
+    def sub(members):
+        pgs = {}
+        for m in members:
+            pgs[m] = dist.new_group(list(m), backend=backend)
+        mine = next(m for m in members if group.rank in m)
+        sg = StageGroup(mine.index(group.rank), len(mine), group.device,
+                        group.transport, group.cards, pg=pgs[mine],
+                        ranks=mine)
+        return sg
+    # the data groups (one per tensor coordinate), then the tensor groups
+    data_groups = [tuple(dd * T + tt for dd in range(D)) for tt in range(T)]
+    tensor_groups = [tuple(dd * T + tt for tt in range(T))
+                     for dd in range(D)]
+    group.data = sub(data_groups) if D > 1 else StageGroup(
+        0, 1, group.device, group.transport, group.cards,
+        ranks=(group.rank,))
+    group.tensor = sub(tensor_groups)
     return group
 
 
@@ -689,11 +1004,103 @@ def batch_specs(cfg, batch_sds: Any, mesh, rules: Dict[str, AxisVal]):
 
 
 # ----------------------------------------- the data axis as replicas
-def data_mesh(n_replicas: int) -> RankMesh:
-    """The rank grid of a data-parallel run: ``(data=N, pipe=1,
-    tensor=1)``; a replica's pipeline stages run inside its process."""
-    return RankMesh(np.arange(n_replicas).reshape(n_replicas, 1, 1),
-                    ("data", "pipe", "tensor"))
+def data_mesh(n_replicas: int, tensor: int = 1) -> RankMesh:
+    """The rank grid of a run: ``(data=N, pipe=1, tensor=T)``, tensor
+    innermost as in the JAX package's mesh (rank ``d·T + t``); a rank's
+    pipeline stages run inside its process."""
+    return RankMesh(np.arange(n_replicas * tensor).reshape(
+        n_replicas, 1, tensor), ("data", "pipe", "tensor"))
+
+
+# ------------------------------------------------------ the tensor axis
+def tensor_leaf_dims(cfg, model, tensor: int) -> Dict[str, int]:
+    """The dim (counted from the end) each parameter leaf, by name, is
+    sharded on over a tensor axis of ``tensor`` ranks, under
+    :func:`logical_rules` (``spec_for_leaf`` is the one source of
+    truth): e.g. ``wq`` on its heads (-1), ``wo`` on its heads (-2),
+    ``tok`` on its vocabulary rows (-2).  Leaves absent are replicated.
+    Raises when one name would shard on two dims."""
+    mesh = data_mesh(1, tensor)
+    specs = shardings_for(model.param_axes(), model.param_specs(), mesh,
+                          logical_rules(cfg, mesh))
+    shapes: List[Tuple[Tuple[str, ...], int]] = []
+    _map_axes(lambda axes, sds: shapes.append(len(sds.shape)),
+              model.param_axes(), model.param_specs())
+    out: Dict[str, int] = {}
+    flat: List[Tuple[Tuple[str, ...], tuple]] = []
+    _spec_leaves(specs, lambda path, sp: flat.append((path, sp)))
+    for (path, spec), nd in zip(flat, shapes):
+        dims = [i for i, e in enumerate(spec) if "tensor" in _names(e)]
+        if not dims:
+            continue
+        d = dims[0] - nd
+        if out.setdefault(path[-1], d) != d:
+            raise ValueError(f"leaf {path[-1]!r} shards over tensor on "
+                             f"dims {out[path[-1]]} and {d}")
+    return out
+
+
+def tensor_refusal(cfg, tensor: int) -> Optional[str]:
+    """Why ``cfg`` cannot train over a tensor axis of ``tensor`` ranks
+    (the three-part form: the combination, why, what runs instead), or
+    None.  The port shards the dense decoders' heads, KV heads, MLP and
+    vocabulary; the other layers the JAX rules put over ``tensor`` are
+    not ported to it."""
+    if tensor <= 1:
+        return None
+    what = None
+    if cfg.moe is not None:
+        what = ("MoE experts ('expert' over tensor)", "the expert "
+                "dispatch is not split over tensor ranks")
+    elif cfg.ssm is not None:
+        what = (f"the {cfg.ssm.kind} state-space layers ('ssm' over "
+                f"tensor)", "the scans' heads are not split over tensor "
+                "ranks")
+    elif cfg.mla is not None:
+        what = ("multi-head latent attention", "the latent projections "
+                "are not split over tensor ranks")
+    elif cfg.is_encdec:
+        what = ("an encoder-decoder", "the encoder stack and the "
+                "cross-attention are not split over tensor ranks")
+    elif cfg.frontend == "vision":
+        what = ("the vision frontend", "the patch embedding is not "
+                "split over tensor ranks")
+    if what is None:
+        return None
+    return (f"unsupported combination: --tensor {tensor} with {cfg.name}'s "
+            f"{what[0]} — {what[1]}; the port's tensor axis shards the "
+            f"dense decoders' heads, KV heads, MLP and vocabulary; "
+            f"supported alternative: --tensor 1 (with --data and --pipe), "
+            f"or a dense decoder (granite-8b, granite-20b, starcoder2-15b)")
+
+
+def tensor_block(x: torch.Tensor, dim: int, rank: int, world: int
+                 ) -> torch.Tensor:
+    """Rank ``rank`` of ``world``'s block of ``x`` along ``dim`` (a
+    view)."""
+    n = x.shape[dim]
+    if n % world:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {world} tensor ranks")
+    return x.narrow(dim, rank * (n // world), n // world)
+
+
+def gather_tensor(tree, dims: Dict[str, int], group):
+    """A tree of tensor-sharded leaves (params, momentum, ``pred``, the
+    weight stashes: any leaf named in ``dims`` whose rank reaches the
+    dim) made whole on every rank of the tensor ``group`` (a
+    collective); other leaves as they are."""
+    from repro_torch.models.layers import tree_map
+    if group is None or group.world == 1:
+        return tree
+
+    def one(path, leaf):
+        d = dims.get(path[-1]) if path else None
+        if d is None or not isinstance(leaf, torch.Tensor) or \
+                leaf.dim() < -d:
+            return leaf
+        return group.all_gather_dim(leaf, leaf.dim() + d)
+    return tree_map(one, tree)
 
 
 def _names(spec_entry) -> Tuple[str, ...]:
@@ -750,10 +1157,11 @@ def _is_spec(x) -> bool:
 
 
 def zero1_layout(cfg, axes_tree, shapes_tree, mesh) -> Dict[str, int]:
-    """ZeRO-1's momentum layout (:func:`momentum_rules`) reckoned over the
-    parameter leaves: how many leaves would shard over ``data`` and the
-    momentum bytes a replica would hold (fp32), against the replicated
-    layout the port runs."""
+    """ZeRO-1's momentum layout under the JAX rules (:func:`momentum_rules`)
+    over the parameter leaves: how many leaves shard over ``data`` and
+    the momentum bytes a rank holds (fp32), against the replicated
+    layout.  The port's pieces (:func:`shard_range` of each leaf's flat
+    elements) hold exactly these bytes where every leaf shards."""
     sizes = axis_sizes(mesh)
     rules = momentum_rules(cfg, logical_rules(cfg, mesh), mesh)
     specs = shardings_for(axes_tree, shapes_tree, mesh, rules)

@@ -15,8 +15,9 @@ Claims (rtol 1e-4 / atol 1e-5 unless stated):
     stash fault repaired, as ``test_torch_train.py`` holds it), and
     spectrain at ``--ticks 2``: the replicas' mean loss tick by tick,
     every params / momentum (/ ``pred``) leaf at the end, the two
-    replicas bit-equal, one gradient reduction a tick of the whole fp32
-    gradient;
+    replicas bit-equal (ZeRO-1's momentum pieces gathered whole), one
+    gradient reduction a tick of the whole fp32 gradient (ZeRO-1's
+    reduce-scatter, then the weights' all-gather);
   * MoE (deepseek smoke, 8 rows x 16 tokens, 4 experts: 16 dispatch
     groups a microbatch, 8 a replica): the tick, and ``--mode sync`` at
     2 microbatches against JAX ``pipeline_sync.make_train_step`` (the
@@ -108,6 +109,8 @@ class Probe:
             rec["aux"].append(float(metrics["aux"]))
         if g is not None:
             rec["xfer"].append(g.counters())
+            # ZeRO-1: the replica's momentum pieces, gathered whole
+            state = ckpt.whole_state(state, g.data)
             g.reset_counters()
         h, w = hashlib.sha1(), hashlib.sha1()
         for k, a in _key_leaves(state):
@@ -168,15 +171,17 @@ RUNS = {
 def _bwd_dtype_rank(group, steps):
     """One replica (``group`` None: the one process) of the spectrain
     tick with ``bwd_dtype="bfloat16"`` through ``make_state`` /
-    ``make_train_step(data=)``, on BASE's model and batches: its
-    params / momentum leaves and reduction counters."""
+    ``make_train_step(data=)``, on BASE's model and batches, with the
+    momentum replicated (``zero1=False``: the all-reduce path; ZeRO-1's
+    widening is ``test_torch_zero1.py``'s): its params / momentum leaves
+    and reduction counters."""
     from repro_torch.core import pipeline_stream as tps
     args = train.parse_args(BASE)
     cfg = train.build(args)
     model = Model(cfg, device="cpu")
     bs = _batches(args, cfg, steps)
     state = tps.make_state(model, model.init(torch.Generator().manual_seed(
-        0)), bs[0], mode="spectrain", data=group)
+        0)), bs[0], mode="spectrain", data=group, zero1=False)
     step = tps.make_train_step(model, mode="spectrain", lr=LR,
                                bwd_dtype="bfloat16", data=group)
     xfer = []
@@ -336,18 +341,23 @@ def _leaves_at(arrs, step, prefix):
 
 
 def _check_replicas(reps, steps, per_step=1):
-    """Bit-equal replicas every step; ``per_step`` gradient reductions a
-    step, each of the whole fp32 gradient in one bucket."""
+    """Bit-equal replicas every step (the momentum gathered whole);
+    ``per_step`` gradient reductions a step, each ZeRO-1's: one
+    reduce-scatter of the whole fp32 gradient in one bucket (every leaf
+    cut in two pieces, padded to even length) and the weights
+    all-gathered after the update."""
     (r0, a0), (r1, a1) = reps
     assert r0["digest"] == r1["digest"]
     assert sorted(a0.files) == sorted(a1.files)
-    n = sum(a0[k].size for k in a0.files
-            if k.startswith(f"{steps - 1}:params/"))
+    padded = sum(2 * -(-a0[k].size // 2) for k in a0.files
+                 if k.startswith(f"{steps - 1}:params/"))
     for rec, _ in reps:
         assert len(rec["xfer"]) == steps
         for x in rec["xfer"]:
-            assert (x["n_reduce"], x["bytes_reduce"]) == \
-                (per_step, per_step * 4 * n)
+            assert (x["n_reduce"], x["n_rs"], x["bytes_rs"]) == \
+                (0, per_step, per_step * 4 * padded)
+            assert x["n_ag"] >= per_step
+            assert x["bytes_ag"] >= per_step * 4 * padded
             assert x["n_sent"] == 0
 
 

@@ -10,7 +10,8 @@ from ``--seed`` on the whole batch in fp32.
 
 Claims (rtol 1e-4 / atol 1e-5): the replicas' mean loss each round and
 every params / momentum leaf (2bw: its stash too) after 2 rounds, the
-replicas bit-equal, one reduction a round of the whole fp32 gradient;
+replicas bit-equal, one reduction a round of the whole fp32 gradient
+(ZeRO-1: a reduce-scatter, the weights all-gathered);
 the 1f1b run is traced (``--trace``): replica 0 writes a trace that
 validates, and tracing leaves the numbers as JAX's; a ``Runtime``
 refuses a data axis under MPMD.

@@ -479,9 +479,12 @@ class DpProbe:
         self.losses, self.xfer = [], []
 
     def __call__(self, s, state, metrics):
+        from repro_torch.runtime import checkpoint as ckpt
         g = rsh.current_group()
         self.losses.append(float(metrics["loss"]))
         self.xfer.append(g.counters())
+        # ZeRO-1: the replica's momentum pieces, gathered whole
+        state = ckpt.whole_state(state, g)
         g.reset_counters()
         if s == self.steps - 1:
             arrs = {}
@@ -558,11 +561,15 @@ def test_data_replicas_match_jax_sync_pod_dp(pipe, tmp_path):
                                        rtol=DP_RTOL, atol=DP_ATOL,
                                        err_msg=f"{key} leaf {i}")
         assert i == n_leaves - 1
-    # one bucket a step holds the whole smoke gradient
-    n = sum(x.numel() for x in leaves)
+    # one bucket a step holds the whole smoke gradient: ZeRO-1's
+    # reduce-scatter (every leaf in two pieces, padded to even length),
+    # then the weights' all-gather
+    padded = sum(2 * -(-x.numel() // 2) for x in leaves)
     for m, _ in reps:
         for x in m["xfer"]:
-            assert (x["n_reduce"], x["bytes_reduce"]) == (1, 4 * n)
+            assert (x["n_reduce"], x["n_rs"], x["bytes_rs"]) == \
+                (0, 1, 4 * padded)
+            assert (x["n_ag"], x["bytes_ag"]) == (1, 4 * padded)
             assert x["n_sent"] == x["n_ctl"] == 0
 
 

@@ -1575,6 +1575,7 @@ def _data_tick_rank(group, cfg, params, batches):
     prediction (numpy) back."""
     from repro_torch.core import pipeline_stream as tps
     from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.runtime import checkpoint as ckpt
     torch.backends.cuda.matmul.allow_tf32 = False
     model = Model(cfg, device=group.device)
     p = tree_map(lambda _, a: torch.from_numpy(a).to(group.device), params)
@@ -1586,8 +1587,10 @@ def _data_tick_rank(group, cfg, params, batches):
     for b in batches:
         state, met = step(state, b)
         losses.append(float(met["loss"]))
+    reduce = group.counters()["n_rs"]
+    state = ckpt.whole_state(state, group)     # ZeRO-1's momentum whole
     return {"losses": losses, "transport": group.transport,
-            "reduce": group.counters()["n_reduce"],
+            "reduce": reduce,
             "leaves": [a.detach().cpu().numpy() for key in
                        ("params", "momentum", "pred")
                        for a in tree_leaves(state[key])]}
@@ -1597,9 +1600,10 @@ def _data_tick_rank(group, cfg, params, batches):
 def test_data_tick_replicas_sharing_the_card_match_cpu(card):
     """Two replicas of the streaming spectrain tick on a data axis (smoke
     granite, 4 layers in 2 stages, fp32, 4 ticks), sharing the card
-    through pinned host buffers: bit-equal to each other, one reduction
-    a tick, and within the training tolerance of the same replicas on
-    the CPU over gloo, from the same numpy weights and batches."""
+    through pinned host buffers: bit-equal to each other (ZeRO-1's
+    momentum pieces gathered whole), one reduce-scatter a tick, and
+    within the training tolerance of the same replicas on the CPU over
+    gloo, from the same numpy weights and batches."""
     import dataclasses
     from repro_torch.launch.mesh import run_stage_ranks
     from repro_torch.models.layers import tree_map
@@ -1620,6 +1624,67 @@ def test_data_tick_replicas_sharing_the_card_match_cpu(card):
     assert (c0["transport"], got["cpu"][0]["transport"]) == ("gloo-host",
                                                              "gloo")
     assert c0["reduce"] == c1["reduce"] == len(batches)
+    for a, b in zip(c0["leaves"], c1["leaves"]):
+        assert np.array_equal(a, b)
+    np.testing.assert_allclose(c0["losses"], got["cpu"][0]["losses"],
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(c0["leaves"], got["cpu"][0]["leaves"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _tensor_tick_rank(group, cfg, batches):
+    """One tensor rank of the streaming spectrain tick (``--tensor 2``):
+    its blocks of the seed's draw on its device, 4 ticks; its losses,
+    tensor all-reduces and every params / momentum / prediction leaf
+    gathered over the ranks (numpy) back."""
+    from repro_torch.core import pipeline_stream as tps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import sharding as rsh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rsh.init_grid(group, 1, 2)
+    tg = group.tensor
+    model = Model(cfg, device=group.device)
+    p = tree_map(lambda _, a: a.to(group.device), Model(
+        cfg, device="cpu").init(torch.Generator().manual_seed(0),
+                                tensor=(tg.rank, tg.world)))
+    state = tps.make_state(model, p, batches[0], mode="spectrain")
+    step = tps.make_train_step(model, mode="spectrain", lr=0.05, tensor=tg)
+    losses = []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+    n_tp = tg.counters()["n_tp"]
+    dims = rsh.tensor_leaf_dims(cfg, model, tg.world)
+    state = ckpt.whole_state(state, group.data, tensor=tg, tensor_dims=dims)
+    return {"losses": losses, "transport": group.transport, "n_tp": n_tp,
+            "leaves": [a.detach().cpu().numpy() for key in
+                       ("params", "momentum", "pred")
+                       for a in tree_leaves(state[key])]}
+
+
+@pytest.mark.gpu
+def test_tensor_tick_ranks_sharing_the_card_match_cpu(card):
+    """Two tensor ranks of the streaming spectrain tick (smoke granite,
+    4 layers in 2 stages, fp32, 4 ticks), sharing the card through
+    pinned host buffers: their gathered leaves bit-equal to each other,
+    as many tensor all-reduces as on the CPU, and within the training
+    tolerance of the same ranks on the CPU over gloo."""
+    from repro_torch.launch.mesh import run_stage_ranks
+    cfg = _smoke_cfg()
+    cfg = cfg.replace(mesh_plan=dataclasses.replace(cfg.mesh_plan, pipe=2))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(4):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 17)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    got = {dev: run_stage_ranks(_tensor_tick_rank, 2, dev, cards=1,
+                                args=(cfg, batches), timeout_s=300.0)
+           for dev in ("cuda", "cpu")}
+    c0, c1 = got["cuda"]
+    assert (c0["transport"], got["cpu"][0]["transport"]) == ("gloo-host",
+                                                             "gloo")
+    assert c0["n_tp"] == c1["n_tp"] == got["cpu"][0]["n_tp"] > 0
     for a, b in zip(c0["leaves"], c1["leaves"]):
         assert np.array_equal(a, b)
     np.testing.assert_allclose(c0["losses"], got["cpu"][0]["losses"],
