@@ -4,8 +4,8 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mpmd-only    # phases 15 (three runs) and 16
-    python3 chip_smoke.py --dp-only      # phases 19, 28 and 29 alone
-    python3 chip_smoke.py --tensor-only  # phase 29 alone
+    python3 chip_smoke.py --dp-only      # phases 19, 28, 29 and 30 alone
+    python3 chip_smoke.py --tensor-only  # phases 29 and 30 alone
 
 Run from the root of the repository on a machine with one NVIDIA card
 (an H100 is what the numbers are for).  It imports nothing of JAX or of
@@ -186,10 +186,12 @@ launchers with one process per stage (``launch/mesh.py``), the 4 ranks
 sharing the one card over gloo through pinned host buffers:
 
  16. (``mpmd_train``, after phase 15, the SPMD states freed first)
-     ``repro_torch.launch.train.main --execution mpmd`` on the same
-     full-width granite-8b, 8 layers, 4 stages, batch 8 x 512, bf16,
-     dp plan, from the same seed, under 1f1b, 2bw and interleaved v2
-     (spectrain), 4 rounds each: the losses and an exact digest of
+     ``repro_torch.launch.train.main --execution mpmd``'s rank loop on
+     the same full-width granite-8b, 8 layers, 4 stages, batch 8 x 512,
+     bf16, dp plan, from the same seed, under 1f1b, 2bw and interleaved
+     v2 (spectrain), 4 rounds each, all in one spawn of the four ranks
+     (and phase 18's traced run after them): the losses and an exact
+     digest of
      every params, momentum and 2bw stash leaf (integer reductions of
      its bits, taken on the card in each rank) against phase 15's SPMD
      rounds (the leaves bit-equal counted; a leaf that is not is named
@@ -226,7 +228,8 @@ The pipeline tracer (``repro_torch.obs``) adds one phase:
      and the overhead measured apart: 10 pairs of an untraced and a
      traced 1f1b round on one state, alternating which runs first.
      Then ``--execution mpmd --trace`` under 1f1b (4 ranks on the
-     card): every rank's leaves and the losses bit-equal to phase 16's
+     card, run in phase 16's spawn of the ranks, after its three runs):
+     every rank's leaves and the losses bit-equal to phase 16's
      untraced run, launches and payloads a round unchanged and no
      control message, one measured lane per rank with every event, the
      trace valid (also through ``python -m repro_torch.obs.perfetto``).
@@ -457,19 +460,42 @@ tensor rank's shapes (granite-8b's 16 of 32 heads over 4 of 8, granite-
 20b's 24 of 48 over its one KV head), fp32 and bf16, forward and
 backward:
 
- 29. (``tensor_train``, after phase 28) ``launch.train.main --tensor 2``
-     on full-width granite-8b at 4 layers in 2 stages, bf16, 8 x 512,
-     spectrain, 3 ticks, the two tensor ranks sharing the card over
+ 29. (``tensor_train``, after phase 28) ``launch.train.main --tensor 2``'s
+     ranks on full-width granite-8b at 4 layers in 2 stages, bf16, 8 x
+     512, spectrain, 3 ticks, the two tensor ranks sharing the card over
      gloo-host: per rank and tick the exact launches (8 / 4 / 4 / 3, at
      16 query heads over 4 KV heads), the tensor all-reduces exact (6L
      + 3 of the activations, 3 of the loss's [8, 512] fp32 terms), the
-     ranks' losses equal and within 2^-8 of the one-process tick;
-     then an fp32 pair (2 layers, 4 x 256, TF32 off), one process and
-     ``--tensor 2``, losses within rtol 1e-4 / atol 1e-5; the tick's
+     ranks' losses equal and within 2^-8 of the one-process tick (run
+     first, in this process); then an fp32 pair (2 layers, 4 x 256,
+     TF32 off), one process and ``--tensor 2``, losses within rtol 1e-4
+     / atol 1e-5; the tick's wall, busy, idle share, peak and
+     all-reduce seconds per rank; with four cards also ``--tensor 4`` and
+     ``--data 2 --tensor 2`` over NCCL (launches exact, the tick's wall
+     and collectives' seconds).
+
+The tensor axis for the MoE, state-space and MLA decoders adds one
+phase, and phases 3, 8 and 26 hold the kernels at a rank's shapes
+(the flash kernels at deepseek-moe-16b's 8 of 16 heads of 128,
+zamba2-1.2b's shared block's 16 of 32 of 64 and minicpm3-4b's 20 of 40
+at (96, 64), [4, 256]; both scans and their backward at 32 of 64 heads,
+[4, 256]), fp32 and bf16, timed in bf16:
+
+ 30. (``tensor_train``, in phase 29's spawn of the two ranks, after its
+     runs) ``--tensor 2`` on deepseek-moe-16b (2 layers: 32 of 64 routed
+     experts and a rank's columns of the 2 shared experts a rank),
+     rwkv6-7b (2 layers, 32 of 64 heads), zamba2-1.2b (20 layers, so
+     that each of the 2 stages fires its shared block once; 32 of 64
+     mamba2 heads) and minicpm3-4b (2 layers, 20 of 40 MLA heads), each
+     in 2 stages at full width, bf16, 4 x 256, spectrain, 3 ticks: per
+     rank and tick the exact launches (the one process's at the rank's
+     heads; attention on the tensor cores, the scans on the chunked
+     kernels), the tensor all-reduces and their bytes exact, the ranks'
+     losses equal and within 2^-8 of the one-process tick, the tick's
      wall, busy, idle share, peak and all-reduce seconds per rank; with
-     four cards also ``--tensor 4`` and ``--data 2 --tensor 2`` over
-     NCCL (launches exact, the tick's wall and collectives' seconds).
-     The run ends with each phase's seconds.
+     four cards also each at ``--tensor 4`` over NCCL.  grok-1-314b is
+     held on the CPU only: one full-width layer needs >= 77 GB of fp32
+     state.  The run ends with each phase's seconds.
 
 It prints the kernels' JSON line before its last line, which is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -486,6 +512,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -597,6 +624,16 @@ WIDE_EDGES = [
 # 32 / 8 heads become 16 / 4 a rank (G 4), granite-20b's 48 / 1 become 24
 # over its one replicated KV head (G 24)
 TP_GQA = (("TP2 G4", (16, 4, 128)), ("TP2 G24", (24, 1, 128)))
+# phase 30's ranks at --tensor 2 on [4, 256] (TP_ROWS x TP_SEQ):
+# deepseek-moe-16b's 16 / 16 heads of 128 become 8 / 8, zamba2-1.2b's
+# shared block's 32 / 32 of 64 become 16 / 16, minicpm3-4b's 40 at (96,
+# 64) become 20 (all G 1); (tag, (H, KV, q.k width), v width)
+TP_ROWS, TP_SEQ = 4, 256
+TP_RANK_ATTN = (("TP2 deepseek", (8, 8, 128), None),
+                ("TP2 zamba2", (16, 16, 64), None),
+                ("TP2 MLA", (20, 20, 96), 64))
+# and the scans at a rank's 32 of 64 heads (rwkv6-7b's, zamba2-1.2b's)
+TP_SCAN = ("tensor rank b4 s=256 h32", TP_ROWS, TP_SEQ, 32, 64)
 
 
 def wide_cases(kind: str) -> list:
@@ -627,9 +664,15 @@ def wide_cases(kind: str) -> list:
             cases.append(Case(f"{tag} train b8 512 causal {dt}",
                               TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *heads, dt,
                               True))
+    for tag, heads, dv in TP_RANK_ATTN:
+        for dt in ("float32", "bfloat16"):
+            cases.append(Case(f"{tag} train b{TP_ROWS} {TP_SEQ} causal {dt}",
+                              TP_ROWS, TP_SEQ, TP_SEQ, *heads, dt, True,
+                              dv=dv))
     if kind == "bwd":
         cases = [BwdCase(c.name, c.b, c.sq, c.sk, c.H, c.KV, c.d, c.dtype,
-                         c.causal, c.q_offset, c.kv_len) for c in cases]
+                         c.causal, c.q_offset, c.kv_len, dv=c.dv)
+                 for c in cases]
         for c in cases:      # G 48's and G 24's sums of 288 rows or more
             c.dkv_normwise = (c.dtype == "bfloat16"
                               and c.name.startswith(("G48", "TP2 G24")))
@@ -1386,6 +1429,10 @@ def timings(torch, fa, ref, errs) -> list:
         cases.append((Case(f"{tag} train b8 512 causal bfloat16",
                            TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *heads,
                            "bfloat16", True), 20))
+    for tag, heads, dv in TP_RANK_ATTN:    # phase 30's ranks'
+        cases.append((Case(f"{tag} train b{TP_ROWS} {TP_SEQ} causal "
+                           f"bfloat16", TP_ROWS, TP_SEQ, TP_SEQ, *heads,
+                           "bfloat16", True, dv=dv), 50))
     print(f"  SDPA backends enabled (torch.backends.cuda): "
           f"{sdpa_flags(torch)}")
     return [fwd_row(torch, fa, ref, case, iters, errs[case.name])
@@ -1777,6 +1824,10 @@ def scan_cases(kind: str) -> list:
                  dtype="bfloat16", zeros=0.05, **full),
         ScanCase(kind, "decode b2 zeros float32", 2, 1, dtype="float32",
                  zeros=0.05, **full)]
+    # a tensor rank's call on the chunked kernels (phase 30)
+    name, b, s, h, d = TP_SCAN
+    cases += [ScanCase(kind, f"{name} {dt}", b, s, h, d, dt)
+              for dt in ("float32", "bfloat16")]
     if kind == "rwkv6":
         # the decode wave's call: 8 rows, their states gathered from the
         # pages, the last two rows idle on the trash page (page 8)
@@ -1921,6 +1972,8 @@ def scan_timings(torch, ops, ref, errs) -> dict:
                 (ScanCase(kind, "prefill s=12 bfloat16", 1, 12, 64, 64,
                           "bfloat16"), 500, 10),
                 (ScanCase(kind, "full s=2048 bfloat16", 1, 2048, 64, 64,
+                          "bfloat16"), 20, 2),
+                (ScanCase(kind, f"{TP_SCAN[0]} bfloat16", *TP_SCAN[1:],
                           "bfloat16"), 20, 2)):
             args = case.tensors(torch, seed=7)
             fn = scan_fn(ops, case)
@@ -1931,7 +1984,7 @@ def scan_timings(torch, ops, ref, errs) -> dict:
             bound_ms, bound_by = case.bound()
             width = "hd 64" if kind == "rwkv6" else "p 64, n 64, g 1"
             row = {
-                "shape": f"{case.name}, b 1, h 64, {width}",
+                "shape": f"{case.name}, b {case.b}, h {case.h}, {width}",
                 "variant": case.variant(),
                 "kernel": SCAN_SYMBOLS[kind][case.variant()],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1945,7 +1998,10 @@ def scan_timings(torch, ops, ref, errs) -> dict:
             elif case.variant() == "chunk":
                 extra = (f"  (fp32 recurrence's operations: "
                          f"{case.recurrence_ms():.4f} ms)")
-            rows[kind].append(row)
+            if case.name.startswith(TP_SCAN[0]):
+                rows[f"{kind} tensor rank"] = row
+            else:
+                rows[kind].append(row)
             print(f"  {kind}_scan {case.name:<22} {row['kernel']}: {ms:.4f} "
                   f"ms (wall {wall:.4f} ms per call)  bound {bound_ms:.5f} "
                   f"ms ({bound_by})  plain {plain_ms:.4f} ms  library: "
@@ -3620,39 +3676,96 @@ def _digests_agree(spmd: dict, ranks: list, what: str) -> dict:
             "bit_equal": equal, "differ": differ}
 
 
-def mpmd_train(torch, ops, ir_runs: dict) -> dict:
-    """``repro_torch.launch.train.main --execution mpmd`` (4 ranks on the
-    card) under 1f1b, 2bw and interleaved v2, held to ``ir_schedules``'
-    SPMD rounds of the same label (see the module docstring, phase
-    16)."""
+def _launcher_ranks(group, runs) -> list:
+    """One rank of every launcher run of ``runs`` (``(argv, plan, runtime
+    config, probe, log directory or None)``) in one spawn of the ranks:
+    each the rank's part of what ``train.main`` spawns for its argv
+    (``train._mpmd_rank`` under ``--execution mpmd``, else
+    ``train._train`` of the ``(data, tensor)`` grid), after a barrier,
+    with the launch counters, the group's counters and its joining time
+    reset, and, where a run names a log directory, this rank's standard
+    output written to ``<log>/rank<r>.log``.  Returns each run's seconds
+    on this rank."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    secs = []
+    for argv, pplan, rc, probe, log in runs:
+        args = train.parse_args(argv)
+        cfg = train.build(args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        group.reset_counters()
+        group.barrier()
+        group.t0 = t0 = time.perf_counter()
+        with (fd_stdout(str(Path(log) / f"rank{group.rank}.log")) if log
+              else contextlib.nullcontext()):
+            got = (train._mpmd_rank(group, args, cfg, pplan, rc, probe)
+                   if args.execution == "mpmd" else
+                   train._train(group, args, cfg, pplan, False, rc, probe))
+        check(got == 0, f"{' '.join(argv)}: rank {group.rank} returned "
+              f"{got}")
+        secs.append(time.perf_counter() - t0)
+    group.barrier()
+    return secs
+
+
+def mpmd_train(torch, ops, ir_runs: dict, traced: bool = False) -> tuple:
+    """``repro_torch.launch.train.main --execution mpmd``'s rank loop (4
+    ranks on the card) under 1f1b, 2bw and interleaved v2, all in one
+    spawn of the ranks, held to ``ir_schedules``' SPMD rounds of the same
+    label (see the module docstring, phase 16); with ``traced``, the
+    same spawn then runs the trace phase's traced 1f1b (phase 18 checks
+    it).  Returns (the runs by label, the traced run or None)."""
     from repro_torch.core import pipeline_stream as ps
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_stage_ranks
     from repro_torch.runtime import sharding as rsh
     out = {}
+    S, M, L = TRAIN_STAGES, IR_ROUND, TRAIN_LAYERS
+    tmp = tempfile.mkdtemp(prefix="mpmd_")
+    runs, rdirs = [], {}
     for label, argv, v in MPMD_RUNS:
-        phase(f"mpmd_train: repro_torch.launch.train.main --execution mpmd, "
-              f"{ARCH} full width, {TRAIN_LAYERS} layers, {TRAIN_STAGES} "
-              f"ranks on the card, bf16, {label}, {IR_ROUNDS} rounds")
+        rdirs[label] = Path(tmp) / f"run{len(runs)}"
+        rdirs[label].mkdir()
+        runs.append(_launcher_run(torch, IR_BASE + ["--layers", str(L)]
+                                  + argv + ["--execution", "mpmd"],
+                                  MpmdProbe(str(rdirs[label]), label, M)))
+    if traced:
+        tdir = Path(tmp) / "traced"
+        (tdir / "probe").mkdir(parents=True)
+        runs.append(_launcher_run(
+            torch, IR_BASE + ["--layers", str(L), "--schedule", "1f1b",
+                              "--execution", "mpmd", "--trace",
+                              str(tdir / "mpmd.json")],
+            MpmdProbe(str(tdir / "probe"), "1f1b spectrain", M,
+                      profile=False), str(tdir)))
+    phase(f"mpmd_train: repro_torch.launch.train.main --execution mpmd's "
+          f"ranks, {ARCH} full width, {L} layers, {S} ranks on the card, "
+          f"bf16, {', '.join(MPMD_LABELS)}"
+          f"{' and the traced 1f1b' if traced else ''}, {IR_ROUNDS} rounds "
+          f"each, one spawn of the ranks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    secs = run_stage_ranks(_launcher_ranks, S, "cuda", args=(runs,))
+    spawn_s = time.perf_counter() - t0
+    print(f"  the ranks' spawn and {len(runs)} runs: {spawn_s:.1f} s; each "
+          f"run on rank 0 {[round(x, 1) for x in secs[0]]} s")
+    for i, (label, argv, v) in enumerate(MPMD_RUNS):
+        phase(f"mpmd_train: the checks of {label}")
+        rdir, pplan = rdirs[label], runs[i][1]
+        cfg = train.build(train.parse_args(runs[i][0]))
         spmd = ir_runs[label]
-        full = IR_BASE + ["--layers", str(TRAIN_LAYERS)] + argv + \
-            ["--execution", "mpmd"]
-        args = train.parse_args(full)
-        cfg = train.build(args)
-        pplan, _ = train.run_plan(args, cfg, "cpu")
-        S, C, M, L = TRAIN_STAGES, pplan.n_chunks, IR_ROUND, TRAIN_LAYERS
+        C = pplan.n_chunks
         head = rsh.head_rank(C, S)
         pred = ps.mpmd_transfers(pplan.device_streams())
         act_bytes = IR_MB_ROWS * TRAIN_SEQ * cfg.d_model * 2
         sizes = pplan.partition.sizes()
-        gc.collect()
-        torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            rc = train.main(full, on_step=MpmdProbe(tmp, label, M))
-            run_s = time.perf_counter() - t0
-            reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                    for r in range(S)]
-        check(rc == 0, f"{label}: train.main --execution mpmd returned {rc}")
+        run_s = max(r[i] for r in secs)
+        reps = [json.loads((rdir / f"rank{r}.json").read_text())
+                for r in range(S)]
         want_t = rsh.describe_transport(rsh.choose_transport("cuda", S), S)
         check(all(r["transport"] == want_t for r in reps),
               f"{label}: transport {reps[0]['transport']!r}, expected "
@@ -3748,11 +3861,23 @@ def mpmd_train(torch, ops, ir_runs: dict) -> dict:
               f"{r0['prof_round']}), peak "
               f"{[round(p / 2**30, 2) for p in res['peak_bytes']]} GiB, "
               f"transport {[round(t, 3) for t in res['transport_ms']]} ms "
-              f"a steady round (median); run {run_s:.1f} s, of it "
-              f"{max(r['first_s'] for r in reps):.1f} s from a rank's "
-              f"joining to the end of round 0")
+              f"a steady round (median); run {run_s:.1f} s in the shared "
+              f"spawn, of it {max(r['first_s'] for r in reps):.1f} s from "
+              f"the run's start to the end of round 0")
         out[label] = res
-    return out
+    traced_run = None
+    if traced:
+        tdir = Path(tmp) / "traced"
+        traced_run = {
+            "dir": tmp, "path": str(tdir / "mpmd.json"),
+            "text": "".join((tdir / f"rank{r}.log").read_text()
+                            for r in range(S)),
+            "reps": [json.loads((tdir / "probe" / f"rank{r}.json")
+                                .read_text()) for r in range(S)],
+            "run_s": max(r[-1] for r in secs)}
+    else:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, traced_run
 
 
 # ---------------------------------------------------------------------------
@@ -3926,12 +4051,13 @@ def trace_pairs(torch) -> dict:
     return r
 
 
-def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
+def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict,
+                mpmd_traced: dict) -> dict:
     """The pipeline tracer through ``repro_torch.launch.train.main
     --trace`` (see the module docstring, phase 18): traced IR rounds of
     1f1b and interleaved v2 against untraced ones, a traced MPMD 1f1b
-    run against phase 16's, the traced stream tick, the overhead
-    benchmark."""
+    run (``mpmd_traced``: run by phase 16's spawn of the ranks) against
+    phase 16's, the traced stream tick, the overhead benchmark."""
     from statistics import median
 
     from repro_torch.bench import trace_overhead
@@ -4004,28 +4130,13 @@ def trace_phase(torch, ops, ir_runs: dict, mpmd_runs: dict) -> dict:
         out["pairs"] = trace_pairs(torch)
 
         label = "1f1b spectrain"
-        phase(f"trace: repro_torch.launch.train.main --execution mpmd "
-              f"--trace, {ARCH} full width, {TRAIN_LAYERS} layers, "
-              f"{TRAIN_STAGES} ranks on the card, bf16, {label}, "
-              f"{IR_ROUNDS} rounds")
-        path = str(Path(tmp) / "mpmd.json")
-        log = str(Path(tmp) / "mpmd.log")
-        full = IR_BASE + ["--layers", str(TRAIN_LAYERS), "--schedule",
-                          "1f1b", "--execution", "mpmd", "--trace", path]
-        pdir = Path(tmp) / "probe"
-        pdir.mkdir()
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        with fd_stdout(log):
-            rc = train.main(full, on_step=MpmdProbe(str(pdir), label, M,
-                                                    profile=False))
-        run_s = time.perf_counter() - t0
-        text = Path(log).read_text()
+        phase(f"trace: the traced MPMD run (--execution mpmd --trace, "
+              f"{ARCH} full width, {TRAIN_LAYERS} layers, {TRAIN_STAGES} "
+              f"ranks on the card, bf16, {label}, {IR_ROUNDS} rounds; run "
+              f"in phase 16's spawn of the ranks)")
+        path, text = mpmd_traced["path"], mpmd_traced["text"]
+        run_s, reps = mpmd_traced["run_s"], mpmd_traced["reps"]
         print("  " + text.strip().replace("\n", "\n  "))
-        check(rc == 0, f"mpmd {label}: train.main returned {rc}")
-        reps = [json.loads((pdir / f"rank{r}.json").read_text())
-                for r in range(TRAIN_STAGES)]
         ref = mpmd_runs[label]
         for r, rep in enumerate(reps):
             want_d = ref["rank_digests"][r]
@@ -4140,8 +4251,10 @@ class DpProbe:
     the digests outside its window); after the last step each leaf's
     sample and the peak memory, to ``<out>/rank<r>.json``."""
 
-    def __init__(self, out: str, label: str, want: dict):
+    def __init__(self, out: str, label: str, want: dict, *, symbols=None,
+                 digests: bool = True):
         self.out, self.label, self.want = out, label, want
+        self.symbols, self.digests = symbols, digests
         self.rec = None
 
     def __call__(self, s, state, metrics):
@@ -4159,7 +4272,7 @@ class DpProbe:
                         "digests": [],
                         "transport": None if g is None else g.describe()}
             self.sp = StepProfile(f"{self.label} replica {rank}", self.want,
-                                  DP_PROF_STEP, DP_STEPS - 1)
+                                  DP_PROF_STEP, DP_STEPS - 1, self.symbols)
         rec = self.rec
         rec["t"].append(time.perf_counter())
         self.sp.stop(s)
@@ -4175,13 +4288,16 @@ class DpProbe:
                 rec.setdefault("dxfer", []).append(g.data.counters())
                 g.data.reset_counters()
         rec["loss"].append(float(metrics["loss"]))
-        dg = leaf_digests(torch, state)
-        if "pred" in state:     # spectrain's next forward weights
-            dg.update({"pred/" + k.split("/", 1)[1]: v for k, v in
-                       leaf_digests(torch, {"params": state["pred"]}
-                                    ).items()})
-        rec["digests"].append({k: v["d"] for k, v in dg.items()})
-        rec["pieces"] = sorted(k for k, v in dg.items() if v.get("piece"))
+        dg = {}
+        if self.digests:
+            dg = leaf_digests(torch, state)
+            if "pred" in state:     # spectrain's next forward weights
+                dg.update({"pred/" + k.split("/", 1)[1]: v for k, v in
+                           leaf_digests(torch, {"params": state["pred"]}
+                                        ).items()})
+            rec["digests"].append({k: v["d"] for k, v in dg.items()})
+            rec["pieces"] = sorted(k for k, v in dg.items()
+                                   if v.get("piece"))
         from repro_torch.models.layers import tree_leaves
         rec["momentum_bytes"] = sum(
             t.numel() * 4 for t in tree_leaves(state["momentum"]))
@@ -4236,12 +4352,13 @@ def _loss_run(argv: list, ranks: int) -> list:
 
 
 def _dp_run(torch, n: int, want: dict, label: str, argv=DP_ARGV, *,
-            tensor: int = 1) -> tuple:
+            tensor: int = 1, symbols=None, digests: bool = True) -> tuple:
     """``train.main(argv + --data n [--tensor T])`` with a
     :class:`DpProbe` in every rank (in this process for one rank);
     returns (the ranks' records, ZeRO-1's momentum pieces merged into
     whole-leaf digests and samples (``merge_pieces``) within each tensor
-    coordinate, the run's seconds)."""
+    coordinate, the run's seconds).  ``symbols`` and ``digests``: the
+    probe's."""
     from repro_torch.launch import train
     gc.collect()
     torch.cuda.empty_cache()
@@ -4250,12 +4367,13 @@ def _dp_run(torch, n: int, want: dict, label: str, argv=DP_ARGV, *,
                                   if tensor > 1 else [])
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        rc = train.main(argv + extra, on_step=DpProbe(tmp, label, want))
+        rc = train.main(argv + extra, on_step=DpProbe(
+            tmp, label, want, symbols=symbols, digests=digests))
         run_s = time.perf_counter() - t0
         check(rc == 0, f"{label}: train.main returned {rc}")
         reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                 for r in range(n * tensor)]
-    for t in range(tensor):
+    for t in range(tensor if digests else 0):
         merge_pieces(reps[t::tensor])
     gc.collect()
     torch.cuda.empty_cache()
@@ -5004,10 +5122,11 @@ def data_pipe(torch, ops) -> dict:
 
 # phase 29: the tensor axis, full-width granite-8b at 4 layers in 2
 # stages (1,275 M parameters), the training batch, spectrain, DP_STEPS
-# ticks,
-# two tensor ranks sharing the card over gloo-host; and a short fp32
-# pair (2 layers, 4 x 256) held to the one process at the CPU tests'
-# tolerance
+# ticks, and a short fp32 pair (2 layers, 4 x 256) held to the one
+# process at the CPU tests' tolerance; phase 30: the MoE, state-space
+# and MLA decoders at full width on 4 x 256 tokens (TENSOR_MODELS).  All
+# of their tensor ranks run in one spawn of the two ranks, which share
+# the card over gloo-host
 TENSOR_RANKS, TENSOR_LAYERS = 2, 4
 TENSOR_ARGV = ["--arch", ARCH, "--layers", str(TENSOR_LAYERS), "--pipe",
                str(DATA_PIPE_STAGES), "--batch", str(TRAIN_BATCH), "--seq",
@@ -5019,6 +5138,13 @@ TENSOR_FP32_ARGV = ["--arch", ARCH, "--layers", "2", "--pipe", "2",
                     "--data-kind", "uniform", "--seed", "0", "--steps",
                     str(DP_STEPS), "--log-every", "1", "--mode",
                     "spectrain"]
+# (arch, layers) of phase 30, each in 2 stages: zamba2's shared block
+# fires after every 10th layer of a stage, so 20 layers is the least
+# depth at which each stage fires it once; grok-1-314b's one full-width
+# layer (4.8 B parameters, >= 77 GB of fp32 state) does not fit the card
+TENSOR_MODELS = (("deepseek-moe-16b", 2), ("rwkv6-7b", 2),
+                 ("zamba2-1.2b", 20), ("minicpm3-4b", 2))
+TENSOR_MODEL_BATCH, TENSOR_MODEL_SEQ = TP_ROWS, TP_SEQ
 # the bf16 tick against the one-process tick: each row-parallel output
 # (wo, w2: 2 a layer) and the embedding's lookup is rounded to bf16 on
 # each rank before the ranks' halves are added, an extra rounding of at
@@ -5028,56 +5154,89 @@ TENSOR_LOSS_RTOL = 2.0 ** -8
 TENSOR_FP32_TOL = (1e-4, 1e-5)      # rtol, atol: the CPU tests'
 
 
-def tensor_all_reduces(L: int, rows: int, seq: int, d: int, el: int
-                       ) -> tuple:
-    """(calls, bytes) of one spectrain tick's tensor all-reduces a rank:
-    [rows, seq, d] activations in the compute dtype (``el`` bytes) for
-    the inject's embedding, each layer's two row-parallel outputs
-    forward and in the backward's recompute, each layer's two
-    column-parallel inputs' cotangents backward, the head's
-    column-parallel input's cotangent and the embedding backward's
-    lookup (6L + 3); fp32 [rows, seq] for the head's max, sum of
-    exponentials and gold logit (3).  granite-8b's KV heads shard, so
-    no K/V weight gradient is summed."""
-    big, small = 6 * L + 3, 3
-    return big + small, big * rows * seq * d * el + small * rows * seq * 4
+def tensor_model_argv(arch: str, layers: int) -> list:
+    return ["--arch", arch, "--layers", str(layers), "--pipe",
+            str(DATA_PIPE_STAGES), "--batch", str(TENSOR_MODEL_BATCH),
+            "--seq", str(TENSOR_MODEL_SEQ), "--dtype", "bfloat16",
+            "--data-kind", "uniform", "--seed", "0", "--steps",
+            str(DP_STEPS), "--log-every", "1", "--mode", "spectrain"]
 
 
-def tensor_train(torch, ops) -> dict:
-    """Phase 29: ``repro_torch.launch.train.main --tensor 2`` (see the
-    module docstring): the exact launches a tick per rank, the tensor
-    all-reduces a tick, the losses tick by tick against the one-process
-    tick of the same flags, the fp32 pair at the CPU tolerance, and the
-    tick's wall, busy, idle share, peak and transport seconds per
-    rank."""
-    from repro_torch.launch import train
-    from repro_torch.runtime import sharding as rsh
-    t_phase = time.perf_counter()
-    T = TENSOR_RANKS
-    cfg = train.build(train.parse_args(TENSOR_ARGV))
-    L, S = cfg.n_layers, DATA_PIPE_STAGES
+def tensor_launches(cfg, L: int, S: int) -> tuple:
+    """(launches, variant launches) a spectrain tick a rank, the one
+    process's at the rank's heads: 2L forwards and L of each backward
+    kernel of the attention layers (zamba2: its shared block's firings),
+    2L scans and L scan backwards of the SSM layers (chunked at s >=
+    64), S + 1 ``fused_update``."""
+    if cfg.ssm is not None:
+        return ssm_train_launches(cfg.name, L, S)
     want = data_pipe_launches(L, S, 1, True)
-    out = {}
-    phase(f"phase 29 (tensor_train): the one-process tick, {ARCH} full "
-          f"width, {L} layers in {S} stages, bf16, {DP_STEPS} ticks")
-    (one,), _ = _dp_run(torch, 1, want, "tensor one process", TENSOR_ARGV)
-    one_losses, one_wall = one["loss"], _median(_steady(one))
-    transport = rsh.choose_transport("cuda", T)
-    what = f"--tensor {T} tick spectrain"
-    phase(f"phase 29 (tensor_train): repro_torch.launch.train.main "
-          f"--tensor {T}, {ARCH} full width ({cfg.n_heads // T} of "
-          f"{cfg.n_heads} query heads, {cfg.n_kv_heads // T} of "
-          f"{cfg.n_kv_heads} KV heads, {cfg.d_ff // T} of {cfg.d_ff} MLP "
-          f"columns, {cfg.vocab_padded // T} vocabulary rows a rank), {L} "
-          f"layers in {S} stages, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, "
-          f"{DP_STEPS} ticks, {transport}")
-    reps, run_s = _dp_run(torch, 1, want, what, TENSOR_ARGV, tensor=T)
-    want_t = rsh.describe_transport(transport, T)
-    check(all(r["transport"] == want_t for r in reps),
-          f"{what}: transport {reps[0]['transport']!r}, expected "
-          f"{want_t!r}")
-    n_ar, b_ar = tensor_all_reduces(L, TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
-                                    2)
+    return want, {"flash_fwd_mma": 2 * L, "flash_bwd_dq_mma": L,
+                  "flash_bwd_dkv_mma": L}
+
+
+def tensor_all_reduces(cfg, L: int, S: int, rows: int, seq: int,
+                       el: int = 2) -> tuple:
+    """(calls, bytes) of one spectrain tick's tensor all-reduces a rank at
+    T = 2, activations [rows, seq, d] in the compute dtype (``el``
+    bytes, A below): the inject's embedding, the head's column-parallel
+    input's cotangent and the embedding backward's lookup (3 A) and the
+    head's max, sum of exponentials and gold logit ([rows, seq] fp32);
+    then a layer's row-parallel outputs forward and again in the
+    backward's recompute, and the cotangents backward of what enters the
+    rank's heads or experts: a dense layer 6 A (a replicated K/V's two
+    weight gradients beside); an MoE layer 6 A, the router made whole
+    ([d, E]) twice and the gates ([rows·seq, k]); an rwkv6 layer 9 A (the
+    four mixes in one call) and the decay's cotangent in fp32; a mamba2
+    layer 3 A, B and C, and the gated norm's sums of squares ([rows,
+    seq] fp32, three times); an MLA layer 5 A and its latents and rope
+    key; each firing of zamba2's shared block 6 A.  The same formulas
+    the CPU tests hold at el 4 (``tests/test_torch_tensor_*.py``)."""
+    tok = rows * seq
+    A = tok * cfg.d_model * el
+    calls, nbytes = 6, 3 * A + 3 * tok * 4
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        calls += 7 * L
+        nbytes += L * (9 * A + tok * cfg.d_model * 4)
+    elif cfg.ssm is not None:
+        bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        calls += 7 * L
+        nbytes += L * (3 * A + 3 * tok * 4 + tok * bc * el)
+        fires = S * ((L // S) // cfg.ssm.shared_attn_every)
+        calls += 6 * fires
+        nbytes += 6 * A * fires
+    elif cfg.mla is not None:
+        m = cfg.mla
+        calls += 8 * L
+        nbytes += L * (5 * A + tok * el * (m.q_lora_rank + m.kv_lora_rank
+                                           + m.qk_rope_head_dim))
+    else:
+        kv_rep = cfg.n_kv_heads % 2 != 0
+        calls += L * (6 + 2 * kv_rep)
+        nbytes += L * (6 * A + kv_rep * 2 * cfg.d_model * cfg.n_kv_heads
+                       * cfg.hd * 4)
+        if cfg.moe is not None:
+            calls += 3 * L
+            nbytes += L * (2 * cfg.d_model * cfg.moe.num_experts * el
+                           + tok * cfg.moe.top_k * el)
+    return calls, nbytes
+
+
+def _launcher_run(torch, argv, probe, log=None) -> tuple:
+    """(the launcher's argv, its plan, its runtime config, the probe, the
+    log directory): one run of :func:`_launcher_ranks`."""
+    from repro_torch.api import runtime_config_from_args
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    pplan, _ = train.run_plan(args, train.build(args), torch.device("cuda"))
+    return (argv, pplan, runtime_config_from_args(
+        args, ticks_per_step=max(args.ticks, 1)), probe, log)
+
+
+def _check_tensor_reps(reps, want, var, what, n_ar, b_ar) -> None:
+    """Every rank's launches a tick exact (and their variants over the
+    run), its tensor all-reduces a tick exact, nothing over the data
+    axis."""
     for rep in reps:
         prev = {k: 0 for k in want}
         for s_, c in enumerate(rep["counts"]):
@@ -5085,10 +5244,10 @@ def tensor_train(torch, ops) -> dict:
             check(got == want, f"{what}: rank {rep['rank']} tick {s_} "
                   f"launched {got}, expected {want}")
             prev = c
-        check(rep["variants"][-1]["flash_fwd_mma"]
-              == want["flash_fwd"] * DP_STEPS,
-              f"{what}: rank {rep['rank']} ran flash_fwd off the tensor "
-              f"cores")
+        got_var = {k: rep["variants"][-1][k] for k in var}
+        check(got_var == {k: v * DP_STEPS for k, v in var.items()},
+              f"{what}: rank {rep['rank']} ran the variants {got_var}, "
+              f"expected {var} a tick (tensor cores, chunked scans)")
         for s_, x in enumerate(rep["tp"]):
             check((x["n_tp"], x["bytes_tp"]) == (n_ar, b_ar),
                   f"{what}: rank {rep['rank']} tick {s_} ran "
@@ -5098,63 +5257,149 @@ def tensor_train(torch, ops) -> dict:
             check(x["n_reduce"] + x["n_rs"] + x["n_sent"] == 0,
                   f"{what}: rank {rep['rank']} moved {x} over the data "
                   f"axis, which has one replica")
+
+
+def _tensor_record(reps, one, want, n_ar, b_ar, rows, seq, what,
+                   run_s) -> dict:
+    """The ranks' losses against each other and the one process's (within
+    2^-8), and the tick's wall, busy, idle share, peak and all-reduce
+    host seconds a rank."""
     check(reps[0]["loss"] == reps[1]["loss"],
           f"{what}: the ranks' losses differ: {reps[0]['loss']} vs "
           f"{reps[1]['loss']}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(reps[0]["loss"],
-                                                 one_losses))
+                                                 one["loss"]))
     check(rel <= TENSOR_LOSS_RTOL,
           f"{what}: losses {reps[0]['loss']} against the one process's "
-          f"{one_losses}: {rel:.3e} relative, beyond "
+          f"{one['loss']}: {rel:.3e} relative, beyond "
           f"{TENSOR_LOSS_RTOL:.3e}")
     walls = _steady(reps[0])
     check(bool(walls), f"{what}: no unprofiled steady tick")
     wall = _median(walls)
     busy = [r["busy_ms"] for r in reps]
-    tp_ms = [_steady_xfer(r, "tp", "tp_s") for r in reps]
-    rec = {"wall_ms": wall, "walls_ms": walls, "one_wall_ms": one_wall,
-           "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall * 1e3,
-           "busy_ms": busy, "idle": [1 - b / wall for b in busy],
-           "n_kernels": [r["n_kernels"] for r in reps], "tp_ms": tp_ms,
-           "n_tp": n_ar, "bytes_tp": b_ar, "losses": reps[0]["loss"],
-           "one_losses": one_losses, "loss_rel": rel,
-           "peak_bytes": [r["peak_bytes"] for r in reps],
-           "transport": reps[0]["transport"], "per_tick": want,
-           "launches": {k: T * v * DP_STEPS for k, v in want.items()},
-           "run_s": run_s}
-    out["bf16"] = rec
-    print(f"  transport: {rec['transport']}")
-    print(f"  launches a tick, every rank: {want}, exact on every tick, "
-          f"every attention launch on the tensor cores at "
-          f"{cfg.n_heads // T} heads over {cfg.n_kv_heads // T}; {n_ar} "
-          f"tensor all-reduces a tick of {b_ar:,} B a rank (6L + 3 of "
-          f"[{TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.d_model}] bf16 and 3 of "
-          f"[{TRAIN_BATCH}, {TRAIN_SEQ}] fp32), exact")
+    return {"wall_ms": wall, "walls_ms": walls,
+            "one_wall_ms": _median(_steady(one)),
+            "tok_per_s": rows * seq / wall * 1e3,
+            "busy_ms": busy, "idle": [1 - b / wall for b in busy],
+            "n_kernels": [r["n_kernels"] for r in reps],
+            "tp_ms": [_steady_xfer(r, "tp", "tp_s") for r in reps],
+            "n_tp": n_ar, "bytes_tp": b_ar, "losses": reps[0]["loss"],
+            "one_losses": one["loss"], "loss_rel": rel,
+            "peak_bytes": [r["peak_bytes"] for r in reps],
+            "one_peak_bytes": one["peak_bytes"],
+            "transport": reps[0]["transport"], "per_tick": want,
+            "launches": {k: TENSOR_RANKS * v * DP_STEPS
+                         for k, v in want.items()},
+            "prof_step": reps[0]["prof_step"], "run_s": run_s}
+
+
+def _print_tensor_record(rec: dict, heads: str) -> None:
+    print(f"  launches a tick, every rank: {rec['per_tick']}, exact on "
+          f"every tick ({heads}); {rec['n_tp']} tensor all-reduces a "
+          f"tick of {rec['bytes_tp']:,} B a rank, exact")
     print(f"  losses {[round(x, 6) for x in rec['losses']]} (both ranks) "
           f"against the one-process tick's "
-          f"{[round(x, 6) for x in one_losses]}: {rel:.3e} relative "
-          f"(allowed {TENSOR_LOSS_RTOL:.3e})")
+          f"{[round(x, 6) for x in rec['one_losses']]}: "
+          f"{rec['loss_rel']:.3e} relative (allowed "
+          f"{TENSOR_LOSS_RTOL:.3e})")
     print(f"  tick wall (rank 0, median of the unprofiled steady ticks "
-          f"{[round(w, 3) for w in walls]}): {wall:.3f} ms, "
-          f"{rec['tok_per_s']:.1f} tokens/s (one process {one_wall:.3f} "
-          f"ms); tensor all-reduce host {[round(t, 1) for t in tp_ms]} ms "
-          f"a tick; busy {[round(b, 3) for b in busy]} ms in "
-          f"{rec['n_kernels']} kernels (profiled tick "
-          f"{reps[0]['prof_step']}), idle "
-          f"{[round(i, 4) for i in rec['idle']]}; peak "
-          f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; run "
-          f"{run_s:.1f} s")
-    # the fp32 pair
-    cfg32 = train.build(train.parse_args(TENSOR_FP32_ARGV))
-    phase(f"phase 29 (tensor_train): the fp32 pair, {ARCH} full width, "
-          f"{cfg32.n_layers} layers in {S} stages, batch 4 x 256, fp32 "
-          f"(TF32 off), {DP_STEPS} ticks, one process and --tensor {T}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    (one32,) = _loss_run(TENSOR_FP32_ARGV, 1)
-    tp32 = _loss_run(TENSOR_FP32_ARGV + ["--tensor", str(T)], T)
-    run32 = time.perf_counter() - t0
+          f"{[round(w, 3) for w in rec['walls_ms']]}): "
+          f"{rec['wall_ms']:.3f} ms, {rec['tok_per_s']:.1f} tokens/s (one "
+          f"process {rec['one_wall_ms']:.3f} ms); tensor all-reduce host "
+          f"{[round(t, 1) for t in rec['tp_ms']]} ms a tick; busy "
+          f"{[round(b, 3) for b in rec['busy_ms']]} ms in "
+          f"{rec['n_kernels']} kernels (profiled tick {rec['prof_step']}), "
+          f"idle {[round(i, 4) for i in rec['idle']]}; peak "
+          f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB (one "
+          f"process {rec['one_peak_bytes'] / 2**30:.2f}); run "
+          f"{rec['run_s']:.1f} s in the shared spawn")
+
+
+def tensor_train(torch, ops) -> dict:
+    """Phases 29 and 30: ``repro_torch.launch.train.main --tensor 2``'s
+    ranks (see the module docstring) on granite-8b, its fp32 pair and
+    the four models of :data:`TENSOR_MODELS`, in one spawn of the two
+    ranks: the exact launches a tick per rank, the tensor all-reduces a
+    tick, the losses tick by tick against the one-process tick of the
+    same flags (run first, in this process), the fp32 pair at the CPU
+    tolerance, and the tick's wall, busy, idle share, peak and transport
+    seconds per rank."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_stage_ranks
+    from repro_torch.runtime import sharding as rsh
+    t_phase = time.perf_counter()
+    T, S = TENSOR_RANKS, DATA_PIPE_STAGES
+    transport = rsh.choose_transport("cuda", T)
+    want_t = rsh.describe_transport(transport, T)
+    tmp = Path(tempfile.mkdtemp(prefix="tensor_"))
+    runs = [("granite", TENSOR_ARGV, TRAIN_BATCH, TRAIN_SEQ)] + [
+        (arch, tensor_model_argv(arch, n), TENSOR_MODEL_BATCH,
+         TENSOR_MODEL_SEQ) for arch, n in TENSOR_MODELS]
+    out, ones, cases, plan = {}, {}, [], []
+    try:
+        for key, argv, rows, seq in runs:
+            cfg = train.build(train.parse_args(argv))
+            L = cfg.n_layers
+            want, var = tensor_launches(cfg, L, S)
+            phase(f"phase {29 if key == 'granite' else 30} (tensor_train): "
+                  f"the one-process tick, {cfg.name} full width, {L} layers "
+                  f"in {S} stages, bf16, {rows} x {seq}, {DP_STEPS} ticks")
+            (ones[key],), _ = _dp_run(torch, 1, want, f"{cfg.name} one "
+                                      f"process", argv, symbols=TRAIN_SYMBOL,
+                                      digests=False)
+            d = tmp / key
+            d.mkdir()
+            cases.append(_launcher_run(torch, argv + [
+                "--tensor", str(T)], DpProbe(
+                    str(d), f"{cfg.name} --tensor {T}", want,
+                    symbols=TRAIN_SYMBOL, digests=False)))
+            plan.append((key, cfg, want, var, rows, seq, d))
+        phase(f"phase 29 (tensor_train): the one-process fp32 pair, {ARCH} "
+              f"full width, 2 layers in {S} stages, batch 4 x 256, fp32 "
+              f"(TF32 off), {DP_STEPS} ticks")
+        (one32,) = _loss_run(TENSOR_FP32_ARGV, 1)
+        d32 = tmp / "fp32"
+        d32.mkdir()
+        cases.insert(1, _launcher_run(torch, TENSOR_FP32_ARGV + [
+            "--tensor", str(T)], LossProbe(str(d32), DP_STEPS)))
+        phase(f"phases 29 and 30 (tensor_train): repro_torch.launch."
+              f"train.main --tensor {T}'s ranks, one spawn on the card "
+              f"({transport}): {ARCH} (4 layers, 8 x 512), its fp32 pair, "
+              f"then {', '.join(f'{a} ({n} layers)' for a, n in TENSOR_MODELS)}"
+              f" at 4 x 256, bf16, {DP_STEPS} ticks each")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        secs = run_stage_ranks(_launcher_ranks, T, "cuda", args=(cases,))
+        spawn_s = time.perf_counter() - t0
+        print(f"  the ranks' spawn and {len(cases)} runs: {spawn_s:.1f} s; "
+              f"each run on rank 0 {[round(x, 1) for x in secs[0]]} s")
+        run_s = [max(r[i] for r in secs) for i in range(len(cases))]
+        del run_s[1]                    # the fp32 pair's
+        for (key, cfg, want, var, rows, seq, d), rs in zip(plan, run_s):
+            phase(f"phase {29 if key == 'granite' else 30} (tensor_train): "
+                  f"the checks of {cfg.name} --tensor {T}")
+            reps = [json.loads((d / f"rank{r}.json").read_text())
+                    for r in range(T)]
+            what = f"{cfg.name} --tensor {T} tick spectrain"
+            check(all(r["transport"] == want_t for r in reps),
+                  f"{what}: transport {reps[0]['transport']!r}, expected "
+                  f"{want_t!r}")
+            n_ar, b_ar = tensor_all_reduces(cfg, cfg.n_layers, S, rows,
+                                            seq)
+            _check_tensor_reps(reps, want, var, what, n_ar, b_ar)
+            rec = _tensor_record(reps, ones[key], want, n_ar, b_ar, rows,
+                                 seq, what, rs)
+            rec.update(arch=cfg.name, layers=cfg.n_layers, rows=rows,
+                       seq=seq, heads=_rank_heads(cfg, T))
+            out["bf16" if key == "granite" else cfg.name] = rec
+            print(f"  {cfg.name} ({rec['transport']}):")
+            _print_tensor_record(rec, rec["heads"])
+        phase(f"phase 29 (tensor_train): the checks of the fp32 pair")
+        tp32 = [json.loads((d32 / f"rank{r}.json").read_text())["loss"]
+                for r in range(T)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     check(tp32[0] == tp32[1], f"fp32 --tensor {T}: the ranks' losses "
           f"differ: {tp32}")
     rtol, atol = TENSOR_FP32_TOL
@@ -5164,64 +5409,110 @@ def tensor_train(torch, ops) -> dict:
               f"process's {one32} beyond rtol {rtol} / atol {atol}")
     worst = max(abs(a - b) for a, b in zip(tp32[0], one32))
     out["fp32"] = {"losses": tp32[0], "one": one32, "max_abs": worst,
-                   "run_s": run32}
+                   "run_s": max(r[1] for r in secs)}
+    out["spawn_s"] = spawn_s
     print(f"  fp32: losses {[round(x, 7) for x in tp32[0]]} (both ranks) "
           f"against the one process's {[round(x, 7) for x in one32]}: "
-          f"max |d| {worst:.3e} (rtol {rtol} / atol {atol}); the pair's "
-          f"runs {run32:.1f} s")
+          f"max |d| {worst:.3e} (rtol {rtol} / atol {atol})")
     if torch.cuda.device_count() >= 4:
-        out["grid"] = tensor_grid(torch, want)
+        out["grid"] = tensor_grid(torch)
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"  phase 29: {out['seconds']:.1f} s")
+    print(f"  phases 29 and 30: {out['seconds']:.1f} s")
     return out
 
 
-def tensor_grid(torch, want: dict) -> dict:
-    """Where there are four cards: ``--tensor 4`` and ``--data 2 --tensor
-    2`` over NCCL, a card a rank, phase 29's model and batch: each
-    rank's exact launches and losses, the tick's wall and the
-    collectives' host seconds (the tensor all-reduces, ZeRO-1's
-    reduce-scatter and all-gathers) and its peak.  No check beyond the
-    launches and the ranks' agreement depends on four cards."""
-    out = {}
-    for n, t in ((1, 4), (2, 2)):
-        what = f"--data {n} --tensor {t}"
-        phase(f"phase 29 (tensor_train): {what} over NCCL, {ARCH} full "
-              f"width, {TENSOR_LAYERS} layers in {DATA_PIPE_STAGES} stages, "
-              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, {DP_STEPS} ticks")
-        reps, run_s = _dp_run(torch, n, want, what, TENSOR_ARGV, tensor=t)
-        for rep in reps:
-            prev = {k: 0 for k in want}
-            for s_, c in enumerate(rep["counts"]):
-                got = {k: c[k] - prev[k] for k in want}
-                check(got == want, f"{what}: rank {rep['rank']} tick {s_} "
-                      f"launched {got}, expected {want}")
-                prev = c
-        for d in range(n):          # a replica's tensor ranks agree
-            grp = reps[d * t:(d + 1) * t]
-            check(all(r["loss"] == grp[0]["loss"] for r in grp),
-                  f"{what}: replica {d}'s tensor ranks' losses differ")
-        wall = _median(_steady(reps[0]))
-        rec = {"wall_ms": wall, "run_s": run_s,
-               "tp_ms": [_steady_xfer(r, "tp", "tp_s") for r in reps],
-               "data_ms": [_steady_xfer(r, "dxfer", "reduce_s")
-                           + _steady_xfer(r, "dxfer", "gather_s")
-                           for r in reps],
-               "peak_bytes": [r["peak_bytes"] for r in reps],
-               "transport": reps[0]["transport"]}
-        out[(n, t)] = rec
-        print(f"  {what} ({rec['transport']}): tick wall {wall:.3f} ms; "
-              f"tensor all-reduce host {[round(x, 3) for x in rec['tp_ms']]}"
-              f" ms, ZeRO-1 host {[round(x, 3) for x in rec['data_ms']]} ms "
-              f"a tick; peak "
-              f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; "
-              f"run {run_s:.1f} s")
+def _rank_heads(cfg, T: int) -> str:
+    """What a tensor rank of ``cfg`` holds, for the record."""
+    if cfg.moe is not None:
+        return (f"{cfg.moe.num_experts // T} of {cfg.moe.num_experts} "
+                f"experts, {cfg.n_heads // T} of {cfg.n_heads} heads over "
+                f"{cfg.n_kv_heads // T} KV heads")
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return f"{cfg.n_heads // T} of {cfg.n_heads} rwkv6 heads"
+    if cfg.ssm is not None:
+        nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        return (f"{nh // T} of {nh} mamba2 heads, the shared block's "
+                f"{cfg.n_heads // T} of {cfg.n_heads} heads")
+    if cfg.mla is not None:
+        return f"{cfg.n_heads // T} of {cfg.n_heads} MLA heads at (96, 64)"
+    return (f"{cfg.n_heads // T} of {cfg.n_heads} query heads over "
+            f"{cfg.n_kv_heads // T} KV heads")
+
+
+def tensor_grid(torch) -> dict:
+    """Where there are four cards, over NCCL, a card a rank: granite-8b
+    at ``--tensor 4`` and ``--data 2 --tensor 2``, then the four models of
+    :data:`TENSOR_MODELS` at ``--tensor 4``, in one spawn of the four
+    ranks: each rank's exact launches and the ranks' agreement, the
+    tick's wall, the collectives' host seconds (the tensor all-reduces,
+    ZeRO-1's reduce-scatter and all-gathers) and the peaks.  No check
+    beyond the launches and the ranks' agreement depends on four
+    cards."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_stage_ranks
+    out, cases, plan = {}, [], []
+    tmp = Path(tempfile.mkdtemp(prefix="tensor_grid_"))
+    runs = [(ARCH, TENSOR_ARGV, 1, 4), (ARCH, TENSOR_ARGV, 2, 2)] + [
+        (arch, tensor_model_argv(arch, n), 1, 4)
+        for arch, n in TENSOR_MODELS]
+    try:
+        for i, (arch, argv, n, t) in enumerate(runs):
+            cfg = train.build(train.parse_args(argv))
+            want, _ = tensor_launches(cfg, cfg.n_layers, DATA_PIPE_STAGES)
+            d = tmp / str(i)
+            d.mkdir()
+            cases.append(_launcher_run(torch, argv + [
+                "--data", str(n), "--tensor", str(t)], DpProbe(
+                    str(d), f"{arch} --data {n} --tensor {t}", want,
+                    symbols=TRAIN_SYMBOL, digests=False)))
+            plan.append((arch, n, t, want, d))
+        phase(f"phase 29 (tensor_train): over NCCL, a card a rank, one "
+              f"spawn of 4 ranks: {ARCH} --tensor 4 and --data 2 --tensor "
+              f"2, then {', '.join(a for a, _ in TENSOR_MODELS)} --tensor "
+              f"4, bf16, {DP_STEPS} ticks each")
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs = run_stage_ranks(_launcher_ranks, 4, "cuda", args=(cases,))
+        for i, (arch, n, t, want, d) in enumerate(plan):
+            what = f"{arch} --data {n} --tensor {t}"
+            reps = [json.loads((d / f"rank{r}.json").read_text())
+                    for r in range(4)]
+            for rep in reps:
+                prev = {k: 0 for k in want}
+                for s_, c in enumerate(rep["counts"]):
+                    got = {k: c[k] - prev[k] for k in want}
+                    check(got == want, f"{what}: rank {rep['rank']} tick "
+                          f"{s_} launched {got}, expected {want}")
+                    prev = c
+            for dd in range(n):         # a replica's tensor ranks agree
+                grp = reps[dd * t:(dd + 1) * t]
+                check(all(r["loss"] == grp[0]["loss"] for r in grp),
+                      f"{what}: replica {dd}'s tensor ranks' losses differ")
+            wall = _median(_steady(reps[0]))
+            rec = {"wall_ms": wall, "run_s": max(r[i] for r in secs),
+                   "tp_ms": [_steady_xfer(r, "tp", "tp_s") for r in reps],
+                   "data_ms": [_steady_xfer(r, "dxfer", "reduce_s")
+                               + _steady_xfer(r, "dxfer", "gather_s")
+                               if "dxfer" in r else 0.0 for r in reps],
+                   "busy_ms": [r["busy_ms"] for r in reps],
+                   "peak_bytes": [r["peak_bytes"] for r in reps],
+                   "transport": reps[0]["transport"]}
+            out[(arch, n, t)] = rec
+            print(f"  {what} ({rec['transport']}): tick wall {wall:.3f} ms; "
+                  f"busy {[round(b, 3) for b in rec['busy_ms']]} ms; tensor "
+                  f"all-reduce host {[round(x, 3) for x in rec['tp_ms']]} "
+                  f"ms, ZeRO-1 host {[round(x, 3) for x in rec['data_ms']]}"
+                  f" ms a tick; peak "
+                  f"{[round(p / 2**30, 2) for p in rec['peak_bytes']]} GiB; "
+                  f"run {rec['run_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
 def run_tensor_only() -> int:
     """``python3 chip_smoke.py --tensor-only``: the card, the build and
-    phase 29 alone (with four cards, its NCCL grid runs too)."""
+    phases 29 and 30 alone (with four cards, their NCCL grid runs too)."""
     torch = _torch_or_none()
     if torch is None:
         return 2
@@ -5248,15 +5539,20 @@ def run_tensor_only() -> int:
 
 
 def print_tensor(tens: dict) -> None:
-    r = tens["bf16"]
-    print(f"tensor axis --tensor {TENSOR_RANKS} tick spectrain "
-          f"({r['transport']}): {r['wall_ms']:.3f} ms a tick (one process "
-          f"{r['one_wall_ms']:.3f}), {r['n_tp']} tensor all-reduces of "
-          f"{r['bytes_tp']:,} B a tick a rank in {r['tp_ms']} ms, idle "
-          f"{[round(i, 4) for i in r['idle']]}, peak "
-          f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB; losses "
-          f"within {r['loss_rel']:.3e} of the one process's; fp32 pair "
-          f"max |d| {tens['fp32']['max_abs']:.3e}")
+    for key in ["bf16"] + [a for a, _ in TENSOR_MODELS]:
+        r = tens[key]
+        print(f"tensor axis --tensor {TENSOR_RANKS} tick spectrain, "
+              f"{r['arch']} ({r['layers']} layers, {r['rows']} x "
+              f"{r['seq']}, {r['transport']}): {r['wall_ms']:.3f} ms a tick "
+              f"(one process {r['one_wall_ms']:.3f}), {r['n_tp']} tensor "
+              f"all-reduces of {r['bytes_tp']:,} B a tick a rank in "
+              f"{[round(x, 1) for x in r['tp_ms']]} ms, busy "
+              f"{[round(b, 3) for b in r['busy_ms']]} ms, idle "
+              f"{[round(i, 4) for i in r['idle']]}, peak "
+              f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB; "
+              f"losses within {r['loss_rel']:.3e} of the one process's")
+    print(f"tensor axis fp32 pair max |d| {tens['fp32']['max_abs']:.3e}; "
+          f"the ranks' one spawn {tens['spawn_s']:.1f} s")
 
 
 def print_data_pipe(dpipe: dict) -> None:
@@ -5391,11 +5687,16 @@ def train_timings(torch, fa, ref, ops, bwd_errs) -> list:
     by_shape = [bwd_timing(torch, fa, ref, BwdCase(
         "train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
         32, 8, 128, "bfloat16", True), bwd_errs)]
-    # granite-20b's and starcoder2-15b's, and a tensor rank's (phase 29)
+    # granite-20b's and starcoder2-15b's, and a tensor rank's (phases 29
+    # and 30)
     for tag, heads in WIDE_GQA + TP_GQA:
         by_shape.append(bwd_timing(torch, fa, ref, BwdCase(
             f"{tag} train b8 512 causal bfloat16", TRAIN_BATCH, TRAIN_SEQ,
             TRAIN_SEQ, *heads, "bfloat16", True), bwd_errs))
+    for tag, heads, dv in TP_RANK_ATTN:
+        by_shape.append(bwd_timing(torch, fa, ref, BwdCase(
+            f"{tag} train b{TP_ROWS} {TP_SEQ} causal bfloat16", TP_ROWS,
+            TP_SEQ, TP_SEQ, *heads, "bfloat16", True, dv=dv), bwd_errs))
     for i in range(2):                 # dq, dk/dv: granite-8b's the row
         rows.append(dict(by_shape[0][i],
                          shapes=[shape[i] for shape in by_shape]))
@@ -6508,6 +6809,8 @@ def scan_bwd_cases(kind: str) -> list:
         for s in (1, 12, 63, 64, 100):
             cases.append(ScanBwdCase(kind, f"b2 s={s} {dt}", 2, s, 64, 64,
                                      dt))
+        name, b, s, h, d = TP_SCAN      # a tensor rank's (phase 30)
+        cases.append(ScanBwdCase(kind, f"{name} {dt}", b, s, h, d, dt))
     if kind == "rwkv6":
         cases += [ScanBwdCase(kind, "hd32 b2 h4 s=20 float32", 2, 20, 4, 32,
                               "float32"),
@@ -6623,17 +6926,18 @@ def scan_bwd_timings(torch, r6, m2, ref, errs) -> dict:
     rows = {}
     for kind in ("rwkv6", "mamba2"):
         width = "hd 64" if kind == "rwkv6" else "p 64, n 64, g 1"
-        for b in (8, 1):
+        for b, s, h in ((8, 512, 64), (1, 512, 64), TP_SCAN[1:4]):
             name = ("train b8 s=512 bfloat16" if b == 8
-                    else "b1 s=512 bfloat16")
-            case = ScanBwdCase(kind, name, b, 512, 64, 64, "bfloat16")
+                    else "b1 s=512 bfloat16" if b == 1
+                    else f"{TP_SCAN[0]} bfloat16")
+            case = ScanBwdCase(kind, name, b, s, h, 64, "bfloat16")
             args = case.tensors(torch, seed=7)
             ms, wall = time_ms(torch, lambda: case.kernel((r6, m2), args),
                                20)
             plain_ms, _ = time_ms(torch,
                                   lambda: case.plain(torch, ref, args), 2)
             bound_ms, bound_by = case.bound()
-            row = {"shape": f"[{b}, 512, 64, 64] bf16, {width}",
+            row = {"shape": f"[{b}, {s}, {h}, 64] bf16, {width}",
                    "kernel": SCAN_BWD_SYMBOLS[kind], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None,
@@ -6646,7 +6950,7 @@ def scan_bwd_timings(torch, r6, m2, ref, errs) -> dict:
             if b == 8:
                 rows[kind] = row
             else:
-                rows[kind]["b1"] = row
+                rows[kind]["b1" if b == 1 else "tensor_rank"] = row
             print(f"  {kind}_scan_bwd {row['shape']} {row['kernel']}: "
                   f"{ms:.4f} ms (wall {wall:.4f} ms per call)  bound "
                   f"{bound_ms:.5f} ms ({bound_by}; tensor-core "
@@ -7358,7 +7662,7 @@ def run_mpmd_only() -> int:
             r for r in IR_RUNS if r[0] in MPMD_LABELS])
         gc.collect()
         torch.cuda.empty_cache()
-        mpmd_runs = mpmd_train(torch, ops, ir_runs)
+        mpmd_runs, _ = mpmd_train(torch, ops, ir_runs)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -7526,8 +7830,12 @@ def run() -> int:
         ir_runs = ir_schedules(torch, ops, ref)
         gc.collect()
         torch.cuda.empty_cache()
-        mpmd_runs = mpmd_train(torch, ops, ir_runs)
-        traced = trace_phase(torch, ops, ir_runs, mpmd_runs)
+        mpmd_runs, mpmd_traced = mpmd_train(torch, ops, ir_runs, True)
+        try:
+            traced = trace_phase(torch, ops, ir_runs, mpmd_runs,
+                                 mpmd_traced)
+        finally:
+            shutil.rmtree(mpmd_traced["dir"], ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
         dp = dp_train(torch, ops, ref, mpmd_runs)
@@ -7807,6 +8115,21 @@ def run() -> int:
             "at_b1": {k: row["b1"][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "tensor_core_gflop")}})
+    # phase 30: the tensor axis's ranks on the four decoders, and the
+    # kernels at a rank's shapes
+    for k in kernels:
+        for arch, _ in TENSOR_MODELS:
+            r = tens[arch]
+            if r["launches"].get(k["name"]):
+                k.setdefault("launches_by_path", {})[
+                    f"train tensor axis --tensor {TENSOR_RANKS} {arch} "
+                    f"({r['layers']} layers, {r['rows']} x {r['seq']}, sum "
+                    f"over ranks)"] = r["launches"][k["name"]]
+        kind = k["name"].split("_scan")[0]
+        if k["name"].endswith("_scan_bwd"):
+            k["tensor_rank"] = scan_bwd_rows[kind]["tensor_rank"]
+        elif k["name"].endswith("_scan"):
+            k["tensor_rank"] = scan_rows[f"{kind} tensor rank"]
     for arch, rec in ssm.items():
         lp = rec["long_prompt"]
         print(f"{arch} long prompts: time to first token "

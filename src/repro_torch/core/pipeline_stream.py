@@ -247,7 +247,9 @@ def _data_step(step, data, units: int, tensor=None) -> Callable:
 
 
 def _tensor_dims(model, tensor):
-    """The leaf dims the tensor group shards (checked), or None."""
+    """The leaf dims the tensor group shards, or None; raises the
+    three-part refusal of ``sharding.tensor_refusal`` (the
+    encoder-decoder, the vision frontend, widths T does not divide)."""
     if _replicas(tensor) == 1:
         return None
     why = rsh.tensor_refusal(model.cfg, tensor.world)

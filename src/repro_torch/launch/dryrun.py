@@ -27,13 +27,18 @@ The steps counted:
   (every key of the cache attended), with the weights in bf16 under
   ``--serve-bf16``.
 
-The port's mesh has no tensor axis: a cell runs ``--pipe P`` stages
-(default: the config's ``mesh_plan.pipe``) on one card, as
-``launch/train.py`` does, and ``--data N`` replicas (default 1), each
-counted on ``global_batch / N`` rows; ``chips`` is N.  The data axis's
-all-reduce is reckoned, not counted: 2 (N - 1) / N times the fp32
-gradient bytes a replica, in the 256 MiB buckets of
-``runtime/sharding.py``.
+A cell runs ``--pipe P`` stages (default: the config's
+``mesh_plan.pipe``) on one card, as ``launch/train.py`` does, and
+``--data N`` replicas (default 1); ``chips`` is N.  A replica is counted
+as the launcher runs it: its rows of every global batch, and ZeRO-1
+(the JAX dry-run's ``zero1=True`` layout): the state holds its pieces of
+the momentum (``runtime.sharding.shard_range``, the bytes of
+``zero1_layout``) and its step runs the reduce-scatter of the fp32
+gradient and the all-gathers of w (and ŵ on the spectrain tick) through
+a data group that moves nothing and counts each call and its bytes as
+``StageGroup`` does (:class:`CountingGroup`; 256 MiB buckets of
+``shard_buckets``; the record's ``data_axis``).  The dry-run has no
+tensor axis yet (ROADMAP §A.7).
 
 The roofline uses one H100 (:data:`HW`, from the card's data sheet:
 989 TFLOP/s bf16 and 67 fp32 dense, by the config's compute dtype; 3.35
@@ -67,7 +72,9 @@ from repro_torch.models.model import Model, input_specs
 from repro_torch.optim import sgd
 from repro_torch.runtime.op_cost import CostCounter, ring_wire_bytes, \
     tree_bytes
-from repro_torch.runtime.sharding import BUCKET_BYTES
+from repro_torch.runtime.sharding import (BUCKET_BYTES, StageGroup,
+                                          data_mesh, shard_buckets,
+                                          shard_range, zero1_layout)
 
 # one NVIDIA H100 SXM (80 GB HBM3): dense peak FLOP/s by compute dtype,
 # HBM bytes/s, NVLink bytes/s each way, HBM bytes
@@ -174,16 +181,60 @@ def cell_config(arch: str, *, smoke: bool = False,
     return cfg.replace(**kw)
 
 
+class CountingGroup(StageGroup):
+    """Replica ``rank`` of a data group of ``world`` that moves nothing:
+    ZeRO-1's reduce-scatter leaves each piece as it is and the
+    all-gathers leave the rest, while every call and its bytes are
+    counted as :class:`~repro_torch.runtime.sharding.StageGroup`'s
+    (``n_rs`` / ``bytes_rs``, ``n_ag`` / ``bytes_ag`` by the buckets of
+    ``shard_buckets``; ``n_stat`` / ``bytes_stat``), so that a meta step
+    counts the launcher's collectives exactly."""
+
+    def __init__(self, rank: int, world: int, device=META):
+        super().__init__(rank, world, torch.device(device), "gloo")
+
+    def reduce_scatter_mean(self, leaves, *, bucket_bytes=BUCKET_BYTES):
+        flats = [g.reshape(-1) for g in leaves]
+        for width, _ in shard_buckets([f.numel() for f in flats],
+                                      self.world, bucket_bytes // 4):
+            self.n_rs += 1
+            self.bytes_rs += 4 * self.world * width
+        return [f[slice(*shard_range(f.numel(), self.rank, self.world))]
+                for f in flats]
+
+    def all_gather(self, leaves, *, bucket_bytes=BUCKET_BYTES) -> None:
+        if not leaves:
+            return
+        el = leaves[0].element_size()
+        for width, _ in shard_buckets([g.numel() for g in leaves],
+                                      self.world, bucket_bytes // el):
+            self.n_ag += 1
+            self.bytes_ag += el * self.world * width
+
+    def mean_stat(self, t: torch.Tensor) -> torch.Tensor:
+        self.n_stat += 1
+        self.bytes_stat += t.numel() * 4
+        return t
+
+    def all_reduce_scalar(self, t: torch.Tensor) -> torch.Tensor:
+        self.n_stat += 1
+        self.bytes_stat += t.numel() * t.element_size()
+        return t
+
+
 def make_train_step(model: Model, shape, *, runtime: str = "stream",
                     mode: str = "spectrain", ticks: int = 1,
                     fused_predict: bool = False, bwd_bf16: bool = False,
-                    params=None, batch=None):
+                    params=None, batch=None, data=None):
     """(state, step, batch) of one train step of ``model``: the stream
     runtime's ``ticks`` ticks or the sync step, on ``shape``'s
     ``global_batch`` rows, lr 1e-3; :func:`build_cell` counts one.
     ``params`` and ``batch`` default to meta tensors; given tensors on the
     card, the same code builds a real step there (``chip_smoke.py``
-    counts one against the meta count)."""
+    counts one against the meta count).  ``data``: a replica's data
+    group (:class:`CountingGroup`), with ZeRO-1 momentum pieces; the
+    stream step then takes the global batch and cuts the replica's rows,
+    the sync step takes the replica's rows, as the launcher's do."""
     if params is None:
         params = meta_params(model)
     if batch is None:
@@ -191,16 +242,18 @@ def make_train_step(model: Model, shape, *, runtime: str = "stream",
     if runtime == "stream":
         state = pipeline_stream.make_state(
             model, params, batch, mode=mode, ticks_per_step=ticks,
-            fused_predict=fused_predict)
+            fused_predict=fused_predict, data=data)
         step = pipeline_stream.make_train_step(
             model, mode=mode, lr=1e-3, ticks_per_step=ticks,
-            bwd_dtype="bfloat16" if bwd_bf16 else None)
+            bwd_dtype="bfloat16" if bwd_bf16 else None, data=data)
     elif runtime == "sync":
-        state = {"params": params, "momentum": sgd.init(params).v,
-                 "step": 0}
+        mom = (sgd.init(params).v if data is None
+               else sgd.init_shard(params, data.rank, data.world))
+        state = {"params": params, "momentum": mom, "step": 0}
         step = pipeline_sync.make_train_step(
             model, lr=1e-3,
-            num_microbatches=model.cfg.mesh_plan.num_microbatches)
+            num_microbatches=model.cfg.mesh_plan.num_microbatches,
+            group=data)
     else:
         raise ValueError(f"unknown runtime {runtime!r}")
     return state, step, batch
@@ -222,9 +275,11 @@ def refused(args) -> Optional[str]:
         flag = "--seq-shard" if args.seq_shard else "--no-ring-tp"
         return _refusal(
             f"{flag} on the port's dry-run",
-            "the port has no tensor axis to shard the sequence or the "
-            "rings over (ROADMAP §A.5)",
-            "the cell without it (tensor = 1)")
+            "the port keeps the stream state's rings replicated, not "
+            "sharded over tensor, and has no sequence sharding (ROADMAP "
+            "§A.6)",
+            "the cell without it (rings replicated, no sequence "
+            "sharding)")
     if args.ssm_chunk:
         return _refusal(
             "--ssm-chunk on the port's dry-run",
@@ -277,13 +332,17 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig], *,
 
     t0 = time.time()
     cache_bytes = 0.0
+    group = None
     if shape.kind == "train":
         if runtime == "stream" and local.global_batch % n_ticks:
             raise ValueError(f"{local.global_batch} rows a replica do not "
                              f"split into {n_ticks} ticks")
+        if data > 1:        # replica 0 under ZeRO-1, as the launcher's
+            group = CountingGroup(0, data)
         state, step, batch = make_train_step(
-            model, local, runtime=runtime, mode=mode, ticks=n_ticks,
-            fused_predict=fused_predict, bwd_bf16=bwd_bf16)
+            model, shape if group is not None and runtime == "stream"
+            else local, runtime=runtime, mode=mode, ticks=n_ticks,
+            fused_predict=fused_predict, bwd_bf16=bwd_bf16, data=group)
         args = (state, batch)
         with CostCounter() as counter:
             outs = step(state, batch)
@@ -308,13 +367,23 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig], *,
     mem = counter.memory(arguments=args, outputs=outs)
     coll = dict(hc["collectives"])
     wire = hc["wire_bytes"]
-    if shape.kind == "train" and data > 1:
-        grad = 4.0 * param_elements(model)
-        w = ring_wire_bytes("all-reduce", grad, data)
-        coll["all-reduce"] = {"count": float(math.ceil(grad / BUCKET_BYTES)),
-                              "result_bytes": grad, "wire_bytes": w,
-                              "reckoned": True}
-        wire += w
+    if group is not None:
+        c = group.counters()
+        for kind, n, result in (
+                ("reduce-scatter", c["n_rs"], c["bytes_rs"] / data),
+                ("all-gather", c["n_ag"], c["bytes_ag"])):
+            w = ring_wire_bytes(kind, result, data)
+            coll[kind] = {"count": float(n), "result_bytes": float(result),
+                          "wire_bytes": w}
+            wire += w
+        z = zero1_layout(cfg, model.param_axes(), model.param_specs(),
+                         data_mesh(data))
+        rec["data_axis"] = {
+            **{k: c[k] for k in ("n_rs", "bytes_rs", "n_ag", "bytes_ag",
+                                 "n_stat", "bytes_stat")},
+            "momentum_bytes": tree_bytes(state["momentum"]),
+            "zero1_bytes": z["zero1_bytes"],
+            "replicated_bytes": z["replicated_bytes"]}
     rec.update(status="ok", memory=mem, collectives=coll,
                kernels=hc["kernels"])
     if by_op:

@@ -97,9 +97,14 @@ rules put ``heads``, ``kv``, ``mlp`` and ``vocab`` over ``tensor``
 (Megatron-style: column-parallel ``wq`` / ``wk`` / ``wv`` / ``wg`` /
 ``w1`` and unembedding, row-parallel ``wo`` / ``w2``, a vocab-parallel
 embedding and loss; ``models.tensor_axis``); each rank draws the model
-from ``--seed`` as one process does and keeps its blocks.  Every mode
-and schedule runs (SPMD only).  Refused in three parts: MoE, MLA, the
-SSM families, enc-dec and the vision frontend, ``--execution mpmd``.
+from ``--seed`` as one process does and keeps its blocks.  The MoE
+decoders split their routed experts (the routing replicated, each rank
+dispatching to its ``E / T``) and shared experts' ``mlp``; rwkv6-7b
+and zamba2-1.2b their heads (the scans at H / T heads; mamba2's
+``w_zx`` held as its z and x blocks), zamba2's shared block as a dense
+layer; minicpm3-4b its MLA heads.  Every mode and schedule runs (SPMD
+only).  Refused in three parts: enc-dec and the vision frontend, an
+expert or mamba2 head count T does not divide, ``--execution mpmd``.
 
 ``--arch`` takes the dense granite-8b, granite-20b, starcoder2-15b and
 pixtral-12b (its text backbone: the data has no patches),
@@ -310,7 +315,8 @@ def _data_refusal(args) -> Optional[str]:
 def _tensor_refusal(args, cfg) -> Optional[str]:
     """The gates on ``--tensor T`` > 1, each in the three-part form: the
     model kinds whose layers the port does not split over tensor ranks
-    (``runtime.sharding.tensor_refusal``) and stage-local execution."""
+    (``runtime.sharding.tensor_refusal``: the encoder-decoder, the vision
+    frontend, widths T does not divide) and stage-local execution."""
     T = args.tensor
     if T < 1:
         return f"--tensor {T}: the tensor axis needs at least one rank"

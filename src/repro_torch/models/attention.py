@@ -15,6 +15,11 @@ between ``_attend`` and its blocked XLA twin by size; here both are the
 flash kernel on the card and its plain version on the CPU.  ``_attend``
 stays as the plain reference the tests hold the kernel path against.
 
+On a tensor axis (``models.tensor_axis``) both kinds run a rank's
+heads: GQA's query heads (and KV heads where ``kv`` shards), MLA's
+heads of ``w_uq`` / ``w_ukv`` with the latents, their norms and the
+shared rope key computed on every rank; ``wo`` is row-parallel.
+
 MLA (MiniCPM3, DeepSeek-V2) keeps a low-rank latent per position,
 ``c_kv`` (kv_lora_rank wide) and one shared rope key ``k_rope``, and
 expands them into per-head keys and values at attention time.  Its
@@ -256,13 +261,25 @@ def _mla_latents(cfg, p, x):
     return dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
 
 
+def _mla_heads(cfg, p):
+    """(the heads this rank holds, its tensor block or None): all of
+    them, or on a tensor axis its block of ``w_uq``'s heads."""
+    m = cfg.mla
+    H = p["w_uq"].shape[-1] // (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return H, tp.rank_block(cfg.n_heads, H)
+
+
 def _mla_q(cfg, p, x, q_pos):
     """q [b, s, H, nope + rope]: the nope dims, then the rope dims roped at
-    ``q_pos`` (positions [b or 1, s])."""
-    m, H = cfg.mla, cfg.n_heads
+    ``q_pos`` (positions [b or 1, s]); H the rank's heads, the normed
+    latent entering them through ``copy_in``."""
+    m = cfg.mla
+    H, blk = _mla_heads(cfg, p)
     dt = x.dtype
     b, s = x.shape[0], x.shape[1]
     q = norm_apply(cfg, p["q_norm"], x @ p["w_dq"].to(dt), "rmsnorm")
+    if blk is not None:
+        q = tp.copy_in(q)
     q = (q @ p["w_uq"].to(dt)).view(
         b, s, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
@@ -274,10 +291,15 @@ def _mla_kv(cfg, p, c_kv, k_rope, k_pos):
     """Expand latents into per-head keys and values: c_kv [b, sk, rank]
     normed and multiplied by ``w_ukv``, the shared k_rope [b, sk, rope]
     roped at ``k_pos`` and broadcast over the heads.  Returns (k [b, sk,
-    H, nope + rope] contiguous, v [b, sk, H, v_head_dim], a view)."""
-    m, H = cfg.mla, cfg.n_heads
+    H, nope + rope] contiguous, v [b, sk, H, v_head_dim], a view); H the
+    rank's heads, the normed latent and the rope key entering them
+    through ``copy_in``."""
+    m = cfg.mla
+    H, blk = _mla_heads(cfg, p)
     b, sk = c_kv.shape[0], c_kv.shape[1]
     kv = norm_apply(cfg, p["kv_norm"], c_kv, "rmsnorm")
+    if blk is not None:
+        kv, k_rope = tp.copy_in(kv), tp.copy_in(k_rope)
     kv = (kv @ p["w_ukv"].to(c_kv.dtype)).view(
         b, sk, H, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
@@ -354,7 +376,9 @@ def mla_apply(cfg, p, x, *, pos_offset: int = 0, causal: bool = True,
     out = ops.flash_attention(q, k, v, causal)
     new_cache = ({"c_kv": c_kv, "k_rope": k_rope}
                  if cache is not None else None)
-    return out.reshape(b, s, H * vhd) @ p["wo"].to(dt), new_cache
+    H, blk = _mla_heads(cfg, p)
+    y = out.reshape(b, s, H * vhd) @ p["wo"].to(dt)
+    return (y if blk is None else tp.reduce_out(y)), new_cache
 
 
 def mla_decode_wave(cfg, p, x, cache: Cache, pos, pages,

@@ -290,9 +290,7 @@ class Model:
             dims = rsh.tensor_leaf_dims(self.cfg, self, T)
 
             def leaf_fn(path, a):
-                d = dims.get(path[-1])
-                return a if d is None else \
-                    rsh.tensor_block(a, a.dim() + d, t, T).clone()
+                return rsh.tensor_leaf(path, a, dims, t, T)
         params = init_params(self._flat_param_specs(), generator,
                              self.cfg.param_dtype, self.device, leaf_fn,
                              store=_weight_dtype(dtype))

@@ -39,6 +39,13 @@ expert fractions ``ce`` are averaged over the group (one ``[E]`` fp32
 stays the replica's, so the mean of the replicas' aux losses is JAX's
 and the gradients' all-reduce supplies its ``1 / N``.  A split that
 does not hold whole groups is refused (:func:`split_groups`).
+
+On a tensor axis (``models.tensor_axis``, the JAX rules' ``expert``
+over ``tensor``) a rank holds ``E / T`` routed experts, its columns of
+the router and of the shared experts' ``mlp``: the routing is the whole
+layer's on every rank, the rank dispatches and combines only its
+experts' pairs (:func:`local_routing`) and one all-reduce sums the
+routed and shared outputs (:func:`_apply`).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tensor_axis as tp
 from repro_torch.models.layers import ParamSpec
 
 # groups used for local dispatch (the JAX twin aligns them with the data
@@ -166,13 +174,16 @@ def capacity(cfg, Tg: int) -> int:
 
 class Routing(NamedTuple):
     """One call's routing: per (group, token-major pair) its flat slot in
-    the ``[G, E, cap + 1]`` buffer (the overflow slot when dropped), its
-    gate times whether it was kept, and the aux loss."""
+    the ``[G, n_exp, cap + 1]`` buffer (the overflow slot when dropped),
+    its gate times whether it was kept, whether it was kept, its expert,
+    the aux loss, the capacity and the buffer's expert count."""
     slot: torch.Tensor          # [G, Tg k] int64
     weight: torch.Tensor        # [G, Tg k] in the compute dtype
     keep: torch.Tensor          # [G, Tg k] bool
+    expert: torch.Tensor        # [G, Tg k] int64
     aux: torch.Tensor           # 0-d fp32
     cap: int
+    n_exp: int
 
 
 def route(cfg, p, xg, cap: int, data=None) -> Routing:
@@ -203,11 +214,27 @@ def route(cfg, p, xg, cap: int, data=None) -> Routing:
     grp = torch.arange(G, device=xg.device)[:, None]
     slot = (grp * E + e_flat) * (cap + 1) + dest_c
     weight = gate.reshape(G, Tg * k).to(xg.dtype) * keep.to(xg.dtype)
-    return Routing(slot, weight, keep, aux, cap)
+    return Routing(slot, weight, keep, e_flat, aux, cap, E)
+
+
+def local_routing(r: Routing, lo: int, n: int) -> Routing:
+    """``r`` restricted to the ``n`` experts from ``lo`` (a tensor rank's):
+    a pair of another rank's expert is dropped here (kept nowhere, its
+    slot the overflow slot of the group's first local expert, its
+    weight zero: it adds zero), a local pair keeps its slot in the
+    ``[G, n, cap + 1]`` buffer."""
+    mine = (r.expert >= lo) & (r.expert < lo + n)
+    G = r.slot.shape[0]
+    grp = torch.arange(G, device=r.slot.device)[:, None]
+    dest = r.slot % (r.cap + 1)
+    slot = torch.where(mine, (grp * n + r.expert - lo) * (r.cap + 1) + dest,
+                       grp * n * (r.cap + 1) + r.cap)
+    return Routing(slot, r.weight * mine.to(r.weight.dtype), r.keep & mine,
+                   r.expert, r.aux, r.cap, n)
 
 
 def dispatch(cfg, xg, r: Routing):
-    """The kept pairs' tokens into their slots: [G, E, cap + 1, d]
+    """The kept pairs' tokens into their slots: [G, n_exp, cap + 1, d]
     (dropped pairs add zeros to their expert's overflow slot, which so
     stays zero, and the experts map zero to zero: the JAX twin's zero
     row appended after the experts)."""
@@ -215,13 +242,13 @@ def dispatch(cfg, xg, r: Routing):
     k = cfg.moe.top_k
     src = xg.repeat_interleave(k, dim=1)                        # [G,Tgk,d]
     src = torch.where(r.keep[..., None], src, torch.zeros_like(src))
-    buf = xg.new_zeros((G * cfg.moe.num_experts * (r.cap + 1), d))
+    buf = xg.new_zeros((G * r.n_exp * (r.cap + 1), d))
     buf = buf.index_add(0, r.slot.reshape(-1), src.reshape(-1, d))
-    return buf.view(G, cfg.moe.num_experts, r.cap + 1, d)
+    return buf.view(G, r.n_exp, r.cap + 1, d)
 
 
 def combine(cfg, out_buf, r: Routing, Tg: int):
-    """out_buf [G, E, cap + 1, d] (the experts' outputs) -> [G, Tg, d]:
+    """out_buf [G, n_exp, cap + 1, d] (the experts' outputs) -> [G, Tg, d]:
     each token's gate-weighted sum over its kept choices."""
     G, d = out_buf.shape[0], out_buf.shape[-1]
     k = cfg.moe.top_k
@@ -231,18 +258,36 @@ def combine(cfg, out_buf, r: Routing, Tg: int):
 
 def _apply(cfg, p, x, G: int, cap: int, data=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer on x [b, s, d] in ``G`` groups at capacity ``cap``.  On
+    a tensor axis (``models.tensor_axis``) with the experts sharded, the
+    routing is the whole layer's on every rank (the router's columns
+    made whole: ``whole_cols``), the rank dispatches only the pairs of
+    its ``E / T`` experts (:func:`local_routing`) and runs them and its
+    columns of the shared experts; the gates and the tokens entering its
+    experts take ``copy_in`` (the router's input does not: the aux loss
+    and the routing are whole on every rank, so their cotangent is) and
+    the routed and shared outputs are summed by one ``reduce_out``."""
     mo = cfg.moe
     b, s, d = x.shape
     T = b * s
     Tg = T // G
     xg = x.reshape(G, Tg, d)
-    r = route(cfg, p, xg, cap, data)
+    n_loc = p["w1"].shape[-3]
+    blk = tp.rank_block(mo.num_experts, n_loc)
+    router = tp.whole_cols(p["router"].to(x.dtype), mo.num_experts)
+    r = route(cfg, {"router": router}, xg, cap, data)
+    if blk is not None:
+        xg = tp.copy_in(xg)
+        r = local_routing(r._replace(weight=tp.copy_in(r.weight)),
+                          blk * n_loc, n_loc)
     out = combine(cfg, expert_ffn(cfg, p, dispatch(cfg, xg, r)), r, Tg)
     out = out.reshape(T, d)
-    if mo.num_shared:
+    if mo.num_shared:   # their mlp columns a rank wherever experts split
         sh = {m[len("shared_"):]: p[m] for m in p if m.startswith("shared_")}
-        hs = x.reshape(1, T, d).expand(mo.num_shared, T, d)
+        hs = xg.reshape(1, T, d).expand(mo.num_shared, T, d)
         out = out + expert_ffn(cfg, sh, hs).sum(0)
+    if blk is not None:
+        out = tp.reduce_out(out)
     return out.reshape(b, s, d), r.aux
 
 

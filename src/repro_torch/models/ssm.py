@@ -7,7 +7,15 @@ into it in place (it views one layer's slot of the model's cache, as a
 KV cache does in ``attention.gqa_apply``) and return its leaves, so one
 call serves a prompt (prefill) and a one-token decode step alike.
 Without a state (training and the reference forward) they start from
-zeros and are differentiable.  The recurrence itself goes through
+zeros and are differentiable.  On a tensor axis (``models.tensor_axis``)
+a rank holds the heads ``spec_for_leaf(logical_rules)`` gives it and
+reads its widths off the weights: rwkv6's token shift, LoRA mixes and
+decay are replicated, the decay narrowed to the rank's heads, the scan
+and the per-head group norm run at H / T heads and ``wo`` / ``wcv`` are
+row-parallel; mamba2's ``w_zx`` (its z and x blocks), ``w_dt`` and the
+x conv are the rank's heads, B and C replicated, the gated norm's mean
+over the whole ``d_in`` through one all-reduce of the sums of squares,
+``w_out`` row-parallel.  The recurrence itself goes through
 ``kernels.ops.rwkv6_scan`` / ``kernels.ops.mamba2_scan``: the
 hand-written kernels on the card (forward, and under autograd the
 backward kernel), the sequential plain versions on the CPU, for every
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import tensor_axis as tp
 from repro_torch.models.layers import ParamSpec, groupnorm_heads
 
 State = Dict[str, Any]
@@ -79,6 +88,10 @@ def rwkv6_tm_apply(cfg, p, x, state: Optional[State] = None
     hd = d // H
     b, s, _ = x.shape
     dt = x.dtype
+    # the heads this rank holds (models.tensor_axis): all, or H / T
+    dl = p["wr"].shape[-1]
+    H = dl // hd
+    blk = tp.rank_block(d, dl)
     prev = state["x_tm"] if state is not None else x.new_zeros((b, d))
     xp = _token_shift(x, prev)
     sx = xp - x
@@ -88,11 +101,16 @@ def rwkv6_tm_apply(cfg, p, x, state: Optional[State] = None
     mix = torch.einsum("bsfk,fkd->bsfd", zmix, p["mix_B"].to(dt))
     comp = x[:, :, None, :] + sx[:, :, None, :] * (
         p["mus"].to(dt)[None, None] + mix)
-    xw, xk, xv, xr, xg = comp.unbind(2)
+    xw = comp[:, :, 0]
+    # the mixes entering the rank's heads take copy_in (one for the four)
+    xk, xv, xr, xg = (comp[:, :, 1:] if blk is None
+                      else tp.copy_in(comp[:, :, 1:])).unbind(2)
 
     logw = p["w0"].float() + (
         torch.tanh(xw @ p["dw_A"].to(dt)) @ p["dw_B"].to(dt)).float()
     w = torch.exp(-torch.exp(logw))                       # [b, s, d] in (0, 1)
+    if blk is not None:     # computed whole, narrowed to the rank's heads
+        w = tp.copy_in(w)[..., blk * dl:(blk + 1) * dl]
 
     r = (xr @ p["wr"].to(dt)).reshape(b, s, H, hd)
     k = (xk @ p["wk"].to(dt)).reshape(b, s, H, hd)
@@ -106,8 +124,11 @@ def rwkv6_tm_apply(cfg, p, x, state: Optional[State] = None
                            device=x.device))
     y, _ = ops.rwkv6_scan(r, k, v, wh, u, S0,
                           out=None if state is None else S0)   # y in dt
-    y = groupnorm_heads(y.reshape(b, s, d), p["gn_scale"], p["gn_bias"], H)
+    y = groupnorm_heads(y.reshape(b, s, dl), p["gn_scale"], p["gn_bias"],
+                        H)
     out = (y * g) @ p["wo"].to(dt)
+    if blk is not None:
+        out = tp.reduce_out(out)
     if state is None:
         return out, None
     state["x_tm"].copy_(x[:, -1, :])
@@ -124,8 +145,16 @@ def rwkv6_cm_apply(cfg, p, x, state: Optional[State] = None):
     sx = xp - x
     xk = x + sx * p["mu_ck"].to(dt)
     xr = x + sx * p["mu_cr"].to(dt)
+    # on a tensor axis: wck column- and wcv row-parallel, the sum over
+    # the ranks before the replicated receptance gate
+    split = tp.rank_block(cfg.d_ff, p["wck"].shape[-1]) is not None
+    if split:
+        xk = tp.copy_in(xk)
     h = torch.square(torch.relu(xk @ p["wck"].to(dt)))
-    out = torch.sigmoid(xr @ p["wcr"].to(dt)) * (h @ p["wcv"].to(dt))
+    v = h @ p["wcv"].to(dt)
+    if split:
+        v = tp.reduce_out(v)
+    out = torch.sigmoid(xr @ p["wcr"].to(dt)) * v
     if state is None:
         return out, None
     state["x_cm"].copy_(x[:, -1, :])
@@ -199,14 +228,22 @@ def mamba2_apply(cfg, p, x, state: Optional[State] = None
     s = cfg.ssm
     d = cfg.d_model
     d_in = s.expand * d
-    nh = d_in // s.head_dim
     hd = s.head_dim
     b, sl, _ = x.shape
     dt_ = x.dtype
+    # the heads this rank holds (models.tensor_axis): all, or nh / T,
+    # w_zx as the pair of its z and x blocks (sharding.TENSOR_PARTS)
+    d_in_l = p["w_zx"].shape[-1] // 2
+    nh = p["w_dt"].shape[-1]
+    blk = tp.rank_block(d_in, d_in_l)
+    if nh * hd != d_in_l:
+        raise ValueError(f"mamba2: {nh} heads of {hd} held against "
+                         f"{d_in_l} of w_zx's columns")
+    xi = x if blk is None else tp.copy_in(x)
 
-    z, xr = (x @ p["w_zx"].to(dt_)).chunk(2, dim=-1)
+    z, xr = (xi @ p["w_zx"].to(dt_)).chunk(2, dim=-1)
     bc = x @ p["w_bc"].to(dt_)
-    delta = _softplus((x @ p["w_dt"].to(dt_)).float()
+    delta = _softplus((xi @ p["w_dt"].to(dt_)).float()
                       + p["dt_bias"].float())               # [b, s, nh]
 
     cs_x = state["conv_x"] if state is not None else None
@@ -217,6 +254,8 @@ def mamba2_apply(cfg, p, x, state: Optional[State] = None
                                  p["conv_bc_b"].to(dt_), cs_bc)
     xr = F.silu(xr)
     bc = F.silu(bc)
+    if blk is not None:     # B and C serve every head
+        bc = tp.copy_in(bc)
     B, C = bc.chunk(2, dim=-1)
     B = B.reshape(b, sl, s.n_groups, s.d_state)             # views of bc
     C = C.reshape(b, sl, s.n_groups, s.d_state)
@@ -231,14 +270,22 @@ def mamba2_apply(cfg, p, x, state: Optional[State] = None
     y, _ = ops.mamba2_scan(xh, delta, decay, B, C, S0,
                            out=None if state is None else S0)  # y fp32
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, sl, d_in).to(dt_)
+    y = y.reshape(b, sl, d_in_l).to(dt_)
 
-    # gated RMSNorm
+    # gated RMSNorm, its mean over the whole d_in: on a tensor axis the
+    # ranks' sums of squares summed (reduce_out), that total entering
+    # the rank's elements (copy_in)
     y = y * F.silu(z)
     yf = y.float()
-    y = (yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + 1e-5)
-         * p["norm_scale"].float()).to(dt_)
+    if blk is None:
+        ms = yf.square().mean(dim=-1, keepdim=True)
+    else:
+        ms = tp.copy_in(tp.reduce_out(
+            yf.square().sum(dim=-1, keepdim=True))) / d_in
+    y = (yf * torch.rsqrt(ms + 1e-5) * p["norm_scale"].float()).to(dt_)
     out = y @ p["w_out"].to(dt_)
+    if blk is not None:
+        out = tp.reduce_out(out)
 
     if state is None:
         return out, None

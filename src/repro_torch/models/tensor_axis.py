@@ -1,7 +1,7 @@
-"""The tensor axis inside the dense decoder's layers: Megatron-style
-tensor parallelism, the port's form of what GSPMD computes when the JAX
+"""The tensor axis inside the decoders' layers: Megatron-style tensor
+parallelism, the port's form of what GSPMD computes when the JAX
 package's rules (``runtime/sharding.py::logical_rules``) put ``heads``,
-``kv``, ``mlp`` and ``vocab`` over ``tensor``.
+``kv``, ``mlp``, ``vocab``, ``expert`` and ``ssm`` over ``tensor``.
 
 A rank of a tensor group of T holds its block of every leaf the rules
 shard (``runtime.sharding.tensor_dims``): query heads ``H / T`` (and key
@@ -22,6 +22,18 @@ stage recomputes and ``autograd.grad`` run through them unchanged:
   row-parallel product, the vocab-parallel embedding's lookup and the
   loss's sums.
 
+The same two place the other families' splits (the rule: *f* sits
+exactly where a replicated activation enters the rank's share of heads
+or experts, never on a tensor that also feeds replicated compute, whose
+cotangent is whole on every rank already): the MoE layer's experts
+(``models.moe``: the routing replicated from the router made whole by
+:func:`whole_cols`, *f* on the gates and on the tokens entering the
+rank's experts and the shared experts' columns, one *g* of their sum),
+rwkv6's and mamba2's heads (``models.ssm``: *f* on the mixes and the
+decay entering the rank's heads; mamba2's gated norm's sum of squares
+through *g* then *f*) and MLA's heads (``models.attention``: *f* on the
+normed latents and the shared rope key).
+
 Outside :func:`tensor_axis` (or with T = 1) both are the identity and
 the layers are the one-process model.
 """
@@ -31,6 +43,7 @@ import contextlib
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 
 # the tensor group the layers span (set by :func:`tensor_axis`)
 _TENSOR: List = [None]
@@ -90,6 +103,20 @@ def reduce_max(x: torch.Tensor) -> torch.Tensor:
     if group is None:
         return x.detach()
     return group.all_reduce_max(x.detach())
+
+
+def whole_cols(w: torch.Tensor, whole: int) -> torch.Tensor:
+    """A weight sharded on its last dim made whole on every rank: the
+    rank's block at its offset in zeros, summed over the group (exact:
+    one term of each sum is not zero); backward, the block's columns of
+    the cotangent, which must be whole on every rank (the MoE router's,
+    whose logits feed the replicated routing).  ``w`` itself where it
+    is whole."""
+    blk = rank_block(whole, w.shape[-1])
+    if blk is None:
+        return w
+    n = w.shape[-1]
+    return reduce_out(F.pad(w, (blk * n, whole - (blk + 1) * n)))
 
 
 def rank_block(whole: int, local: int) -> Optional[int]:

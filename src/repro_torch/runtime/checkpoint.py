@@ -438,7 +438,7 @@ def restore_data(ckpt_dir: str, state: Any, group, *,
     ZeRO-1 momentum pieces, the replica's pieces.  Returns (state,
     step)."""
     from repro_torch.optim import sgd
-    from repro_torch.runtime.sharding import gather_tensor, tensor_block
+    from repro_torch.runtime.sharding import gather_tensor, tensor_leaf
     N, r = group.world, group.rank
     sharded = [(path, params) for path, params, mom in _momenta(state)
                if N > 1 and sgd.is_shard(params, mom)]
@@ -467,13 +467,8 @@ def restore_data(ckpt_dir: str, state: Any, group, *,
     full, step = restore(ckpt_dir, tree_map(whole_like, state), step=step)
     out = tree_map(mine, full)
     if split:
-        def block(path, leaf):
-            d = tensor_dims.get(path[-1]) if path else None
-            if d is None or leaf.dim() < -d:
-                return leaf
-            return tensor_block(leaf, leaf.dim() + d, tensor.rank,
-                                tensor.world).clone()
-        out = tree_map(block, out)
+        out = tree_map(lambda path, leaf: tensor_leaf(
+            path, leaf, tensor_dims, tensor.rank, tensor.world), out)
     for path, _ in sharded:
         node, params = out, out["params"] if path[0] == "momentum" else \
             out["stash"]["params"]

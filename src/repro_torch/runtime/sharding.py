@@ -63,9 +63,10 @@ The data axis (the data-parallel baseline):
   ``spec_for_leaf(logical_rules)`` shards over ``tensor``
   (:func:`tensor_leaf_dims`, :func:`tensor_block`, :func:`gather_tensor`);
   the layers' activation all-reduces go through
-  :meth:`StageGroup.all_reduce_sum` (``models.tensor_axis``); the model
-  kinds whose layers are not split are refused
-  (:func:`tensor_refusal`).  The rings stay replicated over tensor (the
+  :meth:`StageGroup.all_reduce_sum` (``models.tensor_axis``); mamba2's
+  ``w_zx`` is held as the pair of its z and x blocks
+  (:data:`TENSOR_PARTS`); the model kinds whose layers are not split are
+  refused (:func:`tensor_refusal`).  The rings stay replicated over tensor (the
   JAX package shards them on ``embed``), and the SPMD state shardings
   (``stream_state_shardings`` and the rest) are not ported.
 """
@@ -1043,53 +1044,88 @@ def tensor_leaf_dims(cfg, model, tensor: int) -> Dict[str, int]:
 def tensor_refusal(cfg, tensor: int) -> Optional[str]:
     """Why ``cfg`` cannot train over a tensor axis of ``tensor`` ranks
     (the three-part form: the combination, why, what runs instead), or
-    None.  The port shards the dense decoders' heads, KV heads, MLP and
-    vocabulary; the other layers the JAX rules put over ``tensor`` are
-    not ported to it."""
+    None.  The port splits the dense decoders' heads, KV heads, MLP and
+    vocabulary, the MoE layers' experts, the rwkv6 and mamba2 heads and
+    MLA's heads; the encoder-decoder and the vision frontend are not
+    split, nor the widths the JAX rules would leave to another dim (an
+    expert count or a mamba2 head count ``tensor`` does not divide)."""
     if tensor <= 1:
         return None
     what = None
-    if cfg.moe is not None:
-        what = ("MoE experts ('expert' over tensor)", "the expert "
-                "dispatch is not split over tensor ranks")
-    elif cfg.ssm is not None:
-        what = (f"the {cfg.ssm.kind} state-space layers ('ssm' over "
-                f"tensor)", "the scans' heads are not split over tensor "
-                "ranks")
-    elif cfg.mla is not None:
-        what = ("multi-head latent attention", "the latent projections "
-                "are not split over tensor ranks")
-    elif cfg.is_encdec:
+    if cfg.is_encdec:
         what = ("an encoder-decoder", "the encoder stack and the "
                 "cross-attention are not split over tensor ranks")
     elif cfg.frontend == "vision":
         what = ("the vision frontend", "the patch embedding is not "
                 "split over tensor ranks")
+    elif cfg.moe is not None and (cfg.moe.num_experts % tensor or (
+            cfg.moe.num_shared and cfg.d_ff % tensor)):
+        what = (f"{cfg.moe.num_experts} MoE experts of d_ff {cfg.d_ff}",
+                f"{tensor} must divide the experts and, with shared "
+                f"experts, d_ff (the JAX rules put the experts' MLP over "
+                f"tensor where it does not divide the experts, or keep "
+                f"the shared experts whole, neither of which is ported)")
+    elif cfg.ssm is not None and cfg.ssm.kind == "mamba2":
+        d_in = cfg.ssm.expand * cfg.d_model
+        nh = d_in // cfg.ssm.head_dim
+        if nh % tensor or cfg.n_heads % tensor:
+            what = (f"{nh} mamba2 heads", f"a rank's block "
+                    f"of the 'ssm' columns must be its own heads, and "
+                    f"{tensor} must divide both {nh} and the {cfg.n_heads} "
+                    f"'heads' of the rules")
     if what is None:
         return None
     return (f"unsupported combination: --tensor {tensor} with {cfg.name}'s "
-            f"{what[0]} — {what[1]}; the port's tensor axis shards the "
-            f"dense decoders' heads, KV heads, MLP and vocabulary; "
+            f"{what[0]} — {what[1]}; the port's tensor axis splits the "
+            f"dense decoders' heads, KV heads, MLP and vocabulary, the MoE "
+            f"experts, the rwkv6 and mamba2 heads and MLA's heads; "
             f"supported alternative: --tensor 1 (with --data and --pipe), "
-            f"or a dense decoder (granite-8b, granite-20b, starcoder2-15b)")
+            f"or a decoder that splits (granite-8b, granite-20b, "
+            f"starcoder2-15b, deepseek-moe-16b, grok-1-314b, rwkv6-7b, "
+            f"zamba2-1.2b, minicpm3-4b)")
 
 
-def tensor_block(x: torch.Tensor, dim: int, rank: int, world: int
-                 ) -> torch.Tensor:
-    """Rank ``rank`` of ``world``'s block of ``x`` along ``dim`` (a
-    view)."""
+# leaves a rank holds as its block of each of several equal parts of the
+# sharded dim, where the JAX rules' contiguous block would not be the
+# rank's own heads: mamba2's w_zx is [z | x], and a rank needs z and x
+# of its heads (GSPMD reshards at the split; the port keeps the pair)
+TENSOR_PARTS = {"w_zx": 2}
+
+
+def tensor_block(x: torch.Tensor, dim: int, rank: int, world: int,
+                 parts: int = 1) -> torch.Tensor:
+    """Rank ``rank`` of ``world``'s block of ``x`` along ``dim``: a view,
+    or with ``parts`` > 1 its block of each of the dim's ``parts`` equal
+    parts, concatenated (a copy)."""
     n = x.shape[dim]
-    if n % world:
+    if n % (world * parts):
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                         f"over {world} tensor ranks")
-    return x.narrow(dim, rank * (n // world), n // world)
+                         f"into {parts} part(s) over {world} tensor ranks")
+    per = n // parts
+    b = per // world
+    if parts == 1:
+        return x.narrow(dim, rank * b, b)
+    return torch.cat([x.narrow(dim, i * per + rank * b, b)
+                      for i in range(parts)], dim)
+
+
+def tensor_leaf(path: Sequence[str], leaf, dims: Dict[str, int], rank: int,
+                world: int):
+    """The rank's block of a whole leaf at ``path`` (a copy) where
+    ``dims`` shards it, else the leaf."""
+    d = dims.get(path[-1]) if path else None
+    if d is None or not isinstance(leaf, torch.Tensor) or leaf.dim() < -d:
+        return leaf
+    return tensor_block(leaf, leaf.dim() + d, rank, world,
+                        TENSOR_PARTS.get(path[-1], 1)).clone()
 
 
 def gather_tensor(tree, dims: Dict[str, int], group):
     """A tree of tensor-sharded leaves (params, momentum, ``pred``, the
     weight stashes: any leaf named in ``dims`` whose rank reaches the
     dim) made whole on every rank of the tensor ``group`` (a
-    collective); other leaves as they are."""
+    collective; a :data:`TENSOR_PARTS` leaf reordered into its parts);
+    other leaves as they are."""
     from repro_torch.models.layers import tree_map
     if group is None or group.world == 1:
         return tree
@@ -1099,7 +1135,14 @@ def gather_tensor(tree, dims: Dict[str, int], group):
         if d is None or not isinstance(leaf, torch.Tensor) or \
                 leaf.dim() < -d:
             return leaf
-        return group.all_gather_dim(leaf, leaf.dim() + d)
+        dim = leaf.dim() + d
+        whole = group.all_gather_dim(leaf, dim)
+        parts = TENSOR_PARTS.get(path[-1], 1)
+        if parts == 1:
+            return whole
+        bs = whole.split(leaf.shape[dim] // parts, dim)  # rank-major
+        return torch.cat([bs[r * parts + i] for i in range(parts)
+                          for r in range(group.world)], dim)
     return tree_map(one, tree)
 
 

@@ -151,18 +151,83 @@ def test_skip_rule_applies():
 
 
 def test_data_axis_reckons_the_all_reduce():
+    """Under ``--data 2`` a replica holds ZeRO-1's momentum (the bytes of
+    ``zero1_layout``, half the replicated momentum) and its step runs a
+    reduce-scatter of the fp32 gradient and all-gathers (w and ŵ on the
+    spectrain tick) instead of an all-reduce; ``fits`` follows from the
+    counted bytes."""
     rec = dryrun.build_cell("granite-8b", "train_4k", smoke=True, data=2)
     grad = 4.0 * dryrun.param_elements(dryrun.Model(
         dryrun.cell_config("granite-8b", smoke=True), device="meta"))
-    ar = rec["collectives"]["all-reduce"]
-    assert ar["result_bytes"] == grad
-    assert rec["wire_bytes_per_dev"] == ar["wire_bytes"] == grad
+    z = rec["data_axis"]
+    assert z["momentum_bytes"] == z["zero1_bytes"] == grad / 2
+    assert z["replicated_bytes"] == grad
+    assert "all-reduce" not in rec["collectives"]
+    rs, ag = (rec["collectives"][k] for k in ("reduce-scatter",
+                                              "all-gather"))
+    assert (rs["count"], ag["count"]) == (z["n_rs"], z["n_ag"])
+    assert rs["result_bytes"] * 2 == z["bytes_rs"] == 2 * grad  # 2 ticks
+    # w each tick, and ŵ (the stages' and the embedding's)
+    assert ag["result_bytes"] == z["bytes_ag"]
+    assert 2 * grad < z["bytes_ag"] < 2 * 2 * grad
+    assert rec["wire_bytes_per_dev"] == rs["wire_bytes"] + ag["wire_bytes"]
     assert rec["chips"] == 2 and rec["terms"]["collective_s"] > 0
+    one = dryrun.build_cell("granite-8b", "train_4k", smoke=True)
+    assert one["memory"]["argument_bytes"] - rec["memory"][
+        "argument_bytes"] >= grad / 2
+
+
+class CounterProbe:
+    """``on_step`` of a ``--data`` launcher run: rank 0 writes its data
+    group's counters after the first step."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __call__(self, s, state, metrics):
+        from repro_torch.runtime import sharding as rsh
+        g = rsh.current_group()
+        if s == 0 and g.rank == 0:
+            from repro_torch.models.layers import tree_leaves
+            c = dict(g.data.counters())
+            c["momentum_bytes"] = sum(
+                t.numel() * t.element_size()
+                for t in tree_leaves(state["momentum"]))
+            with open(self.path, "w") as f:
+                json.dump(c, f)
+
+
+@pytest.mark.parametrize("runtime", ["stream", "sync"])
+def test_data_axis_counts_the_launchers_zero1(runtime, tmp_path):
+    """The dry-run's smoke cell at ``--data 2`` against a CPU
+    ``launch.train --data 2`` step of the same cell: its reduce-scatters,
+    all-gathers and small reductions, their bytes and the momentum a
+    replica holds equal the launcher's ``StageGroup`` counters
+    exactly."""
+    from repro_torch.launch import train
+    rec = dryrun.build_cell("granite-8b", "train_4k", smoke=True, data=2,
+                            runtime=runtime)
+    cfg = dryrun.cell_config("granite-8b", smoke=True)
+    out = str(tmp_path / "c.json")
+    argv = ["--arch", "granite-8b", "--smoke", "--device", "cpu",
+            "--layers", "4", "--pipe", "2", "--ticks", "2", "--batch", "8",
+            "--seq", "64", "--partitioner", "uniform", "--dtype",
+            cfg.compute_dtype, "--data", "2", "--steps", "1",
+            "--mode", "spectrain" if runtime == "stream" else "sync"]
+    assert train.main(argv, on_step=CounterProbe(out)) == 0
+    with open(out) as f:
+        got = json.load(f)
+    want = rec["data_axis"]
+    for k in ("n_rs", "bytes_rs", "n_ag", "bytes_ag", "n_stat",
+              "bytes_stat", "momentum_bytes"):
+        assert got[k] == want[k], (k, got[k], want[k])
+    assert got["n_reduce"] == 0
 
 
 @pytest.mark.parametrize("flag,match", [
     (["--multipod"], "no pod"), (["--both-meshes"], "no pod"),
-    (["--seq-shard"], "no tensor axis"), (["--no-ring-tp"], "no tensor axis"),
+    (["--seq-shard"], "not sharded over tensor"),
+    (["--no-ring-tp"], "not sharded over tensor"),
     (["--ssm-chunk", "64"], "chunked kernels")])
 def test_mesh_flags_are_refused_in_three_parts(flag, match):
     with pytest.raises(SystemExit, match=match) as e:

@@ -837,6 +837,9 @@ RWKV_GPU_CASES = [
     # the pipelined engine's decode wave: 8 rows at full width
     (8, 1, 64, 64, torch.float32),
     (8, 1, 64, 64, torch.bfloat16),
+    # a --tensor 2 rank's call: 32 of rwkv6-7b's 64 heads, 4 x 256
+    (4, 256, 32, 64, torch.float32),
+    (4, 256, 32, 64, torch.bfloat16),
 ]
 
 
@@ -886,6 +889,9 @@ MAMBA_GPU_CASES = [
     (2, 130, 4, 16, 32, 2, torch.bfloat16, 0.05),
     (1, 2048, 64, 64, 64, 1, torch.bfloat16),
     (2, 1, 8, 32, 16, 4, torch.float32),
+    # a --tensor 2 rank's call: 32 of zamba2-1.2b's 64 heads, 4 x 256
+    (4, 256, 32, 64, 64, 1, torch.float32),
+    (4, 256, 32, 64, 64, 1, torch.bfloat16),
 ]
 
 
@@ -1693,6 +1699,72 @@ def test_tensor_tick_ranks_sharing_the_card_match_cpu(card):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
+def _rwkv6_tensor_rank(group, cfg, batches):
+    """One tensor rank of the smoke rwkv6's spectrain tick (``--tensor
+    2``: 2 of its 4 heads a rank, the scans at those heads): its losses,
+    tensor all-reduces and every params / momentum / prediction leaf
+    gathered over the ranks (numpy)."""
+    from repro_torch.core import pipeline_stream as tps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import sharding as rsh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rsh.init_grid(group, 1, 2)
+    tg = group.tensor
+    model = Model(cfg, device=group.device)
+    p = tree_map(lambda _, a: a.to(group.device), Model(
+        cfg, device="cpu").init(torch.Generator().manual_seed(0),
+                                tensor=(tg.rank, tg.world)))
+    state = tps.make_state(model, p, batches[0], mode="spectrain")
+    step = tps.make_train_step(model, mode="spectrain", lr=0.02, tensor=tg)
+    before = ops.launch_counts()["rwkv6_scan_bwd"]
+    losses = []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+    bwd = ops.launch_counts()["rwkv6_scan_bwd"] - before
+    dims = rsh.tensor_leaf_dims(cfg, model, tg.world)
+    state = ckpt.whole_state(state, group.data, tensor=tg, tensor_dims=dims)
+    return {"losses": losses, "n_tp": tg.counters()["n_tp"], "bwd": bwd,
+            "leaves": [a.detach().cpu().numpy() for key in
+                       ("params", "momentum", "pred")
+                       for a in tree_leaves(state[key])]}
+
+
+@pytest.mark.gpu
+def test_rwkv6_tensor_tick_on_card_matches_cpu(card):
+    """Two tensor ranks of the smoke rwkv6's spectrain tick (4 layers in
+    2 stages, fp32, 3 ticks) sharing the card: their gathered leaves
+    bit-equal to each other, the scans' backward launched a layer a
+    tick, the tensor all-reduces as many as on the CPU, and the losses
+    and leaves within the training tolerance of the same ranks on the
+    CPU (the smoke rwkv6's envelope where a leaf is past rtol 1e-4 /
+    atol 1e-5: 2e-3 of its largest, ``tests/test_torch_ssm_train.py``)."""
+    from repro_torch.launch.mesh import run_stage_ranks
+    full = get_config("rwkv6-7b")
+    cfg = smoke_config(full).replace(
+        n_layers=4, compute_dtype="float32",
+        mesh_plan=dataclasses.replace(full.mesh_plan, pipe=2))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, size=(4, 65)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    got = {dev: run_stage_ranks(_rwkv6_tensor_rank, 2, dev, cards=1,
+                                args=(cfg, batches), timeout_s=300.0)
+           for dev in ("cuda", "cpu")}
+    c0, c1 = got["cuda"]
+    assert c0["n_tp"] == c1["n_tp"] == got["cpu"][0]["n_tp"] > 0
+    assert c0["bwd"] == c1["bwd"] == 4 * 3
+    for a, b in zip(c0["leaves"], c1["leaves"]):
+        assert np.array_equal(a, b)
+    np.testing.assert_allclose(c0["losses"], got["cpu"][0]["losses"],
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(c0["leaves"], got["cpu"][0]["leaves"]):
+        atol = max(1e-5, 2e-3 * float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=atol)
+
+
 # ---------------------------------------------------------------------------
 # enc-dec and the vision frontend: cross-attention (no causal mask, sq and
 # sk apart) at whisper-base's shapes (8 heads of 64, 448 text positions
@@ -1920,6 +1992,8 @@ SCAN_BWD_CASES = [
     ("rwkv6", 2, 70, 2, 16, None, 1), ("mamba2", 2, 64, 8, 64, 64, 1),
     ("mamba2", 2, 100, 16, 32, 16, 4), ("mamba2", 1, 2048, 4, 64, 64, 1),
     ("mamba2", 1, 512, 64, 64, 64, 1), ("mamba2", 1, 130, 8, 16, 64, 2),
+    # a --tensor 2 rank's: 32 of the 64 heads, 4 x 256
+    ("rwkv6", 4, 256, 32, 64, None, 1), ("mamba2", 4, 256, 32, 64, 64, 1),
 ]
 
 
